@@ -1,0 +1,53 @@
+"""clearsky_tpu_torch: the PyTorch and CUDA port of ``clearsky_tpu``.
+
+Clear-sky line-by-line radiative transfer on an NVIDIA GPU: a line catalog is
+summed into cross-sections (hand-written CUDA kernel K1), the column's layer
+optical depths come from Gauss-Lobatto quadrature, and the hemispheric-stream
+Schwarzschild march (kernels K2 and K3) gives the OLR spectrum, the up/down
+fluxes and the heating of a radiative-convective column model.
+
+The module paths mirror ``clearsky_tpu``'s. Everything computes in the dtype
+and on the device of its inputs; CUDA tensors go through the kernels of
+``csrc/`` (float32), CPU tensors through their plain PyTorch versions.
+"""
+
+from .constants import SIGMA_SB
+from .spectra.lines import SpectralLines
+from .spectra.synthetic import synthetic_co2_par
+from .absorption.gas import DirectGas, GrayGas
+from .absorption.absorbers import AbsorberStack, AcceleratedAbsorber
+from .rt.discretized import FluxPack
+from .rt.fluxes import (
+    Discretized,
+    outgoing,
+    monochromatic_fluxes,
+    radiate,
+    fluxes,
+    net_fluxes,
+)
+from .models.rcm import RCM, heating, step, update_absorber
+from .utils.grids import trapz, pressuregrid, logrange
+
+__all__ = [
+    "SIGMA_SB",
+    "SpectralLines",
+    "synthetic_co2_par",
+    "DirectGas",
+    "GrayGas",
+    "AbsorberStack",
+    "AcceleratedAbsorber",
+    "FluxPack",
+    "Discretized",
+    "outgoing",
+    "monochromatic_fluxes",
+    "radiate",
+    "fluxes",
+    "net_fluxes",
+    "RCM",
+    "heating",
+    "step",
+    "update_absorber",
+    "trapz",
+    "pressuregrid",
+    "logrange",
+]

@@ -1,0 +1,139 @@
+"""Consolidated absorbers: the unified stack and the accelerated column cache.
+
+Counterpart of ``clearsky_tpu.absorption.absorbers``. An
+:class:`AbsorberStack` produces dense ``sigma[..., n_nu]`` for batches of
+(T, P) states; an :class:`AcceleratedAbsorber` caches ln sigma on a model's
+own pressure column and interpolates it in ln P. Collision-induced
+absorption is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..utils.interp import interp_linear
+from .gas import AbstractGas
+
+__all__ = ["AbsorberStack", "AcceleratedAbsorber", "unify_absorbers", "check_pressures"]
+
+_LOG_TINY = float(np.log(np.finfo(np.float64).tiny))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AbsorberStack:
+    """Unified absorber: gases plus user functions sigma(nu, T, P)."""
+
+    gases: tuple
+    nu: torch.Tensor
+    funs: tuple = ()
+
+    @classmethod
+    def create(cls, *absorbers) -> "AbsorberStack":
+        if len(absorbers) == 1 and isinstance(absorbers[0], (tuple, list)):
+            absorbers = tuple(absorbers[0])
+        if len(absorbers) == 0:
+            raise ValueError("no absorbers... nothing to group")
+        if any(isinstance(a, (AbsorberStack, AcceleratedAbsorber)) for a in absorbers):
+            if len(absorbers) == 1:
+                return absorbers[0]
+            raise ValueError("cannot mix consolidated absorbers with others")
+        gases = tuple(a for a in absorbers if isinstance(a, AbstractGas))
+        if not gases:
+            raise ValueError(
+                "must have at least one gas object, which specifies wavenumber samples"
+            )
+        funs = tuple(a for a in absorbers if not isinstance(a, AbstractGas))
+        for f in funs:
+            if type(f).__name__ in ("CIATables", "BoundCIA", "CIA"):
+                raise NotImplementedError(
+                    "collision-induced absorption is not ported yet (ROADMAP.md, "
+                    "queue A, still to port: CIA, MultiGas, spectra/par.py)"
+                )
+            if not callable(f):
+                raise TypeError("absorbers must be gases or callables sigma(nu, T, P)")
+        nu0 = gases[0].nu
+        for g in gases[1:]:
+            if g.nu.shape != nu0.shape or g.nu.device != nu0.device or not torch.equal(g.nu, nu0):
+                raise ValueError("gases must have identical wavenumber vectors")
+        return cls(gases=gases, nu=nu0, funs=funs)
+
+    @property
+    def n_nu(self) -> int:
+        return self.nu.shape[0]
+
+    def sigma(self, T, P):
+        """Total cross-section sigma[..., n_nu] [cm^2/molecule] at (T, P) tensors."""
+        total = torch.zeros(torch.broadcast_shapes(T.shape, P.shape) + (self.n_nu,),
+                            dtype=self.nu.dtype, device=self.nu.device)
+        for g in self.gases:
+            total = total + g(T, P)
+        for f in self.funs:
+            total = total + f(self.nu, T[..., None], P[..., None])
+        return total
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AcceleratedAbsorber:
+    """Per-column cached cross-sections: ln sigma on the model's own ln P grid."""
+
+    ln_sigma: torch.Tensor   # [np_col, n_nu]
+    lnP: torch.Tensor        # [np_col]
+    T: torch.Tensor          # [np_col]
+    nu: torch.Tensor
+    stack: AbsorberStack
+
+    @classmethod
+    def create(cls, T, P, *absorbers) -> "AcceleratedAbsorber":
+        stack = unify_absorbers(absorbers)
+        P = torch.as_tensor(P, dtype=stack.nu.dtype, device=stack.nu.device)
+        T = torch.as_tensor(T, dtype=stack.nu.dtype, device=stack.nu.device)
+        idx = torch.argsort(P)
+        P, T = P[idx], T[idx]
+        inst = cls(ln_sigma=torch.zeros((P.shape[0], stack.n_nu), dtype=P.dtype,
+                                        device=P.device),
+                   lnP=torch.log(P), T=T, nu=stack.nu, stack=stack)
+        return inst.update(T)
+
+    @property
+    def n_nu(self) -> int:
+        return self.nu.shape[0]
+
+    def update(self, T) -> "AcceleratedAbsorber":
+        """Re-evaluate the cached cross-sections for a new temperature profile.
+
+        ln sigma is floored at log(float64 tiny) where sigma is not positive.
+        """
+        sig = self.stack.sigma(T, torch.exp(self.lnP))
+        tiny = torch.finfo(sig.dtype).tiny
+        ln = torch.where(sig > 0, torch.log(torch.clamp(sig, min=tiny)),
+                         torch.full_like(sig, _LOG_TINY))
+        return dataclasses.replace(self, ln_sigma=ln, T=T)
+
+    def sigma(self, T, P):
+        """Total cross-section [..., n_nu]; T is ignored (cached)."""
+        v = interp_linear(torch.log(P), self.lnP, self.ln_sigma.movedim(0, -1))
+        return torch.exp(v.movedim(0, -1))
+
+
+def unify_absorbers(absorbers):
+    """Normalize user absorber inputs to one AbsorberStack or AcceleratedAbsorber."""
+    if isinstance(absorbers, (AbsorberStack, AcceleratedAbsorber)):
+        return absorbers
+    if isinstance(absorbers, (tuple, list)):
+        if len(absorbers) == 1 and isinstance(absorbers[0], (AbsorberStack, AcceleratedAbsorber)):
+            return absorbers[0]
+        return AbsorberStack.create(*absorbers)
+    return AbsorberStack.create(absorbers)
+
+
+def check_pressures(stack, Ps, Pt):
+    """Domain guard for pressure endpoints.
+
+    Only baked-table gases bound the pressure domain, and none is ported, so
+    the guard checks the order of the endpoints.
+    """
+    if not Ps > Pt:
+        raise ValueError("Ps must be greater than Pt")

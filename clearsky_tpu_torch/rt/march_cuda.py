@@ -1,0 +1,159 @@
+"""Wrappers of the CUDA flux-march kernels (K2 and K3, ``csrc/march.cu``).
+
+K2 replaces ``clearsky_tpu/rt/march_pallas.py::_olr_kernel`` (the TOA-only
+upward march of ``outgoing``) and K3 replaces ``::_march_kernel`` (down march,
+stellar beam, Lambertian surface and up march of ``monoflux``). One thread
+runs one wavenumber point through every layer, with the stream intensities
+in registers.
+
+:func:`olr_march` and :func:`monoflux_march` launch their kernel for CUDA
+tensors and take the plain versions in :mod:`.discretized` for CPU tensors.
+On CUDA they check device, dtype (float32), shape and contiguity and raise on
+anything the kernels do not take; there is no fallback.
+
+:func:`trans_emit` is the shared transmittance/emission helper of the plain
+march, the arithmetic the kernels reproduce in float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..utils.cuda_build import check_operand, load_library
+
+__all__ = ["trans_emit", "olr_march", "monoflux_march", "MAX_STREAMS"]
+
+MAX_STREAMS = 8  # csrc/march.cu ``MAX_STREAMS``
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _ratio_series(tm):
+    """(1 - e^-tm)/tm = sum_k (-tm)^k/(k+1)!, used below the 0.25 switch.
+
+    float32 keeps 7 terms (truncation ~1.5e-9 relative at the switch, below
+    f32 roundoff); float64 keeps 11 (< 2.4e-14)."""
+    if tm.dtype == torch.float32:
+        return 1.0 - tm * (0.5 - tm * ((1.0 / 6.0) - tm * (
+            (1.0 / 24.0) - tm * ((1.0 / 120.0) - tm * ((1.0 / 720.0)
+                                                       - tm * (1.0 / 5040.0))))))
+    return 1.0 - tm * (0.5 - tm * ((1.0 / 6.0) - tm * (
+        (1.0 / 24.0) - tm * ((1.0 / 120.0) - tm * ((1.0 / 720.0) - tm * (
+            (1.0 / 5040.0) - tm * ((1.0 / 40320.0) - tm * (
+                (1.0 / 362880.0) - tm * (1.0 / 3628800.0)))))))))
+
+
+def trans_emit(tm):
+    """(t, omt, ratio): e^-tm, 1 - e^-tm and (1 - e^-tm)/tm from one exp.
+
+    Below tm = 0.25, omt = tm * series (1 - exp(-tm) formed directly cancels
+    catastrophically in float32 for transparent layers); above it omt = 1 - e.
+    t is formed as 1 - omt, as the TPU kernels do.
+    """
+    e = torch.exp(-tm)
+    r = _ratio_series(tm)
+    small = tm < 0.25
+    omt_l = 1.0 - e
+    ratio = torch.where(small, r, omt_l / torch.where(small, torch.ones_like(tm), tm))
+    omt = torch.where(small, tm * r, omt_l)
+    return 1.0 - omt, omt, ratio
+
+
+def _library(symbol: str, argtypes):
+    lib = load_library("march")
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        if lib.march_max_streams() != MAX_STREAMS:
+            raise RuntimeError("csrc/march.cu and this wrapper disagree on the stream count")
+        fn.argtypes = argtypes
+        fn.restype = _I
+    return fn
+
+
+def _streams(m, W):
+    m = np.ascontiguousarray(m, dtype=np.float32)
+    W = np.ascontiguousarray(W, dtype=np.float32)
+    if m.ndim != 1 or m.shape != W.shape or not 1 <= len(m) <= MAX_STREAMS:
+        raise ValueError(f"the march kernels take 1..{MAX_STREAMS} streams (m, W)")
+    return m, W
+
+
+def _column_shape(tau, B):
+    if tau.dim() != 2 or tau.shape[0] < 1 or not 1 <= tau.shape[1] < 2**31:
+        raise ValueError("tau must be [L, n_nu] with at least one layer and one point")
+    return tau.shape
+
+
+def olr_march(tau, B, m, W):
+    """Outgoing flux at the top [n_nu]: surface Planck marched up, sum_k W_k I_k.
+
+    ``tau`` [L, n_nu] per-layer vertical optical depth, ``B`` [L+1, n_nu]
+    level Planck (row 0 = top), ``m``/``W`` the stream slants and weights.
+    CUDA tensors run K2; CPU tensors the plain ``discretized._olr_march``.
+    """
+    if tau.device.type == "cpu":
+        from .discretized import _olr_march
+
+        return _olr_march(tau, B, m, W)
+    if tau.device.type != "cuda":
+        raise ValueError(f"no march kernel for device {tau.device}")
+    m, W = _streams(m, W)
+    L, N = _column_shape(tau, B)
+    dev = tau.device
+    check_operand("tau", tau, (L, N), dev)
+    check_operand("B", B, (L + 1, N), dev)
+    out = torch.empty(N, dtype=torch.float32, device=dev)
+    fn = _library("olr_launch", [_P, _P, _P, _P, _I, _I, _I, _P, _P])
+    err = fn(tau.data_ptr(), B.data_ptr(), m.ctypes.data, W.ctypes.data, len(m),
+             L, N, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"OLR march kernel launch failed: CUDA error {err}")
+    olr_march.launches += 1
+    return out
+
+
+olr_march.launches = 0
+
+
+def monoflux_march(tau, B, S_nu, albedo_nu, ctheta: float, m, W):
+    """(M_up, M_down) [L+1, n_nu]: the whole-column march with the stellar beam.
+
+    Same contract as ``clearsky_tpu.rt.march_pallas.monoflux_pallas``;
+    ``ctheta`` is cos(stellar zenith angle). CUDA tensors run K3; CPU tensors
+    the plain ``discretized._monoflux_march``.
+    """
+    if tau.device.type == "cpu":
+        from .discretized import _monoflux_march
+
+        return _monoflux_march(tau, B, S_nu, albedo_nu, ctheta, m, W)
+    if tau.device.type != "cuda":
+        raise ValueError(f"no march kernel for device {tau.device}")
+    m, W = _streams(m, W)
+    L, N = _column_shape(tau, B)
+    dev = tau.device
+    check_operand("tau", tau, (L, N), dev)
+    check_operand("B", B, (L + 1, N), dev)
+    check_operand("S_nu", S_nu, (N,), dev)
+    check_operand("albedo_nu", albedo_nu, (N,), dev)
+    ctheta = float(ctheta)
+    if not 0.0 < ctheta <= 1.0:  # NaN fails too
+        raise ValueError(f"cos(stellar zenith angle) must be in (0, 1], not {ctheta}")
+    M_up = torch.empty((L + 1, N), dtype=torch.float32, device=dev)
+    M_down = torch.empty((L + 1, N), dtype=torch.float32, device=dev)
+    fn = _library("monoflux_launch",
+                  [_P, _P, _P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _P, _P, _P])
+    err = fn(tau.data_ptr(), B.data_ptr(), S_nu.data_ptr(), albedo_nu.data_ptr(),
+             ctheta, m.ctypes.data, W.ctypes.data, len(m), L, N,
+             M_up.data_ptr(), M_down.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flux march kernel launch failed: CUDA error {err}")
+    monoflux_march.launches += 1
+    return M_up, M_down
+
+
+monoflux_march.launches = 0
