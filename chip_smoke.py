@@ -25,10 +25,20 @@ prints one line that starts with its name:
   rcm     milliseconds of each of those steps (the first one cold), and
           the heating of the last state against the plain float64 version
   sanity  a near-transparent and a gray column through the OLR kernel
-  profile for each main-path call, its unprofiled wall time beside the
-          device time that torch.profiler traces (CUDA activity), the
-          kernels' share of it and the device's idle share, 1 - device /
-          wall; it runs after the launch counts are read
+  table   the baked-table path at the main path's width: the bake of a Gas
+          (12 T x 24 ln P domain, 288 line sums through K1: seconds and K1
+          launches) and its split_precision(16); the fused kernels K6
+          (outgoing's 57 Lobatto nodes) and K7 (radiate's 38) against their
+          plain float64 versions on the same split operands, with kernel and
+          plain float32 times; outgoing and radiate on the split Gas through
+          the entry points (wall time, and the launch counts of that path:
+          only K6 and K7); the table band OLR against the DirectGas one of
+          ``main``; a split Gas beside a gray gas, which takes the unfused
+          route (raw_sigma, K2)
+  profile for each main-path and table-path call, its unprofiled wall time
+          beside the device time that torch.profiler traces (CUDA
+          activity), the kernels' share of it and the device's idle share,
+          1 - device / wall; it runs after the launch counts are read
 
 Then one JSON line ``{"kernels": [...]}`` and, last, the line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -43,6 +53,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -66,7 +77,14 @@ KERNELS = {
                   "clearsky_tpu/rt/march_pallas.py:158"),
     "monoflux_march": ("clearsky_tpu_torch/csrc/march.cu",
                        "clearsky_tpu/rt/march_pallas.py:94"),
+    "fused_olr": ("clearsky_tpu_torch/csrc/fused_table.cu",
+                  "clearsky_tpu/rt/fused_table.py:74"),
+    "fused_monoflux": ("clearsky_tpu_torch/csrc/fused_table.cu",
+                       "clearsky_tpu/rt/fused_table.py:94"),
 }
+LIBRARIES = ("linesum", "march", "fused_table")
+TABLE_DOMAIN = ((150.0, 350.0), 12, (0.9 * PT, 1.01 * PS), 24)
+TABLE_SPLIT = 16
 
 
 class CheckFailed(RuntimeError):
@@ -142,12 +160,16 @@ def phase_env(dev):
 
 
 def phase_build():
-    from clearsky_tpu_torch.utils.cuda_build import load_library
+    """Build every library at once (one nvcc each), then load them."""
+    from concurrent.futures import ThreadPoolExecutor
+    from clearsky_tpu_torch.utils.cuda_build import build_library, load_library
 
     t0 = time.perf_counter()
-    for name in ("linesum", "march"):
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(build_library, LIBRARIES))
+    for name in LIBRARIES:
         load_library(name)
-    emit("build", seconds=round(time.perf_counter() - t0, 3), libraries=["linesum", "march"])
+    emit("build", seconds=round(time.perf_counter() - t0, 3), libraries=list(LIBRARIES))
 
 
 def cut_edges(plan, pos64):
@@ -362,7 +384,7 @@ def phase_main(par, dev):
          F_net_toa_W_m2=float(F.F_net[0]), F_up_toa_W_m2=float(F.F_up[0]),
          F_down_surface_W_m2=float(F.F_down[-1]), radiate_ms_per_call=ms_rad)
     return {"outgoing": lambda: ct.outgoing(Pe, G, Te, MU, gas),
-            "radiate": lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, gas)}
+            "radiate": lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, gas)}, olr
 
 
 def phase_sanity(dev):
@@ -445,6 +467,158 @@ def check_rcm(rcm, ms_steps, lines, nu):
     check(err < 5e-3, f"RCM heating on the card off the float64 version by {err:.3e} of peak")
 
 
+def phase_table_bake(par, dev):
+    """Bake a Gas at the main path's width on the card and split it."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines
+
+    lines = ct.SpectralLines.from_par_dict(par, dtype=torch.float32, device=dev)
+    nu = grid_for(lines, N_NU_MAIN)
+    dom = ct.AtmosphericDomain.create(*TABLE_DOMAIN)
+    k1 = sigma_lines.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gas = ct.Gas.from_lines(lines, CONC, nu, dom)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    k1 = sigma_lines.launches - k1
+    gs = gas.split_precision(TABLE_SPLIT)
+    check(bool(torch.isfinite(gas.coeffs).all()), "the baked coefficients are not finite")
+    check(tuple(gs.coeffs.shape) == (TABLE_SPLIT, N_NU_MAIN)
+          and tuple(gs.coeffs_tail.shape) == (dom.nT * dom.nP - TABLE_SPLIT, N_NU_MAIN),
+          "split_precision gave the wrong shapes")
+    emit("table", step="bake", points=N_NU_MAIN, nT=dom.nT, nP=dom.nP, states=dom.nT * dom.nP,
+         bake_seconds=bake_s, linesum_launches=k1, split_lead_rows=TABLE_SPLIT,
+         coeff_bytes_full=gas.coeffs.numel() * 4,
+         coeff_bytes_split=gs.coeffs.numel() * 4 + gs.coeffs_tail.numel() * 2)
+    check(k1 == -(-dom.nT * dom.nP // 16), f"the bake launched K1 {k1} times")
+    return gs
+
+
+def kernel_fused(gs, dev, report):
+    """K6 (57 nodes) and K7 (38 nodes) against their float64 plain versions
+    on the same split operands, at the main column."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.atmosphere.profile import formprofiles
+    from clearsky_tpu_torch.rt import fused_table as tft
+    from clearsky_tpu_torch.rt.fused_table_cuda import fused_olr, fused_monoflux
+    from clearsky_tpu_torch.utils.quadrature import stream_nodes
+
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Pg = torch.tensor(Pe, dtype=torch.float32, device=dev)
+    fT, fmu = formprofiles(Pg, column(Pe), MU)
+    m, W = stream_nodes(5)
+    lead, tail = gs.coeffs, gs.coeffs_tail
+    to64 = lambda *xs: [x.double() for x in xs]
+    bar = 1e-4
+    common = dict(layers=N_LEVELS - 1, points=N_NU_MAIN, streams=5, lead_rows=lead.shape[0],
+                  tail_rows=tail.shape[0], bar=f"{bar} of peak (tau rtol {bar}, atol 1e-10)",
+                  plain_shape="same")
+
+    bl, bt, wq, B = tft._column_operands(gs, Pg, G, fT, fmu, 3)
+    out = fused_olr(lead, tail, bl, bt, wq, B, m, W)
+    torch.cuda.synchronize()
+    lead64, bl64, wq64, B64 = to64(lead, bl, wq, B)
+    ref = tft._fused_olr_plain(lead64, tail, bl64, bt, wq64, B64, m, W)
+    abs_olr = float((out.double() - ref).abs().max())
+    e_olr = abs_olr / float(ref.abs().max())
+    del ref, lead64
+    ms = cuda_ms(lambda: fused_olr(lead, tail, bl, bt, wq, B, m, W))
+    plain = cuda_ms(lambda: tft._fused_olr_plain(lead, tail, bl, bt, wq, B, m, W))
+    emit("kernel", kernel="fused_olr", nodes=int(bl.shape[0]), err_of_peak=e_olr,
+         max_abs_err=abs_olr, ms=ms, plain_ms=plain, **common)
+    check(bool(torch.isfinite(out).all()) and e_olr < bar,
+          f"fused OLR kernel error {e_olr:.3e} of peak exceeds {bar}")
+    report["fused_olr"] = dict(max_abs_err=abs_olr, ms=ms, plain_ms=plain,
+                               shape=f"{int(bl.shape[0])} nodes x {N_NU_MAIN} points")
+
+    bl, bt, wq, B = tft._column_operands(gs, Pg, G, fT, fmu, 2)
+    span = float(gs.nu[-1] - gs.nu[0])
+    S = torch.full_like(gs.nu, 340.0 / span)
+    a = torch.full_like(gs.nu, 0.1)
+    ct_ = math.cos(0.841)
+    up, dn, tau = fused_monoflux(lead, tail, bl, bt, wq, B, S, a, ct_, m, W)
+    torch.cuda.synchronize()
+    lead64, bl64, wq64, B64, S64, a64 = to64(lead, bl, wq, B, S, a)
+    up_r, dn_r, tau_r = tft._fused_monoflux_plain(lead64, tail, bl64, bt, wq64, B64, S64, a64,
+                                                  ct_, m, W)
+    err = lambda k, r: float((k.double() - r).abs().max())
+    abs_up, abs_dn = err(up, up_r), err(dn, dn_r)
+    e_up, e_dn = abs_up / float(up_r.abs().max()), abs_dn / float(dn_r.abs().max())
+    # tau of all-zero table columns is ~1e-308 in float64 and 0 in float32:
+    # rtol with the JAX test's atol 1e-10 (tests/test_fused_table.py)
+    tau_err = (tau.double() - tau_r).abs()
+    tau_ok = bool((tau_err <= bar * tau_r.abs() + 1e-10).all())
+    big = tau_r.abs() > 1e-10
+    tau_rel = float((tau_err[big] / tau_r[big].abs()).max())
+    del up_r, dn_r, tau_r, tau_err, lead64
+    ms = cuda_ms(lambda: fused_monoflux(lead, tail, bl, bt, wq, B, S, a, ct_, m, W))
+    plain = cuda_ms(lambda: tft._fused_monoflux_plain(lead, tail, bl, bt, wq, B, S, a, ct_,
+                                                      m, W))
+    emit("kernel", kernel="fused_monoflux", nodes=int(bl.shape[0]), err_up_of_peak=e_up,
+         err_down_of_peak=e_dn, tau_max_rel_err=tau_rel, max_abs_err=max(abs_up, abs_dn),
+         ms=ms, plain_ms=plain, **common)
+    check(max(e_up, e_dn) < bar and tau_ok,
+          f"fused flux kernel error {max(e_up, e_dn):.3e} of peak, tau {tau_rel:.3e}")
+    report["fused_monoflux"] = dict(max_abs_err=max(abs_up, abs_dn), ms=ms, plain_ms=plain,
+                                    shape=f"{int(bl.shape[0])} nodes x {N_NU_MAIN} points")
+
+
+def phase_table(gs, dev, direct_olr, wrappers):
+    """outgoing and radiate on the split Gas through the entry points, with
+    the launch counts of that path; then a split Gas beside a gray gas."""
+    import clearsky_tpu_torch as ct
+
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    span = float(gs.nu[-1] - gs.nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    for w in wrappers.values():
+        w.launches = 0
+    olr = ct.outgoing(Pe, G, Te, MU, gs)
+    F = ct.radiate(Pe, G, Te, MU, fS, 0.1, gs)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    emit("counts", path="table", **counts)
+    check(counts["fused_olr"] > 0 and counts["fused_monoflux"] > 0,
+          "the table path did not launch the fused kernels")
+    check(counts["linesum"] == counts["olr_march"] == counts["monoflux_march"] == 0,
+          "the table path launched a kernel of the direct path")
+    check(olr.shape == (N_NU_MAIN,) and bool(torch.isfinite(olr).all()),
+          "table OLR spectrum is not finite or has the wrong shape")
+    for k in ("F_up", "F_down", "F_net", "M_up", "M_down", "tau"):
+        check(bool(torch.isfinite(getattr(F, k)).all()), f"table radiate {k} is not finite")
+    # bands in float64: a float32 sum of 2^19 terms cannot resolve them
+    nu64 = gs.nu.double()
+    band = float(ct.trapz(nu64, olr.double()))
+    direct_band = float(ct.trapz(nu64, direct_olr.double()))
+    rel = abs(band - direct_band) / direct_band
+    spectral = float((olr - direct_olr).abs().max() / direct_olr.abs().max())
+    ms_out = wall_ms(lambda: ct.outgoing(Pe, G, Te, MU, gs))
+    ms_rad = wall_ms(lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, gs))
+
+    gray = ct.GrayGas.create(1e-35, gs.nu.double().cpu().numpy(), dtype=torch.float32,
+                             device=dev)
+    for w in wrappers.values():
+        w.launches = 0
+    olr_mix = ct.outgoing(Pe, G, Te, MU, gs, gray)
+    torch.cuda.synchronize()
+    mix = {k: w.launches for k, w in wrappers.items()}
+    band_mix = float(ct.trapz(nu64, olr_mix.double()))
+    emit("table", step="entry_points", band_olr_W_m2=band, direct_band_olr_W_m2=direct_band,
+         band_rel_diff=rel, bar=1e-3, spectral_max_diff_of_peak=spectral,
+         outgoing_ms_per_call=ms_out, radiate_ms_per_call=ms_rad,
+         F_net_toa_W_m2=float(F.F_net[0]), F_down_surface_W_m2=float(F.F_down[-1]),
+         mixed_stack_band_olr_W_m2=band_mix, mixed_stack_counts=mix)
+    check(rel < 1e-3, f"table band OLR {band} off the direct one {direct_band} by {rel:.3e}")
+    check(mix["olr_march"] > 0 and mix["fused_olr"] == 0,
+          "the mixed stack did not take the unfused route (raw_sigma, K2)")
+    check(abs(band_mix - band) < 1e-4 * band, "the mixed stack's band OLR is off the table's")
+    calls = {"table_outgoing": lambda: ct.outgoing(Pe, G, Te, MU, gs),
+             "table_radiate": lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, gs)}
+    return calls, counts
+
+
 def _busy_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, -math.inf
@@ -460,7 +634,10 @@ def phase_profile(calls, n: int = 3):
     from torch.profiler import ProfilerActivity, profile
 
     kernel_names = {"linesum": "linesum_kernel", "olr_march": "olr_kernel",
-                    "monoflux_march": "monoflux_kernel"}
+                    "monoflux_march": "monoflux_kernel", "fused_olr": "fused_olr_kernel",
+                    "fused_monoflux": "fused_monoflux_kernel"}
+    # whole words: olr_kernel must not match inside fused_olr_kernel
+    pattern = {k: re.compile(rf"\b{v}\b") for k, v in kernel_names.items()}
     for name, fn in calls.items():
         wall = wall_ms(fn, n=n)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -470,8 +647,8 @@ def phase_profile(calls, n: int = 3):
         evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         check(len(evs) > 0, f"the profiler traced no device activity in {name}")
         device = _busy_us([(e.time_range.start, e.time_range.end) for e in evs]) / n / 1e3
-        per_kernel = {k: sum(e.time_range.elapsed_us() for e in evs if v in e.name) / n / 1e3
-                      for k, v in kernel_names.items()}
+        per_kernel = {k: sum(e.time_range.elapsed_us() for e in evs if p.search(e.name))
+                      / n / 1e3 for k, p in pattern.items()}
         emit("profile", call=name, calls=n, wall_ms_per_call=wall,
              device_ms_per_call=device, device_ops_per_call=len(evs) / n,
              kernel_ms_per_call=per_kernel, idle_share=1.0 - device / wall)
@@ -490,6 +667,7 @@ def main(argv=None) -> int:
     from clearsky_tpu_torch.spectra.synthetic import synthetic_co2_par
     from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines
     from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
+    from clearsky_tpu_torch.rt.fused_table_cuda import fused_olr, fused_monoflux
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -504,20 +682,29 @@ def main(argv=None) -> int:
     # the counts cover the main path alone: outgoing, radiate and the RCM
     # steps, not the checks that follow them
     wrappers = {"linesum": sigma_lines, "olr_march": olr_march,
-                "monoflux_march": monoflux_march}
+                "monoflux_march": monoflux_march, "fused_olr": fused_olr,
+                "fused_monoflux": fused_monoflux}
     for w in wrappers.values():
         w.launches = 0
-    calls = phase_main(par, dev)
+    calls, direct_olr = phase_main(par, dev)
     rcm_run = phase_rcm(par, dev)
     counts = {k: w.launches for k, w in wrappers.items()}
     emit("counts", **counts)
-    for k, n in counts.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+    for k in ("linesum", "olr_march", "monoflux_march"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the main path")
     check_rcm(*rcm_run)
     phase_sanity(dev)
     rcm = rcm_run[0]
     calls["rcm_step"] = lambda: ct.step(ct.update_absorber(rcm), RCM_DT)
     calls["rcm_heating"] = lambda: ct.heating(rcm)
+
+    # the baked-table path, counted on its own
+    gs = phase_table_bake(par, dev)
+    kernel_fused(gs, dev, report)
+    table_calls, table_counts = phase_table(gs, dev, direct_olr, wrappers)
+    for k in ("fused_olr", "fused_monoflux"):
+        counts[k] = table_counts[k]
+    calls.update(table_calls)
     phase_profile(calls)
 
     kernels = []

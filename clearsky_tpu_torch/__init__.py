@@ -1,10 +1,13 @@
 """clearsky_tpu_torch: the PyTorch and CUDA port of ``clearsky_tpu``.
 
 Clear-sky line-by-line radiative transfer on an NVIDIA GPU: a line catalog is
-summed into cross-sections (hand-written CUDA kernel K1), the column's layer
-optical depths come from Gauss-Lobatto quadrature, and the hemispheric-stream
+summed into cross-sections (hand-written CUDA kernel K1), directly or baked
+once into a Chebyshev ln sigma table (``Gas``), the column's layer optical
+depths come from Gauss-Lobatto quadrature, and the hemispheric-stream
 Schwarzschild march (kernels K2 and K3) gives the OLR spectrum, the up/down
-fluxes and the heating of a radiative-convective column model.
+fluxes and the heating of a radiative-convective column model. A column of
+one split-precision table gas runs coefficients to fluxes in one fused
+kernel (K6 for the OLR, K7 for whole-column fluxes).
 
 The module paths mirror ``clearsky_tpu``'s. Everything computes in the dtype
 and on the device of its inputs; CUDA tensors go through the kernels of
@@ -14,7 +17,8 @@ and on the device of its inputs; CUDA tensors go through the kernels of
 from .constants import SIGMA_SB
 from .spectra.lines import SpectralLines
 from .spectra.synthetic import synthetic_co2_par
-from .absorption.gas import DirectGas, GrayGas
+from .absorption.domain import AtmosphericDomain
+from .absorption.gas import Gas, DirectGas, GrayGas
 from .absorption.absorbers import AbsorberStack, AcceleratedAbsorber
 from .rt.discretized import FluxPack
 from .rt.fluxes import (
@@ -32,6 +36,8 @@ __all__ = [
     "SIGMA_SB",
     "SpectralLines",
     "synthetic_co2_par",
+    "AtmosphericDomain",
+    "Gas",
     "DirectGas",
     "GrayGas",
     "AbsorberStack",

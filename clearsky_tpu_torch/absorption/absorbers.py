@@ -15,9 +15,16 @@ import numpy as np
 import torch
 
 from ..utils.interp import interp_linear
-from .gas import AbstractGas
+from .gas import AbstractGas, Gas
 
-__all__ = ["AbsorberStack", "AcceleratedAbsorber", "unify_absorbers", "check_pressures"]
+__all__ = [
+    "AbsorberStack",
+    "AcceleratedAbsorber",
+    "unify_absorbers",
+    "check_pressures",
+    "pressure_limits",
+    "temperature_limits",
+]
 
 _LOG_TINY = float(np.log(np.finfo(np.float64).tiny))
 
@@ -129,11 +136,36 @@ def unify_absorbers(absorbers):
     return AbsorberStack.create(absorbers)
 
 
-def check_pressures(stack, Ps, Pt):
-    """Domain guard for pressure endpoints.
+def _table_gases(stack):
+    if isinstance(stack, AcceleratedAbsorber):
+        stack = stack.stack
+    return [g for g in stack.gases if isinstance(g, Gas)]
 
-    Only baked-table gases bound the pressure domain, and none is ported, so
-    the guard checks the order of the endpoints.
-    """
+
+def pressure_limits(stack) -> tuple[float, float]:
+    """Intersection of the baked tables' pressure domains ((0, inf) with none)."""
+    gs = _table_gases(stack)
+    if not gs:
+        return 0.0, np.inf
+    return max(g.domain.Pmin for g in gs), min(g.domain.Pmax for g in gs)
+
+
+def temperature_limits(stack) -> tuple[float, float]:
+    """Intersection of the baked tables' temperature domains ((0, inf) with none)."""
+    gs = _table_gases(stack)
+    if not gs:
+        return 0.0, np.inf
+    return max(g.domain.Tmin for g in gs), min(g.domain.Tmax for g in gs)
+
+
+def check_pressures(stack, Ps, Pt):
+    """Domain guard for pressure endpoints: ordered, and inside every baked
+    table's pressure domain."""
     if not Ps > Pt:
         raise ValueError("Ps must be greater than Pt")
+    Pmin, Pmax = pressure_limits(stack)
+    for P in (Ps, Pt):
+        if P < Pmin:
+            raise ValueError(f"Pressure {P} Pa too low, gas table domain minimum is {Pmin}")
+        if P > Pmax:
+            raise ValueError(f"Pressure {P} Pa too high, gas table domain maximum is {Pmax}")

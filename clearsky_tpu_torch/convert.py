@@ -14,11 +14,12 @@ import numpy as np
 import torch
 
 from .spectra.lines import SpectralLines, PER_LINE_FIELDS
-from .absorption.gas import DirectGas
+from .absorption.gas import DirectGas, Gas, as_concentration
+from .absorption.domain import AtmosphericDomain
 from .absorption.absorbers import AcceleratedAbsorber, unify_absorbers
 from .models.rcm import RCM
 
-__all__ = ["spectral_lines", "direct_gas", "rcm_arrays", "rcm"]
+__all__ = ["spectral_lines", "direct_gas", "domain", "gas", "rcm_arrays", "rcm"]
 
 
 def spectral_lines(jax_lines, dtype=torch.float64, device="cpu") -> SpectralLines:
@@ -43,6 +44,37 @@ def direct_gas(jax_gas, fC, dtype=torch.float64, device="cpu") -> DirectGas:
     return DirectGas.from_lines(
         spectral_lines(jax_gas.lines, dtype, device), fC, np.asarray(jax_gas.nu),
         shape=jax_gas.shape, cut=jax_gas.plan.cut, block=jax_gas.plan.block,
+    )
+
+
+def domain(jax_domain) -> AtmosphericDomain:
+    """A ``clearsky_tpu`` AtmosphericDomain as the port's (same float64 nodes)."""
+    return AtmosphericDomain(
+        T=np.array(jax_domain.T, np.float64), Tmin=float(jax_domain.Tmin),
+        Tmax=float(jax_domain.Tmax), nT=int(jax_domain.nT),
+        P=np.array(jax_domain.P, np.float64), Pmin=float(jax_domain.Pmin),
+        Pmax=float(jax_domain.Pmax), nP=int(jax_domain.nP))
+
+
+def gas(jax_gas, fC, dtype=torch.float64, device="cpu") -> Gas:
+    """A ``clearsky_tpu`` baked Gas, full or split, on the port.
+
+    ``coeffs`` in ``dtype``; a split gas's bfloat16 tail goes through
+    float32 numpy (exact) back to bfloat16, with its ``lead_idx`` and
+    ``tail_idx``. ``fC`` is the concentration, as for :func:`direct_gas`.
+    """
+    tail = None
+    if jax_gas.coeffs_tail is not None:
+        tail = torch.tensor(np.asarray(jax_gas.coeffs_tail).astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    return Gas(
+        nu=torch.tensor(np.asarray(jax_gas.nu, np.float64), dtype=dtype, device=device),
+        coeffs=torch.tensor(np.asarray(jax_gas.coeffs), dtype=dtype, device=device),
+        name=jax_gas.name, formula=jax_gas.formula, mu=float(jax_gas.mu),
+        domain=domain(jax_gas.domain), fC=as_concentration(fC),
+        coeffs_tail=tail,
+        lead_idx=None if jax_gas.lead_idx is None else tuple(jax_gas.lead_idx),
+        tail_idx=None if jax_gas.tail_idx is None else tuple(jax_gas.tail_idx),
     )
 
 

@@ -18,7 +18,7 @@ import torch
 
 from ..ops.planck import planck
 from ..atmosphere.profile import formprofiles
-from ..absorption.absorbers import unify_absorbers, check_pressures
+from ..absorption.absorbers import AbsorberStack, unify_absorbers, check_pressures
 from .discretized import (
     FluxPack,
     lobatto_pressures,
@@ -27,6 +27,14 @@ from .discretized import (
     outgoing_flux,
     integrate_flux,
 )
+from .fused_table import (
+    MAX_LAYERS,
+    fused_table_applicable,
+    table_olr_fused,
+    table_monoflux_fused,
+)
+from .fused_table_cuda import MAX_NODES_PER_LAYER
+from .march_cuda import MAX_STREAMS
 
 __all__ = [
     "Discretized",
@@ -128,6 +136,18 @@ def _planck_levels(P, nu, fT):
     return planck(nu[None, :], T[:, None])
 
 
+def _fused_table_ok(A, L: int, nstream: int, nlobatto: int) -> bool:
+    """Route to the fused table kernels (K6/K7): one split-precision Gas,
+    1 <= L <= MAX_LAYERS layers, at most MAX_STREAMS streams and
+    MAX_NODES_PER_LAYER Lobatto nodes per layer."""
+    return (1 <= L <= MAX_LAYERS and nstream <= MAX_STREAMS
+            and nlobatto <= MAX_NODES_PER_LAYER and fused_table_applicable(A))
+
+
+def _only_gas(A):
+    return A.gases[0] if isinstance(A, AbsorberStack) else A
+
+
 def outgoing(P, g, T, mu, *absorbers, Ptop: float = 1.0, nstream: int = 5,
              nlobatto: int = 3, nlevels: int = 128, vertical: bool = False,
              core=None):
@@ -138,7 +158,8 @@ def outgoing(P, g, T, mu, *absorbers, Ptop: float = 1.0, nstream: int = 5,
     scalar surface pressure (omega-spaced grid of ``nlevels`` up to ``Ptop``)
     or a pressure vector; ``T`` and ``mu`` are vectors on ``P``, scalars or
     callables fT(P), fmu(T, P). A ``Discretized`` core overrides
-    ``nstream``/``nlobatto``.
+    ``nstream``/``nlobatto``. A single split-precision table gas takes the
+    fused table kernel (K6) unless ``vertical``.
     """
     A = unify_absorbers(absorbers)
     _reject_unported(core)
@@ -150,6 +171,8 @@ def outgoing(P, g, T, mu, *absorbers, Ptop: float = 1.0, nstream: int = 5,
     check_pressures(A, Pgrid[-1], Pgrid[0])
     Pg = _tensor(Pgrid, A.nu)
     fT, fmu = formprofiles(Pg, T, mu)
+    if not vertical and _fused_table_ok(A, Pg.shape[0] - 1, nstream, nlobatto):
+        return table_olr_fused(_only_gas(A), Pg, g, fT, fmu, nlobatto, nstream)
     tau = _column_tau(Pg, g, fT, fmu, A, nlobatto)
     B = _planck_levels(Pg, A.nu, fT)
     return outgoing_flux(tau, B, nstream, vertical=vertical)
@@ -161,6 +184,7 @@ def monochromatic_fluxes(P, g, T, mu, fS, fa, *absorbers, core=Discretized(),
 
     P must be ascending [Pa]; T/mu may be vectors on P, scalars or callables;
     fS(nu) is the stellar spectral flux at the top, fa(nu) the surface albedo.
+    A single split-precision table gas takes the fused table kernel (K7).
     """
     A = unify_absorbers(absorbers)
     _reject_unported(core)
@@ -174,6 +198,9 @@ def monochromatic_fluxes(P, g, T, mu, fS, fa, *absorbers, core=Discretized(),
     fT, fmu = formprofiles(Pg, T, mu)
     S_nu = _spectral_fn(fS)(A.nu)
     a_nu = _spectral_fn(fa)(A.nu)
+    if _fused_table_ok(A, Pg.shape[0] - 1, core.nstream, core.nlobatto):
+        return table_monoflux_fused(_only_gas(A), Pg, g, fT, fmu, S_nu, a_nu, theta_s,
+                                    core.nlobatto, core.nstream)
     tau = _column_tau(Pg, g, fT, fmu, A, core.nlobatto)
     B = _planck_levels(Pg, A.nu, fT)
     M_up, M_down = monoflux(tau, B, A.nu, S_nu, a_nu, theta_s, core.nstream)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and includes no PyTorch
 header, so ``nvcc`` builds it in seconds into a shared library. The library
 lands in ``build/clearsky_tpu_torch/`` at the repository root, named by a hash
-of its source and the compiler flags: an edited source is rebuilt, an
-unchanged one is loaded from the earlier build.
+of its source, every header of ``csrc/`` (``*.cuh``) and the compiler flags:
+an edited source or header is rebuilt, an unchanged one is loaded from the
+earlier build.
 
 The flags carry no ``--use_fast_math``: it would flush subnormals to zero and
 swap ``expf`` for its fast approximation, and the march's series/exp split
@@ -27,7 +28,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "build_library", "load_library", "check_operand"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "library_path", "build_library", "load_library",
+           "check_operand"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -55,11 +57,20 @@ def _nvcc() -> str:
     )
 
 
+def library_path(name: str) -> Path:
+    """Where the build of ``csrc/<name>.cu`` goes: named by a hash of the
+    source, of every ``csrc/*.cuh`` (name and bytes) and of the flags."""
+    h = hashlib.sha256(CSRC.joinpath(f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
 def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of the same source exists."""
+    """Compile ``csrc/<name>.cu`` unless a build of the same sources exists."""
     src = CSRC / f"{name}.cu"
-    key = src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    out = BUILD_DIR / f"lib{name}_{hashlib.sha256(key).hexdigest()[:16]}.so"
+    out = library_path(name)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
