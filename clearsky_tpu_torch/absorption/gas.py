@@ -28,7 +28,9 @@ from ..ops.linesum import (
     sigma_from_lines_auto,
     DEFAULT_CUT,
 )
+from ..ops.linesum_strategies import check_strategy, warm
 from ..spectra.lines import SpectralLines
+from ..utils.device import placement
 from ..utils.interp import cheb2d_coeffs, cheb_basis, full_float32
 from .domain import AtmosphericDomain
 
@@ -100,9 +102,11 @@ def bake_sigma_grid(lines: SpectralLines, fC, nu, domain: AtmosphericDomain,
     """The cross-section grid sigma[nT, nP, n_nu] of a table (the bake).
 
     The line sum runs at every (T, P) node of ``domain``, ``tp_batch`` nodes
-    per call of the kernel wrapper (K1 on CUDA, the plain line sum on the
-    CPU), in the catalog's dtype on its device. Wavenumbers where zero and
-    nonzero values mix across the grid (underflow) are zeroed everywhere.
+    per call of :func:`sigma_from_lines_auto` on its "auto" route (on CUDA
+    the kernels of the route the JAX package takes on its accelerator, on
+    the CPU the exact plain line sum), in the catalog's dtype on its
+    device. Wavenumbers where zero and nonzero values mix across the grid
+    (underflow) are zeroed everywhere.
     Returns float numpy, or with ``device_out`` a tensor on the catalog's
     device (a [12, 24, 2^19] float32 grid is 0.6 GB: no host round trip).
     """
@@ -342,6 +346,9 @@ class DirectGas(AbstractGas):
 
     ``nu`` and ``lines`` share the dtype and device the gas computes in; the
     banding plan is built on the host from the float64 grid and positions.
+    ``strategy`` picks the voigt route on the card ("auto", "grouped",
+    "stencil" or "coarse", :func:`..ops.linesum_strategies.route`); on the
+    CPU every strategy gives the exact plain line sum.
     """
 
     lines: SpectralLines
@@ -352,15 +359,21 @@ class DirectGas(AbstractGas):
     name: str = ""
     formula: str = ""
     mu: float = float("nan")
+    strategy: str = "auto"
 
     @classmethod
     def from_lines(cls, lines: SpectralLines, fC, nu, shape: str = "voigt",
-                   cut: float | None = None, block: int = 128) -> "DirectGas":
-        """A direct gas on ``lines``' device and dtype over the grid ``nu``."""
+                   cut: float | None = None, block: int = 128,
+                   strategy: str = "auto") -> "DirectGas":
+        """A direct gas on ``lines``' device and dtype over the grid ``nu``;
+        the geometry of its route is built here, not at the first call."""
         _check_shape(shape)
+        check_strategy(strategy)
         cut = DEFAULT_CUT[shape] if cut is None else float(cut)
         nu = _check_nu(nu)
         plan = build_line_window_plan(nu, lines.positions64(), cut, block=block)
+        if lines.device.type == "cuda":
+            warm(plan, lines, shape, strategy)
         return cls(
             lines=lines,
             nu=torch.tensor(nu, dtype=lines.dtype, device=lines.device),
@@ -370,11 +383,13 @@ class DirectGas(AbstractGas):
             name=lines.name,
             formula=lines.formula,
             mu=lines.mean_molar_mass,
+            strategy=strategy,
         )
 
     def raw_sigma(self, T, P):
         C = torch.as_tensor(self.fC(T, P), dtype=T.dtype, device=T.device)
-        return sigma_from_lines_auto(self.plan, self.lines, T, P, C * P, self.shape)
+        return sigma_from_lines_auto(self.plan, self.lines, T, P, C * P, self.shape,
+                                     strategy=self.strategy)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -388,7 +403,9 @@ class GrayGas(AbstractGas):
     mu: float = float("nan")
 
     @classmethod
-    def create(cls, sigma: float, nu, dtype=torch.float64, device="cpu") -> "GrayGas":
+    def create(cls, sigma: float, nu, dtype=None, device=None) -> "GrayGas":
+        """A gray gas over ``nu``, by default in float32 on the card."""
+        dtype, device = placement(dtype, device)
         return cls(nu=torch.tensor(_check_nu(nu), dtype=dtype, device=device),
                    sigma=float(sigma))
 

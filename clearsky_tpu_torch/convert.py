@@ -2,7 +2,8 @@
 
 Each function reads the JAX object's fields with ``np.asarray`` (no import
 of JAX or of ``clearsky_tpu``) and builds the port's object on the given
-device in the given dtype, so that both packages compute on identical
+device in the given dtype (by default float32 on the card, as every
+constructor of the port), so that both packages compute on identical
 inputs.
 """
 
@@ -18,11 +19,12 @@ from .absorption.gas import DirectGas, Gas, as_concentration
 from .absorption.domain import AtmosphericDomain
 from .absorption.absorbers import AcceleratedAbsorber, unify_absorbers
 from .models.rcm import RCM
+from .utils.device import placement
 
 __all__ = ["spectral_lines", "direct_gas", "domain", "gas", "rcm_arrays", "rcm"]
 
 
-def spectral_lines(jax_lines, dtype=torch.float64, device="cpu") -> SpectralLines:
+def spectral_lines(jax_lines, dtype=None, device=None) -> SpectralLines:
     """A ``clearsky_tpu`` SpectralLines as the port's SpectralLines.
 
     The float64 positions and their float32 residuals are carried as they
@@ -35,8 +37,9 @@ def spectral_lines(jax_lines, dtype=torch.float64, device="cpu") -> SpectralLine
                                      M=jax_lines.M)
 
 
-def direct_gas(jax_gas, fC, dtype=torch.float64, device="cpu") -> DirectGas:
-    """A ``clearsky_tpu`` DirectGas (lines, nu, shape, cut, block) on the port.
+def direct_gas(jax_gas, fC, dtype=None, device=None) -> DirectGas:
+    """A ``clearsky_tpu`` DirectGas (lines, nu, shape, cut, block, strategy)
+    on the port.
 
     ``fC`` is the concentration, a scalar or a callable on tensors: the JAX
     gas's own closure computes on JAX arrays.
@@ -44,6 +47,7 @@ def direct_gas(jax_gas, fC, dtype=torch.float64, device="cpu") -> DirectGas:
     return DirectGas.from_lines(
         spectral_lines(jax_gas.lines, dtype, device), fC, np.asarray(jax_gas.nu),
         shape=jax_gas.shape, cut=jax_gas.plan.cut, block=jax_gas.plan.block,
+        strategy=jax_gas.strategy,
     )
 
 
@@ -56,13 +60,14 @@ def domain(jax_domain) -> AtmosphericDomain:
         Pmax=float(jax_domain.Pmax), nP=int(jax_domain.nP))
 
 
-def gas(jax_gas, fC, dtype=torch.float64, device="cpu") -> Gas:
+def gas(jax_gas, fC, dtype=None, device=None) -> Gas:
     """A ``clearsky_tpu`` baked Gas, full or split, on the port.
 
     ``coeffs`` in ``dtype``; a split gas's bfloat16 tail goes through
     float32 numpy (exact) back to bfloat16, with its ``lead_idx`` and
     ``tail_idx``. ``fC`` is the concentration, as for :func:`direct_gas`.
     """
+    dtype, device = placement(dtype, device)
     tail = None
     if jax_gas.coeffs_tail is not None:
         tail = torch.tensor(np.asarray(jax_gas.coeffs_tail).astype(np.float32),

@@ -1,30 +1,43 @@
 // Line-sum kernel (K1): sigma[state, nu] = sum over each wavenumber block's
-// line window of TIPS-scaled Voigt, Lorentz or Doppler line profiles.
+// line windows of TIPS-scaled Voigt, Lorentz or Doppler line profiles; and
+// the near-core correction of the stencil-near route.
 //
 // Replaces clearsky_tpu/ops/linesum_pallas.py::_kernel_resident_grouped,
-// launched by _grouped_call through _pallas_sigma_impl, in its split mode
-// (voigt: Humlicek region 1 in the far wing, full w4 near the core) and its
-// single-sweep modes (lorentz, doppler).
+// launched by _grouped_call, in all its modes:
+//   * split (voigt: Humlicek region 1 in the far wing, full w4 near the
+//     core) and single sweep (lorentz, doppler), through _pallas_sigma_impl;
+//   * FARALL (wmode "farall": region 1 over the whole window), the kernel of
+//     the stencil-near route;
+//   * FINE, FINE_STENCIL and COARSE (wmodes "fine", "fine_stencil",
+//     "coarse"), the two passes of the coarse-far split (_coarse_core).
+// stencil_correction_kernel replaces the XLA-side _stencil_apply, which adds
+// Sia (w4 - region 1) at the grid points of each line's |x| <= 15 core; the
+// TPU placed it with one-hot matrix products, here atomicAdd puts it in
+// place (so its summation order changes from run to run).
 //
 // What bounds it on the H100: arithmetic, not memory. Every (point, line,
 // state) triple inside the cut costs about ten FP32 operations and one IEEE
 // division in the far wing (a full Humlicek w4 near the core), while the
-// bytes are one read of each block's line window. The design follows from
+// bytes are one read of each block's line windows. The design follows from
 // that:
-//   * one CUDA block per plan block of grid points, one thread per point; a
+//   * one CUDA block per block of grid points, one thread per point; a
 //     second grid axis runs over tiles of ST states;
-//   * the block's window [start, start + count) streams through shared
-//     memory in chunks of CH lines (positions hi and lo, and the per-state
-//     coefficients), so each line is read from device memory once per block
-//     and reused by all of its points and states;
+//   * each of the block's windows [start, start + count) streams through
+//     shared memory in chunks of CH lines (positions hi and lo, and the
+//     per-state coefficients), so each line is read from device memory once
+//     per block and reused by all of its points and states;
 //   * the per-(state, line) coefficients (Sia, ia, y0, A, c1, c2, k2) are
 //     computed before the launch, as _grouped_pack does, so the inner loop
-//     holds no per-line division;
-//   * the ST state accumulators live in registers;
+//     holds no per-line division; every voigt mode reads the same 7-value
+//     pack (FARALL and COARSE only A, c1, c2, k2);
+//   * the ST state accumulators live in registers, and the switching
+//     weights of the coarse-far split are computed once per (point, line)
+//     on the shared D = dnu^2, for all ST states;
 //   * a per-element branch on |dnu| > d_near replaces the TPU kernel's two
-//     masked sweeps (far: region 1; near: full w4). The masks are the same,
-//     so the sum is the same; the branch only diverges inside a warp for the
-//     few points within d_near = 15 max(alpha) of a line core.
+//     masked sweeps (far: region 1; near: full w4) in the split and FINE
+//     modes. The masks are the same, so the sum is the same; the branch only
+//     diverges inside a warp for the few points within d_near of a line core.
+//     FINE's near sub-window is therefore its mid window.
 //
 // Built without --use_fast_math: divisions are IEEE, expf/sinf/cosf are the
 // accurate versions and subnormals are kept.
@@ -36,12 +49,34 @@ namespace {
 constexpr int ST = 8;    // states per tile (grid y axis)
 constexpr int CH = 128;  // lines per shared-memory chunk
 
-enum Mode { VOIGT_SPLIT = 0, LORENTZ = 1, DOPPLER = 2 };
+enum Mode {
+  VOIGT_SPLIT = 0, LORENTZ = 1, DOPPLER = 2,      // over the plan's windows
+  FARALL = 3, FINE = 4, FINE_STENCIL = 5, COARSE = 6  // the routes' modes
+};
 
 constexpr float INV_PI = 0.318309886183790672f;
 constexpr float INV_SQRT_PI = 0.564189583547756287f;
 
-__host__ __device__ constexpr int n_coef(int mode) { return mode == VOIGT_SPLIT ? 7 : 3; }
+__host__ __device__ constexpr int n_coef(int mode) {
+  return (mode == LORENTZ || mode == DOPPLER) ? 3 : 7;
+}
+
+// line windows per block: FINE and FINE_STENCIL sweep the mid window and the
+// two annuli at the cut; every other mode one window
+__host__ __device__ constexpr int n_windows(int mode) {
+  return (mode == FINE || mode == FINE_STENCIL) ? 3 : 1;
+}
+
+// The distances of a launch, float32 as the TPU kernel rounds its constants:
+// the cut, the mid zone's support cut_f = 2 d_far, the coarse field's inner
+// edge d_lo = d_far, and the two switches, W over D in [D1, D1 + 1/inv_D]
+// and the outer roll over [R1, R1 + 1/inv_R]
+struct Zones {
+  float cut, cut_f, d_lo, D1, inv_D, R1, inv_R;
+};
+
+// what a sweep over one window adds
+enum Zone { Z_SPLIT, Z_LORENTZ, Z_DOPPLER, Z_FARALL, Z_MID, Z_MID_ALL, Z_ANNULUS, Z_COARSE };
 
 __device__ __forceinline__ void cmul(float ar, float ai, float br, float bi,
                                      float& pr, float& pi) {
@@ -135,44 +170,36 @@ __device__ float wofz_re(float x, float y) {
   return wr;
 }
 
-// coef layout: [n_tiles][n_lines][ST * n_coef(MODE)], per line the ST states
-// of the tile one after another, each with its n_coef values:
-//   VOIGT_SPLIT: Sia, ia, y0, A, c1, c2, k2
-//   LORENTZ, DOPPLER: S, alpha, gamma
-// out: [n_states][n_nu]
-template <int MODE>
-__global__ void linesum_kernel(const float* __restrict__ nu_hi,
-                               const float* __restrict__ nu_lo,
-                               const float* __restrict__ line_hi,
-                               const float* __restrict__ line_lo,
-                               const float* __restrict__ coef,
-                               const int* __restrict__ start,
-                               const int* __restrict__ count,
-                               const float* __restrict__ d_near_p, float cut,
-                               int n_lines, int n_states, int n_nu,
-                               float* __restrict__ out) {
-  constexpr int NC = n_coef(MODE);
-  constexpr int W = ST * NC;
-  __shared__ float s_hi[CH];
-  __shared__ float s_lo[CH];
-  __shared__ float s_c[CH * W];
+// C^2 smootherstep in squared distance: 0 below A1, 1 at A1 + 1/inv
+// (linesum_pallas.py::_smoothstep_d2)
+__device__ __forceinline__ float smooth_d2(float D, float A1, float inv) {
+  const float w = fminf(fmaxf((D - A1) * inv, 0.0f), 1.0f);
+  return w * w * w * (10.0f + w * (-15.0f + 6.0f * w));
+}
 
-  const int b = blockIdx.x;
-  const int tile = blockIdx.y;
+// Humlicek region 1 in the shared D = dnu^2 on one state's coefficients:
+// k2 (c1 + m) / ((c1 - m)^2 + c2 D) with m = D A
+__device__ __forceinline__ float region1(const float* c, float D) {
+  const float m = D * c[3];
+  const float br = c[4] - m;
+  return (c[6] * (c[4] + m)) / (br * br + c[5] * D);
+}
+
+// Accumulate one window [s0, s0 + cnt) of the tile's lines into acc. Every
+// thread of the block calls it with the same window.
+// coef layout: [n_lines][ST * NC] for the tile, per line the ST states one
+// after another, each with its NC values:
+//   voigt modes: Sia, ia, y0, A, c1, c2, k2
+//   LORENTZ, DOPPLER: S, alpha, gamma
+template <int ZONE, int NC>
+__device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__ line_hi,
+                                      const float* __restrict__ line_lo,
+                                      const float* __restrict__ ct, float* s_hi,
+                                      float* s_lo, float* s_c, float nh, float nl,
+                                      const Zones& z, float d_near, float (&acc)[ST]) {
+  constexpr int W = ST * NC;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  const int p = b * nthreads + tid;  // plan blocks are padded: p < n_blocks * block
-  const float nh = nu_hi[p];
-  const float nl = nu_lo[p];
-  const float d_near = MODE == VOIGT_SPLIT ? *d_near_p : 0.0f;
-  const int s0 = start[b];
-  const int cnt = count[b];
-  const float* ct = coef + (size_t)tile * n_lines * W;
-
-  float acc[ST];
-#pragma unroll
-  for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
-
   for (int c0 = 0; c0 < cnt; c0 += CH) {
     const int n = min(CH, cnt - c0);
     __syncthreads();  // the previous chunk is no longer read
@@ -189,48 +216,176 @@ __global__ void linesum_kernel(const float* __restrict__ nu_hi,
       // residuals restore the sub-f32 position information
       const float dnu = (nh - s_hi[j]) + (nl - s_lo[j]);
       const float adnu = fabsf(dnu);
-      if (!(adnu <= cut)) continue;
+      const float D = dnu * dnu;
       const float* c = s_c + j * W;
-      if (MODE == VOIGT_SPLIT && adnu > d_near) {
-        // far wing: Humlicek region 1 in the shared D = dnu^2,
-        // k2 (c1 + m) / ((c1 - m)^2 + c2 D) with m = D A
-        const float D = dnu * dnu;
+      if constexpr (ZONE == Z_SPLIT) {
+        if (!(adnu <= z.cut)) continue;
+        if (adnu > d_near) {
 #pragma unroll
-        for (int s = 0; s < ST; ++s) {
-          const float A = c[s * NC + 3], c1 = c[s * NC + 4];
-          const float c2 = c[s * NC + 5], k2 = c[s * NC + 6];
-          const float m = D * A;
-          const float br = c1 - m;
-          acc[s] += (k2 * (c1 + m)) / (br * br + c2 * D);
-        }
-      } else if (MODE == VOIGT_SPLIT) {
+          for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D);
+        } else {
 #pragma unroll
-        for (int s = 0; s < ST; ++s) {
-          const float Sia = c[s * NC], ia = c[s * NC + 1], y0 = c[s * NC + 2];
-          acc[s] += Sia * wofz_re(dnu * ia, y0);
+          for (int s = 0; s < ST; ++s) {
+            const float Sia = c[s * NC], ia = c[s * NC + 1], y0 = c[s * NC + 2];
+            acc[s] += Sia * wofz_re(dnu * ia, y0);
+          }
         }
-      } else if (MODE == LORENTZ) {
+      } else if constexpr (ZONE == Z_LORENTZ) {
+        if (!(adnu <= z.cut)) continue;
 #pragma unroll
         for (int s = 0; s < ST; ++s) {
           const float S = c[s * NC], gam = c[s * NC + 2];
           acc[s] += S * (gam * INV_PI) / (dnu * dnu + gam * gam);
         }
-      } else {  // DOPPLER
+      } else if constexpr (ZONE == Z_DOPPLER) {
+        if (!(adnu <= z.cut)) continue;
 #pragma unroll
         for (int s = 0; s < ST; ++s) {
           const float S = c[s * NC], ia = 1.0f / c[s * NC + 1];
           const float arg = dnu * ia;
           acc[s] += (S * INV_SQRT_PI * ia) * expf(-arg * arg);
         }
+      } else if constexpr (ZONE == Z_FARALL) {
+        // stencil-near route: region 1 over the whole window, the core
+        // corrected afterwards by stencil_correction_kernel
+        if (!(adnu <= z.cut)) continue;
+#pragma unroll
+        for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D);
+      } else if constexpr (ZONE == Z_MID) {
+        // FINE: mid zone (region 1) and near zone (w4), both weighted 1 - W
+        if (!(adnu <= z.cut_f)) continue;
+        const float w = 1.0f - smooth_d2(D, z.D1, z.inv_D);
+        if (adnu > d_near) {
+#pragma unroll
+          for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D) * w;
+        } else {
+#pragma unroll
+          for (int s = 0; s < ST; ++s) {
+            const float Sia = c[s * NC], ia = c[s * NC + 1], y0 = c[s * NC + 2];
+            acc[s] += Sia * wofz_re(dnu * ia, y0) * w;
+          }
+        }
+      } else if constexpr (ZONE == Z_MID_ALL) {
+        // FINE_STENCIL: region 1 weighted 1 - W over the whole mid zone
+        if (!(adnu <= z.cut_f)) continue;
+        const float w = 1.0f - smooth_d2(D, z.D1, z.inv_D);
+#pragma unroll
+        for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D) * w;
+      } else if constexpr (ZONE == Z_ANNULUS) {
+        // the shell [cut - w_roll, cut] weighted by the outer roll: keeps the
+        // hard truncation at the cut exact on the fine grid
+        if (!(adnu <= z.cut && D > z.R1)) continue;
+        const float w = smooth_d2(D, z.R1, z.inv_R);
+#pragma unroll
+        for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D) * w;
+      } else {  // Z_COARSE: the smooth far field W Wout on the coarse grid
+        if (!(adnu <= z.cut && adnu > z.d_lo)) continue;
+        const float w = smooth_d2(D, z.D1, z.inv_D) * (1.0f - smooth_d2(D, z.R1, z.inv_R));
+#pragma unroll
+        for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D) * w;
       }
     }
   }
-  if (p < n_nu) {
+}
+
+// One block per block of grid points, one thread per point; win holds each
+// block's n_windows(MODE) windows as (start, count) pairs.
+// out: [n_states][n_out]
+template <int MODE>
+__global__ void linesum_kernel(const float* __restrict__ nu_hi,
+                               const float* __restrict__ nu_lo,
+                               const float* __restrict__ line_hi,
+                               const float* __restrict__ line_lo,
+                               const float* __restrict__ coef,
+                               const int* __restrict__ win,
+                               const float* __restrict__ d_near_p, Zones z,
+                               int n_lines, int n_states, int n_out,
+                               float* __restrict__ out) {
+  constexpr int NC = n_coef(MODE);
+  constexpr int NW = n_windows(MODE);
+  __shared__ float s_hi[CH];
+  __shared__ float s_lo[CH];
+  __shared__ float s_c[CH * ST * NC];
+
+  const int b = blockIdx.x;
+  const int tile = blockIdx.y;
+  const int p = b * blockDim.x + threadIdx.x;  // grids are padded to whole blocks
+  const float nh = nu_hi[p];
+  const float nl = nu_lo[p];
+  const float d_near = (MODE == VOIGT_SPLIT || MODE == FINE) ? *d_near_p : 0.0f;
+  const int* w = win + (size_t)b * 2 * NW;
+  const float* ct = coef + (size_t)tile * n_lines * ST * NC;
+
+  float acc[ST];
+#pragma unroll
+  for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
+
+#define SWEEP(ZONE, K) \
+  sweep<ZONE, NC>(w[2 * (K)], w[2 * (K) + 1], line_hi, line_lo, ct, s_hi, s_lo, s_c, nh, nl, \
+                  z, d_near, acc)
+  if constexpr (MODE == VOIGT_SPLIT) SWEEP(Z_SPLIT, 0);
+  else if constexpr (MODE == LORENTZ) SWEEP(Z_LORENTZ, 0);
+  else if constexpr (MODE == DOPPLER) SWEEP(Z_DOPPLER, 0);
+  else if constexpr (MODE == FARALL) SWEEP(Z_FARALL, 0);
+  else if constexpr (MODE == COARSE) SWEEP(Z_COARSE, 0);
+  else {
+    if constexpr (MODE == FINE) SWEEP(Z_MID, 0);
+    else SWEEP(Z_MID_ALL, 0);
+    SWEEP(Z_ANNULUS, 1);
+    SWEEP(Z_ANNULUS, 2);
+  }
+#undef SWEEP
+
+  if (p < n_out) {
 #pragma unroll
     for (int s = 0; s < ST; ++s) {
       const int st = tile * ST + s;
-      if (st < n_states) out[(size_t)st * n_nu + p] = acc[s];
+      if (st < n_states) out[(size_t)st * n_out + p] = acc[s];
     }
+  }
+}
+
+// The stencil route's near-core correction: one thread per (window point k,
+// line l), i = k * n_lines + l, looping over the states. Adds
+// Sia (w4 - region 1) [x (1 - W(dnu^2)) when weighted] at grid point
+// q[l] K + k where x^2 <= 225 and |dnu_hi| <= cut, region 1 in the explicit
+// (x, y) algebra of _stencil_apply. dnu_hi/dnu_lo: [2K][n_lines];
+// sia/ia/y0: [n_states][n_lines]; out: [n_states][n_nu], added to.
+__global__ void stencil_correction_kernel(const float* __restrict__ dnu_hi,
+                                          const float* __restrict__ dnu_lo,
+                                          const int* __restrict__ q,
+                                          const float* __restrict__ sia,
+                                          const float* __restrict__ ia,
+                                          const float* __restrict__ y0, int K,
+                                          int n_lines, int n_states, int n_nu,
+                                          float cut, int weighted, float D1,
+                                          float inv_D, float* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)2 * K * n_lines) return;
+  const int k = (int)(i / n_lines);
+  const int l = (int)(i % n_lines);
+  const int p = q[l] * K + k;
+  const float dh = dnu_hi[i];
+  if (p >= n_nu || !(fabsf(dh) <= cut)) return;
+  const float dl = dnu_lo[i];
+  float w = 1.0f;
+  if (weighted) {
+    const float dD = dh + dl;
+    w = 1.0f - smooth_d2(dD * dD, D1, inv_D);
+  }
+  for (int s = 0; s < n_states; ++s) {
+    const size_t sl = (size_t)s * n_lines + l;
+    const float a = ia[sl];
+    const float x = a * dh + a * dl;
+    if (!(x * x <= 225.0f)) continue;
+    const float y = y0[sl];
+    const float t2r = y * y - x * x;
+    const float t2i = -2.0f * x * y;
+    const float br = 0.5f + t2r;
+    const float d2 = br * br + t2i * t2i;
+    const float wr1 = 0.5641896f * (y * br - x * t2i) / d2;
+    const float corr = sia[sl] * (wofz_re(x, y) - wr1) * w;
+    atomicAdd(out + (size_t)s * n_nu + p, corr);
   }
 }
 
@@ -242,35 +397,50 @@ int linesum_states_per_tile() { return ST; }
 
 int linesum_coef_per_state(int mode) { return n_coef(mode); }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+int linesum_windows_per_block(int mode) { return n_windows(mode); }
+
+// Launch `mode` on `stream`; zones: host float[7] (Zones, in field order).
+// Returns cudaGetLastError() (0 on success).
 int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
                    const float* line_hi, const float* line_lo,
-                   const float* coef, const int* start, const int* count,
-                   const float* d_near, float cut, int n_blocks, int block,
-                   int n_lines, int n_states, int n_nu, float* out,
-                   void* stream) {
+                   const float* coef, const int* win, const float* d_near,
+                   const float* zones, int n_blocks, int block, int n_lines,
+                   int n_states, int n_out, float* out, void* stream) {
   const int n_tiles = (n_states + ST - 1) / ST;
   const dim3 grid(n_blocks, n_tiles);
+  const Zones z{zones[0], zones[1], zones[2], zones[3], zones[4], zones[5], zones[6]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LAUNCH(M)                                                                    \
+  linesum_kernel<M><<<grid, block, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, coef, win, \
+                                            d_near, z, n_lines, n_states, n_out, out)
   switch (mode) {
-    case VOIGT_SPLIT:
-      linesum_kernel<VOIGT_SPLIT><<<grid, block, 0, st>>>(
-          nu_hi, nu_lo, line_hi, line_lo, coef, start, count, d_near, cut,
-          n_lines, n_states, n_nu, out);
-      break;
-    case LORENTZ:
-      linesum_kernel<LORENTZ><<<grid, block, 0, st>>>(
-          nu_hi, nu_lo, line_hi, line_lo, coef, start, count, d_near, cut,
-          n_lines, n_states, n_nu, out);
-      break;
-    case DOPPLER:
-      linesum_kernel<DOPPLER><<<grid, block, 0, st>>>(
-          nu_hi, nu_lo, line_hi, line_lo, coef, start, count, d_near, cut,
-          n_lines, n_states, n_nu, out);
-      break;
+    case VOIGT_SPLIT: LAUNCH(VOIGT_SPLIT); break;
+    case LORENTZ: LAUNCH(LORENTZ); break;
+    case DOPPLER: LAUNCH(DOPPLER); break;
+    case FARALL: LAUNCH(FARALL); break;
+    case FINE: LAUNCH(FINE); break;
+    case FINE_STENCIL: LAUNCH(FINE_STENCIL); break;
+    case COARSE: LAUNCH(COARSE); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the near-core correction on `stream` (adds into out).
+int stencil_correction_launch(const float* dnu_hi, const float* dnu_lo, const int* q,
+                              const float* sia, const float* ia, const float* y0,
+                              int K, int n_lines, int n_states, int n_nu, float cut,
+                              int weighted, float D1, float inv_D, float* out,
+                              void* stream) {
+  const size_t n = (size_t)2 * K * n_lines;
+  if (n == 0 || n_states == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  stencil_correction_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      dnu_hi, dnu_lo, q, sia, ia, y0, K, n_lines, n_states, n_nu, cut, weighted, D1, inv_D,
+      out);
   return static_cast<int>(cudaGetLastError());
 }
 

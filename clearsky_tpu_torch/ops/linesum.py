@@ -7,18 +7,24 @@ on the host (numpy, float64), and the line sum then runs dense over
 [block x window] tiles.
 
 :func:`sigma_from_lines` is the plain PyTorch version: the CPU path and the
-oracle of the CUDA kernel. :func:`sigma_from_lines_auto` dispatches to the
-kernel wrapper in :mod:`.linesum_cuda`, which runs the kernel for CUDA
-tensors and this plain version for CPU tensors.
+oracle of the CUDA kernel. It is one case of :func:`block_sum`, the plain
+sum over line windows that every mode of the kernel has as its plain
+version (the modes of the stencil-near and coarse-far routes are in
+:mod:`.linesum_strategies`). :func:`sigma_from_lines_auto` takes the exact
+plain sum for CPU tensors and, for CUDA tensors, the route that
+:func:`.linesum_strategies.route` picks, through the kernel wrappers in
+:mod:`.linesum_cuda`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
+from .faddeeva import wofz_re
 from .lineshape import (
     scale_intensity,
     cheb_qref_q,
@@ -34,6 +40,8 @@ __all__ = [
     "build_line_window_plan",
     "sigma_from_lines",
     "sigma_from_lines_auto",
+    "block_sum",
+    "voigt_coefficients",
     "PROFILES",
     "DEFAULT_CUT",
 ]
@@ -62,6 +70,9 @@ class LineWindowPlan:
     count: np.ndarray       # [n_blocks] number of in-window lines per block
     slab: int               # padded window length (max over blocks)
     _on_device: dict = dataclasses.field(default_factory=dict, repr=False)
+    # host geometry of the routes (stencil windows, coarse grids), built once
+    # per catalog by .linesum_strategies
+    _geometry: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def n_nu(self) -> int:
@@ -72,22 +83,31 @@ class LineWindowPlan:
 
         ``nu_hi``/``nu_lo`` are the float32 two-float split of the float64
         block grid (nu_hi + nu_lo reproduces it to ~1e-11 relative), flat
-        [n_blocks * block]; ``start``/``count`` are int32 [n_blocks].
+        [n_blocks * block]; ``win`` is the int32 window table [n_blocks, 2]
+        of (start, count).
         """
         device = torch.device(device)
         got = self._on_device.get(device)
         if got is None:
-            nb64 = np.asarray(self.nu_blocks, np.float64).reshape(-1)
-            hi = nb64.astype(np.float32)
-            lo = (nb64 - hi.astype(np.float64)).astype(np.float32)
+            hi, lo = two_float(self.nu_blocks)
             got = {
-                "nu_hi": torch.as_tensor(hi, device=device),
-                "nu_lo": torch.as_tensor(lo, device=device),
-                "start": torch.as_tensor(self.start, dtype=torch.int32, device=device),
-                "count": torch.as_tensor(self.count, dtype=torch.int32, device=device),
+                "nu_hi": torch.as_tensor(hi.reshape(-1), device=device),
+                "nu_lo": torch.as_tensor(lo.reshape(-1), device=device),
+                "win": torch.as_tensor(self.windows(), dtype=torch.int32, device=device),
             }
             self._on_device[device] = got
         return got
+
+    def windows(self) -> np.ndarray:
+        """The line windows as a table [n_blocks, 2] of (start, count)."""
+        return np.stack([self.start, self.count], axis=1).astype(np.int64)
+
+
+def two_float(x64) -> tuple[np.ndarray, np.ndarray]:
+    """float64 values as float32 (hi, lo) with hi + lo ~ x64 to ~1e-11 relative."""
+    x64 = np.asarray(x64, np.float64)
+    hi = x64.astype(np.float32)
+    return hi, (x64 - hi.astype(np.float64)).astype(np.float32)
 
 
 def build_line_window_plan(
@@ -139,64 +159,138 @@ def _line_params(lines, T, P, Pp):
     return S, alpha, gamma
 
 
+def voigt_coefficients(S, alpha, gamma):
+    """Per-(state, line) coefficients of the Voigt tiles, as ``_grouped_pack``
+    computes them: the core's (Sia, ia, y0) = (S ia / sqrt(pi), 1/alpha,
+    gamma/alpha), with which the profile is Sia Re w(dnu ia, y0), and the far
+    wing's (A, c1, c2, k2) = (ia^2, 0.5 + y0^2, 4 y0^2 A, S gamma A / pi),
+    with which Humlicek region 1 in D = dnu^2 is
+    k2 (c1 + m) / ((c1 - m)^2 + c2 D), m = D A."""
+    ia = 1.0 / alpha
+    y0 = gamma * ia
+    A = ia * ia
+    y2 = y0 * y0
+    return (S * ia * (1.0 / math.sqrt(math.pi)), ia, y0, A, 0.5 + y2, 4.0 * y2 * A,
+            S * gamma * A * (1.0 / math.pi))
+
+
+def tile_exact(shape, S, alpha, gamma):
+    """The exact profile of ``shape`` on (S, alpha, gamma), as a tile of :func:`block_sum`."""
+    profile = PROFILES[shape]
+    return lambda dnu, D, g: profile(dnu, g(S), g(alpha), g(gamma))
+
+
+def tile_w4(co):
+    """The Voigt core on :func:`voigt_coefficients`: Sia Re w(dnu ia, y0)."""
+    Sia, ia, y0 = co[:3]
+    return lambda dnu, D, g: g(Sia) * wofz_re(dnu * g(ia), g(y0))
+
+
+def tile_region1(co):
+    """Humlicek region 1 in D = dnu^2 on :func:`voigt_coefficients` (valid
+    where |x| >= 15, or as the far term the stencil correction completes)."""
+    A, c1, c2, k2 = co[3:]
+
+    def tile(dnu, D, g):
+        m = D * g(A)
+        br = g(c1) - m
+        return (g(k2) * (g(c1) + m)) / (br * br + g(c2) * D)
+
+    return tile
+
+
+def block_sum(nu_blocks, nu_blocks_lo, lines, windows, zones, batch):
+    """Plain sum over line windows: sigma[*batch, n_blocks * block].
+
+    ``nu_blocks`` [n_blocks, block] is the grid in the catalog's dtype on its
+    device; ``nu_blocks_lo`` its float32 residual for a float32 catalog (two-
+    float dnu, as in the kernel), or None in float64, where one subtraction
+    suffices. ``windows`` [n_blocks, 2 n_win] (numpy) holds each block's line
+    windows as (start, count) pairs. Each zone ``(w, tile, mask, weight)``
+    adds, over window ``w``, ``tile(dnu, D, g)`` where ``mask(adnu, D)`` holds,
+    times ``weight(D)`` unless that is None; D = dnu^2, and ``g`` gathers a
+    per-(state, line) tensor [*batch, n_lines] onto the tile. Zones are summed
+    in turn, as the kernel's sweeps are. Blocks go in batches that keep each
+    temporary near 2^24 elements on a GPU and 2^20 on the CPU, where larger
+    temporaries fall out of cache.
+    """
+    dev, dt = nu_blocks.device, nu_blocks.dtype
+    n_blocks, block = nu_blocks.shape
+    n_lines = lines.nu.shape[0]
+    zero = torch.zeros((), dtype=dt, device=dev)
+    out = torch.zeros(batch + (n_blocks, block), dtype=dt, device=dev)
+    for w, tile, mask, weight in zones:
+        starts = torch.as_tensor(windows[:, 2 * w], dtype=torch.int64, device=dev)
+        counts = torch.as_tensor(windows[:, 2 * w + 1], dtype=torch.int64, device=dev)
+        slab = max(1, int(windows[:, 2 * w + 1].max(initial=0)))
+        offs = torch.arange(slab, device=dev)
+        per_block = max(1, int(np.prod(batch))) * block * slab
+        step = max(1, (2**24 if dev.type == "cuda" else 2**20) // per_block)
+        for a in range(0, n_blocks, step):
+            b = min(a + step, n_blocks)
+            idx = torch.clamp(starts[a:b, None] + offs, 0, max(n_lines - 1, 0))  # [nb, slab]
+            valid = offs < counts[a:b, None]
+            dnu = nu_blocks[a:b, :, None] - lines.nu[idx][:, None, :]             # [nb, B, slab]
+            if nu_blocks_lo is not None:
+                # the hi difference is exact for nearby values (Sterbenz); the
+                # residuals restore the sub-f32 position information
+                dnu = dnu + (nu_blocks_lo[a:b, :, None] - lines.nu_lo[idx][:, None, :])
+            D = dnu * dnu
+            m = valid[:, None, :] & mask(torch.abs(dnu), D)
+            g = lambda x: x[..., idx][..., None, :]                     # [..., nb, 1, slab]
+            f = tile(dnu, D, g)                                         # [..., nb, B, slab]
+            if weight is not None:
+                f = f * weight(D)
+            out[..., a:b, :] += torch.where(m, f, zero).sum(-1)
+    return out.reshape(batch + (n_blocks * block,))
+
+
+def grid_blocks(nu_blocks64, dtype, device):
+    """A float64 block grid for :func:`block_sum`: (hi, lo) tensors in float32,
+    (grid, None) in float64."""
+    if dtype == torch.float32:
+        hi, lo = two_float(nu_blocks64)
+        return torch.as_tensor(hi, device=device), torch.as_tensor(lo, device=device)
+    return torch.as_tensor(np.asarray(nu_blocks64, np.float64), dtype=dtype, device=device), None
+
+
 def sigma_from_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt"):
     """Cross-sections sigma[..., n_nu] [cm^2/molecule]: the plain version.
 
     ``T``, ``P``, ``Pp`` (temperature [K], pressure and partial pressure
     [Pa]) are tensors of one batch shape [...], in the catalog's dtype and on
-    its device. In float32 the line positions are differenced in two-float
-    form (hi + lo) so that dnu keeps ~1e-7 cm^-1; in float64 one subtraction
-    suffices. Blocks are evaluated in batches that keep each temporary near
-    2^24 elements on a GPU and 2^20 on the CPU, where larger temporaries fall
-    out of cache.
+    its device. The exact profile of ``shape`` over each block's window
+    within ``plan.cut`` (:func:`block_sum`; two-float dnu in float32).
     """
-    profile = PROFILES[shape]
     S, alpha, gamma = _line_params(lines, T, P, Pp)
-    dev, dt = S.device, S.dtype
-    two_float = dt == torch.float32
-    if two_float:
-        arrs = plan.device_arrays(dev)
-        nu_blocks = arrs["nu_hi"].view(plan.n_blocks, plan.block)
-        nu_blocks_lo = arrs["nu_lo"].view(plan.n_blocks, plan.block)
-        nu_l_lo = lines.nu_lo
-    else:
-        nu_blocks = torch.as_tensor(plan.nu_blocks, dtype=dt, device=dev)
-    nu_l = lines.nu
-    n_lines = nu_l.shape[0]
-    starts = torch.as_tensor(plan.start, dtype=torch.int64, device=dev)
-    counts = torch.as_tensor(plan.count, dtype=torch.int64, device=dev)
-    offs = torch.arange(plan.slab, device=dev)
-    batch = S.shape[:-1]
-    per_block = max(1, int(np.prod(batch))) * plan.block * plan.slab
-    batch_blocks = max(1, (2**24 if dev.type == "cuda" else 2**20) // per_block)
-
-    out = []
-    for a in range(0, plan.n_blocks, batch_blocks):
-        b = min(a + batch_blocks, plan.n_blocks)
-        idx = torch.clamp(starts[a:b, None] + offs, 0, max(n_lines - 1, 0))  # [nb, slab]
-        valid = offs < counts[a:b, None]
-        dnu = nu_blocks[a:b, :, None] - nu_l[idx][:, None, :]                 # [nb, B, slab]
-        if two_float:
-            # the hi difference is exact for nearby values (Sterbenz); the
-            # residuals restore the sub-f32 position information
-            dnu = dnu + (nu_blocks_lo[a:b, :, None] - nu_l_lo[idx][:, None, :])
-        mask = valid[:, None, :] & (torch.abs(dnu) <= plan.cut)
-        f = profile(dnu, S[..., idx][..., None, :], alpha[..., idx][..., None, :],
-                    gamma[..., idx][..., None, :])                            # [..., nb, B, slab]
-        out.append(torch.where(mask, f, torch.zeros((), dtype=dt, device=dev)).sum(-1))
-    sig = torch.cat(out, dim=-2)                                              # [..., n_blocks, B]
-    return sig.reshape(batch + (plan.n_blocks * plan.block,))[..., : plan.n_nu]
+    nb, nb_lo = grid_blocks(plan.nu_blocks, S.dtype, S.device)
+    cut = plan.cut
+    zones = [(0, tile_exact(shape, S, alpha, gamma), lambda adnu, D: adnu <= cut, None)]
+    sig = block_sum(nb, nb_lo, lines, plan.windows(), zones, tuple(S.shape[:-1]))
+    return sig[..., : plan.n_nu]
 
 
-def sigma_from_lines_auto(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt"):
-    """Line sum through the kernel wrapper (K1 on CUDA, the plain version on CPU).
+def sigma_from_lines_auto(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt",
+                          strategy: str = "auto"):
+    """Line sum through the kernel wrappers (CUDA) or the exact plain sum (CPU).
 
-    Accepts any common batch shape of (T, P, Pp); the wrapper takes a flat
-    state batch, so leading dimensions are flattened and restored around it.
+    ``strategy`` ("auto", "grouped", "stencil" or "coarse") picks the voigt
+    route on the card as the JAX package does on its accelerator
+    (:func:`.linesum_strategies.route`): the coarse-far split, the
+    stencil-near route or K1's split mode. CPU tensors always take the exact
+    plain sum, whatever the strategy, as the JAX package does off its
+    accelerator. Accepts any common batch shape of (T, P, Pp); the wrappers
+    take a flat state batch, so leading dimensions are flattened and
+    restored around them.
     """
-    from .linesum_cuda import sigma_lines
+    from .linesum_strategies import check_strategy
+
+    check_strategy(strategy)
+    if T.device.type == "cpu":
+        return sigma_from_lines(plan, lines, T, P, Pp, shape)
+    from .linesum_cuda import sigma_routed
 
     shp = torch.broadcast_shapes(T.shape, P.shape, Pp.shape)
     flat = [torch.broadcast_to(x, shp).reshape(-1).contiguous() for x in (T, P, Pp)]
-    sig = sigma_lines(plan, lines, *flat, shape=shape)
+    sig = sigma_routed(plan, lines, *flat, shape=shape, strategy=strategy)
     return sig.reshape(shp + (plan.n_nu,))

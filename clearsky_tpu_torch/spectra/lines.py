@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import placement
 from .molparam import molparam, ISOINDEX
 
 __all__ = ["SpectralLines", "PER_LINE_FIELDS"]
@@ -87,9 +88,11 @@ class SpectralLines:
         return float(np.sum(A * mu) / np.sum(A))
 
     @classmethod
-    def from_arrays(cls, fields: dict, dtype=torch.float64, device="cpu",
+    def from_arrays(cls, fields: dict, dtype=None, device=None,
                     name: str = "", formula: str = "", M: int = 0) -> "SpectralLines":
-        """Build from numpy arrays keyed by field name (``nu`` in float64)."""
+        """Build from numpy arrays keyed by field name (``nu`` in float64),
+        by default in float32 on the card (:func:`..utils.device.placement`)."""
+        dtype, device = placement(dtype, device)
         nu64 = np.asarray(fields["nu"], dtype=np.float64)
         nu_lo = fields.get("nu_lo")
         if nu_lo is None:
@@ -104,8 +107,9 @@ class SpectralLines:
         return cls(**out, name=name, formula=formula, M=M)
 
     @classmethod
-    def from_par_dict(cls, par: dict, dtype=torch.float64, device="cpu") -> "SpectralLines":
-        """Build from a ``read_par``-style dict of numpy columns."""
+    def from_par_dict(cls, par: dict, dtype=None, device=None) -> "SpectralLines":
+        """Build from a ``read_par``-style dict of numpy columns, by default in
+        float32 on the card."""
         Ms = np.unique(par["M"])
         if len(Ms) != 1:
             raise ValueError("SpectralLines must contain only one molecule's lines")

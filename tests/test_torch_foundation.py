@@ -168,7 +168,7 @@ def test_faddeeva_accuracy_vs_scipy():
 def test_lineshapes_match():
     par = synthetic_co2_par(200, seed=3)
     jl = JLines.from_par_dict(par)
-    tl = TLines.from_par_dict(par)
+    tl = TLines.from_par_dict(par, dtype=torch.float64, device="cpu")
     T = np.array([180.0, 250.0, 320.0])[:, None]
     P = np.array([100.0, 1e4, 9e4])[:, None]
     Tt, Pt, Tj, Pj = torch.tensor(T), torch.tensor(P), jnp.asarray(T), jnp.asarray(P)
@@ -195,7 +195,7 @@ def test_lineshapes_match():
 def test_spectral_lines_match():
     par = synthetic_co2_par(300, seed=4)
     jl = JLines.from_par_dict(par)
-    tl = TLines.from_par_dict(par)
+    tl = TLines.from_par_dict(par, dtype=torch.float64, device="cpu")
     for f in ("nu", "nu_lo", "S", "ga", "gs", "Epp", "na", "mu", "A", "iso", "iso_ptr",
               "tips_coeffs"):
         np.testing.assert_array_equal(getattr(tl, f).numpy(), np.asarray(getattr(jl, f)), f)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 line sum, K2/K3 march, K6/K7 fused table)
-and their wrappers.
+"""The port's CUDA kernels (K1 line sum in all its modes and the near-core
+correction, K2/K3 march, K6/K7 fused table) and their wrappers.
 
 This file imports no JAX, so that it also runs on a machine with a card and
 no JAX (pytest then needs ``--noconftest``: tests/conftest.py imports jax):
@@ -9,11 +9,16 @@ no JAX (pytest then needs ``--noconftest``: tests/conftest.py imports jax):
 Tests marked ``gpu`` launch the kernels and skip without a CUDA card. Each
 holds a float32 kernel to the plain PyTorch version in float64 on the same
 inputs (line sum: rtol 2e-3 where |sigma| > 1e-35, the bar of
-tests/test_linesum_pallas.py; march: 3.5e-6 of peak, the float32 class of
-BASELINE.md; fused table: 1e-4 of peak for the fluxes and rtol 1e-4 for tau,
-the bars of chip_smoke.py) and checks that the wrapper raises on inputs the
-kernel does not take. The tests without the marker check the wrappers' CPU
-path, the build flags and key, and the float32 precision pin.
+tests/test_linesum_pallas.py; the windowed modes and the routes: 1e-5 of
+each state's peak, float32 accumulation; the correction: 1e-4 of each
+state's peak cross-section, float32 rounding amplified next to the
+region-1 pole at x^2 = 1/2 + y^2, where the correction is largest, and
+atomic adds in no fixed order; march:
+3.5e-6 of peak, the float32 class of BASELINE.md; fused table: 1e-4 of
+peak for the fluxes and rtol 1e-4 for tau, the bars of chip_smoke.py) and
+checks that the wrapper raises on inputs the kernel does not take. The
+tests without the marker check the wrappers' CPU path, the build flags and
+key, and the float32 precision pin.
 """
 
 import math
@@ -26,8 +31,16 @@ import torch
 
 import clearsky_tpu_torch as ct
 from clearsky_tpu_torch.ops import linesum_cuda
-from clearsky_tpu_torch.ops.linesum import build_line_window_plan, sigma_from_lines
-from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines
+from clearsky_tpu_torch.ops import linesum_strategies as ls
+from clearsky_tpu_torch.ops.linesum import (
+    _line_params,
+    build_line_window_plan,
+    sigma_from_lines,
+    sigma_from_lines_auto,
+    two_float,
+    voigt_coefficients,
+)
+from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines, stencil_correction
 from clearsky_tpu_torch.rt import discretized as td
 from clearsky_tpu_torch.rt import march_cuda
 from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
@@ -52,7 +65,8 @@ def cuda():
 
 @pytest.fixture(scope="module")
 def cat():
-    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(600, seed=21))
+    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(600, seed=21),
+                                             dtype=torch.float64, device="cpu")
     nu = np.linspace(590.0, 760.0, 2000)   # no multiple of the 128-point block
     plan = build_line_window_plan(nu, lines.positions64(), 25.0)
     states = [np.linspace(170.0, 310.0, 11), np.geomspace(10.0, 1e5, 11)]
@@ -183,6 +197,158 @@ def test_line_sum_wrapper_rejects_bad_inputs(cat, cuda):
         sigma_lines(plan, l32, T, P[:2], Pp)
     with pytest.raises(ValueError):       # another device
         sigma_lines(plan, l32, T, P.cpu(), Pp)
+
+
+@pytest.fixture(scope="module")
+def dense():
+    """A catalog and grids where both routes' geometries accept: the
+    uniform 2300-2350 cm^-1 band grid, the same with an odd point count,
+    and a random-walk grid (gathered interpolation)."""
+    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(1500, seed=3),
+                                           dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(3)
+    walk = np.linspace(2300.0, 2350.0, 8192)
+    walk = np.sort(walk + np.cumsum(rng.uniform(-0.2, 0.2, walk.shape)) * (walk[1] - walk[0]))
+    grids = {"uniform": np.linspace(2300.0, 2350.0, 8192),
+             "odd": np.linspace(2300.0, 2350.0, 8191), "nonuniform": walk}
+    plans = {k: build_line_window_plan(nu, lines.positions64(), 25.0) for k, nu in grids.items()}
+    return lines, plans
+
+
+# (grid, states): one state, a padded tile of 11, an odd point count and a
+# non-uniform grid
+MODE_CASES = [("uniform", 1), ("uniform", 11), ("odd", 11), ("nonuniform", 11)]
+
+
+def _mode_states(n):
+    T = np.linspace(180.0, 310.0, n)
+    P = np.geomspace(10.0, 1e5, n)
+    return T, P, 0.5 * P
+
+
+def _of_peak(out, ref):
+    """max |out - ref| over each state's peak |ref|."""
+    return float(((out.double().cpu() - ref).abs() / ref.abs().amax(dim=1, keepdim=True)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["farall", "fine", "fine_stencil", "coarse"])
+@pytest.mark.parametrize("grid,n", MODE_CASES)
+def test_windowed_modes_match_plain(dense, cuda, mode, grid, n):
+    """K1's modes of the routes, float32 on the card, against their plain
+    versions in float64 on the same windows."""
+    lines, plans = dense
+    plan = plans[grid]
+    geom = ls.coarse_geometry(plan, lines, ls.coarse_params(plan, 0.6))
+    l32 = lines.to(torch.float32, cuda)
+    T, P, Pp = _t(_mode_states(n), torch.float32, cuda)
+    S, a, g = _line_params(l32, T, P, Pp)
+    coef = linesum_cuda.pack_coefficients(linesum_cuda.WINDOW_MODES[mode], S, a, g)
+    co64 = voigt_coefficients(*_line_params(lines, *_t(_mode_states(n))))
+    z = geom.zones
+    if mode == "farall":
+        blocks, windows, zz, n_out = plan.nu_blocks, plan.windows(), {"cut": plan.cut}, plan.n_nu
+    elif mode == "coarse":
+        blocks, windows, zz, n_out = geom.coarse_blocks, geom.coarse_windows, z, geom.params[2]
+    else:
+        blocks, windows, zz, n_out = geom.fine_blocks, geom.fine_windows, z, plan.n_nu
+    hi, lo = (torch.as_tensor(x.reshape(-1), device=cuda) for x in two_float(blocks))
+    grid_dev = {"nu_hi": hi, "nu_lo": lo,
+                "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
+    d_near = linesum_cuda.near_distance(a, z["cut_f"]) if mode == "fine" else None
+    before = dict(sigma_lines.launches_by_mode)
+    out = linesum_cuda.launch_mode(linesum_cuda.WINDOW_MODES[mode], grid_dev, l32, coef, n,
+                                   n_out, linesum_cuda._zones(**zz), d_near)
+    torch.cuda.synchronize()
+    assert sigma_lines.launches_by_mode[mode] == before[mode] + 1
+    d64 = None if d_near is None else d_near.double().cpu()
+    ref = ls.sigma_mode_plain(mode, blocks, windows, lines, co64, zz, d64)[:, :n_out]
+    assert bool(torch.isfinite(out).all())
+    assert _of_peak(out, ref) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("grid,n", MODE_CASES)
+def test_stencil_correction_matches_plain(dense, cuda, grid, n, weighted):
+    lines, plans = dense
+    plan = plans[grid]
+    geom = ls.stencil_geometry(plan, lines)
+    l32 = lines.to(torch.float32, cuda)
+    co32 = voigt_coefficients(*_line_params(l32, *_t(_mode_states(n), torch.float32, cuda)))
+    co64 = voigt_coefficients(*_line_params(lines, *_t(_mode_states(n))))
+    weight = None
+    if weighted:
+        d_far = ls.coarse_params(plan, 0.6)[0]
+        weight = (d_far * d_far, 4.0 * d_far * d_far)
+    before = stencil_correction.launches
+    out = stencil_correction(torch.zeros((n, plan.n_nu), device=cuda), geom, co32, 25.0, weight)
+    torch.cuda.synchronize()
+    assert stencil_correction.launches == before + 1
+    ref = ls.stencil_correction_plain(geom, co64, 25.0, plan.n_nu, weight)
+    # measured against each state's peak cross-section: at high pressure
+    # w4 and region 1 nearly agree and the correction itself nearly vanishes
+    peak = sigma_from_lines(plan, lines, *_t(_mode_states(n))).abs().amax(dim=1, keepdim=True)
+    assert float(((out.double().cpu() - ref).abs() / peak).max()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", ["uniform", "odd", "nonuniform"])
+def test_routes_match_plain_and_count_modes(dense, cuda, grid):
+    """The stencil and coarse routes on the card against their float64
+    plain versions, and the launches each route makes."""
+    lines, plans = dense
+    plan = plans[grid]
+    l32 = lines.to(torch.float32, cuda)
+    x32, x64 = _t(_mode_states(11), torch.float32, cuda), _t(_mode_states(11))
+    assert ls.route(plan, l32, "voigt", "auto") == "coarse"
+    for strategy, plain, modes in (
+            ("stencil", ls.sigma_stencil_plain(plan, lines, *x64), {"farall": 1}),
+            ("coarse", ls.sigma_coarse_plain(plan, lines, *x64),
+             {"fine_stencil": 1, "coarse": 1})):
+        by_mode, corr = dict(sigma_lines.launches_by_mode), stencil_correction.launches
+        out = sigma_from_lines_auto(plan, l32, *x32, strategy=strategy)
+        torch.cuda.synchronize()
+        got = {k: v - by_mode[k] for k, v in sigma_lines.launches_by_mode.items()
+               if v != by_mode[k]}
+        assert got == modes and stencil_correction.launches == corr + 1
+        assert _of_peak(out, plain) < 1e-5, strategy
+
+
+@pytest.mark.gpu
+def test_route_wrappers_reject_bad_inputs(dense, cuda):
+    lines, plans = dense
+    plan = plans["uniform"]
+    l32 = lines.to(torch.float32, cuda)
+    T, P, Pp = _t(_mode_states(3), torch.float32, cuda)
+    geom = ls.coarse_geometry(plan, l32, ls.coarse_params(plan, 0.6))
+    S, a, g = _line_params(l32, T, P, Pp)
+    coef = linesum_cuda.pack_coefficients(linesum_cuda.WINDOW_MODES["fine"], S, a, g)
+    fine = {"nu_hi": torch.as_tensor(two_float(geom.fine_blocks)[0].reshape(-1), device=cuda),
+            "win": torch.as_tensor(geom.fine_windows, dtype=torch.int32, device=cuda)}
+    fine["nu_lo"] = torch.zeros_like(fine["nu_hi"])
+    zones = linesum_cuda._zones(**geom.zones)
+    d_near = linesum_cuda.near_distance(a, geom.zones["cut_f"])
+    fine_mode = linesum_cuda.WINDOW_MODES["fine"]
+    with pytest.raises(ValueError):       # FINE without its d_near
+        linesum_cuda.launch_mode(fine_mode, fine, l32, coef, 3, plan.n_nu, zones)
+    with pytest.raises(ValueError):       # a one-window table for a three-window mode
+        linesum_cuda.launch_mode(fine_mode, dict(fine, win=fine["win"][:, :2].contiguous()),
+                                 l32, coef, 3, plan.n_nu, zones, d_near)
+    with pytest.raises(TypeError):        # a float64 pack
+        linesum_cuda.launch_mode(fine_mode, fine, l32, coef.double(), 3, plan.n_nu, zones,
+                                 d_near)
+    with pytest.raises(ValueError):       # more outputs than the grid has points
+        linesum_cuda.launch_mode(fine_mode, fine, l32, coef, 3, 10**7, zones, d_near)
+    co = voigt_coefficients(S, a, g)
+    with pytest.raises(ValueError):       # coefficients of another catalog size
+        stencil_correction(torch.zeros((3, plan.n_nu), device=cuda), geom.stencil,
+                           [c[:, :-1].contiguous() for c in co], 25.0)
+    with pytest.raises(TypeError):        # a float64 output
+        stencil_correction(torch.zeros((3, plan.n_nu), dtype=torch.float64, device=cuda),
+                           geom.stencil, co, 25.0)
+    with pytest.raises(ValueError):       # states on another device
+        sigma_from_lines_auto(plan, l32, T, P.cpu(), Pp, strategy="coarse")
 
 
 @pytest.mark.gpu

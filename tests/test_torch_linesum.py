@@ -43,7 +43,7 @@ PP = 0.4 * P
 def cat():
     par = synthetic_co2_par(500, seed=11)
     jl = JLines.from_par_dict(par)
-    tl = convert.spectral_lines(jl)
+    tl = convert.spectral_lines(jl, dtype=torch.float64, device="cpu")
     nu = np.linspace(600.0, 740.0, 1024)
     return dict(jl=jl, tl=tl, nu=nu, jp=jplan(nu, np.asarray(jl.nu), 25.0),
                 tp=build_line_window_plan(nu, tl.positions64(), 25.0))

@@ -42,7 +42,7 @@ def _column(n_nu):
     jl = JLines.from_par_dict(par)
     nu = np.linspace(560.0, 790.0, n_nu)
     jg = JDirectGas.from_lines(jl, 0.95, nu)
-    tg = convert.direct_gas(jg, 0.95)
+    tg = convert.direct_gas(jg, 0.95, dtype=torch.float64, device="cpu")
     Pe = pressuregrid(PT, PS, 9)
     Te = np.maximum(288.0 * (Pe / PS) ** (R_GAS / (MU * CP)), 160.0)
     span = float(nu[-1] - nu[0])
@@ -77,7 +77,7 @@ def test_radiate_matches(col):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-9 * np.abs(b).max(), err_msg=k)
     # fluxes and net_fluxes are radiate's F_up, F_down and F_net (a gray
     # column keeps the two extra calls cheap)
-    gray = ct.GrayGas.create(1e-27, col["nu"])
+    gray = ct.GrayGas.create(1e-27, col["nu"], dtype=torch.float64, device="cpu")
     Fg = ct.radiate(col["Pe"], G, col["Te"], MU, col["fS_t"], 0.1, gray)
     up, dn = ct.fluxes(col["Pe"], G, col["Te"], MU, col["fS_t"], 0.1, gray)
     np.testing.assert_array_equal(up.numpy(), Fg.F_up.numpy())
@@ -118,7 +118,7 @@ def test_gray_olr_vs_analytic(sigma):
 
     g, mu, cp, ps, ts = 10.0, 0.01, 1e3, 1e5, 300.0
     nu = np.concatenate([logrange(1e-6, 1e5, 10000, 4), [1e6]])
-    gas = ct.GrayGas.create(sigma, nu)
+    gas = ct.GrayGas.create(sigma, nu, dtype=torch.float64, device="cpu")
     fT = lambda P: ts * (P / ps) ** (R_GAS / (mu * cp))
     olr_nu = ct.outgoing(ps, g, fT, lambda T, P: mu, gas, Ptop=1e-6, nlobatto=3,
                          nlevels=256, vertical=True)
@@ -129,7 +129,7 @@ def test_gray_olr_vs_analytic(sigma):
 
 def test_transparent_olr_is_sigma_t4():
     nu = np.concatenate([logrange(1e-6, 1e5, 10000, 4), [1e6]])
-    gas = ct.GrayGas.create(1e-35, nu)
+    gas = ct.GrayGas.create(1e-35, nu, dtype=torch.float64, device="cpu")
     olr = float(ct.trapz(gas.nu, ct.outgoing(np.array([1.0, 1e3, 1e5]), G, 290.0, MU, gas)))
     assert olr == pytest.approx(SIGMA_SB * 290.0**4, rel=1e-4)
 
@@ -155,7 +155,7 @@ def test_input_guards(col):
 
 def test_gray_radiate_top_flux_is_the_beam():
     nu = np.linspace(1.0, 3000.0, 256)
-    gas = ct.GrayGas.create(1e-27, nu)
+    gas = ct.GrayGas.create(1e-27, nu, dtype=torch.float64, device="cpu")
     P = np.geomspace(10.0, PS, 24)
     fT = lambda P_: 300.0 * (P_ / PS) ** (R_GAS / (0.01 * 1e3))
     fS = lambda v: torch.full_like(v, 340.0 / 3000.0)

@@ -71,7 +71,7 @@ def _counts():
 def tab():
     par = ct.synthetic_co2_par(300, seed=5)
     jl = JLines.from_par_dict(par)
-    tl = ct.SpectralLines.from_par_dict(par)
+    tl = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device="cpu")
     p64 = tl.positions64()
     nu = np.linspace(max(p64.min() - 25.0, 1.0), p64.max() + 25.0, 1500)
     jd, td = JDomain.create(*DOMAIN), ct.AtmosphericDomain.create(*DOMAIN)
@@ -177,7 +177,7 @@ def test_split_precision_matches(tab):
     assert tab["ts"].lead_idx == tab["js"].lead_idx
     assert tab["ts"].tail_idx == tab["js"].tail_idx
     # on identical full coefficients the bfloat16 tail is bitwise the JAX one
-    ts = convert.gas(tab["jg"], CONC).split_precision(16)
+    ts = convert.gas(tab["jg"], CONC, dtype=torch.float64, device="cpu").split_precision(16)
     assert ts.lead_idx == tab["js"].lead_idx
     assert ts.coeffs_tail.dtype == torch.bfloat16
     np.testing.assert_array_equal(ts.coeffs_tail.float().numpy(),
@@ -223,7 +223,7 @@ def f32(tab):
     jg32 = dataclasses.replace(tab["jg"], nu=tab["jg"].nu.astype(jnp.float32),
                                coeffs=tab["jg"].coeffs.astype(jnp.float32))
     js = jg32.split_precision(16)
-    ts = convert.gas(js, CONC, dtype=torch.float32)
+    ts = convert.gas(js, CONC, dtype=torch.float32, device="cpu")
     Pe32 = tab["Pe"].astype(np.float32)
     Te32 = tab["Te"].astype(np.float32)
     lnPe = jnp.log(jnp.asarray(Pe32))
@@ -313,7 +313,7 @@ def test_mixed_stack_and_table_accuracy(tab):
     as in the JAX package; the table's band OLR is within 1e-4 of the
     direct line sum on the same column."""
     jgray = JGray.create(1e-35, tab["nu"])
-    tgray = ct.GrayGas.create(1e-35, tab["nu"])
+    tgray = ct.GrayGas.create(1e-35, tab["nu"], dtype=torch.float64, device="cpu")
     assert not tft.fused_table_applicable(unify_absorbers((tab["ts"], tgray)))
     a = np.asarray(jf.outgoing(tab["Pe"], G, tab["Te"], MU, tab["js"], jgray))
     b = ct.outgoing(tab["Pe"], G, tab["Te"], MU, tab["ts"], tgray).numpy()
@@ -327,7 +327,7 @@ def test_mixed_stack_and_table_accuracy(tab):
 def test_fused_route_gate_matches(tab):
     """fused_table_applicable holds the JAX package's cases."""
     jgray = JGray.create(1e-28, tab["nu"])
-    tgray = ct.GrayGas.create(1e-28, tab["nu"])
+    tgray = ct.GrayGas.create(1e-28, tab["nu"], dtype=torch.float64, device="cpu")
     cases = [((tab["js"],), (tab["ts"],)), ((tab["jg"],), (tab["tg"],)),
              ((tab["js"], jgray), (tab["ts"], tgray)), ((jgray,), (tgray,))]
     for jabs, tabs in cases:
@@ -344,7 +344,8 @@ def test_check_pressures_guards_the_table_domain(tab, column):
           "surface_above_domain": ct.pressuregrid(PT, 2.0 * PS, 12),
           "inside": tab["Pe"]}[column]
     Te = np.maximum(288.0 * (Pe / Pe[-1]) ** (R_GAS / (MU * CP)), 160.0)
-    stack = unify_absorbers((tab["ts"], ct.GrayGas.create(1e-30, tab["nu"])))
+    gray = ct.GrayGas.create(1e-30, tab["nu"], dtype=torch.float64, device="cpu")
+    stack = unify_absorbers((tab["ts"], gray))
     assert pressure_limits(stack) == (0.9 * PT, 1.01 * PS)
     assert temperature_limits(stack) == (150.0, 350.0)
     if column == "inside":
@@ -357,13 +358,14 @@ def test_check_pressures_guards_the_table_domain(tab, column):
     with pytest.raises(ValueError, match="gas table domain"):
         ct.radiate(Pe, G, Te, MU, 0.0, 0.1, tab["tg"])
     # a stack without a table has no pressure domain
-    ct.outgoing(Pe, G, Te, MU, ct.GrayGas.create(1e-30, tab["nu"]))
+    ct.outgoing(Pe, G, Te, MU,
+                ct.GrayGas.create(1e-30, tab["nu"], dtype=torch.float64, device="cpu"))
 
 
 @pytest.mark.parametrize("mode", ["full", "split"])
 def test_convert_gas_round_trip(tab, mode):
     jgas = tab["jg"] if mode == "full" else tab["js"]
-    g = convert.gas(jgas, CONC)
+    g = convert.gas(jgas, CONC, dtype=torch.float64, device="cpu")
     np.testing.assert_array_equal(g.coeffs.numpy(), np.asarray(jgas.coeffs))
     np.testing.assert_array_equal(g.nu.numpy(), np.asarray(jgas.nu))
     assert (g.lead_idx, g.tail_idx) == (jgas.lead_idx, jgas.tail_idx)
