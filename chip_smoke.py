@@ -54,7 +54,26 @@ prints one line that starts with its name:
           K6 and K7); the table band OLR against the DirectGas one of
           ``main``; a split Gas beside a gray gas, which takes the unfused
           route (raw_sigma, K2)
-  profile for each main-path, table-path and route call, its unprofiled
+  mix     HITRAN files at full-catalog size: co2.par (40,000 synthetic CO2
+          lines), h2o.par (20,000 H2O lines) and CO2-CO2.cia, written from
+          the seed and read back by the port's readers; the MultiGas (CO2 at
+          4e-4, H2O through fC(T, P)) on 2^19 points over 10-3000 cm^-1 and
+          the main column's 57 states, whose route auto must take
+          segmented (route, segments, pack bytes, budget); ``kernel`` lines
+          for K1-seg on the mix and K4 (lane) and K5 (gathered) on its CO2
+          catalog at 4 states and at the main path's 57 (K1-seg's 8 state
+          tiles, K5's 19 groups of 3 states); outgoing and radiate on
+          (MultiGas, CIA) and outgoing without the CIA (only K1-seg and
+          K2/K3 launch); the RCM
+          on the mix at 16,384 points (the route auto prints there, and K3;
+          heating against the float64 version); outgoing on the CO2 catalog
+          with strategy "lane" and "gathered" (their kernel and K2 only,
+          band OLR within 1e-4 of auto's); the CIA in float32 against
+          float64, and its share of outgoing (the host bind at the stack's
+          creation, the pair's sigma on the card); and ms per call of the default segmented route, one K1
+          launch over the whole catalog and the coarse route at the mix
+          shape
+  profile for each main-path, table-path, route and mix call, its unprofiled
           wall time beside the device time that torch.profiler traces (CUDA
           activity), each kernel's share (K1 by mode) and the device's idle
           share, 1 - device / wall; it runs after the launch counts are read
@@ -75,6 +94,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -90,6 +110,13 @@ N_LEVELS = 20
 G, MU, CP, PS, PT = 9.8, 0.044, 850.0, 1e5, 10.0
 CONC = 0.95
 RCM_DT = 3600.0  # s
+# the mix: HITRAN-format files of synthetic CO2 and H2O lines and a CO2-CO2
+# continuum, merged on 2^19 points over 10-3000 cm^-1 (lines read within
+# the cut of that range)
+N_CO2_MIX, N_H2O_MIX = 40000, 20000
+MIX_NU = (10.0, 3000.0)
+MIX_CO2 = 4e-4
+N_MIX_KERNEL_STATES = 4
 _LINESUM = "clearsky_tpu_torch/csrc/linesum.cu"
 _PALLAS = "clearsky_tpu/ops/linesum_pallas.py"
 KERNELS = {
@@ -99,6 +126,9 @@ KERNELS = {
     "linesum_fine_stencil": (_LINESUM, f"{_PALLAS}:459"),    # wmode fine_stencil
     "linesum_coarse": (_LINESUM, f"{_PALLAS}:478"),          # wmode coarse
     "stencil_correction": (_LINESUM, f"{_PALLAS}:1233"),     # _stencil_apply
+    "linesum_segmented": (_LINESUM, f"{_PALLAS}:658"),       # K1-seg, _pallas_sigma_segmented
+    "linesum_lane": (_LINESUM, f"{_PALLAS}:1473"),           # K4, _kernel_resident
+    "linesum_gathered": (_LINESUM, f"{_PALLAS}:1517"),       # K5, _kernel
     "olr_march": ("clearsky_tpu_torch/csrc/march.cu", "clearsky_tpu/rt/march_pallas.py:158"),
     "monoflux_march": ("clearsky_tpu_torch/csrc/march.cu", "clearsky_tpu/rt/march_pallas.py:94"),
     "fused_olr": ("clearsky_tpu_torch/csrc/fused_table.cu", "clearsky_tpu/rt/fused_table.py:74"),
@@ -107,7 +137,9 @@ KERNELS = {
 }
 # K1's template modes (csrc/linesum.cu ``Mode``) by the kernel names above
 MODE_KERNEL = {"voigt_split": "linesum", "farall": "linesum_farall", "fine": "linesum_fine",
-               "fine_stencil": "linesum_fine_stencil", "coarse": "linesum_coarse"}
+               "fine_stencil": "linesum_fine_stencil", "coarse": "linesum_coarse",
+               "segmented": "linesum_segmented", "lane": "linesum_lane",
+               "gathered": "linesum_gathered"}
 LIBRARIES = ("linesum", "march", "fused_table")
 TABLE_DOMAIN = ((150.0, 350.0), 12, (0.9 * PT, 1.01 * PS), 24)
 TABLE_SPLIT = 16
@@ -211,22 +243,31 @@ def w4_ops(x, y) -> float:
     return float(ops + sum(c * int(m.sum()) for c, m in zip(W4_REGION, (r1, r2, r3, r4))))
 
 
-def near_w4_ops(grid, pos, ia, y0, d_near: float) -> float:
+def near_w4_ops(grid, pos, ia, y0, d_near: float, max_elems: int = 2**25) -> float:
     """Operations of the w4 tiles of the (point, line) pairs within d_near,
-    for every state (ia, y0: [n_states, n_lines] on the card)."""
+    for every state (ia, y0: [n_states, n_lines] on the card), in runs of
+    lines of at most ``max_elems`` (pair, state) elements."""
     lo = np.searchsorted(grid, pos - d_near, side="left")
     hi = np.searchsorted(grid, pos + d_near, side="right")
-    cnt = hi - lo
-    line = np.repeat(np.arange(len(pos)), cnt)
-    point = np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt) + np.repeat(lo, cnt)
-    keep = np.abs(grid[point] - pos[line]) <= d_near
-    line, dnu = line[keep], (grid[point] - pos[line])[keep]
-    if line.size == 0:
-        return 0.0
-    dev = ia.device
-    li = torch.as_tensor(line, device=dev)
-    x = torch.as_tensor(dnu, dtype=torch.float32, device=dev)[None, :] * ia[:, li]
-    return w4_ops(x, y0[:, li].expand_as(x)) + 2.0 * x.numel()
+    csum = np.cumsum(hi - lo)
+    per = max(1, max_elems // ia.shape[0])
+    total, a = 0.0, 0
+    while a < len(pos):
+        before = int(csum[a - 1]) if a else 0
+        b = max(a + 1, int(np.searchsorted(csum, before + per, side="right")))
+        cnt = hi[a:b] - lo[a:b]
+        line = np.repeat(np.arange(a, b), cnt)
+        point = (np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+                 + np.repeat(lo[a:b], cnt))
+        keep = np.abs(grid[point] - pos[line]) <= d_near
+        line, dnu = line[keep], (grid[point] - pos[line])[keep]
+        if line.size:
+            dev = ia.device
+            li = torch.as_tensor(line, device=dev)
+            x = torch.as_tensor(dnu, dtype=torch.float32, device=dev)[None, :] * ia[:, li]
+            total += w4_ops(x, y0[:, li].expand_as(x)) + 2.0 * x.numel()
+        a = b
+    return total
 
 
 def column(Pe):
@@ -1092,6 +1133,488 @@ def phase_table(gs, dev, direct_olr):
     return calls, counts
 
 
+# --- the mix: HITRAN files, a gas mixture at full-catalog size, CIA ----------
+
+def fc_h2o(T, P):
+    """The water concentration fC(T, P) of the mix: moist near the surface,
+    dry aloft and in the cold."""
+    return 1e-6 + 0.02 * (P / PS) ** 2 * torch.clamp((T - 160.0) / 130.0, 0.0, 1.0)
+
+
+def write_mix_files(seed: int, directory: str) -> dict:
+    """co2.par (40,000 CO2 lines), h2o.par (20,000 H2O lines) and
+    CO2-CO2.cia in HITRAN's formats, made from ``seed``."""
+    from clearsky_tpu_torch.spectra import synthetic as syn
+
+    paths = {k: os.path.join(directory, f) for k, f in
+             (("co2", "co2.par"), ("h2o", "h2o.par"), ("cia", "CO2-CO2.cia"))}
+    syn.write_par(paths["co2"], syn.synthetic_co2_par(N_CO2_MIX, seed=seed + 40))
+    syn.write_par(paths["h2o"], syn.synthetic_h2o_par(N_H2O_MIX, seed=seed + 41))
+    syn.write_cia(paths["cia"], syn.synthetic_co2_cia(seed=seed + 42))
+    return paths
+
+
+def mix_states(dev):
+    """The main column's 57 Lobatto states, and four of them (the lowest
+    and highest pressures and two between) for the kernel lines."""
+    T, P, _ = main_states(dev)
+    pick = torch.as_tensor(np.linspace(0, T.shape[0] - 1, N_MIX_KERNEL_STATES).round(),
+                           dtype=torch.int64, device=dev)
+    check(float(P[pick].min()) == float(P.min()) and float(P[pick].max()) == float(P.max()),
+          "the kernel states miss the column's extreme pressures")
+    return (T, P), (T[pick].contiguous(), P[pick].contiguous())
+
+
+def phase_mix_build(seed, dev, directory):
+    """Write and read the files, build the mixture with the default
+    constructors, and report the route auto takes at the main column."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    t0 = time.perf_counter()
+    paths = write_mix_files(seed, directory)
+    t1 = time.perf_counter()
+    lo, hi = MIX_NU[0] - 25.0, MIX_NU[1] + 25.0
+    co2 = ct.SpectralLines.from_par(paths["co2"], numin=lo, numax=hi)
+    h2o = ct.SpectralLines.from_par(paths["h2o"], numin=lo, numax=hi)
+    check(co2.device.type == "cuda" and co2.dtype == torch.float32,
+          "the catalogs read with the defaults are not float32 on the card")
+    nu = np.linspace(*MIX_NU, N_NU_MAIN)
+    mg = ct.MultiGas.from_lines([(co2, MIX_CO2), (h2o, fc_h2o)], nu)
+    cia = ct.CIATables.from_file(paths["cia"], singles=True)
+    t2 = time.perf_counter()
+    (T, P), states4 = mix_states(dev)
+    n = int(T.shape[0])
+    plan, lines = mg.plan, mg.lines
+    route, L_seg = ls._resolve(plan, lines, "voigt", "auto", n)
+    budget = ls.resident_budget(dev)
+    pack = ls._resident_bytes_est(lines.n_lines, plan.slab, ls._grouped_lane_cost("voigt", "auto", n))
+    stencil_pack = ls._resident_bytes_est(lines.n_lines, plan.slab,
+                                          ls._grouped_lane_cost("voigt", "stencil", n))
+    segs = ls.segments(plan, lines.n_lines, L_seg) if route == "segmented" else []
+    pos = lines.positions64()
+    emit("mix", step="build", co2_lines=co2.n_lines, h2o_lines=h2o.n_lines,
+         merged_lines=lines.n_lines, cia_ranges=len(cia.grids) + len(cia.singles_data),
+         write_seconds=t1 - t0, read_and_build_seconds=t2 - t1, points=N_NU_MAIN,
+         nu_range=list(MIX_NU), states=n, route=route, segment_lines=L_seg,
+         segments=len(segs), segment_lines_each=[s.b - s.a for s in segs],
+         pack_bytes=pack, stencil_pack_bytes=stencil_pack, budget_bytes=budget,
+         slab=plan.slab, window_pairs=pairs_within(plan.nu, pos, plan.cut))
+    check(lines.n_lines >= 50000, f"the mix has {lines.n_lines} lines, not >= 50,000")
+    check(route == "segmented", f"auto takes {route} on the mix, not segmented")
+    return dict(co2=co2, h2o=h2o, mg=mg, cia=cia, nu=nu, states=(T, P), states4=states4,
+                L_seg=L_seg, paths=paths)
+
+
+def _seg_bound(plan, lines, S, alpha, gamma, L_seg, n):
+    """K1-seg's bound on this run's data: per segment, the split mode's
+    pairs (region 1 beyond the segment's own d_near, w4 by region within
+    it), its grid, positions, pack and windows read once; sigma written
+    once."""
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import voigt_coefficients
+
+    pos = lines.positions64()
+    ops, nb = 0.0, 4 * n * plan.n_nu
+    for s in ls.segments(plan, lines.n_lines, L_seg):
+        grid = plan.nu[s.blo * plan.block: s.blo * plan.block + s.n_out]
+        p = pos[s.a:s.b]
+        a_, g_ = alpha[:, s.a:s.b], gamma[:, s.a:s.b]
+        d_near = float(torch.clamp(15.0 * a_.max(), max=plan.cut))
+        ia, y0 = voigt_coefficients(S[:, s.a:s.b], a_, g_)[1:3]
+        pairs = pairs_within(grid, p, plan.cut)
+        near = pairs_within(grid, p, d_near)
+        ops += (pairs * PAIR_OPS + (pairs - near) * n * R1_OPS
+                + near_w4_ops(grid, p, ia, y0, d_near))
+        tiles = -(-n // 8)
+        nb += (8 * (s.bhi - s.blo) * plan.block + 8 * (s.b - s.a)
+               + 4 * 7 * 8 * tiles * (s.b - s.a) + 8 * (s.bhi - s.blo))
+    return bound(ops, nb)
+
+
+def _full_bound(plan, lines, S, alpha, gamma, n, layout_bytes):
+    """K4/K5's bound on this run's data: w4 by region at every in-cut pair
+    and state, and the two-float dnu per pair; the layout's bytes read
+    once and sigma written once."""
+    from clearsky_tpu_torch.ops.linesum import voigt_coefficients
+
+    pos = lines.positions64()
+    ia, y0 = voigt_coefficients(S, alpha, gamma)[1:3]
+    pairs = pairs_within(plan.nu, pos, plan.cut)
+    ops = pairs * PAIR_OPS + near_w4_ops(plan.nu, pos, ia, y0, plan.cut)
+    return bound(ops, layout_bytes + 8 * plan.n_blocks * plan.block + 4 * n * plan.n_nu)
+
+
+def _mix_line(name, out, ref, ref32, edge, ms, plain_ms, b, report, **extra):
+    max_abs, max_rel, ok = check_sigma(out, ref, edge, ref32)
+    n, n_nu = out.shape
+    emit("kernel", kernel=name, points=n_nu, states=n, max_abs_err=max_abs, max_rel_err=max_rel,
+         bar="rtol 2e-3 where |sigma| > 1e-35 (atol 1e-32)", cut_edge_points=int(edge.sum()),
+         ms=ms, plain_ms_one_call=plain_ms, plain_shape="same", **extra, **b)
+    check(ok, f"{name} at {n} states disagrees with its float64 plain version: "
+              f"max rel {max_rel:.3e}")
+    if report is None:
+        return
+    report[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+                        shape=f"{n} states x {n_nu} points", **b)
+
+
+def kernel_mix(mix, dev, states, report=None):
+    """K1-seg on the mix, K4 and K5 on its CO2 catalog at ``states`` (T, P)
+    on 2^19 points, each against its float64 plain version (float32 at the
+    cut edges). At the main path's 57 states K1-seg runs 8 state tiles in
+    each segment and K5 19 groups of 3 states, as on the main path; those
+    lines go in ``report``. K4's float64 sum is K5's reference too: both
+    plain versions are the exact profile over each block's window, and a
+    float64 gather of 57 states' slabs would take 33 GB."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import _line_params
+
+    mg, L_seg = mix["mg"], mix["L_seg"]
+    T4, P4 = states
+    n = int(T4.shape[0])
+    x64 = (T4.double(), P4.double())
+    # K1-seg on the mixture, its per-state concentrations folded per line
+    lines, plan = mg.lines, mg.plan
+    c32 = mg._conc(T4, P4)
+    out = lc.sigma_segmented(plan, lines, T4, P4, P4, L_seg, conc=c32)
+    torch.cuda.synchronize()
+
+    # the kernels alone: each segment's pack built beforehand
+    prepared = []
+    for seg, grid in lc._segment_windows(plan, lines.n_lines, L_seg, dev):
+        sub = ls._slice_lines(lines, seg.a, seg.b)
+        S, a, g = _line_params(sub, T4, P4, P4, c32[:, seg.a:seg.b])
+        prepared.append((seg, grid, sub, lc.pack_coefficients(0, S, a, g),
+                         lc.near_distance(a, plan.cut)))
+    acc = torch.zeros((n, plan.n_nu), device=dev)
+
+    def kernels_only():
+        acc.zero_()
+        for seg, grid, sub, coef, d_near in prepared:
+            lc.launch_mode(0, grid, sub, coef, n, seg.n_out, lc._zones(plan.cut), d_near,
+                           out=acc[:, seg.blo * plan.block:], count_as="segmented")
+
+    ms = cuda_ms(kernels_only)
+    wrapper_ms = cuda_ms(lambda: lc.sigma_segmented(plan, lines, T4, P4, P4, L_seg, conc=c32))
+    n_segs = len(prepared)
+    del prepared, acc
+    ref = ls.sigma_segmented_plain(plan, lines.to(torch.float64), *x64, x64[1], L_seg,
+                                   conc=mg._conc(*x64))
+    ref32, plain_ms = one_call(lambda: ls.sigma_segmented_plain(plan, lines, T4, P4, P4, L_seg,
+                                                                conc=c32))
+    edge = cut_edges(plan, lines.positions64())
+    S, a, g = _line_params(lines, T4, P4, P4, c32)
+    b = _seg_bound(plan, lines, S, a, g, L_seg, n)
+    _mix_line("linesum_segmented", out, ref, ref32, edge, ms, plain_ms, b, report,
+              lines=lines.n_lines, segments=n_segs, segment_lines=L_seg, state_tiles=-(-n // 8),
+              wrapper_ms=wrapper_ms)
+    del out, ref, ref32
+
+    # K4 and K5 on the CO2 catalog
+    co2 = mix["co2"]
+    cplan = ct.DirectGas.from_lines(co2, MIX_CO2, mix["nu"], strategy="lane").plan
+    Pp4 = MIX_CO2 * P4
+    x64 = (T4.double(), P4.double(), Pp4.double())
+    edge = cut_edges(cplan, co2.positions64())
+    S, a, g = _line_params(co2, T4, P4, Pp4)
+    grid = cplan.device_arrays(dev)
+    ref = None
+    for name, kern, plain in (("linesum_lane", lc.sigma_lane, ls.sigma_lane_plain),
+                              ("linesum_gathered", lc.sigma_gathered, ls.sigma_gathered_plain)):
+        out = kern(cplan, co2, T4, P4, Pp4)
+        torch.cuda.synchronize()
+        if name == "linesum_lane":
+            lay = ls.lane_layout(cplan, co2, S, a, g)
+            win = torch.as_tensor(lay.windows, dtype=torch.int32, device=dev)
+            st, cn = win[:, 0].contiguous(), win[:, 1].contiguous()
+            launch = lambda: lc.launch_fullprofile("voigt", False, grid, lay.nu, lay.nu_lo,
+                                                   lay.S, lay.alpha, lay.gamma, st, cn,
+                                                   lay.nu.shape[0], cplan.cut, cplan.n_nu)
+            layout_bytes = 8 * lay.nu.shape[0] + 12 * n * lay.nu.shape[0] + 8 * cplan.n_blocks
+            extra = dict(lines_padded=int(lay.nu.shape[0]))
+        else:
+            # the wrapper's state groups, each one's slabs gathered beforehand
+            step = lc.gather_group(cplan)
+            cn = grid["win"][:, 1].contiguous()
+            acc = torch.empty((n, cplan.n_nu), device=dev)
+            groups = [(i, ls.gathered_slabs(cplan, co2, S[i:i + step], a[i:i + step],
+                                            g[i:i + step])) for i in range(0, n, step)]
+            slab_pad = groups[0][1].slab_pad
+
+            def launch():
+                for i, gs in groups:
+                    lc.launch_fullprofile("voigt", True, grid, gs.nu, gs.nu_lo, gs.S, gs.alpha,
+                                          gs.gamma, cn, cn, slab_pad, cplan.cut, cplan.n_nu,
+                                          out=acc[i:i + gs.S.shape[0]])
+
+            slab_bytes = 12 * n * cplan.n_blocks * slab_pad
+            layout_bytes = (slab_bytes + len(groups) * (8 * cplan.n_blocks * slab_pad
+                                                        + 4 * cplan.n_blocks))
+            extra = dict(slab_pad=slab_pad, gathered_slab_bytes=slab_bytes,
+                         gathered_slab_bytes_per_state=slab_bytes // n,
+                         mix_slab_bytes_per_state=12 * plan.n_blocks
+                         * (-(-plan.slab // 128) * 128),
+                         states_per_launch=step, launches_per_call=len(groups))
+        ms = cuda_ms(launch, n=3, warmup=1)
+        if name == "linesum_gathered":
+            del groups, acc
+        wrapper_ms = cuda_ms(lambda: kern(cplan, co2, T4, P4, Pp4), n=3, warmup=1)
+        if ref is None:
+            ref = ls.sigma_lane_plain(cplan, co2.to(torch.float64), *x64)
+        ref32, plain_ms = one_call(lambda: plain(cplan, co2, T4, P4, Pp4))
+        b = _full_bound(cplan, co2, S, a, g, n, layout_bytes)
+        _mix_line(name, out, ref, ref32, edge, ms, plain_ms, b, report, lines=co2.n_lines,
+                  wrapper_ms=wrapper_ms, float64_reference="sigma_lane_plain", **extra)
+        del out, ref32
+
+
+def phase_mix_entry(mix, dev):
+    """outgoing and radiate on (MultiGas, CIA tables) at 2^19 points with the
+    default constructors, and outgoing without the CIA, each with its own
+    launch counts."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.constants import SIGMA_SB
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    mg, cia, nu = mix["mg"], mix["cia"], mix["nu"]
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    span = float(nu[-1] - nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    calls = {"mix_outgoing": lambda: ct.outgoing(Pe, G, Te, MU, mg, cia),
+             "mix_radiate": lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, mg, cia),
+             "mix_outgoing_without_cia": lambda: ct.outgoing(Pe, G, Te, MU, mg)}
+    out, counts = {}, {}
+    for name, fn in calls.items():
+        counts_reset()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        counts[name] = {k: v for k, v in counts_read().items() if v}
+    olr, F, olr_lines = out.values()
+    nu64 = torch.as_tensor(nu, device=dev)
+    band, band_lines = (float(ct.trapz(nu64, x.double())) for x in (olr, olr_lines))
+    bb = SIGMA_SB * Te[-1] ** 4
+    ms = {k: wall_ms(fn) for k, fn in calls.items()}
+    emit("mix", step="entry_points", points=N_NU_MAIN, levels=N_LEVELS, streams=5,
+         routes={k: ls.route(mg.plan, mg.lines, "voigt", "auto", n_states=n)
+                 for k, n in (("outgoing", 57), ("radiate", 38))}, band_olr_W_m2=band, band_olr_without_cia_W_m2=band_lines, sigma_Ts4_W_m2=float(bb),
+         F_net_toa_W_m2=float(F.F_net[0]), F_down_surface_W_m2=float(F.F_down[-1]),
+         ms_per_call=ms, launches=counts)
+    for k in ("F_up", "F_down", "F_net"):
+        check(bool(torch.isfinite(getattr(F, k)).all()), f"mix radiate {k} is not finite")
+    check(bool(torch.isfinite(olr).all()) and 0.0 < band <= band_lines < bb,
+          f"mix band OLR with CIA {band}, without {band_lines}: not 0 < with <= without < "
+          f"sigma Ts^4")
+    # each call launches the route auto takes at its own number of states
+    # (outgoing: 57 Lobatto states, radiate: 38), and its march
+    routes = {}
+    for name, march, n in (("mix_outgoing", "olr_march", 57), ("mix_radiate", "monoflux_march", 38),
+                           ("mix_outgoing_without_cia", "olr_march", 57)):
+        routes[name] = ls.route(mg.plan, mg.lines, "voigt", "auto", n_states=n)
+        check(set(counts[name]) == ROUTE_KERNELS[routes[name]] | {march},
+              f"{name} launched {counts[name]}, not only the {routes[name]} route and {march}")
+    check(routes["mix_outgoing"] == "segmented", "outgoing on the mix does not run segmented")
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return dict(Pe=Pe, Te=Te), calls, total
+
+
+def phase_mix_rcm(mix, dev):
+    """RCM.create and 3 x (update_absorber, step) on the mixture and its CIA
+    at 16,384 points; returns what :func:`check_mix_rcm` needs."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    nu = np.linspace(*MIX_NU, N_NU_RCM)
+    mg = ct.MultiGas.from_lines([(mix["co2"], MIX_CO2), (mix["h2o"], fc_h2o)], nu)
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    route = ls.route(mg.plan, mg.lines, "voigt", "auto", n_states=N_LEVELS)
+    span = float(nu[-1] - nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    rcm = ct.RCM.create(Pe, column(Pe), G, lambda T, P: MU, fS, 0.1, lambda T, P: CP, 1e7, mg,
+                        mix["cia"], radmul=2)
+    ms_steps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rcm = ct.step(ct.update_absorber(rcm), RCM_DT)
+        torch.cuda.synchronize()
+        ms_steps.append(1e3 * (time.perf_counter() - t0))
+    check(bool(torch.isfinite(rcm.T).all()), "mix RCM temperatures are not finite")
+    return ct.update_absorber(rcm), ms_steps, mg, route
+
+
+# the kernels each route launches (csrc/linesum.cu), by KERNELS name
+ROUTE_KERNELS = {"segmented": {"linesum_segmented"}, "grouped": {"linesum"},
+                 "stencil": {"linesum_farall", "stencil_correction"},
+                 "coarse": {"linesum_coarse", "linesum_fine_stencil", "stencil_correction"},
+                 "lane": {"linesum_lane"}, "gathered": {"linesum_gathered"}}
+
+
+def check_mix_rcm(rcm, ms_steps, mg, route, cia):
+    """The mix RCM's heating on the card against the plain float64 version
+    of the same state: its cross-sections cached on the card through a
+    callable absorber (the exact line sum of the float64 catalog with the
+    same per-line concentrations, plus the float64 CIA pair), its march on
+    the host."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.absorption.cia import CIA
+    from clearsky_tpu_torch.ops.linesum import sigma_from_lines
+
+    dev = rcm.nu.device
+    H = ct.heating(rcm).double()
+    m64 = dataclasses.replace(mg, lines=mg.lines.to(torch.float64))
+    nu64 = torch.as_tensor(mg.plan.nu, device=dev)
+    pair = CIA.pair(cia.bind(mg.plan.nu, dtype=torch.float64, device=dev), m64.components())
+
+    def sigma64(nu, T, P):
+        T, P = T[..., 0], P[..., 0]
+        return (sigma_from_lines(m64.plan, m64.lines, T, P, P, conc=m64._conc(T, P))
+                + pair.sigma(T, P))
+
+    zero = ct.GrayGas.create(0.0, mg.plan.nu, dtype=torch.float64, device=dev)
+    A = ct.AcceleratedAbsorber.create(rcm.A.T.double(), rcm.Pe.double(), zero, sigma64)
+    check(torch.equal(A.nu, nu64), "the reference grid is not the mix grid")
+    # the cross-sections are cached on the card; the march runs on the host
+    # (the kernels take float32 only)
+    host = lambda x: x.double().cpu()
+    A = dataclasses.replace(A, ln_sigma=host(A.ln_sigma), lnP=host(A.lnP), T=host(A.T),
+                            nu=host(A.nu))
+    ref = dataclasses.replace(rcm, Pe=host(rcm.Pe), P=host(rcm.P), T=host(rcm.T),
+                              Pr=host(rcm.Pr), S_nu=host(rcm.S_nu), a_nu=host(rcm.a_nu), A=A)
+    H_ref = ct.heating(ref)
+    err = float((H.cpu() - H_ref).abs().max() / H_ref.abs().max())
+    emit("mix", step="rcm", points=N_NU_RCM, edge_levels=N_LEVELS, route=route,
+         lines=mg.lines.n_lines, ms_per_step=ms_steps, T_min_K=float(rcm.T.min()),
+         T_max_K=float(rcm.T.max()), heating_err_of_peak=err,
+         heating_peak_K_per_day=float(H_ref.abs().max() * 86400))
+    check(err < 5e-3, f"mix RCM heating off the float64 version by {err:.3e} of peak")
+
+
+def phase_mix_strategies(mix, entry, dev):
+    """outgoing on the CO2 catalog as DirectGas with strategy "lane" and
+    "gathered": each launches its own kernel and K2 only, and its band OLR
+    is within 1e-4 of auto's. Returns the launch counts of the two runs."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    co2, nu, Pe, Te = mix["co2"], mix["nu"], entry["Pe"], entry["Te"]
+    nu64 = torch.as_tensor(nu, device=dev)
+    auto = ct.DirectGas.from_lines(co2, MIX_CO2, nu)
+    n = int(mix["states"][0].shape[0])
+    auto_route = ls.route(auto.plan, co2, "voigt", "auto", n_states=n)
+    band_auto = float(ct.trapz(nu64, ct.outgoing(Pe, G, Te, MU, auto).double()))
+    counts, out = {}, {}
+    for strategy in ("lane", "gathered"):
+        gas = ct.DirectGas.from_lines(co2, MIX_CO2, nu, strategy=strategy)
+        check(ls.route(gas.plan, co2, "voigt", strategy, n_states=n) == strategy,
+              f"strategy {strategy} does not take its own route on the CO2 catalog")
+        counts_reset()
+        olr, ms = one_call(lambda: ct.outgoing(Pe, G, Te, MU, gas))
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts_read().items() if v}
+        counts[strategy] = got
+        band = float(ct.trapz(nu64, olr.double()))
+        rel = abs(band - band_auto) / band_auto
+        out[strategy] = dict(band_olr_W_m2=band, rel_to_auto=rel, outgoing_ms_one_call=ms,
+                             launches=got)
+        check(set(got) == {f"linesum_{strategy}", "olr_march"},
+              f"outgoing on strategy {strategy} launched {got}")
+        check(rel < 1e-4, f"band OLR on {strategy} off auto's by {rel:.3e}")
+    emit("mix", step="strategies", lines=co2.n_lines, auto_route=auto_route,
+         auto_band_olr_W_m2=band_auto, bar=1e-4, **out)
+    return counts
+
+
+def phase_mix_cia(mix, dev):
+    """CIA in float32 on the card: the mix stack's sigma is finite, and the
+    CIA pair's sigma agrees with float64 (same grid) within 1e-5 where that
+    exceeds 1e-30 of its peak and float32's smallest normal number (the
+    cross-section itself, ~1e-31 cm^2 at its peak here, leaves float32's
+    range 1e-30 below it). The bound tables are float64 whatever the dtype
+    asked for (``BoundCIA``), so this checks the float32 conversion
+    (``cia_xsec_scaled``) and the final cast, not a float32 table. At the
+    mix's 4e-4 of CO2 the continuum moves the band OLR by ~1e-9 of it,
+    below float32's resolution, so the OLR check runs on a CO2-rich column
+    (the CO2 catalog at 0.95): band OLR with the CIA is below band OLR
+    without it. Also the CIA's share of a mix ``outgoing``: the host's bind
+    of the tables to the grid (the stack's creation, at every call) and
+    the pair's sigma at the 57 states on the card."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.absorption.absorbers import unify_absorbers
+    from clearsky_tpu_torch.absorption.cia import CIA
+    from clearsky_tpu_torch.constants import LOSCHMIDT
+
+    mg, cia = mix["mg"], mix["cia"]
+    T4, P4 = mix["states4"]
+    stack = unify_absorbers((mg, cia))
+    sig = stack.sigma(T4, P4)
+    s32 = stack.cias[0].sigma(T4, P4)
+    grid32 = mg.nu.double().cpu().numpy()
+    pair64 = CIA.pair(cia.bind(grid32, dtype=torch.float64, device=dev), mg.components())
+    s64 = pair64.sigma(T4.double(), P4.double())
+    torch.cuda.synchronize()
+    tiny = torch.finfo(torch.float32).tiny
+    m = (s64 > 1e-30 * s64.max()) & (s64 > tiny)
+    rel = float(((s32.double() - s64).abs()[m] / s64[m]).max())
+    rich = ct.DirectGas.from_lines(mix["co2"], 0.95, mix["nu"])
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    nu64 = torch.as_tensor(mix["nu"], device=dev)
+    band = {k: float(ct.trapz(nu64, ct.outgoing(Pe, G, Te, MU, *a).double()))
+            for k, a in (("with_cia", (rich, cia)), ("without_cia", (rich,)))}
+    T, P = mix["states"]
+    share = dict(stack_create_wall_ms_with_cia=wall_ms(lambda: unify_absorbers((mg, cia))),
+                 stack_create_wall_ms_without_cia=wall_ms(lambda: unify_absorbers((mg,))),
+                 cia_sigma_cuda_event_ms_57_states=cuda_ms(lambda: stack.cias[0].sigma(T, P)),
+                 cia_k_cuda_event_ms_57_states=cuda_ms(
+                     lambda: stack.cias[0].tables.k(T, scale=math.log(LOSCHMIDT))))
+    emit("mix", step="cia_float32", states=int(T4.shape[0]), stack_finite=bool(
+        torch.isfinite(sig).all()), cia_peak_cm2=float(s64.max()),
+         cia_min_compared_cm2=float(s64[m].min()), points_compared=int(m.sum()),
+         max_rel_err=rel, bar=1e-5, cia_f32_zero_where_f64_compared=int((s32[m] == 0).sum()),
+         points_above_1e30_of_peak_below_f32_normal=int(
+             ((s64 > 1e-30 * s64.max()) & (s64 <= tiny)).sum()),
+         co2_rich_band_olr_W_m2=band, **share)
+    check(bool(torch.isfinite(sig).all()), "the mix stack's float32 sigma is not finite")
+    check(bool((s32[m] > 0).all()) and rel < 1e-5,
+          f"float32 CIA off float64 by {rel:.3e} (or zero where float64 is not)")
+    check(band["with_cia"] < band["without_cia"],
+          f"the CIA does not lower the CO2-rich band OLR: {band}")
+
+
+def phase_mix_l2(mix, dev):
+    """The L2 hypothesis at the mix shape: ms per call of the default
+    (segmented) route, one K1 launch over the whole catalog and the coarse
+    route, taken in turns, twice."""
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum_cuda import sigma_routed
+
+    mg = mix["mg"]
+    T, P = mix["states"]
+    n = int(T.shape[0])
+    conc = mg._conc(T, P)
+    big = 2**40
+    cases = {"segmented_default": dict(), "grouped_whole": dict(strategy="grouped",
+                                                                 resident_limit=big),
+             "coarse_forced": dict(strategy="coarse", resident_limit=big)}
+    calls = {}
+    for name, kw in cases.items():
+        route = ls.route(mg.plan, mg.lines, "voigt", kw.get("strategy", "auto"), n_states=n,
+                         resident_limit=kw.get("resident_limit"))
+        check(route == name.split("_")[0], f"{name} takes the route {route}")
+        calls[name] = lambda kw=kw: sigma_routed(mg.plan, mg.lines, T, P, P, conc=conc, **kw)
+    rounds = [{name: cuda_ms(fn, n=5, warmup=1) for name, fn in calls.items()} for _ in range(2)]
+    emit("mix", step="l2_routes", states=n, points=N_NU_MAIN, lines=mg.lines.n_lines,
+         budget_bytes=ls.resident_budget(dev), cuda_event_ms_per_call_round1=rounds[0],
+         cuda_event_ms_per_call_round2=rounds[1])
+    return {f"mix_sigma_{k}": v for k, v in calls.items()}
+
+
 def _busy_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, -math.inf
@@ -1102,11 +1625,14 @@ def _busy_us(intervals):
     return total
 
 
-# K1's template instances by mode number (csrc/linesum.cu ``Mode``), in the
-# demangled (linesum_kernel<3>) or mangled (linesum_kernelILi3E) name
+# K1's template instances by mode number (csrc/linesum.cu ``Mode``) and its
+# accumulate flag (K1-seg), and K4/K5 by their gathered flag, in the
+# demangled (linesum_kernel<3, false>) or mangled (linesum_kernelILi3ELb0E)
+# name
 _K1_MODE = {0: "linesum", 3: "linesum_farall", 4: "linesum_fine", 5: "linesum_fine_stencil",
             6: "linesum_coarse"}
-_K1_NAME = re.compile(r"linesum_kernel(?:<|ILi)(\d+)")
+_K1_NAME = re.compile(r"linesum_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))?")
+_FULL_NAME = re.compile(r"fullprofile_kernel(?:<|ILi)\d+(?:, ?(true|false)|ELb([01]))")
 _OTHER_KERNELS = {k: re.compile(rf"\b{v}\b") for k, v in (
     ("stencil_correction", "stencil_correction_kernel"), ("olr_march", "olr_kernel"),
     ("monoflux_march", "monoflux_kernel"), ("fused_olr", "fused_olr_kernel"),
@@ -1116,7 +1642,12 @@ _OTHER_KERNELS = {k: re.compile(rf"\b{v}\b") for k, v in (
 def _kernel_of(name: str):
     m = _K1_NAME.search(name)
     if m:
+        if m.group(2) == "true" or m.group(3) == "1":
+            return "linesum_segmented"
         return _K1_MODE.get(int(m.group(1)), "linesum_other")
+    m = _FULL_NAME.search(name)
+    if m:
+        return "linesum_gathered" if "true" in m.groups() or "1" in m.groups() else "linesum_lane"
     for k, p in _OTHER_KERNELS.items():
         if p.search(name):
             return k
@@ -1203,6 +1734,34 @@ def main(argv=None) -> int:
         counts[k] = table_counts[k]
     calls.update(table_calls)
     calls.update(route_calls)
+
+    # the mix: HITRAN files at full-catalog size; each part of its main path
+    # counted on its own
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        mix = phase_mix_build(args.seed, dev, tmp)
+    kernel_mix(mix, dev, mix["states4"])
+    kernel_mix(mix, dev, mix["states"], report)
+    entry, mix_calls, mix_counts = phase_mix_entry(mix, dev)
+    counts_reset()
+    rcm_mix = phase_mix_rcm(mix, dev)
+    rcm_mix_counts = {k: v for k, v in counts_read().items() if v}
+    emit("counts", path="mix_rcm", route=rcm_mix[3], **rcm_mix_counts)
+    check(set(rcm_mix_counts) == ROUTE_KERNELS[rcm_mix[3]] | {"monoflux_march"},
+          f"the mix RCM on the {rcm_mix[3]} route launched {rcm_mix_counts}")
+    check_mix_rcm(*rcm_mix, mix["cia"])
+    strategy_counts = phase_mix_strategies(mix, entry, dev)
+    for part in (mix_counts, rcm_mix_counts, *strategy_counts.values()):
+        for k, v in part.items():
+            counts[k] += v
+    emit("counts", path="mix", **{k: v for k, v in mix_counts.items()},
+         lane=strategy_counts["lane"], gathered=strategy_counts["gathered"])
+    for k in ("linesum_segmented", "linesum_lane", "linesum_gathered"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the mix's main path")
+    phase_mix_cia(mix, dev)
+    calls.update(mix_calls)
+    calls.update(phase_mix_l2(mix, dev))
     phase_profile(calls)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")

@@ -4,7 +4,8 @@ Counterpart of ``clearsky_tpu.absorption.absorbers``. An
 :class:`AbsorberStack` produces dense ``sigma[..., n_nu]`` for batches of
 (T, P) states; an :class:`AcceleratedAbsorber` caches ln sigma on a model's
 own pressure column and interpolates it in ln P. Collision-induced
-absorption is not ported yet.
+absorption tables in a stack are bound to its grid and paired with its
+gases by formula (through a ``MultiGas``'s per-molecule components too).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 
 from ..utils.interp import interp_linear
-from .gas import AbstractGas, Gas
+from .cia import CIA, BoundCIA, CIATables
+from .gas import AbstractGas, DirectGas, Gas, MultiGas
 
 __all__ = [
     "AbsorberStack",
@@ -31,11 +33,12 @@ _LOG_TINY = float(np.log(np.finfo(np.float64).tiny))
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class AbsorberStack:
-    """Unified absorber: gases plus user functions sigma(nu, T, P)."""
+    """Unified absorber: gases, CIA pairs and user functions sigma(nu, T, P)."""
 
     gases: tuple
     nu: torch.Tensor
     funs: tuple = ()
+    cias: tuple = ()
 
     @classmethod
     def create(cls, *absorbers) -> "AbsorberStack":
@@ -52,20 +55,29 @@ class AbsorberStack:
             raise ValueError(
                 "must have at least one gas object, which specifies wavenumber samples"
             )
-        funs = tuple(a for a in absorbers if not isinstance(a, AbstractGas))
+        raw_cias = [a for a in absorbers if isinstance(a, (CIATables, BoundCIA))]
+        funs = tuple(a for a in absorbers
+                     if not isinstance(a, (AbstractGas, CIATables, BoundCIA)))
         for f in funs:
-            if type(f).__name__ in ("CIATables", "BoundCIA", "CIA"):
-                raise NotImplementedError(
-                    "collision-induced absorption is not ported yet (ROADMAP.md, "
-                    "queue A, still to port: CIA, MultiGas, spectra/par.py)"
-                )
             if not callable(f):
-                raise TypeError("absorbers must be gases or callables sigma(nu, T, P)")
+                raise TypeError(
+                    "absorbers must be gases, CIA objects, or callables sigma(nu, T, P)")
         nu0 = gases[0].nu
         for g in gases[1:]:
             if g.nu.shape != nu0.shape or g.nu.device != nu0.device or not torch.equal(g.nu, nu0):
                 raise ValueError("gases must have identical wavenumber vectors")
-        return cls(gases=gases, nu=nu0, funs=funs)
+        # CIA pairs with the line gases by formula, with a mixture through
+        # its per-molecule components
+        realgases = tuple(g for g in gases if isinstance(g, (Gas, DirectGas)))
+        for g in gases:
+            if isinstance(g, MultiGas):
+                realgases = realgases + g.components()
+        nu64 = nu0.detach().cpu().double().numpy()
+        cias = tuple(
+            CIA.pair(c.bind(nu64, dtype=nu0.dtype, device=nu0.device)
+                     if isinstance(c, CIATables) else c, realgases)
+            for c in raw_cias)
+        return cls(gases=gases, nu=nu0, funs=funs, cias=cias)
 
     @property
     def n_nu(self) -> int:
@@ -77,6 +89,8 @@ class AbsorberStack:
                             dtype=self.nu.dtype, device=self.nu.device)
         for g in self.gases:
             total = total + g(T, P)
+        for c in self.cias:
+            total = total + c.sigma(T, P)
         for f in self.funs:
             total = total + f(self.nu, T[..., None], P[..., None])
         return total

@@ -1,16 +1,17 @@
-"""Gas absorbers: baked opacity tables, direct line-by-line evaluation and
-the gray analytic gas.
+"""Gas absorbers: baked opacity tables, direct line-by-line evaluation, gas
+mixtures and the gray analytic gas.
 
 Counterpart of ``clearsky_tpu.absorption.gas``. :class:`Gas` bakes
 cross-sections once on an :class:`AtmosphericDomain` grid through the
 line-sum kernel wrapper and evaluates them by a Chebyshev contraction over
 (T, ln P); :meth:`Gas.split_precision` stores the coefficients as a float
 lead and a bfloat16 tail, the operand of the fused table kernels
-(``rt/fused_table.py``). :class:`DirectGas` recomputes cross-sections from
-its lines at every call, and :class:`GrayGas` is the constant-cross-section
-absorber of the analytic tests. A gas lives on one device in one dtype,
-those of its wavenumber tensor ``nu``. ``Gas.from_par``, ``WellMixedGas``,
-``VariableGas`` and ``MultiGas`` are not ported yet.
+(``rt/fused_table.py``); :func:`WellMixedGas` and :func:`VariableGas` bake
+from a .par file. :class:`DirectGas` recomputes cross-sections from its
+lines at every call, :class:`MultiGas` does so for the merged catalog of a
+gas mixture in one line sum, and :class:`GrayGas` is the
+constant-cross-section absorber of the analytic tests. A gas lives on one
+device in one dtype, those of its wavenumber tensor ``nu``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ __all__ = [
     "Gas",
     "DirectGas",
     "GrayGas",
+    "GasComponent",
+    "MultiGas",
+    "WellMixedGas",
+    "VariableGas",
     "as_concentration",
     "bake_sigma_grid",
     "table_basis",
@@ -240,6 +245,17 @@ class Gas(AbstractGas):
             fC=as_concentration(fC),
         )
 
+    @classmethod
+    def from_par(cls, filename: str, fC, nu, domain: AtmosphericDomain, shape: str = "voigt",
+                 cut: float | None = None, dtype=None, device=None, **kwargs) -> "Gas":
+        """Read a .par file and bake. ``block`` and ``tp_batch`` go to the
+        bake, every other keyword to :func:`..spectra.par.read_par`; the
+        catalog, the bake and the coefficients are in ``dtype`` on
+        ``device`` (by default float32 on the card)."""
+        bake = {k: kwargs.pop(k) for k in list(kwargs) if k in ("block", "tp_batch")}
+        lines = SpectralLines.from_par(filename, dtype=dtype, device=device, **kwargs)
+        return cls.from_lines(lines, fC, nu, domain, shape=shape, cut=cut, **bake)
+
     def _rows(self, idx):
         return torch.as_tensor(idx, dtype=torch.int64, device=self.coeffs.device)
 
@@ -346,9 +362,10 @@ class DirectGas(AbstractGas):
 
     ``nu`` and ``lines`` share the dtype and device the gas computes in; the
     banding plan is built on the host from the float64 grid and positions.
-    ``strategy`` picks the voigt route on the card ("auto", "grouped",
-    "stencil" or "coarse", :func:`..ops.linesum_strategies.route`); on the
-    CPU every strategy gives the exact plain line sum.
+    ``strategy`` picks the line sum's route on the card
+    (:data:`..ops.linesum_strategies.STRATEGIES`,
+    :func:`..ops.linesum_strategies.route`); on the CPU every strategy gives
+    the exact plain line sum.
     """
 
     lines: SpectralLines
@@ -417,3 +434,128 @@ class GrayGas(AbstractGas):
     def concentration(self, T, P):
         return torch.ones(torch.broadcast_shapes(T.shape, P.shape), dtype=self.nu.dtype,
                           device=self.nu.device)
+
+    @property
+    def fC(self):
+        return lambda T, P: torch.ones(torch.broadcast_shapes(T.shape, P.shape),
+                                       dtype=T.dtype, device=T.device)
+
+
+def WellMixedGas(filename, C, nu, domain, **kwargs) -> Gas:
+    """A baked gas of constant molar concentration ``C`` from a .par file
+    (:meth:`Gas.from_par`)."""
+    if not (0.0 <= float(C) <= 1.0):
+        raise ValueError("well-mixed concentration must be in [0,1]")
+    return Gas.from_par(filename, float(C), nu, domain, **kwargs)
+
+
+def VariableGas(filename, fC, nu, domain, **kwargs) -> Gas:
+    """A baked gas of concentration fC(T, P) from a .par file
+    (:meth:`Gas.from_par`)."""
+    if not callable(fC):
+        raise TypeError("VariableGas requires a callable fC(T, P)")
+    return Gas.from_par(filename, fC, nu, domain, **kwargs)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GasComponent:
+    """One molecule of a mixture as CIA pairing sees it: formula, name and
+    concentration fC(T, P); no spectral data, never an absorber itself."""
+
+    formula: str = ""
+    name: str = ""
+    fC: Callable = None
+
+    def concentration(self, T, P):
+        return self.fC(T, P)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MultiGas(AbstractGas):
+    """A gas mixture as one merged catalog and one line sum per call.
+
+    Fixed concentrations fold into a per-line ``conc`` [n_lines] at
+    construction; with any callable fC(T, P) among them, the per-molecule
+    values are gathered per line through ``mol_ptr`` at every call. Either
+    way they scale each line's intensity and set its self-broadening partial
+    pressure, so :meth:`raw_sigma` is the mixture's cross-section, already
+    concentration-weighted, and :meth:`concentration` is 1. CIA pairing sees
+    the molecules through :meth:`components`.
+    """
+
+    lines: SpectralLines
+    conc: torch.Tensor | None
+    nu: torch.Tensor
+    mol_ptr: torch.Tensor | None = None
+    plan: LineWindowPlan = None
+    shape: str = "voigt"
+    fCs: tuple = ()
+    formulas: tuple = ()
+    names: tuple = ()
+    name: str = ""
+    formula: str = ""
+    mu: float = float("nan")
+    strategy: str = "auto"
+
+    @classmethod
+    def from_lines(cls, entries, nu, shape: str = "voigt", cut: float | None = None,
+                   block: int = 128, strategy: str = "auto") -> "MultiGas":
+        """A mixture from ``[(SpectralLines, concentration or fC), ...]`` on
+        the first catalog's device and dtype over the grid ``nu``.
+
+        ``strategy`` is taken as the JAX package takes it, and as there it
+        is neither stored nor used: :meth:`raw_sigma` always routes "auto".
+        """
+        from ..spectra.merge import merge_catalogs, merge_lines
+
+        _check_shape(shape)
+        check_strategy(strategy)
+        cut = DEFAULT_CUT[shape] if cut is None else float(cut)
+        nu = _check_nu(nu)
+        fCs = tuple(as_concentration(c) for _, c in entries)
+        if any(callable(c) for _, c in entries):
+            merged, mol_ptr = merge_catalogs([l for l, _ in entries])
+            conc = None
+        else:
+            merged, conc = merge_lines(entries)
+            mol_ptr = None
+        plan = build_line_window_plan(nu, merged.positions64(), cut, block=block)
+        if merged.device.type == "cuda":
+            warm(plan, merged, shape, "auto")
+        return cls(lines=merged, conc=conc, nu=torch.tensor(nu, dtype=merged.dtype,
+                                                            device=merged.device),
+                   mol_ptr=mol_ptr, plan=plan, shape=shape, fCs=fCs,
+                   formulas=tuple(l.formula for l, _ in entries),
+                   names=tuple(l.name for l, _ in entries), name=merged.name,
+                   formula=merged.formula, mu=merged.mean_molar_mass)
+
+    def components(self) -> tuple:
+        """Per-molecule :class:`GasComponent` views, for CIA pairing."""
+        return tuple(GasComponent(formula=f, name=n, fC=c)
+                     for f, n, c in zip(self.formulas, self.names, self.fCs))
+
+    def _conc(self, T, P):
+        """Per-line concentrations: ``conc`` [n_lines], or the molecules'
+        fC(T, P) gathered per line [..., n_lines]."""
+        if self.mol_ptr is None:
+            return self.conc
+        shp = torch.broadcast_shapes(T.shape, P.shape)
+        cs = torch.stack([torch.broadcast_to(torch.as_tensor(f(T, P), dtype=T.dtype,
+                                                             device=T.device), shp)
+                          for f in self.fCs], dim=-1)                     # [..., n_mols]
+        return cs[..., self.mol_ptr]
+
+    def raw_sigma(self, T, P):
+        """The mixture's cross-section [..., n_nu], concentrations included."""
+        return sigma_from_lines_auto(self.plan, self.lines, T, P, None, self.shape,
+                                     conc=self._conc(T, P))
+
+    def concentration(self, T, P):
+        """1: the concentrations are folded into each line."""
+        return torch.ones(torch.broadcast_shapes(T.shape, P.shape), dtype=self.nu.dtype,
+                          device=self.nu.device)
+
+    @property
+    def fC(self):
+        return lambda T, P: torch.ones(torch.broadcast_shapes(T.shape, P.shape),
+                                       dtype=T.dtype, device=T.device)

@@ -15,13 +15,16 @@ import numpy as np
 import torch
 
 from .spectra.lines import SpectralLines, PER_LINE_FIELDS
-from .absorption.gas import DirectGas, Gas, as_concentration
+from .absorption.cia import BoundCIA, CIATables
+from .absorption.gas import DirectGas, Gas, MultiGas, as_concentration
 from .absorption.domain import AtmosphericDomain
+from .ops.linesum import build_line_window_plan
 from .absorption.absorbers import AcceleratedAbsorber, unify_absorbers
 from .models.rcm import RCM
 from .utils.device import placement
 
-__all__ = ["spectral_lines", "direct_gas", "domain", "gas", "rcm_arrays", "rcm"]
+__all__ = ["spectral_lines", "direct_gas", "multi_gas", "cia", "domain", "gas", "rcm_arrays",
+           "rcm"]
 
 
 def spectral_lines(jax_lines, dtype=None, device=None) -> SpectralLines:
@@ -49,6 +52,51 @@ def direct_gas(jax_gas, fC, dtype=None, device=None) -> DirectGas:
         shape=jax_gas.shape, cut=jax_gas.plan.cut, block=jax_gas.plan.block,
         strategy=jax_gas.strategy,
     )
+
+
+def multi_gas(jax_gas, fCs=None, dtype=None, device=None) -> MultiGas:
+    """A ``clearsky_tpu`` MultiGas (merged lines, per-line ``conc`` or
+    ``mol_ptr``, nu, shape, cut, block, formulas) on the port.
+
+    ``fCs`` are the molecules' concentrations, scalars or callables on
+    tensors; by default the JAX gas's own, passed through as they are (a
+    callable given to the JAX gas must then compute on tensors too). With
+    fixed concentrations only CIA pairing reads them: the lines carry the
+    JAX gas's ``conc``.
+    """
+    lines = spectral_lines(jax_gas.lines, dtype, device)
+    t = lambda x, **kw: None if x is None else torch.tensor(np.asarray(x), device=lines.device,
+                                                            **kw)
+    fCs = tuple(as_concentration(c) for c in (jax_gas.fCs if fCs is None else fCs))
+    nu = np.asarray(jax_gas.nu, np.float64)
+    return MultiGas(
+        lines=lines, conc=t(jax_gas.conc, dtype=lines.dtype), mol_ptr=t(jax_gas.mol_ptr,
+                                                                        dtype=torch.int64),
+        nu=torch.tensor(nu, dtype=lines.dtype, device=lines.device),
+        plan=build_line_window_plan(nu, lines.positions64(), jax_gas.plan.cut,
+                                    block=jax_gas.plan.block),
+        shape=jax_gas.shape, fCs=fCs, formulas=tuple(jax_gas.formulas),
+        names=tuple(jax_gas.names), name=jax_gas.name, formula=jax_gas.formula,
+        mu=float(jax_gas.mu))
+
+
+def cia(jax_cia, dtype=None, device=None):
+    """A ``clearsky_tpu`` CIATables (host tables, copied) or BoundCIA (its
+    bound ln k, temperatures and masks as float64 tensors on ``device``,
+    giving values in ``dtype``) on the port."""
+    if type(jax_cia).__name__ == "CIATables":
+        copy = lambda rows: tuple(tuple(np.array(x) if isinstance(x, np.ndarray) else x
+                                        for x in r) for r in rows)
+        return CIATables(name=jax_cia.name, formulae=tuple(jax_cia.formulae),
+                         grids=copy(jax_cia.grids), singles_data=copy(jax_cia.singles_data),
+                         extrapolate=bool(jax_cia.extrapolate), singles=bool(jax_cia.singles))
+    dtype, device = placement(dtype, device)
+    f = lambda xs: tuple(torch.tensor(np.asarray(x, np.float64), device=device) for x in xs)
+    m = lambda xs: tuple(torch.tensor(np.asarray(x, bool), device=device) for x in xs)
+    return BoundCIA(logk=f(jax_cia.logk), T=f(jax_cia.T), mask=m(jax_cia.mask),
+                    s_logk=f(jax_cia.s_logk), s_mask=m(jax_cia.s_mask), name=jax_cia.name,
+                    formulae=tuple(jax_cia.formulae), extrapolate=bool(jax_cia.extrapolate),
+                    use_singles=bool(jax_cia.use_singles), dtype=dtype)
 
 
 def domain(jax_domain) -> AtmosphericDomain:

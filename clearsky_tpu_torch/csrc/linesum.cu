@@ -1,6 +1,8 @@
-// Line-sum kernel (K1): sigma[state, nu] = sum over each wavenumber block's
-// line windows of TIPS-scaled Voigt, Lorentz or Doppler line profiles; and
-// the near-core correction of the stencil-near route.
+// Line-sum kernels: K1, sigma[state, nu] = sum over each wavenumber block's
+// line windows of TIPS-scaled Voigt, Lorentz or Doppler line profiles (and
+// its catalog-segmented use, K1-seg); the near-core correction of the
+// stencil-near route; and the full-profile kernels K4 (lane-major) and K5
+// (gathered slabs), further down.
 //
 // Replaces clearsky_tpu/ops/linesum_pallas.py::_kernel_resident_grouped,
 // launched by _grouped_call, in all its modes:
@@ -9,7 +11,16 @@
 //   * FARALL (wmode "farall": region 1 over the whole window), the kernel of
 //     the stencil-near route;
 //   * FINE, FINE_STENCIL and COARSE (wmodes "fine", "fine_stencil",
-//     "coarse"), the two passes of the coarse-far split (_coarse_core).
+//     "coarse"), the two passes of the coarse-far split (_coarse_core);
+//   * K1-seg (_pallas_sigma_segmented, which runs _pallas_sigma_impl's
+//     split and single-sweep modes once per catalog segment): the ACC
+//     instances add into sigma at a row stride of their own, so each
+//     segment adds its block range's columns in place, with no temporary
+//     and no separate sum. Segments run in order on one stream and each
+//     output element belongs to one thread of a launch, so nothing races.
+//     On the TPU the segments keep the pack inside VMEM; here they bound the
+//     per-segment temporaries (a pack is built, read while it sits in L2,
+//     and freed), and the segment length comes from the routing's budget.
 // stencil_correction_kernel replaces the XLA-side _stencil_apply, which adds
 // Sia (w4 - region 1) at the grid points of each line's |x| <= 15 core; the
 // TPU placed it with one-hot matrix products, here atomicAdd puts it in
@@ -290,8 +301,8 @@ __device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__
 
 // One block per block of grid points, one thread per point; win holds each
 // block's n_windows(MODE) windows as (start, count) pairs.
-// out: [n_states][n_out]
-template <int MODE>
+// out: [n_states][ld_out], the first n_out columns written (ACC: added to)
+template <int MODE, bool ACC>
 __global__ void linesum_kernel(const float* __restrict__ nu_hi,
                                const float* __restrict__ nu_lo,
                                const float* __restrict__ line_hi,
@@ -299,7 +310,7 @@ __global__ void linesum_kernel(const float* __restrict__ nu_hi,
                                const float* __restrict__ coef,
                                const int* __restrict__ win,
                                const float* __restrict__ d_near_p, Zones z,
-                               int n_lines, int n_states, int n_out,
+                               int n_lines, int n_states, int n_out, int ld_out,
                                float* __restrict__ out) {
   constexpr int NC = n_coef(MODE);
   constexpr int NW = n_windows(MODE);
@@ -340,7 +351,11 @@ __global__ void linesum_kernel(const float* __restrict__ nu_hi,
 #pragma unroll
     for (int s = 0; s < ST; ++s) {
       const int st = tile * ST + s;
-      if (st < n_states) out[(size_t)st * n_out + p] = acc[s];
+      if (st < n_states) {
+        float* o = out + (size_t)st * ld_out + p;
+        if constexpr (ACC) *o += acc[s];
+        else *o = acc[s];
+      }
     }
   }
 }
@@ -389,6 +404,121 @@ __global__ void stencil_correction_kernel(const float* __restrict__ dnu_hi,
   }
 }
 
+// K4 and K5: the full line profile over each block's lines, w4 at every
+// voigt pair (no near/far split), Lorentz or Doppler otherwise.
+//   * K4, GATHERED = false, replaces linesum_pallas.py::_kernel_resident
+//     (the lane branch of _pallas_sigma_impl, strategy "lane"): the per-state
+//     rows S, alpha, gamma [n_states][row] unpacked, lines padded past the
+//     catalog at 1e30 cm^-1 with zero strength; each block's window starts
+//     at start[b] (a CHUNK multiple) and holds count[b] lines, 0 for a block
+//     with none.
+//   * K5, GATHERED = true, replaces linesum_pallas.py::_kernel (the gathered
+//     fallback, strategy "gathered"): each block's slab of row lines was
+//     gathered before the launch into positions [n_blocks][row] and per-state
+//     rows [n_states][n_blocks][row]; count[b] of them are real.
+// What bounds it on the H100: arithmetic. The full Humlicek w4 runs at
+// every (point, line, state) inside the cut, ~10x the far-wing region 1 of
+// K1's split mode; K5 adds the gathered slabs' bytes, 12 bytes a (state,
+// block, slab line), read once. The design is K1's single sweep: a block of
+// one thread per grid point and a tile of ST states (grid y); the window
+// (K4) or the slab (K5) streams through shared memory in chunks of CH lines,
+// read row by row so that a warp reads consecutive addresses; the
+// reciprocal 1/alpha and the profile factors are formed once per (line,
+// state) as a chunk is staged (the TPU kernel's reciprocals on its [1, chunk]
+// rows), and the ST accumulators stay in registers.
+// out: [n_states][n_out]
+template <int SHAPE, bool GATHERED>
+__global__ void fullprofile_kernel(const float* __restrict__ nu_hi,
+                                   const float* __restrict__ nu_lo,
+                                   const float* __restrict__ line_hi,
+                                   const float* __restrict__ line_lo,
+                                   const float* __restrict__ S,
+                                   const float* __restrict__ alpha,
+                                   const float* __restrict__ gamma,
+                                   const int* __restrict__ start,
+                                   const int* __restrict__ count, int row, int n_blocks,
+                                   float cut, int n_states, int n_out,
+                                   float* __restrict__ out) {
+  __shared__ float s_hi[CH];
+  __shared__ float s_lo[CH];
+  __shared__ float s_f[3][CH * ST];  // per (line, state): the profile's factors
+
+  const int b = blockIdx.x;
+  const int tile = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int p = b * blockDim.x + tid;  // grids are padded to whole blocks
+  const float nh = nu_hi[p];
+  const float nl = nu_lo[p];
+  const size_t base = GATHERED ? (size_t)b * row : (size_t)start[b];
+  const size_t sstride = GATHERED ? (size_t)n_blocks * row : (size_t)row;
+  const int cnt = count[b];
+
+  float acc[ST];
+#pragma unroll
+  for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
+
+  for (int c0 = 0; c0 < cnt; c0 += CH) {
+    const int n = min(CH, cnt - c0);
+    __syncthreads();  // the previous chunk is no longer read
+    for (int i = tid; i < n; i += nthreads) {
+      s_hi[i] = line_hi[base + c0 + i];
+      s_lo[i] = line_lo[base + c0 + i];
+    }
+    for (int i = tid; i < n * ST; i += nthreads) {
+      const int s = i / n;
+      const int j = i - s * n;
+      const int st = tile * ST + s;
+      // voigt and doppler: (S ia / sqrt(pi), ia, gamma ia); lorentz:
+      // (S, gamma); a padding state contributes exactly 0
+      float f0 = 0.0f, f1 = 1.0f, f2 = 1.0f;
+      if (st < n_states) {
+        const size_t k = (size_t)st * sstride + base + c0 + j;
+        const float Sv = S[k];
+        if constexpr (SHAPE == LORENTZ) {
+          f0 = Sv;
+          f1 = gamma[k];
+        } else {
+          const float ia = 1.0f / alpha[k];
+          f0 = Sv * INV_SQRT_PI * ia;
+          f1 = ia;
+          f2 = gamma[k] * ia;
+        }
+      }
+      s_f[0][j * ST + s] = f0;
+      s_f[1][j * ST + s] = f1;
+      s_f[2][j * ST + s] = f2;
+    }
+    __syncthreads();
+
+    for (int j = 0; j < n; ++j) {
+      // two-float dnu, as in K1
+      const float dnu = (nh - s_hi[j]) + (nl - s_lo[j]);
+      if (!(fabsf(dnu) <= cut)) continue;
+#pragma unroll
+      for (int s = 0; s < ST; ++s) {
+        const float f0 = s_f[0][j * ST + s], f1 = s_f[1][j * ST + s];
+        if constexpr (SHAPE == VOIGT_SPLIT) {
+          acc[s] += f0 * wofz_re(dnu * f1, s_f[2][j * ST + s]);
+        } else if constexpr (SHAPE == LORENTZ) {
+          acc[s] += f0 * (f1 * INV_PI) / (dnu * dnu + f1 * f1);
+        } else {
+          const float arg = dnu * f1;
+          acc[s] += f0 * expf(-arg * arg);
+        }
+      }
+    }
+  }
+
+  if (p < n_out) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      const int st = tile * ST + s;
+      if (st < n_states) out[(size_t)st * n_out + p] = acc[s];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -399,31 +529,68 @@ int linesum_coef_per_state(int mode) { return n_coef(mode); }
 
 int linesum_windows_per_block(int mode) { return n_windows(mode); }
 
-// Launch `mode` on `stream`; zones: host float[7] (Zones, in field order).
+// Launch `mode` on `stream`; zones: host float[7] (Zones, in field order);
+// out: rows of ld_out floats, the first n_out of each written, or added to
+// with `accumulate` (the split and single-sweep modes only).
 // Returns cudaGetLastError() (0 on success).
 int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
                    const float* line_hi, const float* line_lo,
                    const float* coef, const int* win, const float* d_near,
                    const float* zones, int n_blocks, int block, int n_lines,
-                   int n_states, int n_out, float* out, void* stream) {
+                   int n_states, int n_out, int ld_out, int accumulate, float* out,
+                   void* stream) {
   const int n_tiles = (n_states + ST - 1) / ST;
   const dim3 grid(n_blocks, n_tiles);
   const Zones z{zones[0], zones[1], zones[2], zones[3], zones[4], zones[5], zones[6]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(M)                                                                    \
-  linesum_kernel<M><<<grid, block, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, coef, win, \
-                                            d_near, z, n_lines, n_states, n_out, out)
+#define LAUNCH(M, A)                                                              \
+  linesum_kernel<M, A><<<grid, block, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, coef, \
+                                               win, d_near, z, n_lines, n_states, n_out, \
+                                               ld_out, out)
+#define LAUNCH_ACC(M) \
+  if (accumulate) LAUNCH(M, true); else LAUNCH(M, false)
+  if (accumulate && mode > DOPPLER) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
-    case VOIGT_SPLIT: LAUNCH(VOIGT_SPLIT); break;
-    case LORENTZ: LAUNCH(LORENTZ); break;
-    case DOPPLER: LAUNCH(DOPPLER); break;
-    case FARALL: LAUNCH(FARALL); break;
-    case FINE: LAUNCH(FINE); break;
-    case FINE_STENCIL: LAUNCH(FINE_STENCIL); break;
-    case COARSE: LAUNCH(COARSE); break;
+    case VOIGT_SPLIT: LAUNCH_ACC(VOIGT_SPLIT); break;
+    case LORENTZ: LAUNCH_ACC(LORENTZ); break;
+    case DOPPLER: LAUNCH_ACC(DOPPLER); break;
+    case FARALL: LAUNCH(FARALL, false); break;
+    case FINE: LAUNCH(FINE, false); break;
+    case FINE_STENCIL: LAUNCH(FINE_STENCIL, false); break;
+    case COARSE: LAUNCH(COARSE, false); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef LAUNCH_ACC
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K4 (gathered = 0) or K5 (gathered = 1) for `shape` (VOIGT_SPLIT
+// for voigt, LORENTZ, DOPPLER) on `stream`; row: the padded catalog length
+// (K4) or the slab length (K5); start: K4's aligned window starts (unread
+// by K5). Returns cudaGetLastError() (0 on success).
+int fullprofile_launch(int shape, int gathered, const float* nu_hi, const float* nu_lo,
+                       const float* line_hi, const float* line_lo, const float* S,
+                       const float* alpha, const float* gamma, const int* start,
+                       const int* count, int row, int n_blocks, int block, float cut,
+                       int n_states, int n_out, float* out, void* stream) {
+  const dim3 grid(n_blocks, (n_states + ST - 1) / ST);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LAUNCH(SH, G)                                                                     \
+  fullprofile_kernel<SH, G><<<grid, block, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, S, alpha, \
+                                                    gamma, start, count, row, n_blocks, cut, \
+                                                    n_states, n_out, out)
+#define LAUNCH_G(SH) \
+  if (gathered) LAUNCH(SH, true); else LAUNCH(SH, false)
+  switch (shape) {
+    case VOIGT_SPLIT: LAUNCH_G(VOIGT_SPLIT); break;
+    case LORENTZ: LAUNCH_G(LORENTZ); break;
+    case DOPPLER: LAUNCH_G(DOPPLER); break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LAUNCH_G
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

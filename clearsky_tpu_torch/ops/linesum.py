@@ -147,13 +147,21 @@ def build_line_window_plan(
     )
 
 
-def _line_params(lines, T, P, Pp):
-    """Per-line (S, alpha, gamma), each [..., n_lines], at states T, P, Pp [...]."""
+def _line_params(lines, T, P, Pp, conc=None):
+    """Per-line (S, alpha, gamma), each [..., n_lines], at states T, P, Pp [...].
+
+    ``conc`` gives per-line molar concentrations, [n_lines] (fixed, a merged
+    catalog of several molecules) or [..., n_lines] (per state): each line's
+    partial pressure is then conc P (``Pp`` is not read) and its intensity
+    is scaled by conc, so one pass sums a whole gas mixture.
+    """
     T = T[..., None]
     P = P[..., None]
-    Pp = Pp[..., None]
+    Pp = conc * P if conc is not None else Pp[..., None]
     qq = cheb_qref_q(T, lines.tips_coeffs[lines.iso_ptr])
     S = scale_intensity(lines.S, lines.nu, lines.Epp, qq, T)
+    if conc is not None:
+        S = S * conc
     alpha = alpha_doppler(lines.nu, lines.mu, T)
     gamma = gamma_lorentz(lines.ga, lines.gs, lines.na, T, P, Pp)
     return S, alpha, gamma
@@ -254,15 +262,18 @@ def grid_blocks(nu_blocks64, dtype, device):
     return torch.as_tensor(np.asarray(nu_blocks64, np.float64), dtype=dtype, device=device), None
 
 
-def sigma_from_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt"):
+def sigma_from_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt",
+                     conc=None):
     """Cross-sections sigma[..., n_nu] [cm^2/molecule]: the plain version.
 
     ``T``, ``P``, ``Pp`` (temperature [K], pressure and partial pressure
     [Pa]) are tensors of one batch shape [...], in the catalog's dtype and on
-    its device. The exact profile of ``shape`` over each block's window
-    within ``plan.cut`` (:func:`block_sum`; two-float dnu in float32).
+    its device; ``conc`` optional per-line concentrations
+    (:func:`_line_params`). The exact profile of ``shape`` over each block's
+    window within ``plan.cut`` (:func:`block_sum`; two-float dnu in float32).
     """
-    S, alpha, gamma = _line_params(lines, T, P, Pp)
+    # one batch shape for all three: T sets S and alpha, P and Pp set gamma
+    S, alpha, gamma = torch.broadcast_tensors(*_line_params(lines, T, P, Pp, conc))
     nb, nb_lo = grid_blocks(plan.nu_blocks, S.dtype, S.device)
     cut = plan.cut
     zones = [(0, tile_exact(shape, S, alpha, gamma), lambda adnu, D: adnu <= cut, None)]
@@ -270,27 +281,42 @@ def sigma_from_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt"
     return sig[..., : plan.n_nu]
 
 
+def _flatten_states(T, P, Pp, conc, n_lines):
+    """Broadcast (T, P, Pp[, conc]) to a flat state batch: (batch shape, T,
+    P, Pp [n], conc [n_lines] or [n, n_lines] or None). ``Pp`` None (the
+    concentration callers) reads as P."""
+    Pp = P if Pp is None else Pp
+    shp = torch.broadcast_shapes(T.shape, P.shape, Pp.shape)
+    if conc is not None and conc.dim() > 1:     # per-state concentrations
+        shp = torch.broadcast_shapes(shp, conc.shape[:-1])
+        conc = torch.broadcast_to(conc, shp + (n_lines,)).reshape(-1, n_lines).contiguous()
+    flat = [torch.broadcast_to(x, shp).reshape(-1).contiguous() for x in (T, P, Pp)]
+    return (shp, *flat, conc)
+
+
 def sigma_from_lines_auto(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt",
-                          strategy: str = "auto"):
+                          conc=None, strategy: str = "auto"):
     """Line sum through the kernel wrappers (CUDA) or the exact plain sum (CPU).
 
-    ``strategy`` ("auto", "grouped", "stencil" or "coarse") picks the voigt
-    route on the card as the JAX package does on its accelerator
-    (:func:`.linesum_strategies.route`): the coarse-far split, the
-    stencil-near route or K1's split mode. CPU tensors always take the exact
-    plain sum, whatever the strategy, as the JAX package does off its
-    accelerator. Accepts any common batch shape of (T, P, Pp); the wrappers
-    take a flat state batch, so leading dimensions are flattened and
-    restored around them.
+    ``strategy`` (:data:`.linesum_strategies.STRATEGIES`) picks the route on
+    the card as the JAX package does on its accelerator
+    (:func:`.linesum_strategies.route`, at the card's own budget): the
+    coarse-far split, the stencil-near route, K1's split mode over the whole
+    catalog or over catalog segments, or the lane-major and gathered
+    kernels. CPU tensors always take the exact plain sum, whatever the
+    strategy, as the JAX package does off its accelerator. ``conc``: per-line
+    concentrations (:func:`_line_params`; ``Pp`` may then be None). Accepts
+    any common batch shape of (T, P, Pp[, conc]); the wrappers take a flat
+    state batch, so leading dimensions are flattened and restored around
+    them.
     """
     from .linesum_strategies import check_strategy
 
     check_strategy(strategy)
     if T.device.type == "cpu":
-        return sigma_from_lines(plan, lines, T, P, Pp, shape)
+        return sigma_from_lines(plan, lines, T, P, P if Pp is None else Pp, shape, conc)
     from .linesum_cuda import sigma_routed
 
-    shp = torch.broadcast_shapes(T.shape, P.shape, Pp.shape)
-    flat = [torch.broadcast_to(x, shp).reshape(-1).contiguous() for x in (T, P, Pp)]
-    sig = sigma_routed(plan, lines, *flat, shape=shape, strategy=strategy)
+    shp, Tf, Pf, Ppf, concf = _flatten_states(T, P, Pp, conc, lines.n_lines)
+    sig = sigma_routed(plan, lines, Tf, Pf, Ppf, shape=shape, strategy=strategy, conc=concf)
     return sig.reshape(shp + (plan.n_nu,))

@@ -1,27 +1,37 @@
-"""Wrappers of the CUDA line-sum kernels (K1 and the near-core correction,
-``csrc/linesum.cu``).
+"""Wrappers of the CUDA line-sum kernels (K1, K1-seg, K4, K5 and the
+near-core correction, ``csrc/linesum.cu``).
 
 K1 replaces ``clearsky_tpu/ops/linesum_pallas.py::_kernel_resident_grouped``
 in every mode: split (voigt) and single sweep (lorentz, doppler) over the
 plan's windows, and the windowed modes of the voigt routes, FARALL
 (stencil-near) and FINE, FINE_STENCIL and COARSE (coarse-far split).
-``stencil_correction`` replaces the XLA-side ``_stencil_apply``. Before a
-launch the per-(state, line) profile coefficients are computed here in
-plain torch on the device, as ``_grouped_pack`` does in XLA, and packed per
-tile of ``ST`` states so that each block streams one contiguous run of them
-through shared memory.
+``stencil_correction`` replaces the XLA-side ``_stencil_apply``. K1-seg
+(:func:`sigma_segmented`) runs K1 once per catalog segment, adding in place
+(``_pallas_sigma_segmented``); K4 (:func:`sigma_lane`) and K5
+(:func:`sigma_gathered`) are the full-profile kernels of the lane and
+gathered branches (``_kernel_resident``, ``_kernel``). Before a K1 launch
+the per-(state, line) profile coefficients are computed here in plain torch
+on the device, as ``_grouped_pack`` does in XLA, and packed per tile of
+``ST`` states so that each block streams one contiguous run of them through
+shared memory; K4 and K5 take unpacked per-state rows.
 
-:func:`sigma_lines` (split mode), :func:`sigma_stencil` and
-:func:`sigma_coarse` are the three routes; :func:`sigma_routed` takes the
-one that :func:`.linesum_strategies.route` picks. Each launches the kernels
+:func:`sigma_lines` (split mode), :func:`sigma_stencil`,
+:func:`sigma_coarse`, :func:`sigma_segmented`, :func:`sigma_lane` and
+:func:`sigma_gathered` are the routes; :func:`sigma_routed` takes the one
+that :func:`.linesum_strategies.route` picks. Each launches the kernels
 for CUDA tensors and takes its plain version for CPU tensors. On CUDA the
 operands are checked for device, dtype (float32), shape and contiguity, and
 anything the kernels do not take raises; there is no fallback to a plain
 version or to another route.
 
-Launch counts: ``sigma_lines.launches`` counts every K1 launch and
-``sigma_lines.launches_by_mode`` each mode's; ``stencil_correction.launches``
-the correction's.
+Every wrapper takes per-line concentrations ``conc`` ([n_lines] or
+[n_states, n_lines]), folded into S and gamma before the pack, so no kernel
+sees them.
+
+Launch counts: ``sigma_lines.launches`` counts every launch of K1, K4 and
+K5 and ``sigma_lines.launches_by_mode`` each mode's, K1-seg's launches (one
+per segment) under "segmented", K4's under "lane" and K5's under
+"gathered"; ``stencil_correction.launches`` the correction's.
 """
 
 from __future__ import annotations
@@ -33,18 +43,27 @@ import torch
 from ..utils.cuda_build import check_operand, load_library
 from .linesum import LineWindowPlan, _line_params, sigma_from_lines, two_float, voigt_coefficients
 from .linesum_strategies import (
+    CHUNK,
     _resolve,
+    _slice_lines,
     coarse_geometry,
     far_from_coarse,
+    gathered_slabs,
+    lane_layout,
+    segments,
     sigma_coarse_plain,
+    sigma_gathered_plain,
+    sigma_lane_plain,
+    sigma_segmented_plain,
     sigma_stencil_plain,
     stencil_correction_plain,
     stencil_geometry,
 )
 
-__all__ = ["sigma_lines", "sigma_stencil", "sigma_coarse", "sigma_routed",
-           "stencil_correction", "launch_mode", "pack_coefficients", "near_distance",
-           "MODES", "WINDOW_MODES"]
+__all__ = ["sigma_lines", "sigma_stencil", "sigma_coarse", "sigma_segmented", "sigma_lane",
+           "sigma_gathered", "sigma_routed", "stencil_correction", "launch_mode",
+           "launch_fullprofile", "pack_coefficients", "near_distance", "gather_group",
+           "MODES", "WINDOW_MODES", "GATHER_BYTES"]
 
 # kernel modes (csrc/linesum.cu ``Mode``): over the plan's windows, voigt
 # runs the split mode and lorentz and doppler the single sweep; the routes
@@ -55,7 +74,12 @@ _MODE_NAMES = {0: "voigt_split", 1: "lorentz", 2: "doppler", 3: "farall", 4: "fi
                5: "fine_stencil", 6: "coarse"}
 _N_COEF = {m: (3 if m in (1, 2) else 7) for m in _MODE_NAMES}
 _N_WIN = {m: (3 if m in (4, 5) else 1) for m in _MODE_NAMES}
+# launch-count keys of the routes that run K1 per segment and K4/K5
+_ROUTE_COUNTS = ("segmented", "lane", "gathered")
 ST = 8  # states per tile; csrc/linesum.cu ``ST``
+# K5's gathered slabs (S, alpha, gamma: 12 bytes a state, block and slab
+# line) are built for at most this many bytes of states at a time
+GATHER_BYTES = 2**30
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -118,8 +142,12 @@ def _library():
             raise RuntimeError(f"csrc/linesum.cu packs {layout}, this wrapper "
                                f"{(ST, _N_COEF, _N_WIN)}")
         fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_F),
-                       _I, _I, _I, _I, _I, _P, _P]
+                       _I, _I, _I, _I, _I, _I, _I, _P, _P]
         fn.restype = _I
+        full = lib.fullprofile_launch
+        full.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                         _P, _P]
+        full.restype = _I
         cor = lib.stencil_correction_launch
         cor.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _P, _P]
         cor.restype = _I
@@ -133,8 +161,9 @@ def _zones(cut, cut_f=0.0, d_lo=0.0, D1=0.0, D2=1.0, R1=0.0, R2=1.0):
     return (_F * 7)(*vals)
 
 
-def _checked(lines, T, P, Pp):
-    """Check the states and the catalog for the kernels; (n_states, dev)."""
+def _checked(lines, T, P, Pp, conc=None):
+    """Check the states, the concentrations and the catalog for the kernels;
+    (n_states, dev)."""
     dev = T.device
     if dev.type != "cuda":
         raise ValueError(f"no line-sum kernel for device {dev}")
@@ -145,6 +174,9 @@ def _checked(lines, T, P, Pp):
         check_operand(name, x, (n_states,), dev)
     for name in ("nu", "nu_lo", "S", "ga", "gs", "Epp", "na", "mu"):
         check_operand(f"lines.{name}", getattr(lines, name), (lines.n_lines,), dev)
+    if conc is not None:
+        shape = (lines.n_lines,) if conc.dim() == 1 else (n_states, lines.n_lines)
+        check_operand("conc", conc, shape, dev)
     return n_states, dev
 
 
@@ -153,15 +185,24 @@ def _check_windows(windows, n_lines: int):
         raise ValueError("the line windows exceed the catalog: plan and lines differ")
 
 
+def _count(name: str) -> None:
+    sigma_lines.launches += 1
+    sigma_lines.launches_by_mode[name] += 1
+
+
 def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, zones,
-                d_near=None):
-    """One K1 launch into a new sigma[n_states, n_out].
+                d_near=None, out=None, count_as=None):
+    """One K1 launch into a new sigma[n_states, n_out], or added into the
+    first n_out columns of ``out``.
 
     ``grid`` holds the block grid ``nu_hi``/``nu_lo`` (flat, float32,
     n_blocks * block) and the int32 window table ``win``
     [n_blocks, 2 * windows per block] on the device; ``coef`` is the pack of
     :func:`pack_coefficients` for ``mode``; ``zones`` from :func:`_zones`;
-    ``d_near`` a one-element tensor for the split and FINE modes.
+    ``d_near`` a one-element tensor for the split and FINE modes. ``out``
+    (the split and single-sweep modes): a float32 [n_states, >= n_out] view
+    with unit column stride, added to in place (K1-seg). The launch counts
+    under ``count_as``, else under its mode.
     """
     win = grid["win"]
     n_blocks, block = win.shape[0], grid["nu_hi"].shape[0] // win.shape[0]
@@ -177,24 +218,32 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
         raise ValueError("d_near goes with the split and FINE modes, and only with them")
     if d_near is not None:
         check_operand("d_near", d_near, (1,), dev)
-    out = torch.empty((n_states, n_out), dtype=torch.float32, device=dev)
+    accumulate = out is not None
+    if accumulate:
+        if mode not in MODES.values():
+            raise ValueError("only the split and single-sweep modes add into sigma")
+        if (out.dtype != torch.float32 or out.device != dev or out.dim() != 2
+                or out.shape[0] != n_states or out.shape[1] < n_out or out.stride(1) != 1):
+            raise ValueError(f"out must be a float32 [{n_states}, >= {n_out}] view on {dev} "
+                             "with unit column stride")
+    else:
+        out = torch.empty((n_states, n_out), dtype=torch.float32, device=dev)
     if n_states == 0 or lines.n_lines == 0:
-        return out.zero_()
+        return out if accumulate else out.zero_()
     err = _library().linesum_launch(
         mode, grid["nu_hi"].data_ptr(), grid["nu_lo"].data_ptr(), lines.nu.data_ptr(),
         lines.nu_lo.data_ptr(), coef.data_ptr(), win.data_ptr(),
         None if d_near is None else d_near.data_ptr(), zones, n_blocks, block,
-        lines.n_lines, n_states, n_out, out.data_ptr(),
+        lines.n_lines, n_states, n_out, out.stride(0), int(accumulate), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"line-sum kernel launch failed: CUDA error {err}")
-    sigma_lines.launches += 1
-    sigma_lines.launches_by_mode[_MODE_NAMES[mode]] += 1
+    _count(count_as or _MODE_NAMES[mode])
     return out
 
 
-def _prepare(plan: LineWindowPlan, lines, T, P, Pp, shape: str):
+def _prepare(plan: LineWindowPlan, lines, T, P, Pp, shape: str, conc=None):
     """Check K1's operands on the card and build its coefficient pack.
 
     Returns the launch: a function of no arguments that runs the kernel into
@@ -203,29 +252,29 @@ def _prepare(plan: LineWindowPlan, lines, T, P, Pp, shape: str):
     take (device, float32, shape, contiguity).
     """
     mode = _mode(shape)
-    n_states, dev = _checked(lines, T, P, Pp)
+    n_states, dev = _checked(lines, T, P, Pp, conc)
     _check_windows(plan.windows(), lines.n_lines)
     grid = plan.device_arrays(dev)
-    S, alpha, gamma = _line_params(lines, T, P, Pp)
+    S, alpha, gamma = _line_params(lines, T, P, Pp, conc)
     coef = pack_coefficients(mode, S, alpha, gamma)
     d_near = near_distance(alpha, plan.cut) if mode == MODES["voigt"] else None
     zones = _zones(plan.cut)
     return lambda: launch_mode(mode, grid, lines, coef, n_states, plan.n_nu, zones, d_near)
 
 
-def sigma_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt"):
+def sigma_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
     """sigma[n_states, n_nu] over the plan's windows, flat states [n_states].
 
     CUDA tensors: K1 in its split mode for voigt and its single sweep for
     lorentz and doppler. CPU tensors: the plain :func:`sigma_from_lines`.
     """
     if T.device.type == "cpu":
-        return sigma_from_lines(plan, lines, T, P, Pp, shape)
-    return _prepare(plan, lines, T, P, Pp, shape)()
+        return sigma_from_lines(plan, lines, T, P, Pp, shape, conc)
+    return _prepare(plan, lines, T, P, Pp, shape, conc)()
 
 
 sigma_lines.launches = 0
-sigma_lines.launches_by_mode = dict.fromkeys(_MODE_NAMES.values(), 0)
+sigma_lines.launches_by_mode = dict.fromkeys(tuple(_MODE_NAMES.values()) + _ROUTE_COUNTS, 0)
 
 
 def _stencil_arrays(geom, dev):
@@ -275,25 +324,25 @@ def stencil_correction(out, geom, co, cut: float, weight=None):
 stencil_correction.launches = 0
 
 
-def _route_operands(lines, T, P, Pp, n_windows_table):
-    n_states, dev = _checked(lines, T, P, Pp)
+def _route_operands(lines, T, P, Pp, n_windows_table, conc=None):
+    n_states, dev = _checked(lines, T, P, Pp, conc)
     _check_windows(n_windows_table, lines.n_lines)
-    S, alpha, gamma = _line_params(lines, T, P, Pp)
+    S, alpha, gamma = _line_params(lines, T, P, Pp, conc)
     co = tuple(c.contiguous() for c in voigt_coefficients(S, alpha, gamma))
     coef = pack_coefficients(WINDOW_MODES["farall"], S, alpha, gamma)
     return n_states, dev, alpha, co, coef
 
 
-def sigma_stencil(plan: LineWindowPlan, lines, T, P, Pp):
+def sigma_stencil(plan: LineWindowPlan, lines, T, P, Pp, conc=None):
     """The stencil-near route, flat states [n_states]: K1's FARALL mode over
     the plan's windows, then the near-core correction. CPU tensors: its
     plain version."""
     if T.device.type == "cpu":
-        return sigma_stencil_plain(plan, lines, T, P, Pp)
+        return sigma_stencil_plain(plan, lines, T, P, Pp, conc)
     geom = stencil_geometry(plan, lines)
     if geom is None:
         raise ValueError("the stencil geometry rejects this grid and catalog")
-    n_states, dev, _, co, coef = _route_operands(lines, T, P, Pp, plan.windows())
+    n_states, dev, _, co, coef = _route_operands(lines, T, P, Pp, plan.windows(), conc)
     out = launch_mode(WINDOW_MODES["farall"], plan.device_arrays(dev), lines, coef,
                       n_states, plan.n_nu, _zones(plan.cut))
     return stencil_correction(out, geom, co, plan.cut)
@@ -312,17 +361,17 @@ def _coarse_arrays(geom, dev):
     return got
 
 
-def sigma_coarse(plan: LineWindowPlan, lines, T, P, Pp, params):
+def sigma_coarse(plan: LineWindowPlan, lines, T, P, Pp, params, conc=None):
     """The coarse-far route, flat states [n_states], for the split's
     ``params`` (d_far, h, n_cc, c_ratio): on the fine grid K1's FINE_STENCIL
     mode and the weighted correction where the stencil geometry accepts,
     else its FINE mode; K1's COARSE mode on the coarse grid; the far field
     interpolated back in plain torch. CPU tensors: its plain version."""
     if T.device.type == "cpu":
-        return sigma_coarse_plain(plan, lines, T, P, Pp, params)
+        return sigma_coarse_plain(plan, lines, T, P, Pp, params, conc)
     geom = coarse_geometry(plan, lines, params)
     n_states, dev, alpha, co, coef = _route_operands(
-        lines, T, P, Pp, geom.coarse_windows)
+        lines, T, P, Pp, geom.coarse_windows, conc)
     _check_windows(geom.fine_windows, lines.n_lines)
     arrs = _coarse_arrays(geom, dev)
     z = geom.zones
@@ -339,14 +388,157 @@ def sigma_coarse(plan: LineWindowPlan, lines, T, P, Pp, params):
     return fine + far_from_coarse(far_c, geom)
 
 
-def sigma_routed(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt",
-                 strategy: str = "auto"):
-    """sigma[n_states, n_nu] through the route that ``strategy`` gives on
-    this plan and catalog (:func:`.linesum_strategies.route`)."""
-    name, params = _resolve(plan, lines, shape, strategy)
-    if name == "coarse":
-        return sigma_coarse(plan, lines, T, P, Pp, params)
-    if name == "stencil":
-        return sigma_stencil(plan, lines, T, P, Pp)
-    return sigma_lines(plan, lines, T, P, Pp, shape)
+def _segment_windows(plan: LineWindowPlan, n_lines: int, L_seg: int, dev):
+    """(segment, its block grid and int32 window table on ``dev``) for each
+    of the catalog's segments (:func:`.linesum_strategies.segments`), cached
+    on the plan under the segments' own key and the device."""
+    key = (dev, "segments", int(n_lines), int(L_seg))
+    got = plan._on_device.get(key)
+    if got is None:
+        full = plan.device_arrays(dev)
+        B = plan.block
+        got = plan._on_device[key] = [
+            (g, {"nu_hi": full["nu_hi"][g.blo * B: g.bhi * B],
+                 "nu_lo": full["nu_lo"][g.blo * B: g.bhi * B],
+                 "win": torch.as_tensor(g.windows, dtype=torch.int32, device=dev)})
+            for g in segments(plan, n_lines, L_seg)]
+    return got
 
+
+def sigma_segmented(plan: LineWindowPlan, lines, T, P, Pp, L_seg: int, shape: str = "voigt",
+                    conc=None):
+    """K1-seg, flat states [n_states]: the catalog cut into segments of
+    ``L_seg`` lines (:func:`.linesum_strategies.segments`); for each, its own
+    coefficient pack and (voigt) its own d_near from its own largest
+    Doppler width, and one K1 launch over the blocks its windows meet, added
+    in place into one sigma [n_states, n_nu]. CPU tensors: its plain
+    version."""
+    if T.device.type == "cpu":
+        return sigma_segmented_plain(plan, lines, T, P, Pp, L_seg, shape, conc)
+    mode = _mode(shape)
+    n_states, dev = _checked(lines, T, P, Pp, conc)
+    _check_windows(plan.windows(), lines.n_lines)
+    if L_seg < 1:
+        raise ValueError(f"segments need at least one line, not {L_seg}")
+    out = torch.zeros((n_states, plan.n_nu), dtype=torch.float32, device=dev)
+    zones = _zones(plan.cut)
+    for seg, grid in _segment_windows(plan, lines.n_lines, L_seg, dev):
+        sub = _slice_lines(lines, seg.a, seg.b)
+        S, alpha, gamma = _line_params(sub, T, P, Pp,
+                                       None if conc is None else conc[..., seg.a:seg.b])
+        d_near = near_distance(alpha, plan.cut) if mode == MODES["voigt"] else None
+        launch_mode(mode, grid, sub, pack_coefficients(mode, S, alpha, gamma), n_states,
+                    seg.n_out, zones, d_near, out=out[:, seg.blo * plan.block:],
+                    count_as="segmented")
+    return out
+
+
+def launch_fullprofile(shape: str, gathered: bool, grid: dict, nu, nu_lo, S, alpha, gamma,
+                       start, count, row: int, cut: float, n_out: int, out=None):
+    """One K4 (``gathered`` False) or K5 launch into sigma[n_states, n_out]
+    (new, or the contiguous ``out``).
+
+    ``grid``: the plan's ``nu_hi``/``nu_lo`` block grid; ``nu``/``nu_lo``
+    the line positions ([row] padded catalog for K4, [n_blocks * row] slabs
+    for K5), ``S``/``alpha``/``gamma`` the per-state rows
+    ([n_states, len(nu)]), ``start``/``count`` int32 [n_blocks] (K4's aligned
+    window starts; K5 reads only the counts).
+    """
+    dev = S.device
+    n_blocks = count.shape[0]
+    block = grid["nu_hi"].shape[0] // max(n_blocks, 1)
+    n_states = S.shape[0]
+    n_pos = n_blocks * row if gathered else row
+    if block > 1024 or n_blocks * block != grid["nu_hi"].shape[0] or n_blocks * block < n_out:
+        raise ValueError(f"a grid of {n_blocks} blocks cannot give {n_out} outputs")
+    for name, x in (("nu", nu), ("nu_lo", nu_lo)):
+        check_operand(name, x, (n_pos,), dev)
+    for name, x in (("S", S), ("alpha", alpha), ("gamma", gamma)):
+        check_operand(name, x, (n_states, n_pos), dev)
+    for name, x in (("start", start), ("count", count)):
+        if x.dtype != torch.int32 or x.device != dev or tuple(x.shape) != (n_blocks,):
+            raise ValueError(f"{name} must be int32 [{n_blocks}] on {dev}")
+    if out is None:
+        out = torch.empty((n_states, n_out), dtype=torch.float32, device=dev)
+    else:
+        check_operand("out", out, (n_states, n_out), dev)
+    if n_states == 0:
+        return out
+    err = _library().fullprofile_launch(
+        _mode(shape), int(gathered), grid["nu_hi"].data_ptr(), grid["nu_lo"].data_ptr(),
+        nu.data_ptr(), nu_lo.data_ptr(), S.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
+        start.data_ptr(), count.data_ptr(), row, n_blocks, block, float(cut), n_states,
+        n_out, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"full-profile kernel launch failed: CUDA error {err}")
+    _count("gathered" if gathered else "lane")
+    return out
+
+
+def sigma_lane(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
+    """K4, flat states [n_states]: the full profile over each block's
+    CHUNK-aligned window of unpacked per-state rows
+    (:func:`.linesum_strategies.lane_layout`). CPU tensors: its plain
+    version."""
+    if T.device.type == "cpu":
+        return sigma_lane_plain(plan, lines, T, P, Pp, shape, conc)
+    n_states, dev = _checked(lines, T, P, Pp, conc)
+    _check_windows(plan.windows(), lines.n_lines)
+    lay = lane_layout(plan, lines, *_line_params(lines, T, P, Pp, conc))
+    win = torch.as_tensor(lay.windows, dtype=torch.int32, device=dev)
+    return launch_fullprofile(shape, False, plan.device_arrays(dev), lay.nu, lay.nu_lo, lay.S,
+                              lay.alpha, lay.gamma, win[:, 0].contiguous(),
+                              win[:, 1].contiguous(), lay.nu.shape[0], plan.cut, plan.n_nu)
+
+
+def gather_group(plan: LineWindowPlan) -> int:
+    """States per K5 launch: the gathered slabs of a group stay within
+    :data:`GATHER_BYTES`, in whole tiles of ``ST`` states where that allows."""
+    slab_pad = -(-max(1, plan.slab) // CHUNK) * CHUNK
+    per_state = 12 * plan.n_blocks * slab_pad
+    n = max(1, GATHER_BYTES // per_state)
+    return n // ST * ST if n >= ST else n
+
+
+def sigma_gathered(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
+    """K5, flat states [n_states]: each block's slab gathered by plain
+    indexing (:func:`.linesum_strategies.gathered_slabs`), then the full
+    profile over it; states in groups of :func:`gather_group`. CPU tensors:
+    its plain version."""
+    if T.device.type == "cpu":
+        return sigma_gathered_plain(plan, lines, T, P, Pp, shape, conc)
+    n_states, dev = _checked(lines, T, P, Pp, conc)
+    _check_windows(plan.windows(), lines.n_lines)
+    grid = plan.device_arrays(dev)
+    count = grid["win"][:, 1].contiguous()
+    out = torch.empty((n_states, plan.n_nu), dtype=torch.float32, device=dev)
+    step = gather_group(plan)
+    for a in range(0, n_states, step):
+        b = min(a + step, n_states)
+        c = None if conc is None or conc.dim() == 1 else conc[a:b]
+        g = gathered_slabs(plan, lines, *_line_params(
+            lines, T[a:b], P[a:b], Pp[a:b], conc if c is None else c))
+        launch_fullprofile(shape, True, grid, g.nu, g.nu_lo, g.S, g.alpha, g.gamma, count,
+                           count, g.slab_pad, plan.cut, plan.n_nu, out=out[a:b])
+    return out
+
+
+def sigma_routed(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt",
+                 strategy: str = "auto", conc=None, resident_limit=None):
+    """sigma[n_states, n_nu] through the route that ``strategy`` gives for
+    this plan, catalog and number of states
+    (:func:`.linesum_strategies.route`), with the residency gates at
+    ``resident_limit`` bytes (by default the card's L2 cache,
+    :func:`.linesum_strategies.resident_budget`)."""
+    name, param = _resolve(plan, lines, shape, strategy, T.shape[0], resident_limit)
+    if name == "coarse":
+        return sigma_coarse(plan, lines, T, P, Pp, param, conc)
+    if name == "stencil":
+        return sigma_stencil(plan, lines, T, P, Pp, conc)
+    if name == "segmented":
+        return sigma_segmented(plan, lines, T, P, Pp, param, shape, conc)
+    if name == "lane":
+        return sigma_lane(plan, lines, T, P, Pp, shape, conc)
+    if name == "gathered":
+        return sigma_gathered(plan, lines, T, P, Pp, shape, conc)
+    return sigma_lines(plan, lines, T, P, Pp, shape, conc)

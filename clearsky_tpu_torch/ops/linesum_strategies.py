@@ -1,16 +1,18 @@
-"""The voigt routes of the line sum: stencil-near and coarse-far.
+"""The routes of the line sum, their residency gates and plain versions.
 
 Counterpart of the strategy half of ``clearsky_tpu/ops/linesum_pallas.py``:
-the geometry of each route (``_coarse_far_params``, ``_stencil_width``,
-``_build_stencil_geom``), the routing policy of ``sigma_from_lines_pallas``
-(:func:`route`), and the plain versions of K1's windowed modes and of the
-near-core correction, composed as ``_pallas_sigma_impl`` + ``_stencil_apply``
-(stencil) and ``_coarse_core`` (coarse) compose them.
+the geometry of each voigt route (``_coarse_far_params``,
+``_stencil_width``, ``_build_stencil_geom``), the routing policy of
+``sigma_from_lines_pallas`` with its residency gates (:func:`route`), and
+the plain versions of the kernels' layouts and modes, composed as
+``_pallas_sigma_impl`` + ``_stencil_apply`` (stencil), ``_coarse_core``
+(coarse), ``_pallas_sigma_segmented`` (segmented) and the lane-major and
+gathered branches of ``_pallas_sigma_impl`` compose them.
 
-Routes of a voigt line sum (lorentz and doppler always take K1's single
-sweep):
+Routes of a line sum:
 
-* ``"grouped"``: K1's split mode over the plan's windows;
+* ``"grouped"``: K1 over the plan's windows, in its split mode (voigt) or
+  its single sweep (lorentz, doppler);
 * ``"stencil"``: K1's FARALL mode, Humlicek region 1 over each whole window,
   then the correction Sia (w4 - region 1) on the 2K grid points around each
   line, where |x| <= 15 (region 1 is exact elsewhere);
@@ -20,34 +22,43 @@ sweep):
   FINE_STENCIL (mid region 1 weighted 1 - W, plus the correction weighted
   alike) and two thin annuli at the cut that keep its hard truncation exact;
   the smooth far field W Wout region 1 on a uniform coarse grid of spacing
-  h (COARSE), brought back by Catmull-Rom interpolation in sqrt space.
+  h (COARSE), brought back by Catmull-Rom interpolation in sqrt space;
+* ``"segmented"``: the catalog cut into segments of at most L_seg lines,
+  K1 over each segment's block range, summed in place (K1-seg);
+* ``"lane"``: the full profile over each block's CHUNK-aligned window of
+  unpacked per-state rows (K4);
+* ``"gathered"``: the full profile over per-block line slabs gathered
+  before the launch (K5).
 
-The geometry is the JAX package's, bit for bit, in float64 numpy. What the
-port drops: the stencil's one-hot placement tensors and chunk pad classes
-(the TPU's matrix-unit placement; the port adds with atomics), the branches
-for traced catalogs (torch has no tracers), and the VMEM residency gates of
-the routing (``_coarse_resident_ok``, ``_resident_bytes_est`` against
-``_RESIDENT_VMEM_LIMIT``, and the catalog-segmented branch): the CUDA kernel
-streams any window through shared memory, so only the geometry decides the
-route. At every shape chip_smoke.py drives, both policies pick the same
-route.
+The residency gates are the JAX package's cost model (``_grouped_lane_cost``,
+``_resident_bytes_est``, ``_segment_cap``, ``_coarse_resident_ok``) over a
+byte budget: JAX's is its 6 MiB of VMEM, the port's the card's L2 cache
+(:func:`resident_budget`; the decisions are JAX's, the budget only
+larger). The geometry is the JAX package's, bit for bit,
+in float64 numpy. What the port drops: the stencil's one-hot placement
+tensors and chunk pad classes (the TPU's matrix-unit placement; the port
+adds with atomics) and the branches for traced catalogs (torch has no
+tracers).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 import weakref
 
 import numpy as np
 import torch
 
 from ..constants import C_LIGHT, R_GAS
+from ..spectra.lines import PER_LINE_FIELDS
 from .faddeeva import wofz_re
 from .linesum import (
     LineWindowPlan,
     _line_params,
     block_sum,
     grid_blocks,
+    tile_exact,
     tile_region1,
     tile_w4,
     voigt_coefficients,
@@ -56,7 +67,11 @@ from .linesum import (
 __all__ = [
     "STRATEGIES",
     "check_strategy",
+    "resident_budget",
     "route",
+    "segments",
+    "lane_layout",
+    "gathered_slabs",
     "coarse_params",
     "stencil_geometry",
     "coarse_geometry",
@@ -67,9 +82,20 @@ __all__ = [
     "sigma_stencil_plain",
     "sigma_coarse_plain",
     "coarse_route_plain",
+    "sigma_segmented_plain",
+    "sigma_lane_plain",
+    "sigma_gathered_plain",
 ]
 
-STRATEGIES = ("auto", "grouped", "stencil", "coarse")
+STRATEGIES = ("auto", "grouped", "stencil", "coarse", "lane", "gathered")
+
+# lines per chunk of the JAX package's kernels: its packs and the lane
+# layout pad the catalog by whole chunks, and segments are CHUNK multiples
+CHUNK = 128
+# the JAX package's residency budget (its VMEM), for comparing decisions
+JAX_RESIDENT_LIMIT = 6 * 2**20
+# the H100's L2 cache: the budget of a catalog that is not on a card
+H100_L2_BYTES = 50 * 2**20
 
 # coarse-far split constants of the JAX package: h = d_far / Q coarse
 # spacing, outer roll width W_ROLL_CELLS h; the auto route takes the split
@@ -87,10 +113,6 @@ def check_strategy(strategy: str) -> None:
     """Raise unless the port has the line-sum strategy ``strategy``."""
     if strategy in STRATEGIES:
         return
-    if strategy in ("lane", "gathered"):
-        raise NotImplementedError(
-            f"line-sum strategy {strategy!r} (the lane-major and gathered K1 variants, "
-            "K4 and K5) is not ported yet: ROADMAP B8")
     if strategy == "nosplit":
         raise NotImplementedError(
             "line-sum strategy 'nosplit' (the voigt no-split sweep) is not in the port: it had "
@@ -320,45 +342,138 @@ def coarse_geometry(plan: LineWindowPlan, lines, params) -> CoarseGeom:
                    lambda: _build_coarse_geom(plan, lines, params))
 
 
-def _resolve(plan: LineWindowPlan, lines, shape: str, strategy: str):
-    """(route, coarse params or None): the JAX package's policy.
+def resident_budget(device, resident_limit=None) -> int:
+    """The byte budget of the residency gates: ``resident_limit`` where
+    given, else the L2 cache of the card ``device`` (the H100's 50 MiB for a
+    catalog that is not on a card).
 
-    "auto" takes the coarse split where it accepts at a work fraction of
-    0.2, else the stencil route where its geometry accepts, else K1's split
-    mode. An explicit "coarse" takes the split where it accepts at 0.6, and
-    auto's route where it does not. "stencil" without a stencil geometry
-    takes the split mode, as the JAX package's compiled body does.
+    The CUDA K1 streams any window through shared memory, so no on-chip
+    memory caps the pack as VMEM caps the JAX package's (6 MiB); the L2
+    size only keeps the packs of existing shapes (<= 11 MB) on the routes
+    JAX takes. Measured on an NVIDIA H100 80GB HBM3 at a 700 W limit
+    (chip_smoke.py's ``mix`` phase; PERF.md, section 6), the budget does
+    not pick the fastest route on a catalog that exceeds it: on 55,000
+    lines at 57 states x 2^19 points the segmented route it chooses took
+    63 ms, one K1 launch over the whole 98 MB pack 55 ms, the coarse route
+    23 ms. K1 reads the pack one 8-state tile (12 MB) at a time, which
+    fits L2 either way. Whether one fixed budget would route as well is
+    an open question (ROADMAP 4a).
+    """
+    if resident_limit is not None:
+        return int(resident_limit)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).L2_cache_size)
+    return H100_L2_BYTES
+
+
+def _grouped_lane_cost(shape: str, strategy: str, n_states: int) -> int:
+    """Per-line pack cost (in float32 values) of K1 in the JAX package's
+    layout: the voigt split pack is (2 + 7 rows a state), its stencil pack
+    (2 + 4), every other pack (2 + 3) padded to a multiple of 128."""
+    voigt_split = shape == "voigt"
+    rows = (4 if strategy == "stencil" else 7) if voigt_split else 3
+    n_params = rows * n_states + 2
+    return n_params if voigt_split else -(-n_params // 128) * 128
+
+
+def _resident_bytes_est(n_lines: int, slab: int, lane_cost: int) -> int:
+    slab_pad = -(-max(1, slab) // CHUNK) * CHUNK
+    n_lines_pad = -(-(n_lines + slab_pad + CHUNK) // 128) * 128
+    return n_lines_pad * lane_cost * 4
+
+
+def _segment_cap(shape: str, strategy: str, n_states: int, limit: int, slab: int) -> int:
+    """The longest CHUNK-multiple segment whose worst-case pack fits
+    ``limit`` (a segment's slab is at most min(slab, its length)); 0 if
+    none does."""
+    lane_cost = _grouped_lane_cost(shape, strategy, n_states)
+    L = (limit // (4 * lane_cost) // CHUNK) * CHUNK
+    while L >= CHUNK:
+        if _resident_bytes_est(L, min(slab, L), lane_cost) <= limit:
+            return L
+        L -= CHUNK
+    return 0
+
+
+def _coarse_resident_ok(shape: str, n_states: int, n_lines: int, limit: int) -> bool:
+    """Both passes of the coarse split read one pack of the whole catalog."""
+    n_lines_pad = -(-(n_lines + 2 * CHUNK) // 128) * 128
+    return n_lines_pad * _grouped_lane_cost(shape, "grouped", n_states) * 4 <= limit
+
+
+def _resolve(plan: LineWindowPlan, lines, shape: str, strategy: str, n_states: int = 1,
+             resident_limit=None):
+    """(route, parameter): the JAX package's policy at the byte budget
+    :func:`resident_budget`; the parameter is the coarse split's
+    (d_far, h, n_cc, c_ratio) or the segment length, else None.
+
+    The voigt "auto" takes the coarse split where it accepts at a work
+    fraction of 0.2 and its pack fits, else the stencil route where its
+    geometry accepts and its (slimmer) pack fits. "auto", "grouped" and
+    "stencil" then take K1 over the whole catalog where its pack fits, else
+    over segments of ``_segment_cap`` lines (an oversize stencil pack
+    becomes segmented, in the split mode), else the gathered kernel. An
+    explicit "coarse" takes the split where it accepts at 0.6 and its pack
+    fits, and auto's route where the geometry rejects it, else the
+    grouped-or-segmented decision. "stencil" without a stencil geometry
+    takes the split mode, as the JAX package's compiled body does. "lane"
+    takes the lane-major kernel where its rows fit, else the gathered one;
+    "gathered" always the gathered one.
     """
     check_strategy(strategy)
-    if shape != "voigt":
-        return "grouped", None
+    limit = resident_budget(lines.device, resident_limit)
+    n_lines = lines.n_lines
+    voigt = shape == "voigt"
+    frac = EXPLICIT_COARSE_FRAC
+    if strategy == "coarse" and voigt and coarse_params(plan, EXPLICIT_COARSE_FRAC) is None:
+        strategy = "auto"
+    if strategy == "auto" and voigt:
+        if (coarse_params(plan, AUTO_COARSE_FRAC) is not None
+                and _coarse_resident_ok(shape, n_states, n_lines, limit)):
+            strategy, frac = "coarse", AUTO_COARSE_FRAC
+        elif (_resident_bytes_est(n_lines, plan.slab,
+                                  _grouped_lane_cost(shape, "stencil", n_states)) <= limit
+              and stencil_geometry(plan, lines) is not None):
+            strategy = "stencil"
     if strategy == "coarse":
-        params = coarse_params(plan, EXPLICIT_COARSE_FRAC)
-        if params is not None:
+        params = coarse_params(plan, frac) if voigt else None
+        if params is not None and _coarse_resident_ok(shape, n_states, n_lines, limit):
             return "coarse", params
         strategy = "auto"
-    if strategy == "auto":
-        params = coarse_params(plan, AUTO_COARSE_FRAC)
-        if params is not None:
-            return "coarse", params
-        strategy = "stencil"
-    if strategy == "stencil" and stencil_geometry(plan, lines) is not None:
-        return "stencil", None
-    return "grouped", None
+    if strategy == "stencil" and not (voigt and stencil_geometry(plan, lines) is not None):
+        strategy = "auto"
+    if strategy in ("auto", "grouped", "stencil"):
+        lane_cost = _grouped_lane_cost(shape, strategy, n_states)
+        if _resident_bytes_est(n_lines, plan.slab, lane_cost) <= limit:
+            return ("stencil" if strategy == "stencil" else "grouped"), None
+        if strategy == "stencil":
+            strategy = "auto"
+        L_seg = _segment_cap(shape, strategy, n_states, limit, plan.slab)
+        if CHUNK <= L_seg < n_lines:
+            return "segmented", L_seg
+        return "gathered", None
+    # K4's unpacked rows: positions and 3 per state, on the padded catalog
+    if strategy == "lane" and _resident_bytes_est(n_lines, plan.slab, 3 * n_states + 2) <= limit:
+        return "lane", None
+    return "gathered", None
 
 
-def route(plan: LineWindowPlan, lines, shape: str = "voigt", strategy: str = "auto") -> str:
-    """The route a line sum on the card takes: "coarse", "stencil" or
-    "grouped" (K1's split mode for voigt, its single sweep for lorentz and
-    doppler). Raises on a strategy the port does not have."""
-    return _resolve(plan, lines, shape, strategy)[0]
+def route(plan: LineWindowPlan, lines, shape: str = "voigt", strategy: str = "auto",
+          n_states: int = 1, resident_limit=None) -> str:
+    """The route a line sum of ``n_states`` states on the card takes:
+    "coarse", "stencil", "grouped", "segmented", "lane" or "gathered"
+    (:func:`_resolve`), at the budget :func:`resident_budget`. Raises on a
+    strategy the port does not have."""
+    return _resolve(plan, lines, shape, strategy, n_states, resident_limit)[0]
 
 
 def warm(plan: LineWindowPlan, lines, shape: str, strategy: str) -> None:
-    """Build the geometry of the route while nothing waits for it."""
-    name, params = _resolve(plan, lines, shape, strategy)
+    """Build the geometry of the route (for one state) while nothing waits
+    for it."""
+    name, param = _resolve(plan, lines, shape, strategy)
     if name == "coarse":
-        coarse_geometry(plan, lines, params)
+        coarse_geometry(plan, lines, param)
 
 
 # --- plain versions -----------------------------------------------------------
@@ -475,36 +590,36 @@ def far_from_coarse(far_c, geom: CoarseGeom):
     return torch.square(torch.clamp(far, min=0.0))
 
 
-def _coefficients(lines, T, P, Pp):
-    S, alpha, gamma = _line_params(lines, T, P, Pp)
+def _coefficients(lines, T, P, Pp, conc=None):
+    S, alpha, gamma = _line_params(lines, T, P, Pp, conc)
     return alpha, voigt_coefficients(S, alpha, gamma)
 
 
-def sigma_stencil_plain(plan: LineWindowPlan, lines, T, P, Pp):
+def sigma_stencil_plain(plan: LineWindowPlan, lines, T, P, Pp, conc=None):
     """The stencil route in plain PyTorch, flat states [n_states]: FARALL
     over the plan's windows plus the near-core correction."""
     geom = stencil_geometry(plan, lines)
     if geom is None:
         raise ValueError("the stencil geometry rejects this grid and catalog")
-    _, co = _coefficients(lines, T, P, Pp)
+    _, co = _coefficients(lines, T, P, Pp, conc)
     out = sigma_mode_plain("farall", plan.nu_blocks, plan.windows(), lines, co,
                            {"cut": plan.cut})[:, : plan.n_nu]
     return out + stencil_correction_plain(geom, co, plan.cut, plan.n_nu)
 
 
-def sigma_coarse_plain(plan: LineWindowPlan, lines, T, P, Pp, params=None):
+def sigma_coarse_plain(plan: LineWindowPlan, lines, T, P, Pp, params=None, conc=None):
     """The coarse-far route in plain PyTorch, flat states [n_states]
     (``_coarse_core``); ``params`` default to the explicit strategy's."""
     params = params or coarse_params(plan, EXPLICIT_COARSE_FRAC)
     if params is None:
         raise ValueError("the coarse-far split rejects this grid")
-    return coarse_route_plain(coarse_geometry(plan, lines, params), lines, T, P, Pp)
+    return coarse_route_plain(coarse_geometry(plan, lines, params), lines, T, P, Pp, conc)
 
 
-def coarse_route_plain(geom: CoarseGeom, lines, T, P, Pp):
+def coarse_route_plain(geom: CoarseGeom, lines, T, P, Pp, conc=None):
     """:func:`sigma_coarse_plain` on a given geometry: FINE_STENCIL and the
     weighted correction where ``geom.stencil`` is set, else FINE."""
-    alpha, co = _coefficients(lines, T, P, Pp)
+    alpha, co = _coefficients(lines, T, P, Pp, conc)
     z, n_nu = geom.zones, geom.n_nu
     if geom.stencil is not None:
         fine = sigma_mode_plain("fine_stencil", geom.fine_blocks, geom.fine_windows, lines,
@@ -518,3 +633,140 @@ def coarse_route_plain(geom: CoarseGeom, lines, T, P, Pp):
     far_c = sigma_mode_plain("coarse", geom.coarse_blocks, geom.coarse_windows, lines, co,
                              z)[:, : geom.params[2]]
     return fine + far_from_coarse(far_c, geom)
+
+
+# --- the large-catalog and baseline layouts (K1-seg, K4, K5) ----------------
+
+def _slice_lines(lines, a: int, b: int):
+    """Lines a..b of a catalog (views; the TIPS table is shared)."""
+    return dataclasses.replace(lines, **{f: getattr(lines, f)[a:b] for f in PER_LINE_FIELDS})
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Segment:
+    """Lines [a, b) of the catalog and the blocks [blo, bhi) whose windows
+    meet them: ``windows`` [bhi - blo, 2] are those blocks' windows clipped
+    to the segment, relative to its first line; ``n_out`` the grid points
+    of the block range that lie on the grid."""
+
+    a: int
+    b: int
+    blo: int
+    bhi: int
+    n_out: int
+    windows: np.ndarray
+
+
+def segments(plan: LineWindowPlan, n_lines: int, L_seg: int) -> list:
+    """The catalog's segments of ``L_seg`` lines that meet a window
+    (``_pallas_sigma_segmented``), cached on the plan. Each (block, line)
+    pair of a window falls in exactly one segment."""
+    key = ("segments", int(n_lines), int(L_seg))
+    got = plan._geometry.get(key)
+    if got is not None:
+        return got
+    start = np.asarray(plan.start, np.int64)
+    end = start + np.asarray(plan.count, np.int64)
+    B = plan.block
+    out = []
+    for a in range(0, n_lines, L_seg):
+        b = min(n_lines, a + L_seg)
+        s_c = np.clip(start, a, b)
+        c_s = np.clip(end, a, b) - s_c
+        nz = np.nonzero(c_s > 0)[0]
+        if nz.size == 0:
+            continue
+        blo, bhi = int(nz[0]), int(nz[-1]) + 1
+        out.append(Segment(a=a, b=b, blo=blo, bhi=bhi,
+                           n_out=min((bhi - blo) * B, plan.n_nu - blo * B),
+                           windows=np.stack([(s_c - a)[blo:bhi], c_s[blo:bhi]], axis=1)))
+    plan._geometry[key] = out
+    return out
+
+
+def _exact_zone(shape, S, alpha, gamma, cut):
+    return [(0, tile_exact(shape, S, alpha, gamma), lambda adnu, D: adnu <= cut, None)]
+
+
+def sigma_segmented_plain(plan: LineWindowPlan, lines, T, P, Pp, L_seg: int,
+                          shape: str = "voigt", conc=None):
+    """K1-seg's plain version, flat states [n_states]: the exact profile
+    summed segment by segment over each segment's block range, added into
+    one sigma [n_states, n_nu]."""
+    S, alpha, gamma = _line_params(lines, T, P, Pp, conc)
+    nb, nb_lo = grid_blocks(plan.nu_blocks, S.dtype, S.device)
+    out = torch.zeros(S.shape[:-1] + (plan.n_nu,), dtype=S.dtype, device=S.device)
+    B = plan.block
+    for seg in segments(plan, lines.n_lines, L_seg):
+        part = lambda x: x[..., seg.a:seg.b]
+        sig = block_sum(nb[seg.blo:seg.bhi], None if nb_lo is None else nb_lo[seg.blo:seg.bhi],
+                        _slice_lines(lines, seg.a, seg.b), seg.windows,
+                        _exact_zone(shape, part(S), part(alpha), part(gamma), plan.cut),
+                        tuple(S.shape[:-1]))
+        out[..., seg.blo * B: seg.blo * B + seg.n_out] += sig[..., :seg.n_out]
+    return out
+
+
+def lane_layout(plan: LineWindowPlan, lines, S, alpha, gamma):
+    """K4's operands (the lane branch of ``_pallas_sigma_impl``): positions
+    ``nu``/``nu_lo`` [n_lines_pad] and the per-state rows ``S``, ``alpha``,
+    ``gamma`` [n_states, n_lines_pad], padded past the catalog with lines at
+    1e30 cm^-1 of zero strength (n_lines_pad = the catalog plus a slab and a
+    chunk, rounded to 128); ``windows`` [n_blocks, 2] each block's window
+    with its start aligned down to a CHUNK multiple, and a block without
+    lines at count 0."""
+    n_lines = lines.n_lines
+    slab_pad = -(-max(1, plan.slab) // CHUNK) * CHUNK
+    pad = -(-(n_lines + slab_pad + CHUNK) // 128) * 128 - n_lines
+    rows = lambda x, v: torch.cat([x, x.new_full(x.shape[:-1] + (pad,), v)], dim=-1)
+    start = np.asarray(plan.start, np.int64)
+    count = np.asarray(plan.count, np.int64)
+    start_al = (start // CHUNK) * CHUNK
+    cnt_al = np.where(count == 0, 0, start - start_al + count)
+    return types.SimpleNamespace(
+        nu=rows(lines.nu, 1e30), nu_lo=rows(lines.nu_lo, 0.0), S=rows(S, 0.0),
+        alpha=rows(alpha, 1.0), gamma=rows(gamma, 1.0),
+        windows=np.stack([start_al, cnt_al], axis=1))
+
+
+def sigma_lane_plain(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
+    """K4's plain version, flat states [n_states]: the exact profile over
+    each block's aligned window of the lane layout (:func:`lane_layout`)."""
+    S, alpha, gamma = _line_params(lines, T, P, Pp, conc)
+    lay = lane_layout(plan, lines, S, alpha, gamma)
+    nb, nb_lo = grid_blocks(plan.nu_blocks, S.dtype, S.device)
+    return block_sum(nb, nb_lo, lay, lay.windows,
+                     _exact_zone(shape, lay.S, lay.alpha, lay.gamma, plan.cut),
+                     tuple(S.shape[:-1]))[..., : plan.n_nu]
+
+
+def gathered_slabs(plan: LineWindowPlan, lines, S, alpha, gamma):
+    """K5's operands (the gathered branch of ``_pallas_sigma_impl``): each
+    block's slab of ``slab_pad`` lines from its window start, gathered by
+    plain indexing, flattened to ``nu``/``nu_lo`` [n_blocks * slab_pad] and
+    ``S``, ``alpha``, ``gamma`` [n_states, n_blocks * slab_pad]; ``windows``
+    [n_blocks, 2] = (b * slab_pad, count)."""
+    n_lines = lines.n_lines
+    slab_pad = -(-max(1, plan.slab) // CHUNK) * CHUNK
+    dev = lines.device
+    start = torch.as_tensor(np.asarray(plan.start, np.int64), device=dev)
+    idx = torch.clamp(start[:, None] + torch.arange(slab_pad, device=dev), 0,
+                      max(n_lines - 1, 0)).reshape(-1)
+    n_blocks = plan.n_blocks
+    return types.SimpleNamespace(
+        nu=lines.nu[idx], nu_lo=lines.nu_lo[idx], S=S[..., idx], alpha=alpha[..., idx],
+        gamma=gamma[..., idx], slab_pad=slab_pad,
+        windows=np.stack([np.arange(n_blocks, dtype=np.int64) * slab_pad,
+                          np.asarray(plan.count, np.int64)], axis=1))
+
+
+def sigma_gathered_plain(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt",
+                         conc=None):
+    """K5's plain version, flat states [n_states]: the exact profile over
+    each block's gathered slab (:func:`gathered_slabs`)."""
+    S, alpha, gamma = _line_params(lines, T, P, Pp, conc)
+    g = gathered_slabs(plan, lines, S, alpha, gamma)
+    nb, nb_lo = grid_blocks(plan.nu_blocks, S.dtype, S.device)
+    return block_sum(nb, nb_lo, g, g.windows,
+                     _exact_zone(shape, g.S, g.alpha, g.gamma, plan.cut),
+                     tuple(S.shape[:-1]))[..., : plan.n_nu]

@@ -43,12 +43,12 @@ MAX_LAYERS = 128
 
 def fused_table_applicable(A) -> bool:
     """True when the absorber is exactly one split-precision Gas (alone or
-    as the only member of a stack)."""
+    as the only member of a stack, with no CIA and no function)."""
     from ..absorption.gas import Gas
     from ..absorption.absorbers import AbsorberStack
 
     if isinstance(A, AbsorberStack):
-        if len(A.gases) != 1 or A.funs:
+        if len(A.gases) != 1 or A.funs or A.cias:
             return False
         A = A.gases[0]
     return isinstance(A, Gas) and A.coeffs_tail is not None

@@ -14,6 +14,7 @@ import torch
 
 from ..utils.device import placement
 from .molparam import molparam, ISOINDEX
+from .par import read_par
 
 __all__ = ["SpectralLines", "PER_LINE_FIELDS"]
 
@@ -138,6 +139,14 @@ class SpectralLines:
                       iso_ptr=iso_ptr[idx], tips_coeffs=tips)
         return cls.from_arrays(fields, dtype=dtype, device=device,
                                name=mp.name, formula=mp.formula, M=M)
+
+    @classmethod
+    def from_par(cls, filename: str, dtype=None, device=None, **kwargs) -> "SpectralLines":
+        """Read a .par file (:func:`.par.read_par` with ``kwargs``; the
+        numeric columns only unless ``strings=True``), by default in float32
+        on the card."""
+        kwargs.setdefault("strings", False)
+        return cls.from_par_dict(read_par(filename, **kwargs), dtype=dtype, device=device)
 
     def __repr__(self):  # pragma: no cover - cosmetic
         return (

@@ -24,8 +24,9 @@ __all__ = [
 ]
 
 
-def interp_linear(x, xp, fp):
-    """Linear interpolation of fp(xp) at x, extrapolating with the edge slopes.
+def interp_linear(x, xp, fp, extrapolate: bool = True):
+    """Linear interpolation of fp(xp) at x, extrapolating with the edge slopes
+    (``extrapolate=False``: clamping to the edge values instead).
 
     ``xp`` must be ascending. ``fp`` may be batched, [..., len(xp)], and the
     result has shape fp.shape[:-1] + x.shape.
@@ -37,6 +38,8 @@ def interp_linear(x, xp, fp):
     f0 = fp[..., i]
     f1 = fp[..., i + 1]
     t = (x - x0) / (x1 - x0)
+    if not extrapolate:
+        t = torch.clamp(t, 0.0, 1.0)
     return f0 + t * (f1 - f0)
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 line sum in all its modes and the near-core
-correction, K2/K3 march, K6/K7 fused table) and their wrappers.
+correction, K1-seg, the full-profile K4/K5, K2/K3 march, K6/K7 fused
+table) and their wrappers.
 
 This file imports no JAX, so that it also runs on a machine with a card and
 no JAX (pytest then needs ``--noconftest``: tests/conftest.py imports jax):
@@ -8,8 +9,8 @@ no JAX (pytest then needs ``--noconftest``: tests/conftest.py imports jax):
 
 Tests marked ``gpu`` launch the kernels and skip without a CUDA card. Each
 holds a float32 kernel to the plain PyTorch version in float64 on the same
-inputs (line sum: rtol 2e-3 where |sigma| > 1e-35, the bar of
-tests/test_linesum_pallas.py; the windowed modes and the routes: 1e-5 of
+inputs (line sum, K1-seg, K4 and K5: rtol 2e-3 where |sigma| > 1e-35, the
+bar of tests/test_linesum_pallas.py; the windowed modes and the routes: 1e-5 of
 each state's peak, float32 accumulation; the correction: 1e-4 of each
 state's peak cross-section, float32 rounding amplified next to the
 region-1 pole at x^2 = 1/2 + y^2, where the correction is largest, and
@@ -349,6 +350,186 @@ def test_route_wrappers_reject_bad_inputs(dense, cuda):
                            geom.stencil, co, 25.0)
     with pytest.raises(ValueError):       # states on another device
         sigma_from_lines_auto(plan, l32, T, P.cpu(), Pp, strategy="coarse")
+
+
+# --- the large-catalog and baseline kernels: K1-seg, K4, K5 --------------------
+
+def _segment_length(plan, n_lines, k):
+    """A segment length that gives exactly ``k`` segments meeting a block."""
+    for L in range(n_lines, 0, -1):
+        if len(ls.segments(plan, n_lines, L)) == k:
+            return L
+    raise AssertionError(f"no segment length gives {k} segments")
+
+
+_LARGE = {"segmented": linesum_cuda.sigma_segmented, "lane": linesum_cuda.sigma_lane,
+          "gathered": linesum_cuda.sigma_gathered}
+
+
+def _large_plain(kind, plan, lines, x, L_seg=None, conc=None):
+    if kind == "segmented":
+        return ls.sigma_segmented_plain(plan, lines, *x, L_seg, conc=conc)
+    return {"lane": ls.sigma_lane_plain, "gathered": ls.sigma_gathered_plain}[kind](
+        plan, lines, *x, conc=conc)
+
+
+def _large_call(kind, plan, lines, x, L_seg=None, conc=None):
+    if kind == "segmented":
+        return linesum_cuda.sigma_segmented(plan, lines, *x, L_seg, conc=conc)
+    return _LARGE[kind](plan, lines, *x, conc=conc)
+
+
+def _check_sigma(out, ref):
+    """The line-sum bar: rtol 2e-3 where |sigma| > 1e-35, else < 1e-30."""
+    out, ref = out.double().cpu().numpy(), ref.numpy()
+    m = np.abs(ref) > 1e-35
+    np.testing.assert_allclose(out[m], ref[m], rtol=2e-3, atol=1e-32)
+    assert np.all(np.abs(out[~m]) < 1e-30)
+
+
+def test_large_catalog_wrappers_on_cpu_take_the_plain_versions(cat):
+    lines, plan, states = cat
+    x = _t(states)
+    counts = dict(sigma_lines.launches_by_mode)
+    for kind in _LARGE:
+        L = 200 if kind == "segmented" else None
+        np.testing.assert_array_equal(_large_call(kind, plan, lines, x, L).numpy(),
+                                      _large_plain(kind, plan, lines, x, L).numpy())
+    assert sigma_lines.launches_by_mode == counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["segmented", "lane", "gathered"])
+@pytest.mark.parametrize("grid,n", MODE_CASES)
+def test_large_catalog_kernels_match_plain(dense, cuda, kind, grid, n):
+    """K1-seg (3 segments), K4 and K5 in float32 against their plain
+    versions in float64, with their launch counts."""
+    lines, plans = dense
+    plan = plans[grid]
+    l32 = lines.to(torch.float32, cuda)
+    L = _segment_length(plan, lines.n_lines, 3) if kind == "segmented" else None
+    before = dict(sigma_lines.launches_by_mode)
+    out = _large_call(kind, plan, l32, _t(_mode_states(n), torch.float32, cuda), L)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in sigma_lines.launches_by_mode.items() if v != before[k]}
+    assert got == {kind: 3 if kind == "segmented" else 1}
+    _check_sigma(out, _large_plain(kind, plan, lines, _t(_mode_states(n)), L))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 5])
+def test_segmented_kernel_at_1_2_5_segments(dense, cuda, k):
+    """Segments of the whole catalog: the first ones lie beyond the cut of
+    every block of the 2300-2350 cm^-1 grid and launch nothing; per-state
+    concentrations cut with the segments."""
+    lines, plans = dense
+    plan = plans["uniform"]
+    L = _segment_length(plan, lines.n_lines, k)
+    segs = ls.segments(plan, lines.n_lines, L)
+    if k == 5:
+        assert segs[0].a > 0           # the segments before it met no block
+    n = 11
+    conc = torch.linspace(0.1, 1.0, n * lines.n_lines, dtype=torch.float64).reshape(n, -1)
+    before = sigma_lines.launches_by_mode["segmented"]
+    out = linesum_cuda.sigma_segmented(plan, lines.to(torch.float32, cuda),
+                                       *_t(_mode_states(n), torch.float32, cuda), L,
+                                       conc=conc.float().to(cuda))
+    torch.cuda.synchronize()
+    assert sigma_lines.launches_by_mode["segmented"] == before + len(segs) == before + k
+    _check_sigma(out, ls.sigma_segmented_plain(plan, lines, *_t(_mode_states(n)), L, conc=conc))
+
+
+@pytest.mark.gpu
+def test_accumulate_leaves_other_columns_unchanged(dense, cuda):
+    """K1 adding into a view: the columns outside the segment's block range
+    are bitwise what they were, and inside it the sum is before + the
+    kernel's own result."""
+    lines, plans = dense
+    plan = plans["odd"]
+    l32 = lines.to(torch.float32, cuda)
+    T, P, Pp = _t(_mode_states(11), torch.float32, cuda)
+    seg = ls.segments(plan, lines.n_lines, _segment_length(plan, lines.n_lines, 2))[1]
+    sub = ls._slice_lines(l32, seg.a, seg.b)
+    S, a, g = _line_params(sub, T, P, Pp)
+    coef = linesum_cuda.pack_coefficients(0, S, a, g)
+    B = plan.block
+    full = plan.device_arrays(cuda)
+    grid = {"nu_hi": full["nu_hi"][seg.blo * B: seg.bhi * B],
+            "nu_lo": full["nu_lo"][seg.blo * B: seg.bhi * B],
+            "win": torch.as_tensor(seg.windows, dtype=torch.int32, device=cuda)}
+    args = (0, grid, sub, coef, 11, seg.n_out, linesum_cuda._zones(plan.cut),
+            linesum_cuda.near_distance(a, plan.cut))
+    fresh = linesum_cuda.launch_mode(*args)
+    before = torch.randn((11, plan.n_nu), device=cuda)
+    out = before.clone()
+    linesum_cuda.launch_mode(*args, out=out[:, seg.blo * B:])
+    torch.cuda.synchronize()
+    lo, hi = seg.blo * B, seg.blo * B + seg.n_out
+    assert 0 < lo or hi < plan.n_nu
+    assert torch.equal(out[:, :lo], before[:, :lo]) and torch.equal(out[:, hi:], before[:, hi:])
+    assert torch.equal(out[:, lo:hi], before[:, lo:hi] + fresh)
+
+
+@pytest.mark.gpu
+def test_gathered_kernel_runs_states_in_groups(dense, cuda, monkeypatch):
+    """A byte budget of three states' slabs: four launches for 11 states,
+    each state as in one launch."""
+    lines, plans = dense
+    plan = plans["uniform"]
+    l32 = lines.to(torch.float32, cuda)
+    x = _t(_mode_states(11), torch.float32, cuda)
+    whole = linesum_cuda.sigma_gathered(plan, l32, *x)
+    slab_pad = -(-plan.slab // 128) * 128
+    monkeypatch.setattr(linesum_cuda, "GATHER_BYTES", 3 * 12 * plan.n_blocks * slab_pad)
+    assert linesum_cuda.gather_group(plan) == 3
+    before = sigma_lines.launches_by_mode["gathered"]
+    grouped = linesum_cuda.sigma_gathered(plan, l32, *x)
+    torch.cuda.synchronize()
+    assert sigma_lines.launches_by_mode["gathered"] == before + 4
+    assert torch.equal(grouped, whole)
+
+
+@pytest.mark.gpu
+def test_large_catalog_wrappers_reject_bad_inputs(dense, cuda):
+    lines, plans = dense
+    plan = plans["uniform"]
+    l32 = lines.to(torch.float32, cuda)
+    T, P, Pp = _t(_mode_states(3), torch.float32, cuda)
+    for kind in _LARGE:
+        L = 512 if kind == "segmented" else None
+        with pytest.raises(TypeError):        # float64 states
+            _large_call(kind, plan, l32, (T.double(), P, Pp), L)
+        with pytest.raises(ValueError):       # concentrations of another catalog
+            _large_call(kind, plan, l32, (T, P, Pp), L,
+                        conc=torch.ones(lines.n_lines - 1, device=cuda))
+        with pytest.raises(ValueError):       # states on another device
+            _large_call(kind, plan, l32, (T, P.cpu(), Pp), L)
+    with pytest.raises(ValueError):
+        linesum_cuda.sigma_segmented(plan, l32, T, P, Pp, 0)
+    S, a, g = _line_params(l32, T, P, Pp)
+    grid = plan.device_arrays(cuda)
+    args = (0, grid, l32, linesum_cuda.pack_coefficients(0, S, a, g), 3, plan.n_nu,
+            linesum_cuda._zones(plan.cut), linesum_cuda.near_distance(a, plan.cut))
+    with pytest.raises(ValueError):           # a float64 sum to add into
+        linesum_cuda.launch_mode(*args, out=torch.zeros((3, plan.n_nu), dtype=torch.float64,
+                                                        device=cuda))
+    with pytest.raises(ValueError):           # columns not contiguous
+        linesum_cuda.launch_mode(*args, out=torch.zeros((plan.n_nu, 3), device=cuda).t())
+    coef = linesum_cuda.pack_coefficients(3, S, a, g)
+    with pytest.raises(ValueError):           # only the split and single-sweep modes add
+        linesum_cuda.launch_mode(3, grid, l32, coef, 3, plan.n_nu, linesum_cuda._zones(25.0),
+                                 out=torch.zeros((3, plan.n_nu), device=cuda))
+    lay = ls.lane_layout(plan, l32, S, a, g)
+    win = torch.as_tensor(lay.windows, device=cuda)   # int64
+    with pytest.raises(ValueError):
+        linesum_cuda.launch_fullprofile("voigt", False, grid, lay.nu, lay.nu_lo, lay.S, lay.alpha,
+                                        lay.gamma, win[:, 0], win[:, 1], lay.nu.shape[0],
+                                        25.0, plan.n_nu)
+    with pytest.raises(ValueError):           # rows of another length
+        linesum_cuda.launch_fullprofile("voigt", False, grid, lay.nu, lay.nu_lo,
+                                        lay.S[:, 1:].contiguous(), lay.alpha, lay.gamma,
+                                        win[:, 0].int(), win[:, 1].int(), lay.nu.shape[0],
+                                        25.0, plan.n_nu)
 
 
 @pytest.mark.gpu

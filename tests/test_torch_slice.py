@@ -149,8 +149,15 @@ def test_input_guards(col):
         ct.DirectGas.from_lines(col["tg"].lines, 0.95, col["nu"][::-1])
     with pytest.raises(ValueError):
         ct.DirectGas.from_lines(col["tg"].lines, 1.5, col["nu"])
-    with pytest.raises(NotImplementedError):
-        ct.AbsorberStack.create(col["tg"], type("CIATables", (), {"__call__": None})())
+    # CIA tables pair with the stack's gases by formula; other absorbers
+    # must be callables sigma(nu, T, P)
+    from clearsky_tpu_torch.spectra.synthetic import synthetic_co2_cia
+
+    n2 = [dict(r, symbol="N2-N2") for r in synthetic_co2_cia()]
+    with pytest.raises(ValueError, match="N2 missing"):
+        ct.AbsorberStack.create(col["tg"], ct.CIATables.from_data(n2))
+    with pytest.raises(TypeError):
+        ct.AbsorberStack.create(col["tg"], 3.0)
 
 
 def test_gray_radiate_top_flux_is_the_beam():

@@ -219,9 +219,10 @@ def test_chip_smoke_shapes_route_as_jax_does(plans):
 
 
 @pytest.mark.parametrize("strategy,exc,match", [
-    ("lane", NotImplementedError, "B8"), ("gathered", NotImplementedError, "B8"),
     ("nosplit", NotImplementedError, "no-split"), ("fast", ValueError, "unknown")])
 def test_unported_strategies_raise(plans, strategy, exc, match):
+    """The voigt no-split sweep stays out of the port, an unknown name is
+    refused; "lane" and "gathered" (K4, K5) are taken."""
     _, tpl, _, tl = plans["rcm_16384"]
     with pytest.raises(exc, match=match):
         ls.route(tpl, tl, "voigt", strategy)
@@ -230,6 +231,8 @@ def test_unported_strategies_raise(plans, strategy, exc, match):
         sigma_from_lines_auto(tpl, tl, T, P, P, strategy=strategy)
     with pytest.raises(exc, match=match):
         ct.DirectGas.from_lines(tl, 0.9, tpl.nu, strategy=strategy)
+    for taken in ("lane", "gathered"):
+        assert ls.route(tpl, tl, "voigt", taken) == taken
 
 
 # --- the routes against JAX's interpret-mode kernels and the exact sum ------
