@@ -73,6 +73,24 @@ prints one line that starts with its name:
           creation, the pair's sigma on the card); and ms per call of the default segmented route, one K1
           launch over the whole catalog and the coarse route at the mix
           shape
+  phco2   the dense-CO2 column (the sub-Lorentzian phco2 line shape, cut 500
+          cm^-1) at the production shape: ``kernel`` lines for each phco2
+          instance where the main path runs it (the split mode, COARSE,
+          FINE_STENCIL and the chi correction at 57 states x 2^19, FINE at
+          57 x 2^20), and for FARALL, K1-seg, K4 and K5 at 16 states x
+          2^15, each against its float64 plain version (on a sample of
+          blocks that holds the band centres where the whole grid would take
+          minutes); outgoing and radiate on "auto" (the coarse route) and
+          outgoing on "grouped" and at 2^20 (only phco2 instances and K2/K3
+          launch; band OLR of grouped and auto within 1e-4); the strategies'
+          entry points at 2^15; the bake of a phco2 Gas; and outgoing on a
+          voigt_ref DirectGas against float64
+  rce     RCM.create on the phco2 DirectGas at 16,384 points, 20 edge levels,
+          radmul 2, from a dry adiabat (285 K, Tstrat 160 K), then run for 60
+          hourly steps (refresh every 6, adjustment every step, records every
+          10): ms per step cold and warm, the refresh route and launch
+          counts, each record's heating and temperatures against the same
+          run in float64, and step_n against three steps
   profile for each main-path, table-path, route and mix call, its unprofiled
           wall time beside the device time that torch.profiler traces (CUDA
           activity), each kernel's share (K1 by mode) and the device's idle
@@ -134,18 +152,37 @@ KERNELS = {
     "fused_olr": ("clearsky_tpu_torch/csrc/fused_table.cu", "clearsky_tpu/rt/fused_table.py:74"),
     "fused_monoflux": ("clearsky_tpu_torch/csrc/fused_table.cu",
                        "clearsky_tpu/rt/fused_table.py:94"),
+    # the phco2 family's instances (chi on y: the phco2 far tile :349, tile_near :315)
+    "linesum_phco2": (_LINESUM, f"{_PALLAS}:223"),             # split mode
+    "linesum_phco2_farall": (_LINESUM, f"{_PALLAS}:451"),
+    "linesum_phco2_fine": (_LINESUM, f"{_PALLAS}:427"),
+    "linesum_phco2_fine_stencil": (_LINESUM, f"{_PALLAS}:459"),
+    "linesum_phco2_coarse": (_LINESUM, f"{_PALLAS}:478"),
+    "stencil_correction_phco2": (_LINESUM, f"{_PALLAS}:1233"),
+    "linesum_phco2_segmented": (_LINESUM, f"{_PALLAS}:658"),
+    "linesum_phco2_lane": (_LINESUM, f"{_PALLAS}:1473"),
+    "linesum_phco2_gathered": (_LINESUM, f"{_PALLAS}:1517"),
 }
 # K1's template modes (csrc/linesum.cu ``Mode``) by the kernel names above
 MODE_KERNEL = {"voigt_split": "linesum", "farall": "linesum_farall", "fine": "linesum_fine",
                "fine_stencil": "linesum_fine_stencil", "coarse": "linesum_coarse",
                "segmented": "linesum_segmented", "lane": "linesum_lane",
-               "gathered": "linesum_gathered"}
+               "gathered": "linesum_gathered", "phco2_split": "linesum_phco2",
+               "phco2_farall": "linesum_phco2_farall", "phco2_fine": "linesum_phco2_fine",
+               "phco2_fine_stencil": "linesum_phco2_fine_stencil",
+               "phco2_coarse": "linesum_phco2_coarse",
+               "phco2_segmented": "linesum_phco2_segmented", "phco2_lane": "linesum_phco2_lane",
+               "phco2_gathered": "linesum_phco2_gathered"}
+PHCO2_KERNELS = {k for k in KERNELS if "phco2" in k}
 LIBRARIES = ("linesum", "march", "fused_table")
 TABLE_DOMAIN = ((150.0, 350.0), 12, (0.9 * PT, 1.01 * PS), 24)
 TABLE_SPLIT = 16
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W), and
+# its special-function units: 16 results (an exp2, a reciprocal) per SM and
+# clock, 132 SMs at the 1,980 MHz boost clock
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
+MUFU_S = 16 * 132 * 1.98e9
 # FP32 operations counted in csrc/linesum.cu, a division as one: per
 # (point, line) pair the two-float dnu, |dnu|, D and the masks; per state
 # the region-1 tile and its accumulation; a smoothstep; and Re w(x + iy)
@@ -153,6 +190,19 @@ FP32_OPS_S = 67e12
 PAIR_OPS, R1_OPS, SMOOTH_OPS = 6, 9, 10
 W4_COMMON, W4_REGION, W4_SMALL_Y = 9, (14, 28, 76, 116), 25
 CORRECTION_OPS = 22   # x, the explicit region 1, the product, the atomic add
+# the phco2 family: per pair the selection of chi's piece; per state the
+# explicit region 1 on (dnu ia, y0 chi), and chi's exponent with expf's FP32
+# part (its exp2 counts against the special-function units, per state and
+# pair beyond 3 cm^-1, where chi is not 1)
+PH_PAIR_OPS, PH_R1_OPS, CHI_OPS = 3, 18, 10
+# the dense-CO2 (phco2) column: phco2's default cut, the dry adiabat of a
+# 285 K surface, and a radiative-convective run of 60 hourly steps with a
+# refresh every 6 and an adjustment every step, recorded every 10
+PHCO2_CUT, TS_RCE = 500.0, 285.0
+RCE_STEPS, RCE_UPDATE, RCE_RECORD = 60, 6, 10
+# synthetic_co2_par's band centres: the sampled blocks include them
+BAND_CENTRES = (667.4, 961.0, 1063.7, 2349.1)
+SAMPLE_STRIDE = 16
 
 
 class CheckFailed(RuntimeError):
@@ -209,14 +259,17 @@ def wall_ms(fn, n: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time of a kernel's work: the larger of its FP32 operations
-    at the card's peak and its bytes (each input read once, each output
-    written once) at its memory rate."""
-    t_ops, t_bytes = 1e3 * ops / FP32_OPS_S, 1e3 * nbytes / HBM_BYTES_S
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                bound_ops=float(ops), bound_bytes=float(nbytes))
+def bound(ops: float, nbytes: float, exps: float = 0.0) -> dict:
+    """The least time of a kernel's work: the largest of its FP32 operations
+    at the card's peak, its exponentials at the special-function units'
+    rate and its bytes (each input read once, each output written once) at
+    its memory rate; ``bound_unit`` says which (fp32, sfu, hbm)."""
+    t = {"fp32": 1e3 * ops / FP32_OPS_S, "sfu": 1e3 * exps / MUFU_S,
+         "hbm": 1e3 * nbytes / HBM_BYTES_S}
+    unit = max(t, key=t.get)
+    return dict(bound_ms=t[unit], bound_by="bytes" if unit == "hbm" else "operations",
+                bound_unit=unit, bound_ops=float(ops), bound_exps=float(exps),
+                bound_bytes=float(nbytes))
 
 
 def nbytes(*xs) -> int:
@@ -243,10 +296,11 @@ def w4_ops(x, y) -> float:
     return float(ops + sum(c * int(m.sum()) for c, m in zip(W4_REGION, (r1, r2, r3, r4))))
 
 
-def near_w4_ops(grid, pos, ia, y0, d_near: float, max_elems: int = 2**25) -> float:
+def near_w4_ops(grid, pos, ia, y0, d_near: float, max_elems: int = 2**25, T=None) -> float:
     """Operations of the w4 tiles of the (point, line) pairs within d_near,
-    for every state (ia, y0: [n_states, n_lines] on the card), in runs of
-    lines of at most ``max_elems`` (pair, state) elements."""
+    for every state (ia, y0: [n_states, n_lines] on the card; with the
+    states' temperatures ``T``, y = y0 chi(dnu, T) as the phco2 family has
+    it), in runs of lines of at most ``max_elems`` (pair, state) elements."""
     lo = np.searchsorted(grid, pos - d_near, side="left")
     hi = np.searchsorted(grid, pos + d_near, side="right")
     csum = np.cumsum(hi - lo)
@@ -264,17 +318,24 @@ def near_w4_ops(grid, pos, ia, y0, d_near: float, max_elems: int = 2**25) -> flo
         if line.size:
             dev = ia.device
             li = torch.as_tensor(line, device=dev)
-            x = torch.as_tensor(dnu, dtype=torch.float32, device=dev)[None, :] * ia[:, li]
-            total += w4_ops(x, y0[:, li].expand_as(x)) + 2.0 * x.numel()
+            d = torch.as_tensor(dnu, dtype=torch.float32, device=dev)[None, :]
+            x = d * ia[:, li]
+            y = y0[:, li].expand_as(x)
+            if T is not None:
+                from clearsky_tpu_torch.ops.lineshape import chi_phco2
+
+                y = y * chi_phco2(d, T[:, None])
+            total += w4_ops(x, y) + 2.0 * x.numel()
         a = b
     return total
 
 
-def column(Pe):
-    """Dry adiabat with a 160 K floor on the edge pressures Pe."""
+def column(Pe, Ts: float = 288.0):
+    """Dry adiabat from a surface at Ts with a 160 K floor on the edge
+    pressures Pe."""
     from clearsky_tpu_torch.constants import R_GAS
 
-    return np.maximum(288.0 * (Pe / PS) ** (R_GAS / (MU * CP)), 160.0)
+    return np.maximum(Ts * (Pe / PS) ** (R_GAS / (MU * CP)), 160.0)
 
 
 def grid_for(lines, n):
@@ -291,6 +352,7 @@ def counts_reset():
     for w in (sigma_lines, stencil_correction, olr_march, monoflux_march, fused_olr,
               fused_monoflux):
         w.launches = 0
+    stencil_correction.launches_phco2 = 0
     for k in sigma_lines.launches_by_mode:
         sigma_lines.launches_by_mode[k] = 0
 
@@ -302,7 +364,9 @@ def counts_read() -> dict:
     from clearsky_tpu_torch.rt.fused_table_cuda import fused_olr, fused_monoflux
 
     out = {k: sigma_lines.launches_by_mode[m] for m, k in MODE_KERNEL.items()}
-    out.update(stencil_correction=stencil_correction.launches, olr_march=olr_march.launches,
+    out.update(stencil_correction=stencil_correction.launches,
+               stencil_correction_phco2=stencil_correction.launches_phco2,
+               olr_march=olr_march.launches,
                monoflux_march=monoflux_march.launches, fused_olr=fused_olr.launches,
                fused_monoflux=fused_monoflux.launches)
     return out
@@ -429,8 +493,9 @@ def kernel_linesum(par, seed, dev):
                   f"max rel {max_rel:.3e}")
 
 
-def main_states(dev):
-    """outgoing's 57 Lobatto-node states of the main column, float32 on the card."""
+def main_states(dev, Ts: float = 288.0):
+    """outgoing's 57 Lobatto-node states of the main column (surface at
+    ``Ts``), float32 on the card."""
     import clearsky_tpu_torch as ct
     from clearsky_tpu_torch.atmosphere.profile import formprofile
     from clearsky_tpu_torch.rt.discretized import lobatto_pressures
@@ -438,7 +503,7 @@ def main_states(dev):
     Pe = ct.pressuregrid(PT, PS, N_LEVELS)
     Pg = torch.tensor(Pe, dtype=torch.float32, device=dev)
     Pf = lobatto_pressures(Pg, 3).reshape(-1)
-    Tf = formprofile(Pg, column(Pe))(Pf)
+    Tf = formprofile(Pg, column(Pe, Ts))(Pf)
     return Tf, Pf, CONC * Pf
 
 
@@ -1615,6 +1680,717 @@ def phase_mix_l2(mix, dev):
     return {f"mix_sigma_{k}": v for k, v in calls.items()}
 
 
+# --- the dense-CO2 column: the phco2 line shape and radiative-convective ------
+# --- equilibrium ---------------------------------------------------------------
+
+def phco2_grid(lines, n):
+    """The catalog's span, phco2's cut beyond each end (at least 1 cm^-1)."""
+    nu64 = lines.positions64()
+    return np.linspace(max(nu64.min() - PHCO2_CUT, 1.0), nu64.max() + PHCO2_CUT, n)
+
+
+def sample_blocks(blocks64, stride: int = SAMPLE_STRIDE) -> np.ndarray:
+    """Every ``stride``-th block of a block grid and the blocks that hold the
+    catalog's band centres: the sample the float64 references of the cut-500
+    line sums are computed on (the whole grid would take minutes)."""
+    idx = set(range(0, blocks64.shape[0], stride))
+    for c in BAND_CENTRES:
+        b = int(np.searchsorted(blocks64[:, -1], c))
+        if b < blocks64.shape[0] and blocks64[b, 0] <= c:
+            idx.add(b)
+    return np.array(sorted(idx), dtype=np.int64)
+
+
+def sampled(out, idx, block: int, n_out: int):
+    """A kernel's output [n, n_out] on the sampled blocks, [n, len(idx) block],
+    with the mask of the points that lie on the grid."""
+    n = out.shape[0]
+    nb = -(-n_out // block)
+    full = torch.nn.functional.pad(out, (0, nb * block - n_out)).reshape(n, nb, block)
+    cols = torch.as_tensor(idx, device=out.device)
+    pts = (idx[:, None] * block + np.arange(block)[None, :]).reshape(-1)
+    return full[:, cols].reshape(n, -1), torch.as_tensor(pts < n_out, device=out.device)
+
+
+def subplan(plan, idx):
+    """The plan on the sampled blocks only (for the exact plain sum there)."""
+    nb = np.asarray(plan.nu_blocks, np.float64)[idx]
+    return dataclasses.replace(plan, nu=nb.reshape(-1), nu_blocks=nb, n_blocks=len(idx),
+                               start=plan.start[idx], count=plan.count[idx], _on_device={},
+                               _geometry={})
+
+
+def pairs_beyond(grid, pos, hi, lo=3.0) -> int:
+    """(point, line) pairs with max(lo, 3) < |dnu| <= hi: where chi is not 1."""
+    return pairs_within(grid, pos, hi, max(lo, 3.0)) if hi > max(lo, 3.0) else 0
+
+
+def segment_budget(plan, lines, n: int, k: int = 3) -> int:
+    """The smallest residency budget (in steps of 4 KiB) at which K1's pack
+    of ``n`` states is cut into segments of at least a k-th of the catalog."""
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    want = -(-lines.n_lines // k // ls.CHUNK) * ls.CHUNK
+    return next(lim for lim in range(2**16, 2**31, 2**12)
+                if ls._segment_cap("phco2", "grouped", n, lim, plan.slab) >= want)
+
+
+def _phco2_operands(lines, states, shape="phco2"):
+    """alpha, the voigt coefficients (co), the phco2 family's 3-value pack of
+    the windowed modes and chi's rates."""
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum_cuda import chi_rates, pack_coefficients, window_mode
+    from clearsky_tpu_torch.ops.linesum import _line_params, effective_alpha
+
+    S, alpha, gamma = _line_params(lines, *states)
+    alpha = effective_alpha(shape, alpha)
+    a, co = ls.coefficients(lines, *states, shape=shape)
+    return a, co, pack_coefficients(window_mode("farall", shape), S, alpha, gamma), \
+        chi_rates(states[0])
+
+
+def _phco2_mode_line(name, mode, blocks64, windows, n_out, lines, l64, states, z, d_near,
+                     ops_exps, report, stride=SAMPLE_STRIDE, extra=None):
+    """A phco2 instance of a windowed K1 mode against its float64 plain
+    version on a sample of blocks (bar 1e-5 of each state's peak there:
+    float32 accumulation), timed beside the plain float32 version on the
+    same sample, with its bound on the whole grid."""
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import two_float
+    from clearsky_tpu_torch.ops.linesum_cuda import launch_mode, window_mode, _zones
+
+    dev = states[0].device
+    _, co, coef, bcoef = _phco2_operands(lines, states)
+    x64 = [x.double() for x in states]
+    _, co64, _, _ = _phco2_operands(l64, x64)
+    hi, lo = two_float(blocks64)
+    grid = {"nu_hi": torch.as_tensor(hi.reshape(-1), device=dev),
+            "nu_lo": torch.as_tensor(lo.reshape(-1), device=dev),
+            "win": torch.as_tensor(windows, dtype=torch.int32, device=dev)}
+    n = int(states[0].shape[0])
+    m = window_mode(mode, "phco2")
+    zones = _zones(**z)
+    launch = lambda: launch_mode(m, grid, lines, coef, n, n_out, zones, d_near, bcoef=bcoef)
+    out = launch()
+    torch.cuda.synchronize()
+    idx = sample_blocks(blocks64, stride)
+    B = blocks64.shape[1]
+    got, valid = sampled(out, idx, B, n_out)
+    d64 = None if d_near is None else d_near.double()
+    ref = ls.sigma_mode_plain(mode, blocks64[idx], windows[idx], l64, co64, z, d64, T=x64[0])
+    err = float(((got.double() - ref).abs()[:, valid]
+                 / ref[:, valid].abs().amax(dim=1, keepdim=True)).max())
+    max_abs = float((got.double() - ref).abs()[:, valid].max())
+    del ref
+    ms = cuda_ms(launch, n=5)
+    _, plain_ms = one_call(lambda: ls.sigma_mode_plain(mode, blocks64[idx], windows[idx], lines,
+                                                       co, z, d_near, T=states[0]))
+    ops, exps = ops_exps
+    b = bound(ops, linesum_bytes(blocks64.size, lines.n_lines, coef, grid["win"], n, n_out)
+              + bcoef.numel() * 4, exps)
+    shape = f"{n} states x {n_out} points"
+    emit("kernel", kernel=name, mode=f"phco2_{mode}", points=n_out, states=n,
+         lines=lines.n_lines, err_of_peak=err, max_abs_err=max_abs,
+         bar="1e-5 of each state's peak on the sample", ms=ms, plain_ms=plain_ms,
+         plain_shape=f"sampled blocks: {len(idx)} of {blocks64.shape[0]} (every {stride}th "
+                     "and the band centres)", **(extra or {}), **b)
+    check(bool(torch.isfinite(out).all()) and err < 1e-5,
+          f"K1 mode phco2_{mode} off its float64 plain version by {err:.3e} of peak")
+    report[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+                        shape=shape, plain_sample=f"{len(idx)} of {blocks64.shape[0]} blocks",
+                        **b)
+    return out
+
+
+def _exact_sampled_check(name, out, plan, idx, l64, lines, states, shape, report, ms, b,
+                         extra=None):
+    """An exact-profile kernel (the split mode) on the sampled blocks against
+    the float64 plain line sum there (rtol 2e-3 where |sigma| > 1e-35;
+    float32 at the cut edges), the plain float32 sum timed on the same
+    sample. Returns each state's peak of the float64 sum on the sample."""
+    from clearsky_tpu_torch.ops.linesum import sigma_from_lines
+
+    sub = subplan(plan, idx)
+    got, valid = sampled(out, idx, plan.block, plan.n_nu)
+    x64 = [x.double() for x in states]
+    ref = sigma_from_lines(sub, l64, *x64, shape=shape)
+    ref32, plain_ms = one_call(lambda: sigma_from_lines(sub, lines, *states, shape=shape))
+    edge = cut_edges(sub, lines.positions64()) & valid.cpu().numpy()
+    v = valid
+    max_abs, max_rel, ok = check_sigma(got[:, v], ref[:, v], edge[v.cpu().numpy()],
+                                       ref32[:, v])
+    n = out.shape[0]
+    emit("kernel", kernel=name, shape_profile=shape, points=plan.n_nu, states=n,
+         lines=lines.n_lines, max_abs_err=max_abs, max_rel_err=max_rel,
+         bar="rtol 2e-3 where |sigma| > 1e-35 (atol 1e-32) on the sample",
+         cut_edge_points=int(edge.sum()), ms=ms, plain_ms_one_call=plain_ms,
+         plain_shape=f"sampled blocks: {len(idx)} of {plan.n_blocks}", **(extra or {}), **b)
+    check(ok, f"{name} disagrees with its float64 plain version: max rel {max_rel:.3e}")
+    if report is not None:
+        report[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+                            shape=f"{n} states x {plan.n_nu} points",
+                            plain_sample=f"{len(idx)} of {plan.n_blocks} blocks", **b)
+    return ref[:, v].abs().amax(dim=1, keepdim=True)
+
+
+def _phco2_split_ops(grid, pos, ia, y0, T, d_near, cut, n):
+    """FP32 operations and exponentials of the phco2 split mode on this
+    data: region 1 with chi beyond d_near, w4 (y = y0 chi) within it."""
+    pairs = pairs_within(grid, pos, cut)
+    near = pairs_within(grid, pos, d_near)
+    beyond3 = pairs_beyond(grid, pos, cut)
+    ops = (pairs * (PAIR_OPS + PH_PAIR_OPS) + (pairs - near) * n * PH_R1_OPS
+           + beyond3 * n * CHI_OPS + near_w4_ops(grid, pos, ia, y0, d_near, T=T))
+    return ops, beyond3 * n, dict(in_cut_pairs=pairs, near_pairs=near,
+                                  pairs_beyond_3_cm=beyond3)
+
+
+def kernel_phco2(par, dev, report):
+    """The phco2 family's K1 instances at the shapes where the main path
+    runs them: the split mode (outgoing on "grouped"), COARSE, FINE_STENCIL
+    and the chi correction (auto) at 57 states x 2^19, FINE (auto at 2^20)
+    at 57 x 2^20; each against its float64 plain version on a sample of
+    blocks that includes the band centres."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum_cuda import _prepare, near_distance, pack_coefficients, MODES
+    from clearsky_tpu_torch.ops.linesum import _line_params
+
+    l64 = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device=dev)
+    lines = l64.to(torch.float32)
+    plan = ct.DirectGas.from_lines(lines, CONC, phco2_grid(lines, N_NU_MAIN), shape="phco2").plan
+    states = main_states(dev, TS_RCE)
+    n = int(states[0].shape[0])
+    pos = lines.positions64()
+    T = states[0]
+
+    # the split mode (the "grouped" route)
+    launch = _prepare(plan, lines, *states, "phco2")
+    out = launch()
+    torch.cuda.synchronize()
+    ms = cuda_ms(launch, n=5)
+    S, alpha, gamma = _line_params(lines, *states)
+    a, co, _, bcoef = _phco2_operands(lines, states)
+    d_near = float(torch.clamp(15.0 * a.max(), max=plan.cut))
+    ops, exps, pairs = _phco2_split_ops(plan.nu, pos, co[1], co[2], T, d_near, plan.cut, n)
+    coef = pack_coefficients(MODES["phco2"], S, alpha, gamma)
+    b = bound(ops, linesum_bytes(plan.n_blocks * plan.block, lines.n_lines, coef,
+                                 plan.device_arrays(dev)["win"], n, plan.n_nu) + bcoef.numel() * 4,
+              exps)
+    idx = sample_blocks(plan.nu_blocks)
+    peak = _exact_sampled_check("linesum_phco2", out, plan, idx, l64, lines, states, "phco2",
+                                report, ms, b, dict(mode="phco2_split", d_near=d_near, **pairs))
+    del out
+
+    # the coarse route's passes
+    name, params = ls._resolve(plan, lines, "phco2", "auto", n)
+    check(name == "coarse", f"phco2's auto takes {name} at 57 states x 2^19, not coarse")
+    geom = ls.coarse_geometry(plan, lines, params)
+    check(geom.stencil is not None, "the phco2 main grid's coarse route has no stencil pass")
+    z = geom.zones
+    d_far, h, n_cc, c_ratio = params
+    cgrid = geom.coarse_blocks.reshape(-1)[:n_cc]
+    cp = pairs_within(cgrid, pos, z["cut"], z["d_lo"])
+    cp3 = pairs_beyond(cgrid, pos, z["cut"], z["d_lo"])
+    _phco2_mode_line("linesum_phco2_coarse", "coarse", geom.coarse_blocks, geom.coarse_windows,
+                     n_cc, lines, l64, states, z, None,
+                     (cp * (PAIR_OPS + PH_PAIR_OPS + 2 * SMOOTH_OPS + n * (PH_R1_OPS + 1))
+                      + cp3 * n * CHI_OPS, cp3 * n), report, stride=4,
+                     extra=dict(coarse_points=n_cc, h=h, d_far=d_far, in_zone_pairs=cp))
+    mid = pairs_within(plan.nu, pos, z["cut_f"])
+    ann = pairs_within(plan.nu, pos, z["cut"], math.sqrt(z["R1"]))
+    mid3 = pairs_beyond(plan.nu, pos, z["cut_f"])
+    fine = _phco2_mode_line(
+        "linesum_phco2_fine_stencil", "fine_stencil", geom.fine_blocks, geom.fine_windows,
+        plan.n_nu, lines, l64, states, z, None,
+        ((mid + ann) * (PAIR_OPS + PH_PAIR_OPS + SMOOTH_OPS + n * (PH_R1_OPS + 1))
+         + (mid3 + ann) * n * CHI_OPS, (mid3 + ann) * n), report,
+        extra=dict(mid_pairs=mid, annulus_pairs=ann, K=geom.stencil.K))
+    del fine
+    # the chi correction, on the whole grid, against each state's peak on
+    # the sample (which holds the band centres)
+    _phco2_correction_line(geom.stencil, lines, l64, states, plan, peak, (z["D1"], z["D2"]),
+                           report)
+
+    # FINE: the in-kernel fine pass, where the stencil rejects (K > 64)
+    plan20 = ct.DirectGas.from_lines(lines, CONC, phco2_grid(lines, N_NU_FINE),
+                                     shape="phco2").plan
+    name20, params20 = ls._resolve(plan20, lines, "phco2", "auto", n)
+    check(name20 == "coarse" and ls.stencil_geometry(plan20, lines) is None,
+          "the phco2 2^20 grid does not take the coarse route with the in-kernel fine pass")
+    g20 = ls.coarse_geometry(plan20, lines, params20)
+    z20 = g20.zones
+    dn = near_distance(a, z20["cut_f"])
+    mid20 = pairs_within(plan20.nu, pos, z20["cut_f"])
+    near20 = pairs_within(plan20.nu, pos, float(dn))
+    ann20 = pairs_within(plan20.nu, pos, z20["cut"], math.sqrt(z20["R1"]))
+    mid20_3 = pairs_beyond(plan20.nu, pos, z20["cut_f"])
+    _phco2_mode_line(
+        "linesum_phco2_fine", "fine", g20.fine_blocks, g20.fine_windows, plan20.n_nu, lines,
+        l64, states, z20, dn,
+        ((mid20 + ann20) * (PAIR_OPS + PH_PAIR_OPS + SMOOTH_OPS)
+         + (mid20 - near20 + ann20) * n * (PH_R1_OPS + 1) + (mid20_3 + ann20) * n * CHI_OPS
+         + near_w4_ops(plan20.nu, pos, co[1], co[2], float(dn), T=T) + near20 * n * 2,
+         (mid20_3 + ann20) * n), report,
+        extra=dict(mid_pairs=mid20, near_pairs=near20, annulus_pairs=ann20, d_near=float(dn)))
+    return dict(lines=lines, l64=l64, plan=plan, states=states)
+
+
+def _phco2_correction_line(geom, lines, l64, states, plan, peak, weight, report):
+    """The correction's chi instance against its float64 plain version on
+    the whole grid, measured against each state's peak cross-section (bar
+    1e-4, as the voigt instance's)."""
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum_cuda import stencil_correction
+
+    dev = states[0].device
+    _, co, _, _ = _phco2_operands(lines, states)
+    x64 = [x.double() for x in states]
+    _, co64, _, _ = _phco2_operands(l64, x64)
+    n, n_nu = int(states[0].shape[0]), plan.n_nu
+    launch = lambda: stencil_correction(torch.zeros((n, n_nu), device=dev), geom, co, plan.cut,
+                                        weight, T=states[0])
+    out = launch()
+    torch.cuda.synchronize()
+    ref = ls.stencil_correction_plain(geom, co64, plan.cut, n_nu, weight, T=x64[0])
+    err = float(((out.double() - ref).abs() / peak).max())
+    max_abs = float((out.double() - ref).abs().max())
+    del ref
+    ms = cuda_ms(launch)
+    plain_ms = cuda_ms(lambda: ls.stencil_correction_plain(geom, co, plan.cut, n_nu, weight,
+                                                           T=states[0]), n=3, warmup=1)
+    hi = torch.as_tensor(geom.dnu_hi, device=dev)
+    lo = torch.as_tensor(geom.dnu_lo, device=dev)
+    q = torch.as_tensor(geom.q, device=dev)
+    inside = ((q[None, :] * geom.K + torch.arange(2 * geom.K, device=dev)[:, None]) < n_nu) \
+        & (hi.abs() <= plan.cut)
+    # the farthest the correction acts from a line (x^2 <= 225 at some
+    # state): below 3 cm^-1 chi is 1 there, which the kernel computes anyway
+    reach, ops = 0.0, 0.0
+    for s in range(n):
+        x = co[1][s][None, :] * hi + co[1][s][None, :] * lo
+        m = inside & (x * x <= 225.0)
+        if bool(m.any()):
+            reach = max(reach, float((hi + lo).abs()[m].max()))
+        ops += w4_ops(x[m], co[2][s].expand_as(x)[m]) + (CORRECTION_OPS + 2) * int(m.sum())
+    ops += (SMOOTH_OPS + PH_PAIR_OPS) * int(inside.sum())
+    L = geom.q.shape[0]
+    b = bound(ops, 8 * hi.numel() + 4 * L + 12 * n * L + 8 * n * n_nu)
+    emit("kernel", kernel="stencil_correction_phco2", weighted=weight is not None, points=n_nu,
+         states=n, lines=lines.n_lines, K=geom.K, reach_cm=reach, err_of_peak_sigma=err,
+         max_abs_err=max_abs, bar="1e-4 of each state's peak sigma", ms=ms, plain_ms=plain_ms,
+         plain_shape="same", **b)
+    check(bool(torch.isfinite(out).all()) and err < 1e-4,
+          f"chi correction off its float64 plain version by {err:.3e} of peak sigma")
+    report["stencil_correction_phco2"] = dict(
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+        shape=f"{n} states x {n_nu} points, K = {geom.K}", **b)
+
+
+def kernel_phco2_strategies(par, seed, dev, report):
+    """The phco2 instances the strategies run, at 16 states x 2^15 (not
+    auto's route here): FARALL (explicit "stencil") with the correction,
+    K1-seg (a budget that cuts the catalog into segments), K4 ("lane") and
+    K5 ("gathered"), each against its float64 plain version on the whole
+    grid. Returns the plan and states for the strategies' entry points."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import _line_params, sigma_from_lines
+
+    l64 = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device=dev)
+    lines = l64.to(torch.float32)
+    plan = ct.DirectGas.from_lines(lines, CONC, phco2_grid(lines, N_NU_KERNEL), shape="phco2",
+                                   strategy="stencil").plan
+    rng = np.random.default_rng(seed + 5)
+    Tn = rng.uniform(160.0, 285.0, N_STATES_KERNEL)
+    Pn = np.geomspace(PT, PS, N_STATES_KERNEL)
+    x64 = [torch.tensor(x, dtype=torch.float64, device=dev) for x in (Tn, Pn, CONC * Pn)]
+    states = [x.float() for x in x64]
+    n, pos, T = N_STATES_KERNEL, lines.positions64(), states[0]
+    check(ls.route(plan, lines, "phco2", "stencil", n) == "stencil",
+          "explicit stencil does not take its route at 16 x 2^15")
+    # FARALL and the correction
+    pairs = pairs_within(plan.nu, pos, plan.cut)
+    p3 = pairs_beyond(plan.nu, pos, plan.cut)
+    _phco2_mode_line("linesum_phco2_farall", "farall", plan.nu_blocks, plan.windows(), plan.n_nu,
+                     lines, l64, states, {"cut": plan.cut}, None,
+                     (pairs * (PAIR_OPS + PH_PAIR_OPS + n * PH_R1_OPS) + p3 * n * CHI_OPS,
+                      p3 * n), report, stride=1, extra=dict(in_cut_pairs=pairs))
+    exact = sigma_from_lines(plan, l64, *x64, shape="phco2")
+    ref32 = sigma_from_lines(plan, lines, *states, shape="phco2")
+    edge = cut_edges(plan, pos)
+    S, alpha, gamma = _line_params(lines, *states)
+    _, co, _, bcoef = _phco2_operands(lines, states)
+    # K1-seg: three segments
+    budget = segment_budget(plan, lines, n)
+    L_seg = ls._resolve(plan, lines, "phco2", "grouped", n, budget)[1]
+    segs = ls.segments(plan, lines.n_lines, L_seg)
+    prepared = []
+    for seg, grid in lc._segment_windows(plan, lines.n_lines, L_seg, dev):
+        sub = ls._slice_lines(lines, seg.a, seg.b)
+        Ss, As, Gs = _line_params(sub, *states)
+        prepared.append((seg, grid, sub, lc.pack_coefficients(7, Ss, As, Gs),
+                         lc.near_distance(As, plan.cut)))
+    acc = torch.zeros((n, plan.n_nu), device=dev)
+
+    def seg_launch():
+        acc.zero_()
+        for seg, grid, sub, coef, d_near in prepared:
+            lc.launch_mode(7, grid, sub, coef, n, seg.n_out, lc._zones(plan.cut), d_near,
+                           out=acc[:, seg.blo * plan.block:], count_as="phco2_segmented",
+                           bcoef=bcoef)
+
+    seg_launch()
+    torch.cuda.synchronize()
+    out = acc.clone()
+    ms = cuda_ms(seg_launch, n=5)
+    ops, nbytes, exps = 0.0, 4 * n * plan.n_nu, 0.0
+    for sg in segs:
+        g = plan.nu[sg.blo * plan.block: sg.blo * plan.block + sg.n_out]
+        d_near = float(torch.clamp(15.0 * alpha[:, sg.a:sg.b].max(), max=plan.cut))
+        o, e, _ = _phco2_split_ops(g, pos[sg.a:sg.b], co[1][:, sg.a:sg.b], co[2][:, sg.a:sg.b],
+                                   T, d_near, plan.cut, n)
+        ops, exps = ops + o, exps + e
+        nbytes += (8 * (sg.bhi - sg.blo) * plan.block + 8 * (sg.b - sg.a)
+                   + 4 * 3 * 8 * -(-n // 8) * (sg.b - sg.a) + 8 * (sg.bhi - sg.blo))
+    b = bound(ops, nbytes + bcoef.numel() * 4, exps)
+    _, plain_ms = one_call(lambda: ls.sigma_segmented_plain(plan, lines, *states, L_seg,
+                                                            shape="phco2"))
+    _mix_line("linesum_phco2_segmented", out, exact, ref32, edge, ms, plain_ms, b, report,
+              segments=len(segs), segment_lines=L_seg, budget_bytes=budget)
+    # K4 and K5: w4 (y = y0 chi) at every in-cut pair and state
+    full_ops = (pairs * (PAIR_OPS + PH_PAIR_OPS) + p3 * n * CHI_OPS
+                + near_w4_ops(plan.nu, pos, co[1], co[2], plan.cut, T=T))
+    for kind, kern in (("lane", lc.sigma_lane), ("gathered", lc.sigma_gathered)):
+        out = kern(plan, lines, *states, shape="phco2")
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: kern(plan, lines, *states, shape="phco2"), n=3, warmup=1)
+        plain = ls.sigma_lane_plain if kind == "lane" else ls.sigma_gathered_plain
+        _, plain_ms = one_call(lambda: plain(plan, lines, *states, shape="phco2"))
+        slab_pad = -(-plan.slab // 128) * 128
+        if kind == "lane":
+            lay_bytes = (8 + 12 * n) * ls.lane_layout(plan, lines, S, alpha, gamma).nu.shape[0]
+        else:
+            lay_bytes = (8 + 12 * n) * plan.n_blocks * slab_pad
+        b = bound(full_ops, lay_bytes + 8 * plan.n_blocks * plan.block + 8 * plan.n_blocks
+                  + 4 * n * plan.n_nu, p3 * n)
+        _mix_line(f"linesum_phco2_{kind}", out, exact, ref32, edge, ms, plain_ms, b, report)
+    return dict(lines=lines, plan=plan, states=states)
+
+
+def phase_phco2(par, dev):
+    """The dense-CO2 main path at the production shape: a phco2 DirectGas
+    (constructor defaults) on 2^19 points over the catalog +- 500 cm^-1, the
+    20-level column of a 285 K surface, 5 streams: outgoing and radiate on
+    "auto" (the coarse route), outgoing on "grouped" (band OLR within 1e-4
+    of auto's) and outgoing at 2^20 points (the in-kernel fine pass)."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.constants import SIGMA_SB
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = phco2_grid(lines, N_NU_MAIN)
+    gas = ct.DirectGas.from_lines(lines, CONC, nu, shape="phco2")
+    grouped = ct.DirectGas.from_lines(lines, CONC, nu, shape="phco2", strategy="grouped")
+    gas20 = ct.DirectGas.from_lines(lines, CONC, phco2_grid(lines, N_NU_FINE), shape="phco2")
+    routes = {f"{k}_{n}": ls.route(g.plan, lines, "phco2", "auto", n_states=n)
+              for k, g in (("2e19", gas), ("2e20", gas20)) for n in (57, 38)}
+    check(set(routes.values()) == {"coarse"}, f"phco2's auto does not route coarse: {routes}")
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe, TS_RCE)
+    span = float(nu[-1] - nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    calls = {"phco2_outgoing": lambda: ct.outgoing(Pe, G, Te, MU, gas),
+             "phco2_radiate": lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, gas),
+             "phco2_outgoing_grouped": lambda: ct.outgoing(Pe, G, Te, MU, grouped),
+             "phco2_outgoing_2e20": lambda: ct.outgoing(Pe, G, Te, MU, gas20)}
+    counts_reset()
+    out = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    counts = counts_read()
+    launched = {k for k, v in counts.items() if v}
+    emit("counts", path="phco2", **counts)
+    check(launched <= PHCO2_KERNELS | {"olr_march", "monoflux_march"},
+          f"the phco2 path launched {launched - PHCO2_KERNELS}")
+    for k in ("linesum_phco2", "linesum_phco2_coarse", "linesum_phco2_fine_stencil",
+              "linesum_phco2_fine", "stencil_correction_phco2", "olr_march", "monoflux_march"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the phco2 path")
+    olr, F, olr_g, olr20 = out.values()
+    nu64 = gas.nu.double()
+    band, band_g = (float(ct.trapz(nu64, x.double())) for x in (olr, olr_g))
+    band20 = float(ct.trapz(gas20.nu.double(), olr20.double()))
+    bb = SIGMA_SB * Te[-1] ** 4
+    rel = abs(band - band_g) / band_g
+    for k in ("F_up", "F_down", "F_net"):
+        check(bool(torch.isfinite(getattr(F, k)).all()), f"phco2 radiate {k} is not finite")
+    check(bool(torch.isfinite(olr).all()) and bool(torch.isfinite(olr_g).all())
+          and 0.0 < band < bb and 0.0 < band20 < bb, "phco2 OLR not finite or out of range")
+    ms = {k: wall_ms(fn) for k, fn in calls.items()}
+    emit("phco2", step="entry_points", lines=lines.n_lines,
+         catalog=f"{lines.dtype} on {lines.device}", points=N_NU_MAIN, levels=N_LEVELS,
+         streams=5, cut=PHCO2_CUT, nu_range=[float(nu[0]), float(nu[-1])], routes=routes,
+         band_olr_W_m2=band, grouped_band_olr_W_m2=band_g, auto_vs_grouped_band_rel=rel,
+         bar=1e-4, band_olr_2e20_W_m2=band20, sigma_Ts4_W_m2=float(bb),
+         F_net_toa_W_m2=float(F.F_net[0]), F_down_surface_W_m2=float(F.F_down[-1]),
+         wall_ms_per_call=ms, grouped_over_auto=ms["phco2_outgoing_grouped"]
+         / ms["phco2_outgoing"])
+    check(rel < 1e-4, f"phco2 auto and grouped band OLR differ by {rel:.3e}")
+    return calls, counts
+
+
+def phase_phco2_strategies(par, dev, strat):
+    """The strategies' entry points at 57 Lobatto states x 2^15: outgoing on
+    DirectGas(strategy="stencil", "lane", "gathered") (band OLR within 1e-4
+    of auto's) and the routed line sum at a budget that cuts the catalog
+    into segments (within 1e-5 of peak of the one-launch sum); counted on
+    their own."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum_cuda import sigma_routed
+
+    lines = strat["lines"]
+    nu = phco2_grid(lines, N_NU_KERNEL)
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe, TS_RCE)
+    nu64 = torch.as_tensor(nu, device=dev)
+    auto = ct.DirectGas.from_lines(lines, CONC, nu, shape="phco2")
+    band_auto = float(ct.trapz(nu64, ct.outgoing(Pe, G, Te, MU, auto).double()))
+    T, P, _ = main_states(dev, TS_RCE)
+    counts, res = {}, {}
+    for strategy in ("stencil", "lane", "gathered"):
+        gas = ct.DirectGas.from_lines(lines, CONC, nu, shape="phco2", strategy=strategy)
+        check(ls.route(gas.plan, lines, "phco2", strategy, n_states=57) == strategy,
+              f"phco2 strategy {strategy} does not take its own route")
+        counts_reset()
+        olr = ct.outgoing(Pe, G, Te, MU, gas)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts_read().items() if v}
+        counts[strategy] = got
+        band = float(ct.trapz(nu64, olr.double()))
+        res[strategy] = dict(band_olr_W_m2=band, rel_to_auto=abs(band - band_auto) / band_auto,
+                             launches=got)
+        want = {"stencil": {"linesum_phco2_farall", "stencil_correction_phco2"},
+                "lane": {"linesum_phco2_lane"}, "gathered": {"linesum_phco2_gathered"}}[strategy]
+        check(set(got) == want | {"olr_march"}, f"phco2 outgoing on {strategy} launched {got}")
+        check(res[strategy]["rel_to_auto"] < 1e-4,
+              f"phco2 band OLR on {strategy} off auto's by {res[strategy]['rel_to_auto']:.3e}")
+    plan = auto.plan
+    budget = segment_budget(plan, lines, 57)
+    check(ls.route(plan, lines, "phco2", "grouped", 57, budget) == "segmented",
+          "the phco2 budget does not cut the catalog into segments at 57 states")
+    C = torch.full_like(P, CONC)
+    one = sigma_routed(plan, lines, T, P, C * P, shape="phco2", strategy="grouped")
+    counts_reset()
+    seg = sigma_routed(plan, lines, T, P, C * P, shape="phco2", strategy="grouped",
+                       resident_limit=budget)
+    torch.cuda.synchronize()
+    counts["segmented"] = {k: v for k, v in counts_read().items() if v}
+    err = of_peak(seg, one.double())
+    res["segmented"] = dict(budget_bytes=budget, err_of_peak_vs_one_launch=err,
+                            launches=counts["segmented"])
+    check(set(counts["segmented"]) == {"linesum_phco2_segmented"}
+          and counts["segmented"]["linesum_phco2_segmented"] > 1,
+          f"the phco2 segmented route launched {counts['segmented']}")
+    check(err < 1e-5, f"phco2 segmented sigma off the one-launch sum by {err:.3e} of peak")
+    emit("phco2", step="strategies", points=N_NU_KERNEL, states=57,
+         auto_band_olr_W_m2=band_auto, bar=1e-4, **res)
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_phco2_bake(par, dev):
+    """A phco2 Gas baked on the table phase's domain at 2^19 points (its
+    bake on phco2's auto route): seconds and launches by mode; one node's
+    sigma against the DirectGas sigma at that node."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = phco2_grid(lines, N_NU_MAIN)
+    dom = ct.AtmosphericDomain.create(*TABLE_DOMAIN)
+    counts_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gas = ct.Gas.from_lines(lines, CONC, nu, dom, shape="phco2")
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    launches = {k: v for k, v in counts_read().items() if v}
+    calls = -(-dom.nT * dom.nP // 16)
+    check(ls.route(ct.DirectGas.from_lines(lines, CONC, nu, shape="phco2").plan, lines, "phco2",
+                   "auto", 16) == "coarse", "the phco2 bake's batches do not route coarse")
+    check(launches == {"linesum_phco2_fine_stencil": calls, "linesum_phco2_coarse": calls,
+                       "stencil_correction_phco2": calls},
+          f"the phco2 bake did not take the coarse route once per batch: {launches}")
+    direct = ct.DirectGas.from_lines(lines, CONC, nu, shape="phco2")
+    iT, iP = dom.nT // 2, dom.nP // 2
+    T = torch.tensor([dom.T[iT]], dtype=torch.float32, device=dev)
+    P = torch.tensor([dom.P[iP]], dtype=torch.float32, device=dev)
+    tab, dir_ = gas.raw_sigma(T, P)[0].double(), direct.raw_sigma(T, P)[0].double()
+    m = dir_ > 1e-6 * dir_.max()
+    rel = float(((tab - dir_).abs()[m] / dir_[m]).max())
+    emit("table", step="phco2_bake", points=N_NU_MAIN, nT=dom.nT, nP=dom.nP,
+         bake_seconds=bake_s, launches=launches, node_T_K=float(T), node_P_Pa=float(P),
+         node_max_rel_vs_direct=rel, bar="1e-2 where sigma > 1e-6 of its peak")
+    check(bool(torch.isfinite(gas.coeffs).all()), "the phco2 table is not finite")
+    check(rel < 1e-2, f"the phco2 table at a node is off the direct sigma by {rel:.3e}")
+
+
+def _host_reference_gas(lines64, plan, shape, nu):
+    """A float64 absorber on the host whose cross-sections are the plain
+    exact line sum on the card (the kernel wrappers take float32 only):
+    a zero gray gas beside the callable."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops.linesum import sigma_from_lines
+
+    dev = lines64.device
+
+    def sigma64(nu_, T, P):
+        Tc, Pc = T[..., 0].to(dev), P[..., 0].to(dev)
+        return (CONC * sigma_from_lines(plan, lines64, Tc, Pc, CONC * Pc, shape)).cpu()
+
+    return ct.GrayGas.create(0.0, nu, dtype=torch.float64, device="cpu"), sigma64
+
+
+def phase_voigt_ref(par, dev):
+    """outgoing on a voigt_ref DirectGas (constructor defaults, 2^19 points)
+    against float64: the plain exact line sum on the card, the march on the
+    host. Counted on its own: the voigt instances and K2 only."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = grid_for(lines, N_NU_MAIN)
+    gas = ct.DirectGas.from_lines(lines, CONC, nu, shape="voigt_ref")
+    route = ls.route(gas.plan, lines, "voigt_ref", "auto", 57)
+    check(route == ls.route(gas.plan, lines, "voigt", "auto", 57) == "coarse",
+          "voigt_ref does not route as voigt")
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    counts_reset()
+    olr = ct.outgoing(Pe, G, Te, MU, gas)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts_read().items() if v}
+    l64 = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device=dev)
+    ref = ct.outgoing(Pe, G, Te, MU, *_host_reference_gas(l64, gas.plan, "voigt_ref", nu))
+    nu64 = torch.as_tensor(nu)
+    band, band_ref = float(ct.trapz(nu64, olr.double().cpu())), float(ct.trapz(nu64, ref))
+    rel = abs(band - band_ref) / band_ref
+    spec = float((olr.double().cpu() - ref).abs().max() / ref.abs().max())
+    voigt = float(ct.trapz(nu64, ct.outgoing(Pe, G, Te, MU, ct.DirectGas.from_lines(
+        lines, CONC, nu)).double().cpu()))
+    # the spectrum carries the coarse split's error where sigma is small
+    # (5e-2 relative where it exceeds 1e-6 of peak, the route's bar), so the
+    # bar is the band's, as for auto against grouped
+    emit("voigt_ref", points=N_NU_MAIN, route=route, launches=launched, band_olr_W_m2=band,
+         float64_band_olr_W_m2=band_ref, band_rel=rel, bar=1e-4,
+         spectral_max_diff_of_peak=spec, voigt_band_olr_W_m2=voigt)
+    check(set(launched) == {"linesum_coarse", "linesum_fine_stencil", "stencil_correction",
+                            "olr_march"}, f"voigt_ref outgoing launched {launched}")
+    check(rel < 1e-4, f"voigt_ref band OLR off float64 by {rel:.3e}")
+
+
+def phase_rce(par, dev):
+    """A dense-CO2 column to radiative-convective equilibrium: RCM.create on
+    a phco2 DirectGas at 16,384 points over the catalog +- 500 cm^-1, 20
+    edge levels, radmul 2, from DryAdiabat(285 K, 1e5 Pa, 850, 0.044,
+    Tstrat=160); run 60 hourly steps, the absorber refreshed every 6, the
+    convective adjustment every step, recorded every 10. Against the same
+    run in float64 (cross-sections by the plain exact line sum on the card,
+    march on the host): each record's heating within 5e-3 of its peak, the
+    temperatures within the bound that implies, sum of dt 5e-3 max|H|."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = phco2_grid(lines, N_NU_RCM)
+    gas = ct.DirectGas.from_lines(lines, CONC, nu, shape="phco2")
+    name, params = ls._resolve(gas.plan, lines, "phco2", "auto", N_LEVELS)
+    geom = ls.coarse_geometry(gas.plan, lines, params)
+    fine = "fine_stencil" if geom.stencil is not None else "fine"
+    check(name == "coarse", f"the RCM's refresh takes {name}, not the coarse route")
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    adiabat = ct.DryAdiabat.create(TS_RCE, PS, CP, MU, Tstrat=160.0)
+    Te = adiabat(Pe).numpy()
+    span = float(nu[-1] - nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    fmu, fcp = (lambda T, P: MU), (lambda T, P: CP)
+    rcm = ct.RCM.create(Pe, Te, G, fmu, fS, 0.1, fcp, 1e7, gas, radmul=2)
+    torch.cuda.synchronize()
+    kw = dict(update_every=RCE_UPDATE, adjust_every=1, cp=CP, mu=MU, record_every=RCE_RECORD)
+    t0 = time.perf_counter()
+    ct.run(rcm, RCM_DT, 1, **kw)
+    torch.cuda.synchronize()
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    counts_reset()
+    t0 = time.perf_counter()
+    out, hist = ct.run(rcm, RCM_DT, RCE_STEPS, **kw)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = counts_read()
+    launched = {k for k, v in counts.items() if v}
+    emit("counts", path="rce", **counts)
+    check(launched <= PHCO2_KERNELS | {"monoflux_march"},
+          f"the RCE run launched {launched - PHCO2_KERNELS}")
+    for k in ("linesum_phco2_coarse", f"linesum_phco2_{fine}", "monoflux_march"):
+        check(counts[k] > 0, f"kernel {k} was not launched by the RCE run")
+    refreshes = RCE_STEPS // RCE_UPDATE
+    check(counts["linesum_phco2_coarse"] == refreshes,
+          f"{counts['linesum_phco2_coarse']} coarse launches for {refreshes} refreshes")
+    check(bool(torch.isfinite(hist).all()) and hist.shape == (RCE_STEPS // RCE_RECORD, N_LEVELS),
+          "the RCE history is not finite or has the wrong shape")
+    warm_step_ms = [wall_ms(lambda: ct.step(rcm, RCM_DT)),
+                    wall_ms(lambda: ct.update_absorber(rcm))]
+    # step_n is three steps, bit for bit
+    a, b_ = ct.step_n(rcm, RCM_DT, 3), rcm
+    for _ in range(3):
+        b_ = ct.step(b_, RCM_DT)
+    check(torch.equal(a.T, b_.T), "step_n(rcm, dt, 3) is not three steps")
+
+    # the float64 run on the host
+    l64 = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device=dev)
+    zero, sigma64 = _host_reference_gas(l64, gas.plan, "phco2", nu)
+    r64 = ct.RCM.create(Pe, Te, G, fmu, fS, 0.1, fcp, 1e7, zero, sigma64, radmul=2)
+    t0 = time.perf_counter()
+    out64, hist64 = ct.run(r64, RCM_DT, RCE_STEPS, **kw)
+    ref_s = time.perf_counter() - t0
+    # each record's heating: both pipelines at the float32 run's recorded
+    # temperatures, each absorber refreshed there
+    lnPe, lnP = torch.log(rcm.Pe), torch.log(rcm.P)
+    from clearsky_tpu_torch.utils.interp import interp_linear
+
+    H_err, H_peak = [], []
+    for Tk in hist:
+        Tk64 = Tk.double().cpu()
+        H32 = ct.heating(rcm, Tk, rcm.A.update(interp_linear(lnPe, lnP, Tk))).double().cpu()
+        Te64 = interp_linear(torch.log(r64.Pe), torch.log(r64.P), Tk64)
+        H64 = ct.heating(r64, Tk64, r64.A.update(Te64))
+        H_peak.append(float(H64.abs().max()))
+        H_err.append(float((H32 - H64).abs().max()) / H_peak[-1])
+    dT = (hist.double().cpu() - hist64).abs().amax(dim=1)
+    steps = RCE_RECORD * np.arange(1, hist.shape[0] + 1)
+    T_bound = steps * RCM_DT * 5e-3 * max(H_peak)
+    emit("rce", points=N_NU_RCM, edge_levels=N_LEVELS, radmul=2, steps=RCE_STEPS,
+         dt_s=RCM_DT, update_every=RCE_UPDATE, adjust_every=1, record_every=RCE_RECORD,
+         refresh_route=name, fine_pass=fine, coarse_params=list(params),
+         cold_first_step_ms=cold_ms, run_seconds=run_s,
+         ms_per_step_with_refresh_and_adjustment=1e3 * run_s / RCE_STEPS,
+         warm_step_ms=warm_step_ms[0], refresh_ms=warm_step_ms[1],
+         float64_run_seconds=ref_s, T_surface_K=[float(hist[0, -1]), float(hist[-1, -1])],
+         T_top_K=[float(hist[0, 0]), float(hist[-1, 0])],
+         heating_err_of_peak=H_err, heating_peak_K_per_day=[86400 * h for h in H_peak],
+         T_max_abs_diff_K=dT.tolist(), T_bound_K=T_bound.tolist(),
+         bar="heating 5e-3 of peak; T within sum dt 5e-3 max|H|")
+    check(max(H_err) < 5e-3, f"RCE heating off float64 by {max(H_err):.3e} of peak")
+    check(bool((dT.numpy() <= T_bound).all()),
+          f"RCE temperatures off float64 by {dT.tolist()} K, bound {T_bound.tolist()}")
+    return {"rce_run_6_steps": lambda: ct.run(rcm, RCM_DT, RCE_UPDATE, **kw),
+            "rce_step": lambda: ct.step(rcm, RCM_DT)}, counts
+
+
 def _busy_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, -math.inf
@@ -1626,28 +2402,38 @@ def _busy_us(intervals):
 
 
 # K1's template instances by mode number (csrc/linesum.cu ``Mode``) and its
-# accumulate flag (K1-seg), and K4/K5 by their gathered flag, in the
-# demangled (linesum_kernel<3, false>) or mangled (linesum_kernelILi3ELb0E)
-# name
+# accumulate flag (K1-seg), K4/K5 by their shape and gathered flag, the
+# correction by its chi flag, in the demangled (linesum_kernel<3, false>) or
+# mangled (linesum_kernelILi3ELb0E) name
 _K1_MODE = {0: "linesum", 3: "linesum_farall", 4: "linesum_fine", 5: "linesum_fine_stencil",
-            6: "linesum_coarse"}
+            6: "linesum_coarse", 7: "linesum_phco2", 8: "linesum_phco2_farall",
+            9: "linesum_phco2_fine", 10: "linesum_phco2_fine_stencil",
+            11: "linesum_phco2_coarse"}
+_PHCO2_SHAPE = 7
 _K1_NAME = re.compile(r"linesum_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))?")
-_FULL_NAME = re.compile(r"fullprofile_kernel(?:<|ILi)\d+(?:, ?(true|false)|ELb([01]))")
+_FULL_NAME = re.compile(r"fullprofile_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))")
+_CORRECTION_NAME = re.compile(r"stencil_correction_kernel(?:<(true|false)>|ILb([01])E)")
 _OTHER_KERNELS = {k: re.compile(rf"\b{v}\b") for k, v in (
-    ("stencil_correction", "stencil_correction_kernel"), ("olr_march", "olr_kernel"),
-    ("monoflux_march", "monoflux_kernel"), ("fused_olr", "fused_olr_kernel"),
-    ("fused_monoflux", "fused_monoflux_kernel"))}
+    ("olr_march", "olr_kernel"), ("monoflux_march", "monoflux_kernel"),
+    ("fused_olr", "fused_olr_kernel"), ("fused_monoflux", "fused_monoflux_kernel"))}
 
 
 def _kernel_of(name: str):
     m = _K1_NAME.search(name)
     if m:
+        fam = "phco2_" if int(m.group(1)) == _PHCO2_SHAPE else ""
         if m.group(2) == "true" or m.group(3) == "1":
-            return "linesum_segmented"
+            return f"linesum_{fam}segmented"
         return _K1_MODE.get(int(m.group(1)), "linesum_other")
     m = _FULL_NAME.search(name)
     if m:
-        return "linesum_gathered" if "true" in m.groups() or "1" in m.groups() else "linesum_lane"
+        fam = "phco2_" if int(m.group(1)) == _PHCO2_SHAPE else ""
+        kind = "gathered" if m.group(2) == "true" or m.group(3) == "1" else "lane"
+        return f"linesum_{fam}{kind}"
+    m = _CORRECTION_NAME.search(name)
+    if m:
+        return "stencil_correction_phco2" if "true" in m.groups() or "1" in m.groups() \
+            else "stencil_correction"
     for k, p in _OTHER_KERNELS.items():
         if p.search(name):
             return k
@@ -1762,6 +2548,24 @@ def main(argv=None) -> int:
     phase_mix_cia(mix, dev)
     calls.update(mix_calls)
     calls.update(phase_mix_l2(mix, dev))
+    del mix, entry, rcm_mix
+
+    # the dense-CO2 column: the phco2 instances at the main path's shapes,
+    # then each part of its main path counted on its own
+    kernel_phco2(par, dev, report)
+    strat = kernel_phco2_strategies(par, args.seed, dev, report)
+    ph_calls, ph_counts = phase_phco2(par, dev)
+    strat_counts = phase_phco2_strategies(par, dev, strat)
+    phase_phco2_bake(par, dev)
+    phase_voigt_ref(par, dev)
+    rce_calls, rce_counts = phase_rce(par, dev)
+    for part in (ph_counts, strat_counts, rce_counts):
+        for k, v in part.items():
+            counts[k] += v
+    for k in sorted(PHCO2_KERNELS):
+        check(counts[k] > 0, f"kernel {k} was not launched on the phco2 and rce paths")
+    calls.update(ph_calls)
+    calls.update(rce_calls)
     phase_profile(calls)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")

@@ -1,8 +1,8 @@
 // Line-sum kernels: K1, sigma[state, nu] = sum over each wavenumber block's
-// line windows of TIPS-scaled Voigt, Lorentz or Doppler line profiles (and
-// its catalog-segmented use, K1-seg); the near-core correction of the
-// stencil-near route; and the full-profile kernels K4 (lane-major) and K5
-// (gathered slabs), further down.
+// line windows of TIPS-scaled Voigt, sub-Lorentzian CO2 (phco2), Lorentz or
+// Doppler line profiles (and its catalog-segmented use, K1-seg); the
+// near-core correction of the stencil-near route; and the full-profile
+// kernels K4 (lane-major) and K5 (gathered slabs), further down.
 //
 // Replaces clearsky_tpu/ops/linesum_pallas.py::_kernel_resident_grouped,
 // launched by _grouped_call, in all its modes:
@@ -21,6 +21,21 @@
 //     On the TPU the segments keep the pack inside VMEM; here they bound the
 //     per-segment temporaries (a pack is built, read while it sits in L2,
 //     and freed), and the segment length comes from the routing's budget.
+// The phco2 family (shapes phco2 and phco2_ref; _profile_tile :57-83,
+// _profile_far :90-120, tile_near :315 and the phco2 far tile :349-365 of
+// the grouped kernel) is a second instance of every Voigt mode: y = y0 chi
+// with Perrin and Hartmann's chi(|dnu|, T), 1 below 3 cm^-1 and decaying in
+// three pieces beyond, so the far wing is region 1 in the explicit (x, y)
+// form on (Sia, ia, y0) (3 values a state and line) instead of the voigt
+// coefficients in D. chi takes ONE expf of the selected exponent (the TPU
+// code evaluates the three exponentials and selects; the value is the same
+// up to rounding); the pieces' arguments are formed once per (point, line)
+// and the rates B1(T), B2(T) of each state, computed in float64 by the
+// wrapper and rounded, sit in shared memory beside the coefficients. The
+// *_ref shapes need no device code: the wrapper folds alpha -> alpha /
+// sqrt(ln 2) into the coefficients, as _grouped_pack (:537) does. With a
+// cut of 500 cm^-1 almost every (point, line) pair is far wing, and each
+// then costs one expf (the SFU) and one IEEE division per state.
 // stencil_correction_kernel replaces the XLA-side _stencil_apply, which adds
 // Sia (w4 - region 1) at the grid points of each line's |x| <= 15 core; the
 // TPU placed it with one-hot matrix products, here atomicAdd puts it in
@@ -61,21 +76,32 @@ constexpr int ST = 8;    // states per tile (grid y axis)
 constexpr int CH = 128;  // lines per shared-memory chunk
 
 enum Mode {
-  VOIGT_SPLIT = 0, LORENTZ = 1, DOPPLER = 2,      // over the plan's windows
-  FARALL = 3, FINE = 4, FINE_STENCIL = 5, COARSE = 6  // the routes' modes
+  VOIGT_SPLIT = 0, LORENTZ = 1, DOPPLER = 2,       // over the plan's windows
+  FARALL = 3, FINE = 4, FINE_STENCIL = 5, COARSE = 6,  // the routes' modes
+  // the phco2 family's instances of the Voigt modes
+  PH_SPLIT = 7, PH_FARALL = 8, PH_FINE = 9, PH_FINE_STENCIL = 10, PH_COARSE = 11
 };
 
 constexpr float INV_PI = 0.318309886183790672f;
 constexpr float INV_SQRT_PI = 0.564189583547756287f;
 
+__host__ __device__ constexpr bool is_phco2(int mode) { return mode >= PH_SPLIT; }
+
+// the Voigt mode whose sweeps a phco2 mode runs
+__host__ __device__ constexpr int voigt_mode(int mode) {
+  return mode == PH_SPLIT ? VOIGT_SPLIT : (is_phco2(mode) ? mode - 5 : mode);
+}
+
+// values per (state, line): (S, alpha, gamma) for Lorentz and Doppler, (Sia,
+// ia, y0) for the phco2 family, and the voigt modes add (A, c1, c2, k2)
 __host__ __device__ constexpr int n_coef(int mode) {
-  return (mode == LORENTZ || mode == DOPPLER) ? 3 : 7;
+  return (mode == LORENTZ || mode == DOPPLER || is_phco2(mode)) ? 3 : 7;
 }
 
 // line windows per block: FINE and FINE_STENCIL sweep the mid window and the
 // two annuli at the cut; every other mode one window
 __host__ __device__ constexpr int n_windows(int mode) {
-  return (mode == FINE || mode == FINE_STENCIL) ? 3 : 1;
+  return (voigt_mode(mode) == FINE || voigt_mode(mode) == FINE_STENCIL) ? 3 : 1;
 }
 
 // The distances of a launch, float32 as the TPU kernel rounds its constants:
@@ -196,18 +222,64 @@ __device__ __forceinline__ float region1(const float* c, float D) {
   return (c[6] * (c[4] + m)) / (br * br + c[5] * D);
 }
 
+// Re of region 1 in the explicit (x, y) algebra of the TPU code's phco2 far
+// tile and of _stencil_apply: 0.5641896 (y br - x t2i) / (br^2 + t2i^2),
+// br = 0.5 + y^2 - x^2, t2i = -2 x y
+__device__ __forceinline__ float region1_xy(float x, float y) {
+  const float t2r = y * y - x * x;
+  const float t2i = -2.0f * x * y;
+  const float br = 0.5f + t2r;
+  const float d2 = br * br + t2i * t2i;
+  return 0.5641896f * (y * br - x * t2i) / d2;
+}
+
+// chi(|dnu|, T) = exp(-B1 u - B2 v - w): the piece's arguments (u, v, w)
+// depend on the pair only, the rates B1, B2 on the state
+// (clearsky_tpu/ops/lineshape.py::chi_phco2)
+struct ChiArg {
+  float u, v, w;
+};
+
+__device__ __forceinline__ ChiArg chi_arg(float a) {
+  if (a < 3.0f) return {0.0f, 0.0f, 0.0f};
+  if (a < 30.0f) return {a - 3.0f, 0.0f, 0.0f};
+  if (a < 120.0f) return {27.0f, a - 30.0f, 0.0f};
+  return {27.0f, 90.0f, 0.0232f * (a - 120.0f)};
+}
+
+__device__ __forceinline__ float chi_of(const ChiArg& q, float B1, float B2) {
+  return expf(-(B1 * q.u) - B2 * q.v - q.w);
+}
+
+// one state's far-wing term: region 1 in D (voigt), or Sia times the
+// explicit form at (dnu ia, y0 chi) (phco2)
+template <bool PH>
+__device__ __forceinline__ float far_term(const float* c, float dnu, float D, float chi) {
+  if constexpr (PH) return c[0] * region1_xy(dnu * c[1], c[2] * chi);
+  else return region1(c, D);
+}
+
+// one state's core term: Sia Re w(dnu ia, y), y = y0 (voigt) or y0 chi (phco2)
+template <bool PH>
+__device__ __forceinline__ float near_term(const float* c, float dnu, float chi) {
+  if constexpr (PH) return c[0] * wofz_re(dnu * c[1], c[2] * chi);
+  else return c[0] * wofz_re(dnu * c[1], c[2]);
+}
+
 // Accumulate one window [s0, s0 + cnt) of the tile's lines into acc. Every
 // thread of the block calls it with the same window.
 // coef layout: [n_lines][ST * NC] for the tile, per line the ST states one
 // after another, each with its NC values:
 //   voigt modes: Sia, ia, y0, A, c1, c2, k2
+//   phco2 modes (PH): Sia, ia, y0; s_B holds the tile's B1 (ST) then B2 (ST)
 //   LORENTZ, DOPPLER: S, alpha, gamma
-template <int ZONE, int NC>
+template <int ZONE, int NC, bool PH>
 __device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__ line_hi,
                                       const float* __restrict__ line_lo,
                                       const float* __restrict__ ct, float* s_hi,
-                                      float* s_lo, float* s_c, float nh, float nl,
-                                      const Zones& z, float d_near, float (&acc)[ST]) {
+                                      float* s_lo, float* s_c, const float* s_B, float nh,
+                                      float nl, const Zones& z, float d_near,
+                                      float (&acc)[ST]) {
   constexpr int W = ST * NC;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
@@ -229,78 +301,76 @@ __device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__
       const float adnu = fabsf(dnu);
       const float D = dnu * dnu;
       const float* c = s_c + j * W;
-      if constexpr (ZONE == Z_SPLIT) {
+      // the zone's mask and its switching weight, shared by the ST states
+      float w = 1.0f;
+      if constexpr (ZONE == Z_SPLIT || ZONE == Z_LORENTZ || ZONE == Z_DOPPLER ||
+                    ZONE == Z_FARALL) {
         if (!(adnu <= z.cut)) continue;
-        if (adnu > d_near) {
-#pragma unroll
-          for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D);
-        } else {
-#pragma unroll
-          for (int s = 0; s < ST; ++s) {
-            const float Sia = c[s * NC], ia = c[s * NC + 1], y0 = c[s * NC + 2];
-            acc[s] += Sia * wofz_re(dnu * ia, y0);
-          }
-        }
-      } else if constexpr (ZONE == Z_LORENTZ) {
-        if (!(adnu <= z.cut)) continue;
+      } else if constexpr (ZONE == Z_MID || ZONE == Z_MID_ALL) {
+        // FINE (mid zone region 1 and near zone w4) and FINE_STENCIL (region
+        // 1 over the whole mid zone), weighted 1 - W
+        if (!(adnu <= z.cut_f)) continue;
+        w = 1.0f - smooth_d2(D, z.D1, z.inv_D);
+      } else if constexpr (ZONE == Z_ANNULUS) {
+        // the shell [cut - w_roll, cut] weighted by the outer roll: keeps the
+        // hard truncation at the cut exact on the fine grid
+        if (!(adnu <= z.cut && D > z.R1)) continue;
+        w = smooth_d2(D, z.R1, z.inv_R);
+      } else {  // Z_COARSE: the smooth far field W Wout on the coarse grid
+        if (!(adnu <= z.cut && adnu > z.d_lo)) continue;
+        w = smooth_d2(D, z.D1, z.inv_D) * (1.0f - smooth_d2(D, z.R1, z.inv_R));
+      }
+      ChiArg q{0.0f, 0.0f, 0.0f};
+      if constexpr (PH) q = chi_arg(adnu);
+      if constexpr (ZONE == Z_LORENTZ) {
 #pragma unroll
         for (int s = 0; s < ST; ++s) {
           const float S = c[s * NC], gam = c[s * NC + 2];
           acc[s] += S * (gam * INV_PI) / (dnu * dnu + gam * gam);
         }
       } else if constexpr (ZONE == Z_DOPPLER) {
-        if (!(adnu <= z.cut)) continue;
 #pragma unroll
         for (int s = 0; s < ST; ++s) {
           const float S = c[s * NC], ia = 1.0f / c[s * NC + 1];
           const float arg = dnu * ia;
           acc[s] += (S * INV_SQRT_PI * ia) * expf(-arg * arg);
         }
-      } else if constexpr (ZONE == Z_FARALL) {
-        // stencil-near route: region 1 over the whole window, the core
-        // corrected afterwards by stencil_correction_kernel
-        if (!(adnu <= z.cut)) continue;
-#pragma unroll
-        for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D);
-      } else if constexpr (ZONE == Z_MID) {
-        // FINE: mid zone (region 1) and near zone (w4), both weighted 1 - W
-        if (!(adnu <= z.cut_f)) continue;
-        const float w = 1.0f - smooth_d2(D, z.D1, z.inv_D);
+      } else if constexpr (ZONE == Z_SPLIT || ZONE == Z_MID) {
+        // a per-element branch replaces the TPU kernel's two masked sweeps:
+        // region 1 beyond d_near, the full w4 within it
         if (adnu > d_near) {
 #pragma unroll
-          for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D) * w;
+          for (int s = 0; s < ST; ++s) {
+            const float chi = PH ? chi_of(q, s_B[s], s_B[ST + s]) : 1.0f;
+            const float f = far_term<PH>(c + s * NC, dnu, D, chi);
+            acc[s] += ZONE == Z_MID ? f * w : f;
+          }
         } else {
 #pragma unroll
           for (int s = 0; s < ST; ++s) {
-            const float Sia = c[s * NC], ia = c[s * NC + 1], y0 = c[s * NC + 2];
-            acc[s] += Sia * wofz_re(dnu * ia, y0) * w;
+            const float chi = PH ? chi_of(q, s_B[s], s_B[ST + s]) : 1.0f;
+            const float f = near_term<PH>(c + s * NC, dnu, chi);
+            acc[s] += ZONE == Z_MID ? f * w : f;
           }
         }
-      } else if constexpr (ZONE == Z_MID_ALL) {
-        // FINE_STENCIL: region 1 weighted 1 - W over the whole mid zone
-        if (!(adnu <= z.cut_f)) continue;
-        const float w = 1.0f - smooth_d2(D, z.D1, z.inv_D);
+      } else {
+        // FARALL (stencil-near route: region 1 over the whole window, the
+        // core corrected afterwards by stencil_correction_kernel), MID_ALL,
+        // ANNULUS and COARSE: region 1, weighted but in FARALL
 #pragma unroll
-        for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D) * w;
-      } else if constexpr (ZONE == Z_ANNULUS) {
-        // the shell [cut - w_roll, cut] weighted by the outer roll: keeps the
-        // hard truncation at the cut exact on the fine grid
-        if (!(adnu <= z.cut && D > z.R1)) continue;
-        const float w = smooth_d2(D, z.R1, z.inv_R);
-#pragma unroll
-        for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D) * w;
-      } else {  // Z_COARSE: the smooth far field W Wout on the coarse grid
-        if (!(adnu <= z.cut && adnu > z.d_lo)) continue;
-        const float w = smooth_d2(D, z.D1, z.inv_D) * (1.0f - smooth_d2(D, z.R1, z.inv_R));
-#pragma unroll
-        for (int s = 0; s < ST; ++s) acc[s] += region1(c + s * NC, D) * w;
+        for (int s = 0; s < ST; ++s) {
+          const float chi = PH ? chi_of(q, s_B[s], s_B[ST + s]) : 1.0f;
+          const float f = far_term<PH>(c + s * NC, dnu, D, chi);
+          acc[s] += ZONE == Z_FARALL ? f : f * w;
+        }
       }
     }
   }
 }
 
 // One block per block of grid points, one thread per point; win holds each
-// block's n_windows(MODE) windows as (start, count) pairs.
+// block's n_windows(MODE) windows as (start, count) pairs; bcoef (the phco2
+// modes) the rates [n_tiles][2][ST], B1 then B2 of each tile's states.
 // out: [n_states][ld_out], the first n_out columns written (ACC: added to)
 template <int MODE, bool ACC>
 __global__ void linesum_kernel(const float* __restrict__ nu_hi,
@@ -309,38 +379,46 @@ __global__ void linesum_kernel(const float* __restrict__ nu_hi,
                                const float* __restrict__ line_lo,
                                const float* __restrict__ coef,
                                const int* __restrict__ win,
-                               const float* __restrict__ d_near_p, Zones z,
+                               const float* __restrict__ d_near_p,
+                               const float* __restrict__ bcoef, Zones z,
                                int n_lines, int n_states, int n_out, int ld_out,
                                float* __restrict__ out) {
   constexpr int NC = n_coef(MODE);
   constexpr int NW = n_windows(MODE);
+  constexpr int VM = voigt_mode(MODE);
+  constexpr bool PH = is_phco2(MODE);
   __shared__ float s_hi[CH];
   __shared__ float s_lo[CH];
   __shared__ float s_c[CH * ST * NC];
+  __shared__ float s_B[2 * ST];
 
   const int b = blockIdx.x;
   const int tile = blockIdx.y;
   const int p = b * blockDim.x + threadIdx.x;  // grids are padded to whole blocks
   const float nh = nu_hi[p];
   const float nl = nu_lo[p];
-  const float d_near = (MODE == VOIGT_SPLIT || MODE == FINE) ? *d_near_p : 0.0f;
+  const float d_near = (VM == VOIGT_SPLIT || VM == FINE) ? *d_near_p : 0.0f;
   const int* w = win + (size_t)b * 2 * NW;
   const float* ct = coef + (size_t)tile * n_lines * ST * NC;
+  if constexpr (PH) {
+    if (threadIdx.x < 2 * ST) s_B[threadIdx.x] = bcoef[(size_t)tile * 2 * ST + threadIdx.x];
+    __syncthreads();
+  }
 
   float acc[ST];
 #pragma unroll
   for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
 
 #define SWEEP(ZONE, K) \
-  sweep<ZONE, NC>(w[2 * (K)], w[2 * (K) + 1], line_hi, line_lo, ct, s_hi, s_lo, s_c, nh, nl, \
-                  z, d_near, acc)
-  if constexpr (MODE == VOIGT_SPLIT) SWEEP(Z_SPLIT, 0);
-  else if constexpr (MODE == LORENTZ) SWEEP(Z_LORENTZ, 0);
-  else if constexpr (MODE == DOPPLER) SWEEP(Z_DOPPLER, 0);
-  else if constexpr (MODE == FARALL) SWEEP(Z_FARALL, 0);
-  else if constexpr (MODE == COARSE) SWEEP(Z_COARSE, 0);
+  sweep<ZONE, NC, PH>(w[2 * (K)], w[2 * (K) + 1], line_hi, line_lo, ct, s_hi, s_lo, s_c, s_B, \
+                      nh, nl, z, d_near, acc)
+  if constexpr (VM == VOIGT_SPLIT) SWEEP(Z_SPLIT, 0);
+  else if constexpr (VM == LORENTZ) SWEEP(Z_LORENTZ, 0);
+  else if constexpr (VM == DOPPLER) SWEEP(Z_DOPPLER, 0);
+  else if constexpr (VM == FARALL) SWEEP(Z_FARALL, 0);
+  else if constexpr (VM == COARSE) SWEEP(Z_COARSE, 0);
   else {
-    if constexpr (MODE == FINE) SWEEP(Z_MID, 0);
+    if constexpr (VM == FINE) SWEEP(Z_MID, 0);
     else SWEEP(Z_MID_ALL, 0);
     SWEEP(Z_ANNULUS, 1);
     SWEEP(Z_ANNULUS, 2);
@@ -366,12 +444,18 @@ __global__ void linesum_kernel(const float* __restrict__ nu_hi,
 // q[l] K + k where x^2 <= 225 and |dnu_hi| <= cut, region 1 in the explicit
 // (x, y) algebra of _stencil_apply. dnu_hi/dnu_lo: [2K][n_lines];
 // sia/ia/y0: [n_states][n_lines]; out: [n_states][n_nu], added to.
+// PH (the phco2 family): y = y0 chi(|dnu_hi + dnu_lo|, T), as _stencil_apply
+// (:1269-1275) has it, the rates from bcoef [n_tiles][2][ST] as K1 reads them.
+// (Within the stencil's reach, 15 alpha(1000 K) / sqrt(ln 2), ~0.1 cm^-1 for
+// CO2, chi is 1; the kernel applies it all the same.)
+template <bool PH>
 __global__ void stencil_correction_kernel(const float* __restrict__ dnu_hi,
                                           const float* __restrict__ dnu_lo,
                                           const int* __restrict__ q,
                                           const float* __restrict__ sia,
                                           const float* __restrict__ ia,
-                                          const float* __restrict__ y0, int K,
+                                          const float* __restrict__ y0,
+                                          const float* __restrict__ bcoef, int K,
                                           int n_lines, int n_states, int n_nu,
                                           float cut, int weighted, float D1,
                                           float inv_D, float* __restrict__ out) {
@@ -383,29 +467,30 @@ __global__ void stencil_correction_kernel(const float* __restrict__ dnu_hi,
   const float dh = dnu_hi[i];
   if (p >= n_nu || !(fabsf(dh) <= cut)) return;
   const float dl = dnu_lo[i];
+  const float dD = dh + dl;
   float w = 1.0f;
-  if (weighted) {
-    const float dD = dh + dl;
-    w = 1.0f - smooth_d2(dD * dD, D1, inv_D);
-  }
+  if (weighted) w = 1.0f - smooth_d2(dD * dD, D1, inv_D);
+  ChiArg chq{0.0f, 0.0f, 0.0f};
+  if constexpr (PH) chq = chi_arg(fabsf(dD));
   for (int s = 0; s < n_states; ++s) {
     const size_t sl = (size_t)s * n_lines + l;
     const float a = ia[sl];
     const float x = a * dh + a * dl;
     if (!(x * x <= 225.0f)) continue;
-    const float y = y0[sl];
-    const float t2r = y * y - x * x;
-    const float t2i = -2.0f * x * y;
-    const float br = 0.5f + t2r;
-    const float d2 = br * br + t2i * t2i;
-    const float wr1 = 0.5641896f * (y * br - x * t2i) / d2;
-    const float corr = sia[sl] * (wofz_re(x, y) - wr1) * w;
+    float y = y0[sl];
+    if constexpr (PH) {
+      const float* bt = bcoef + (size_t)(s / ST) * 2 * ST + s % ST;
+      y *= chi_of(chq, bt[0], bt[ST]);
+    }
+    const float corr = sia[sl] * (wofz_re(x, y) - region1_xy(x, y)) * w;
     atomicAdd(out + (size_t)s * n_nu + p, corr);
   }
 }
 
 // K4 and K5: the full line profile over each block's lines, w4 at every
-// voigt pair (no near/far split), Lorentz or Doppler otherwise.
+// voigt and phco2 pair (no near/far split; phco2 with y = y0 chi(|dnu|, T),
+// the rates from bcoef [n_tiles][2][ST] in shared memory), Lorentz or
+// Doppler otherwise.
 //   * K4, GATHERED = false, replaces linesum_pallas.py::_kernel_resident
 //     (the lane branch of _pallas_sigma_impl, strategy "lane"): the per-state
 //     rows S, alpha, gamma [n_states][row] unpacked, lines padded past the
@@ -436,12 +521,15 @@ __global__ void fullprofile_kernel(const float* __restrict__ nu_hi,
                                    const float* __restrict__ alpha,
                                    const float* __restrict__ gamma,
                                    const int* __restrict__ start,
-                                   const int* __restrict__ count, int row, int n_blocks,
+                                   const int* __restrict__ count,
+                                   const float* __restrict__ bcoef, int row, int n_blocks,
                                    float cut, int n_states, int n_out,
                                    float* __restrict__ out) {
+  constexpr bool PH = SHAPE == PH_SPLIT;
   __shared__ float s_hi[CH];
   __shared__ float s_lo[CH];
   __shared__ float s_f[3][CH * ST];  // per (line, state): the profile's factors
+  __shared__ float s_B[2 * ST];
 
   const int b = blockIdx.x;
   const int tile = blockIdx.y;
@@ -453,6 +541,10 @@ __global__ void fullprofile_kernel(const float* __restrict__ nu_hi,
   const size_t base = GATHERED ? (size_t)b * row : (size_t)start[b];
   const size_t sstride = GATHERED ? (size_t)n_blocks * row : (size_t)row;
   const int cnt = count[b];
+  if constexpr (PH) {
+    if (tid < 2 * ST) s_B[tid] = bcoef[(size_t)tile * 2 * ST + tid];
+    __syncthreads();
+  }
 
   float acc[ST];
 #pragma unroll
@@ -469,7 +561,7 @@ __global__ void fullprofile_kernel(const float* __restrict__ nu_hi,
       const int s = i / n;
       const int j = i - s * n;
       const int st = tile * ST + s;
-      // voigt and doppler: (S ia / sqrt(pi), ia, gamma ia); lorentz:
+      // voigt, phco2 and doppler: (S ia / sqrt(pi), ia, gamma ia); lorentz:
       // (S, gamma); a padding state contributes exactly 0
       float f0 = 0.0f, f1 = 1.0f, f2 = 1.0f;
       if (st < n_states) {
@@ -495,11 +587,15 @@ __global__ void fullprofile_kernel(const float* __restrict__ nu_hi,
       // two-float dnu, as in K1
       const float dnu = (nh - s_hi[j]) + (nl - s_lo[j]);
       if (!(fabsf(dnu) <= cut)) continue;
+      ChiArg q{0.0f, 0.0f, 0.0f};
+      if constexpr (PH) q = chi_arg(fabsf(dnu));
 #pragma unroll
       for (int s = 0; s < ST; ++s) {
         const float f0 = s_f[0][j * ST + s], f1 = s_f[1][j * ST + s];
         if constexpr (SHAPE == VOIGT_SPLIT) {
           acc[s] += f0 * wofz_re(dnu * f1, s_f[2][j * ST + s]);
+        } else if constexpr (PH) {
+          acc[s] += f0 * wofz_re(dnu * f1, s_f[2][j * ST + s] * chi_of(q, s_B[s], s_B[ST + s]));
         } else if constexpr (SHAPE == LORENTZ) {
           acc[s] += f0 * (f1 * INV_PI) / (dnu * dnu + f1 * f1);
         } else {
@@ -530,26 +626,29 @@ int linesum_coef_per_state(int mode) { return n_coef(mode); }
 int linesum_windows_per_block(int mode) { return n_windows(mode); }
 
 // Launch `mode` on `stream`; zones: host float[7] (Zones, in field order);
+// bcoef: the phco2 modes' rates [n_tiles][2][ST] (unread by the others);
 // out: rows of ld_out floats, the first n_out of each written, or added to
 // with `accumulate` (the split and single-sweep modes only).
 // Returns cudaGetLastError() (0 on success).
 int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
                    const float* line_hi, const float* line_lo,
                    const float* coef, const int* win, const float* d_near,
-                   const float* zones, int n_blocks, int block, int n_lines,
-                   int n_states, int n_out, int ld_out, int accumulate, float* out,
-                   void* stream) {
+                   const float* bcoef, const float* zones, int n_blocks, int block,
+                   int n_lines, int n_states, int n_out, int ld_out, int accumulate,
+                   float* out, void* stream) {
   const int n_tiles = (n_states + ST - 1) / ST;
   const dim3 grid(n_blocks, n_tiles);
   const Zones z{zones[0], zones[1], zones[2], zones[3], zones[4], zones[5], zones[6]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(M, A)                                                              \
   linesum_kernel<M, A><<<grid, block, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, coef, \
-                                               win, d_near, z, n_lines, n_states, n_out, \
-                                               ld_out, out)
+                                               win, d_near, bcoef, z, n_lines, n_states, \
+                                               n_out, ld_out, out)
 #define LAUNCH_ACC(M) \
   if (accumulate) LAUNCH(M, true); else LAUNCH(M, false)
-  if (accumulate && mode > DOPPLER) return static_cast<int>(cudaErrorInvalidValue);
+  if (accumulate && mode > DOPPLER && mode != PH_SPLIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_phco2(mode) && bcoef == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
     case VOIGT_SPLIT: LAUNCH_ACC(VOIGT_SPLIT); break;
     case LORENTZ: LAUNCH_ACC(LORENTZ); break;
@@ -558,6 +657,11 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
     case FINE: LAUNCH(FINE, false); break;
     case FINE_STENCIL: LAUNCH(FINE_STENCIL, false); break;
     case COARSE: LAUNCH(COARSE, false); break;
+    case PH_SPLIT: LAUNCH_ACC(PH_SPLIT); break;
+    case PH_FARALL: LAUNCH(PH_FARALL, false); break;
+    case PH_FINE: LAUNCH(PH_FINE, false); break;
+    case PH_FINE_STENCIL: LAUNCH(PH_FINE_STENCIL, false); break;
+    case PH_COARSE: LAUNCH(PH_COARSE, false); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -567,26 +671,29 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
 }
 
 // Launch K4 (gathered = 0) or K5 (gathered = 1) for `shape` (VOIGT_SPLIT
-// for voigt, LORENTZ, DOPPLER) on `stream`; row: the padded catalog length
-// (K4) or the slab length (K5); start: K4's aligned window starts (unread
-// by K5). Returns cudaGetLastError() (0 on success).
+// for voigt, PH_SPLIT for phco2, LORENTZ, DOPPLER) on `stream`; row: the
+// padded catalog length (K4) or the slab length (K5); start: K4's aligned
+// window starts (unread by K5); bcoef: phco2's rates [n_tiles][2][ST].
+// Returns cudaGetLastError() (0 on success).
 int fullprofile_launch(int shape, int gathered, const float* nu_hi, const float* nu_lo,
                        const float* line_hi, const float* line_lo, const float* S,
                        const float* alpha, const float* gamma, const int* start,
-                       const int* count, int row, int n_blocks, int block, float cut,
-                       int n_states, int n_out, float* out, void* stream) {
+                       const int* count, const float* bcoef, int row, int n_blocks, int block,
+                       float cut, int n_states, int n_out, float* out, void* stream) {
   const dim3 grid(n_blocks, (n_states + ST - 1) / ST);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (shape == PH_SPLIT && bcoef == nullptr) return static_cast<int>(cudaErrorInvalidValue);
 #define LAUNCH(SH, G)                                                                     \
   fullprofile_kernel<SH, G><<<grid, block, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, S, alpha, \
-                                                    gamma, start, count, row, n_blocks, cut, \
-                                                    n_states, n_out, out)
+                                                    gamma, start, count, bcoef, row, n_blocks, \
+                                                    cut, n_states, n_out, out)
 #define LAUNCH_G(SH) \
   if (gathered) LAUNCH(SH, true); else LAUNCH(SH, false)
   switch (shape) {
     case VOIGT_SPLIT: LAUNCH_G(VOIGT_SPLIT); break;
     case LORENTZ: LAUNCH_G(LORENTZ); break;
     case DOPPLER: LAUNCH_G(DOPPLER); break;
+    case PH_SPLIT: LAUNCH_G(PH_SPLIT); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -595,19 +702,26 @@ int fullprofile_launch(int shape, int gathered, const float* nu_hi, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the near-core correction on `stream` (adds into out).
+// Launch the near-core correction on `stream` (adds into out); with bcoef
+// (the phco2 family's rates [n_tiles][2][ST]) the chi instance.
 int stencil_correction_launch(const float* dnu_hi, const float* dnu_lo, const int* q,
                               const float* sia, const float* ia, const float* y0,
-                              int K, int n_lines, int n_states, int n_nu, float cut,
-                              int weighted, float D1, float inv_D, float* out,
+                              const float* bcoef, int K, int n_lines, int n_states, int n_nu,
+                              float cut, int weighted, float D1, float inv_D, float* out,
                               void* stream) {
   const size_t n = (size_t)2 * K * n_lines;
   if (n == 0 || n_states == 0) return 0;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  stencil_correction_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      dnu_hi, dnu_lo, q, sia, ia, y0, K, n_lines, n_states, n_nu, cut, weighted, D1, inv_D,
-      out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bcoef != nullptr)
+    stencil_correction_kernel<true><<<blocks, threads, 0, st>>>(
+        dnu_hi, dnu_lo, q, sia, ia, y0, bcoef, K, n_lines, n_states, n_nu, cut, weighted, D1,
+        inv_D, out);
+  else
+    stencil_correction_kernel<false><<<blocks, threads, 0, st>>>(
+        dnu_hi, dnu_lo, q, sia, ia, y0, bcoef, K, n_lines, n_states, n_nu, cut, weighted, D1,
+        inv_D, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,10 +3,13 @@
 Counterpart of ``clearsky_tpu.models.rcm`` for the discretized core. The
 model is a frozen dataclass of tensors and every operation returns a new one:
 :func:`heating` radiates on the refined grid, :func:`step` takes one Euler
-step, :func:`update_absorber` refreshes the cached cross-sections. A bare
-``step`` neither refreshes cross-sections nor adjusts convection.
-``step_n``, ``run``, ``convective_adjustment`` and ``jacobian`` are not
-ported yet.
+step, :func:`update_absorber` refreshes the cached cross-sections and
+:func:`convective_adjustment` applies the dry lapse-rate sweep. A bare
+``step`` neither refreshes cross-sections nor adjusts convection;
+:func:`run` composes the three at chosen cadences. The JAX package scans
+its steps on the device; here :func:`step_n` and :func:`run` are Python
+loops over the same steps. ``jacobian`` (forward-mode differentiation
+through the kernels) is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,10 +24,12 @@ from ..ops.planck import planck
 from ..utils.interp import interp_linear
 from ..utils.grids import trapz
 from ..absorption.absorbers import AcceleratedAbsorber, unify_absorbers
-from ..rt.discretized import layer_tau_flat, lobatto_pressures, monoflux
+from ..atmosphere.adiabats import lapse
+from ..rt.discretized import FluxPack, integrate_flux, layer_tau_flat, lobatto_pressures, monoflux
 from ..rt.fluxes import Discretized, DEFAULT_THETA_S, _spectral_fn, _reject_unported
 
-__all__ = ["RCM", "heating", "step", "update_absorber", "radiative_grid"]
+__all__ = ["RCM", "heating", "radiate_state", "step", "step_n", "run", "jacobian",
+           "update_absorber", "convective_adjustment", "radiative_grid"]
 
 
 def radiative_grid(Pe: np.ndarray, radmul: int) -> np.ndarray:
@@ -97,26 +102,27 @@ class RCM:
         return self.A.nu
 
 
-def _mono_on_radiative_grid(rcm: RCM):
-    """(tau, M_up, M_down) on the refined grid for the model's state."""
+def _mono_on_radiative_grid(rcm: RCM, T, A: AcceleratedAbsorber):
+    """(tau, M_up, M_down) on the refined grid for cell temperatures T and
+    the cached absorber A."""
     lnP = torch.log(rcm.P)
 
     def fT(P):
-        return interp_linear(torch.log(P), lnP, rcm.T)
+        return interp_linear(torch.log(P), lnP, T)
 
     core = rcm.core
     Pf = lobatto_pressures(rcm.Pr, core.nlobatto).reshape(-1)
     Tf = fT(Pf)
     muf = torch.broadcast_to(torch.as_tensor(rcm.fmu(Tf, Pf), dtype=Pf.dtype,
                                              device=Pf.device), Pf.shape)
-    sig = rcm.A.sigma(Tf, Pf)
+    sig = A.sigma(Tf, Pf)
     tau = layer_tau_flat(rcm.Pr, muf, sig, rcm.g, core.nlobatto)
     B = planck(rcm.nu[None, :], fT(rcm.Pr)[:, None])
     M_up, M_down = monoflux(tau, B, rcm.nu, rcm.S_nu, rcm.a_nu, rcm.theta_s, core.nstream)
     return tau, M_up, M_down
 
 
-def _heating_operator(rcm: RCM):
+def _heating_operator(rcm: RCM, T):
     """The linear map G: M_net [nr, n_nu] -> heating rows, applied per wavenumber.
 
     Heating is interp(ln Pr -> ln Pe), level difference and scale applied
@@ -136,23 +142,36 @@ def _heating_operator(rcm: RCM):
     W.index_add_(0, rows * nr + i, -(1.0 - t))        # R = -interp
     W.index_add_(0, rows * nr + i + 1, -t)
     W = W.view(npe, nr)
-    cp = torch.as_tensor(rcm.fcp(rcm.T[:-1], rcm.P[:-1]), dtype=W.dtype, device=W.device)
+    cp = torch.as_tensor(rcm.fcp(T[:-1], rcm.P[:-1]), dtype=W.dtype, device=W.device)
     dP = rcm.Pe[1:] - rcm.Pe[:-1]
     Gc = (W[:-1] - W[1:]) * ((rcm.g / cp) / dP)[:, None]
     Gs = W[-1:] / rcm.cs
     return torch.cat([Gc, Gs])
 
 
-def heating(rcm: RCM):
-    """Cell heating rates H [K/s] (last entry = surface).
+def heating(rcm: RCM, T=None, A: AcceleratedAbsorber | None = None, spectral_sum=None):
+    """Cell heating rates H [K/s] (last entry = surface) at cell temperatures
+    ``T`` and the cached absorber ``A`` (by default the model's own).
 
     Radiates on the refined grid, applies the interpolate/difference/scale
     operator to the net flux per wavenumber, then integrates over the
-    spectrum.
+    spectrum: the trapezoid rule, or ``spectral_sum`` (a map of
+    [..., n_nu] -> [...], the JAX package's hook for a sharded sum).
     """
-    _, M_up, M_down = _mono_on_radiative_grid(rcm)
-    dH = torch.matmul(_heating_operator(rcm), M_up - M_down)   # [np, n_nu]
-    return trapz(rcm.nu, dH, axis=-1)
+    T = rcm.T if T is None else T
+    A = rcm.A if A is None else A
+    _, M_up, M_down = _mono_on_radiative_grid(rcm, T, A)
+    dH = torch.matmul(_heating_operator(rcm, T), M_up - M_down)   # [np, n_nu]
+    if spectral_sum is None:
+        return trapz(rcm.nu, dH, axis=-1)
+    return spectral_sum(dH)
+
+
+def radiate_state(rcm: RCM) -> FluxPack:
+    """The FluxPack on the refined radiative grid for the model's state."""
+    tau, M_up, M_down = _mono_on_radiative_grid(rcm, rcm.T, rcm.A)
+    F_up, F_down = integrate_flux(M_up, M_down, rcm.nu)
+    return FluxPack(tau, M_up, M_down, F_up, F_down, F_up - F_down)
 
 
 def step(rcm: RCM, dt) -> RCM:
@@ -160,8 +179,64 @@ def step(rcm: RCM, dt) -> RCM:
     return dataclasses.replace(rcm, T=rcm.T + dt * heating(rcm))
 
 
-def update_absorber(rcm: RCM) -> RCM:
-    """Refresh the cached cross-sections for the current temperatures,
-    interpolated from the cells to the edges."""
-    Te = interp_linear(torch.log(rcm.Pe), torch.log(rcm.P), rcm.T)
+def update_absorber(rcm: RCM, Te=None) -> RCM:
+    """Refresh the cached cross-sections for edge temperatures ``Te``, by
+    default the cell temperatures interpolated in ln P to the edges."""
+    if Te is None:
+        Te = interp_linear(torch.log(rcm.Pe), torch.log(rcm.P), rcm.T)
     return dataclasses.replace(rcm, A=rcm.A.update(Te))
+
+
+def convective_adjustment(rcm: RCM, cp: float, mu: float) -> RCM:
+    """Dry convective adjustment of the cell temperatures
+    (:func:`..atmosphere.adiabats.lapse`)."""
+    return dataclasses.replace(rcm, T=lapse(rcm.T, rcm.P, cp, mu))
+
+
+def step_n(rcm: RCM, dt, nsteps: int) -> RCM:
+    """``nsteps`` Euler steps on the model's cached absorber (no refresh, no
+    adjustment): the same arithmetic as ``nsteps`` calls of :func:`step`."""
+    T = rcm.T
+    for _ in range(nsteps):
+        T = T + dt * heating(rcm, T)
+    return dataclasses.replace(rcm, T=T)
+
+
+def run(rcm: RCM, dt, nsteps: int, update_every: int = 0, adjust_every: int = 0,
+        cp: float | None = None, mu: float | None = None, record_every: int = 0,
+        spectral_sum=None):
+    """Integrate toward radiative-convective equilibrium: ``nsteps`` Euler
+    steps; after step i (from 0), the convective adjustment where (i + 1) is
+    a multiple of ``adjust_every``, then the absorber refreshed at the new
+    temperatures where (i + 1) is a multiple of ``update_every`` (0: never).
+
+    Returns ``(rcm, history)``: the final model and the cell temperatures
+    after every ``record_every``-th step, [nsteps // record_every, np]
+    (empty [0, np] when ``record_every`` is 0). The cadences and records are
+    the JAX package's; its scan on the device is a Python loop here.
+    """
+    if adjust_every and (cp is None or mu is None):
+        raise ValueError("convective adjustment requires scalar cp and mu")
+    lnPe, lnP = torch.log(rcm.Pe), torch.log(rcm.P)
+    T, A = rcm.T, rcm.A
+    recs = []
+    for i in range(nsteps):
+        T = T + dt * heating(rcm, T, A, spectral_sum=spectral_sum)
+        if adjust_every and (i + 1) % adjust_every == 0:
+            T = lapse(T, rcm.P, cp, mu)
+        if update_every and (i + 1) % update_every == 0:
+            A = A.update(interp_linear(lnPe, lnP, T))
+        if record_every and (i + 1) % record_every == 0:
+            recs.append(T)
+    history = (torch.stack(recs) if recs
+               else torch.zeros((0, rcm.T.shape[0]), dtype=rcm.T.dtype, device=rcm.T.device))
+    return dataclasses.replace(rcm, T=T, A=A), history
+
+
+def jacobian(rcm: RCM, mode: str = "fwd", eps: float = 1.0, update_sigma: bool = False):
+    """dH/dT of the heating rates: not in the port yet. Forward-mode
+    differentiation through every kernel (``torch.autograd.Function.jvp``)
+    is the next slice of the port (ROADMAP.md, item 5b)."""
+    raise NotImplementedError(
+        "jacobian is not ported yet: forward-mode differentiation through the kernels is "
+        "the next slice of the port (ROADMAP.md, item 5b)")

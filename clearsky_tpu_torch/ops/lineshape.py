@@ -1,4 +1,5 @@
-"""TIPS intensity scaling and Doppler/Lorentz/Voigt line shapes.
+"""TIPS intensity scaling and Doppler/Lorentz/Voigt line shapes, and the
+sub-Lorentzian CO2 far wing (Perrin and Hartmann's chi factor).
 
 Counterpart of ``clearsky_tpu.ops.lineshape`` (HITRAN units: cm^-1,
 cm^2/molecule); every function is elementwise on broadcasting tensors.
@@ -21,9 +22,13 @@ __all__ = [
     "fdoppler",
     "florentz",
     "fvoigt",
+    "fvoigt_ref",
+    "chi_phco2",
+    "phco2_xsec",
 ]
 
 _SQRT_PI = 1.7724538509055159
+_SQRT_LN2 = 0.8325546111576977  # sqrt(ln 2)
 
 
 def cheb_qref_q(T, coeffs):
@@ -87,3 +92,35 @@ def fvoigt(dnu, alpha, gamma):
     ``clearsky_tpu.ops.lineshape.fvoigt``)."""
     beta = 1.0 / alpha
     return (beta / _SQRT_PI) * wofz_re(dnu * beta, gamma * beta)
+
+
+def fvoigt_ref(dnu, alpha, gamma):
+    """The reference's HWHM-convention Voigt profile on the 1/e width alpha:
+    x = sqrt(ln2) dnu/alpha, y = sqrt(ln2) gamma/alpha, sqrt(ln2/pi)/alpha
+    Re w(x + iy); the same as ``fvoigt(dnu, alpha/sqrt(ln2), gamma)``
+    (``clearsky_tpu.ops.lineshape.fvoigt_ref``)."""
+    x = _SQRT_LN2 * dnu / alpha
+    y = _SQRT_LN2 * gamma / alpha
+    return (_SQRT_LN2 / (alpha * _SQRT_PI)) * wofz_re(x, y)
+
+
+def chi_phco2(dnu, T):
+    """Perrin and Hartmann's sub-Lorentzian chi factor of the CO2 far wing:
+    1 below |dnu| = 3 cm^-1, then exponential decays with breakpoints at 30
+    and 120 cm^-1 and rates B1(T), B2(T). Three exponentials and a
+    selection, as ``clearsky_tpu.ops.lineshape.chi_phco2``."""
+    adnu = torch.abs(dnu)
+    B1 = 0.0888 - 0.16 * torch.exp(-0.0041 * T)
+    B2 = 0.0526 * torch.exp(-0.00152 * T)
+    chi2 = torch.exp(-B1 * (adnu - 3.0))
+    chi3 = torch.exp(-B1 * 27.0 - B2 * (adnu - 30.0))
+    chi4 = torch.exp(-B1 * 27.0 - B2 * 90.0 - 0.0232 * (adnu - 120.0))
+    one = torch.ones((), dtype=chi2.dtype, device=chi2.device)
+    return torch.where(adnu < 3.0, one,
+                       torch.where(adnu < 30.0, chi2, torch.where(adnu < 120.0, chi3, chi4)))
+
+
+def phco2_xsec(dnu, T, S, alpha, gamma):
+    """Sub-Lorentzian CO2 cross-section: the Voigt profile with gamma scaled
+    by chi(dnu, T)."""
+    return S * fvoigt(dnu, alpha, chi_phco2(dnu, T) * gamma)

@@ -33,6 +33,7 @@ from .lineshape import (
     fdoppler,
     florentz,
     fvoigt,
+    chi_phco2,
 )
 
 __all__ = [
@@ -44,17 +45,42 @@ __all__ = [
     "voigt_coefficients",
     "PROFILES",
     "DEFAULT_CUT",
+    "VOIGT_FAMILY",
+    "PHCO2_FAMILY",
+    "SPLIT_SHAPES",
 ]
 
-# unified profile signature f(dnu, S, alpha, gamma) -> cross-section; the
-# phco2 and *_ref shapes of the JAX package are not ported yet
+_SQRT_LN2 = 0.8325546111576977  # sqrt(ln 2)
+
+# unified profile signature f(dnu, S, alpha, gamma, T) -> cross-section. The
+# *_ref shapes are the reference's HWHM-convention Voigt formula, which is
+# the internal one with alpha -> alpha / sqrt(ln 2); phco2 scales gamma by
+# the sub-Lorentzian chi(dnu, T) of the CO2 far wing
 PROFILES = {
-    "voigt": lambda dnu, S, a, g: S * fvoigt(dnu, a, g),
-    "lorentz": lambda dnu, S, a, g: S * florentz(dnu, g),
-    "doppler": lambda dnu, S, a, g: S * fdoppler(dnu, a),
+    "voigt": lambda dnu, S, a, g, T: S * fvoigt(dnu, a, g),
+    "lorentz": lambda dnu, S, a, g, T: S * florentz(dnu, g),
+    "doppler": lambda dnu, S, a, g, T: S * fdoppler(dnu, a),
+    "phco2": lambda dnu, S, a, g, T: S * fvoigt(dnu, a, chi_phco2(dnu, T) * g),
+    "voigt_ref": lambda dnu, S, a, g, T: S * fvoigt(dnu, a / _SQRT_LN2, g),
+    "phco2_ref": lambda dnu, S, a, g, T: S * fvoigt(dnu, a / _SQRT_LN2, chi_phco2(dnu, T) * g),
 }
 
-DEFAULT_CUT = {"voigt": 25.0, "lorentz": 25.0, "doppler": 25.0}
+DEFAULT_CUT = {"voigt": 25.0, "lorentz": 25.0, "doppler": 25.0, "phco2": 500.0,
+               "voigt_ref": 25.0, "phco2_ref": 500.0}
+
+# the Voigt-family shapes, which every route of the line sum takes: the
+# voigt far wing is Humlicek region 1 on per-line coefficients, phco2's
+# depends on dnu through chi
+VOIGT_FAMILY = ("voigt", "voigt_ref")
+PHCO2_FAMILY = ("phco2", "phco2_ref")
+SPLIT_SHAPES = VOIGT_FAMILY + PHCO2_FAMILY
+
+
+def effective_alpha(shape: str, alpha):
+    """The Doppler width the profile of ``shape`` uses: alpha / sqrt(ln 2)
+    for the *_ref shapes (folded into the coefficients, as the JAX package
+    folds it into its pack), alpha otherwise."""
+    return alpha * (1.0 / _SQRT_LN2) if shape.endswith("_ref") else alpha
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -182,21 +208,47 @@ def voigt_coefficients(S, alpha, gamma):
             S * gamma * A * (1.0 / math.pi))
 
 
-def tile_exact(shape, S, alpha, gamma):
-    """The exact profile of ``shape`` on (S, alpha, gamma), as a tile of :func:`block_sum`."""
+def tile_T(T, batch):
+    """Per-state temperatures T (broadcast to ``batch``) shaped to meet a
+    tile of :func:`block_sum`, [*batch, 1, 1, 1]."""
+    return torch.broadcast_to(T, batch).reshape(tuple(batch) + (1, 1, 1))
+
+
+def tile_exact(shape, S, alpha, gamma, T=None):
+    """The exact profile of ``shape`` on (S, alpha, gamma), as a tile of
+    :func:`block_sum`; ``T`` from :func:`tile_T` (read by phco2's chi)."""
     profile = PROFILES[shape]
-    return lambda dnu, D, g: profile(dnu, g(S), g(alpha), g(gamma))
+    return lambda dnu, D, g: profile(dnu, g(S), g(alpha), g(gamma), T)
 
 
-def tile_w4(co):
-    """The Voigt core on :func:`voigt_coefficients`: Sia Re w(dnu ia, y0)."""
+def tile_w4(co, T=None):
+    """The Voigt core on :func:`voigt_coefficients`: Sia Re w(dnu ia, y), y =
+    y0, or y0 chi(dnu, T) for the phco2 family (``T`` from :func:`tile_T`)."""
     Sia, ia, y0 = co[:3]
-    return lambda dnu, D, g: g(Sia) * wofz_re(dnu * g(ia), g(y0))
+    if T is None:
+        return lambda dnu, D, g: g(Sia) * wofz_re(dnu * g(ia), g(y0))
+    return lambda dnu, D, g: g(Sia) * wofz_re(dnu * g(ia), g(y0) * chi_phco2(dnu, T))
 
 
-def tile_region1(co):
-    """Humlicek region 1 in D = dnu^2 on :func:`voigt_coefficients` (valid
-    where |x| >= 15, or as the far term the stencil correction completes)."""
+def region1_xy(x, y):
+    """Re of Humlicek's region 1, 0.5641896 t / (0.5 + t^2) at t = y - ix,
+    in the explicit (x, y) algebra of the TPU kernels."""
+    t2r = y * y - x * x
+    t2i = -2.0 * x * y
+    br = 0.5 + t2r
+    d2 = br * br + t2i * t2i
+    return 0.5641896 * (y * br - x * t2i) / d2
+
+
+def tile_region1(co, T=None):
+    """Humlicek region 1 (valid where |x| >= 15, or as the far term the
+    stencil correction completes). Voigt family: in D = dnu^2 on
+    :func:`voigt_coefficients`; phco2 family (``T`` given): Sia times the
+    explicit form at (dnu ia, y0 chi(dnu, T))."""
+    if T is not None:
+        Sia, ia, y0 = co[:3]
+        return lambda dnu, D, g: g(Sia) * region1_xy(dnu * g(ia),
+                                                     g(y0) * chi_phco2(dnu, T))
     A, c1, c2, k2 = co[3:]
 
     def tile(dnu, D, g):
@@ -276,8 +328,10 @@ def sigma_from_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt"
     S, alpha, gamma = torch.broadcast_tensors(*_line_params(lines, T, P, Pp, conc))
     nb, nb_lo = grid_blocks(plan.nu_blocks, S.dtype, S.device)
     cut = plan.cut
-    zones = [(0, tile_exact(shape, S, alpha, gamma), lambda adnu, D: adnu <= cut, None)]
-    sig = block_sum(nb, nb_lo, lines, plan.windows(), zones, tuple(S.shape[:-1]))
+    batch = tuple(S.shape[:-1])
+    zones = [(0, tile_exact(shape, S, alpha, gamma, tile_T(T, batch)),
+              lambda adnu, D: adnu <= cut, None)]
+    sig = block_sum(nb, nb_lo, lines, plan.windows(), zones, batch)
     return sig[..., : plan.n_nu]
 
 

@@ -11,8 +11,9 @@ gathered branches of ``_pallas_sigma_impl`` compose them.
 
 Routes of a line sum:
 
-* ``"grouped"``: K1 over the plan's windows, in its split mode (voigt) or
-  its single sweep (lorentz, doppler);
+* ``"grouped"``: K1 over the plan's windows, in its split mode (the Voigt
+  family: voigt, voigt_ref, phco2, phco2_ref) or its single sweep (lorentz,
+  doppler);
 * ``"stencil"``: K1's FARALL mode, Humlicek region 1 over each whole window,
   then the correction Sia (w4 - region 1) on the 2K grid points around each
   line, where |x| <= 15 (region 1 is exact elsewhere);
@@ -29,6 +30,11 @@ Routes of a line sum:
   unpacked per-state rows (K4);
 * ``"gathered"``: the full profile over per-block line slabs gathered
   before the launch (K5).
+
+Every route takes the four shapes of the Voigt family. The *_ref shapes
+differ from voigt and phco2 only by alpha -> alpha / sqrt(ln 2), folded into
+the coefficients; phco2 multiplies y by chi(|dnu|, T), so its far wing is
+region 1 in the explicit (x, y) form instead of the voigt form in D.
 
 The residency gates are the JAX package's cost model (``_grouped_lane_cost``,
 ``_resident_bytes_est``, ``_segment_cap``, ``_coarse_resident_ok``) over a
@@ -53,13 +59,20 @@ import torch
 from ..constants import C_LIGHT, R_GAS
 from ..spectra.lines import PER_LINE_FIELDS
 from .faddeeva import wofz_re
+from .lineshape import chi_phco2
 from .linesum import (
+    PHCO2_FAMILY,
+    SPLIT_SHAPES,
+    VOIGT_FAMILY,
     LineWindowPlan,
     _line_params,
     block_sum,
+    effective_alpha,
     grid_blocks,
+    region1_xy,
     tile_exact,
     tile_region1,
+    tile_T,
     tile_w4,
     voigt_coefficients,
 )
@@ -85,6 +98,8 @@ __all__ = [
     "sigma_segmented_plain",
     "sigma_lane_plain",
     "sigma_gathered_plain",
+    "coefficients",
+    "chi_T",
 ]
 
 STRATEGIES = ("auto", "grouped", "stencil", "coarse", "lane", "gathered")
@@ -369,9 +384,10 @@ def resident_budget(device, resident_limit=None) -> int:
 
 def _grouped_lane_cost(shape: str, strategy: str, n_states: int) -> int:
     """Per-line pack cost (in float32 values) of K1 in the JAX package's
-    layout: the voigt split pack is (2 + 7 rows a state), its stencil pack
-    (2 + 4), every other pack (2 + 3) padded to a multiple of 128."""
-    voigt_split = shape == "voigt"
+    layout: the voigt and voigt_ref split pack is (2 + 7 rows a state), its
+    stencil pack (2 + 4), every other pack (phco2's included) (2 + 3) padded
+    to a multiple of 128."""
+    voigt_split = shape in VOIGT_FAMILY
     rows = (4 if strategy == "stencil" else 7) if voigt_split else 3
     n_params = rows * n_states + 2
     return n_params if voigt_split else -(-n_params // 128) * 128
@@ -408,23 +424,27 @@ def _resolve(plan: LineWindowPlan, lines, shape: str, strategy: str, n_states: i
     :func:`resident_budget`; the parameter is the coarse split's
     (d_far, h, n_cc, c_ratio) or the segment length, else None.
 
-    The voigt "auto" takes the coarse split where it accepts at a work
-    fraction of 0.2 and its pack fits, else the stencil route where its
-    geometry accepts and its (slimmer) pack fits. "auto", "grouped" and
+    The voigt and voigt_ref "auto" takes the coarse split where it accepts
+    at a work fraction of 0.2 and its pack fits, else the stencil route where
+    its geometry accepts and its (slimmer) pack fits; the phco2 and
+    phco2_ref "auto" takes the coarse split as an explicit "coarse" does
+    (at 0.6), and never the stencil route. "auto", "grouped" and
     "stencil" then take K1 over the whole catalog where its pack fits, else
     over segments of ``_segment_cap`` lines (an oversize stencil pack
     becomes segmented, in the split mode), else the gathered kernel. An
     explicit "coarse" takes the split where it accepts at 0.6 and its pack
     fits, and auto's route where the geometry rejects it, else the
-    grouped-or-segmented decision. "stencil" without a stencil geometry
-    takes the split mode, as the JAX package's compiled body does. "lane"
+    grouped-or-segmented decision. "stencil" (any Voigt-family shape)
+    without a stencil geometry takes the split mode, as the JAX package's
+    compiled body does. Lorentz and Doppler take neither split. "lane"
     takes the lane-major kernel where its rows fit, else the gathered one;
     "gathered" always the gathered one.
     """
     check_strategy(strategy)
     limit = resident_budget(lines.device, resident_limit)
     n_lines = lines.n_lines
-    voigt = shape == "voigt"
+    voigt = shape in VOIGT_FAMILY
+    split = shape in SPLIT_SHAPES
     frac = EXPLICIT_COARSE_FRAC
     if strategy == "coarse" and voigt and coarse_params(plan, EXPLICIT_COARSE_FRAC) is None:
         strategy = "auto"
@@ -436,12 +456,14 @@ def _resolve(plan: LineWindowPlan, lines, shape: str, strategy: str, n_states: i
                                   _grouped_lane_cost(shape, "stencil", n_states)) <= limit
               and stencil_geometry(plan, lines) is not None):
             strategy = "stencil"
+    elif strategy == "auto" and split:
+        strategy = "coarse"
     if strategy == "coarse":
-        params = coarse_params(plan, frac) if voigt else None
+        params = coarse_params(plan, frac) if split else None
         if params is not None and _coarse_resident_ok(shape, n_states, n_lines, limit):
             return "coarse", params
         strategy = "auto"
-    if strategy == "stencil" and not (voigt and stencil_geometry(plan, lines) is not None):
+    if strategy == "stencil" and not (split and stencil_geometry(plan, lines) is not None):
         strategy = "auto"
     if strategy in ("auto", "grouped", "stencil"):
         lane_cost = _grouped_lane_cost(shape, strategy, n_states)
@@ -484,14 +506,15 @@ def _smoothstep_d2(D, A1, A2):
     return w * w * w * (10.0 + w * (-15.0 + 6.0 * w))
 
 
-def mode_zones(mode: str, z: dict, co, d_near=None):
+def mode_zones(mode: str, z: dict, co, d_near=None, T=None):
     """The zones of K1's windowed ``mode`` for :func:`block_sum`: window,
     tile, mask and weight of each of the TPU kernel's sweeps
     (``_kernel_resident_grouped``, wmodes farall, fine, fine_stencil,
     coarse). ``co`` are :func:`voigt_coefficients`, ``z`` the distances of
     :class:`CoarseGeom` (FARALL needs only the cut), ``d_near`` the FINE
-    mode's core distance (a one-element tensor)."""
-    r1 = tile_region1(co)
+    mode's core distance (a one-element tensor); ``T`` (the phco2 family,
+    from :func:`tile_T`) puts chi(dnu, T) on y in every tile."""
+    r1 = tile_region1(co, T)
     cut = z["cut"]
     if mode == "farall":
         return [(0, r1, lambda a, D: a <= cut, None)]
@@ -502,7 +525,7 @@ def mode_zones(mode: str, z: dict, co, d_near=None):
     cut_f = z["cut_f"]
     if mode == "fine":
         return [(0, r1, lambda a, D: (a <= cut_f) & (a > d_near), one_minus_w),
-                (0, tile_w4(co), lambda a, D: a <= d_near, one_minus_w)] + annuli
+                (0, tile_w4(co, T), lambda a, D: a <= d_near, one_minus_w)] + annuli
     if mode == "fine_stencil":
         return [(0, r1, lambda a, D: a <= cut_f, one_minus_w)] + annuli
     if mode == "coarse":
@@ -512,21 +535,25 @@ def mode_zones(mode: str, z: dict, co, d_near=None):
     raise ValueError(f"no windowed line-sum mode {mode!r}")
 
 
-def sigma_mode_plain(mode: str, blocks64, windows, lines, co, z, d_near=None):
+def sigma_mode_plain(mode: str, blocks64, windows, lines, co, z, d_near=None, T=None):
     """The plain version of K1's windowed ``mode``: [n_states, n_blocks * B]
     on the float64 block grid ``blocks64`` and its ``windows``, in the
-    dtype and on the device of the coefficients ``co``."""
+    dtype and on the device of the coefficients ``co``; with the states'
+    temperatures ``T`` [n_states], the phco2 family's."""
     nb, nb_lo = grid_blocks(blocks64, co[0].dtype, co[0].device)
-    return block_sum(nb, nb_lo, lines, windows, mode_zones(mode, z, co, d_near),
-                     tuple(co[0].shape[:-1]))
+    batch = tuple(co[0].shape[:-1])
+    Tt = None if T is None else tile_T(T, batch)
+    return block_sum(nb, nb_lo, lines, windows, mode_zones(mode, z, co, d_near, Tt), batch)
 
 
-def stencil_correction_plain(geom: StencilGeom, co, cut: float, n_nu: int, weight=None):
+def stencil_correction_plain(geom: StencilGeom, co, cut: float, n_nu: int, weight=None,
+                             T=None):
     """The near-core correction [n_states, n_nu] (``_stencil_apply``):
     Sia (w4 - region 1) on each line's 2K window, where x^2 <= 225 and
     |dnu_hi| <= cut, times 1 - W(dnu^2) with ``weight`` = (D1, D2), placed by
     ``index_add_`` on a buffer of R K points. Region 1 is in the explicit
-    (x, y) algebra of the TPU code."""
+    (x, y) algebra of the TPU code. With the states' temperatures ``T``
+    [n_states] (the phco2 family), y = y0 chi(dnu_hi + dnu_lo, T)."""
     Sia, ia, y0 = co[:3]
     dev, dt = ia.device, ia.dtype
     n_states, L = ia.shape
@@ -545,14 +572,11 @@ def stencil_correction_plain(geom: StencilGeom, co, cut: float, n_nu: int, weigh
     for a in range(0, n_states, step):
         b = min(a + step, n_states)
         x = ia[a:b, None, :] * hi + ia[a:b, None, :] * lo           # [st, 2K, L]
-        y = y0[a:b, None, :].expand_as(x)
-        w4 = wofz_re(x, y)
-        t2r = y * y - x * x
-        t2i = -2.0 * x * y
-        br = 0.5 + t2r
-        d2 = br * br + t2i * t2i
-        wr1 = 0.5641896 * (y * br - x * t2i) / d2
-        corr = Sia[a:b, None, :] * (w4 - wr1) * w
+        if T is None:
+            y = y0[a:b, None, :].expand_as(x)
+        else:
+            y = y0[a:b, None, :] * chi_phco2((hi + lo)[None], T[a:b, None, None])
+        corr = Sia[a:b, None, :] * (wofz_re(x, y) - region1_xy(x, y)) * w
         corr = torch.where((x * x <= 225.0) & in_cut, corr, torch.zeros((), dtype=dt, device=dev))
         buf[a:b].index_add_(1, index, corr.transpose(1, 2).reshape(b - a, -1))
     return buf[:, :n_nu]
@@ -590,48 +614,72 @@ def far_from_coarse(far_c, geom: CoarseGeom):
     return torch.square(torch.clamp(far, min=0.0))
 
 
-def _coefficients(lines, T, P, Pp, conc=None):
+def split_check(shape: str) -> None:
+    """Raise unless ``shape`` is of the Voigt family, which the stencil and
+    coarse routes take."""
+    if shape not in SPLIT_SHAPES:
+        raise ValueError(f"the stencil and coarse routes take {SPLIT_SHAPES}, not {shape!r}")
+
+
+def coefficients(lines, T, P, Pp, conc=None, shape: str = "voigt"):
+    """(alpha, co) of a Voigt-family line sum at flat states: the Doppler
+    widths the profile uses (:func:`.linesum.effective_alpha`) and their
+    :func:`voigt_coefficients`."""
     S, alpha, gamma = _line_params(lines, T, P, Pp, conc)
+    alpha = effective_alpha(shape, alpha)
     return alpha, voigt_coefficients(S, alpha, gamma)
 
 
-def sigma_stencil_plain(plan: LineWindowPlan, lines, T, P, Pp, conc=None):
+def chi_T(shape: str, T):
+    """The states' temperatures where ``shape`` has chi (the phco2 family),
+    else None: the ``T`` argument of the plain modes."""
+    return T if shape in PHCO2_FAMILY else None
+
+
+def sigma_stencil_plain(plan: LineWindowPlan, lines, T, P, Pp, conc=None,
+                        shape: str = "voigt"):
     """The stencil route in plain PyTorch, flat states [n_states]: FARALL
     over the plan's windows plus the near-core correction."""
+    split_check(shape)
     geom = stencil_geometry(plan, lines)
     if geom is None:
         raise ValueError("the stencil geometry rejects this grid and catalog")
-    _, co = _coefficients(lines, T, P, Pp, conc)
+    _, co = coefficients(lines, T, P, Pp, conc, shape)
+    Tc = chi_T(shape, T)
     out = sigma_mode_plain("farall", plan.nu_blocks, plan.windows(), lines, co,
-                           {"cut": plan.cut})[:, : plan.n_nu]
-    return out + stencil_correction_plain(geom, co, plan.cut, plan.n_nu)
+                           {"cut": plan.cut}, T=Tc)[:, : plan.n_nu]
+    return out + stencil_correction_plain(geom, co, plan.cut, plan.n_nu, T=Tc)
 
 
-def sigma_coarse_plain(plan: LineWindowPlan, lines, T, P, Pp, params=None, conc=None):
+def sigma_coarse_plain(plan: LineWindowPlan, lines, T, P, Pp, params=None, conc=None,
+                       shape: str = "voigt"):
     """The coarse-far route in plain PyTorch, flat states [n_states]
     (``_coarse_core``); ``params`` default to the explicit strategy's."""
     params = params or coarse_params(plan, EXPLICIT_COARSE_FRAC)
     if params is None:
         raise ValueError("the coarse-far split rejects this grid")
-    return coarse_route_plain(coarse_geometry(plan, lines, params), lines, T, P, Pp, conc)
+    return coarse_route_plain(coarse_geometry(plan, lines, params), lines, T, P, Pp, conc,
+                              shape)
 
 
-def coarse_route_plain(geom: CoarseGeom, lines, T, P, Pp, conc=None):
+def coarse_route_plain(geom: CoarseGeom, lines, T, P, Pp, conc=None, shape: str = "voigt"):
     """:func:`sigma_coarse_plain` on a given geometry: FINE_STENCIL and the
     weighted correction where ``geom.stencil`` is set, else FINE."""
-    alpha, co = _coefficients(lines, T, P, Pp, conc)
+    split_check(shape)
+    alpha, co = coefficients(lines, T, P, Pp, conc, shape)
+    Tc = chi_T(shape, T)
     z, n_nu = geom.zones, geom.n_nu
     if geom.stencil is not None:
         fine = sigma_mode_plain("fine_stencil", geom.fine_blocks, geom.fine_windows, lines,
-                                co, z)[:, :n_nu]
+                                co, z, T=Tc)[:, :n_nu]
         fine = fine + stencil_correction_plain(geom.stencil, co, z["cut"], n_nu,
-                                               weight=(z["D1"], z["D2"]))
+                                               weight=(z["D1"], z["D2"]), T=Tc)
     else:
         d_near = torch.clamp(15.0 * alpha.max(), max=z["cut_f"])
         fine = sigma_mode_plain("fine", geom.fine_blocks, geom.fine_windows, lines, co, z,
-                                d_near)[:, :n_nu]
+                                d_near, T=Tc)[:, :n_nu]
     far_c = sigma_mode_plain("coarse", geom.coarse_blocks, geom.coarse_windows, lines, co,
-                             z)[:, : geom.params[2]]
+                             z, T=Tc)[:, : geom.params[2]]
     return fine + far_from_coarse(far_c, geom)
 
 
@@ -684,8 +732,10 @@ def segments(plan: LineWindowPlan, n_lines: int, L_seg: int) -> list:
     return out
 
 
-def _exact_zone(shape, S, alpha, gamma, cut):
-    return [(0, tile_exact(shape, S, alpha, gamma), lambda adnu, D: adnu <= cut, None)]
+def _exact_zone(shape, S, alpha, gamma, cut, T):
+    batch = tuple(S.shape[:-1])
+    return [(0, tile_exact(shape, S, alpha, gamma, tile_T(T, batch)),
+             lambda adnu, D: adnu <= cut, None)]
 
 
 def sigma_segmented_plain(plan: LineWindowPlan, lines, T, P, Pp, L_seg: int,
@@ -701,7 +751,7 @@ def sigma_segmented_plain(plan: LineWindowPlan, lines, T, P, Pp, L_seg: int,
         part = lambda x: x[..., seg.a:seg.b]
         sig = block_sum(nb[seg.blo:seg.bhi], None if nb_lo is None else nb_lo[seg.blo:seg.bhi],
                         _slice_lines(lines, seg.a, seg.b), seg.windows,
-                        _exact_zone(shape, part(S), part(alpha), part(gamma), plan.cut),
+                        _exact_zone(shape, part(S), part(alpha), part(gamma), plan.cut, T),
                         tuple(S.shape[:-1]))
         out[..., seg.blo * B: seg.blo * B + seg.n_out] += sig[..., :seg.n_out]
     return out
@@ -736,7 +786,7 @@ def sigma_lane_plain(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt"
     lay = lane_layout(plan, lines, S, alpha, gamma)
     nb, nb_lo = grid_blocks(plan.nu_blocks, S.dtype, S.device)
     return block_sum(nb, nb_lo, lay, lay.windows,
-                     _exact_zone(shape, lay.S, lay.alpha, lay.gamma, plan.cut),
+                     _exact_zone(shape, lay.S, lay.alpha, lay.gamma, plan.cut, T),
                      tuple(S.shape[:-1]))[..., : plan.n_nu]
 
 
@@ -768,5 +818,5 @@ def sigma_gathered_plain(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "vo
     g = gathered_slabs(plan, lines, S, alpha, gamma)
     nb, nb_lo = grid_blocks(plan.nu_blocks, S.dtype, S.device)
     return block_sum(nb, nb_lo, g, g.windows,
-                     _exact_zone(shape, g.S, g.alpha, g.gamma, plan.cut),
+                     _exact_zone(shape, g.S, g.alpha, g.gamma, plan.cut, T),
                      tuple(S.shape[:-1]))[..., : plan.n_nu]

@@ -1,4 +1,5 @@
-"""Planck law. Counterpart of ``clearsky_tpu.ops.planck.planck``."""
+"""Planck law and the wavenumber-wavelength conversion. Counterpart of
+``clearsky_tpu.ops.planck.planck`` and ``nu2lam``."""
 
 from __future__ import annotations
 
@@ -6,7 +7,7 @@ import torch
 
 from ..constants import C_LIGHT, H_PLANCK, C2_RADIATION
 
-__all__ = ["planck"]
+__all__ = ["planck", "nu2lam"]
 
 
 def planck(nu, T):
@@ -21,3 +22,8 @@ def planck(nu, T):
     p = 2.0 * H_PLANCK * C_LIGHT**2 * nu_m**3
     em = torch.exp(-x)
     return 100.0 * p * em / (-torch.expm1(-x))
+
+
+def nu2lam(nu):
+    """Wavenumber [cm^-1] to wavelength [m]."""
+    return 0.01 / nu

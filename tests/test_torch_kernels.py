@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 line sum in all its modes and the near-core
-correction, K1-seg, the full-profile K4/K5, K2/K3 march, K6/K7 fused
-table) and their wrappers.
+correction, K1-seg, the full-profile K4/K5, each for the voigt and the
+phco2 family, K2/K3 march, K6/K7 fused table) and their wrappers.
 
 This file imports no JAX, so that it also runs on a machine with a card and
 no JAX (pytest then needs ``--noconftest``: tests/conftest.py imports jax):
@@ -155,7 +155,7 @@ def test_cpu_tensors_take_the_plain_versions(cat):
     assert (sigma_lines.launches, olr_march.launches, monoflux_march.launches) == counts
 
 
-@pytest.mark.parametrize("shape", ["phco2", "voigt_ref", "gauss"])
+@pytest.mark.parametrize("shape", ["gauss", "phco2x", ""])
 def test_line_sum_kernel_rejects_unported_shapes(shape):
     with pytest.raises(ValueError):
         linesum_cuda._mode(shape)
@@ -350,6 +350,204 @@ def test_route_wrappers_reject_bad_inputs(dense, cuda):
                            geom.stencil, co, 25.0)
     with pytest.raises(ValueError):       # states on another device
         sigma_from_lines_auto(plan, l32, T, P.cpu(), Pp, strategy="coarse")
+
+
+# --- the phco2 family and voigt_ref --------------------------------------------
+
+@pytest.fixture(scope="module")
+def dense_phco2():
+    """A catalog over its span +- 500 cm^-1 (phco2's cut) on 8191 points,
+    where the coarse split (FINE_STENCIL) and the stencil accept."""
+    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(400, seed=5),
+                                           dtype=torch.float64, device="cpu")
+    pos = lines.positions64()
+    nu = np.linspace(pos.min() - 500.0, pos.max() + 500.0, 8191)
+    return lines, build_line_window_plan(nu, pos, 500.0)
+
+
+def test_phco2_rates_tile_the_states():
+    """chi's rates as the kernels read them: [n_tiles, 2, ST], B1 then B2,
+    zero past the last state."""
+    T = torch.tensor([150.0, 200.0, 250.0, 300.0, 350.0, 400.0, 450.0, 500.0, 550.0])
+    B = linesum_cuda.chi_rates(T)
+    assert B.shape == (2, 2, linesum_cuda.ST) and B.dtype == torch.float32
+    T64 = T.double()
+    np.testing.assert_array_equal(B[0, 0].numpy(), (0.0888 - 0.16 * torch.exp(-0.0041 * T64[:8]))
+                                  .float().numpy())
+    np.testing.assert_array_equal(B[1, 1, :1].numpy(), (0.0526 * torch.exp(-0.00152 * T64[8:]))
+                                  .float().numpy())
+    assert float(B[1, :, 1:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["phco2", "phco2_ref", "voigt_ref"])
+def test_split_mode_takes_the_voigt_family(dense_phco2, cuda, shape):
+    """K1's split mode for phco2 (its own instance), phco2_ref and voigt_ref
+    (alpha folded into the pack) against the plain float64 line sum."""
+    lines, plan = dense_phco2
+    if shape == "voigt_ref":
+        plan = build_line_window_plan(plan.nu, lines.positions64(), 25.0)
+    x = _mode_states(11)
+    key = "voigt_split" if shape == "voigt_ref" else "phco2_split"
+    before = sigma_lines.launches_by_mode[key]
+    out = sigma_lines(plan, lines.to(torch.float32, cuda), *_t(x, torch.float32, cuda),
+                      shape=shape)
+    torch.cuda.synchronize()
+    assert sigma_lines.launches_by_mode[key] == before + 1
+    _check_sigma(out, sigma_from_lines(plan, lines, *_t(x), shape=shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["farall", "fine", "fine_stencil", "coarse"])
+@pytest.mark.parametrize("n", [1, 11])
+def test_phco2_windowed_modes_match_plain(dense_phco2, cuda, mode, n):
+    """The phco2 instances of the routes' modes, float32 on the card,
+    against their plain versions in float64 on the same windows."""
+    lines, plan = dense_phco2
+    geom = ls.coarse_geometry(plan, lines, ls.coarse_params(plan, 0.6))
+    l32 = lines.to(torch.float32, cuda)
+    T, P, Pp = _t(_mode_states(n), torch.float32, cuda)
+    S, a, g = _line_params(l32, T, P, Pp)
+    m = linesum_cuda.window_mode(mode, "phco2")
+    coef = linesum_cuda.pack_coefficients(m, S, a, g)
+    assert coef.shape[-1] == linesum_cuda.ST * 3
+    T64 = _t(_mode_states(n))
+    co64 = voigt_coefficients(*_line_params(lines, *T64))
+    z = geom.zones
+    if mode == "farall":
+        blocks, windows, zz, n_out = plan.nu_blocks, plan.windows(), {"cut": plan.cut}, plan.n_nu
+    elif mode == "coarse":
+        blocks, windows, zz, n_out = geom.coarse_blocks, geom.coarse_windows, z, geom.params[2]
+    else:
+        blocks, windows, zz, n_out = geom.fine_blocks, geom.fine_windows, z, plan.n_nu
+    hi, lo = (torch.as_tensor(x.reshape(-1), device=cuda) for x in two_float(blocks))
+    grid_dev = {"nu_hi": hi, "nu_lo": lo,
+                "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
+    d_near = linesum_cuda.near_distance(a, z["cut_f"]) if mode == "fine" else None
+    before = sigma_lines.launches_by_mode[f"phco2_{mode}"]
+    out = linesum_cuda.launch_mode(m, grid_dev, l32, coef, n, n_out, linesum_cuda._zones(**zz),
+                                   d_near, bcoef=linesum_cuda.chi_rates(T))
+    torch.cuda.synchronize()
+    assert sigma_lines.launches_by_mode[f"phco2_{mode}"] == before + 1
+    d64 = None if d_near is None else d_near.double().cpu()
+    ref = ls.sigma_mode_plain(mode, blocks, windows, lines, co64, zz, d64, T=T64[0])[:, :n_out]
+    assert bool(torch.isfinite(out).all())
+    assert _of_peak(out, ref) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+def test_phco2_correction_matches_plain(dense_phco2, cuda, weighted):
+    """The correction's chi instance (y = y0 chi) against its plain version."""
+    lines, plan = dense_phco2
+    geom = ls.stencil_geometry(plan, lines)
+    n = 11
+    T32 = _t(_mode_states(n), torch.float32, cuda)
+    co32 = voigt_coefficients(*_line_params(lines.to(torch.float32, cuda), *T32))
+    x64 = _t(_mode_states(n))
+    co64 = voigt_coefficients(*_line_params(lines, *x64))
+    weight = None
+    if weighted:
+        d_far = ls.coarse_params(plan, 0.6)[0]
+        weight = (d_far * d_far, 4.0 * d_far * d_far)
+    before = stencil_correction.launches_phco2
+    out = stencil_correction(torch.zeros((n, plan.n_nu), device=cuda), geom, co32, plan.cut,
+                             weight, T=T32[0])
+    torch.cuda.synchronize()
+    assert stencil_correction.launches_phco2 == before + 1
+    ref = ls.stencil_correction_plain(geom, co64, plan.cut, plan.n_nu, weight, T=x64[0])
+    peak = sigma_from_lines(plan, lines, *x64, shape="phco2").abs().amax(dim=1, keepdim=True)
+    assert float(((out.double().cpu() - ref).abs() / peak).max()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["phco2", "voigt_ref"])
+def test_family_routes_match_plain_and_count_modes(dense_phco2, cuda, shape):
+    """The stencil and coarse routes of phco2 (its own instances) and
+    voigt_ref (the voigt instances) on the card against their float64 plain
+    versions."""
+    lines, plan = dense_phco2
+    if shape == "voigt_ref":
+        plan = build_line_window_plan(np.linspace(2300.0, 2350.0, 8192), lines.positions64(),
+                                      25.0)
+    l32 = lines.to(torch.float32, cuda)
+    x32, x64 = _t(_mode_states(11), torch.float32, cuda), _t(_mode_states(11))
+    assert ls.route(plan, l32, shape, "auto") == "coarse"
+    fam = "phco2_" if shape == "phco2" else ""
+    for strategy, plain, modes in (
+            ("stencil", ls.sigma_stencil_plain(plan, lines, *x64, shape=shape),
+             {fam + "farall": 1}),
+            ("coarse", ls.sigma_coarse_plain(plan, lines, *x64, shape=shape),
+             {fam + "fine_stencil": 1, fam + "coarse": 1})):
+        by_mode = dict(sigma_lines.launches_by_mode)
+        corr = (stencil_correction.launches, stencil_correction.launches_phco2)
+        out = sigma_from_lines_auto(plan, l32, *x32, shape=shape, strategy=strategy)
+        torch.cuda.synchronize()
+        got = {k: v - by_mode[k] for k, v in sigma_lines.launches_by_mode.items()
+               if v != by_mode[k]}
+        assert got == modes
+        k = 1 if shape == "phco2" else 0
+        assert (stencil_correction.launches, stencil_correction.launches_phco2)[k] == corr[k] + 1
+        assert _of_peak(out, plain) < 1e-5, strategy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["segmented", "lane", "gathered"])
+@pytest.mark.parametrize("shape", ["phco2", "voigt_ref"])
+def test_family_large_catalog_kernels_match_plain(dense_phco2, cuda, kind, shape):
+    """K1-seg (3 segments), K4 and K5 for phco2 (their phco2 instances) and
+    voigt_ref, in float32 against their plain versions in float64."""
+    lines, plan = dense_phco2
+    if shape == "voigt_ref":
+        plan = build_line_window_plan(plan.nu, lines.positions64(), 25.0)
+    l32 = lines.to(torch.float32, cuda)
+    L = _segment_length(plan, lines.n_lines, 3) if kind == "segmented" else None
+    x32, x64 = _t(_mode_states(11), torch.float32, cuda), _t(_mode_states(11))
+    before = dict(sigma_lines.launches_by_mode)
+    if kind == "segmented":
+        out = linesum_cuda.sigma_segmented(plan, l32, *x32, L, shape=shape)
+        ref = ls.sigma_segmented_plain(plan, lines, *x64, L, shape=shape)
+    else:
+        out = _LARGE[kind](plan, l32, *x32, shape=shape)
+        ref = {"lane": ls.sigma_lane_plain, "gathered": ls.sigma_gathered_plain}[kind](
+            plan, lines, *x64, shape=shape)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in sigma_lines.launches_by_mode.items() if v != before[k]}
+    key = ("phco2_" if shape == "phco2" else "") + kind
+    assert got == {key: 3 if kind == "segmented" else 1}
+    _check_sigma(out, ref)
+
+
+@pytest.mark.gpu
+def test_phco2_wrappers_reject_bad_inputs(dense_phco2, cuda):
+    lines, plan = dense_phco2
+    l32 = lines.to(torch.float32, cuda)
+    T, P, Pp = _t(_mode_states(3), torch.float32, cuda)
+    S, a, g = _line_params(l32, T, P, Pp)
+    grid = plan.device_arrays(cuda)
+    zones = linesum_cuda._zones(plan.cut)
+    m = linesum_cuda.window_mode("farall", "phco2")
+    coef = linesum_cuda.pack_coefficients(m, S, a, g)
+    with pytest.raises(ValueError):       # a phco2 mode without chi's rates
+        linesum_cuda.launch_mode(m, grid, l32, coef, 3, plan.n_nu, zones)
+    with pytest.raises(ValueError):       # rates for a voigt mode
+        linesum_cuda.launch_mode(3, grid, l32, linesum_cuda.pack_coefficients(3, S, a, g), 3,
+                                 plan.n_nu, zones, bcoef=linesum_cuda.chi_rates(T))
+    with pytest.raises(ValueError):       # rates of another number of states
+        linesum_cuda.launch_mode(m, grid, l32, coef, 3, plan.n_nu, zones,
+                                 bcoef=linesum_cuda.chi_rates(torch.cat([T] * 3)))
+    with pytest.raises(TypeError):        # float64 rates
+        linesum_cuda.launch_mode(m, grid, l32, coef, 3, plan.n_nu, zones,
+                                 bcoef=linesum_cuda.chi_rates(T).double())
+    lay = ls.lane_layout(plan, l32, S, a, g)
+    win = torch.as_tensor(lay.windows, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):       # phco2 without its temperatures
+        linesum_cuda.launch_fullprofile("phco2", False, grid, lay.nu, lay.nu_lo, lay.S,
+                                        lay.alpha, lay.gamma, win[:, 0].contiguous(),
+                                        win[:, 1].contiguous(), lay.nu.shape[0], plan.cut,
+                                        plan.n_nu)
+    with pytest.raises(ValueError):       # the stencil route takes the Voigt family only
+        linesum_cuda.sigma_stencil(plan, l32, T, P, Pp, shape="lorentz")
 
 
 # --- the large-catalog and baseline kernels: K1-seg, K4, K5 --------------------
