@@ -22,7 +22,9 @@ prints one line that starts with its name:
           stencil-near route's FARALL mode and correction at the RCM's shape
           (20 edge states x 16,384 points); the coarse-far route's COARSE and
           FINE_STENCIL modes and weighted correction at the main shape (57
-          Lobatto states x 2^19 points), its FINE mode at 57 x 2^20
+          Lobatto states x 2^19 points), its FINE mode at 57 x 2^20; the
+          no-split sweep's voigt instance at 57 x 2^19 and phco2 instance at
+          16 x 2^15 (each also against the split mode, rtol 1e-4)
   routes  the line sum through each route at the main shape (grouped,
           stencil, coarse) and at the RCM's (grouped, stencil): CUDA-event
           ms per call of sigma_from_lines_auto (first to last launch, host
@@ -43,6 +45,12 @@ prints one line that starts with its name:
           3 x (update_absorber, step) at 16,384 points)
   rcm     milliseconds of each of those steps (the first one cold), and
           the heating of the last state against the plain float64 version
+  jacobian  jacobian(mode="fwd") on that RCM with the cross-sections frozen
+          and through their refresh (update_sigma), mode="fd" (eps 1 K)
+          through the refresh, and fwd through the refresh on strategy
+          "nosplit": ms, launches (the primal's kernels; the tangents run the
+          plain twins), peak device memory, error against the float64
+          Jacobian (5e-3 of max|J|), fd's deviation from fwd
   sanity  a near-transparent and a gray column through the OLR kernel
   table   the baked-table path at the main path's width: the bake of a Gas
           (12 T x 24 ln P domain, 18 line sums of 16 states on the coarse
@@ -53,7 +61,11 @@ prints one line that starts with its name:
           entry points (wall time, and the launch counts of that path: only
           K6 and K7); the table band OLR against the DirectGas one of
           ``main``; a split Gas beside a gray gas, which takes the unfused
-          route (raw_sigma, K2)
+          route (raw_sigma, K2); torch.func.jvp of the split Gas's outgoing
+          and radiate in the edge temperatures against the float64 unfused
+          pipeline (only K6 and K7 launch)
+  nosplit outgoing on DirectGas(strategy="nosplit") at the main shape (only
+          the no-split sweep and K2 launch; band OLR within 1e-4 of auto's)
   mix     HITRAN files at full-catalog size: co2.par (40,000 synthetic CO2
           lines), h2o.par (20,000 H2O lines) and CO2-CO2.cia, written from
           the seed and read back by the port's readers; the MultiGas (CO2 at
@@ -162,6 +174,9 @@ KERNELS = {
     "linesum_phco2_segmented": (_LINESUM, f"{_PALLAS}:658"),
     "linesum_phco2_lane": (_LINESUM, f"{_PALLAS}:1473"),
     "linesum_phco2_gathered": (_LINESUM, f"{_PALLAS}:1517"),
+    # the no-split sweep (use_split false, :1360), voigt and phco2
+    "linesum_nosplit": (_LINESUM, f"{_PALLAS}:223"),
+    "linesum_phco2_nosplit": (_LINESUM, f"{_PALLAS}:223"),
 }
 # K1's template modes (csrc/linesum.cu ``Mode``) by the kernel names above
 MODE_KERNEL = {"voigt_split": "linesum", "farall": "linesum_farall", "fine": "linesum_fine",
@@ -172,7 +187,8 @@ MODE_KERNEL = {"voigt_split": "linesum", "farall": "linesum_farall", "fine": "li
                "phco2_fine_stencil": "linesum_phco2_fine_stencil",
                "phco2_coarse": "linesum_phco2_coarse",
                "phco2_segmented": "linesum_phco2_segmented", "phco2_lane": "linesum_phco2_lane",
-               "phco2_gathered": "linesum_phco2_gathered"}
+               "phco2_gathered": "linesum_phco2_gathered", "nosplit": "linesum_nosplit",
+               "phco2_nosplit": "linesum_phco2_nosplit"}
 PHCO2_KERNELS = {k for k in KERNELS if "phco2" in k}
 LIBRARIES = ("linesum", "march", "fused_table")
 TABLE_DOMAIN = ((150.0, 350.0), 12, (0.9 * PT, 1.01 * PS), 24)
@@ -2141,8 +2157,8 @@ def phase_phco2(par, dev):
 
 def phase_phco2_strategies(par, dev, strat):
     """The strategies' entry points at 57 Lobatto states x 2^15: outgoing on
-    DirectGas(strategy="stencil", "lane", "gathered") (band OLR within 1e-4
-    of auto's) and the routed line sum at a budget that cuts the catalog
+    DirectGas(strategy="stencil", "lane", "gathered", "nosplit") (band OLR
+    within 1e-4 of auto's) and the routed line sum at a budget that cuts the catalog
     into segments (within 1e-5 of peak of the one-launch sum); counted on
     their own."""
     import clearsky_tpu_torch as ct
@@ -2158,7 +2174,7 @@ def phase_phco2_strategies(par, dev, strat):
     band_auto = float(ct.trapz(nu64, ct.outgoing(Pe, G, Te, MU, auto).double()))
     T, P, _ = main_states(dev, TS_RCE)
     counts, res = {}, {}
-    for strategy in ("stencil", "lane", "gathered"):
+    for strategy in ("stencil", "lane", "gathered", "nosplit"):
         gas = ct.DirectGas.from_lines(lines, CONC, nu, shape="phco2", strategy=strategy)
         check(ls.route(gas.plan, lines, "phco2", strategy, n_states=57) == strategy,
               f"phco2 strategy {strategy} does not take its own route")
@@ -2171,7 +2187,8 @@ def phase_phco2_strategies(par, dev, strat):
         res[strategy] = dict(band_olr_W_m2=band, rel_to_auto=abs(band - band_auto) / band_auto,
                              launches=got)
         want = {"stencil": {"linesum_phco2_farall", "stencil_correction_phco2"},
-                "lane": {"linesum_phco2_lane"}, "gathered": {"linesum_phco2_gathered"}}[strategy]
+                "lane": {"linesum_phco2_lane"}, "gathered": {"linesum_phco2_gathered"},
+                "nosplit": {"linesum_phco2_nosplit"}}[strategy]
         check(set(got) == want | {"olr_march"}, f"phco2 outgoing on {strategy} launched {got}")
         check(res[strategy]["rel_to_auto"] < 1e-4,
               f"phco2 band OLR on {strategy} off auto's by {res[strategy]['rel_to_auto']:.3e}")
@@ -2391,6 +2408,287 @@ def phase_rce(par, dev):
             "rce_step": lambda: ct.step(rcm, RCM_DT)}, counts
 
 
+# --- K1's no-split sweep and the RCM's Jacobian ---------------------------------
+
+def _split_rel(split, nosplit) -> float:
+    """max relative difference of the split mode from the no-split sweep
+    where |sigma| > 1e-35 (tests/test_linesum_pallas.py:62, bar 1e-4)."""
+    m = nosplit.abs() > 1e-35
+    return float(((split.double() - nosplit.double()).abs()[m] / nosplit.double().abs()[m]).max())
+
+
+def _nosplit_ops(grid, pos, ia, y0, cut, n, T=None):
+    """FP32 operations and exponentials of the no-split sweep on this data:
+    one full w4 (by region, with the small-y repair) per in-cut pair and
+    state; for the phco2 family chi's piece per pair and its exponent per
+    state beyond 3 cm^-1."""
+    pairs = pairs_within(grid, pos, cut)
+    ops = pairs * PAIR_OPS + near_w4_ops(grid, pos, ia, y0, cut, T=T)
+    if T is None:
+        return ops, 0.0, dict(in_cut_pairs=pairs)
+    p3 = pairs_beyond(grid, pos, cut)
+    return (ops + pairs * PH_PAIR_OPS + p3 * n * CHI_OPS, p3 * n,
+            dict(in_cut_pairs=pairs, pairs_beyond_3_cm=p3))
+
+
+def kernel_nosplit(ms_main, par, seed, dev, report):
+    """K1's no-split sweep against its float64 plain version: the voigt
+    instance at the main path's shape (57 states x 2^19; the float64 exact
+    line sum is the same function), the phco2 instance at 16 states x 2^15
+    (cut 500; float64 on the sampled blocks); each with the split mode of
+    the same shape within rtol 1e-4 of it."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import _line_params, voigt_coefficients
+    from clearsky_tpu_torch.ops.linesum_cuda import (NOSPLIT_MODES, _prepare, chi_rates,
+                                                     pack_coefficients)
+
+    bar = "rtol 2e-3 where |sigma| > 1e-35 (atol 1e-32); split mode within rtol 1e-4"
+    lines, plan, states = (ms_main[k] for k in ("lines", "plan", "states"))
+    n, pos = int(states[0].shape[0]), lines.positions64()
+    launch = _prepare(plan, lines, *states, "voigt", nosplit=True)
+    out = launch()
+    torch.cuda.synchronize()
+    max_abs, max_rel, ok = check_sigma(out, ms_main["ref"], ms_main["edge"], ms_main["ref32"])
+    split = _split_rel(_prepare(plan, lines, *states, "voigt")(), out)
+    ms = cuda_ms(launch, n=5)
+    del out
+    _, plain_ms = one_call(lambda: ls.sigma_nosplit_plain(plan, lines, *states))
+    S, alpha, gamma = _line_params(lines, *states)
+    ia, y0 = voigt_coefficients(S, alpha, gamma)[1:3]
+    ops, _, pairs = _nosplit_ops(plan.nu, pos, ia, y0, plan.cut, n)
+    coef = pack_coefficients(NOSPLIT_MODES["voigt"], S, alpha, gamma)
+    b = bound(ops, linesum_bytes(plan.n_blocks * plan.block, lines.n_lines, coef,
+                                 plan.device_arrays(dev)["win"], n, plan.n_nu))
+    emit("kernel", kernel="linesum_nosplit", mode="nosplit", points=N_NU_MAIN, states=n,
+         lines=lines.n_lines, max_abs_err=max_abs, max_rel_err=max_rel, split_mode_rel=split,
+         bar=bar, cut_edge_points=int(ms_main["edge"].sum()), ms=ms, plain_ms_one_call=plain_ms,
+         plain_shape="same", **pairs, **b)
+    check(ok, f"the no-split sweep disagrees with float64: max rel {max_rel:.3e}")
+    check(split < 1e-4, f"the split mode is off the no-split sweep by {split:.3e}")
+    report["linesum_nosplit"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                     library_ms=None, shape=f"{n} states x {N_NU_MAIN} points",
+                                     **b)
+
+    # phco2 at 16 states x 2^15, the states of kernel_phco2_strategies
+    l64 = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device=dev)
+    lines = l64.to(torch.float32)
+    plan = ct.DirectGas.from_lines(lines, CONC, phco2_grid(lines, N_NU_KERNEL), shape="phco2").plan
+    rng = np.random.default_rng(seed + 5)
+    Tn = rng.uniform(160.0, 285.0, N_STATES_KERNEL)
+    Pn = np.geomspace(PT, PS, N_STATES_KERNEL)
+    x64 = [torch.tensor(x, dtype=torch.float64, device=dev) for x in (Tn, Pn, CONC * Pn)]
+    states = [x.float() for x in x64]
+    n = N_STATES_KERNEL
+    launch = _prepare(plan, lines, *states, "phco2", nosplit=True)
+    out = launch()
+    torch.cuda.synchronize()
+    idx = sample_blocks(plan.nu_blocks)
+    sub = subplan(plan, idx)
+    got, valid = sampled(out, idx, plan.block, plan.n_nu)
+    ref = ls.sigma_nosplit_plain(sub, l64, *x64, shape="phco2")
+    ref32, plain_ms = one_call(lambda: ls.sigma_nosplit_plain(sub, lines, *states, shape="phco2"))
+    v = valid.cpu().numpy()
+    edge = cut_edges(sub, lines.positions64()) & v
+    max_abs, max_rel, ok = check_sigma(got[:, valid], ref[:, valid], edge[v], ref32[:, valid])
+    split = _split_rel(_prepare(plan, lines, *states, "phco2")(), out)
+    ms = cuda_ms(launch, n=5)
+    S, alpha, gamma = _line_params(lines, *states)
+    ia, y0 = voigt_coefficients(S, alpha, gamma)[1:3]
+    ops, exps, pairs = _nosplit_ops(plan.nu, lines.positions64(), ia, y0, plan.cut, n,
+                                    T=states[0])
+    coef = pack_coefficients(NOSPLIT_MODES["phco2"], S, alpha, gamma)
+    b = bound(ops, linesum_bytes(plan.n_blocks * plan.block, lines.n_lines, coef,
+                                 plan.device_arrays(dev)["win"], n, plan.n_nu)
+              + 4 * chi_rates(states[0]).numel(), exps)
+    emit("kernel", kernel="linesum_phco2_nosplit", mode="phco2_nosplit", points=N_NU_KERNEL,
+         states=n, lines=lines.n_lines, max_abs_err=max_abs, max_rel_err=max_rel,
+         split_mode_rel=split, bar=bar + " (float64 on the sample)",
+         cut_edge_points=int(edge.sum()), ms=ms, plain_ms_one_call=plain_ms,
+         plain_shape=f"sampled blocks: {len(idx)} of {plan.n_blocks}", **pairs, **b)
+    check(ok, f"the phco2 no-split sweep disagrees with float64: max rel {max_rel:.3e}")
+    check(split < 1e-4, f"the phco2 split mode is off the no-split sweep by {split:.3e}")
+    report["linesum_phco2_nosplit"] = dict(
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+        shape=f"{n} states x {N_NU_KERNEL} points, cut 500",
+        plain_sample=f"{len(idx)} of {plan.n_blocks} blocks", **b)
+
+
+def phase_nosplit(par, dev, direct_olr):
+    """outgoing on DirectGas(strategy="nosplit") at the main shape: only the
+    no-split sweep and K2 launch, band OLR within 1e-4 of auto's."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = grid_for(lines, N_NU_MAIN)
+    gas = ct.DirectGas.from_lines(lines, CONC, nu, strategy="nosplit")
+    check(ls.route(gas.plan, lines, "voigt", "nosplit", 57) == "nosplit",
+          "strategy nosplit does not take its route at 57 states x 2^19")
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    counts_reset()
+    olr = ct.outgoing(Pe, G, Te, MU, gas)
+    torch.cuda.synchronize()
+    counts = counts_read()
+    launched = {k: v for k, v in counts.items() if v}
+    nu64 = gas.nu.double()
+    band, band_auto = (float(ct.trapz(nu64, x.double())) for x in (olr, direct_olr))
+    rel = abs(band - band_auto) / band_auto
+    ms = wall_ms(lambda: ct.outgoing(Pe, G, Te, MU, gas))
+    emit("nosplit", step="entry_points", points=N_NU_MAIN, states=57, launches=launched,
+         band_olr_W_m2=band, auto_band_olr_W_m2=band_auto, rel_to_auto=rel, bar=1e-4,
+         outgoing_ms_per_call=ms)
+    check(launched == {"linesum_nosplit": 1, "olr_march": 1},
+          f"outgoing on the nosplit DirectGas launched {launched}")
+    check(rel < 1e-4, f"nosplit band OLR off auto's by {rel:.3e}")
+    return {"outgoing_nosplit": lambda: ct.outgoing(Pe, G, Te, MU, gas)}, counts
+
+
+def phase_jacobian(par, dev, rcm):
+    """jacobian on the RCM of the ``rcm`` phase (5,599 lines, 16,384 points,
+    20 edge levels, radmul 2, the stencil route): forward mode with the
+    cross-sections frozen and through their refresh, one-sided differences
+    (eps 1 K) through the refresh, and forward mode through the refresh on
+    strategy "nosplit". Each against the float64 Jacobian of the same model
+    (cross-sections by the plain exact line sum on the card in float64, the
+    rest on the host) within 5e-3 of its max|J|, the RCM heating bar; the
+    launches of each run (the primal runs the kernels, the tangents their
+    plain twins)."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    gas = rcm.A.stack.gases[0]
+    lines, nu = gas.lines, gas.nu.double().cpu().numpy()
+    check(ls.route(gas.plan, lines, "voigt", "auto", N_LEVELS) == "stencil",
+          "the RCM's refresh does not take the stencil route")
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    span = float(nu[-1] - nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    fmu, fcp = (lambda T, P: MU), (lambda T, P: CP)
+    # the plan's float64 grid (gas.nu is its float32 rounding, ~1e-4 cm^-1
+    # off, enough to move a 10 Pa line core)
+    ns_gas = ct.DirectGas.from_lines(lines, CONC, gas.plan.nu, strategy="nosplit")
+    ns = dataclasses.replace(ct.RCM.create(Pe, column(Pe), G, fmu, fS, 0.1, fcp, 1e7, ns_gas,
+                                           radmul=2), T=rcm.T)
+    runs = {"fwd": (rcm, dict(mode="fwd")),
+            "fwd_update_sigma": (rcm, dict(mode="fwd", update_sigma=True)),
+            "fd_update_sigma": (rcm, dict(mode="fd", eps=1.0, update_sigma=True)),
+            "fwd_update_sigma_nosplit": (ns, dict(mode="fwd", update_sigma=True))}
+    J, ms, launched, peak, counts = {}, {}, {}, {}, {}
+    for key, (model, kw) in runs.items():
+        ct.jacobian(model, **kw)                   # warm: plans, libraries, allocator
+        torch.cuda.synchronize()
+        counts_reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        J[key] = ct.jacobian(model, **kw)
+        torch.cuda.synchronize()
+        ms[key] = 1e3 * (time.perf_counter() - t0)
+        counts[key] = counts_read()
+        launched[key] = {k: v for k, v in counts[key].items() if v}
+        peak[key] = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the float64 model on the host, its cross-sections from the card
+    l64 = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device=dev)
+    zero, sigma64 = _host_reference_gas(l64, gas.plan, "voigt", nu)
+    to64 = lambda x: x.double().cpu()
+    r64 = ct.RCM.create(Pe, column(Pe), G, fmu, fS, 0.1, fcp, 1e7, zero, sigma64, radmul=2)
+    r64 = dataclasses.replace(r64, T=to64(rcm.T), A=r64.A.update(to64(rcm.A.T)))
+    t0 = time.perf_counter()
+    J64 = {"fwd": ct.jacobian(r64, "fwd"),
+           "fwd_update_sigma": ct.jacobian(r64, "fwd", update_sigma=True)}
+    ref_s = time.perf_counter() - t0
+    ref_of = {"fwd": "fwd", "fwd_update_sigma": "fwd_update_sigma",
+              "fwd_update_sigma_nosplit": "fwd_update_sigma"}
+    err = {k: float((J[k].double().cpu() - J64[r]).abs().max() / J64[r].abs().max())
+           for k, r in ref_of.items()}
+    fd_dev = float((J["fd_update_sigma"] - J["fwd_update_sigma"]).abs().max()
+                   / J["fwd_update_sigma"].abs().max())
+    diag = {k: int((torch.diagonal(J[k]) < 0).sum()) for k in ref_of}
+    diag64 = {k: int((torch.diagonal(v) < 0).sum()) for k, v in J64.items()}
+    n = int(rcm.T.shape[0])
+    emit("jacobian", points=N_NU_RCM, cells=n, edge_levels=N_LEVELS, radmul=2,
+         route="stencil", ms=ms, launches=launched, peak_memory_GiB=peak,
+         err_of_max_vs_float64=err, bar="5e-3 of max|J| (the RCM heating bar)",
+         fd_eps_1K_dev_from_fwd_of_max=fd_dev, negative_diagonal_entries=diag,
+         float64_negative_diagonal_entries=diag64, float64_reference_seconds=ref_s,
+         max_abs_J_per_K_s=float(J64["fwd_update_sigma"].abs().max()),
+         tangent_chunk="none: the np tangents in one vmap")
+    want = {"fwd": {"monoflux_march": 1},
+            "fwd_update_sigma": {"linesum_farall": 1, "stencil_correction": 1,
+                                 "monoflux_march": 1},
+            "fd_update_sigma": {"linesum_farall": n + 1, "stencil_correction": n + 1,
+                                "monoflux_march": n + 1},
+            "fwd_update_sigma_nosplit": {"linesum_nosplit": 1, "monoflux_march": 1}}
+    for k, w in want.items():
+        check(launched[k] == w, f"jacobian {k} launched {launched[k]}, not {w}")
+    for k, e in err.items():
+        check(bool(torch.isfinite(J[k]).all()) and e < 5e-3,
+              f"jacobian {k} off float64 by {e:.3e} of max|J|")
+    check(diag["fwd"] == n and diag["fwd_update_sigma"] == diag64["fwd_update_sigma"],
+          f"jacobian diagonals: {diag} negative entries, float64 {diag64}")
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return {"rcm_jacobian_fwd_update_sigma":
+            lambda: ct.jacobian(rcm, "fwd", update_sigma=True)}, total
+
+
+def phase_table_jvp(gs, dev):
+    """Forward-mode derivatives through K6 and K7: torch.func.jvp of the
+    split table's outgoing and radiate in the edge temperatures (a uniform
+    1 K warming) on the card, against the same JVP of the plain unfused
+    pipeline in float64 on the same split coefficients (within 1e-3 of the
+    tangent's peak: the table route's bar; the tail basis rounds to
+    bfloat16 from float32 on one side, from float64 on the other)."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.atmosphere.profile import formprofile
+    from clearsky_tpu_torch.rt import fused_table as tft
+    from clearsky_tpu_torch.utils.quadrature import stream_nodes
+
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = torch.tensor(column(Pe), dtype=torch.float32, device=dev)
+    span = float(gs.nu[-1] - gs.nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    one = torch.ones_like(Te)
+    counts_reset()
+    olr, d_olr = torch.func.jvp(lambda t: ct.outgoing(Pe, G, t, MU, gs), (Te,), (one,))
+    up, d_up = torch.func.jvp(lambda t: ct.radiate(Pe, G, t, MU, fS, 0.1, gs).M_up, (Te,),
+                              (one,))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts_read().items() if v}
+    # the plain unfused pipeline in float64 on the same coefficients
+    g64 = dataclasses.replace(gs, nu=gs.nu.double(), coeffs=gs.coeffs.double())
+    P64 = torch.tensor(Pe, dtype=torch.float64, device=dev)
+    m, W = stream_nodes(5)
+    S64, a64 = fS(g64.nu), torch.full_like(g64.nu, 0.1)
+
+    def olr64(t):
+        bl, bt, wq, B = tft._column_operands(g64, P64, G, formprofile(P64, t), lambda T, P: MU, 3)
+        return tft._fused_olr_plain(g64.coeffs, g64.coeffs_tail, bl, bt, wq, B, m, W)
+
+    def up64(t):   # radiate's default core: 2 Lobatto nodes a layer
+        bl, bt, wq, B = tft._column_operands(g64, P64, G, formprofile(P64, t), lambda T, P: MU, 2)
+        return tft._fused_monoflux_plain(g64.coeffs, g64.coeffs_tail, bl, bt, wq, B, S64, a64,
+                                         math.cos(0.841), m, W)[0]
+
+    T64, one64 = Te.double(), one.double()
+    err = {}
+    for k, (got, fn) in {"outgoing": (d_olr, olr64), "radiate_M_up": (d_up, up64)}.items():
+        _, ref = torch.func.jvp(fn, (T64,), (one64,))
+        err[k] = float((got.double() - ref).abs().max() / ref.abs().max())
+    ms = wall_ms(lambda: torch.func.jvp(lambda t: ct.outgoing(Pe, G, t, MU, gs), (Te,), (one,)))
+    emit("table", step="jvp", tangent="uniform 1 K warming of the edge temperatures",
+         launches=launched, jvp_err_of_peak=err, bar=1e-3, outgoing_jvp_ms_per_call=ms,
+         d_band_olr_W_m2_per_K=float(ct.trapz(gs.nu.double(), d_olr.double())))
+    check(launched == {"fused_olr": 1, "fused_monoflux": 1},
+          f"the table JVPs launched {launched}")
+    for k, e in err.items():
+        check(e < 1e-3, f"the table {k} JVP off the float64 unfused pipeline by {e:.3e}")
+    return launched
+
+
 def _busy_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, -math.inf
@@ -2408,8 +2706,9 @@ def _busy_us(intervals):
 _K1_MODE = {0: "linesum", 3: "linesum_farall", 4: "linesum_fine", 5: "linesum_fine_stencil",
             6: "linesum_coarse", 7: "linesum_phco2", 8: "linesum_phco2_farall",
             9: "linesum_phco2_fine", 10: "linesum_phco2_fine_stencil",
-            11: "linesum_phco2_coarse"}
+            11: "linesum_phco2_coarse", 12: "linesum_nosplit", 13: "linesum_phco2_nosplit"}
 _PHCO2_SHAPE = 7
+_PHCO2_K1 = (7, 8, 9, 10, 11, 13)
 _K1_NAME = re.compile(r"linesum_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))?")
 _FULL_NAME = re.compile(r"fullprofile_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))")
 _CORRECTION_NAME = re.compile(r"stencil_correction_kernel(?:<(true|false)>|ILb([01])E)")
@@ -2421,7 +2720,7 @@ _OTHER_KERNELS = {k: re.compile(rf"\b{v}\b") for k, v in (
 def _kernel_of(name: str):
     m = _K1_NAME.search(name)
     if m:
-        fam = "phco2_" if int(m.group(1)) == _PHCO2_SHAPE else ""
+        fam = "phco2_" if int(m.group(1)) in _PHCO2_K1 else ""
         if m.group(2) == "true" or m.group(3) == "1":
             return f"linesum_{fam}segmented"
         return _K1_MODE.get(int(m.group(1)), "linesum_other")
@@ -2484,6 +2783,7 @@ def main(argv=None) -> int:
     kernel_linesum(par, args.seed, dev)
     ms_main = kernel_linesum_main_shape(par, dev, report)
     kernel_coarse(ms_main, par, dev, report)
+    kernel_nosplit(ms_main, par, args.seed, dev, report)
     rcm_shape = kernel_stencil(par, dev, report)
     route_calls = phase_routes(ms_main, ("grouped", "stencil", "coarse"), "coarse")
     route_calls.update(phase_routes(rcm_shape, ("grouped", "stencil"), "stencil"))
@@ -2511,15 +2811,26 @@ def main(argv=None) -> int:
     rcm = rcm_run[0]
     calls["rcm_step"] = lambda: ct.step(ct.update_absorber(rcm), RCM_DT)
     calls["rcm_heating"] = lambda: ct.heating(rcm)
+    # the derivative path: the RCM's Jacobian, each run counted on its own
+    jac_calls, jac_counts = phase_jacobian(par, dev, rcm)
+    calls.update(jac_calls)
+    for k in ("linesum_farall", "stencil_correction", "monoflux_march", "linesum_nosplit"):
+        check(jac_counts[k] > 0, f"kernel {k} was not launched by the jacobian runs")
+    counts = {k: counts[k] + jac_counts[k] for k in counts}
 
     # the baked-table path, counted on its own
     gs = phase_table_bake(par, dev)
     kernel_fused(gs, dev, report)
     table_calls, table_counts = phase_table(gs, dev, direct_olr)
+    table_jvp = phase_table_jvp(gs, dev)
     for k in ("fused_olr", "fused_monoflux"):
-        counts[k] = table_counts[k]
+        counts[k] = table_counts[k] + table_jvp[k]
     calls.update(table_calls)
     calls.update(route_calls)
+    # the no-split sweep through the entry point, counted on its own
+    ns_calls, ns_counts = phase_nosplit(par, dev, direct_olr)
+    counts = {k: counts[k] + ns_counts[k] for k in counts}
+    calls.update(ns_calls)
 
     # the mix: HITRAN files at full-catalog size; each part of its main path
     # counted on its own

@@ -14,7 +14,10 @@ merged catalog in one line sum (``MultiGas``), through catalog segments
 route takes the Voigt family of shapes, voigt and the sub-Lorentzian CO2
 far wing phco2 (with their *_ref conventions); the column model runs to
 radiative-convective equilibrium (``run``: Euler steps, absorber refresh,
-dry convective adjustment) from the adiabats of ``atmosphere``.
+dry convective adjustment) from the adiabats of ``atmosphere``. Every
+kernel carries the derivatives of its plain twin (``utils/twin.py``), so
+``torch.func`` differentiates through the card's path: ``jacobian`` gives
+the RCM's dH/dT by forward mode or by finite differences.
 
 The module paths mirror ``clearsky_tpu``'s. Everything computes in the dtype
 and on the device of its inputs; CUDA tensors go through the kernels of

@@ -72,7 +72,9 @@ class AbsorberStack:
         for g in gases:
             if isinstance(g, MultiGas):
                 realgases = realgases + g.components()
-        nu64 = nu0.detach().cpu().double().numpy()
+        # the host grid only where a table binds to it (a stack built under
+        # a torch.func transform has no host view of its tensors)
+        nu64 = nu0.detach().cpu().double().numpy() if raw_cias else None
         cias = tuple(
             CIA.pair(c.bind(nu64, dtype=nu0.dtype, device=nu0.device)
                      if isinstance(c, CIATables) else c, realgases)

@@ -56,22 +56,22 @@ def lapse(T, P, cp, mu):
 
     A sequential sweep over a short column (about twenty cells): it runs as
     a plain loop on the host in T's dtype, and the result goes back to T's
-    device.
+    device. It keeps T's (and P's) graph, as the JAX version's scan is
+    differentiable: each point is a selection between its own value and the
+    adiabat from the point below.
     """
     T = as_tensor(T)
-    Th = T.detach().cpu()
-    Ph = as_tensor(P).detach().cpu().to(Th.dtype)
-    order = torch.argsort(-Ph, stable=True)     # descending pressure
-    Ts, Ps = Th[order].clone(), Ph[order]
+    Th = T.cpu()
+    Ph = as_tensor(P).cpu().to(Th.dtype)
+    order = torch.argsort(-Ph.detach(), stable=True)     # descending pressure
+    Ts, Ps = Th[order], Ph[order]
+    out = [Ts[0]]
     for k in range(1, Ts.shape[0]):
-        Ti, Pi, Pj = Ts[k - 1], Ps[k - 1], Ps[k]
+        Ti, Pi, Pj = out[-1], Ps[k - 1], Ps[k]
         gamma_e = lapse_rate_dry(Ti, Pi, cp, mu)
         gamma_p = (Ts[k] - Ti) / (Pj - Pi)
-        if bool(gamma_p > gamma_e):
-            Ts[k] = Ti + gamma_e * (Pj - Pi)
-    out = torch.empty_like(Th)
-    out[order] = Ts
-    return out.to(T.device)
+        out.append(torch.where(gamma_p > gamma_e, Ti + gamma_e * (Pj - Pi), Ts[k]))
+    return torch.stack(out)[torch.argsort(order)].to(T.device)
 
 
 def _smooth_patch(P, Ptropo, smooth, Tstrat, T2, h2, T_raw):

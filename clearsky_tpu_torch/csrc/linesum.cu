@@ -12,8 +12,12 @@
 //     the stencil-near route;
 //   * FINE, FINE_STENCIL and COARSE (wmodes "fine", "fine_stencil",
 //     "coarse"), the two passes of the coarse-far split (_coarse_core);
+//   * NOSPLIT (strategy "nosplit": use_split false, :1360 and :621): the
+//     full Humlicek w4 with the small-y repair at every in-cut (point, line,
+//     state), one sweep over the window with no near/far split, on the
+//     (Sia, ia, y0) pack, as K4's fullprofile_kernel evaluates it;
 //   * K1-seg (_pallas_sigma_segmented, which runs _pallas_sigma_impl's
-//     split and single-sweep modes once per catalog segment): the ACC
+//     split, no-split and single-sweep modes once per catalog segment): the ACC
 //     instances add into sigma at a row stride of their own, so each
 //     segment adds its block range's columns in place, with no temporary
 //     and no separate sum. Segments run in order on one stream and each
@@ -64,6 +68,11 @@
 //     modes. The masks are the same, so the sum is the same; the branch only
 //     diverges inside a warp for the few points within d_near of a line core.
 //     FINE's near sub-window is therefore its mid window.
+// NOSPLIT is the split mode's sweep with the full w4 at every in-cut pair:
+// the same staging, pack of 3 values (Sia, ia, y0) a state and registers,
+// and some ten times the split mode's operations (the far wing mostly takes
+// w4's region 1 and the small-y repair, where the split mode takes region 1
+// in D alone). It is kept simple; it runs only where a caller asks for it.
 //
 // Built without --use_fast_math: divisions are IEEE, expf/sinf/cosf are the
 // accurate versions and subnormals are kept.
@@ -79,23 +88,45 @@ enum Mode {
   VOIGT_SPLIT = 0, LORENTZ = 1, DOPPLER = 2,       // over the plan's windows
   FARALL = 3, FINE = 4, FINE_STENCIL = 5, COARSE = 6,  // the routes' modes
   // the phco2 family's instances of the Voigt modes
-  PH_SPLIT = 7, PH_FARALL = 8, PH_FINE = 9, PH_FINE_STENCIL = 10, PH_COARSE = 11
+  PH_SPLIT = 7, PH_FARALL = 8, PH_FINE = 9, PH_FINE_STENCIL = 10, PH_COARSE = 11,
+  // the no-split sweep over the plan's windows, voigt and phco2
+  NOSPLIT = 12, PH_NOSPLIT = 13
 };
 
 constexpr float INV_PI = 0.318309886183790672f;
 constexpr float INV_SQRT_PI = 0.564189583547756287f;
 
-__host__ __device__ constexpr bool is_phco2(int mode) { return mode >= PH_SPLIT; }
+// each predicate names its modes: a mode number says nothing by its order
+__host__ __device__ constexpr bool is_phco2(int mode) {
+  return mode == PH_SPLIT || mode == PH_FARALL || mode == PH_FINE ||
+         mode == PH_FINE_STENCIL || mode == PH_COARSE || mode == PH_NOSPLIT;
+}
 
 // the Voigt mode whose sweeps a phco2 mode runs
 __host__ __device__ constexpr int voigt_mode(int mode) {
-  return mode == PH_SPLIT ? VOIGT_SPLIT : (is_phco2(mode) ? mode - 5 : mode);
+  switch (mode) {
+    case PH_SPLIT: return VOIGT_SPLIT;
+    case PH_FARALL: return FARALL;
+    case PH_FINE: return FINE;
+    case PH_FINE_STENCIL: return FINE_STENCIL;
+    case PH_COARSE: return COARSE;
+    case PH_NOSPLIT: return NOSPLIT;
+    default: return mode;
+  }
 }
 
 // values per (state, line): (S, alpha, gamma) for Lorentz and Doppler, (Sia,
-// ia, y0) for the phco2 family, and the voigt modes add (A, c1, c2, k2)
+// ia, y0) for the phco2 family and the no-split sweep, and the other voigt
+// modes add (A, c1, c2, k2)
 __host__ __device__ constexpr int n_coef(int mode) {
-  return (mode == LORENTZ || mode == DOPPLER || is_phco2(mode)) ? 3 : 7;
+  return (mode == LORENTZ || mode == DOPPLER || is_phco2(mode) || mode == NOSPLIT) ? 3 : 7;
+}
+
+// the modes whose launch may add into sigma (K1-seg): the split, no-split
+// and single-sweep modes over the plan's windows
+__host__ __device__ constexpr bool can_accumulate(int mode) {
+  return mode == VOIGT_SPLIT || mode == LORENTZ || mode == DOPPLER || mode == PH_SPLIT ||
+         mode == NOSPLIT || mode == PH_NOSPLIT;
 }
 
 // line windows per block: FINE and FINE_STENCIL sweep the mid window and the
@@ -113,7 +144,8 @@ struct Zones {
 };
 
 // what a sweep over one window adds
-enum Zone { Z_SPLIT, Z_LORENTZ, Z_DOPPLER, Z_FARALL, Z_MID, Z_MID_ALL, Z_ANNULUS, Z_COARSE };
+enum Zone { Z_SPLIT, Z_LORENTZ, Z_DOPPLER, Z_FARALL, Z_MID, Z_MID_ALL, Z_ANNULUS, Z_COARSE,
+            Z_FULL };
 
 __device__ __forceinline__ void cmul(float ar, float ai, float br, float bi,
                                      float& pr, float& pi) {
@@ -271,7 +303,8 @@ __device__ __forceinline__ float near_term(const float* c, float dnu, float chi)
 // coef layout: [n_lines][ST * NC] for the tile, per line the ST states one
 // after another, each with its NC values:
 //   voigt modes: Sia, ia, y0, A, c1, c2, k2
-//   phco2 modes (PH): Sia, ia, y0; s_B holds the tile's B1 (ST) then B2 (ST)
+//   phco2 modes (PH) and NOSPLIT: Sia, ia, y0; s_B holds the phco2 tile's B1
+//   (ST) then B2 (ST)
 //   LORENTZ, DOPPLER: S, alpha, gamma
 template <int ZONE, int NC, bool PH>
 __device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__ line_hi,
@@ -304,7 +337,7 @@ __device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__
       // the zone's mask and its switching weight, shared by the ST states
       float w = 1.0f;
       if constexpr (ZONE == Z_SPLIT || ZONE == Z_LORENTZ || ZONE == Z_DOPPLER ||
-                    ZONE == Z_FARALL) {
+                    ZONE == Z_FARALL || ZONE == Z_FULL) {
         if (!(adnu <= z.cut)) continue;
       } else if constexpr (ZONE == Z_MID || ZONE == Z_MID_ALL) {
         // FINE (mid zone region 1 and near zone w4) and FINE_STENCIL (region
@@ -334,6 +367,13 @@ __device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__
           const float S = c[s * NC], ia = 1.0f / c[s * NC + 1];
           const float arg = dnu * ia;
           acc[s] += (S * INV_SQRT_PI * ia) * expf(-arg * arg);
+        }
+      } else if constexpr (ZONE == Z_FULL) {
+        // NOSPLIT: the full w4 at every in-cut pair, no near/far branch
+#pragma unroll
+        for (int s = 0; s < ST; ++s) {
+          const float chi = PH ? chi_of(q, s_B[s], s_B[ST + s]) : 1.0f;
+          acc[s] += near_term<PH>(c + s * NC, dnu, chi);
         }
       } else if constexpr (ZONE == Z_SPLIT || ZONE == Z_MID) {
         // a per-element branch replaces the TPU kernel's two masked sweeps:
@@ -417,6 +457,7 @@ __global__ void linesum_kernel(const float* __restrict__ nu_hi,
   else if constexpr (VM == DOPPLER) SWEEP(Z_DOPPLER, 0);
   else if constexpr (VM == FARALL) SWEEP(Z_FARALL, 0);
   else if constexpr (VM == COARSE) SWEEP(Z_COARSE, 0);
+  else if constexpr (VM == NOSPLIT) SWEEP(Z_FULL, 0);
   else {
     if constexpr (VM == FINE) SWEEP(Z_MID, 0);
     else SWEEP(Z_MID_ALL, 0);
@@ -628,7 +669,7 @@ int linesum_windows_per_block(int mode) { return n_windows(mode); }
 // Launch `mode` on `stream`; zones: host float[7] (Zones, in field order);
 // bcoef: the phco2 modes' rates [n_tiles][2][ST] (unread by the others);
 // out: rows of ld_out floats, the first n_out of each written, or added to
-// with `accumulate` (the split and single-sweep modes only).
+// with `accumulate` (the split, no-split and single-sweep modes only).
 // Returns cudaGetLastError() (0 on success).
 int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
                    const float* line_hi, const float* line_lo,
@@ -646,8 +687,7 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
                                                n_out, ld_out, out)
 #define LAUNCH_ACC(M) \
   if (accumulate) LAUNCH(M, true); else LAUNCH(M, false)
-  if (accumulate && mode > DOPPLER && mode != PH_SPLIT)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (accumulate && !can_accumulate(mode)) return static_cast<int>(cudaErrorInvalidValue);
   if (is_phco2(mode) && bcoef == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
     case VOIGT_SPLIT: LAUNCH_ACC(VOIGT_SPLIT); break;
@@ -662,6 +702,8 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
     case PH_FINE: LAUNCH(PH_FINE, false); break;
     case PH_FINE_STENCIL: LAUNCH(PH_FINE_STENCIL, false); break;
     case PH_COARSE: LAUNCH(PH_COARSE, false); break;
+    case NOSPLIT: LAUNCH_ACC(NOSPLIT); break;
+    case PH_NOSPLIT: LAUNCH_ACC(PH_NOSPLIT); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

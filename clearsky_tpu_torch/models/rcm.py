@@ -8,8 +8,10 @@ step, :func:`update_absorber` refreshes the cached cross-sections and
 ``step`` neither refreshes cross-sections nor adjusts convection;
 :func:`run` composes the three at chosen cadences. The JAX package scans
 its steps on the device; here :func:`step_n` and :func:`run` are Python
-loops over the same steps. ``jacobian`` (forward-mode differentiation
-through the kernels) is not ported yet.
+loops over the same steps. :func:`jacobian` differentiates the heating
+with ``torch.func.jacfwd`` through every kernel, whose derivatives are
+those of its plain twin (``utils/twin.py``), or by the reference's
+one-sided finite differences.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.planck import planck
-from ..utils.interp import interp_linear
+from ..utils.interp import interp_linear, full_float32
 from ..utils.grids import trapz
 from ..absorption.absorbers import AcceleratedAbsorber, unify_absorbers
 from ..atmosphere.adiabats import lapse
@@ -161,7 +163,10 @@ def heating(rcm: RCM, T=None, A: AcceleratedAbsorber | None = None, spectral_sum
     T = rcm.T if T is None else T
     A = rcm.A if A is None else A
     _, M_up, M_down = _mono_on_radiative_grid(rcm, T, A)
-    dH = torch.matmul(_heating_operator(rcm, T), M_up - M_down)   # [np, n_nu]
+    # full float32, as the JAX package's Precision.HIGHEST: TF32 would round
+    # the per-nu net flux that the level differences cancel (trap C5)
+    with full_float32():
+        dH = torch.matmul(_heating_operator(rcm, T), M_up - M_down)   # [np, n_nu]
     if spectral_sum is None:
         return trapz(rcm.nu, dH, axis=-1)
     return spectral_sum(dH)
@@ -234,9 +239,30 @@ def run(rcm: RCM, dt, nsteps: int, update_every: int = 0, adjust_every: int = 0,
 
 
 def jacobian(rcm: RCM, mode: str = "fwd", eps: float = 1.0, update_sigma: bool = False):
-    """dH/dT of the heating rates: not in the port yet. Forward-mode
-    differentiation through every kernel (``torch.autograd.Function.jvp``)
-    is the next slice of the port (ROADMAP.md, item 5b)."""
-    raise NotImplementedError(
-        "jacobian is not ported yet: forward-mode differentiation through the kernels is "
-        "the next slice of the port (ROADMAP.md, item 5b)")
+    """Jacobian dH/dT [np, np] of the heating rates with respect to the cell
+    temperatures, J[i, j] = dH_i/dT_j.
+
+    ``mode="fwd"``: ``torch.func.jacfwd`` through the whole radiation
+    calculation, exact; on the card the kernels' derivatives are their plain
+    twins' (the line sum's the exact plain sum's, the march's the plain
+    march's), so the primal runs the kernels once and the np tangents the
+    twins. ``mode="fd"``: the reference's one-sided differences with step
+    ``eps``, np + 1 heatings. ``update_sigma=True`` also differentiates
+    through the absorber refresh at the cell temperatures interpolated to
+    the edges (``rcm.A.update``), the dependence of sigma on T that the
+    cached cross-sections otherwise freeze.
+    """
+    lnPe, lnP = torch.log(rcm.Pe), torch.log(rcm.P)
+
+    def H_of_T(T):
+        if update_sigma:
+            return heating(rcm, T, rcm.A.update(interp_linear(lnPe, lnP, T)))
+        return heating(rcm, T)
+
+    if mode == "fwd":
+        return torch.func.jacfwd(H_of_T)(rcm.T)
+    if mode == "fd":
+        H0 = H_of_T(rcm.T)
+        eye = torch.eye(rcm.T.shape[0], dtype=rcm.T.dtype, device=rcm.T.device)
+        return torch.stack([(H_of_T(rcm.T + eps * e) - H0) / eps for e in eye], dim=1)
+    raise ValueError("mode must be 'fwd' or 'fd'")

@@ -24,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import twin
 from .faddeeva import wofz_re
 from .lineshape import (
     scale_intensity,
@@ -362,12 +363,13 @@ def sigma_from_lines_auto(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "v
     concentrations (:func:`_line_params`; ``Pp`` may then be None). Accepts
     any common batch shape of (T, P, Pp[, conc]); the wrappers take a flat
     state batch, so leading dimensions are flattened and restored around
-    them.
+    them. Differentiable on either device: on the card the kernels carry the
+    derivatives of the exact plain sum (``linesum_cuda.sigma_routed``).
     """
     from .linesum_strategies import check_strategy
 
     check_strategy(strategy)
-    if T.device.type == "cpu":
+    if not twin.kernel_path(T):
         return sigma_from_lines(plan, lines, T, P, P if Pp is None else Pp, shape, conc)
     from .linesum_cuda import sigma_routed
 

@@ -2,8 +2,9 @@
 near-core correction, ``csrc/linesum.cu``).
 
 K1 replaces ``clearsky_tpu/ops/linesum_pallas.py::_kernel_resident_grouped``
-in every mode: split (the Voigt family) and single sweep (lorentz, doppler)
-over the plan's windows, and the windowed modes of the routes, FARALL
+in every mode: split (the Voigt family), no-split (the Voigt family, the full
+w4 at every pair) and single sweep (lorentz, doppler) over the plan's
+windows, and the windowed modes of the routes, FARALL
 (stencil-near) and FINE, FINE_STENCIL and COARSE (coarse-far split). Each
 Voigt mode has two instances: voigt (and voigt_ref) and phco2 (and
 phco2_ref), whose y carries chi(|dnu|, T) with the per-state rates of
@@ -19,11 +20,13 @@ on the device, as ``_grouped_pack`` does in XLA, and packed per tile of
 ``ST`` states so that each block streams one contiguous run of them through
 shared memory; K4 and K5 take unpacked per-state rows.
 
-:func:`sigma_lines` (split mode), :func:`sigma_stencil`,
+:func:`sigma_lines` (split mode), :func:`sigma_nosplit`, :func:`sigma_stencil`,
 :func:`sigma_coarse`, :func:`sigma_segmented`, :func:`sigma_lane` and
 :func:`sigma_gathered` are the routes; :func:`sigma_routed` takes the one
-that :func:`.linesum_strategies.route` picks. Each launches the kernels
-for CUDA tensors and takes its plain version for CPU tensors. On CUDA the
+that :func:`.linesum_strategies.route` picks, and is differentiable (the
+exact plain sum's derivatives); the route wrappers refuse a tensor that
+carries a derivative (``check_operand``). Each launches the kernels for CUDA
+tensors and takes its plain version for CPU tensors. On CUDA the
 operands are checked for device, dtype (float32), shape and contiguity, and
 anything the kernels do not take raises; there is no fallback to a plain
 version or to another route.
@@ -34,9 +37,10 @@ sees them.
 
 Launch counts: ``sigma_lines.launches`` counts every launch of K1, K4 and
 K5 and ``sigma_lines.launches_by_mode`` each mode's (the phco2 instances
-under "phco2_..."), K1-seg's launches (one per segment) under "segmented",
-K4's under "lane" and K5's under "gathered" ("phco2_segmented",
-"phco2_lane", "phco2_gathered" for the phco2 family);
+under "phco2_...", the no-split sweep under "nosplit" and "phco2_nosplit"),
+K1-seg's launches (one per segment) under "segmented", K4's under "lane"
+and K5's under "gathered" ("phco2_segmented", "phco2_lane",
+"phco2_gathered" for the phco2 family);
 ``stencil_correction.launches`` the correction's voigt instance and
 ``stencil_correction.launches_phco2`` its phco2 one.
 """
@@ -47,6 +51,8 @@ import ctypes
 
 import torch
 
+from ..spectra.lines import PER_LINE_FIELDS
+from ..utils import twin
 from ..utils.cuda_build import check_operand, load_library
 from .linesum import (
     PHCO2_FAMILY,
@@ -70,6 +76,7 @@ from .linesum_strategies import (
     sigma_coarse_plain,
     sigma_gathered_plain,
     sigma_lane_plain,
+    sigma_nosplit_plain,
     sigma_segmented_plain,
     sigma_stencil_plain,
     split_check,
@@ -77,10 +84,11 @@ from .linesum_strategies import (
     stencil_geometry,
 )
 
-__all__ = ["sigma_lines", "sigma_stencil", "sigma_coarse", "sigma_segmented", "sigma_lane",
-           "sigma_gathered", "sigma_routed", "stencil_correction", "launch_mode",
+__all__ = ["sigma_lines", "sigma_nosplit", "sigma_stencil", "sigma_coarse", "sigma_segmented",
+           "sigma_lane", "sigma_gathered", "sigma_routed", "stencil_correction", "launch_mode",
            "launch_fullprofile", "pack_coefficients", "near_distance", "chi_rates",
-           "window_mode", "gather_group", "MODES", "WINDOW_MODES", "GATHER_BYTES"]
+           "window_mode", "nosplit_mode", "gather_group", "MODES", "WINDOW_MODES",
+           "NOSPLIT_MODES", "GATHER_BYTES"]
 
 # kernel modes (csrc/linesum.cu ``Mode``): over the plan's windows, voigt
 # and phco2 run the split mode and lorentz and doppler the single sweep; the
@@ -88,18 +96,21 @@ __all__ = ["sigma_lines", "sigma_stencil", "sigma_coarse", "sigma_segmented", "s
 # PHCO2_WINDOW_OFFSET further on
 MODES = {"voigt": 0, "lorentz": 1, "doppler": 2, "phco2": 7}
 WINDOW_MODES = {"farall": 3, "fine": 4, "fine_stencil": 5, "coarse": 6}
+# the no-split sweep of the Voigt family over the plan's windows
+NOSPLIT_MODES = {"voigt": 12, "voigt_ref": 12, "phco2": 13, "phco2_ref": 13}
 PHCO2_WINDOW_OFFSET = 5
 _SHAPE_MODES = dict(MODES, voigt_ref=0, phco2_ref=7)
 _MODE_NAMES = {0: "voigt_split", 1: "lorentz", 2: "doppler", 3: "farall", 4: "fine",
                5: "fine_stencil", 6: "coarse", 7: "phco2_split", 8: "phco2_farall",
-               9: "phco2_fine", 10: "phco2_fine_stencil", 11: "phco2_coarse"}
-_PHCO2_MODES = (7, 8, 9, 10, 11)
-_N_COEF = {m: (3 if m in (1, 2) + _PHCO2_MODES else 7) for m in _MODE_NAMES}
+               9: "phco2_fine", 10: "phco2_fine_stencil", 11: "phco2_coarse",
+               12: "nosplit", 13: "phco2_nosplit"}
+_PHCO2_MODES = (7, 8, 9, 10, 11, 13)
+_N_COEF = {m: (3 if m in (1, 2, 12) + _PHCO2_MODES else 7) for m in _MODE_NAMES}
 _N_WIN = {m: (3 if m in (4, 5, 9, 10) else 1) for m in _MODE_NAMES}
 # the modes that take d_near: the split modes and FINE
 _D_NEAR_MODES = (0, 4, 7, 9)
-# the modes that may add into sigma (K1-seg): split and single sweep
-_ACC_MODES = (0, 1, 2, 7)
+# the modes that may add into sigma (K1-seg): split, no-split and single sweep
+_ACC_MODES = (0, 1, 2, 7, 12, 13)
 # launch-count keys of the routes that run K1 per segment and K4/K5
 _ROUTE_COUNTS = ("segmented", "lane", "gathered", "phco2_segmented", "phco2_lane",
                  "phco2_gathered")
@@ -120,6 +131,12 @@ def _mode(shape: str) -> int:
     return _SHAPE_MODES[shape]
 
 
+def nosplit_mode(shape: str) -> int:
+    """The no-split sweep of ``shape``: NOSPLIT or PH_NOSPLIT for the Voigt
+    family; lorentz and doppler have only their single sweep."""
+    return NOSPLIT_MODES[shape] if shape in NOSPLIT_MODES else _mode(shape)
+
+
 def window_mode(name: str, shape: str) -> int:
     """The instance of the windowed mode ``name`` for the Voigt-family
     ``shape``."""
@@ -135,8 +152,8 @@ def pack_coefficients(mode: int, S, alpha, gamma):
     """Per-(state, line) coefficients [n_tiles, n_lines, ST * n_coef].
 
     Every voigt mode packs :func:`.linesum.voigt_coefficients`, (Sia, ia,
-    y0, A, c1, c2, k2), every phco2 mode its first three (Sia, ia, y0), on
-    the profile's Doppler width ``alpha`` (the *_ref shapes' already divided
+    y0, A, c1, c2, k2), every phco2 mode and NOSPLIT its first three (Sia,
+    ia, y0), on the profile's Doppler width ``alpha`` (the *_ref shapes' already divided
     by sqrt(ln 2)); lorentz and doppler pack (S, alpha, gamma). States past
     the last are padded with coefficients whose contribution is exactly
     zero.
@@ -145,7 +162,7 @@ def pack_coefficients(mode: int, S, alpha, gamma):
     if _N_COEF[mode] == 7:
         rows = list(zip(voigt_coefficients(S, alpha, gamma),
                         (0.0, 1.0, 1.0, 1.0, 1.5, 4.0, 0.0)))
-    elif mode in _PHCO2_MODES:
+    elif mode in _PHCO2_MODES or mode == NOSPLIT_MODES["voigt"]:
         rows = list(zip(voigt_coefficients(S, alpha, gamma)[:3], (0.0, 1.0, 1.0)))
     else:
         rows = [(S, 0.0), (alpha, 1.0), (gamma, 1.0)]
@@ -309,15 +326,17 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
     return out
 
 
-def _prepare(plan: LineWindowPlan, lines, T, P, Pp, shape: str, conc=None):
-    """Check K1's operands on the card and build its coefficient pack.
+def _prepare(plan: LineWindowPlan, lines, T, P, Pp, shape: str, conc=None,
+             nosplit: bool = False):
+    """Check K1's operands on the card and build its coefficient pack, for
+    its split (or single-sweep) mode, or its no-split sweep (``nosplit``).
 
     Returns the launch: a function of no arguments that runs the kernel into
     a new sigma[n_states, n_nu] and returns it, so that a caller can time
     the launch apart from the pack. Raises on anything the kernel does not
     take (device, float32, shape, contiguity).
     """
-    mode = _mode(shape)
+    mode = nosplit_mode(shape) if nosplit else _mode(shape)
     n_states, dev = _checked(lines, T, P, Pp, conc)
     _check_windows(plan.windows(), lines.n_lines)
     grid = plan.device_arrays(dev)
@@ -345,6 +364,16 @@ def sigma_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", con
 
 sigma_lines.launches = 0
 sigma_lines.launches_by_mode = dict.fromkeys(tuple(_MODE_NAMES.values()) + _ROUTE_COUNTS, 0)
+
+
+def sigma_nosplit(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
+    """sigma[n_states, n_nu] over the plan's windows by K1's no-split sweep,
+    flat states [n_states]: the full w4 at every in-cut pair of a
+    Voigt-family ``shape``. CPU tensors: its plain version."""
+    split_check(shape)
+    if T.device.type == "cpu":
+        return sigma_nosplit_plain(plan, lines, T, P, Pp, conc, shape)
+    return _prepare(plan, lines, T, P, Pp, shape, conc, nosplit=True)()
 
 
 def _stencil_arrays(geom, dev):
@@ -497,16 +526,18 @@ def _segment_windows(plan: LineWindowPlan, n_lines: int, L_seg: int, dev):
 
 
 def sigma_segmented(plan: LineWindowPlan, lines, T, P, Pp, L_seg: int, shape: str = "voigt",
-                    conc=None):
+                    conc=None, nosplit: bool = False):
     """K1-seg, flat states [n_states]: the catalog cut into segments of
     ``L_seg`` lines (:func:`.linesum_strategies.segments`); for each, its own
-    coefficient pack and (the Voigt family) its own d_near from its own
-    largest Doppler width, and one K1 launch over the blocks its windows
-    meet, added in place into one sigma [n_states, n_nu]. CPU tensors: its
-    plain version."""
+    coefficient pack and (the Voigt family's split mode) its own d_near from
+    its own largest Doppler width, and one K1 launch over the blocks its
+    windows meet, added in place into one sigma [n_states, n_nu]; the
+    no-split sweep in each segment with ``nosplit``, as JAX's segments take
+    the call's strategy. CPU tensors: its plain version (the exact profile,
+    whichever sweep)."""
     if T.device.type == "cpu":
         return sigma_segmented_plain(plan, lines, T, P, Pp, L_seg, shape, conc)
-    mode = _mode(shape)
+    mode = nosplit_mode(shape) if nosplit else _mode(shape)
     n_states, dev = _checked(lines, T, P, Pp, conc)
     _check_windows(plan.windows(), lines.n_lines)
     if L_seg < 1:
@@ -634,14 +665,36 @@ def sigma_routed(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt",
     this plan, catalog and number of states
     (:func:`.linesum_strategies.route`), with the residency gates at
     ``resident_limit`` bytes (by default the card's L2 cache,
-    :func:`.linesum_strategies.resident_budget`)."""
+    :func:`.linesum_strategies.resident_budget`).
+
+    Differentiable in T, P, Pp and conc: whatever the route, the tangents
+    and cotangents are those of the exact plain :func:`.linesum.sigma_from_lines`
+    in the states' dtype (:func:`..utils.twin.with_twin`), as the JAX
+    package's ``_pallas_jvp_rule`` runs its ``sigma_from_lines``. The
+    catalog carries no derivative (a catalog tensor that needs one raises).
+    """
+    for f in PER_LINE_FIELDS:
+        twin.refuse_derivatives(f"lines.{f}", getattr(lines, f))
+    return twin.with_twin(
+        lambda *x: _routed_launch(plan, lines, *x, shape, strategy, resident_limit),
+        lambda T, P, Pp, conc: sigma_from_lines(plan, lines, T, P, Pp, shape, conc),
+        T, P, Pp, conc)
+
+
+def _routed_launch(plan: LineWindowPlan, lines, T, P, Pp, conc, shape, strategy,
+                   resident_limit):
+    """:func:`sigma_routed`'s primal: the route's kernels (its plain
+    versions for CPU tensors)."""
     name, param = _resolve(plan, lines, shape, strategy, T.shape[0], resident_limit)
     if name == "coarse":
         return sigma_coarse(plan, lines, T, P, Pp, param, conc, shape)
     if name == "stencil":
         return sigma_stencil(plan, lines, T, P, Pp, conc, shape)
+    if name == "nosplit":
+        return sigma_nosplit(plan, lines, T, P, Pp, shape, conc)
     if name == "segmented":
-        return sigma_segmented(plan, lines, T, P, Pp, param, shape, conc)
+        return sigma_segmented(plan, lines, T, P, Pp, param, shape, conc,
+                               nosplit=strategy == "nosplit")
     if name == "lane":
         return sigma_lane(plan, lines, T, P, Pp, shape, conc)
     if name == "gathered":

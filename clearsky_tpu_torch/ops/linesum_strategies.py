@@ -14,6 +14,8 @@ Routes of a line sum:
 * ``"grouped"``: K1 over the plan's windows, in its split mode (the Voigt
   family: voigt, voigt_ref, phco2, phco2_ref) or its single sweep (lorentz,
   doppler);
+* ``"nosplit"``: K1 over the plan's windows in its no-split sweep, the full
+  w4 at every in-cut pair (the Voigt family; strategy "nosplit");
 * ``"stencil"``: K1's FARALL mode, Humlicek region 1 over each whole window,
   then the correction Sia (w4 - region 1) on the 2K grid points around each
   line, where |x| <= 15 (region 1 is exact elsewhere);
@@ -93,6 +95,7 @@ __all__ = [
     "stencil_correction_plain",
     "far_from_coarse",
     "sigma_stencil_plain",
+    "sigma_nosplit_plain",
     "sigma_coarse_plain",
     "coarse_route_plain",
     "sigma_segmented_plain",
@@ -102,7 +105,7 @@ __all__ = [
     "chi_T",
 ]
 
-STRATEGIES = ("auto", "grouped", "stencil", "coarse", "lane", "gathered")
+STRATEGIES = ("auto", "grouped", "nosplit", "stencil", "coarse", "lane", "gathered")
 
 # lines per chunk of the JAX package's kernels: its packs and the lane
 # layout pad the catalog by whole chunks, and segments are CHUNK multiples
@@ -126,13 +129,8 @@ _SQRT_LN2 = 0.8325546111576977
 
 def check_strategy(strategy: str) -> None:
     """Raise unless the port has the line-sum strategy ``strategy``."""
-    if strategy in STRATEGIES:
-        return
-    if strategy == "nosplit":
-        raise NotImplementedError(
-            "line-sum strategy 'nosplit' (the voigt no-split sweep) is not in the port: it had "
-            "no caller and ran at half the split mode's speed on the H100 (ROADMAP B, K1)")
-    raise ValueError(f"unknown line-sum strategy {strategy!r} (have {STRATEGIES})")
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown line-sum strategy {strategy!r} (have {STRATEGIES})")
 
 
 def _coarse_far_params(plan: LineWindowPlan, frac_limit: float = EXPLICIT_COARSE_FRAC):
@@ -385,9 +383,9 @@ def resident_budget(device, resident_limit=None) -> int:
 def _grouped_lane_cost(shape: str, strategy: str, n_states: int) -> int:
     """Per-line pack cost (in float32 values) of K1 in the JAX package's
     layout: the voigt and voigt_ref split pack is (2 + 7 rows a state), its
-    stencil pack (2 + 4), every other pack (phco2's included) (2 + 3) padded
-    to a multiple of 128."""
-    voigt_split = shape in VOIGT_FAMILY
+    stencil pack (2 + 4), every other pack (phco2's and the no-split
+    sweep's included) (2 + 3) padded to a multiple of 128."""
+    voigt_split = shape in VOIGT_FAMILY and strategy != "nosplit"
     rows = (4 if strategy == "stencil" else 7) if voigt_split else 3
     n_params = rows * n_states + 2
     return n_params if voigt_split else -(-n_params // 128) * 128
@@ -428,10 +426,12 @@ def _resolve(plan: LineWindowPlan, lines, shape: str, strategy: str, n_states: i
     at a work fraction of 0.2 and its pack fits, else the stencil route where
     its geometry accepts and its (slimmer) pack fits; the phco2 and
     phco2_ref "auto" takes the coarse split as an explicit "coarse" does
-    (at 0.6), and never the stencil route. "auto", "grouped" and
-    "stencil" then take K1 over the whole catalog where its pack fits, else
-    over segments of ``_segment_cap`` lines (an oversize stencil pack
-    becomes segmented, in the split mode), else the gathered kernel. An
+    (at 0.6), and never the stencil route. "auto", "grouped", "nosplit"
+    and "stencil" then take K1 over the whole catalog where its pack fits
+    ("nosplit": its no-split sweep, for the Voigt family), else over
+    segments of ``_segment_cap`` lines (an oversize stencil pack becomes
+    segmented, in the split mode; "nosplit" segments sweep without the
+    split), else the gathered kernel. An
     explicit "coarse" takes the split where it accepts at 0.6 and its pack
     fits, and auto's route where the geometry rejects it, else the
     grouped-or-segmented decision. "stencil" (any Voigt-family shape)
@@ -465,9 +465,11 @@ def _resolve(plan: LineWindowPlan, lines, shape: str, strategy: str, n_states: i
         strategy = "auto"
     if strategy == "stencil" and not (split and stencil_geometry(plan, lines) is not None):
         strategy = "auto"
-    if strategy in ("auto", "grouped", "stencil"):
+    if strategy in ("auto", "grouped", "nosplit", "stencil"):
         lane_cost = _grouped_lane_cost(shape, strategy, n_states)
         if _resident_bytes_est(n_lines, plan.slab, lane_cost) <= limit:
+            if strategy == "nosplit" and split:
+                return "nosplit", None
             return ("stencil" if strategy == "stencil" else "grouped"), None
         if strategy == "stencil":
             strategy = "auto"
@@ -484,7 +486,7 @@ def _resolve(plan: LineWindowPlan, lines, shape: str, strategy: str, n_states: i
 def route(plan: LineWindowPlan, lines, shape: str = "voigt", strategy: str = "auto",
           n_states: int = 1, resident_limit=None) -> str:
     """The route a line sum of ``n_states`` states on the card takes:
-    "coarse", "stencil", "grouped", "segmented", "lane" or "gathered"
+    "coarse", "stencil", "grouped", "nosplit", "segmented", "lane" or "gathered"
     (:func:`_resolve`), at the budget :func:`resident_budget`. Raises on a
     strategy the port does not have."""
     return _resolve(plan, lines, shape, strategy, n_states, resident_limit)[0]
@@ -510,7 +512,7 @@ def mode_zones(mode: str, z: dict, co, d_near=None, T=None):
     """The zones of K1's windowed ``mode`` for :func:`block_sum`: window,
     tile, mask and weight of each of the TPU kernel's sweeps
     (``_kernel_resident_grouped``, wmodes farall, fine, fine_stencil,
-    coarse). ``co`` are :func:`voigt_coefficients`, ``z`` the distances of
+    coarse, and the no-split sweep, "nosplit", w4 over the whole window). ``co`` are :func:`voigt_coefficients`, ``z`` the distances of
     :class:`CoarseGeom` (FARALL needs only the cut), ``d_near`` the FINE
     mode's core distance (a one-element tensor); ``T`` (the phco2 family,
     from :func:`tile_T`) puts chi(dnu, T) on y in every tile."""
@@ -518,6 +520,8 @@ def mode_zones(mode: str, z: dict, co, d_near=None, T=None):
     cut = z["cut"]
     if mode == "farall":
         return [(0, r1, lambda a, D: a <= cut, None)]
+    if mode == "nosplit":
+        return [(0, tile_w4(co, T), lambda a, D: a <= cut, None)]
     D1, D2, R1, R2 = z["D1"], z["D2"], z["R1"], z["R2"]
     one_minus_w = lambda D: 1.0 - _smoothstep_d2(D, D1, D2)
     annuli = [(w, r1, lambda a, D: (a <= cut) & (D > R1), lambda D: _smoothstep_d2(D, R1, R2))
@@ -649,6 +653,18 @@ def sigma_stencil_plain(plan: LineWindowPlan, lines, T, P, Pp, conc=None,
     out = sigma_mode_plain("farall", plan.nu_blocks, plan.windows(), lines, co,
                            {"cut": plan.cut}, T=Tc)[:, : plan.n_nu]
     return out + stencil_correction_plain(geom, co, plan.cut, plan.n_nu, T=Tc)
+
+
+def sigma_nosplit_plain(plan: LineWindowPlan, lines, T, P, Pp, conc=None,
+                        shape: str = "voigt"):
+    """K1's no-split sweep in plain PyTorch, flat states [n_states]: Sia Re
+    w(dnu ia, y) at every in-cut pair of the plan's windows, on the
+    coefficients the kernel packs (y = y0, or y0 chi(dnu, T) for the phco2
+    family)."""
+    split_check(shape)
+    _, co = coefficients(lines, T, P, Pp, conc, shape)
+    return sigma_mode_plain("nosplit", plan.nu_blocks, plan.windows(), lines, co,
+                            {"cut": plan.cut}, T=chi_T(shape, T))[:, : plan.n_nu]
 
 
 def sigma_coarse_plain(plan: LineWindowPlan, lines, T, P, Pp, params=None, conc=None,

@@ -21,6 +21,7 @@ import torch
 from ..constants import N_AVOGADRO
 from ..utils.quadrature import stream_nodes, lobatto_unit_nodes
 from ..utils.grids import trapz
+from ..utils.interp import full_float32
 from .march_cuda import trans_emit, olr_march, monoflux_march
 
 __all__ = [
@@ -61,7 +62,10 @@ def layer_tau_flat(P, muf, sig_flat, g, nlobatto: int):
 
     The Lobatto reduction (dP, node weight, 1e-4 Na/g, 1/mu) is one
     block-diagonal matrix product; ``muf`` is the flat per-node molar mass.
-    Floorless: the march's series branch handles tau -> 0 exactly.
+    Floorless: the march's series branch handles tau -> 0 exactly. The
+    product runs in full float32 (:func:`..utils.interp.full_float32`), as
+    the JAX package pins it at ``Precision.HIGHEST``: TF32 would round sigma
+    to a 10-bit mantissa.
     """
     L = P.shape[0] - 1
     k = nlobatto
@@ -73,7 +77,8 @@ def layer_tau_flat(P, muf, sig_flat, g, nlobatto: int):
     dP = (P[1:] - P[:-1]).to(dt)
     Wm = torch.as_tensor(mask, dtype=dt, device=dev) * dP[:, None]
     Wm = Wm * ((1e-4 * N_AVOGADRO / g) / muf)[None, :].to(dt)
-    return torch.matmul(Wm, sig_flat)
+    with full_float32():
+        return torch.matmul(Wm, sig_flat)
 
 
 def _march(tau, m, B_lo, B_hi, I0, W=None, reverse=False):

@@ -10,8 +10,10 @@ wavenumber point from its coefficients to its fluxes.
 tensors and take the plain versions in :mod:`.fused_table` for CPU tensors.
 On CUDA they check device, dtype (float32 lead, basis, weights and Planck
 rows; bfloat16 tail and tail basis), shape and contiguity and raise on
-anything the kernels do not take; there is no fallback. Neither carries a
-gradient: a tensor that requires one raises.
+anything the kernels do not take; there is no fallback. Their derivatives
+are those of the unfused plain pipeline (``_unfused_tau`` and the plain
+marches, :func:`..utils.twin.with_twin`), as the JAX package's custom JVPs
+route tangents through its unfused XLA pipeline.
 
 Operands (K lead rows, T tail rows, N points, L layers of k Lobatto nodes):
 ``lead`` [K, N], ``tail`` [T, N], ``bl`` [L*k, K] and ``bt`` [L*k, T] the
@@ -26,6 +28,7 @@ import ctypes
 import torch
 
 from ..utils.cuda_build import check_operand, load_library
+from ..utils import twin
 from .march_cuda import MAX_STREAMS, _streams
 
 __all__ = ["fused_olr", "fused_monoflux", "MAX_SMEM_BYTES", "MAX_NODES_PER_LAYER"]
@@ -50,13 +53,6 @@ def _library(symbol: str, argtypes):
         fn.argtypes = argtypes
         fn.restype = _I
     return fn, lib
-
-
-def _no_grad(*xs):
-    if any(x.requires_grad for x in xs):
-        raise NotImplementedError(
-            "the fused table kernels carry no gradient yet (ROADMAP.md, queue A "
-            "item 5: forward-mode jacobian through the kernels' twins)")
 
 
 def _operands(lead, tail, bl, bt, wq, B, lib):
@@ -101,13 +97,18 @@ def fused_olr(lead, tail, bl, bt, wq, B, m, W):
     """Outgoing flux at the top [N] of a split table column (K6).
 
     ``m``/``W`` the stream slants and weights. CPU tensors take the plain
-    ``fused_table._fused_olr_plain``.
+    ``fused_table._fused_olr_plain``, whose derivatives CUDA tensors carry.
     """
-    _no_grad(lead, tail, bl, bt, wq, B)
-    if lead.device.type == "cpu":
-        from .fused_table import _fused_olr_plain
+    from .fused_table import _fused_olr_plain
 
+    if not twin.kernel_path(lead):
         return _fused_olr_plain(lead, tail, bl, bt, wq, B, m, W)
+    return twin.with_twin(lambda *x: _fused_olr_launch(*x, m, W),
+                          lambda *x: _fused_olr_plain(*x, m, W), lead, tail, bl, bt, wq, B)
+
+
+def _fused_olr_launch(lead, tail, bl, bt, wq, B, m, W):
+    """K6 on the card into a new [N]."""
     m, W = _streams(m, W)
     fn, lib = _library("fused_olr_launch",
                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P])
@@ -130,13 +131,20 @@ def fused_monoflux(lead, tail, bl, bt, wq, B, S_nu, albedo_nu, ctheta: float, m,
     [L+1, N] as ``march_cuda.monoflux_march`` gives them, tau [L, N].
 
     ``ctheta`` is cos(stellar zenith angle). CPU tensors take the plain
-    ``fused_table._fused_monoflux_plain``.
+    ``fused_table._fused_monoflux_plain``, whose derivatives CUDA tensors
+    carry.
     """
-    _no_grad(lead, tail, bl, bt, wq, B, S_nu, albedo_nu)
-    if lead.device.type == "cpu":
-        from .fused_table import _fused_monoflux_plain
+    from .fused_table import _fused_monoflux_plain
 
+    if not twin.kernel_path(lead):
         return _fused_monoflux_plain(lead, tail, bl, bt, wq, B, S_nu, albedo_nu, ctheta, m, W)
+    return twin.with_twin(lambda *x: _fused_monoflux_launch(*x, ctheta, m, W),
+                          lambda *x: _fused_monoflux_plain(*x, ctheta, m, W),
+                          lead, tail, bl, bt, wq, B, S_nu, albedo_nu)
+
+
+def _fused_monoflux_launch(lead, tail, bl, bt, wq, B, S_nu, albedo_nu, ctheta, m, W):
+    """K7 on the card into new (M_up, M_down, tau)."""
     m, W = _streams(m, W)
     fn, lib = _library("fused_monoflux_launch",
                        [_P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _I,

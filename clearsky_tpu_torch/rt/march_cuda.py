@@ -9,7 +9,9 @@ in registers.
 :func:`olr_march` and :func:`monoflux_march` launch their kernel for CUDA
 tensors and take the plain versions in :mod:`.discretized` for CPU tensors.
 On CUDA they check device, dtype (float32), shape and contiguity and raise on
-anything the kernels do not take; there is no fallback.
+anything the kernels do not take; there is no fallback. Their derivatives
+are the plain versions' (:func:`..utils.twin.with_twin`), as the JAX
+package's custom JVPs route tangents through its scan marches.
 
 :func:`trans_emit` is the shared transmittance/emission helper of the plain
 march, the arithmetic the kernels reproduce in float32.
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..utils.cuda_build import check_operand, load_library
+from ..utils import twin
 
 __all__ = ["trans_emit", "olr_march", "monoflux_march", "MAX_STREAMS"]
 
@@ -93,12 +96,19 @@ def olr_march(tau, B, m, W):
 
     ``tau`` [L, n_nu] per-layer vertical optical depth, ``B`` [L+1, n_nu]
     level Planck (row 0 = top), ``m``/``W`` the stream slants and weights.
-    CUDA tensors run K2; CPU tensors the plain ``discretized._olr_march``.
+    CUDA tensors run K2, differentiable as the plain ``discretized._olr_march``
+    is; CPU tensors take that plain version.
     """
-    if tau.device.type == "cpu":
-        from .discretized import _olr_march
+    from .discretized import _olr_march
 
+    if not twin.kernel_path(tau):
         return _olr_march(tau, B, m, W)
+    return twin.with_twin(lambda t, b: _olr_launch(t, b, m, W),
+                          lambda t, b: _olr_march(t, b, m, W), tau, B)
+
+
+def _olr_launch(tau, B, m, W):
+    """K2 on the card into a new [n_nu]."""
     if tau.device.type != "cuda":
         raise ValueError(f"no march kernel for device {tau.device}")
     m, W = _streams(m, W)
@@ -123,13 +133,20 @@ def monoflux_march(tau, B, S_nu, albedo_nu, ctheta: float, m, W):
     """(M_up, M_down) [L+1, n_nu]: the whole-column march with the stellar beam.
 
     Same contract as ``clearsky_tpu.rt.march_pallas.monoflux_pallas``;
-    ``ctheta`` is cos(stellar zenith angle). CUDA tensors run K3; CPU tensors
-    the plain ``discretized._monoflux_march``.
+    ``ctheta`` is cos(stellar zenith angle). CUDA tensors run K3,
+    differentiable (in tau, B, S_nu and albedo_nu) as the plain
+    ``discretized._monoflux_march`` is; CPU tensors take that plain version.
     """
-    if tau.device.type == "cpu":
-        from .discretized import _monoflux_march
+    from .discretized import _monoflux_march
 
+    if not twin.kernel_path(tau):
         return _monoflux_march(tau, B, S_nu, albedo_nu, ctheta, m, W)
+    return twin.with_twin(lambda *x: _monoflux_launch(*x, ctheta, m, W),
+                          lambda *x: _monoflux_march(*x, ctheta, m, W), tau, B, S_nu, albedo_nu)
+
+
+def _monoflux_launch(tau, B, S_nu, albedo_nu, ctheta, m, W):
+    """K3 on the card into new (M_up, M_down)."""
     if tau.device.type != "cuda":
         raise ValueError(f"no march kernel for device {tau.device}")
     m, W = _streams(m, W)

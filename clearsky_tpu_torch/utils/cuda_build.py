@@ -12,7 +12,7 @@ swap ``expf`` for its fast approximation, and the march's series/exp split
 and CIA-scale cross-sections depend on IEEE float32.
 
 :func:`check_operand` holds a tensor to what a kernel takes before its raw
-pointer crosses the C interface.
+pointer crosses the C interface, and refuses one that carries a derivative.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from .twin import refuse_derivatives
 
 __all__ = ["NVCC_FLAGS", "BUILD_DIR", "library_path", "build_library", "load_library",
            "check_operand"]
@@ -102,7 +104,10 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def check_operand(name, x, shape, device, dtype=torch.float32):
-    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` that carries no derivative (:func:`.twin.refuse_derivatives`:
+    its raw pointer crosses the C interface, where a derivative is lost)."""
+    refuse_derivatives(name, x)
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:

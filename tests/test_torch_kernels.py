@@ -812,17 +812,40 @@ def test_fused_wrappers_on_cpu_take_the_plain_versions():
 
 
 @pytest.mark.parametrize("wrapper", ["fused_olr", "fused_monoflux"])
-def test_fused_wrappers_refuse_gradients(wrapper):
-    """Autograd through K6/K7 is not ported: the wrappers raise on any
-    device (ROADMAP queue A item 5)."""
+def test_fused_wrappers_carry_derivatives(wrapper, monkeypatch):
+    """K6/K7 carry the derivatives of the unfused plain pipeline (the JAX
+    package's custom JVPs): on the kernel path, here with the launch
+    replaced by the plain version on the CPU, the JVP in the coefficients
+    and the Planck rows and the gradient equal the plain version's."""
+    from clearsky_tpu_torch.rt import fused_table_cuda
+    from clearsky_tpu_torch.utils import twin
+
     lead, tail, bl, bt, wq, B, S, a = _table_tensors(_table_column(L=2, k=2, N=64))
     m, W = stream_nodes(5)
-    lead.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        if wrapper == "fused_olr":
-            fused_olr(lead, tail, bl, bt, wq, B, m, W)
-        else:
-            fused_monoflux(lead, tail, bl, bt, wq, B, S, a, CTHETA, m, W)
+    plain = {"fused_olr": tft._fused_olr_plain, "fused_monoflux": tft._fused_monoflux_plain}
+    wrap = {"fused_olr": fused_olr, "fused_monoflux": fused_monoflux}[wrapper]
+    extra = () if wrapper == "fused_olr" else (S, a, CTHETA)
+
+    def flat(fn):
+        def f(ld, b):
+            out = fn(ld, tail, bl, bt, wq, b, *extra, m, W)
+            return torch.cat([o.reshape(-1) for o in (out if isinstance(out, tuple) else (out,))])
+        return f
+
+    calls = []
+    monkeypatch.setattr(fused_table_cuda, f"_{wrapper}_launch",
+                        lambda *x: calls.append(1) or plain[wrapper](*x))
+    monkeypatch.setattr(twin, "kernel_path", lambda x: True)
+    tangents = (torch.ones_like(lead), 0.1 * torch.ones_like(B))
+    got = torch.func.jvp(flat(wrap), (lead, B), tangents)
+    want = torch.func.jvp(flat(plain[wrapper]), (lead, B), tangents)
+    assert calls == [1]
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-12, atol=0.0)
+    lg, lp = lead.clone().requires_grad_(), lead.clone().requires_grad_()
+    flat(wrap)(lg, B).sum().backward()
+    flat(plain[wrapper])(lp, B).sum().backward()
+    np.testing.assert_allclose(lg.grad.numpy(), lp.grad.numpy(), rtol=1e-12, atol=0.0)
 
 
 @pytest.mark.gpu
@@ -870,8 +893,10 @@ def test_fused_wrappers_reject_bad_inputs(cuda):
         fused_monoflux(lead, tail, bl, bt, wq, B, S.cpu(), a, CTHETA, m, W)
     with pytest.raises(ValueError):        # nine streams
         fused_olr(lead, tail, bl, bt, wq, B, *stream_nodes(9))
-    with pytest.raises(NotImplementedError):
-        fused_monoflux(lead, tail, bl, bt, wq.requires_grad_(True), B, S, a, CTHETA, m, W)
+    # an operand that needs a derivative gets one (the Function's graph)
+    up, _, _ = fused_monoflux(lead, tail, bl, bt, wq.requires_grad_(True), B, S, a, CTHETA,
+                              m, W)
+    assert up.grad_fn is not None
 
 
 @pytest.mark.gpu
@@ -915,3 +940,161 @@ def test_table_contractions_ignore_global_tf32(cuda):
                                    rtol=1e-4, err_msg=k)
     err = float((c32.double().cpu() - ref_c).abs().max())
     assert err < 1e-5 * float(ref_c.abs().max())
+
+
+@pytest.mark.gpu
+def test_flux_contractions_ignore_global_tf32(cuda):
+    """With TF32 allowed process-wide, layer_tau_flat (sigma to tau), the
+    OLR and the RCM heating (the per-nu product of the heating operator
+    with M_up - M_down, trap C5) give what they give with TF32 off: both
+    products run in full float32 (TF32's 10-bit mantissa would move tau by
+    ~5e-4 and the heating's level differences far more). Both runs also
+    hold float64: tau and the OLR at 1e-5, the heating at the RCM's 5e-3 of
+    peak."""
+    from clearsky_tpu_torch.rt.discretized import layer_tau_flat
+
+    nu = np.linspace(500.0, 900.0, 4096)
+    Pe = ct.pressuregrid(10.0, 1e5, 16)
+    Te = np.maximum(288.0 * (Pe / 1e5) ** 0.2226, 170.0)
+    rng = np.random.default_rng(11)
+    sig = np.exp(rng.uniform(-60.0, -45.0, (3 * 15, 4096)))
+    muf = np.full(3 * 15, 0.044)
+
+    def run(dtype, device):
+        t = lambda x: torch.tensor(x, dtype=dtype, device=device)
+        gas = ct.GrayGas.create(3e-25, nu, dtype=dtype, device=device)
+        S0 = 340.0 / math.cos(0.841) / 400.0
+        rcm = ct.RCM.create(Pe, Te, 9.8, lambda T, P: 0.044, lambda v: torch.full_like(v, S0),
+                            0.1, lambda T, P: 850.0, 1e7, gas, radmul=2)
+        out = (layer_tau_flat(t(Pe), t(muf), t(sig), 9.8, 3),
+               ct.outgoing(Pe, 9.8, Te, 0.044, gas), ct.heating(rcm))
+        return [x.double().cpu() for x in out]
+
+    ref = run(torch.float64, "cpu")
+    before = torch.backends.cuda.matmul.allow_tf32
+    got = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            got[tf32] = run(torch.float32, cuda)
+            torch.cuda.synchronize()
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    of_peak = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    for k, bar in zip(("tau", "olr", "heating"), (1e-6, 1e-6, 1e-5)):
+        i = ("tau", "olr", "heating").index(k)
+        assert of_peak(got[True][i], got[False][i]) < bar, k
+    np.testing.assert_allclose(got[True][0].numpy(), ref[0].numpy(), rtol=1e-5)
+    assert of_peak(got[True][1], ref[1]) < 1e-5
+    assert of_peak(got[True][2], ref[2]) < 5e-3
+
+
+# --- K1's no-split sweep ----------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["resident", "segmented"])
+@pytest.mark.parametrize("shape", ["voigt", "phco2"])
+def test_nosplit_kernel_matches_plain(dense, dense_phco2, cuda, shape, kind):
+    """K1's NOSPLIT and PH_NOSPLIT instances, over the whole catalog and
+    added in place per segment (ACC, 3 segments), against their float64
+    plain versions at the line-sum bar, and within rtol 1e-4 of the split
+    mode (tests/test_linesum_pallas.py:62)."""
+    lines, plan = (dense[0], dense[1]["odd"]) if shape == "voigt" else dense_phco2
+    l32 = lines.to(torch.float32, cuda)
+    x32, x64 = _t(_mode_states(11), torch.float32, cuda), _t(_mode_states(11))
+    key = ("phco2_" if shape == "phco2" else "") + ("nosplit" if kind == "resident"
+                                                     else "segmented")
+    before = dict(sigma_lines.launches_by_mode)
+    if kind == "resident":
+        out = linesum_cuda.sigma_nosplit(plan, l32, *x32, shape=shape)
+        ref = ls.sigma_nosplit_plain(plan, lines, *x64, shape=shape)
+    else:
+        L = _segment_length(plan, lines.n_lines, 3)
+        out = linesum_cuda.sigma_segmented(plan, l32, *x32, L, shape=shape, nosplit=True)
+        ref = ls.sigma_segmented_plain(plan, lines, *x64, L, shape=shape)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in sigma_lines.launches_by_mode.items() if v != before[k]}
+    assert got == {key: 1 if kind == "resident" else 3}
+    _check_sigma(out, ref)
+    split = sigma_lines(plan, l32, *x32, shape=shape).double().cpu()
+    m = out.abs().cpu() > 1e-35
+    np.testing.assert_allclose(split[m].numpy(), out.double().cpu()[m].numpy(), rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_nosplit_strategy_routes_through_its_kernel(dense, cuda):
+    lines, plans = dense
+    plan = plans["uniform"]
+    l32 = lines.to(torch.float32, cuda)
+    x32 = _t(_mode_states(11), torch.float32, cuda)
+    assert ls.route(plan, l32, "voigt", "nosplit", 11) == "nosplit"
+    before = dict(sigma_lines.launches_by_mode)
+    sigma_from_lines_auto(plan, l32, *x32, strategy="nosplit")
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in sigma_lines.launches_by_mode.items() if v != before[k]}
+    assert got == {"nosplit": 1}
+
+
+# --- derivatives through the kernels on the card -----------------------------------
+
+def _jvp_and_grad(f, x, t):
+    """(f(x), its JVP along t, the gradient of sum f)."""
+    y, dy = torch.func.jvp(f, (x,), (t,))
+    xg = x.clone().requires_grad_()
+    f(xg).sum().backward()
+    return y, dy, xg.grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["linesum", "olr_march", "monoflux_march", "fused_olr",
+                                    "fused_monoflux"])
+def test_functions_carry_derivatives_on_the_card(dense, cuda, kernel):
+    """Each kernel's Function on CUDA float32: the primal launches the
+    kernel once per call, and the JVP and gradient are those of the plain
+    twin on the same card tensors (JAX's custom JVPs)."""
+    counts = {"linesum": lambda: sigma_lines.launches, "olr_march": lambda: olr_march.launches,
+              "monoflux_march": lambda: monoflux_march.launches,
+              "fused_olr": lambda: fused_olr.launches,
+              "fused_monoflux": lambda: fused_monoflux.launches}[kernel]
+    m, W = stream_nodes(5)
+    if kernel == "linesum":
+        lines, plans = dense
+        plan, l32 = plans["uniform"], lines.to(torch.float32, cuda)
+        T, P, Pp = _t(_mode_states(11), torch.float32, cuda)
+        f = lambda x: sigma_from_lines_auto(plan, l32, x, P, Pp, strategy="grouped")
+        g = lambda x: sigma_from_lines(plan, l32, x, P, Pp)
+        x = T
+    elif kernel in ("olr_march", "monoflux_march"):
+        tau, B, S, a = _t(_column(L=6, N=4096), torch.float32, cuda)
+        if kernel == "olr_march":
+            f = lambda x: olr_march(tau * x[:, None], B, m, W)
+            g = lambda x: td._olr_march(tau * x[:, None], B, m, W)
+        else:
+            f = lambda x: torch.cat(monoflux_march(tau * x[:, None], B, S, a, CTHETA, m, W))
+            g = lambda x: torch.cat(td._monoflux_march(tau * x[:, None], B, S, a, CTHETA, m, W))
+        x = torch.linspace(0.5, 1.5, 6, device=cuda)
+    else:
+        lead, tail, bl, bt, wq, B, S, a = _table_tensors(_table_column(L=4, k=3, N=4096),
+                                                         torch.float32, cuda)
+        if kernel == "fused_olr":
+            f = lambda x: fused_olr(lead, tail, bl, bt, wq * x[:, None], B, m, W)
+            g = lambda x: tft._fused_olr_plain(lead, tail, bl, bt, wq * x[:, None], B, m, W)
+        else:
+            f = lambda x: torch.cat(fused_monoflux(lead, tail, bl, bt, wq * x[:, None], B, S, a,
+                                                   CTHETA, m, W))
+            g = lambda x: torch.cat(tft._fused_monoflux_plain(lead, tail, bl, bt,
+                                                              wq * x[:, None], B, S, a,
+                                                              CTHETA, m, W))
+        x = torch.linspace(0.8, 1.2, 4, device=cuda)
+    t = torch.linspace(1.0, 2.0, x.shape[0], device=cuda)
+    before = counts()
+    y, dy, gr = _jvp_and_grad(f, x, t)
+    torch.cuda.synchronize()
+    assert counts() == before + 2
+    y0, dy0, gr0 = _jvp_and_grad(g, x, t)
+    assert counts() == before + 2
+    scale = lambda r: 1e-5 * float(r.abs().max())
+    assert float((y - y0).abs().max()) <= 1e-3 * float(y0.abs().max())
+    assert float((dy - dy0).abs().max()) <= scale(dy0)
+    assert float((gr - gr0).abs().max()) <= scale(gr0)

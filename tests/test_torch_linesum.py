@@ -27,6 +27,7 @@ from clearsky_tpu_torch.ops.linesum import (
     _line_params,
 )
 from clearsky_tpu_torch.ops import linesum_cuda
+from clearsky_tpu_torch.ops import linesum_strategies as ls
 from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines, pack_coefficients, near_distance
 
 # the suite runs in several worker processes: a torch thread pool of every
@@ -88,6 +89,28 @@ def test_plain_matches_pallas_interpret(cat, shape, strategy):
         assert np.all(np.abs(ker[~m]) < 1e-30)
 
 
+def test_nosplit_plain_matches_pallas_interpret(cat):
+    """The no-split sweep's plain version in float32 against JAX's
+    interpret-mode kernel (strategy "nosplit") at the line-sum bar, and
+    the split mode within rtol 1e-4 of it (tests/test_linesum_pallas.py:62)."""
+    ker = np.asarray(sigma_from_lines_pallas(
+        cat["jp"], cat["jl"], jnp.asarray(T), jnp.asarray(P), jnp.asarray(PP), "voigt",
+        interpret=True, strategy="nosplit"))
+    out = ls.sigma_nosplit_plain(cat["tp"], cat["tl"].to(torch.float32),
+                                 *_states(torch.float32)).double().numpy()
+    m = np.abs(ker) > 1e-35
+    np.testing.assert_allclose(out[m], ker[m], rtol=2e-3, atol=1e-32)
+    assert np.all(np.abs(out[~m]) < 1e-30)
+    split = np.asarray(sigma_from_lines_pallas(
+        cat["jp"], cat["jl"], jnp.asarray(T), jnp.asarray(P), jnp.asarray(PP), "voigt",
+        interpret=True, strategy="grouped"))
+    np.testing.assert_allclose(split[m], ker[m], rtol=1e-4, atol=0.0)
+    # on the CPU the wrapper is the plain version
+    np.testing.assert_array_equal(
+        linesum_cuda.sigma_nosplit(cat["tp"], cat["tl"], *_states()).numpy(),
+        ls.sigma_nosplit_plain(cat["tp"], cat["tl"], *_states()).numpy())
+
+
 def test_f32_plain_carries_two_float_positions(cat):
     """float32 with the hi + lo split stays near float64 at low pressure."""
     t32 = cat["tl"].to(torch.float32)
@@ -123,7 +146,9 @@ def _emulate_kernel(plan, lines, mode, coef, d_near, n_states):
         for st in range(n_states):
             c = coef[st // linesum_cuda.ST, s0:s0 + cnt].view(cnt, linesum_cuda.ST, nc)
             c = c[:, st % linesum_cuda.ST]
-            if mode == linesum_cuda.MODES["voigt"]:
+            if mode == linesum_cuda.NOSPLIT_MODES["voigt"]:
+                f = c[:, 0] * wofz_re(dnu * c[:, 1], c[:, 2].expand_as(dnu))
+            elif mode == linesum_cuda.MODES["voigt"]:
                 near = c[:, 0] * wofz_re(dnu * c[:, 1], c[:, 2].expand_as(dnu))
                 D = dnu * dnu
                 m_ = D * c[:, 3]
@@ -138,13 +163,16 @@ def _emulate_kernel(plan, lines, mode, coef, d_near, n_states):
     return out.reshape(n_states, -1)[:, : plan.n_nu]
 
 
-@pytest.mark.parametrize("shape", ["voigt", "lorentz", "doppler"])
+@pytest.mark.parametrize("shape", ["voigt", "lorentz", "doppler", "voigt_nosplit"])
 def test_kernel_pack_reproduces_plain(cat, shape):
-    """The coefficient pack and d_near, run through the kernel's formulas."""
+    """The coefficient pack and d_near, run through the kernel's formulas
+    (the split mode, the single sweeps and the no-split sweep)."""
     # 11 states: a full tile of 8 plus a padded one
     Ts = torch.tensor(np.linspace(180.0, 320.0, 11))
     Ps = torch.tensor(np.geomspace(10.0, 1e5, 11))
-    mode = linesum_cuda._mode(shape)
+    nosplit = shape.endswith("_nosplit")
+    shape = shape.removesuffix("_nosplit")
+    mode = linesum_cuda.nosplit_mode(shape) if nosplit else linesum_cuda._mode(shape)
     S, a, g = _line_params(cat["tl"], Ts, Ps, 0.4 * Ps)
     coef = pack_coefficients(mode, S, a, g)
     assert coef.shape == (2, cat["tl"].n_lines, 8 * linesum_cuda._N_COEF[mode])
@@ -154,5 +182,8 @@ def test_kernel_pack_reproduces_plain(cat, shape):
     ref = sigma_from_lines(cat["tp"], cat["tl"], Ts, Ps, 0.4 * Ps, shape=shape)
     m = ref.abs() > 1e-35
     # region 1 against the w4 small-y repair in the far wing: <= 2e-5 relative
-    rtol = 1e-4 if shape == "voigt" else 1e-12
+    rtol = 1e-4 if shape == "voigt" and not nosplit else 1e-12
+    if nosplit:
+        np.testing.assert_allclose(out.numpy(), ls.sigma_nosplit_plain(
+            cat["tp"], cat["tl"], Ts, Ps, 0.4 * Ps).numpy(), rtol=1e-13, atol=1e-300)
     np.testing.assert_allclose(out[m].numpy(), ref[m].numpy(), rtol=rtol, atol=1e-40)

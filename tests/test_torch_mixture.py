@@ -444,7 +444,10 @@ def _jax_decision(monkeypatch, jpl, jl, T, P, strategy, limit):
         return spy
 
     def grouped(kern, *a, **k):
-        raise _Taken("stencil" if kern.args[7] == ("farall",) else "grouped")
+        shape, split = kern.args[0], kern.args[4]
+        if kern.args[7] == ("farall",):
+            raise _Taken("stencil")
+        raise _Taken("nosplit" if shape in jp._SPLIT_SHAPES and not split else "grouped")
 
     def pallas_call(kern, *a, **k):
         raise _Taken({"_kernel_resident": "lane", "_kernel": "gathered"}[kern.func.__name__])
@@ -492,6 +495,10 @@ ROUTE_CASES = {
     "lane_to_gathered": ("band", "lane", 16, 200_000, "gathered"),
     "gathered": ("band", "gathered", 2, MIB6, "gathered"),
     "no_segment_gathered": ("band", "grouped", 16, 100_000, "gathered"),
+    "nosplit": ("band", "nosplit", 4, MIB6, "nosplit"),
+    "nosplit_card_budget": ("dense", "nosplit", 57, ls.H100_L2_BYTES, "nosplit"),
+    "nosplit_segmented": ("band", "nosplit", 16, 2_000_000, "segmented"),
+    "nosplit_gathered": ("band", "nosplit", 16, 100_000, "gathered"),
 }
 
 
@@ -505,9 +512,11 @@ def test_route_matches_jax_decision(big, monkeypatch, case):
     assert got == want
     assert _jax_decision(monkeypatch, jpl, jl, T, P, strategy, limit) == want
     if got == "segmented":
-        lane_cost = jp._grouped_lane_cost("voigt", "auto", n)
+        # the segments' pack: the split mode's, or the no-split sweep's
+        cost_as = "nosplit" if strategy == "nosplit" else "auto"
+        lane_cost = jp._grouped_lane_cost("voigt", cost_as, n)
         assert ls._resolve(tpl, tl, "voigt", strategy, n, limit)[1] == jp._segment_cap(
-            "voigt", "auto", n, limit, jpl.slab)
+            "voigt", cost_as, n, limit, jpl.slab)
         assert ls._resident_bytes_est(tl.n_lines, tpl.slab, lane_cost) == \
             jp._resident_bytes_est(jl.n_lines, jpl.slab, lane_cost)
 

@@ -167,9 +167,11 @@ def _jax_route(jpl, jl, shape, strategy, n_states, limit):
         strategy = "auto"
     if strategy == "stencil" and (not split or geom is None):
         strategy = "auto"
-    if strategy in ("auto", "grouped", "stencil"):
+    if strategy in ("auto", "grouped", "nosplit", "stencil"):
         cost = jp._grouped_lane_cost(shape, strategy, n_states)
         if jp._resident_bytes_est(n_lines, jpl.slab, cost) <= limit:
+            if strategy == "nosplit" and split:
+                return "nosplit"
             return "stencil" if strategy == "stencil" else "grouped"
         if strategy == "stencil":
             strategy = "auto"
@@ -188,8 +190,8 @@ LIMITS = (jp._RESIDENT_VMEM_LIMIT, 700_000, 300_000)
 
 @pytest.mark.parametrize("limit", LIMITS)
 @pytest.mark.parametrize("n_states", [2, 57, 400])
-@pytest.mark.parametrize("strategy", ["auto", "grouped", "stencil", "coarse", "lane",
-                                      "gathered"])
+@pytest.mark.parametrize("strategy", ["auto", "grouped", "nosplit", "stencil", "coarse",
+                                      "lane", "gathered"])
 @pytest.mark.parametrize("shape", ["phco2", "phco2_ref", "voigt_ref"])
 @pytest.mark.parametrize("grid", ["band", "dense"])
 def test_route_matches_jax(cat, grid, shape, strategy, n_states, limit):
@@ -216,11 +218,11 @@ def test_phco2_budget_cases_are_all_reached(cat):
     seen = set()
     for nu in (BAND, DENSE):
         _, tpl = _plans(cat, nu, 500.0)
-        for strategy in ("auto", "stencil", "lane"):
+        for strategy in ("auto", "stencil", "lane", "nosplit"):
             for n in (2, 57, 400):
                 for limit in LIMITS:
                     seen.add(ls.route(tpl, tl, "phco2", strategy, n, resident_limit=limit))
-    assert seen == {"coarse", "grouped", "stencil", "segmented", "lane", "gathered"}
+    assert seen == {"coarse", "grouped", "nosplit", "stencil", "segmented", "lane", "gathered"}
 
 
 # --- the routes' plain versions -----------------------------------------------------
@@ -292,6 +294,41 @@ def test_coarse_route_matches_jax_and_oracle(cat, oracle, shape):
         assert rel[np.abs(ref) > 1e-4 * pk].max() < 2e-3
         assert rel[np.abs(ref) > 1e-6 * pk].max() < 5e-2
         assert _of_peak(out, ref) < 1e-5
+
+
+@pytest.mark.parametrize("kind", ["resident", "segmented"])
+@pytest.mark.parametrize("shape", ["phco2", "voigt_ref"])
+def test_nosplit_matches_jax_and_oracle(cat, oracle, shape, kind):
+    """K1's no-split sweep (strategy "nosplit"): its plain version (the full
+    w4 at every in-cut pair on the kernel's coefficients) against the exact
+    sum at 1e-12 in float64, and in float32 against JAX's interpret-mode
+    no-split kernel at the line-sum bar (rtol 2e-3 where |sigma| > 1e-35,
+    tests/test_linesum_pallas.py:42) and 1e-5 of peak; JAX's split mode
+    within rtol 1e-4 of it (:62). Segmented: each segment sweeps without the
+    split, at a budget that cuts the catalog (JAX's segment length)."""
+    jl, tl = cat
+    jpl, tpl, ref = oracle["band", shape]
+    limit = 250_000 if kind == "segmented" else None
+    name, L_seg = ls._resolve(tpl, tl, shape, "nosplit", 2, limit)
+    if kind == "segmented":
+        assert name == "segmented" and L_seg == jp._segment_cap(shape, "nosplit", 2, limit,
+                                                                jpl.slab) < tl.n_lines
+        plain = lambda l, x: ls.sigma_segmented_plain(tpl, l, *x, L_seg, shape=shape)
+    else:
+        assert name == "nosplit"
+        plain = lambda l, x: ls.sigma_nosplit_plain(tpl, l, *x, shape=shape)
+    ker = _pallas(jpl, jl, shape, "nosplit", resident_limit=limit)
+    out = plain(tl, _states(torch.float64)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-300)
+    out32 = plain(tl.to(torch.float32), _states(torch.float32)).double().numpy()
+    m = np.abs(ref) > 1e-35
+    for got in (out32, ker):
+        np.testing.assert_allclose(got[m], ref[m], rtol=2e-3, atol=1e-32)
+        assert np.all(np.abs(got[~m]) < 1e-30)
+    assert _of_peak(out32, ker) < 1e-5
+    split = _pallas(jpl, jl, shape, "grouped", resident_limit=limit)
+    mk = np.abs(out32) > 1e-35
+    np.testing.assert_allclose(split[mk], out32[mk], rtol=1e-4, atol=0.0)
 
 
 @pytest.mark.parametrize("kind", ["grouped", "segmented", "lane", "gathered"])

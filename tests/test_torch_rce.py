@@ -367,7 +367,3 @@ def test_rce_drives_toward_equilibrium(gray):
     assert bool(torch.isfinite(out.T).all())
     assert abs(float(F1.F_net[0])) < abs(float(F0.F_net[0]))
 
-
-def test_jacobian_is_not_ported_yet(gray):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ct.jacobian(gray[1])

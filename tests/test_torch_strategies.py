@@ -171,12 +171,20 @@ def test_stencil_geometry_rejects_short_grids(small):
     assert jp._build_stencil_geom(jpl, jl) is None and ls._build_stencil_geom(tpl, tl) is None
 
 
-def _jax_route(jpl, jl, shape, strategy, n_states=57):
+def _jax_route(jpl, jl, shape, strategy, n_states=57, limit=jp._RESIDENT_VMEM_LIMIT):
     """The route ``sigma_from_lines_pallas`` takes, from JAX's own gates
-    (VMEM residency included, asserted to pass where it is read)."""
+    (VMEM residency included, asserted to pass where it is read; the
+    no-split sweep's pack, 3 values a state padded to 128, is the larger and
+    its residency is decided at ``limit``)."""
     if shape not in jp._SPLIT_SHAPES:
         return "grouped"
     n_lines = int(jl.nu.shape[0])
+    if strategy == "nosplit":
+        lane_cost = jp._grouped_lane_cost(shape, strategy, n_states)
+        if jp._resident_bytes_est(n_lines, jpl.slab, lane_cost) <= limit:
+            return "nosplit"
+        L_seg = jp._segment_cap(shape, strategy, n_states, limit, jpl.slab)
+        return "segmented" if jp.CHUNK <= L_seg < n_lines else "gathered"
     if strategy == "coarse" and jp._coarse_far_params(jpl) is None:
         strategy = "auto"
     if strategy == "auto":
@@ -193,11 +201,18 @@ def _jax_route(jpl, jl, shape, strategy, n_states=57):
     return "grouped"
 
 
-@pytest.mark.parametrize("strategy", ["auto", "grouped", "stencil", "coarse"])
+@pytest.mark.parametrize("strategy", ["auto", "grouped", "nosplit", "stencil", "coarse"])
 @pytest.mark.parametrize("name", list(GRIDS))
 def test_route_matches_jax(plans, name, strategy):
     jpl, tpl, jl, tl = plans[name]
     want = _jax_route(jpl, jl, "voigt", strategy)
+    if strategy == "nosplit":
+        # at JAX's budget (57 states of 5,599 lines outgrow its VMEM) and
+        # at the card's, where the pack is resident
+        vmem = jp._RESIDENT_VMEM_LIMIT
+        assert ls.route(tpl, tl, "voigt", strategy, 57, resident_limit=vmem) == want
+        want = _jax_route(jpl, jl, "voigt", strategy, limit=ls.resident_budget("cpu"))
+        assert want == "nosplit"
     assert ls.route(tpl, tl, "voigt", strategy) == want
     for shape in ("lorentz", "doppler"):
         assert ls.route(tpl, tl, shape, strategy) == "grouped"
@@ -218,11 +233,10 @@ def test_chip_smoke_shapes_route_as_jax_does(plans):
     assert ls.route(rcm[1], rcm[3]) == "stencil" and ls.stencil_geometry(rcm[1], rcm[3]).K == 8
 
 
-@pytest.mark.parametrize("strategy,exc,match", [
-    ("nosplit", NotImplementedError, "no-split"), ("fast", ValueError, "unknown")])
+@pytest.mark.parametrize("strategy,exc,match", [("fast", ValueError, "unknown")])
 def test_unported_strategies_raise(plans, strategy, exc, match):
-    """The voigt no-split sweep stays out of the port, an unknown name is
-    refused; "lane" and "gathered" (K4, K5) are taken."""
+    """An unknown name is refused; "lane" and "gathered" (K4, K5) are
+    taken."""
     _, tpl, _, tl = plans["rcm_16384"]
     with pytest.raises(exc, match=match):
         ls.route(tpl, tl, "voigt", strategy)
