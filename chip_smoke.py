@@ -103,6 +103,22 @@ prints one line that starts with its name:
           10): ms per step cold and warm, the refresh route and launch
           counts, each record's heating and temperatures against the same
           run in float64, and step_n against three steps
+  sharded the spectrally sharded path, 4 shards: ``kernel`` lines for K1-dev
+          (every shard of a rank in one launch a mode) in each mode the path
+          takes, the split mode and the coarse route's FINE and COARSE at 57
+          states x 2^19, the phco2 split mode at 16 x 2^15 (cut 500), each
+          against its float64 plain version on the same shards and against
+          the unsharded kernel of its route family (1e-4 of peak), and the
+          route each shard's geometry takes; then (counted on its own)
+          outgoing on 4-shard gases at 2^19 (auto and grouped) and a phco2
+          one at 2^15, sharded_radiate, the sharded heating and 4 sharded
+          steps (refresh every 2) on the RCM at 16,384 points over a world-1
+          NCCL group: band OLR within 1e-4 of the unsharded grouped one,
+          heating against float64 (5e-3 of peak), ms per call beside the
+          unsharded call's, one all-reduce per heating and step; last, two
+          ranks spawned on the card over gloo (two shards each), whose
+          temperatures after the 4 steps must equal the world-1 run's
+          within float32 reduction-order noise
   profile for each main-path, table-path, route and mix call, its unprofiled
           wall time beside the device time that torch.profiler traces (CUDA
           activity), each kernel's share (K1 by mode) and the device's idle
@@ -177,6 +193,13 @@ KERNELS = {
     # the no-split sweep (use_split false, :1360), voigt and phco2
     "linesum_nosplit": (_LINESUM, f"{_PALLAS}:223"),
     "linesum_phco2_nosplit": (_LINESUM, f"{_PALLAS}:223"),
+    # K1-dev, sigma_from_lines_pallas_device: the modes the sharded path runs
+    # (the split mode through _pallas_sigma_impl, FINE and COARSE through
+    # _coarse_core), every shard of a rank in one launch a mode
+    "linesum_dev": (_LINESUM, f"{_PALLAS}:1705"),
+    "linesum_dev_fine": (_LINESUM, f"{_PALLAS}:1705"),
+    "linesum_dev_coarse": (_LINESUM, f"{_PALLAS}:1705"),
+    "linesum_dev_phco2": (_LINESUM, f"{_PALLAS}:1705"),
 }
 # K1's template modes (csrc/linesum.cu ``Mode``) by the kernel names above
 MODE_KERNEL = {"voigt_split": "linesum", "farall": "linesum_farall", "fine": "linesum_fine",
@@ -188,8 +211,12 @@ MODE_KERNEL = {"voigt_split": "linesum", "farall": "linesum_farall", "fine": "li
                "phco2_coarse": "linesum_phco2_coarse",
                "phco2_segmented": "linesum_phco2_segmented", "phco2_lane": "linesum_phco2_lane",
                "phco2_gathered": "linesum_phco2_gathered", "nosplit": "linesum_nosplit",
-               "phco2_nosplit": "linesum_phco2_nosplit"}
-PHCO2_KERNELS = {k for k in KERNELS if "phco2" in k}
+               "phco2_nosplit": "linesum_phco2_nosplit", "dev_voigt_split": "linesum_dev",
+               "dev_fine": "linesum_dev_fine", "dev_coarse": "linesum_dev_coarse",
+               "dev_phco2_split": "linesum_dev_phco2"}
+# the phco2 instances of the unsharded paths (K1-dev's run on the sharded one)
+PHCO2_KERNELS = {k for k in KERNELS if "phco2" in k and "_dev" not in k}
+DEV_KERNELS = {k for k in KERNELS if "_dev" in k}
 LIBRARIES = ("linesum", "march", "fused_table")
 TABLE_DOMAIN = ((150.0, 350.0), 12, (0.9 * PT, 1.01 * PS), 24)
 TABLE_SPLIT = 16
@@ -216,6 +243,11 @@ PH_PAIR_OPS, PH_R1_OPS, CHI_OPS = 3, 18, 10
 # refresh every 6 and an adjustment every step, recorded every 10
 PHCO2_CUT, TS_RCE = 500.0, 285.0
 RCE_STEPS, RCE_UPDATE, RCE_RECORD = 60, 6, 10
+# the sharded path: 4 spectral shards (all on one card, or 2 on each of
+# two ranks), steps of the sharded RCE loop with a refresh every 2
+N_SHARDS = 4
+SHARD_STEPS, SHARD_UPDATE = 4, 2
+RANKS_TIMEOUT_S = 300.0
 # synthetic_co2_par's band centres: the sampled blocks include them
 BAND_CENTRES = (667.4, 961.0, 1063.7, 2349.1)
 SAMPLE_STRIDE = 16
@@ -2689,6 +2721,407 @@ def phase_table_jvp(gs, dev):
     return launched
 
 
+# --- the sharded path: ShardedLineGas, K1-dev, the sharded programs -------------
+
+def _shards(sg, states):
+    """Each shard's float64 grid, its real lines' positions and their
+    profile's (ia, y0, alpha) at ``states`` [n_states, lines]: what the
+    bounds count on this run's data."""
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops.linesum import _line_params, effective_alpha
+
+    k, L = sg.lines.nu.shape
+    n = int(states[0].shape[0])
+    pos = sg.lines.positions64()
+    nb = sg.plans.nu_blocks.cpu().numpy()
+    _, alpha, gamma = _line_params(lc._flat_lines(sg.lines), *states)
+    alpha = effective_alpha(sg.shape, alpha).view(n, k, L)
+    gamma = gamma.view(n, k, L)
+    out = []
+    for s in range(k):
+        c = int((pos[s] < 1e29).sum())
+        a = alpha[:, s, :c]
+        out.append((nb[s].reshape(-1)[: sg.n_local], pos[s][:c], 1.0 / a, gamma[:, s, :c] / a, a))
+    return out
+
+
+def _dev_bytes(sg, n, n_coef, grid_points, n_windows, n_out):
+    """Bytes of one K1-dev launch: every shard's two-float grid, the slabs'
+    positions, the coefficient pack and the window table read once, sigma
+    written once."""
+    k, L = sg.lines.nu.shape
+    return (8 * grid_points + 8 * k * L + 4 * 8 * -(-n // 8) * k * L * n_coef
+            + 4 * 2 * n_windows + 4 * n * n_out)
+
+
+def _dev_report(name, report, out, ms, plain_ms, b, n, k, n_out, **line):
+    emit("kernel", kernel=name, shards=k, states=n, points=k * n_out, ms=ms,
+         plain_ms_one_call=plain_ms, plain_shape="same", **line, **b)
+    report[name] = dict(max_abs_err=line["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                        library_ms=None, shape=f"{n} states x {k * n_out} points in {k} shards",
+                        **b)
+
+
+def kernel_sharded(ms_main, dev, report):
+    """K1-dev at the main shape (57 states x 2^19 in 4 shards, one launch a
+    mode): the split mode ("grouped"), and FINE and COARSE (the coarse route
+    the shards' geometry takes on "auto"). Each against its float64 plain
+    version on the same shards and against the unsharded kernels on the
+    same route family."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import (shard_lines, sigma_from_lines_auto,
+                                                sigma_from_lines_shards)
+
+    lines, plan, states = ms_main["lines"], ms_main["plan"], ms_main["states"]
+    n, cut, k = int(states[0].shape[0]), plan.cut, N_SHARDS
+    args64 = [x.double() for x in states]
+    budget = ls.resident_budget(dev)
+    sg = ct.shard_line_gas(ct.DirectGas.from_lines(lines, CONC, plan.nu, strategy="grouped"), k)
+    sa = ct.shard_line_gas(ct.DirectGas.from_lines(lines, CONC, plan.nu), k)
+    L = sg.lines.nu.shape[-1]
+    routes = {s: ls.device_route(sa.plans, L, "voigt", s, n, budget) for s in ("auto", "grouped")}
+    emit("sharded", part="routes", points=plan.n_nu, shards=k, points_per_shard=sg.n_local,
+         slab_lines=L, coarse_meta=sa.plans.coarse_meta, coarse_auto=sa.plans.coarse_auto,
+         route_auto=routes["auto"], route_grouped=routes["grouped"])
+    check(routes == {"auto": "coarse", "grouped": "grouped"},
+          f"the shards of the main grid route {routes}, not auto coarse and grouped grouped")
+    geo = _shards(sg, states)
+
+    # the split mode, against the exact float64 sum on the same shards (the
+    # float32 one at the cut edges) and against K1 over the whole grid
+    (_, launch), = lc.device_launches(sg.plans, sg.lines, *states, None, "voigt", "grouped")[0]
+    out = launch()
+    torch.cuda.synchronize()
+    s64 = dataclasses.replace(sg, lines=sg.lines.to(torch.float64))
+    ref, plain64_ms = one_call(lambda: sigma_from_lines_shards(s64.plans, s64.lines, *args64))
+    ref32, plain_ms = one_call(lambda: sigma_from_lines_shards(sg.plans, sg.lines, *states))
+    max_abs, max_rel, ok = check_sigma(out, ref, ms_main["edge"], ref32)
+    del ref, ref32
+    e_k1 = of_peak(out, lc.sigma_lines(plan, lines, *states).double())
+    ms = cuda_ms(launch)
+    ops = 0.0
+    for grid, pos, ia, y0, a in geo:
+        d_near = float(torch.clamp(15.0 * a.max(), max=cut))
+        pairs, near = pairs_within(grid, pos, cut), pairs_within(grid, pos, d_near)
+        ops += pairs * PAIR_OPS + (pairs - near) * n * R1_OPS + near_w4_ops(grid, pos, ia, y0,
+                                                                            d_near)
+    nb = sg.plans.n_blocks
+    b = bound(ops, _dev_bytes(sg, n, 7, k * nb * plan.block, k * nb, k * sg.n_local))
+    _dev_report("linesum_dev", report, out, ms, plain_ms, b, n, k, sg.n_local, mode="voigt_split",
+                max_abs_err=max_abs, max_rel_err=max_rel,
+                bar="rtol 2e-3 where |sigma| > 1e-35 (atol 1e-32)", of_peak_vs_unsharded_k1=e_k1,
+                bar_vs_unsharded="1e-4 of peak", plain_f64_ms_one_call=plain64_ms, launches=1)
+    check(ok, f"K1-dev split off its float64 plain version: max rel {max_rel:.3e}")
+    check(e_k1 < 1e-4, f"K1-dev split off the unsharded K1 by {e_k1:.3e} of peak")
+    del out
+
+    # the coarse route: FINE and COARSE, each against its float64 plain
+    # version shard by shard; the route against the exact sum and the
+    # unsharded coarse route
+    launches, finish = lc.device_launches(sa.plans, sa.lines, *states, None, "voigt", "coarse")
+    outs = [f() for _, f in launches]
+    torch.cuda.synchronize()
+    d_far, h, n_cc, _ = sa.plans.coarse_meta
+    z = ls.split_zones(cut, d_far, h)
+    a64 = dataclasses.replace(sa, lines=sa.lines.to(torch.float64))
+    p = sa.plans
+    grid64 = lambda hi, lo, s: hi[s].double().cpu().numpy() + lo[s].double().cpu().numpy()
+    mode_refs = {"fine": [], "coarse": []}
+    plain32_ms = {"fine": 0.0, "coarse": 0.0}
+    for s in range(k):
+        for dtype_lines, xs, keep in ((a64.lines, args64, True), (sa.lines, states, False)):
+            ls_ = shard_lines(dtype_lines, s)
+            alpha, co = ls.coefficients(ls_, *xs)
+            dn = torch.clamp(15.0 * ls.masked_alpha_max(alpha, ls_.nu), max=z["cut_f"])
+            for mode, blocks, windows, n_out in (
+                    ("fine", grid64(p.fine_blocks, p.fine_blocks_lo, s), p.fine_windows[s],
+                     sa.n_local),
+                    ("coarse", grid64(p.coarse_blocks, p.coarse_blocks_lo, s),
+                     p.coarse_windows[s], n_cc)):
+                run = lambda: ls.sigma_mode_plain(
+                    mode, blocks, windows.cpu().numpy().astype(np.int64), ls_, co, z,
+                    dn if mode == "fine" else None)[:, :n_out]
+                if keep:
+                    mode_refs[mode].append(run())
+                else:
+                    plain32_ms[mode] += one_call(run)[1]
+    route_out = finish(*outs)
+    exact = ms_main["ref"]
+    pk = exact.abs().amax(dim=1, keepdim=True)
+    m = exact.abs() > 1e-4 * pk
+    r4 = float(((route_out.double() - exact).abs()[m] / exact.abs()[m]).max())
+    unsharded = sigma_from_lines_auto(plan, lines, *states, strategy="coarse")
+    e_route = of_peak(route_out, unsharded.double())
+    del unsharded, route_out
+    for (name, f), o, mode in zip(launches, outs, ("fine", "coarse")):
+        ref = torch.cat(mode_refs[mode], dim=-1)
+        err = of_peak(o, ref)
+        max_abs = float((o.double() - ref).abs().max())
+        ms = cuda_ms(f)
+        ops = 0.0
+        for s, (grid, pos, ia, y0, a) in enumerate(geo):
+            if mode == "fine":
+                dn = float(torch.clamp(15.0 * a.max(), max=z["cut_f"]))
+                mid = pairs_within(grid, pos, z["cut_f"])
+                near = pairs_within(grid, pos, dn)
+                ann = pairs_within(grid, pos, cut, math.sqrt(z["R1"]))
+                ops += ((mid + ann) * (PAIR_OPS + SMOOTH_OPS) + (mid - near + ann) * n
+                        * (R1_OPS + 1) + near_w4_ops(grid, pos, ia, y0, dn) + near * n * 2)
+            else:
+                cg = p.coarse_blocks[s].double().cpu().numpy().reshape(-1)[:n_cc]
+                ops += pairs_within(cg, pos, cut, z["d_lo"]) * (PAIR_OPS + 2 * SMOOTH_OPS
+                                                               + n * (R1_OPS + 1))
+        blocks = getattr(p, f"{mode}_blocks")
+        nwin = getattr(p, f"{mode}_windows")
+        n_out = sa.n_local if mode == "fine" else n_cc
+        b = bound(ops, _dev_bytes(sa, n, 7, blocks.numel(), nwin.numel() // 2, k * n_out))
+        _dev_report(f"linesum_dev_{mode}", report, o, ms, plain32_ms[mode], b, n, k, n_out,
+                    mode=mode, err_of_peak=err, max_abs_err=max_abs,
+                    bar="1e-5 of each state's peak", route_rel_err_where_above_peak_1e4=r4,
+                    route_bar="rel 2e-3 where |sigma| > 1e-4 peak",
+                    route_of_peak_vs_unsharded_coarse=e_route, bar_vs_unsharded="1e-4 of peak",
+                    d_far=d_far, h=h, coarse_points=n_cc, launches=1)
+        check(bool(torch.isfinite(o).all()) and err < 1e-5,
+              f"K1-dev {mode} off its float64 plain version by {err:.3e} of peak")
+    check(r4 < 2e-3, f"the sharded coarse route off the exact sum: rel {r4:.3e}")
+    check(e_route < 1e-4, f"the sharded coarse route off the unsharded one by {e_route:.3e}")
+
+
+def kernel_sharded_phco2(strat, dev, report):
+    """K1-dev's phco2 split mode at 16 states x 2^15 (cut 500) in 4 shards,
+    against its float64 plain version and the unsharded K1."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    from clearsky_tpu_torch.ops.linesum import sigma_from_lines_shards
+
+    k, budget = N_SHARDS, ls.resident_budget(dev)
+    pl, pn, px = strat["lines"], strat["plan"], strat["states"]
+    nph = int(px[0].shape[0])
+    sp = ct.shard_line_gas(ct.DirectGas.from_lines(pl, CONC, pn.nu, shape="phco2",
+                                                   strategy="grouped"), k)
+    check(ls.device_route(sp.plans, sp.lines.nu.shape[-1], "phco2", "grouped", nph, budget)
+          == "grouped", "the phco2 shards do not take the split mode on grouped")
+    (_, launch), = lc.device_launches(sp.plans, sp.lines, *px, None, "phco2", "grouped")[0]
+    out = launch()
+    torch.cuda.synchronize()
+    p64 = dataclasses.replace(sp, lines=sp.lines.to(torch.float64))
+    x64 = [x.double() for x in px]
+    ref, plain64_ms = one_call(lambda: sigma_from_lines_shards(p64.plans, p64.lines, *x64,
+                                                               "phco2"))
+    ref32, plain_ms = one_call(lambda: sigma_from_lines_shards(sp.plans, sp.lines, *px,
+                                                               "phco2"))
+    max_abs, max_rel, ok = check_sigma(out, ref, cut_edges(pn, pl.positions64()), ref32)
+    del ref, ref32
+    e_k1 = of_peak(out, lc.sigma_lines(pn, pl, *px, shape="phco2").double())
+    ms = cuda_ms(launch)
+    ops, exps = 0.0, 0.0
+    for grid, pos, ia, y0, a in _shards(sp, px):
+        dn = float(torch.clamp(15.0 * a.max(), max=pn.cut))
+        o, e, _ = _phco2_split_ops(grid, pos, ia, y0, px[0], dn, pn.cut, nph)
+        ops, exps = ops + o, exps + e
+    nb = sp.plans.n_blocks
+    b = bound(ops, _dev_bytes(sp, nph, 3, k * nb * pn.block, k * nb, k * sp.n_local)
+              + 4 * 2 * 8 * -(-nph // 8), exps)
+    _dev_report("linesum_dev_phco2", report, out, ms, plain_ms, b, nph, k, sp.n_local,
+                mode="phco2_split", max_abs_err=max_abs, max_rel_err=max_rel,
+                bar="rtol 2e-3 where |sigma| > 1e-35 (atol 1e-32)", of_peak_vs_unsharded_k1=e_k1,
+                bar_vs_unsharded="1e-4 of peak", plain_f64_ms_one_call=plain64_ms, launches=1)
+    check(ok, f"K1-dev phco2 split off its float64 plain version: max rel {max_rel:.3e}")
+    check(e_k1 < 1e-4, f"K1-dev phco2 split off the unsharded K1 by {e_k1:.3e} of peak")
+
+
+def sharded_rcm(par, dev):
+    """The RCM of the ``rcm`` phase (16,384 points, 20 edge levels, radmul
+    2, the seed's catalog in float32 on ``dev``), built anew: the sharded
+    programs and the spawned ranks start from it."""
+    import clearsky_tpu_torch as ct
+
+    lines = ct.SpectralLines.from_par_dict(par, dtype=torch.float32, device=dev)
+    nu = grid_for(lines, N_NU_RCM)
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    span = float(nu[-1] - nu[0])
+    S0 = 340.0 / math.cos(0.841)
+    fS = lambda v: torch.full_like(v, S0 / span)
+    return ct.RCM.create(Pe, column(Pe), G, lambda T, P: MU, fS, 0.1, lambda T, P: CP, 1e7,
+                         ct.DirectGas.from_lines(lines, CONC, nu), radmul=2)
+
+
+def sharded_steps(mesh, rcm):
+    """SHARD_STEPS steps of the sharded RCE loop with a refresh every
+    SHARD_UPDATE: the final temperatures."""
+    from clearsky_tpu_torch import parallel
+
+    step = parallel.make_sharded_step(mesh, rcm, RCM_DT, update_every=SHARD_UPDATE)
+    T, A = rcm.T, None
+    for i in range(SHARD_STEPS):
+        T, A = step(T, A, i)
+    return T
+
+
+def phase_sharded(par, dev, mesh):
+    """The sharded path through the entry points, counted on its own:
+    outgoing on 4-shard gases at the main shape (auto: the shards' coarse
+    route; grouped: the split mode) and on a 4-shard phco2 gas at 2^15
+    (grouped), then sharded_radiate, the sharded heating and 4 sharded steps
+    on the RCM at 16,384 points over a world-1 NCCL group."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch import parallel
+
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = grid_for(lines, N_NU_MAIN)
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    gases = {"auto": ct.shard_line_gas(ct.DirectGas.from_lines(lines, CONC, nu), N_SHARDS),
+             "grouped": ct.shard_line_gas(ct.DirectGas.from_lines(lines, CONC, nu,
+                                                                  strategy="grouped"), N_SHARDS),
+             "phco2": ct.shard_line_gas(ct.DirectGas.from_lines(
+                 lines, CONC, phco2_grid(lines, N_NU_KERNEL), shape="phco2",
+                 strategy="grouped"), N_SHARDS)}
+    olr = {k: ct.outgoing(Pe, G, Te, MU, g) for k, g in gases.items()}
+    rcm = sharded_rcm(par, dev)
+    calls0 = parallel.spectral_all_reduce.calls
+    F = parallel.sharded_radiate(mesh, rcm)
+    heat = parallel.make_sharded_heating(mesh, rcm)
+    H = heat(rcm.T)
+    torch.cuda.synchronize()
+    collectives = parallel.spectral_all_reduce.calls - calls0
+    T4 = sharded_steps(mesh, rcm)
+    torch.cuda.synchronize()
+    return dict(lines=lines, nu=nu, Pe=Pe, Te=Te, gases=gases, olr=olr, rcm=rcm, F=F, heat=heat,
+                H=H, T4=T4, collectives=collectives)
+
+
+def check_sharded(run, mesh, dev, unsharded_grouped):
+    """The sharded path's results (not counted): band OLR against the
+    unsharded grouped one, the heating against the float64 plain version,
+    the fluxes against the unsharded radiate, ms per call beside the
+    unsharded call's, and one all-reduce per heating and step."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch import parallel
+
+    Pe, Te, rcm = run["Pe"], run["Te"], run["rcm"]
+    nu64 = torch.as_tensor(run["nu"], dtype=torch.float64)
+    band = lambda o, nu=nu64: float(ct.trapz(nu, o.double().cpu()))
+    band_g = band(unsharded_grouped())
+    rel = {k: abs(band(run["olr"][k]) - band_g) / band_g for k in ("auto", "grouped")}
+    ph_nu = run["gases"]["phco2"].nu.double().cpu()
+    ph_ref = ct.outgoing(Pe, G, Te, MU, ct.DirectGas.from_lines(
+        run["lines"], CONC, ph_nu.numpy(), shape="phco2", strategy="grouped"))
+    rel["phco2"] = abs(band(run["olr"]["phco2"], ph_nu) - band(ph_ref, ph_nu)) / band(ph_ref, ph_nu)
+    # the heating against the plain float64 version of the same state
+    gas64 = ct.DirectGas.from_lines(rcm.A.stack.gases[0].lines.to(torch.float64, "cpu"), CONC,
+                                    rcm.nu.double().cpu().numpy())
+    to64 = lambda x: x.double().cpu()
+    ref = dataclasses.replace(
+        rcm, Pe=to64(rcm.Pe), P=to64(rcm.P), T=to64(rcm.T), Pr=to64(rcm.Pr),
+        S_nu=to64(rcm.S_nu), a_nu=to64(rcm.a_nu),
+        A=ct.AcceleratedAbsorber.create(to64(rcm.A.T), to64(rcm.Pe), gas64))
+    H_ref = ct.heating(ref)
+    h_err = float((run["H"].double().cpu() - H_ref).abs().max() / H_ref.abs().max())
+    F_u = ct.radiate_state(rcm)
+    f_err = float((run["F"].F_net - F_u.F_net).abs().max() / F_u.F_net.abs().max())
+    out_u, _ = ct.run(rcm, RCM_DT, SHARD_STEPS, update_every=SHARD_UPDATE)
+    t_dev = float((run["T4"] - out_u.T).abs().max())
+    c0 = parallel.spectral_all_reduce.calls
+    step = parallel.make_sharded_step(mesh, rcm, RCM_DT, update_every=1)
+    step(rcm.T, None, 0)
+    step_collectives = parallel.spectral_all_reduce.calls - c0
+    heat = run["heat"]
+    # sharded_radiate shards the model's gases at every call (host set-up,
+    # as the JAX package's does); on a model sharded once it only slices
+    pre = parallel.shard_lbl(rcm, N_SHARDS)
+    ms = {"sharded_radiate": wall_ms(lambda: parallel.sharded_radiate(mesh, rcm)),
+          "sharded_radiate_presharded": wall_ms(lambda: parallel.sharded_radiate(mesh, pre)),
+          "radiate_state": wall_ms(lambda: ct.radiate_state(rcm)),
+          "sharded_heating": wall_ms(lambda: heat(rcm.T)),
+          "heating": wall_ms(lambda: ct.heating(rcm)),
+          "sharded_step_with_refresh": wall_ms(lambda: step(rcm.T, None, 0)),
+          "step_with_refresh": wall_ms(lambda: ct.step(ct.update_absorber(rcm), RCM_DT))}
+    for k in ("auto", "grouped"):
+        g = run["gases"][k]
+        ms[f"sharded_outgoing_{k}"] = wall_ms(lambda g=g: ct.outgoing(Pe, G, Te, MU, g))
+    emit("sharded", part="programs", shards=N_SHARDS, world=mesh.world,
+         backend=torch.distributed.get_backend() if torch.distributed.is_initialized() else None,
+         band_rel_vs_unsharded_grouped=rel, band_bar=1e-4, heating_err_of_peak=h_err,
+         heating_bar="5e-3 of peak", F_net_rel_vs_unsharded=f_err, F_net_bar=1e-4,
+         steps=SHARD_STEPS, update_every=SHARD_UPDATE, T_vs_unsharded_run_K=t_dev,
+         collectives_per_heating=run["collectives"] - 1, collectives_per_step=step_collectives,
+         ms_per_call=ms)
+    for k, v in rel.items():
+        check(v < 1e-4, f"sharded {k} band OLR off the unsharded grouped one by {v:.3e}")
+    check(h_err < 5e-3, f"sharded heating off the float64 version by {h_err:.3e} of peak")
+    check(f_err < 1e-4, f"sharded F_net off the unsharded radiate by {f_err:.3e}")
+    check(run["collectives"] == 2 and step_collectives == 1,
+          f"{run['collectives']} collectives for radiate + heating, {step_collectives} a step")
+    calls = {"sharded_outgoing": lambda: ct.outgoing(Pe, G, Te, MU, run["gases"]["auto"]),
+             "sharded_radiate": lambda: parallel.sharded_radiate(mesh, rcm),
+             "sharded_radiate_presharded": lambda: parallel.sharded_radiate(mesh, pre),
+             "sharded_heating": lambda: heat(rcm.T),
+             "sharded_step": lambda: step(rcm.T, None, 0)}
+    return calls, out_u.T
+
+
+def _rank_main(rank, world, url, seed, path):
+    """One of the spawned ranks: two of the four shards on the one card,
+    gloo between the ranks; writes its final temperatures to ``path``."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    parallel.init_multihost(url, world, rank, backend="gloo", device=dev, timeout=120.0)
+    try:
+        mesh = parallel.spectral_mesh(N_SHARDS, devices=dev)
+        rcm = sharded_rcm(ct.synthetic_co2_par(N_LINES, seed=seed), dev)
+        T = sharded_steps(mesh, rcm)
+        np.save(path, T.double().cpu().numpy())
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_sharded_ranks(seed, T_one, H_peak, build):
+    """Two ranks spawned on the one card over gloo, two shards each: the
+    same 4 sharded steps; their temperatures against the world-1 run's."""
+    import multiprocessing as mp
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        url = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    ctx = mp.get_context("spawn")
+    paths = [os.path.join(build, f"rank{r}.npy") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_rank_main, args=(r, 2, url, seed, paths[r])) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10.0)
+    seconds = time.perf_counter() - t0
+    check(not hung and all(p.exitcode == 0 for p in procs),
+          f"spawned ranks: exit codes {[p.exitcode for p in procs]}, {len(hung)} hung")
+    T = [np.load(q) for q in paths]
+    ref = T_one.double().cpu().numpy()
+    dev_max = max(float(np.abs(t - ref).max()) for t in T)
+    # float32 reduction order: the two ranks add two partial spectral sums
+    # where one rank adds four; each step's heating moves by ~1e-6 of its
+    # peak, bounded here by 1e-4 of the peak heating over the steps, plus
+    # two float32 ulps of the temperatures
+    bar = 1e-4 * SHARD_STEPS * RCM_DT * H_peak + 2 * float(np.spacing(np.float32(ref.max())))
+    emit("sharded", part="ranks", ranks=2, backend="gloo", shards_per_rank=N_SHARDS // 2,
+         steps=SHARD_STEPS, seconds=seconds, T_max_abs_dev_K=dev_max, bar_K=bar,
+         ranks_agree=float(np.abs(T[0] - T[1]).max()))
+    check(dev_max <= bar, f"two gloo ranks off the one-rank run by {dev_max:.3e} K (bar {bar:.3e})")
+
+
 def _busy_us(intervals):
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, -math.inf
@@ -2784,6 +3217,7 @@ def main(argv=None) -> int:
     ms_main = kernel_linesum_main_shape(par, dev, report)
     kernel_coarse(ms_main, par, dev, report)
     kernel_nosplit(ms_main, par, args.seed, dev, report)
+    kernel_sharded(ms_main, dev, report)
     rcm_shape = kernel_stencil(par, dev, report)
     route_calls = phase_routes(ms_main, ("grouped", "stencil", "coarse"), "coarse")
     route_calls.update(phase_routes(rcm_shape, ("grouped", "stencil"), "stencil"))
@@ -2865,6 +3299,7 @@ def main(argv=None) -> int:
     # then each part of its main path counted on its own
     kernel_phco2(par, dev, report)
     strat = kernel_phco2_strategies(par, args.seed, dev, report)
+    kernel_sharded_phco2(strat, dev, report)
     ph_calls, ph_counts = phase_phco2(par, dev)
     strat_counts = phase_phco2_strategies(par, dev, strat)
     phase_phco2_bake(par, dev)
@@ -2877,7 +3312,30 @@ def main(argv=None) -> int:
         check(counts[k] > 0, f"kernel {k} was not launched on the phco2 and rce paths")
     calls.update(ph_calls)
     calls.update(rce_calls)
+
+    # the sharded path over a world-1 NCCL group, counted on its own; then
+    # two ranks on the card over gloo
+    from clearsky_tpu_torch import parallel
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    parallel.init_multihost(f"127.0.0.1:{port}", 1, 0, backend="nccl", device=dev)
+    mesh = parallel.spectral_mesh(N_SHARDS, devices=dev)
+    counts_reset()
+    sh_run = phase_sharded(par, dev, mesh)
+    sh_counts = counts_read()
+    emit("counts", path="sharded", **{k: v for k, v in sh_counts.items() if v})
+    for k in sorted(DEV_KERNELS) + ["olr_march", "monoflux_march"]:
+        check(sh_counts[k] > 0, f"kernel {k} was not launched on the sharded path")
+    counts = {k: counts[k] + sh_counts[k] for k in counts}
+    sh_calls, _ = check_sharded(sh_run, mesh, dev, calls["outgoing_grouped"])
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        phase_sharded_ranks(args.seed, sh_run["T4"], float(sh_run["H"].abs().max()), tmp)
+    calls.update(sh_calls)
     phase_profile(calls)
+    torch.distributed.destroy_process_group()
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": k, "route": "cuda", "source": source, "replaces": replaces,

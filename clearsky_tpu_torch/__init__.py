@@ -17,7 +17,11 @@ radiative-convective equilibrium (``run``: Euler steps, absorber refresh,
 dry convective adjustment) from the adiabats of ``atmosphere``. Every
 kernel carries the derivatives of its plain twin (``utils/twin.py``), so
 ``torch.func`` differentiates through the card's path: ``jacobian`` gives
-the RCM's dH/dT by forward mode or by finite differences.
+the RCM's dH/dT by forward mode or by finite differences. ``parallel``
+shards the wavenumber grid over processes (``torch.distributed``): each
+line-by-line gas becomes per-shard line slabs (``ShardedLineGas``, summed
+by K1-dev, every shard of a rank in one launch), each rank radiates its
+slab, and one all-reduce adds the spectral integrals.
 
 The module paths mirror ``clearsky_tpu``'s. Everything computes in the dtype
 and on the device of its inputs; CUDA tensors go through the kernels of
@@ -74,6 +78,8 @@ from .models.rcm import (
     convective_adjustment,
 )
 from .utils.grids import trapz, pressuregrid, logrange
+from .absorption.sharded import ShardedLineGas, shard_line_gas
+from . import parallel
 
 __all__ = [
     "SIGMA_SB",
@@ -93,6 +99,8 @@ __all__ = [
     "DirectGas",
     "GrayGas",
     "MultiGas",
+    "ShardedLineGas",
+    "shard_line_gas",
     "WellMixedGas",
     "VariableGas",
     "read_cia",

@@ -18,6 +18,7 @@ import torch
 from ..utils.interp import interp_linear
 from .cia import CIA, BoundCIA, CIATables
 from .gas import AbstractGas, DirectGas, Gas, MultiGas
+from .sharded import ShardedLineGas
 
 __all__ = [
     "AbsorberStack",
@@ -66,11 +67,11 @@ class AbsorberStack:
         for g in gases[1:]:
             if g.nu.shape != nu0.shape or g.nu.device != nu0.device or not torch.equal(g.nu, nu0):
                 raise ValueError("gases must have identical wavenumber vectors")
-        # CIA pairs with the line gases by formula, with a mixture through
-        # its per-molecule components
+        # CIA pairs with the line gases by formula, with a mixture (or a
+        # sharded gas) through its per-molecule components
         realgases = tuple(g for g in gases if isinstance(g, (Gas, DirectGas)))
         for g in gases:
-            if isinstance(g, MultiGas):
+            if isinstance(g, (MultiGas, ShardedLineGas)):
                 realgases = realgases + g.components()
         # the host grid only where a table binds to it (a stack built under
         # a torch.func transform has no host view of its tensors)
@@ -84,6 +85,14 @@ class AbsorberStack:
     @property
     def n_nu(self) -> int:
         return self.nu.shape[0]
+
+    def spectral_slab(self, lo: int, hi: int) -> "AbsorberStack":
+        """The stack on grid points [lo, hi): each gas's and CIA pair's slab
+        (a line-by-line gas must be sharded first); the functions see the
+        slab's wavenumbers."""
+        return dataclasses.replace(self, nu=self.nu[lo:hi],
+                                   gases=tuple(g.spectral_slab(lo, hi) for g in self.gases),
+                                   cias=tuple(c.spectral_slab(lo, hi) for c in self.cias))
 
     def sigma(self, T, P):
         """Total cross-section sigma[..., n_nu] [cm^2/molecule] at (T, P) tensors."""
@@ -134,6 +143,11 @@ class AcceleratedAbsorber:
         ln = torch.where(sig > 0, torch.log(torch.clamp(sig, min=tiny)),
                          torch.full_like(sig, _LOG_TINY))
         return dataclasses.replace(self, ln_sigma=ln, T=T)
+
+    def spectral_slab(self, lo: int, hi: int) -> "AcceleratedAbsorber":
+        """The cache on grid points [lo, hi), with its stack's slab."""
+        return dataclasses.replace(self, ln_sigma=self.ln_sigma[:, lo:hi].contiguous(),
+                                   nu=self.nu[lo:hi], stack=self.stack.spectral_slab(lo, hi))
 
     def sigma(self, T, P):
         """Total cross-section [..., n_nu]; T is ignored (cached)."""

@@ -224,6 +224,12 @@ class BoundCIA:
                 total = total + torch.where(sm, torch.exp(slogk + scale), zero)
         return total.to(self.dtype)
 
+    def spectral_slab(self, lo: int, hi: int) -> "BoundCIA":
+        """The tables on grid points [lo, hi)."""
+        cols = lambda xs: tuple(x[..., lo:hi].contiguous() for x in xs)
+        return dataclasses.replace(self, logk=cols(self.logk), mask=cols(self.mask),
+                                   s_logk=cols(self.s_logk), s_mask=cols(self.s_mask))
+
 
 def cia_xsec(k, T, Pa, P1, P2):
     """CIA cross-section [cm^2/molecule] from k [cm^5/molecule^2]: the pair's
@@ -278,6 +284,10 @@ class CIA:
 
         f1, f2 = tables.formulae
         return cls(tables=tables, g1=find(f1), g2=find(f2), name=tables.name)
+
+    def spectral_slab(self, lo: int, hi: int) -> "CIA":
+        """The pair on grid points [lo, hi)."""
+        return dataclasses.replace(self, tables=self.tables.spectral_slab(lo, hi))
 
     def sigma(self, T, P):
         """The CIA cross-section [..., n_nu] at (T, P) tensors, through k Lo."""

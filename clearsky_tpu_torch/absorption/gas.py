@@ -327,6 +327,13 @@ class Gas(AbstractGas):
             else self.coeffs_tail[:, idx].contiguous(),
         )
 
+    def spectral_slab(self, lo: int, hi: int) -> "Gas":
+        """The gas on grid points [lo, hi): its coefficients' columns."""
+        return dataclasses.replace(
+            self, nu=self.nu[lo:hi], coeffs=self.coeffs[:, lo:hi].contiguous(),
+            coeffs_tail=None if self.coeffs_tail is None
+            else self.coeffs_tail[:, lo:hi].contiguous())
+
     def __repr__(self):  # pragma: no cover - cosmetic
         return f"Gas({self.name} [{self.formula}], n_nu={self.nu.shape[0]}, mu={self.mu:.6g})"
 
@@ -408,6 +415,18 @@ class DirectGas(AbstractGas):
         return sigma_from_lines_auto(self.plan, self.lines, T, P, C * P, self.shape,
                                      strategy=self.strategy)
 
+    def spectral_slab(self, lo: int, hi: int):
+        _refuse_slab(self)
+
+
+def _refuse_slab(gas):
+    """A line-by-line gas's plan covers the whole grid against the whole
+    catalog: a slice of its grid would sum every line against it."""
+    raise ValueError(
+        f"{type(gas).__name__} holds one banding plan for the whole grid and catalog, so it "
+        "has no spectral slab; shard it first (parallel.shard_lbl or shard_line_gas), which "
+        "gives each shard its own line slab and plan")
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class GrayGas(AbstractGas):
@@ -430,6 +449,10 @@ class GrayGas(AbstractGas):
         shp = torch.broadcast_shapes(T.shape, P.shape)
         return torch.full(shp + (self.nu.shape[0],), self.sigma, dtype=self.nu.dtype,
                           device=self.nu.device)
+
+    def spectral_slab(self, lo: int, hi: int) -> "GrayGas":
+        """The gas on grid points [lo, hi)."""
+        return dataclasses.replace(self, nu=self.nu[lo:hi])
 
     def concentration(self, T, P):
         return torch.ones(torch.broadcast_shapes(T.shape, P.shape), dtype=self.nu.dtype,
@@ -549,6 +572,9 @@ class MultiGas(AbstractGas):
         """The mixture's cross-section [..., n_nu], concentrations included."""
         return sigma_from_lines_auto(self.plan, self.lines, T, P, None, self.shape,
                                      conc=self._conc(T, P))
+
+    def spectral_slab(self, lo: int, hi: int):
+        _refuse_slab(self)
 
     def concentration(self, T, P):
         """1: the concentrations are folded into each line."""

@@ -17,14 +17,16 @@ import torch
 from .spectra.lines import SpectralLines, PER_LINE_FIELDS
 from .absorption.cia import BoundCIA, CIATables
 from .absorption.gas import DirectGas, Gas, MultiGas, as_concentration
+from .absorption.sharded import ShardedLineGas, coarse_fields
+from .ops.linesum import DeviceWindowPlan
 from .absorption.domain import AtmosphericDomain
 from .ops.linesum import build_line_window_plan
 from .absorption.absorbers import AcceleratedAbsorber, unify_absorbers
 from .models.rcm import RCM
 from .utils.device import placement
 
-__all__ = ["spectral_lines", "direct_gas", "multi_gas", "cia", "domain", "gas", "rcm_arrays",
-           "rcm"]
+__all__ = ["spectral_lines", "direct_gas", "multi_gas", "sharded_line_gas", "cia", "domain",
+           "gas", "rcm_arrays", "rcm"]
 
 
 def spectral_lines(jax_lines, dtype=None, device=None) -> SpectralLines:
@@ -78,6 +80,41 @@ def multi_gas(jax_gas, fCs=None, dtype=None, device=None) -> MultiGas:
         shape=jax_gas.shape, fCs=fCs, formulas=tuple(jax_gas.formulas),
         names=tuple(jax_gas.names), name=jax_gas.name, formula=jax_gas.formula,
         mu=float(jax_gas.mu))
+
+
+def sharded_line_gas(jax_gas, fC=None, fCs=None, dtype=None, device=None) -> ShardedLineGas:
+    """A ``clearsky_tpu`` ShardedLineGas on the port: its stacked line slabs
+    (with their padding) and stacked plans carried across as they are, the
+    coarse split's windows found on them (the port keeps them in the plan).
+
+    ``fC`` (one molecule) or ``fCs`` (a mixture's molecules, by default the
+    JAX gas's own) are concentrations on tensors, as for :func:`direct_gas`
+    and :func:`multi_gas`.
+    """
+    lines = spectral_lines(jax_gas.lines, dtype, device)
+    dev = lines.device
+    jp = jax_gas.plans
+    arr = lambda x, dt: torch.tensor(np.asarray(x), dtype=dt, device=dev)
+    coarse = {}
+    if jp.coarse_meta is not None:
+        f64 = lambda hi, lo: np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
+        coarse = coarse_fields(lines.positions64(), f64(jp.fine_blocks, jp.fine_blocks_lo),
+                               f64(jp.coarse_blocks, jp.coarse_blocks_lo), float(jp.cut),
+                               tuple(jp.coarse_meta), bool(jp.coarse_auto), dev)
+    plans = DeviceWindowPlan(
+        nu_blocks=arr(np.asarray(jp.nu_blocks, np.float64), torch.float64),
+        nu_blocks_lo=arr(jp.nu_blocks_lo, torch.float32), start=arr(jp.start, torch.int32),
+        count=arr(jp.count, torch.int32), cut=float(jp.cut), block=int(jp.block),
+        n_blocks=int(jp.n_blocks), slab=int(jp.slab), n_nu=int(jp.n_nu), **coarse)
+    fcs = tuple(as_concentration(c) for c in (jax_gas.fCs if fCs is None else fCs))
+    return ShardedLineGas(
+        lines=lines, plans=plans,
+        nu=torch.tensor(np.asarray(jax_gas.nu, np.float64), dtype=lines.dtype, device=dev),
+        conc=None if jax_gas.conc is None else arr(jax_gas.conc, lines.dtype),
+        mol_ptr=None if jax_gas.mol_ptr is None else arr(jax_gas.mol_ptr, torch.int64),
+        shape=jax_gas.shape, fC=None if fC is None else as_concentration(fC), fCs=fcs,
+        name=jax_gas.name, formula=jax_gas.formula, mu=float(jax_gas.mu),
+        n_shards=int(jax_gas.n_shards), strategy=jax_gas.strategy)
 
 
 def cia(jax_cia, dtype=None, device=None):
@@ -147,7 +184,8 @@ def rcm_arrays(jax_rcm) -> dict:
 def rcm(jax_rcm, *absorbers, fmu=None, fcp=None) -> RCM:
     """The JAX RCM's state on the port, with its cross-sections cached anew.
 
-    ``absorbers`` are port absorbers; their dtype and device are the RCM's.
+    ``absorbers`` are port absorbers (a ``ShardedLineGas`` among them);
+    their dtype and device are the RCM's.
     The cache is rebuilt at the JAX absorber's edge temperatures. ``fmu``
     and ``fcp`` default to the JAX model's closures, which must then compute
     on tensors (constants and plain arithmetic do).

@@ -68,6 +68,19 @@
 //     modes. The masks are the same, so the sum is the same; the branch only
 //     diverges inside a warp for the few points within d_near of a line core.
 //     FINE's near sub-window is therefore its mid window.
+// K1-dev (the shard axis, grid z) replaces linesum_pallas.py::
+// sigma_from_lines_pallas_device (:1705): the same modes over a stack of
+// spectral shards, each with its own block grid, its own windows into its own
+// line slab, and its own d_near from its own lines (padding lines, placed at
+// 1e30 cm^-1 with zero strength, kept out of it). Shard s of a launch reads
+// grid points [s n_blocks B, (s + 1) n_blocks B), window rows
+// [s n_blocks, (s + 1) n_blocks), d_near[s], and writes columns
+// [s n_out, (s + 1) n_out) of each state's row. The slabs lie side by side
+// as one catalog of k L_pad lines (positions and coefficient pack), and the
+// wrapper offsets shard s's window starts by s L_pad, so the line loop is
+// K1's. One launch a mode covers every shard a rank holds; with one shard
+// (grid z = 1, s = 0) every offset is 0 and a launch is K1's as it was.
+//
 // NOSPLIT is the split mode's sweep with the full w4 at every in-cut pair:
 // the same staging, pack of 3 values (Sia, ia, y0) a state and registers,
 // and some ten times the split mode's operations (the far wing mostly takes
@@ -411,7 +424,10 @@ __device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__
 // One block per block of grid points, one thread per point; win holds each
 // block's n_windows(MODE) windows as (start, count) pairs; bcoef (the phco2
 // modes) the rates [n_tiles][2][ST], B1 then B2 of each tile's states.
-// out: [n_states][ld_out], the first n_out columns written (ACC: added to)
+// Grid (n_blocks, n_tiles, n_shards): shard s = blockIdx.z reads its own
+// grid, windows and d_near[s] (see K1-dev above).
+// out: [n_states][ld_out], shard s's n_out columns from column s n_out
+// written (ACC: added to)
 template <int MODE, bool ACC>
 __global__ void linesum_kernel(const float* __restrict__ nu_hi,
                                const float* __restrict__ nu_lo,
@@ -434,11 +450,13 @@ __global__ void linesum_kernel(const float* __restrict__ nu_hi,
 
   const int b = blockIdx.x;
   const int tile = blockIdx.y;
+  const int shard = blockIdx.z;
   const int p = b * blockDim.x + threadIdx.x;  // grids are padded to whole blocks
-  const float nh = nu_hi[p];
-  const float nl = nu_lo[p];
-  const float d_near = (VM == VOIGT_SPLIT || VM == FINE) ? *d_near_p : 0.0f;
-  const int* w = win + (size_t)b * 2 * NW;
+  const size_t sb = (size_t)shard * gridDim.x + b;  // the block's row in the stack
+  const float nh = nu_hi[sb * blockDim.x + threadIdx.x];
+  const float nl = nu_lo[sb * blockDim.x + threadIdx.x];
+  const float d_near = (VM == VOIGT_SPLIT || VM == FINE) ? d_near_p[shard] : 0.0f;
+  const int* w = win + sb * 2 * NW;
   const float* ct = coef + (size_t)tile * n_lines * ST * NC;
   if constexpr (PH) {
     if (threadIdx.x < 2 * ST) s_B[threadIdx.x] = bcoef[(size_t)tile * 2 * ST + threadIdx.x];
@@ -471,7 +489,7 @@ __global__ void linesum_kernel(const float* __restrict__ nu_hi,
     for (int s = 0; s < ST; ++s) {
       const int st = tile * ST + s;
       if (st < n_states) {
-        float* o = out + (size_t)st * ld_out + p;
+        float* o = out + (size_t)st * ld_out + (size_t)shard * n_out + p;
         if constexpr (ACC) *o += acc[s];
         else *o = acc[s];
       }
@@ -666,19 +684,23 @@ int linesum_coef_per_state(int mode) { return n_coef(mode); }
 
 int linesum_windows_per_block(int mode) { return n_windows(mode); }
 
-// Launch `mode` on `stream`; zones: host float[7] (Zones, in field order);
-// bcoef: the phco2 modes' rates [n_tiles][2][ST] (unread by the others);
-// out: rows of ld_out floats, the first n_out of each written, or added to
-// with `accumulate` (the split, no-split and single-sweep modes only).
+// Launch `mode` on `stream` over n_shards shards of n_blocks blocks each
+// (K1: one shard); zones: host float[7] (Zones, in field order); d_near:
+// one value a shard; bcoef: the phco2 modes' rates [n_tiles][2][ST]
+// (unread by the others); out: rows of ld_out floats, the first
+// n_shards n_out of each written, or added to with `accumulate` (the split,
+// no-split and single-sweep modes only).
 // Returns cudaGetLastError() (0 on success).
 int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
                    const float* line_hi, const float* line_lo,
                    const float* coef, const int* win, const float* d_near,
                    const float* bcoef, const float* zones, int n_blocks, int block,
-                   int n_lines, int n_states, int n_out, int ld_out, int accumulate,
-                   float* out, void* stream) {
+                   int n_shards, int n_lines, int n_states, int n_out, int ld_out,
+                   int accumulate, float* out, void* stream) {
   const int n_tiles = (n_states + ST - 1) / ST;
-  const dim3 grid(n_blocks, n_tiles);
+  if (n_shards < 1 || n_shards > 65535 || n_tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n_blocks, n_tiles, n_shards);
   const Zones z{zones[0], zones[1], zones[2], zones[3], zones[4], zones[5], zones[6]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(M, A)                                                              \

@@ -103,6 +103,12 @@ class RCM:
     def nu(self) -> torch.Tensor:
         return self.A.nu
 
+    def spectral_slab(self, lo: int, hi: int) -> "RCM":
+        """The model on grid points [lo, hi): its boundary spectra and its
+        absorber's slab (``parallel.shard_spectral``)."""
+        return dataclasses.replace(self, S_nu=self.S_nu[lo:hi], a_nu=self.a_nu[lo:hi],
+                                   A=self.A.spectral_slab(lo, hi))
+
 
 def _mono_on_radiative_grid(rcm: RCM, T, A: AcceleratedAbsorber):
     """(tau, M_up, M_down) on the refined grid for cell temperatures T and

@@ -14,6 +14,13 @@ version (the modes of the stencil-near and coarse-far routes are in
 plain sum for CPU tensors and, for CUDA tensors, the route that
 :func:`.linesum_strategies.route` picks, through the kernel wrappers in
 :mod:`.linesum_cuda`.
+
+:class:`DeviceWindowPlan` holds a banding plan as tensors, one shard's or
+a stack of shards' (the spectrally sharded path, ``absorption/sharded.py``);
+:func:`sigma_from_lines_device` is its plain line sum and
+:func:`sigma_from_lines_auto_device` its dispatch: the plain sum shard by
+shard for CPU tensors, K1-dev (every shard in one launch a mode) for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import math
 import numpy as np
 import torch
 
+from ..spectra.lines import PER_LINE_FIELDS
 from ..utils import twin
 from .faddeeva import wofz_re
 from .lineshape import (
@@ -39,7 +47,11 @@ from .lineshape import (
 
 __all__ = [
     "LineWindowPlan",
+    "DeviceWindowPlan",
     "build_line_window_plan",
+    "sigma_from_lines_device",
+    "sigma_from_lines_shards",
+    "sigma_from_lines_auto_device",
     "sigma_from_lines",
     "sigma_from_lines_auto",
     "block_sum",
@@ -128,6 +140,116 @@ class LineWindowPlan:
     def windows(self) -> np.ndarray:
         """The line windows as a table [n_blocks, 2] of (start, count)."""
         return np.stack([self.start, self.count], axis=1).astype(np.int64)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DeviceWindowPlan:
+    """A banding plan as tensors: one shard's (``start`` [n_blocks]) or a
+    stack of shards' (every tensor with a leading shard axis [k, ...]).
+
+    Counterpart of ``clearsky_tpu.ops.linesum.DeviceWindowPlan``: the same
+    windows as a :class:`LineWindowPlan`, but as data, so that each shard of
+    the sharded path carries its own plan against its own line slab.
+    ``nu_blocks`` is the float64 block grid and ``nu_blocks_lo`` the float32
+    residual of its float32 rounding (two-float positions, as
+    :func:`two_float`). Where the coarse-far split's static geometry
+    accepts, ``fine_blocks``/``coarse_blocks`` (float32, with their ``_lo``
+    residuals) are each shard's re-blocked fine grid and its coarse grid,
+    ``coarse_meta`` = (d_far, h, n_cc, c_ratio), and ``coarse_auto`` says
+    whether the split passed the auto route's work fraction (0.2). The port
+    adds ``fine_windows`` [..., n_blocks_f, 6] and ``coarse_windows``
+    [..., n_blocks_c, 2], the line windows of the split's two passes
+    relative to the shard's slab, computed once at set-up (the JAX package
+    searches them at every call; the grids and slabs are static).
+    """
+
+    nu_blocks: torch.Tensor                  # [..., n_blocks, block] float64
+    nu_blocks_lo: torch.Tensor               # [..., n_blocks, block] float32
+    start: torch.Tensor                      # [..., n_blocks] int32
+    count: torch.Tensor                      # [..., n_blocks] int32
+    cut: float = 25.0
+    block: int = 128
+    n_blocks: int = 1
+    slab: int = 1
+    n_nu: int = 1
+    fine_blocks: torch.Tensor | None = None      # [..., n_blocks_f, Bf] float32
+    fine_blocks_lo: torch.Tensor | None = None
+    coarse_blocks: torch.Tensor | None = None    # [..., n_blocks_c, block] float32
+    coarse_blocks_lo: torch.Tensor | None = None
+    coarse_meta: tuple | None = None
+    coarse_auto: bool = False
+    fine_windows: torch.Tensor | None = None     # [..., n_blocks_f, 6] int32
+    coarse_windows: torch.Tensor | None = None   # [..., n_blocks_c, 2] int32
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        # the host copy of the windows, read by the plain sum: taken here,
+        # where the tensors are plain (a torch.func transform wraps them)
+        if "windows" not in self._cache:
+            self._cache["windows"] = np.stack(
+                [self.start.cpu().numpy(), self.count.cpu().numpy()], axis=-1).astype(np.int64)
+
+    TENSORS = ("nu_blocks", "nu_blocks_lo", "start", "count", "fine_blocks",
+               "fine_blocks_lo", "coarse_blocks", "coarse_blocks_lo", "fine_windows",
+               "coarse_windows")
+
+    @classmethod
+    def from_plan(cls, plan: LineWindowPlan, device="cpu") -> "DeviceWindowPlan":
+        """One shard's device plan from a host plan (no coarse split)."""
+        return cls.stack([plan], device).shard(0)
+
+    @classmethod
+    def stack(cls, plans, device="cpu", **coarse) -> "DeviceWindowPlan":
+        """The stacked plan of per-shard host plans of one shape; ``coarse``
+        the optional coarse-split fields, already stacked."""
+        dev = torch.device(device)
+        nb64 = np.stack([np.asarray(p.nu_blocks, np.float64) for p in plans])
+        _, lo = two_float(nb64)
+        i32 = lambda x: torch.as_tensor(np.stack(x), dtype=torch.int32, device=dev)
+        p0 = plans[0]
+        return cls(nu_blocks=torch.as_tensor(nb64, device=dev),
+                   nu_blocks_lo=torch.as_tensor(lo, device=dev),
+                   start=i32([p.start for p in plans]), count=i32([p.count for p in plans]),
+                   cut=float(p0.cut), block=int(p0.block), n_blocks=int(p0.n_blocks),
+                   slab=int(max(p.slab for p in plans)), n_nu=int(p0.n_nu),
+                   _cache={"windows": np.stack([p.windows() for p in plans])}, **coarse)
+
+    @property
+    def n_shards(self) -> int:
+        """Shards in the stack (1 for an unstacked plan)."""
+        return self.start.shape[0] if self.start.dim() == 2 else 1
+
+    def shard(self, s) -> "DeviceWindowPlan":
+        """Shard ``s`` (an index, or a slice: a sub-stack) of a stacked plan."""
+        return dataclasses.replace(
+            self, _cache={"windows": self._cache["windows"][s]},
+            **{f: None if getattr(self, f) is None else getattr(self, f)[s]
+               for f in self.TENSORS})
+
+    def stacked(self) -> "DeviceWindowPlan":
+        """The plan with a leading shard axis (itself if it has one)."""
+        if self.start.dim() == 2:
+            return self
+        return dataclasses.replace(
+            self, _cache={"windows": self._cache["windows"][None]},
+            **{f: None if getattr(self, f) is None else getattr(self, f)[None]
+               for f in self.TENSORS})
+
+    def windows(self) -> np.ndarray:
+        """One shard's line windows as a host table [n_blocks, 2] of (start, count)."""
+        return self._cache["windows"]
+
+    def host_plan(self) -> LineWindowPlan:
+        """One shard's plan as a host :class:`LineWindowPlan` (for the
+        routes that take one: K4 and K5)."""
+        got = self._cache.get("host")
+        if got is None:
+            nb = self.nu_blocks.cpu().double().numpy()
+            got = self._cache["host"] = LineWindowPlan(
+                nu=nb.reshape(-1)[: self.n_nu].copy(), cut=self.cut, block=self.block,
+                n_blocks=self.n_blocks, nu_blocks=nb, start=self.start.cpu().numpy(),
+                count=self.count.cpu().numpy(), slab=self.slab)
+        return got
 
 
 def two_float(x64) -> tuple[np.ndarray, np.ndarray]:
@@ -334,6 +456,84 @@ def sigma_from_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt"
               lambda adnu, D: adnu <= cut, None)]
     sig = block_sum(nb, nb_lo, lines, plan.windows(), zones, batch)
     return sig[..., : plan.n_nu]
+
+
+def sigma_from_lines_device(dplan: DeviceWindowPlan, lines, T, P, Pp, shape: str = "voigt",
+                            conc=None):
+    """:func:`sigma_from_lines` over one shard's device plan and its line
+    slab: the exact profile over each block's window, sigma[..., n_nu]. In
+    float32 the block grid is the plan's two-float (hi, lo) pair; in float64
+    its float64 grid (``clearsky_tpu.ops.linesum.sigma_from_lines_device``)."""
+    S, alpha, gamma = torch.broadcast_tensors(*_line_params(lines, T, P, Pp, conc))
+    if S.dtype == torch.float32:
+        nb, nb_lo = dplan.nu_blocks.float(), dplan.nu_blocks_lo
+    else:
+        nb, nb_lo = dplan.nu_blocks.to(S.dtype), None
+    cut = dplan.cut
+    batch = tuple(S.shape[:-1])
+    zones = [(0, tile_exact(shape, S, alpha, gamma, tile_T(T, batch)),
+              lambda adnu, D: adnu <= cut, None)]
+    sig = block_sum(nb.to(S.device), None if nb_lo is None else nb_lo.to(S.device), lines,
+                    dplan.windows(), zones, batch)
+    return sig[..., : dplan.n_nu]
+
+
+def shard_lines(lines, s):
+    """Shard ``s`` of a stacked line slab (every per-line field [k, L_pad];
+    the TIPS table is shared)."""
+    return dataclasses.replace(lines, **{f: getattr(lines, f)[s] for f in PER_LINE_FIELDS})
+
+
+def shard_conc(conc, s):
+    """Shard ``s`` of stacked per-line concentrations: [k, L_pad] (fixed) or
+    [..., k, L_pad] (per state); None stays None."""
+    return None if conc is None else conc[..., s, :]
+
+
+def sigma_from_lines_shards(dplan: DeviceWindowPlan, lines, T, P, Pp, shape: str = "voigt",
+                            conc=None):
+    """The exact line sum of each shard of a stacked plan over its own slab
+    (:func:`sigma_from_lines_device`), side by side, [..., k n_nu]: the
+    plain version of K1-dev."""
+    return torch.cat([sigma_from_lines_device(dplan.shard(s), shard_lines(lines, s), T, P, Pp,
+                                              shape, shard_conc(conc, s))
+                      for s in range(dplan.n_shards)], dim=-1)
+
+
+def sigma_from_lines_auto_device(dplan: DeviceWindowPlan, lines, T, P, Pp,
+                                 shape: str = "voigt", conc=None, strategy: str = "auto"):
+    """The line sum over a device plan, sigma[..., k n_nu] for a stack of k
+    shards (their slabs side by side; [..., n_nu] for one unstacked shard).
+
+    ``lines`` are the shards' padded line slabs (per-line fields [k, L_pad],
+    or [L_pad] for one shard) and ``conc`` their per-line concentrations
+    ([k, L_pad], or [..., k, L_pad] per state). CPU tensors take the exact
+    plain sum shard by shard (:func:`sigma_from_lines_device`), whatever the
+    strategy, as the JAX package does off its accelerator; CUDA tensors
+    take the route of ``strategy`` on the card, K1-dev with every shard of
+    the stack in one launch a mode (``linesum_cuda.sigma_device``), with the
+    exact plain sum's derivatives.
+    """
+    from .linesum_strategies import check_strategy
+
+    check_strategy(strategy)
+    if dplan.start.dim() == 1:
+        lines1 = dataclasses.replace(
+            lines, **{f: getattr(lines, f)[None] for f in PER_LINE_FIELDS})
+        c1 = None if conc is None else conc[..., None, :]
+        return sigma_from_lines_auto_device(dplan.stacked(), lines1, T, P, Pp, shape, c1,
+                                            strategy)
+    if not twin.kernel_path(T):
+        return sigma_from_lines_shards(dplan, lines, T, P, P if Pp is None else Pp, shape, conc)
+    from .linesum_cuda import sigma_device
+
+    k, L = lines.nu.shape
+    shp, Tf, Pf, Ppf, _ = _flatten_states(T, P, Pp, None, k * L)
+    if conc is not None and conc.dim() > 2:      # per-state concentrations
+        shp = torch.broadcast_shapes(shp, conc.shape[:-2])
+        conc = torch.broadcast_to(conc, shp + (k, L)).reshape(-1, k, L).contiguous()
+    sig = sigma_device(dplan, lines, Tf, Pf, Ppf, shape=shape, strategy=strategy, conc=conc)
+    return sig.reshape(shp + (k * dplan.n_nu,))
 
 
 def _flatten_states(T, P, Pp, conc, n_lines):

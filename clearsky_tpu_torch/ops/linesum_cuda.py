@@ -48,7 +48,9 @@ and K5's under "gathered" ("phco2_segmented", "phco2_lane",
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from ..spectra.lines import PER_LINE_FIELDS
@@ -56,10 +58,14 @@ from ..utils import twin
 from ..utils.cuda_build import check_operand, load_library
 from .linesum import (
     PHCO2_FAMILY,
+    DeviceWindowPlan,
     LineWindowPlan,
     _line_params,
     effective_alpha,
+    shard_conc,
+    shard_lines,
     sigma_from_lines,
+    sigma_from_lines_shards,
     two_float,
     voigt_coefficients,
 )
@@ -69,7 +75,12 @@ from .linesum_strategies import (
     chi_T,
     _slice_lines,
     coarse_geometry,
+    device_route,
     far_from_coarse,
+    masked_alpha_max,
+    resident_budget,
+    split_zones,
+    strided_interp,
     gathered_slabs,
     lane_layout,
     segments,
@@ -85,7 +96,8 @@ from .linesum_strategies import (
 )
 
 __all__ = ["sigma_lines", "sigma_nosplit", "sigma_stencil", "sigma_coarse", "sigma_segmented",
-           "sigma_lane", "sigma_gathered", "sigma_routed", "stencil_correction", "launch_mode",
+           "sigma_lane", "sigma_gathered", "sigma_routed", "sigma_device", "device_launches",
+           "stencil_correction", "launch_mode",
            "launch_fullprofile", "pack_coefficients", "near_distance", "chi_rates",
            "window_mode", "nosplit_mode", "gather_group", "MODES", "WINDOW_MODES",
            "NOSPLIT_MODES", "GATHER_BYTES"]
@@ -114,6 +126,9 @@ _ACC_MODES = (0, 1, 2, 7, 12, 13)
 # launch-count keys of the routes that run K1 per segment and K4/K5
 _ROUTE_COUNTS = ("segmented", "lane", "gathered", "phco2_segmented", "phco2_lane",
                  "phco2_gathered")
+# K1-dev's launches (the sharded path) count under "dev_" and the mode's name
+_DEV_MODES = (0, 1, 2, 4, 6, 7, 9, 11, 12, 13)
+_DEV_COUNTS = tuple("dev_" + _MODE_NAMES[m] for m in _DEV_MODES)
 ST = 8  # states per tile; csrc/linesum.cu ``ST``
 # K5's gathered slabs (S, alpha, gamma: 12 bytes a state, block and slab
 # line) are built for at most this many bytes of states at a time
@@ -219,7 +234,7 @@ def _library():
             raise RuntimeError(f"csrc/linesum.cu packs {layout}, this wrapper "
                                f"{(ST, _N_COEF, _N_WIN)}")
         fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_F),
-                       _I, _I, _I, _I, _I, _I, _I, _P, _P]
+                       _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
         fn.restype = _I
         full = lib.fullprofile_launch
         full.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
@@ -268,34 +283,40 @@ def _count(name: str) -> None:
 
 
 def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, zones,
-                d_near=None, out=None, count_as=None, bcoef=None):
-    """One K1 launch into a new sigma[n_states, n_out], or added into the
-    first n_out columns of ``out``.
+                d_near=None, out=None, count_as=None, bcoef=None, n_shards: int = 1):
+    """One K1 launch into a new sigma[n_states, n_shards * n_out], or added
+    into the first n_out columns of ``out``.
 
     ``grid`` holds the block grid ``nu_hi``/``nu_lo`` (flat, float32,
-    n_blocks * block) and the int32 window table ``win``
-    [n_blocks, 2 * windows per block] on the device; ``coef`` is the pack of
-    :func:`pack_coefficients` for ``mode``; ``zones`` from :func:`_zones`;
-    ``d_near`` a one-element tensor for the split and FINE modes; ``bcoef``
-    the :func:`chi_rates` of the phco2 modes, and only of them. ``out``
-    (the split and single-sweep modes): a float32 [n_states, >= n_out] view
-    with unit column stride, added to in place (K1-seg). The launch counts
-    under ``count_as``, else under its mode.
+    n_shards * n_blocks * block) and the int32 window table ``win``
+    [n_shards * n_blocks, 2 * windows per block] on the device; ``coef`` is
+    the pack of :func:`pack_coefficients` for ``mode``; ``zones`` from
+    :func:`_zones`; ``d_near`` a tensor of one value a shard for the split
+    and FINE modes; ``bcoef`` the :func:`chi_rates` of the phco2 modes, and
+    only of them. ``out`` (the split and single-sweep modes): a float32
+    [n_states, >= n_shards * n_out] view with unit column stride, added to
+    in place (K1-seg). ``n_shards`` > 1 is K1-dev: shard s's blocks, window
+    rows and d_near[s] give columns [s n_out, (s + 1) n_out); its windows
+    index the catalog ``lines`` (the shards' slabs side by side). The launch
+    counts under ``count_as``, else under its mode.
     """
     win = grid["win"]
-    n_blocks, block = win.shape[0], grid["nu_hi"].shape[0] // win.shape[0]
+    if n_shards < 1 or win.shape[0] % n_shards:
+        raise ValueError(f"{win.shape[0]} window rows do not split into {n_shards} shards")
+    n_blocks = win.shape[0] // n_shards
+    block = grid["nu_hi"].shape[0] // max(win.shape[0], 1)
     dev = coef.device
-    if tuple(win.shape) != (n_blocks, 2 * _N_WIN[mode]) or win.dtype != torch.int32:
+    if tuple(win.shape) != (n_shards * n_blocks, 2 * _N_WIN[mode]) or win.dtype != torch.int32:
         raise ValueError(f"mode {_MODE_NAMES[mode]} takes an int32 window table "
-                         f"[n_blocks, {2 * _N_WIN[mode]}]")
-    if block > 1024 or n_blocks * block < n_out:
-        raise ValueError(f"a grid of {n_blocks} blocks of {block} points cannot give "
+                         f"[n_shards * n_blocks, {2 * _N_WIN[mode]}]")
+    if block > 1024 or n_blocks * block < n_out or grid["nu_hi"].shape[0] != win.shape[0] * block:
+        raise ValueError(f"a grid of {n_blocks} blocks of {block} points a shard cannot give "
                          f"{n_out} outputs (at most 1024 threads a block)")
     check_operand("coef", coef, (-(-n_states // ST), lines.n_lines, ST * _N_COEF[mode]), dev)
     if (mode in _D_NEAR_MODES) != (d_near is not None):
         raise ValueError("d_near goes with the split and FINE modes, and only with them")
     if d_near is not None:
-        check_operand("d_near", d_near, (1,), dev)
+        check_operand("d_near", d_near, (n_shards,), dev)
     if (mode in _PHCO2_MODES) != (bcoef is not None):
         raise ValueError("chi's rates go with the phco2 modes, and only with them")
     if bcoef is not None:
@@ -305,18 +326,19 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
         if mode not in _ACC_MODES:
             raise ValueError("only the split and single-sweep modes add into sigma")
         if (out.dtype != torch.float32 or out.device != dev or out.dim() != 2
-                or out.shape[0] != n_states or out.shape[1] < n_out or out.stride(1) != 1):
-            raise ValueError(f"out must be a float32 [{n_states}, >= {n_out}] view on {dev} "
-                             "with unit column stride")
+                or out.shape[0] != n_states or out.shape[1] < n_shards * n_out
+                or out.stride(1) != 1):
+            raise ValueError(f"out must be a float32 [{n_states}, >= {n_shards * n_out}] view "
+                             f"on {dev} with unit column stride")
     else:
-        out = torch.empty((n_states, n_out), dtype=torch.float32, device=dev)
+        out = torch.empty((n_states, n_shards * n_out), dtype=torch.float32, device=dev)
     if n_states == 0 or lines.n_lines == 0:
         return out if accumulate else out.zero_()
     err = _library().linesum_launch(
         mode, grid["nu_hi"].data_ptr(), grid["nu_lo"].data_ptr(), lines.nu.data_ptr(),
         lines.nu_lo.data_ptr(), coef.data_ptr(), win.data_ptr(),
         None if d_near is None else d_near.data_ptr(),
-        None if bcoef is None else bcoef.data_ptr(), zones, n_blocks, block,
+        None if bcoef is None else bcoef.data_ptr(), zones, n_blocks, block, n_shards,
         lines.n_lines, n_states, n_out, out.stride(0), int(accumulate), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -363,7 +385,8 @@ def sigma_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", con
 
 
 sigma_lines.launches = 0
-sigma_lines.launches_by_mode = dict.fromkeys(tuple(_MODE_NAMES.values()) + _ROUTE_COUNTS, 0)
+sigma_lines.launches_by_mode = dict.fromkeys(
+    tuple(_MODE_NAMES.values()) + _ROUTE_COUNTS + _DEV_COUNTS, 0)
 
 
 def sigma_nosplit(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
@@ -700,3 +723,128 @@ def _routed_launch(plan: LineWindowPlan, lines, T, P, Pp, conc, shape, strategy,
     if name == "gathered":
         return sigma_gathered(plan, lines, T, P, Pp, shape, conc)
     return sigma_lines(plan, lines, T, P, Pp, shape, conc)
+
+
+# --- K1-dev: the sharded path's line sum --------------------------------------
+
+def _flat_lines(lines):
+    """A stack of line slabs [k, L_pad] as one catalog of k L_pad lines (views)."""
+    return dataclasses.replace(lines, **{f: getattr(lines, f).reshape(-1)
+                                         for f in PER_LINE_FIELDS})
+
+
+def _dev_grid(dplan: DeviceWindowPlan, kind: str, L: int, dev):
+    """K1-dev's operands of one grid of a stacked plan, on ``dev`` and
+    cached on the plan: the flat two-float grid of every shard and its
+    int32 window table [k n_blocks, 2 n_windows], each shard's starts moved
+    by s L into the side-by-side catalog. ``kind``: "plan" (the plan's
+    windows), "fine" or "coarse" (the split's passes)."""
+    key = ("dev_grid", kind, int(L), dev)
+    got = dplan._cache.get(key)
+    if got is None:
+        k = dplan.n_shards
+        if kind == "plan":
+            hi, lo = dplan.nu_blocks.float(), dplan.nu_blocks_lo
+            win = torch.stack([dplan.start, dplan.count], dim=-1)
+        else:
+            hi, lo = getattr(dplan, f"{kind}_blocks"), getattr(dplan, f"{kind}_blocks_lo")
+            win = getattr(dplan, f"{kind}_windows")
+        win = win.to(device=dev, dtype=torch.int64)
+        shift = torch.zeros_like(win)
+        shift[..., 0::2] = (torch.arange(k, device=dev) * L)[:, None, None]
+        win = (win + shift).reshape(-1, win.shape[-1]).to(torch.int32).contiguous()
+        _check_windows(win.cpu().numpy().astype(np.int64), k * L)
+        got = dplan._cache[key] = {"nu_hi": hi.to(dev).reshape(-1).contiguous(),
+                                   "nu_lo": lo.to(dev).reshape(-1).contiguous(), "win": win}
+    return got
+
+
+def sigma_device(dplan: DeviceWindowPlan, lines, T, P, Pp, shape: str = "voigt",
+                 strategy: str = "auto", conc=None):
+    """K1-dev, flat states [n_states]: the line sum over a stacked device
+    plan (k shards) and the shards' padded line slabs (per-line fields
+    [k, L_pad]; ``conc`` [k, L_pad] or [n_states, k, L_pad]),
+    sigma[n_states, k n_nu], through the route
+    :func:`.linesum_strategies.device_route` gives at the card's L2
+    (:func:`.linesum_strategies.resident_budget`). The coarse split and
+    K1's windowed sweeps run every shard in one launch a mode; "lane" and
+    "gathered" run K4 or K5 once a shard.
+
+    Differentiable in T, P, Pp and conc with the derivatives of the exact
+    plain sum (:func:`.linesum.sigma_from_lines_shards`). CPU tensors take
+    that plain sum.
+    """
+    for f in PER_LINE_FIELDS:
+        twin.refuse_derivatives(f"lines.{f}", getattr(lines, f))
+    plain = lambda T, P, Pp, conc: sigma_from_lines_shards(dplan, lines, T, P, Pp, shape, conc)
+    if not twin.kernel_path(T):
+        return plain(T, P, Pp, conc)
+    return twin.with_twin(lambda *x: _device_launch(dplan, lines, *x, shape, strategy),
+                          plain, T, P, Pp, conc)
+
+
+def _device_launch(dplan: DeviceWindowPlan, lines, T, P, Pp, conc, shape, strategy):
+    """:func:`sigma_device`'s primal on the card."""
+    k, L = lines.nu.shape
+    if dplan.n_shards != k or dplan.start.dim() != 2:
+        raise ValueError(f"a stacked plan of {dplan.n_shards} shards for {k} line slabs")
+    n = T.shape[0]
+    if n == 0:
+        return torch.zeros((0, k * dplan.n_nu), dtype=torch.float32, device=T.device)
+    name = device_route(dplan, L, shape, strategy, n, resident_budget(T.device))
+    if name in ("lane", "gathered"):
+        run = sigma_lane if name == "lane" else sigma_gathered
+        return torch.cat([run(dplan.shard(s).host_plan(), shard_lines(lines, s), T, P, Pp, shape,
+                              shard_conc(conc, s)) for s in range(k)], dim=-1)
+    launches, finish = device_launches(dplan, lines, T, P, Pp, conc, shape, name)
+    return finish(*(launch() for _, launch in launches))
+
+
+def device_launches(dplan: DeviceWindowPlan, lines, T, P, Pp, conc, shape: str, route: str):
+    """K1-dev's launches for a windowed ``route`` ("grouped", "nosplit" or
+    "coarse"), with their operands checked and packed: (launches, finish).
+    ``launches`` lists (launch-count name, a function of no arguments that
+    launches one mode over every shard and returns its output); ``finish``
+    makes sigma [n_states, k n_nu] of the outputs (the coarse route adds
+    the far field interpolated from its coarse grids). A caller can so time
+    each launch apart from the pack."""
+    k, L = lines.nu.shape
+    n = T.shape[0]
+    flat = _flat_lines(lines)
+    if conc is not None:
+        conc = conc.reshape(conc.shape[:-2] + (k * L,))
+    _, dev = _checked(flat, T, P, Pp, conc)
+    S, alpha, gamma = _line_params(flat, T, P, Pp, conc)
+    alpha = effective_alpha(shape, alpha)
+    # each shard's largest Doppler width over its real lines
+    amax = masked_alpha_max(alpha.view(n, k, L), lines.nu[None], dims=(0, 2))
+    if route == "coarse":
+        split_check(shape)
+        d_far, h, n_cc, c_ratio = dplan.coarse_meta
+        z = split_zones(dplan.cut, d_far, h)
+        zones = _zones(**z)
+        coef = pack_coefficients(window_mode("farall", shape), S, alpha, gamma)
+        bcoef = chi_rates(T) if shape in PHCO2_FAMILY else None
+        d_near = torch.clamp(15.0 * amax, max=z["cut_f"]).contiguous()
+        fm, cm = window_mode("fine", shape), window_mode("coarse", shape)
+        fgrid, cgrid = _dev_grid(dplan, "fine", L, dev), _dev_grid(dplan, "coarse", L, dev)
+        interp = strided_interp(c_ratio, dplan.n_nu)
+        launches = [
+            ("dev_" + _MODE_NAMES[fm],
+             lambda: launch_mode(fm, fgrid, flat, coef, n, dplan.n_nu, zones, d_near, bcoef=bcoef,
+                                 n_shards=k, count_as="dev_" + _MODE_NAMES[fm])),
+            ("dev_" + _MODE_NAMES[cm],
+             lambda: launch_mode(cm, cgrid, flat, coef, n, n_cc, zones, bcoef=bcoef, n_shards=k,
+                                 count_as="dev_" + _MODE_NAMES[cm]))]
+        finish = lambda fine, far_c: fine + far_from_coarse(far_c.view(n * k, n_cc),
+                                                            interp).view(n, k * dplan.n_nu)
+        return launches, finish
+    mode = nosplit_mode(shape) if route == "nosplit" else _mode(shape)
+    coef = pack_coefficients(mode, S, alpha, gamma)
+    d_near = (torch.clamp(15.0 * amax, max=dplan.cut).contiguous()
+              if mode in _D_NEAR_MODES else None)
+    bcoef = chi_rates(T) if mode in _PHCO2_MODES else None
+    grid, zones = _dev_grid(dplan, "plan", L, dev), _zones(dplan.cut)
+    return [("dev_" + _MODE_NAMES[mode],
+             lambda: launch_mode(mode, grid, flat, coef, n, dplan.n_nu, zones, d_near, bcoef=bcoef,
+                                 n_shards=k, count_as="dev_" + _MODE_NAMES[mode]))], lambda x: x

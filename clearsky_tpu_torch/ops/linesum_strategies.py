@@ -98,6 +98,10 @@ __all__ = [
     "sigma_nosplit_plain",
     "sigma_coarse_plain",
     "coarse_route_plain",
+    "device_route",
+    "fine_block",
+    "split_windows",
+    "sigma_coarse_device_plain",
     "sigma_segmented_plain",
     "sigma_lane_plain",
     "sigma_gathered_plain",
@@ -310,39 +314,59 @@ class CoarseGeom:
     _on_device: dict = dataclasses.field(default_factory=dict, repr=False)
 
 
-def _build_coarse_geom(plan: LineWindowPlan, lines, params) -> CoarseGeom:
-    d_far, h, n_cc, c_ratio = params
-    cut = float(plan.cut)
-    w_roll = W_ROLL_CELLS * h
-    nu_f = np.asarray(plan.nu, np.float64)
-    n_nu, B = plan.n_nu, plan.block
-    nu_c0 = nu_f[0] - 2.0 * h
+def coarse_grid(nu0: float, h: float, n_cc: int, B: int) -> np.ndarray:
+    """The split's coarse grid [n_blocks_c, B] (float64): n_cc points of
+    spacing h from nu0 - 2h, the last block padded with the last point."""
+    nu_c0 = nu0 - 2.0 * h
     n_blocks_c = -(-n_cc // B)
     pad_c = np.full(n_blocks_c * B - n_cc, nu_c0 + (n_cc - 1) * h)
-    cnb = np.concatenate([nu_c0 + np.arange(n_cc) * h, pad_c]).reshape(n_blocks_c, B)
-    fnb = np.asarray(plan.nu_blocks, np.float64)
-    pos = lines.positions64()
+    return np.concatenate([nu_c0 + np.arange(n_cc) * h, pad_c]).reshape(n_blocks_c, B)
+
+
+def split_zones(cut: float, d_far: float, h: float) -> dict:
+    """The coarse split's distances (:class:`CoarseGeom` ``zones``)."""
+    w_roll = W_ROLL_CELLS * h
+    return dict(cut=cut, cut_f=2.0 * d_far, d_lo=d_far, D1=d_far * d_far,
+                D2=4.0 * d_far * d_far, R1=(cut - w_roll) ** 2, R2=cut * cut)
+
+
+def split_windows(pos, fine_blocks, coarse_blocks, cut: float, d_far: float, h: float):
+    """The line windows of the split's two passes, as the JAX package's
+    ``_coarse_core`` searches them: (fine [n_blocks_f, 6] as (mid, left
+    annulus, right annulus), coarse [n_blocks_c, 2]) of (start, count)
+    against the sorted float64 positions ``pos``, with 0.01 cm^-1 margins
+    (membership is decided in the kernel by the |dnu| masks)."""
+    w_roll = W_ROLL_CELLS * h
 
     def win(nb, lo_off, hi_off):
-        # 0.01 cm^-1 margins, as the JAX package: membership is decided in
-        # the kernel by the |dnu| masks
         s = np.searchsorted(pos, nb[:, 0] + lo_off, side="left")
         e = np.searchsorted(pos, nb[:, -1] + hi_off, side="right")
         return [s, np.maximum(e - s, 0)]
 
-    fine_windows = np.stack(
-        win(fnb, -2.0 * d_far - 0.01, 2.0 * d_far + 0.01)
-        + win(fnb, -cut - 0.01, -cut + w_roll + 0.01)
-        + win(fnb, cut - w_roll - 0.01, cut + 0.01), axis=1).astype(np.int64)
-    coarse_windows = np.stack(win(cnb, -cut - 0.01, cut + 0.01), axis=1).astype(np.int64)
+    fine = np.stack(
+        win(fine_blocks, -2.0 * d_far - 0.01, 2.0 * d_far + 0.01)
+        + win(fine_blocks, -cut - 0.01, -cut + w_roll + 0.01)
+        + win(fine_blocks, cut - w_roll - 0.01, cut + 0.01), axis=1).astype(np.int64)
+    coarse = np.stack(win(coarse_blocks, -cut - 0.01, cut + 0.01), axis=1).astype(np.int64)
+    return fine, coarse
+
+
+def _build_coarse_geom(plan: LineWindowPlan, lines, params) -> CoarseGeom:
+    d_far, h, n_cc, c_ratio = params
+    cut = float(plan.cut)
+    nu_f = np.asarray(plan.nu, np.float64)
+    n_nu, B = plan.n_nu, plan.block
+    nu_c0 = nu_f[0] - 2.0 * h
+    cnb = coarse_grid(nu_f[0], h, n_cc, B)
+    fnb = np.asarray(plan.nu_blocks, np.float64)
+    fine_windows, coarse_windows = split_windows(lines.positions64(), fnb, cnb, cut, d_far, h)
     if c_ratio < 2:
         u = (nu_f - nu_c0) / h
         j = np.clip(np.floor(u).astype(np.int64), 1, n_cc - 3)
         interp_j, interp_w = j, _cr_weights(u - j)
     else:
         interp_j, interp_w = None, _cr_weights(np.arange(c_ratio, dtype=np.float64) / c_ratio)
-    zones = dict(cut=cut, cut_f=2.0 * d_far, d_lo=d_far, D1=d_far * d_far,
-                 D2=4.0 * d_far * d_far, R1=(cut - w_roll) ** 2, R2=cut * cut)
+    zones = split_zones(cut, d_far, h)
     return CoarseGeom(params=tuple(params), n_nu=n_nu, zones=zones, fine_blocks=fnb,
                       fine_windows=fine_windows, coarse_blocks=cnb,
                       coarse_windows=coarse_windows, interp_j=interp_j, interp_w=interp_w,
@@ -481,6 +505,52 @@ def _resolve(plan: LineWindowPlan, lines, shape: str, strategy: str, n_states: i
     if strategy == "lane" and _resident_bytes_est(n_lines, plan.slab, 3 * n_states + 2) <= limit:
         return "lane", None
     return "gathered", None
+
+
+def fine_block(shape: str, n_nu: int, B: int) -> int:
+    """The block width of the split's fine pass on the sharded path, the
+    JAX package's ``_fine_block``: 512 points for the voigt family on grids
+    of at least 2048 points, else the plan's block."""
+    return 512 if n_nu >= 2048 and shape in VOIGT_FAMILY else B
+
+
+DEVICE_ROUTES = ("coarse", "grouped", "nosplit", "lane", "gathered")
+
+
+def device_route(dplan, n_lines: int, shape: str = "voigt", strategy: str = "auto",
+                 n_states: int = 1, budget: int = H100_L2_BYTES) -> str:
+    """The route of a line sum over a device plan (the sharded path) on the
+    card, one of :data:`DEVICE_ROUTES`: the JAX package's
+    ``sigma_from_lines_pallas_device`` and ``_pallas_sigma_impl`` at the
+    byte ``budget`` (:func:`resident_budget`) for slabs of ``n_lines``.
+
+    The coarse-far split where the plan carries it (``coarse_meta``), the
+    shape is of the Voigt family, and the strategy is "coarse", or "auto"
+    for the phco2 family, or "auto" where the split passed the auto work
+    fraction (``coarse_auto``), and only where its pack fits; otherwise
+    "coarse" reads as "auto", and "auto", "grouped", "stencil" and
+    "nosplit" take K1 over the plan's windows where the pack fits (the
+    no-split sweep for "nosplit" on the Voigt family; the device path has
+    no stencil geometry, so "stencil" runs the split mode), "lane" the
+    lane-major kernel where its rows fit, and everything else the gathered
+    kernel. There is no segmented route on this path.
+    """
+    check_strategy(strategy)
+    if (dplan.coarse_meta is not None and shape in SPLIT_SHAPES
+            and (strategy == "coarse" or (strategy == "auto" and shape in PHCO2_FAMILY)
+                 or (strategy == "auto" and dplan.coarse_auto))
+            and _coarse_resident_ok(shape, n_states, n_lines, budget)):
+        return "coarse"
+    if strategy == "coarse":
+        strategy = "auto"
+    if strategy in ("auto", "grouped", "nosplit", "stencil"):
+        cost = _grouped_lane_cost(shape, "grouped" if strategy == "stencil" else strategy,
+                                  n_states)
+        if _resident_bytes_est(n_lines, dplan.slab, cost) <= budget:
+            return "nosplit" if strategy == "nosplit" and shape in SPLIT_SHAPES else "grouped"
+    if strategy == "lane" and _resident_bytes_est(n_lines, dplan.slab, 3 * n_states + 2) <= budget:
+        return "lane"
+    return "gathered"
 
 
 def route(plan: LineWindowPlan, lines, shape: str = "voigt", strategy: str = "auto",
@@ -697,6 +767,47 @@ def coarse_route_plain(geom: CoarseGeom, lines, T, P, Pp, conc=None, shape: str 
     far_c = sigma_mode_plain("coarse", geom.coarse_blocks, geom.coarse_windows, lines, co,
                              z, T=Tc)[:, : geom.params[2]]
     return fine + far_from_coarse(far_c, geom)
+
+
+def strided_interp(c_ratio: int, n_nu: int):
+    """The interpolation of a uniform grid's far field for
+    :func:`far_from_coarse` (its strided form: fine point m c + r from
+    coarse points m + 1 .. m + 4 at t = r / c)."""
+    return types.SimpleNamespace(n_nu=int(n_nu), interp_j=None, _on_device={},
+                                 interp_w=_cr_weights(np.arange(c_ratio, dtype=np.float64)
+                                                      / c_ratio))
+
+
+def masked_alpha_max(alpha, nu, dims=None):
+    """The largest Doppler width over real lines: padding lines (positions
+    at 1e30 cm^-1) are kept out, or their alpha ~ nu would set d_near to its
+    limit and turn the whole window into core sweeps. ``alpha`` [..., L]
+    against positions ``nu`` [L]; over all of it, or ``dims``."""
+    a = torch.where(nu < 1e29, alpha, torch.zeros((), dtype=alpha.dtype, device=alpha.device))
+    return a.amax() if dims is None else a.amax(dim=dims)
+
+
+def sigma_coarse_device_plain(dplan, lines, T, P, Pp, conc=None, shape: str = "voigt"):
+    """The coarse-far route over one shard's device plan in plain PyTorch,
+    flat states [n_states] (``_coarse_core`` on the shard's prebuilt grids):
+    FINE on the shard's fine grid with d_near = min(15 max alpha, 2 d_far)
+    over its real lines, COARSE on its coarse grid, the far field
+    interpolated back (strided: the sharded path takes the split only on
+    uniform lattices)."""
+    split_check(shape)
+    d_far, h, n_cc, c_ratio = dplan.coarse_meta
+    alpha, co = coefficients(lines, T, P, Pp, conc, shape)
+    Tc = chi_T(shape, T)
+    z = split_zones(dplan.cut, d_far, h)
+    d_near = torch.clamp(15.0 * masked_alpha_max(alpha, lines.nu), max=z["cut_f"])
+    grid64 = lambda hi, lo: hi.double().cpu().numpy() + lo.double().cpu().numpy()
+    fine = sigma_mode_plain("fine", grid64(dplan.fine_blocks, dplan.fine_blocks_lo),
+                            dplan.fine_windows.cpu().numpy().astype(np.int64), lines, co, z,
+                            d_near, T=Tc)[:, : dplan.n_nu]
+    far_c = sigma_mode_plain("coarse", grid64(dplan.coarse_blocks, dplan.coarse_blocks_lo),
+                             dplan.coarse_windows.cpu().numpy().astype(np.int64), lines, co, z,
+                             T=Tc)[:, :n_cc]
+    return fine + far_from_coarse(far_c, strided_interp(c_ratio, dplan.n_nu))
 
 
 # --- the large-catalog and baseline layouts (K1-seg, K4, K5) ----------------

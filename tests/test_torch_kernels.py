@@ -38,6 +38,7 @@ from clearsky_tpu_torch.ops.linesum import (
     build_line_window_plan,
     sigma_from_lines,
     sigma_from_lines_auto,
+    sigma_from_lines_shards,
     two_float,
     voigt_coefficients,
 )
@@ -1098,3 +1099,127 @@ def test_functions_carry_derivatives_on_the_card(dense, cuda, kernel):
     assert float((y - y0).abs().max()) <= 1e-3 * float(y0.abs().max())
     assert float((dy - dy0).abs().max()) <= scale(dy0)
     assert float((gr - gr0).abs().max()) <= scale(gr0)
+
+
+# --- K1-dev: the sharded path's line sum (one launch a mode for every shard) ---
+
+def _sharded(lines64, nu, shape, k, device, dtype):
+    from clearsky_tpu_torch.absorption.sharded import shard_line_gas
+
+    lines = lines64 if dtype == torch.float64 else lines64.to(dtype, device)
+    return shard_line_gas(ct.DirectGas.from_lines(lines, 0.9, nu, shape=shape), k)
+
+
+@pytest.fixture(scope="module")
+def sharded_cats():
+    """The voigt family's dense band (1500 lines on 2300-2350 cm^-1, 8192
+    points, where the coarse split engages) and the phco2 family's span
+    +- 500 cm^-1 (400 lines, 8192 points), each in 4 shards."""
+    dense = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(1500, seed=3),
+                                           dtype=torch.float64, device="cpu")
+    wide = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(400, seed=5),
+                                          dtype=torch.float64, device="cpu")
+    pos = wide.positions64()
+    return {"voigt": (dense, np.linspace(2300.0, 2350.0, 8192)),
+            "phco2": (wide, np.linspace(pos.min() - 500.0, pos.max() + 500.0, 8192))}
+
+
+def _dev_call(sg, x, strategy):
+    return linesum_cuda.sigma_device(sg.plans, sg.lines, *x, shape=sg.shape, strategy=strategy)
+
+
+def test_k1_dev_on_cpu_takes_the_plain_version(sharded_cats):
+    lines, nu = sharded_cats["voigt"]
+    sg = _sharded(lines, nu, "voigt", 4, "cpu", torch.float64)
+    x = _t(_mode_states(3))
+    counts = dict(sigma_lines.launches_by_mode)
+    np.testing.assert_array_equal(_dev_call(sg, x, "coarse").numpy(),
+                                  sigma_from_lines_shards(sg.plans, sg.lines, *x).numpy())
+    assert sigma_lines.launches_by_mode == counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,shape,strategy,modes", [
+    ("voigt", "voigt", "grouped", {"dev_voigt_split": 1}),
+    ("voigt", "voigt", "nosplit", {"dev_nosplit": 1}),
+    ("voigt", "voigt", "coarse", {"dev_fine": 1, "dev_coarse": 1}),
+    ("voigt", "lorentz", "auto", {"dev_lorentz": 1}),
+    ("voigt", "doppler", "auto", {"dev_doppler": 1}),
+    ("phco2", "phco2", "grouped", {"dev_phco2_split": 1}),
+    ("phco2", "phco2", "nosplit", {"dev_phco2_nosplit": 1}),
+    ("phco2", "phco2", "coarse", {"dev_phco2_fine": 1, "dev_phco2_coarse": 1}),
+])
+@pytest.mark.parametrize("n", [1, 11])
+def test_k1_dev_matches_plain(sharded_cats, cuda, family, shape, strategy, modes, n):
+    """K1-dev in each mode and family, float32 on the card over 4 shards in
+    one launch a mode, against its float64 plain version on the same
+    shards: the exact line sum (rtol 2e-3 where |sigma| > 1e-35, K1's bar),
+    or for the coarse route the route's plain version shard by shard (1e-5
+    of each state's peak, the windowed modes' bar)."""
+    lines, nu = sharded_cats[family]
+    s64 = _sharded(lines, nu, shape, 4, "cpu", torch.float64)
+    s32 = _sharded(lines, nu, shape, 4, cuda, torch.float32)
+    x = _mode_states(n)
+    before = dict(sigma_lines.launches_by_mode)
+    out = _dev_call(s32, _t(x, torch.float32, cuda), strategy)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in sigma_lines.launches_by_mode.items() if v != before[k]}
+    assert got == modes
+    x64 = _t(x)
+    if strategy == "coarse":
+        from clearsky_tpu_torch.ops.linesum import shard_lines
+
+        ref = torch.cat([ls.sigma_coarse_device_plain(s64.plans.shard(s), shard_lines(s64.lines, s),
+                                                      *x64, shape=shape) for s in range(4)], -1)
+        assert bool(torch.isfinite(out).all()) and _of_peak(out, ref) < 1e-5
+    else:
+        _check_sigma(out, sigma_from_lines_shards(s64.plans, s64.lines, *x64, shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,strategy", [("voigt", "grouped"), ("voigt", "coarse"),
+                                             ("phco2", "grouped")])
+def test_k1_dev_one_launch_is_its_shards(sharded_cats, cuda, family, strategy):
+    """Every shard in one launch gives each shard's columns bit for bit as
+    the shard alone does; one shard of the whole grid is K1 itself."""
+    lines, nu = sharded_cats[family]
+    s32 = _sharded(lines, nu, family, 4, cuda, torch.float32)
+    x = _t(_mode_states(11), torch.float32, cuda)
+    out = _dev_call(s32, x, strategy)
+    n = s32.n_local
+    parts = torch.cat([_dev_call(s32.spectral_slab(s * n, (s + 1) * n), x, strategy)
+                       for s in range(4)], -1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, parts)
+    if strategy == "grouped":
+        from clearsky_tpu_torch.ops.linesum import DeviceWindowPlan
+
+        gas = ct.DirectGas.from_lines(lines.to(torch.float32, cuda), 0.9, nu, shape=family)
+        one = DeviceWindowPlan.from_plan(gas.plan, cuda).stacked()
+        import dataclasses
+        from clearsky_tpu_torch.spectra.lines import PER_LINE_FIELDS
+
+        l1 = dataclasses.replace(gas.lines, **{f: getattr(gas.lines, f)[None]
+                                               for f in PER_LINE_FIELDS})
+        k1 = sigma_lines(gas.plan, gas.lines, *x, shape=family)
+        dev1 = linesum_cuda.sigma_device(one, l1, *x, shape=family, strategy="grouped")
+        torch.cuda.synchronize()
+        assert torch.equal(k1, dev1)
+        # and the sharded sum against K1 over the whole grid: the same lines
+        # in every window; d_near from each shard's lines moves the switch
+        # between region 1 and w4, where they agree
+        assert _of_peak(out, k1.double().cpu()) < 1e-5
+
+
+@pytest.mark.gpu
+def test_k1_dev_rejects_bad_inputs(sharded_cats, cuda):
+    lines, nu = sharded_cats["voigt"]
+    s32 = _sharded(lines, nu, "voigt", 4, cuda, torch.float32)
+    T, P, Pp = _t(_mode_states(3), torch.float32, cuda)
+    with pytest.raises(TypeError):        # float64 states
+        _dev_call(s32, (T.double(), P, Pp), "grouped")
+    with pytest.raises(ValueError):       # a stack of plans for other slabs
+        linesum_cuda.sigma_device(s32.plans.shard(slice(0, 2)), s32.lines, T, P, Pp)
+    with pytest.raises(RuntimeError, match="derivative"):
+        linesum_cuda._device_launch(s32.plans, s32.lines, T.requires_grad_(), P, Pp, None,
+                                    "voigt", "grouped")
