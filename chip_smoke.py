@@ -121,8 +121,17 @@ prints one line that starts with its name:
           within float32 reduction-order noise
   profile for each main-path, table-path, route and mix call, its unprofiled
           wall time beside the device time that torch.profiler traces (CUDA
-          activity), each kernel's share (K1 by mode) and the device's idle
-          share, 1 - device / wall; it runs after the launch counts are read
+          activity), each kernel's share (K1 by mode, K1-seg's launches by
+          their adding instance) and the device's idle share, 1 - device /
+          wall; it runs after the launch counts are read
+
+K1's kernel lines for the coarse passes (voigt, phco2, K1-dev) and K1-seg
+also carry its build and its work items (``k1_layout``): registers, shared
+bytes and resident warps a block, the blocks launched (pieces x state
+tiles), the pieces, and the lines per grid block, max and mean.
+
+``clearsky_tpu_torch/tools/k1_probe.py`` times every K1 instance alone at
+these shapes, against another version of the port in the same run.
 
 Then the card's name and power limit, one JSON line ``{"kernels": [...]}``
 and, last, the line ``{"ok": true, "device": {...}}``. Any failed check
@@ -603,14 +612,33 @@ def kernel_linesum_main_shape(par, dev, report):
                 edge=edge)
 
 
-def _mode_operands(lines, states):
-    """S, alpha, the voigt coefficients and the 7-value pack of the windowed modes."""
+def _mode_operands(lines, states, mode="farall"):
+    """alpha, the voigt coefficients and the pack of the windowed ``mode``."""
     from clearsky_tpu_torch.ops.linesum import voigt_coefficients, _line_params
     from clearsky_tpu_torch.ops.linesum_cuda import pack_coefficients, WINDOW_MODES
 
     S, alpha, gamma = _line_params(lines, *states)
     co = voigt_coefficients(S, alpha, gamma)
-    return alpha, co, pack_coefficients(WINDOW_MODES["farall"], S, alpha, gamma)
+    return alpha, co, pack_coefficients(WINDOW_MODES[mode], S, alpha, gamma)
+
+
+def k1_layout(mode: int, grid: dict, n_states: int) -> dict:
+    """K1's build and work items for one launch of ``mode`` over ``grid``:
+    registers, shared bytes and resident warps (of 64 an SM) of its blocks,
+    the work items (pieces x state tiles: the launch's blocks), the pieces,
+    and the lines per grid block (its windows together), max and mean."""
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+
+    n_win = lc._N_WIN[mode]
+    _, n_pieces, n_slots = lc._pieces(grid, n_win)
+    block = grid["nu_hi"].shape[0] // grid["win"].shape[0]
+    info = lc.kernel_info(mode, block)
+    w = grid["win"].cpu().numpy()[:, 1::2].sum(axis=1)
+    return dict(registers=info["registers"], shared_bytes=info["shared_bytes"],
+                local_bytes=info["local_bytes"], resident_warps=info["resident_warps"],
+                ctas=n_pieces * lc.state_tiles(n_states), pieces=n_pieces,
+                piece_lines=lc.PIECE_LINES, scratch_slots=n_slots,
+                max_window_lines=int(w.max(initial=0)), mean_window_lines=float(w.mean()))
 
 
 def _windowed_line(name, mode, blocks64, windows, n_out, lines, l64, states, z, d_near,
@@ -620,10 +648,11 @@ def _windowed_line(name, mode, blocks64, windows, n_out, lines, l64, states, z, 
     float32 version, with its bound."""
     from clearsky_tpu_torch.ops import linesum_strategies as ls
     from clearsky_tpu_torch.ops.linesum import two_float
-    from clearsky_tpu_torch.ops.linesum_cuda import launch_mode, WINDOW_MODES, _zones
+    from clearsky_tpu_torch.ops.linesum_cuda import (launch_mode, far_reciprocal_ok,
+                                                     WINDOW_MODES, _zones)
 
     dev = states[0].device
-    alpha, co, coef = _mode_operands(lines, states)
+    alpha, co, coef = _mode_operands(lines, states, mode)
     _, co64, _ = _mode_operands(l64, [x.double() for x in states])
     hi, lo = two_float(blocks64)
     grid = {"nu_hi": torch.as_tensor(hi.reshape(-1), device=dev),
@@ -631,8 +660,9 @@ def _windowed_line(name, mode, blocks64, windows, n_out, lines, l64, states, z, 
             "win": torch.as_tensor(windows, dtype=torch.int32, device=dev)}
     n = int(states[0].shape[0])
     zones = _zones(**z)
+    fast = far_reciprocal_ok(WINDOW_MODES[mode], co, 1, z["cut"])
     launch = lambda: launch_mode(WINDOW_MODES[mode], grid, lines, coef, n, n_out, zones,
-                                 d_near)
+                                 d_near, fast=fast)
     out = launch()
     torch.cuda.synchronize()
     d64 = None if d_near is None else d_near.double()
@@ -647,6 +677,7 @@ def _windowed_line(name, mode, blocks64, windows, n_out, lines, l64, states, z, 
     emit("kernel", kernel=MODE_KERNEL[mode], mode=mode, points=n_out, states=n,
          lines=lines.n_lines, err_of_peak=err, max_abs_err=max_abs,
          bar="1e-5 of each state's peak", ms=ms, plain_ms=plain_ms, plain_shape="same",
+         far_reciprocal=bool(fast.item()), **k1_layout(WINDOW_MODES[mode], grid, n),
          **(extra or {}), **b)
     check(bool(torch.isfinite(out).all()) and err < 1e-5,
           f"K1 mode {mode} off its float64 plain version by {err:.3e} of peak")
@@ -1396,24 +1427,21 @@ def kernel_mix(mix, dev, states, report=None):
     torch.cuda.synchronize()
 
     # the kernels alone: each segment's pack built beforehand
-    prepared = []
-    for seg, grid in lc._segment_windows(plan, lines.n_lines, L_seg, dev):
-        sub = ls._slice_lines(lines, seg.a, seg.b)
-        S, a, g = _line_params(sub, T4, P4, P4, c32[:, seg.a:seg.b])
-        prepared.append((seg, grid, sub, lc.pack_coefficients(0, S, a, g),
-                         lc.near_distance(a, plan.cut)))
-    acc = torch.zeros((n, plan.n_nu), device=dev)
-
-    def kernels_only():
-        acc.zero_()
-        for seg, grid, sub, coef, d_near in prepared:
-            lc.launch_mode(0, grid, sub, coef, n, seg.n_out, lc._zones(plan.cut), d_near,
-                           out=acc[:, seg.blo * plan.block:], count_as="segmented")
-
+    kernels_only, prepared = _seg_launch(plan, lines, (T4, P4, P4), L_seg, 0, None, dev, c32,
+                                         "segmented")
     ms = cuda_ms(kernels_only)
     wrapper_ms = cuda_ms(lambda: lc.sigma_segmented(plan, lines, T4, P4, P4, L_seg, conc=c32))
     n_segs = len(prepared)
-    del prepared, acc
+    layouts = [k1_layout(0, grid, n) for _, grid, *_ in prepared]
+    layout = dict(layouts[0], ctas=sum(x["ctas"] for x in layouts),
+                  pieces=sum(x["pieces"] for x in layouts),
+                  scratch_slots=sum(x["scratch_slots"] for x in layouts),
+                  max_window_lines=max(x["max_window_lines"] for x in layouts),
+                  mean_window_lines=float(np.mean([x["mean_window_lines"] for x in layouts])),
+                  per_segment=[{k: x[k] for k in ("ctas", "pieces", "max_window_lines",
+                                                  "mean_window_lines")} for x in layouts],
+                  far_reciprocal=[bool(p[-1].item()) for p in prepared])
+    del prepared, kernels_only
     ref = ls.sigma_segmented_plain(plan, lines.to(torch.float64), *x64, x64[1], L_seg,
                                    conc=mg._conc(*x64))
     ref32, plain_ms = one_call(lambda: ls.sigma_segmented_plain(plan, lines, T4, P4, P4, L_seg,
@@ -1422,8 +1450,8 @@ def kernel_mix(mix, dev, states, report=None):
     S, a, g = _line_params(lines, T4, P4, P4, c32)
     b = _seg_bound(plan, lines, S, a, g, L_seg, n)
     _mix_line("linesum_segmented", out, ref, ref32, edge, ms, plain_ms, b, report,
-              lines=lines.n_lines, segments=n_segs, segment_lines=L_seg, state_tiles=-(-n // 8),
-              wrapper_ms=wrapper_ms)
+              lines=lines.n_lines, segments=n_segs, segment_lines=L_seg,
+              state_tiles=lc.state_tiles(n), wrapper_ms=wrapper_ms, **layout)
     del out, ref, ref32
 
     # K4 and K5 on the CO2 catalog
@@ -1815,10 +1843,14 @@ def _phco2_mode_line(name, mode, blocks64, windows, n_out, lines, l64, states, z
     grid = {"nu_hi": torch.as_tensor(hi.reshape(-1), device=dev),
             "nu_lo": torch.as_tensor(lo.reshape(-1), device=dev),
             "win": torch.as_tensor(windows, dtype=torch.int32, device=dev)}
+    from clearsky_tpu_torch.ops.linesum_cuda import far_reciprocal_ok
+
     n = int(states[0].shape[0])
     m = window_mode(mode, "phco2")
     zones = _zones(**z)
-    launch = lambda: launch_mode(m, grid, lines, coef, n, n_out, zones, d_near, bcoef=bcoef)
+    fast = far_reciprocal_ok(m, co, 1, z["cut"], bcoef)
+    launch = lambda: launch_mode(m, grid, lines, coef, n, n_out, zones, d_near, bcoef=bcoef,
+                                 fast=fast)
     out = launch()
     torch.cuda.synchronize()
     idx = sample_blocks(blocks64, stride)
@@ -1841,7 +1873,8 @@ def _phco2_mode_line(name, mode, blocks64, windows, n_out, lines, l64, states, z
          lines=lines.n_lines, err_of_peak=err, max_abs_err=max_abs,
          bar="1e-5 of each state's peak on the sample", ms=ms, plain_ms=plain_ms,
          plain_shape=f"sampled blocks: {len(idx)} of {blocks64.shape[0]} (every {stride}th "
-                     "and the band centres)", **(extra or {}), **b)
+                     "and the band centres)", far_reciprocal=bool(fast.item()),
+         **k1_layout(m, grid, n), **(extra or {}), **b)
     check(bool(torch.isfinite(out).all()) and err < 1e-5,
           f"K1 mode phco2_{mode} off its float64 plain version by {err:.3e} of peak")
     report[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -2074,24 +2107,10 @@ def kernel_phco2_strategies(par, seed, dev, report):
     budget = segment_budget(plan, lines, n)
     L_seg = ls._resolve(plan, lines, "phco2", "grouped", n, budget)[1]
     segs = ls.segments(plan, lines.n_lines, L_seg)
-    prepared = []
-    for seg, grid in lc._segment_windows(plan, lines.n_lines, L_seg, dev):
-        sub = ls._slice_lines(lines, seg.a, seg.b)
-        Ss, As, Gs = _line_params(sub, *states)
-        prepared.append((seg, grid, sub, lc.pack_coefficients(7, Ss, As, Gs),
-                         lc.near_distance(As, plan.cut)))
-    acc = torch.zeros((n, plan.n_nu), device=dev)
-
-    def seg_launch():
-        acc.zero_()
-        for seg, grid, sub, coef, d_near in prepared:
-            lc.launch_mode(7, grid, sub, coef, n, seg.n_out, lc._zones(plan.cut), d_near,
-                           out=acc[:, seg.blo * plan.block:], count_as="phco2_segmented",
-                           bcoef=bcoef)
-
-    seg_launch()
+    seg_launch, _ = _seg_launch(plan, lines, states, L_seg, 7, bcoef, dev,
+                                count_as="phco2_segmented")
+    out = seg_launch().clone()
     torch.cuda.synchronize()
-    out = acc.clone()
     ms = cuda_ms(seg_launch, n=5)
     ops, nbytes, exps = 0.0, 4 * n * plan.n_nu, 0.0
     for sg in segs:
@@ -2877,8 +2896,10 @@ def kernel_sharded(ms_main, dev, report):
         nwin = getattr(p, f"{mode}_windows")
         n_out = sa.n_local if mode == "fine" else n_cc
         b = bound(ops, _dev_bytes(sa, n, 7, blocks.numel(), nwin.numel() // 2, k * n_out))
+        layout = k1_layout(lc.window_mode(mode, "voigt"),
+                           lc._dev_grid(p, mode, sa.lines.nu.shape[-1], dev), n)
         _dev_report(f"linesum_dev_{mode}", report, o, ms, plain32_ms[mode], b, n, k, n_out,
-                    mode=mode, err_of_peak=err, max_abs_err=max_abs,
+                    mode=mode, err_of_peak=err, max_abs_err=max_abs, **layout,
                     bar="1e-5 of each state's peak", route_rel_err_where_above_peak_1e4=r4,
                     route_bar="rel 2e-3 where |sigma| > 1e-4 peak",
                     route_of_peak_vs_unsharded_coarse=e_route, bar_vs_unsharded="1e-4 of peak",
@@ -3132,10 +3153,11 @@ def _busy_us(intervals):
     return total
 
 
-# K1's template instances by mode number (csrc/linesum.cu ``Mode``) and its
-# accumulate flag (K1-seg), K4/K5 by their shape and gathered flag, the
-# correction by its chi flag, in the demangled (linesum_kernel<3, false>) or
-# mangled (linesum_kernelILi3ELb0E) name
+# K1's template instances by mode number (csrc/linesum.cu ``Mode``) and
+# accumulate flag (K1-seg's launches: linesum_kernel<0, true>), K4/K5 by
+# their shape and gathered flag, the correction by its chi flag, in the
+# demangled (linesum_kernel<3, false>) or mangled (linesum_kernelILi3ELb0EEv)
+# name
 _K1_MODE = {0: "linesum", 3: "linesum_farall", 4: "linesum_fine", 5: "linesum_fine_stencil",
             6: "linesum_coarse", 7: "linesum_phco2", 8: "linesum_phco2_farall",
             9: "linesum_phco2_fine", 10: "linesum_phco2_fine_stencil",
@@ -3193,6 +3215,35 @@ def phase_profile(calls, n: int = 3):
         emit("profile", call=name, calls=n, wall_ms_per_call=wall,
              device_ms_per_call=device, device_ops_per_call=len(evs) / n,
              kernel_ms_per_call=per_kernel, idle_share=1.0 - device / wall)
+
+
+def _seg_launch(plan, lines, states, L_seg, mode, bcoef, dev, conc=None, count_as=None):
+    """K1-seg's launches alone, into one sigma: (launch, its operands per
+    segment: segment, grid, lines, pack, d_near and the reciprocal's flag),
+    each segment's pack and flag built beforehand."""
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import _line_params
+
+    n = int(states[0].shape[0])
+    prepared = []
+    for seg, grid in lc._segment_windows(plan, lines.n_lines, L_seg, dev):
+        sub = ls._slice_lines(lines, seg.a, seg.b)
+        c = None if conc is None else conc[:, seg.a:seg.b]
+        S, a, g = _line_params(sub, *states, c)
+        coef, fast = lc._packed(mode, S, a, g, 1, plan.cut, bcoef)
+        prepared.append((seg, grid, sub, coef, lc.near_distance(a, plan.cut), fast))
+    acc = torch.zeros((n, plan.n_nu), device=dev)
+
+    def launch():
+        acc.zero_()
+        for seg, grid, sub, coef, d_near, fast in prepared:
+            lc.launch_mode(mode, grid, sub, coef, n, seg.n_out, lc._zones(plan.cut), d_near,
+                           out=acc[:, seg.blo * plan.block:], bcoef=bcoef, count_as=count_as,
+                           fast=fast)
+        return acc
+
+    return launch, prepared
 
 
 def main(argv=None) -> int:

@@ -17,11 +17,13 @@
 //     state), one sweep over the window with no near/far split, on the
 //     (Sia, ia, y0) pack, as K4's fullprofile_kernel evaluates it;
 //   * K1-seg (_pallas_sigma_segmented, which runs _pallas_sigma_impl's
-//     split, no-split and single-sweep modes once per catalog segment): the ACC
-//     instances add into sigma at a row stride of their own, so each
-//     segment adds its block range's columns in place, with no temporary
-//     and no separate sum. Segments run in order on one stream and each
-//     output element belongs to one thread of a launch, so nothing races.
+//     split, no-split and single-sweep modes once per catalog segment): a
+//     launch with `accumulate` (the kernel's ACC instance, which a profile
+//     names apart) adds into sigma at a row stride of its own,
+//     so each segment adds its block range's columns in place, with no
+//     temporary and no separate sum. Segments run in order on one stream and
+//     each output element is added to by one thread of a launch (that of the
+//     last work item of its block and tile), so nothing races.
 //     On the TPU the segments keep the pack inside VMEM; here they bound the
 //     per-segment temporaries (a pack is built, read while it sits in L2,
 //     and freed), and the segment length comes from the routing's budget.
@@ -30,72 +32,96 @@
 // the grouped kernel) is a second instance of every Voigt mode: y = y0 chi
 // with Perrin and Hartmann's chi(|dnu|, T), 1 below 3 cm^-1 and decaying in
 // three pieces beyond, so the far wing is region 1 in the explicit (x, y)
-// form on (Sia, ia, y0) (3 values a state and line) instead of the voigt
-// coefficients in D. chi takes ONE expf of the selected exponent (the TPU
-// code evaluates the three exponentials and selects; the value is the same
-// up to rounding); the pieces' arguments are formed once per (point, line)
-// and the rates B1(T), B2(T) of each state, computed in float64 by the
-// wrapper and rounded, sit in shared memory beside the coefficients. The
+// form on (Sia, ia, y0, A) (x^2 = D A) instead of the voigt coefficients in
+// D. chi takes ONE exponential of the selected exponent (the TPU code
+// evaluates the three exponentials and selects; the value is the same up to
+// rounding; K1 takes it in base 2, exp2f); the pieces' arguments are formed
+// once per (point, line) and the rates B1(T), B2(T) of each state, computed
+// in float64 by the wrapper and rounded, sit in shared memory. The
 // *_ref shapes need no device code: the wrapper folds alpha -> alpha /
 // sqrt(ln 2) into the coefficients, as _grouped_pack (:537) does. With a
 // cut of 500 cm^-1 almost every (point, line) pair is far wing, and each
-// then costs one expf (the SFU) and one IEEE division per state.
+// then costs one exponential (the SFU) and one division per state.
 // stencil_correction_kernel replaces the XLA-side _stencil_apply, which adds
 // Sia (w4 - region 1) at the grid points of each line's |x| <= 15 core; the
 // TPU placed it with one-hot matrix products, here atomicAdd puts it in
 // place (so its summation order changes from run to run).
 //
-// What bounds it on the H100: arithmetic, not memory. Every (point, line,
-// state) triple inside the cut costs about ten FP32 operations and one IEEE
-// division in the far wing (a full Humlicek w4 near the core), while the
-// bytes are one read of each block's line windows. The design follows from
-// that:
-//   * one CUDA block per block of grid points, one thread per point; a
-//     second grid axis runs over tiles of ST states;
-//   * each of the block's windows [start, start + count) streams through
-//     shared memory in chunks of CH lines (positions hi and lo, and the
-//     per-state coefficients), so each line is read from device memory once
-//     per block and reused by all of its points and states;
-//   * the per-(state, line) coefficients (Sia, ia, y0, A, c1, c2, k2) are
-//     computed before the launch, as _grouped_pack does, so the inner loop
-//     holds no per-line division; every voigt mode reads the same 7-value
-//     pack (FARALL and COARSE only A, c1, c2, k2);
-//   * the ST state accumulators live in registers, and the switching
-//     weights of the coarse-far split are computed once per (point, line)
-//     on the shared D = dnu^2, for all ST states;
-//   * a per-element branch on |dnu| > d_near replaces the TPU kernel's two
-//     masked sweeps (far: region 1; near: full w4) in the split and FINE
-//     modes. The masks are the same, so the sum is the same; the branch only
-//     diverges inside a warp for the few points within d_near of a line core.
-//     FINE's near sub-window is therefore its mid window.
-// K1-dev (the shard axis, grid z) replaces linesum_pallas.py::
-// sigma_from_lines_pallas_device (:1705): the same modes over a stack of
-// spectral shards, each with its own block grid, its own windows into its own
-// line slab, and its own d_near from its own lines (padding lines, placed at
-// 1e30 cm^-1 with zero strength, kept out of it). Shard s of a launch reads
-// grid points [s n_blocks B, (s + 1) n_blocks B), window rows
-// [s n_blocks, (s + 1) n_blocks), d_near[s], and writes columns
-// [s n_out, (s + 1) n_out) of each state's row. The slabs lie side by side
-// as one catalog of k L_pad lines (positions and coefficient pack), and the
-// wrapper offsets shard s's window starts by s L_pad, so the line loop is
-// K1's. One launch a mode covers every shard a rank holds; with one shard
-// (grid z = 1, s = 0) every offset is 0 and a launch is K1's as it was.
+// What bounds K1 on the H100: arithmetic, not memory. Every (point, line,
+// state) triple inside the cut costs about ten FP32 operations and one
+// reciprocal in the far wing (a full Humlicek w4 near the core), while the
+// bytes are one read of each block's line windows. Measured on one H100
+// before this design (PERF.md, step 0), the first one (one block per grid
+// block and tile of 8 states sweeping the block's whole window) lost its
+// time three ways: the coarse passes and FARALL ended on tails (the
+// densest 1% of blocks alone lasted 92-97% of the launch: windows of up to
+// 906 lines beside a mean of 167; phco2's coarse pass ran 624 blocks, under
+// one wave);
+// K1-seg ran at ~25% of its issue rate (~18 instructions a far triple: four
+// scalar shared loads, and an IEEE division whose slow-path branch kept the
+// states' divisions from interleaving); and a 7-float pack of 29.7 KB a
+// block held 28 of 64 warps an SM. The design answers each:
+//   (a) work items: the host cuts each block's windows into pieces of at
+//       most PIECE_LINES lines (ops/linesum_cuda.py::piece_schedule, cached
+//       with the grid), lists them costliest first, and the kernel runs one
+//       block per (piece, tile of states). A block of several pieces leaves
+//       its partial sums in scratch; the last of its items to arrive (an
+//       arrival counter after __threadfence) adds them in piece order and
+//       writes (or, K1-seg, adds) the columns once, so every launch gives
+//       the same bits and no float atomic touches sigma. Tiles are 8 states,
+//       then one of 4, 2 and 1 for the rest (57 = 7 x 8 + 1): no tile
+//       computes a state past the last;
+//   (b) the pack is line-major in 16-byte quads, [n_lines][n_states][4 or
+//       8]: one state's far-wing values (A, c1, c2, k2), or phco2's (Sia,
+//       ia, y0, A), are one LDS.128. Where the wrapper shows from the pack
+//       that every far-wing denominator lies in [2^-120, 2^120]
+//       (far_reciprocal_ok, one flag a shard) the division is one
+//       approximate reciprocal, a Newton step and the product (rcp_newton);
+//       elsewhere it stays IEEE. The near core's w4 stays exact, as a call
+//       (wofz_re_call) that keeps its registers out of the far loop;
+//   (c) chunks of CH = 32 lines (positions and the tile's quads) are staged
+//       with cp.async, chunk k + 1 in flight while chunk k is summed; 8.8 KB
+//       (16.9 KB for the two-quad split and FINE packs) of shared memory
+//       and at most 64 registers a thread (__launch_bounds__(512, 2)) hold 32
+//       or more of 64 warps an SM in blocks of 128 threads. Tensor cores do
+//       not apply: the sum is a rational function of each triple, not a
+//       matrix product.
+// The per-(point, line) work (the two-float dnu, the masks, the coarse
+// split's switching weights on the shared D = dnu^2, chi's piece) is done
+// once for the tile's states; a per-element branch on |dnu| > d_near
+// replaces the TPU kernel's two masked sweeps (far: region 1; near: full w4)
+// in the split and FINE modes (the masks are the same, so the sum is the
+// same; FINE's near sub-window is its mid window).
+// K1-dev replaces linesum_pallas.py::sigma_from_lines_pallas_device (:1705):
+// the same modes over a stack of spectral shards, each with its own block
+// grid, its own windows into its own line slab, and its own d_near from its
+// own lines (padding lines, placed at 1e30 cm^-1 with zero strength, kept
+// out of it). A piece's row is shard s's block b (row = s n_blocks + b): it
+// reads grid points [row B, (row + 1) B), d_near[s] and the reciprocal's
+// flag[s], and writes columns [s n_out, (s + 1) n_out) of each state's row.
+// The slabs lie side by side as one catalog of k L_pad lines (positions and
+// coefficient pack), and the wrapper offsets shard s's window starts by s
+// L_pad, so the line loop is K1's. One launch a mode covers every shard a
+// rank holds; a shard's pieces are the same alone or in a stack, so its
+// columns are the same bits.
 //
 // NOSPLIT is the split mode's sweep with the full w4 at every in-cut pair:
-// the same staging, pack of 3 values (Sia, ia, y0) a state and registers,
-// and some ten times the split mode's operations (the far wing mostly takes
-// w4's region 1 and the small-y repair, where the split mode takes region 1
-// in D alone). It is kept simple; it runs only where a caller asks for it.
+// the same staging and pack of (Sia, ia, y0), and some ten times the split
+// mode's operations (the far wing mostly takes w4's region 1 and the small-y
+// repair, where the split mode takes region 1 in D alone). It is kept
+// simple; it runs only where a caller asks for it.
 //
-// Built without --use_fast_math: divisions are IEEE, expf/sinf/cosf are the
-// accurate versions and subnormals are kept.
+// Built without --use_fast_math: divisions are IEEE but the far wing's
+// reciprocal above, expf/exp2f/sinf/cosf are the accurate versions and
+// subnormals are kept (the reciprocal's .ftz form is taken only on
+// operands shown to be normal).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int ST = 8;    // states per tile (grid y axis)
-constexpr int CH = 128;  // lines per shared-memory chunk
+constexpr int ST = 8;    // states per tile at most (K1's grid), and the rates' tile
+constexpr int CH = 32;   // lines per shared-memory chunk of K1 (two chunks in flight)
 
 enum Mode {
   VOIGT_SPLIT = 0, LORENTZ = 1, DOPPLER = 2,       // over the plan's windows
@@ -128,11 +154,19 @@ __host__ __device__ constexpr int voigt_mode(int mode) {
   }
 }
 
-// values per (state, line): (S, alpha, gamma) for Lorentz and Doppler, (Sia,
-// ia, y0) for the phco2 family and the no-split sweep, and the other voigt
-// modes add (A, c1, c2, k2)
-__host__ __device__ constexpr int n_coef(int mode) {
-  return (mode == LORENTZ || mode == DOPPLER || is_phco2(mode) || mode == NOSPLIT) ? 3 : 7;
+// 16-byte quads per (line, state) in K1's pack [n_lines][n_states][4 n_quads]:
+//   VOIGT_SPLIT, FINE: (Sia, ia, y0, 0) and the far wing's (A, c1, c2, k2);
+//   FARALL, FINE_STENCIL, COARSE: (A, c1, c2, k2), region 1 alone;
+//   the phco2 family: (Sia, ia, y0, A), region 1 on x^2 = D A and y = y0 chi;
+//   NOSPLIT: (Sia, ia, y0, A), A unread; LORENTZ, DOPPLER: (S, alpha, gamma, 0)
+__host__ __device__ constexpr int n_quads(int mode) {
+  return (mode == VOIGT_SPLIT || mode == FINE) ? 2 : 1;
+}
+
+// line windows per block: FINE and FINE_STENCIL sweep the mid window and the
+// two annuli at the cut; every other mode one window
+__host__ __device__ constexpr int n_windows(int mode) {
+  return (voigt_mode(mode) == FINE || voigt_mode(mode) == FINE_STENCIL) ? 3 : 1;
 }
 
 // the modes whose launch may add into sigma (K1-seg): the split, no-split
@@ -142,10 +176,34 @@ __host__ __device__ constexpr bool can_accumulate(int mode) {
          mode == NOSPLIT || mode == PH_NOSPLIT;
 }
 
-// line windows per block: FINE and FINE_STENCIL sweep the mid window and the
-// two annuli at the cut; every other mode one window
-__host__ __device__ constexpr int n_windows(int mode) {
-  return (voigt_mode(mode) == FINE || voigt_mode(mode) == FINE_STENCIL) ? 3 : 1;
+// K1's tiles of states: n / ST tiles of ST, then one of 4, 2 and 1 for each
+// bit of the remainder (57 = 7 x 8 + 1), so no tile computes a state past
+// the last
+__host__ __device__ constexpr int n_state_tiles(int n) {
+  return n / ST + ((n % ST) >> 2 & 1) + ((n % ST) >> 1 & 1) + (n % ST & 1);
+}
+
+__device__ __forceinline__ void tile_states(int t, int n, int& s0, int& ns) {
+  const int full = n / ST;
+  if (t < full) {
+    s0 = t * ST;
+    ns = ST;
+    return;
+  }
+  s0 = full * ST;
+  t -= full;
+  const int r = n - s0;
+  ns = 0;
+  for (int w = ST / 2; w >= 1; w >>= 1) {
+    if (r & w) {
+      if (t == 0) {
+        ns = w;
+        return;
+      }
+      s0 += w;
+      --t;
+    }
+  }
 }
 
 // The distances of a launch, float32 as the TPU kernel rounds its constants:
@@ -159,6 +217,11 @@ struct Zones {
 // what a sweep over one window adds
 enum Zone { Z_SPLIT, Z_LORENTZ, Z_DOPPLER, Z_FARALL, Z_MID, Z_MID_ALL, Z_ANNULUS, Z_COARSE,
             Z_FULL };
+
+// the zones whose terms are region 1 (beyond d_near, in Z_SPLIT and Z_MID)
+__host__ __device__ constexpr bool has_far(int zone) {
+  return zone != Z_LORENTZ && zone != Z_DOPPLER && zone != Z_FULL;
+}
 
 __device__ __forceinline__ void cmul(float ar, float ai, float br, float bi,
                                      float& pr, float& pi) {
@@ -252,19 +315,15 @@ __device__ float wofz_re(float x, float y) {
   return wr;
 }
 
+// the same w4 as a call: the split modes' near-core branch, taken at fewer
+// than 1% of the pairs, keeps its registers out of the far-wing loop's
+__device__ __noinline__ float wofz_re_call(float x, float y) { return wofz_re(x, y); }
+
 // C^2 smootherstep in squared distance: 0 below A1, 1 at A1 + 1/inv
 // (linesum_pallas.py::_smoothstep_d2)
 __device__ __forceinline__ float smooth_d2(float D, float A1, float inv) {
   const float w = fminf(fmaxf((D - A1) * inv, 0.0f), 1.0f);
   return w * w * w * (10.0f + w * (-15.0f + 6.0f * w));
-}
-
-// Humlicek region 1 in the shared D = dnu^2 on one state's coefficients:
-// k2 (c1 + m) / ((c1 - m)^2 + c2 D) with m = D A
-__device__ __forceinline__ float region1(const float* c, float D) {
-  const float m = D * c[3];
-  const float br = c[4] - m;
-  return (c[6] * (c[4] + m)) / (br * br + c[5] * D);
 }
 
 // Re of region 1 in the explicit (x, y) algebra of the TPU code's phco2 far
@@ -296,58 +355,152 @@ __device__ __forceinline__ float chi_of(const ChiArg& q, float B1, float B2) {
   return expf(-(B1 * q.u) - B2 * q.v - q.w);
 }
 
-// one state's far-wing term: region 1 in D (voigt), or Sia times the
-// explicit form at (dnu ia, y0 chi) (phco2)
-template <bool PH>
-__device__ __forceinline__ float far_term(const float* c, float dnu, float D, float chi) {
-  if constexpr (PH) return c[0] * region1_xy(dnu * c[1], c[2] * chi);
-  else return region1(c, D);
+// chi in base 2, as K1 takes it: chi = 2^-(B1' u + B2' v + w'), with the
+// rates B' = B log2(e) scaled once as a tile's rates are staged and w' =
+// 0.0232 log2(e) (|dnu| - 120); the same value up to rounding, with exp2f's
+// shorter sequence in the far-wing loop
+constexpr float LOG2E = 1.44269504088896341f;
+
+__device__ __forceinline__ ChiArg chi_arg2(float a) {
+  ChiArg q = chi_arg(a);
+  q.w = a < 120.0f ? 0.0f : (0.0232f * LOG2E) * (a - 120.0f);
+  return q;
 }
 
-// one state's core term: Sia Re w(dnu ia, y), y = y0 (voigt) or y0 chi (phco2)
-template <bool PH>
-__device__ __forceinline__ float near_term(const float* c, float dnu, float chi) {
-  if constexpr (PH) return c[0] * wofz_re(dnu * c[1], c[2] * chi);
-  else return c[0] * wofz_re(dnu * c[1], c[2]);
+__device__ __forceinline__ float chi2_of(const ChiArg& q, float B1, float B2) {
+  return exp2f(-(B1 * q.u) - B2 * q.v - q.w);
 }
 
-// Accumulate one window [s0, s0 + cnt) of the tile's lines into acc. Every
-// thread of the block calls it with the same window.
-// coef layout: [n_lines][ST * NC] for the tile, per line the ST states one
-// after another, each with its NC values:
-//   voigt modes: Sia, ia, y0, A, c1, c2, k2
-//   phco2 modes (PH) and NOSPLIT: Sia, ia, y0; s_B holds the phco2 tile's B1
-//   (ST) then B2 (ST)
-//   LORENTZ, DOPPLER: S, alpha, gamma
-template <int ZONE, int NC, bool PH>
-__device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__ line_hi,
-                                      const float* __restrict__ line_lo,
-                                      const float* __restrict__ ct, float* s_hi,
-                                      float* s_lo, float* s_c, const float* s_B, float nh,
-                                      float nl, const Zones& z, float d_near,
-                                      float (&acc)[ST]) {
-  constexpr int W = ST * NC;
+// 1/d from the approximate reciprocal (1 ulp) and one Newton step; taken
+// only where the wrapper has shown every denominator of the launch to lie
+// in [2^-120, 2^120], where d and 1/d are normal floats. On such operands
+// the .ftz form gives the same value as the plain one, without the range
+// fix-ups (five instructions) that the plain one carries for subnormals;
+// nothing else in the library flushes subnormals.
+__device__ __forceinline__ float rcp_newton(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return fmaf(r, fmaf(-d, r, 1.0f), r);
+}
+
+// One state's far-wing term as (numerator, denominator), Humlicek region 1:
+// voigt in D = dnu^2 on (A, c1, c2, k2), k2 (c1 + m) / ((c1 - m)^2 + c2 D),
+// m = D A; phco2 on (Sia, ia, y0, A) at x^2 = D A and y = y0 chi, the
+// explicit form 0.5641896 Sia y (1/2 + y^2 + x^2) / ((1/2 + y^2 - x^2)^2 +
+// 4 x^2 y^2) (the TPU's (y br - x t2i) / (br^2 + t2i^2) expanded)
+template <bool PH>
+__device__ __forceinline__ void far_parts(const float4& c, float D, float chi, float& num,
+                                          float& den) {
+  if constexpr (PH) {
+    const float y = c.z * chi;
+    const float y2 = y * y;
+    const float x2 = D * c.w;
+    const float h = 0.5f + y2;
+    const float br = h - x2;
+    den = fmaf(br, br, 4.0f * (x2 * y2));
+    num = (0.5641896f * c.x) * (y * (h + x2));
+  } else {
+    const float m = D * c.x;
+    const float br = c.y - m;
+    den = fmaf(br, br, c.z * D);
+    num = c.w * (c.y + m);
+  }
+}
+
+// acc += w num / den (w = 1 where the zone has no weight). With the
+// reciprocal, the zones that may meet region 1's pole (x^2 = 1/2 + y^2: every
+// zone but the far branches at |x| >= 15) hold den at 2^-120 or more, so
+// that a line of zero strength, which the wrapper's bound leaves out, adds
+// 0 and not 0 x inf
+template <bool FAST, bool WEIGHTED, bool POLE>
+__device__ __forceinline__ void add_far(float& acc, float num, float den, float w) {
+  if constexpr (FAST) {
+    if constexpr (POLE) den = fmaxf(den, 0x1p-120f);
+    acc = fmaf(WEIGHTED ? num * w : num, rcp_newton(den), acc);
+  } else {
+    const float f = num / den;
+    acc += WEIGHTED ? f * w : f;
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// K1's shared memory: two chunks in flight, each CH lines' positions and
+// their quads for up to ST states, and the phco2 tile's rates
+template <int NQ>
+struct Stage {
+  float4 c[2][CH * ST * NQ];
+  float hi[2][CH];
+  float lo[2][CH];
+  float B[2 * ST];
+  int last;
+};
+
+// What one work item sees: its grid point (two-float), its tile's states,
+// and the launch's operands
+struct Item {
+  float nh, nl, d_near;
+  int s0, n_states;
+  const float* line_hi;
+  const float* line_lo;
+  const float4* coef;
+};
+
+// Accumulate the lines [start, start + cnt) of one window of the item into
+// acc: the chunks are staged with cp.async, chunk k + 1 in flight while
+// chunk k is summed. Every thread of the block calls it with the same piece.
+template <int ZONE, int NS, int NQ, bool PH, bool FAST>
+__device__ __forceinline__ void sweep(int start, int cnt, const Item& it, Stage<NQ>& sm,
+                                      const Zones& z, float (&acc)[NS]) {
+  constexpr int W = NS * NQ;  // quads per line in the tile
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  for (int c0 = 0; c0 < cnt; c0 += CH) {
-    const int n = min(CH, cnt - c0);
-    __syncthreads();  // the previous chunk is no longer read
+  const size_t ls = (size_t)it.n_states * NQ;  // quads per line in the pack
+  const float4* base = it.coef + (size_t)it.s0 * NQ;
+  const int n_chunks = (cnt + CH - 1) / CH;
+  auto stage = [&](int k) {
+    const int l0 = start + k * CH;
+    const int n = min(CH, cnt - k * CH);
+    const int buf = k & 1;
     for (int i = tid; i < n; i += nthreads) {
-      s_hi[i] = line_hi[s0 + c0 + i];
-      s_lo[i] = line_lo[s0 + c0 + i];
+      cp_async4(&sm.hi[buf][i], it.line_hi + l0 + i);
+      cp_async4(&sm.lo[buf][i], it.line_lo + l0 + i);
     }
-    const float* src = ct + (size_t)(s0 + c0) * W;
-    for (int i = tid; i < n * W; i += nthreads) s_c[i] = src[i];
+    for (int i = tid; i < n * W; i += nthreads) {
+      const int j = i / W;
+      cp_async16(&sm.c[buf][i], base + (size_t)(l0 + j) * ls + (i - j * W));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if (n_chunks > 0) stage(0);
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k + 1 < n_chunks) {
+      stage(k + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
     __syncthreads();
-
+    const int buf = k & 1;
+    const int n = min(CH, cnt - k * CH);
     for (int j = 0; j < n; ++j) {
       // two-float dnu: the hi difference is exact for nearby values and the
       // residuals restore the sub-f32 position information
-      const float dnu = (nh - s_hi[j]) + (nl - s_lo[j]);
+      const float dnu = (it.nh - sm.hi[buf][j]) + (it.nl - sm.lo[buf][j]);
       const float adnu = fabsf(dnu);
       const float D = dnu * dnu;
-      const float* c = s_c + j * W;
-      // the zone's mask and its switching weight, shared by the ST states
+      const float4* c = &sm.c[buf][j * W];
+      // the zone's mask and its switching weight, shared by the NS states
       float w = 1.0f;
       if constexpr (ZONE == Z_SPLIT || ZONE == Z_LORENTZ || ZONE == Z_DOPPLER ||
                     ZONE == Z_FARALL || ZONE == Z_FULL) {
@@ -367,42 +520,44 @@ __device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__
         w = smooth_d2(D, z.D1, z.inv_D) * (1.0f - smooth_d2(D, z.R1, z.inv_R));
       }
       ChiArg q{0.0f, 0.0f, 0.0f};
-      if constexpr (PH) q = chi_arg(adnu);
+      if constexpr (PH) q = chi_arg2(adnu);
       if constexpr (ZONE == Z_LORENTZ) {
 #pragma unroll
-        for (int s = 0; s < ST; ++s) {
-          const float S = c[s * NC], gam = c[s * NC + 2];
+        for (int s = 0; s < NS; ++s) {
+          const float S = c[s].x, gam = c[s].z;
           acc[s] += S * (gam * INV_PI) / (dnu * dnu + gam * gam);
         }
       } else if constexpr (ZONE == Z_DOPPLER) {
 #pragma unroll
-        for (int s = 0; s < ST; ++s) {
-          const float S = c[s * NC], ia = 1.0f / c[s * NC + 1];
+        for (int s = 0; s < NS; ++s) {
+          const float S = c[s].x, ia = 1.0f / c[s].y;
           const float arg = dnu * ia;
           acc[s] += (S * INV_SQRT_PI * ia) * expf(-arg * arg);
         }
       } else if constexpr (ZONE == Z_FULL) {
         // NOSPLIT: the full w4 at every in-cut pair, no near/far branch
 #pragma unroll
-        for (int s = 0; s < ST; ++s) {
-          const float chi = PH ? chi_of(q, s_B[s], s_B[ST + s]) : 1.0f;
-          acc[s] += near_term<PH>(c + s * NC, dnu, chi);
+        for (int s = 0; s < NS; ++s) {
+          const float chi = PH ? chi2_of(q, sm.B[s], sm.B[ST + s]) : 1.0f;
+          acc[s] += c[s].x * wofz_re(dnu * c[s].y, c[s].z * chi);
         }
       } else if constexpr (ZONE == Z_SPLIT || ZONE == Z_MID) {
         // a per-element branch replaces the TPU kernel's two masked sweeps:
         // region 1 beyond d_near, the full w4 within it
-        if (adnu > d_near) {
+        if (adnu > it.d_near) {
 #pragma unroll
-          for (int s = 0; s < ST; ++s) {
-            const float chi = PH ? chi_of(q, s_B[s], s_B[ST + s]) : 1.0f;
-            const float f = far_term<PH>(c + s * NC, dnu, D, chi);
-            acc[s] += ZONE == Z_MID ? f * w : f;
+          for (int s = 0; s < NS; ++s) {
+            const float chi = PH ? chi2_of(q, sm.B[s], sm.B[ST + s]) : 1.0f;
+            float num, den;
+            far_parts<PH>(c[s * NQ + NQ - 1], D, chi, num, den);
+            add_far<FAST, ZONE == Z_MID, false>(acc[s], num, den, w);
           }
         } else {
 #pragma unroll
-          for (int s = 0; s < ST; ++s) {
-            const float chi = PH ? chi_of(q, s_B[s], s_B[ST + s]) : 1.0f;
-            const float f = near_term<PH>(c + s * NC, dnu, chi);
+          for (int s = 0; s < NS; ++s) {
+            const float chi = PH ? chi2_of(q, sm.B[s], sm.B[ST + s]) : 1.0f;
+            const float4 cn = c[s * NQ];
+            const float f = cn.x * wofz_re_call(dnu * cn.y, cn.z * chi);
             acc[s] += ZONE == Z_MID ? f * w : f;
           }
         }
@@ -411,90 +566,157 @@ __device__ __forceinline__ void sweep(int s0, int cnt, const float* __restrict__
         // core corrected afterwards by stencil_correction_kernel), MID_ALL,
         // ANNULUS and COARSE: region 1, weighted but in FARALL
 #pragma unroll
-        for (int s = 0; s < ST; ++s) {
-          const float chi = PH ? chi_of(q, s_B[s], s_B[ST + s]) : 1.0f;
-          const float f = far_term<PH>(c + s * NC, dnu, D, chi);
-          acc[s] += ZONE == Z_FARALL ? f : f * w;
+        for (int s = 0; s < NS; ++s) {
+          const float chi = PH ? chi2_of(q, sm.B[s], sm.B[ST + s]) : 1.0f;
+          float num, den;
+          far_parts<PH>(c[s * NQ + NQ - 1], D, chi, num, den);
+          add_far<FAST, ZONE != Z_FARALL, true>(acc[s], num, den, w);
         }
       }
+    }
+    __syncthreads();  // chunk k's buffer is refilled by stage(k + 2)
+  }
+}
+
+// The sweep of zone ZONE, with the reciprocal where the launch allows it
+template <int ZONE, int NS, int NQ, bool PH>
+__device__ __forceinline__ void sweep_zone(int start, int cnt, bool fast, const Item& it,
+                                           Stage<NQ>& sm, const Zones& z, float (&acc)[NS]) {
+  if constexpr (has_far(ZONE)) {
+    if (fast) {
+      sweep<ZONE, NS, NQ, PH, true>(start, cnt, it, sm, z, acc);
+      return;
+    }
+  }
+  sweep<ZONE, NS, NQ, PH, false>(start, cnt, it, sm, z, acc);
+}
+
+// One work item of a tile of NS states: sweep the piece, then write its
+// columns, or, for a block whose windows were cut into several pieces,
+// leave the partial sums in scratch; the last of the block's items to
+// arrive sums them in piece order and writes the columns once.
+template <int MODE, bool ACC, int NS>
+__device__ void run_item(const int4 pa, const int4 pb, int shard, bool fast, const Item& it,
+                         Stage<n_quads(MODE)>& sm, const float* bcoef, const Zones& z, int tile,
+                         int n_tiles, int n_out, int ld_out, float* scratch, int* counters,
+                         float* out, int p) {
+  constexpr int NQ = n_quads(MODE);
+  constexpr int VM = voigt_mode(MODE);
+  constexpr bool PH = is_phco2(MODE);
+  const int tid = threadIdx.x;
+  const int B = blockDim.x;
+  const int n_states = it.n_states;
+  const int s0 = it.s0;
+  if constexpr (PH) {
+    if (tid < NS) {
+      const int st = s0 + tid;
+      const float* bt = bcoef + (size_t)(st / ST) * 2 * ST + st % ST;
+      sm.B[tid] = bt[0] * LOG2E;
+      sm.B[ST + tid] = bt[ST] * LOG2E;
+    }
+    __syncthreads();
+  }
+  float acc[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) acc[s] = 0.0f;
+  const int win = pa.y, start = pa.z, cnt = pa.w;
+#define SWEEP(ZONE) sweep_zone<ZONE, NS, NQ, PH>(start, cnt, fast, it, sm, z, acc)
+  if constexpr (VM == VOIGT_SPLIT) SWEEP(Z_SPLIT);
+  else if constexpr (VM == LORENTZ) SWEEP(Z_LORENTZ);
+  else if constexpr (VM == DOPPLER) SWEEP(Z_DOPPLER);
+  else if constexpr (VM == FARALL) SWEEP(Z_FARALL);
+  else if constexpr (VM == COARSE) SWEEP(Z_COARSE);
+  else if constexpr (VM == NOSPLIT) SWEEP(Z_FULL);
+  else if (win > 0) SWEEP(Z_ANNULUS);
+  else if constexpr (VM == FINE) SWEEP(Z_MID);
+  else SWEEP(Z_MID_ALL);
+#undef SWEEP
+
+  const int part = pb.x, nparts = pb.y, slot = pb.z;
+  float tot[NS];
+  if (nparts == 1) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) tot[s] = acc[s];
+  } else {
+    // partials [slot][n_states][B]; the block's arrival count per tile
+    float* mine = scratch + ((size_t)(slot + part) * n_states + s0) * B + tid;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) __stcg(mine + (size_t)s * B, acc[s]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) sm.last = atomicAdd(counters + (size_t)pa.x * n_tiles + tile, 1) == nparts - 1;
+    __syncthreads();
+    if (!sm.last) return;
+    __threadfence();
+#pragma unroll
+    for (int s = 0; s < NS; ++s) tot[s] = 0.0f;
+    for (int k = 0; k < nparts; ++k) {
+      const float* src = scratch + ((size_t)(slot + k) * n_states + s0) * B + tid;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) tot[s] += k == part ? acc[s] : __ldcg(src + (size_t)s * B);
+    }
+  }
+  if (p < n_out) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      float* o = out + (size_t)(s0 + s) * ld_out + (size_t)shard * n_out + p;
+      if constexpr (ACC) *o += tot[s];
+      else *o = tot[s];
     }
   }
 }
 
-// One block per block of grid points, one thread per point; win holds each
-// block's n_windows(MODE) windows as (start, count) pairs; bcoef (the phco2
-// modes) the rates [n_tiles][2][ST], B1 then B2 of each tile's states.
-// Grid (n_blocks, n_tiles, n_shards): shard s = blockIdx.z reads its own
-// grid, windows and d_near[s] (see K1-dev above).
-// out: [n_states][ld_out], shard s's n_out columns from column s n_out
-// written (ACC: added to)
+// K1: one block per work item (a piece of a block's window and a tile of
+// states), one thread per grid point. pieces [n_pieces][8] int32: (row,
+// window, start, count, part, n_parts, slot, 0), the costliest first; row =
+// shard n_blocks + block: the block's grid points are nu rows [row B, (row +
+// 1) B), its shard's d_near[shard], fast[shard] and output columns [shard
+// n_out, (shard + 1) n_out). grid.x = n_pieces n_tiles, tile fastest.
+// out: [n_states][ld_out], written (ACC, K1-seg's launches: added to, an
+// instance of its own so that a profile tells them apart); scratch
+// [n_slots][n_states][B] and counters [n_rows][n_tiles] (zero) serve the
+// blocks of more than one piece. bcoef (the phco2 modes) the rates
+// [n_tiles of ST][2][ST].
 template <int MODE, bool ACC>
-__global__ void linesum_kernel(const float* __restrict__ nu_hi,
-                               const float* __restrict__ nu_lo,
-                               const float* __restrict__ line_hi,
-                               const float* __restrict__ line_lo,
-                               const float* __restrict__ coef,
-                               const int* __restrict__ win,
-                               const float* __restrict__ d_near_p,
-                               const float* __restrict__ bcoef, Zones z,
-                               int n_lines, int n_states, int n_out, int ld_out,
-                               float* __restrict__ out) {
-  constexpr int NC = n_coef(MODE);
-  constexpr int NW = n_windows(MODE);
+__global__ void __launch_bounds__(512, (MODE == NOSPLIT || MODE == PH_NOSPLIT) ? 1 : 2)
+linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
+               const float* __restrict__ line_hi, const float* __restrict__ line_lo,
+               const float4* __restrict__ coef, const int4* __restrict__ pieces,
+               const float* __restrict__ d_near_p, const int* __restrict__ fast_p,
+               const float* __restrict__ bcoef, Zones z, int n_blocks, int n_states,
+               int n_out, int ld_out, float* __restrict__ scratch,
+               int* __restrict__ counters, float* __restrict__ out) {
   constexpr int VM = voigt_mode(MODE);
-  constexpr bool PH = is_phco2(MODE);
-  __shared__ float s_hi[CH];
-  __shared__ float s_lo[CH];
-  __shared__ float s_c[CH * ST * NC];
-  __shared__ float s_B[2 * ST];
-
-  const int b = blockIdx.x;
-  const int tile = blockIdx.y;
-  const int shard = blockIdx.z;
-  const int p = b * blockDim.x + threadIdx.x;  // grids are padded to whole blocks
-  const size_t sb = (size_t)shard * gridDim.x + b;  // the block's row in the stack
-  const float nh = nu_hi[sb * blockDim.x + threadIdx.x];
-  const float nl = nu_lo[sb * blockDim.x + threadIdx.x];
-  const float d_near = (VM == VOIGT_SPLIT || VM == FINE) ? d_near_p[shard] : 0.0f;
-  const int* w = win + sb * 2 * NW;
-  const float* ct = coef + (size_t)tile * n_lines * ST * NC;
-  if constexpr (PH) {
-    if (threadIdx.x < 2 * ST) s_B[threadIdx.x] = bcoef[(size_t)tile * 2 * ST + threadIdx.x];
-    __syncthreads();
+  __shared__ __align__(16) Stage<n_quads(MODE)> sm;
+  const int n_tiles = n_state_tiles(n_states);
+  const int item = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x - item * n_tiles;
+  const int4 pa = pieces[2 * item];
+  const int4 pb = pieces[2 * item + 1];
+  const int shard = pa.x / n_blocks;
+  const int p = (pa.x - shard * n_blocks) * blockDim.x + threadIdx.x;  // padded to whole blocks
+  int s0, ns;
+  tile_states(tile, n_states, s0, ns);
+  Item it;
+  it.nh = nu_hi[(size_t)pa.x * blockDim.x + threadIdx.x];
+  it.nl = nu_lo[(size_t)pa.x * blockDim.x + threadIdx.x];
+  it.d_near = (VM == VOIGT_SPLIT || VM == FINE) ? d_near_p[shard] : 0.0f;
+  it.s0 = s0;
+  it.n_states = n_states;
+  it.line_hi = line_hi;
+  it.line_lo = line_lo;
+  it.coef = coef;
+  const bool fast = fast_p[shard] != 0;
+#define RUN(NS)                                                                         \
+  run_item<MODE, ACC, NS>(pa, pb, shard, fast, it, sm, bcoef, z, tile, n_tiles, n_out, \
+                          ld_out, scratch, counters, out, p)
+  switch (ns) {
+    case 8: RUN(8); break;
+    case 4: RUN(4); break;
+    case 2: RUN(2); break;
+    default: RUN(1); break;
   }
-
-  float acc[ST];
-#pragma unroll
-  for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
-
-#define SWEEP(ZONE, K) \
-  sweep<ZONE, NC, PH>(w[2 * (K)], w[2 * (K) + 1], line_hi, line_lo, ct, s_hi, s_lo, s_c, s_B, \
-                      nh, nl, z, d_near, acc)
-  if constexpr (VM == VOIGT_SPLIT) SWEEP(Z_SPLIT, 0);
-  else if constexpr (VM == LORENTZ) SWEEP(Z_LORENTZ, 0);
-  else if constexpr (VM == DOPPLER) SWEEP(Z_DOPPLER, 0);
-  else if constexpr (VM == FARALL) SWEEP(Z_FARALL, 0);
-  else if constexpr (VM == COARSE) SWEEP(Z_COARSE, 0);
-  else if constexpr (VM == NOSPLIT) SWEEP(Z_FULL, 0);
-  else {
-    if constexpr (VM == FINE) SWEEP(Z_MID, 0);
-    else SWEEP(Z_MID_ALL, 0);
-    SWEEP(Z_ANNULUS, 1);
-    SWEEP(Z_ANNULUS, 2);
-  }
-#undef SWEEP
-
-  if (p < n_out) {
-#pragma unroll
-    for (int s = 0; s < ST; ++s) {
-      const int st = tile * ST + s;
-      if (st < n_states) {
-        float* o = out + (size_t)st * ld_out + (size_t)shard * n_out + p;
-        if constexpr (ACC) *o += acc[s];
-        else *o = acc[s];
-      }
-    }
-  }
+#undef RUN
 }
 
 // The stencil route's near-core correction: one thread per (window point k,
@@ -680,50 +902,61 @@ extern "C" {
 
 int linesum_states_per_tile() { return ST; }
 
-int linesum_coef_per_state(int mode) { return n_coef(mode); }
+int linesum_coef_per_state(int mode) { return 4 * n_quads(mode); }
 
 int linesum_windows_per_block(int mode) { return n_windows(mode); }
 
-// Launch `mode` on `stream` over n_shards shards of n_blocks blocks each
-// (K1: one shard); zones: host float[7] (Zones, in field order); d_near:
-// one value a shard; bcoef: the phco2 modes' rates [n_tiles][2][ST]
-// (unread by the others); out: rows of ld_out floats, the first
-// n_shards n_out of each written, or added to with `accumulate` (the split,
-// no-split and single-sweep modes only).
+int linesum_state_tiles(int n_states) { return n_state_tiles(n_states); }
+
+// Launch `mode` on `stream`: n_pieces work items (pieces, [n_pieces][8]
+// int32, see linesum_kernel) times the state tiles of n_states, blocks of
+// `block` threads over rows of n_blocks blocks a shard; coef: the pack
+// [n_lines][n_states][linesum_coef_per_state(mode)]; zones: host float[7]
+// (Zones, in field order); d_near and fast (nonzero: the launch's far-wing
+// denominators lie in [2^-120, 2^120]): one value a shard; bcoef: the phco2
+// modes' rates [n_tiles of ST][2][ST] (unread by the others); out: rows of
+// ld_out floats, the first n_shards n_out of each written, or added to with
+// `accumulate` (the split, no-split and single-sweep modes only); scratch
+// and counters (zeroed) for the blocks of several pieces.
 // Returns cudaGetLastError() (0 on success).
 int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
-                   const float* line_hi, const float* line_lo,
-                   const float* coef, const int* win, const float* d_near,
+                   const float* line_hi, const float* line_lo, const float* coef,
+                   const int* pieces, int n_pieces, const float* d_near, const int* fast,
                    const float* bcoef, const float* zones, int n_blocks, int block,
-                   int n_shards, int n_lines, int n_states, int n_out, int ld_out,
-                   int accumulate, float* out, void* stream) {
-  const int n_tiles = (n_states + ST - 1) / ST;
-  if (n_shards < 1 || n_shards > 65535 || n_tiles > 65535)
+                   int n_states, int n_out, int ld_out, int accumulate, float* scratch,
+                   int* counters, float* out, void* stream) {
+  const long long items = (long long)n_pieces * n_state_tiles(n_states);
+  if (items < 1 || items > 0x7fffffffLL || block < 1 || block > 512 || n_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n_blocks, n_tiles, n_shards);
-  const Zones z{zones[0], zones[1], zones[2], zones[3], zones[4], zones[5], zones[6]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(M, A)                                                              \
-  linesum_kernel<M, A><<<grid, block, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, coef, \
-                                               win, d_near, bcoef, z, n_lines, n_states, \
-                                               n_out, ld_out, out)
-#define LAUNCH_ACC(M) \
-  if (accumulate) LAUNCH(M, true); else LAUNCH(M, false)
   if (accumulate && !can_accumulate(mode)) return static_cast<int>(cudaErrorInvalidValue);
   if (is_phco2(mode) && bcoef == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Zones z{zones[0], zones[1], zones[2], zones[3], zones[4], zones[5], zones[6]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* c4 = reinterpret_cast<const float4*>(coef);
+  const int4* p4 = reinterpret_cast<const int4*>(pieces);
+#define LAUNCH_AS(M, A)                                                                  \
+  linesum_kernel<M, A><<<(unsigned)items, block, 0, st>>>(                               \
+      nu_hi, nu_lo, line_hi, line_lo, c4, p4, d_near, fast, bcoef, z, n_blocks, n_states, \
+      n_out, ld_out, scratch, counters, out)
+#define LAUNCH(M) LAUNCH_AS(M, false)
+#define LAUNCH_ACC(M)     \
+  if (accumulate)         \
+    LAUNCH_AS(M, true);   \
+  else                    \
+    LAUNCH_AS(M, false)
   switch (mode) {
     case VOIGT_SPLIT: LAUNCH_ACC(VOIGT_SPLIT); break;
     case LORENTZ: LAUNCH_ACC(LORENTZ); break;
     case DOPPLER: LAUNCH_ACC(DOPPLER); break;
-    case FARALL: LAUNCH(FARALL, false); break;
-    case FINE: LAUNCH(FINE, false); break;
-    case FINE_STENCIL: LAUNCH(FINE_STENCIL, false); break;
-    case COARSE: LAUNCH(COARSE, false); break;
+    case FARALL: LAUNCH(FARALL); break;
+    case FINE: LAUNCH(FINE); break;
+    case FINE_STENCIL: LAUNCH(FINE_STENCIL); break;
+    case COARSE: LAUNCH(COARSE); break;
     case PH_SPLIT: LAUNCH_ACC(PH_SPLIT); break;
-    case PH_FARALL: LAUNCH(PH_FARALL, false); break;
-    case PH_FINE: LAUNCH(PH_FINE, false); break;
-    case PH_FINE_STENCIL: LAUNCH(PH_FINE_STENCIL, false); break;
-    case PH_COARSE: LAUNCH(PH_COARSE, false); break;
+    case PH_FARALL: LAUNCH(PH_FARALL); break;
+    case PH_FINE: LAUNCH(PH_FINE); break;
+    case PH_FINE_STENCIL: LAUNCH(PH_FINE_STENCIL); break;
+    case PH_COARSE: LAUNCH(PH_COARSE); break;
     case NOSPLIT: LAUNCH_ACC(NOSPLIT); break;
     case PH_NOSPLIT: LAUNCH_ACC(PH_NOSPLIT); break;
     default:
@@ -731,7 +964,46 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
   }
 #undef LAUNCH_ACC
 #undef LAUNCH
+#undef LAUNCH_AS
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1's build for `mode` (cudaFuncGetAttributes, of its writing instance): info[0] registers a
+// thread, info[1] static shared bytes, info[2] local (spill) bytes a
+// thread, info[3] resident blocks of `block` threads an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns the CUDA error.
+int linesum_kernel_info(int mode, int block, int* info) {
+  cudaFuncAttributes a{};
+  int per_sm = 0;
+  cudaError_t e = cudaErrorInvalidValue;
+#define INFO(M)                                                                     \
+  e = cudaFuncGetAttributes(&a, linesum_kernel<M, false>);                          \
+  if (e == cudaSuccess)                                                             \
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, linesum_kernel<M, false>, \
+                                                      block, 0)
+  switch (mode) {
+    case VOIGT_SPLIT: INFO(VOIGT_SPLIT); break;
+    case LORENTZ: INFO(LORENTZ); break;
+    case DOPPLER: INFO(DOPPLER); break;
+    case FARALL: INFO(FARALL); break;
+    case FINE: INFO(FINE); break;
+    case FINE_STENCIL: INFO(FINE_STENCIL); break;
+    case COARSE: INFO(COARSE); break;
+    case PH_SPLIT: INFO(PH_SPLIT); break;
+    case PH_FARALL: INFO(PH_FARALL); break;
+    case PH_FINE: INFO(PH_FINE); break;
+    case PH_FINE_STENCIL: INFO(PH_FINE_STENCIL); break;
+    case PH_COARSE: INFO(PH_COARSE); break;
+    case NOSPLIT: INFO(NOSPLIT); break;
+    case PH_NOSPLIT: INFO(PH_NOSPLIT); break;
+    default: break;
+  }
+#undef INFO
+  info[0] = a.numRegs;
+  info[1] = (int)a.sharedSizeBytes;
+  info[2] = (int)a.localSizeBytes;
+  info[3] = per_sm;
+  return static_cast<int>(e);
 }
 
 // Launch K4 (gathered = 0) or K5 (gathered = 1) for `shape` (VOIGT_SPLIT

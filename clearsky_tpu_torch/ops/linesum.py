@@ -123,7 +123,7 @@ class LineWindowPlan:
         ``nu_hi``/``nu_lo`` are the float32 two-float split of the float64
         block grid (nu_hi + nu_lo reproduces it to ~1e-11 relative), flat
         [n_blocks * block]; ``win`` is the int32 window table [n_blocks, 2]
-        of (start, count).
+        of (start, count), and ``win_host`` its host copy.
         """
         device = torch.device(device)
         got = self._on_device.get(device)
@@ -133,6 +133,7 @@ class LineWindowPlan:
                 "nu_hi": torch.as_tensor(hi.reshape(-1), device=device),
                 "nu_lo": torch.as_tensor(lo.reshape(-1), device=device),
                 "win": torch.as_tensor(self.windows(), dtype=torch.int32, device=device),
+                "win_host": self.windows(),
             }
             self._on_device[device] = got
         return got

@@ -16,9 +16,15 @@ folded into their coefficients (:func:`.linesum.effective_alpha`).
 (:func:`sigma_gathered`) are the full-profile kernels of the lane and
 gathered branches (``_kernel_resident``, ``_kernel``). Before a K1 launch
 the per-(state, line) profile coefficients are computed here in plain torch
-on the device, as ``_grouped_pack`` does in XLA, and packed per tile of
-``ST`` states so that each block streams one contiguous run of them through
-shared memory; K4 and K5 take unpacked per-state rows.
+on the device, as ``_grouped_pack`` does in XLA, and packed line-major in
+16-byte quads (:func:`pack_coefficients`), so that a block stages each
+chunk of lines for its tile of states with 16-byte asynchronous copies and
+reads one state's far-wing values with one 16-byte load; K4 and K5 take
+unpacked per-state rows. K1 runs one block per work item: a piece of at most
+:data:`PIECE_LINES` lines of a block's windows and a tile of states
+(:func:`piece_schedule`, built once per grid on the host), the costliest
+first; the pieces of one block add up in piece order, so every launch gives
+the same bits.
 
 :func:`sigma_lines` (split mode), :func:`sigma_nosplit`, :func:`sigma_stencil`,
 :func:`sigma_coarse`, :func:`sigma_segmented`, :func:`sigma_lane` and
@@ -99,8 +105,9 @@ __all__ = ["sigma_lines", "sigma_nosplit", "sigma_stencil", "sigma_coarse", "sig
            "sigma_lane", "sigma_gathered", "sigma_routed", "sigma_device", "device_launches",
            "stencil_correction", "launch_mode",
            "launch_fullprofile", "pack_coefficients", "near_distance", "chi_rates",
-           "window_mode", "nosplit_mode", "gather_group", "MODES", "WINDOW_MODES",
-           "NOSPLIT_MODES", "GATHER_BYTES"]
+           "window_mode", "nosplit_mode", "gather_group", "piece_schedule", "state_tiles",
+           "far_reciprocal_ok", "kernel_info", "MODES", "WINDOW_MODES", "NOSPLIT_MODES",
+           "GATHER_BYTES", "PIECE_LINES"]
 
 # kernel modes (csrc/linesum.cu ``Mode``): over the plan's windows, voigt
 # and phco2 run the split mode and lorentz and doppler the single sweep; the
@@ -117,7 +124,11 @@ _MODE_NAMES = {0: "voigt_split", 1: "lorentz", 2: "doppler", 3: "farall", 4: "fi
                9: "phco2_fine", 10: "phco2_fine_stencil", 11: "phco2_coarse",
                12: "nosplit", 13: "phco2_nosplit"}
 _PHCO2_MODES = (7, 8, 9, 10, 11, 13)
-_N_COEF = {m: (3 if m in (1, 2, 12) + _PHCO2_MODES else 7) for m in _MODE_NAMES}
+# floats per (line, state) in K1's pack: two quads for the split and FINE
+# modes (the core's and the far wing's), one for every other mode
+_N_COEF = {m: (8 if m in (0, 4) else 4) for m in _MODE_NAMES}
+# the modes whose terms include region 1 (the reciprocal's candidates)
+_FAR_MODES = (0, 3, 4, 5, 6, 7, 8, 9, 10, 11)
 _N_WIN = {m: (3 if m in (4, 5, 9, 10) else 1) for m in _MODE_NAMES}
 # the modes that take d_near: the split modes and FINE
 _D_NEAR_MODES = (0, 4, 7, 9)
@@ -129,7 +140,10 @@ _ROUTE_COUNTS = ("segmented", "lane", "gathered", "phco2_segmented", "phco2_lane
 # K1-dev's launches (the sharded path) count under "dev_" and the mode's name
 _DEV_MODES = (0, 1, 2, 4, 6, 7, 9, 11, 12, 13)
 _DEV_COUNTS = tuple("dev_" + _MODE_NAMES[m] for m in _DEV_MODES)
-ST = 8  # states per tile; csrc/linesum.cu ``ST``
+ST = 8  # states per tile at most, and chi's rates' tile; csrc/linesum.cu ``ST``
+# lines per K1 work item at most: a block's windows are cut into pieces of
+# this many lines (csrc/linesum.cu sums a block's pieces in piece order)
+PIECE_LINES = 256
 # K5's gathered slabs (S, alpha, gamma: 12 bytes a state, block and slab
 # line) are built for at most this many bytes of states at a time
 GATHER_BYTES = 2**30
@@ -164,33 +178,154 @@ def _family(shape: str) -> str:
 
 
 def pack_coefficients(mode: int, S, alpha, gamma):
-    """Per-(state, line) coefficients [n_tiles, n_lines, ST * n_coef].
+    """K1's per-(line, state) coefficients [n_lines, n_states, n_coef], in
+    16-byte quads (csrc/linesum.cu ``n_quads``).
 
-    Every voigt mode packs :func:`.linesum.voigt_coefficients`, (Sia, ia,
-    y0, A, c1, c2, k2), every phco2 mode and NOSPLIT its first three (Sia,
-    ia, y0), on the profile's Doppler width ``alpha`` (the *_ref shapes' already divided
-    by sqrt(ln 2)); lorentz and doppler pack (S, alpha, gamma). States past
-    the last are padded with coefficients whose contribution is exactly
-    zero.
+    From :func:`.linesum.voigt_coefficients` on the profile's Doppler width
+    ``alpha`` (the *_ref shapes' already divided by sqrt(ln 2)): the split
+    and FINE modes pack (Sia, ia, y0, 0) and the far wing's (A, c1, c2, k2);
+    FARALL, FINE_STENCIL and COARSE (A, c1, c2, k2) alone; every phco2 mode
+    and NOSPLIT (Sia, ia, y0, A); lorentz and doppler (S, alpha, gamma, 0).
+    A tile of states reads each line's run of ``n_coef`` floats per state.
     """
-    n_states, n_lines = S.shape
-    if _N_COEF[mode] == 7:
-        rows = list(zip(voigt_coefficients(S, alpha, gamma),
-                        (0.0, 1.0, 1.0, 1.0, 1.5, 4.0, 0.0)))
-    elif mode in _PHCO2_MODES or mode == NOSPLIT_MODES["voigt"]:
-        rows = list(zip(voigt_coefficients(S, alpha, gamma)[:3], (0.0, 1.0, 1.0)))
+    if mode in (1, 2):
+        cols = (S, alpha, gamma, torch.zeros_like(S))
+        return torch.stack(cols, dim=-1).transpose(0, 1).contiguous()
+    return _pack(mode, voigt_coefficients(S, alpha, gamma))
+
+
+def _pack(mode: int, co):
+    """:func:`pack_coefficients` of a Voigt-family mode from the
+    :func:`.linesum.voigt_coefficients` ``co``."""
+    Sia, ia, y0, A, c1, c2, k2 = co
+    if mode in (0, 4):
+        cols = (Sia, ia, y0, torch.zeros_like(Sia), A, c1, c2, k2)
+    elif mode in (3, 5, 6):
+        cols = (A, c1, c2, k2)
     else:
-        rows = [(S, 0.0), (alpha, 1.0), (gamma, 1.0)]
-    n_tiles = -(-n_states // ST)
-    pad = n_tiles * ST - n_states
-    cols = []
-    for vals, fill in rows:
-        if pad:
-            vals = torch.cat([vals, vals.new_full((pad, n_lines), fill)])
-        cols.append(vals)
-    pack = torch.stack(cols, dim=-1)                       # [n_st_pad, n_lines, nc]
-    pack = pack.view(n_tiles, ST, n_lines, len(rows)).permute(0, 2, 1, 3)
-    return pack.reshape(n_tiles, n_lines, ST * len(rows)).contiguous()
+        cols = (Sia, ia, y0, A)
+    return torch.stack(cols, dim=-1).transpose(0, 1).contiguous()
+
+
+def _packed(mode: int, S, alpha, gamma, n_shards: int, cut: float, bcoef=None):
+    """``mode``'s pack (:func:`pack_coefficients`) and its reciprocal's flag
+    (:func:`far_reciprocal_ok`), from one set of voigt coefficients."""
+    if mode in (1, 2):
+        return (pack_coefficients(mode, S, alpha, gamma),
+                torch.zeros(n_shards, dtype=torch.int32, device=S.device))
+    co = voigt_coefficients(S, alpha, gamma)
+    return _pack(mode, co), far_reciprocal_ok(mode, co, n_shards, cut, bcoef)
+
+
+def state_tiles(n_states: int) -> int:
+    """K1's tiles of states: ``n // ST`` of ``ST``, then one of 4, 2 and 1
+    for each bit of the remainder (csrc/linesum.cu ``n_state_tiles``)."""
+    return n_states // ST + bin(n_states % ST).count("1")
+
+
+def piece_schedule(windows, n_win: int, piece_lines: int):
+    """K1's work items over a window table [n_rows, 2 n_win] of (start,
+    count): (pieces [n_pieces, 8] int32, n_slots).
+
+    Each window is cut into pieces of at most ``piece_lines`` lines in line
+    order; a row without lines gets one empty piece (its columns are still
+    written). A piece is (row, window, start, count, part, n_parts, slot,
+    0): its row's pieces are numbered 0..n_parts-1 in (window, line) order,
+    the order in which the kernel adds their partial sums, and a row of more
+    than one piece owns the scratch slots [slot, slot + n_parts). Pieces are
+    listed by line count, largest first (stable), which is the order the
+    kernel's blocks start in.
+    """
+    w = np.asarray(windows, np.int64).reshape(-1, 2 * n_win)
+    n_rows = w.shape[0]
+    starts, counts = w[:, 0::2], w[:, 1::2]
+    per = -(-counts // piece_lines)
+    per[:, 0] += per.sum(axis=1) == 0                       # one empty piece
+    flat = per.reshape(-1)
+    rw = np.repeat(np.arange(flat.size), flat)              # the piece's (row, window)
+    i = np.arange(rw.size) - np.repeat(np.cumsum(flat) - flat, flat)
+    row, win = rw // n_win, rw % n_win
+    start = starts.reshape(-1)[rw] + i * piece_lines
+    count = np.clip(counts.reshape(-1)[rw] - i * piece_lines, 0, piece_lines)
+    n_parts = np.bincount(row, minlength=n_rows)
+    part = np.arange(row.size) - (np.cumsum(n_parts) - n_parts)[row]
+    owned = np.where(n_parts > 1, n_parts, 0)
+    slot = (np.cumsum(owned) - owned)[row]
+    table = np.stack([row, win, start, count, part, n_parts[row], slot, np.zeros_like(row)],
+                     axis=1)
+    order = np.argsort(-count, kind="stable")
+    return table[order].astype(np.int32), int(owned.sum())
+
+
+def _pieces(grid: dict, n_win: int):
+    """The grid's work items (pieces of :data:`PIECE_LINES`) on its device,
+    cached in the grid dict: (pieces tensor, n_pieces, n_slots). The host
+    window table is ``win_host`` where the grid carries it, else read back
+    once."""
+    key = ("pieces", PIECE_LINES)
+    got = grid.get(key)
+    if got is None:
+        win = grid.get("win_host")
+        if win is None:
+            win = grid["win"].cpu().numpy()
+        table, n_slots = piece_schedule(win, n_win, PIECE_LINES)
+        got = grid[key] = (torch.as_tensor(table, device=grid["win"].device), table.shape[0],
+                           n_slots)
+    return got
+
+
+# the far-wing denominators the reciprocal takes: d and 1/d normal floats
+_RCP_LO, _RCP_HI = 2.0**-120, 2.0**120
+
+
+def _chi_range(bcoef, n_states: int, cut: float):
+    """chi(|dnu|, T)'s least and largest value over |dnu| <= cut, per state
+    [n_states] (float64), from the rates as the kernel reads them: the
+    exponent B1 u + B2 v + w is piecewise linear in |dnu|, so its extremes
+    lie at 0 and at the pieces' ends 3, 30, 120 and the cut."""
+    B = bcoef.double().permute(1, 0, 2).reshape(2, -1)[:, :n_states]
+    e = torch.stack([B[0] * min(max(a - 3.0, 0.0), 27.0) + B[1] * min(max(a - 30.0, 0.0), 90.0)
+                     + 0.0232 * max(a - 120.0, 0.0)
+                     for a in [0.0] + [x for x in (3.0, 30.0, 120.0) if x < cut] + [cut]],
+                    dim=1)                                   # [n_states, points]
+    return torch.exp(-e.amax(dim=1)), torch.exp(-e.amin(dim=1))
+
+
+def far_reciprocal_ok(mode: int, co, n_shards: int, cut: float, bcoef=None):
+    """Whether K1's far-wing term may take the reciprocal (one approximate
+    reciprocal and a Newton step) instead of the IEEE division: int32
+    [n_shards], nonzero where every region-1 denominator of the shard's
+    lines of nonzero strength lies in [2^-120, 2^120], so that it and its
+    reciprocal are normal floats. ``co``: the
+    :func:`.linesum.voigt_coefficients` (Sia, ia, y0, A, c1, c2, k2), each
+    [n_states, n_shards L], that ``mode``'s pack is made of (:func:`_pack`);
+    computed once a pack, on the device, with no host copy.
+
+    Region 1's denominator at y (y = y0, or y0 chi for the phco2 family) and
+    x^2 = D A >= 0 is (1/2 + y^2 - x^2)^2 + 4 x^2 y^2 >= 2 y^2, and at
+    |dnu| <= cut at most (1/2 + y^2 + cut^2 A)^2 + 4 cut^2 A y^2; the bound
+    takes the least and largest y^2 (the voigt modes' y0^2 as c2 / (4 A),
+    as the kernel reads them), chi's range over the cut and the largest A.
+    It leaves out the lines whose far term is zero whatever the denominator
+    (k2 = 0 for the voigt modes, Sia = 0 for the phco2 ones: padding lines
+    among them); the kernel adds 0 for those (csrc/linesum.cu ``add_far``).
+    """
+    Sia, _, y0, A, _, c2, k2 = (c.reshape(c.shape[0], n_shards, -1) for c in co)  # [n, k, L]
+    if mode not in _FAR_MODES:
+        return torch.zeros(n_shards, dtype=torch.int32, device=A.device)
+    if mode in _PHCO2_MODES:
+        live, y2 = Sia != 0, y0 * y0
+        lo, hi = _chi_range(bcoef, A.shape[0], cut)
+        y2lo, y2hi = y2 * (lo * lo).float()[:, None, None], y2 * (hi * hi).float()[:, None, None]
+    else:
+        live = k2 != 0
+        y2lo = y2hi = c2 / (4.0 * A)
+    y2_min = torch.where(live, y2lo, float("inf")).amin(dim=(0, 2)).double()
+    y2_max = torch.where(live, y2hi, 0.0).amax(dim=(0, 2)).double()
+    a_max = torch.where(live, A, 0.0).amax(dim=(0, 2)).double()
+    c2A = cut * cut * a_max
+    den_hi = (0.5 + y2_max + c2A) ** 2 + 4.0 * c2A * y2_max
+    return ((2.0 * y2_min >= _RCP_LO) & (den_hi <= _RCP_HI)).to(torch.int32)
 
 
 def near_distance(alpha, limit: float):
@@ -225,17 +360,21 @@ def _library():
     lib = load_library("linesum")
     fn = lib.linesum_launch
     if fn.argtypes is None:
-        # the coefficient and window layouts are shared with the C side:
-        # hold them to it
+        # the coefficient, window and tile layouts are shared with the C
+        # side: hold them to it
         layout = (lib.linesum_states_per_tile(),
                   {m: lib.linesum_coef_per_state(m) for m in _N_COEF},
-                  {m: lib.linesum_windows_per_block(m) for m in _N_WIN})
-        if layout != (ST, _N_COEF, _N_WIN):
-            raise RuntimeError(f"csrc/linesum.cu packs {layout}, this wrapper "
-                               f"{(ST, _N_COEF, _N_WIN)}")
-        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_F),
-                       _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+                  {m: lib.linesum_windows_per_block(m) for m in _N_WIN},
+                  [lib.linesum_state_tiles(n) for n in range(4 * ST)])
+        want = (ST, _N_COEF, _N_WIN, [state_tiles(n) for n in range(4 * ST)])
+        if layout != want:
+            raise RuntimeError(f"csrc/linesum.cu packs {layout}, this wrapper {want}")
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, ctypes.POINTER(_F),
+                       _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
         fn.restype = _I
+        info = lib.linesum_kernel_info
+        info.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        info.restype = _I
         full = lib.fullprofile_launch
         full.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                          _I, _P, _P]
@@ -244,6 +383,18 @@ def _library():
         cor.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _P, _P]
         cor.restype = _I
     return lib
+
+
+def kernel_info(mode: int, block: int = 128) -> dict:
+    """K1's build of ``mode`` on the card: registers and local (spill)
+    bytes a thread, static shared bytes a block, and resident blocks of
+    ``block`` threads an SM with the share of the SM's 64 warps they hold."""
+    out = (_I * 4)()
+    err = _library().linesum_kernel_info(mode, block, out)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+    return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
+            "blocks_per_sm": out[3], "resident_warps": out[3] * -(-block // 32) / 64.0}
 
 
 def _zones(cut, cut_f=0.0, d_lo=0.0, D1=0.0, D2=1.0, R1=0.0, R2=1.0):
@@ -283,22 +434,28 @@ def _count(name: str) -> None:
 
 
 def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, zones,
-                d_near=None, out=None, count_as=None, bcoef=None, n_shards: int = 1):
+                d_near=None, out=None, count_as=None, bcoef=None, n_shards: int = 1,
+                fast=None):
     """One K1 launch into a new sigma[n_states, n_shards * n_out], or added
     into the first n_out columns of ``out``.
 
     ``grid`` holds the block grid ``nu_hi``/``nu_lo`` (flat, float32,
     n_shards * n_blocks * block) and the int32 window table ``win``
-    [n_shards * n_blocks, 2 * windows per block] on the device; ``coef`` is
-    the pack of :func:`pack_coefficients` for ``mode``; ``zones`` from
-    :func:`_zones`; ``d_near`` a tensor of one value a shard for the split
-    and FINE modes; ``bcoef`` the :func:`chi_rates` of the phco2 modes, and
-    only of them. ``out`` (the split and single-sweep modes): a float32
-    [n_states, >= n_shards * n_out] view with unit column stride, added to
-    in place (K1-seg). ``n_shards`` > 1 is K1-dev: shard s's blocks, window
-    rows and d_near[s] give columns [s n_out, (s + 1) n_out); its windows
-    index the catalog ``lines`` (the shards' slabs side by side). The launch
-    counts under ``count_as``, else under its mode.
+    [n_shards * n_blocks, 2 * windows per block] on the device (and, where
+    the caller has it, its host copy ``win_host``); the work items of its
+    windows are cut once (:func:`piece_schedule`, pieces of
+    :data:`PIECE_LINES`) and cached in it. ``coef`` is the pack of :func:`pack_coefficients` for
+    ``mode``; ``zones`` from :func:`_zones`; ``d_near`` a tensor of one value
+    a shard for the split and FINE modes; ``bcoef`` the :func:`chi_rates` of
+    the phco2 modes, and only of them; ``fast`` the
+    :func:`far_reciprocal_ok` of the pack (None: the IEEE division
+    throughout). ``out``
+    (the split and single-sweep modes): a float32 [n_states, >= n_shards *
+    n_out] view with unit column stride, added to in place (K1-seg).
+    ``n_shards`` > 1 is K1-dev: shard s's blocks, window rows and d_near[s]
+    give columns [s n_out, (s + 1) n_out); its windows index the catalog
+    ``lines`` (the shards' slabs side by side). The launch counts under
+    ``count_as``, else under its mode.
     """
     win = grid["win"]
     if n_shards < 1 or win.shape[0] % n_shards:
@@ -309,10 +466,10 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
     if tuple(win.shape) != (n_shards * n_blocks, 2 * _N_WIN[mode]) or win.dtype != torch.int32:
         raise ValueError(f"mode {_MODE_NAMES[mode]} takes an int32 window table "
                          f"[n_shards * n_blocks, {2 * _N_WIN[mode]}]")
-    if block > 1024 or n_blocks * block < n_out or grid["nu_hi"].shape[0] != win.shape[0] * block:
+    if block > 512 or n_blocks * block < n_out or grid["nu_hi"].shape[0] != win.shape[0] * block:
         raise ValueError(f"a grid of {n_blocks} blocks of {block} points a shard cannot give "
-                         f"{n_out} outputs (at most 1024 threads a block)")
-    check_operand("coef", coef, (-(-n_states // ST), lines.n_lines, ST * _N_COEF[mode]), dev)
+                         f"{n_out} outputs (at most 512 threads a block)")
+    check_operand("coef", coef, (lines.n_lines, n_states, _N_COEF[mode]), dev)
     if (mode in _D_NEAR_MODES) != (d_near is not None):
         raise ValueError("d_near goes with the split and FINE modes, and only with them")
     if d_near is not None:
@@ -334,12 +491,22 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
         out = torch.empty((n_states, n_shards * n_out), dtype=torch.float32, device=dev)
     if n_states == 0 or lines.n_lines == 0:
         return out if accumulate else out.zero_()
+    if fast is None:
+        fast = torch.zeros(n_shards, dtype=torch.int32, device=dev)
+    check_operand("fast", fast, (n_shards,), dev, torch.int32)
+    pieces, n_pieces, n_slots = _pieces(grid, _N_WIN[mode])
+    scratch = counters = None
+    if n_slots:
+        scratch = torch.empty(n_slots * n_states * block, dtype=torch.float32, device=dev)
+        counters = torch.zeros(win.shape[0] * state_tiles(n_states), dtype=torch.int32,
+                               device=dev)
     err = _library().linesum_launch(
         mode, grid["nu_hi"].data_ptr(), grid["nu_lo"].data_ptr(), lines.nu.data_ptr(),
-        lines.nu_lo.data_ptr(), coef.data_ptr(), win.data_ptr(),
-        None if d_near is None else d_near.data_ptr(),
-        None if bcoef is None else bcoef.data_ptr(), zones, n_blocks, block, n_shards,
-        lines.n_lines, n_states, n_out, out.stride(0), int(accumulate), out.data_ptr(),
+        lines.nu_lo.data_ptr(), coef.data_ptr(), pieces.data_ptr(), n_pieces,
+        None if d_near is None else d_near.data_ptr(), fast.data_ptr(),
+        None if bcoef is None else bcoef.data_ptr(), zones, n_blocks, block, n_states, n_out,
+        out.stride(0), int(accumulate), None if scratch is None else scratch.data_ptr(),
+        None if counters is None else counters.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -364,12 +531,12 @@ def _prepare(plan: LineWindowPlan, lines, T, P, Pp, shape: str, conc=None,
     grid = plan.device_arrays(dev)
     S, alpha, gamma = _line_params(lines, T, P, Pp, conc)
     alpha = effective_alpha(shape, alpha)
-    coef = pack_coefficients(mode, S, alpha, gamma)
     d_near = near_distance(alpha, plan.cut) if mode in _D_NEAR_MODES else None
     bcoef = chi_rates(T) if mode in _PHCO2_MODES else None
+    coef, fast = _packed(mode, S, alpha, gamma, 1, plan.cut, bcoef)
     zones = _zones(plan.cut)
     return lambda: launch_mode(mode, grid, lines, coef, n_states, plan.n_nu, zones, d_near,
-                               bcoef=bcoef)
+                               bcoef=bcoef, fast=fast)
 
 
 def sigma_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
@@ -456,20 +623,22 @@ stencil_correction.launches = 0
 stencil_correction.launches_phco2 = 0
 
 
-def _route_operands(lines, T, P, Pp, n_windows_table, conc, shape):
+def _route_operands(lines, T, P, Pp, n_windows_table, conc, shape, cut: float):
     """Checks and operands of the routes' windowed modes for the Voigt-family
-    ``shape``: (n_states, dev, alpha, co, coef, bcoef), alpha the profile's
-    Doppler widths, co their :func:`.linesum.voigt_coefficients`, coef the
-    family's pack and bcoef its :func:`chi_rates` (phco2) or None."""
+    ``shape``: (n_states, dev, alpha, co, coef, bcoef, fast), alpha the
+    profile's Doppler widths, co their :func:`.linesum.voigt_coefficients`,
+    coef the family's pack, bcoef its :func:`chi_rates` (phco2) or None and
+    fast the reciprocal's flag at ``cut`` (every windowed mode's)."""
     split_check(shape)
     n_states, dev = _checked(lines, T, P, Pp, conc)
     _check_windows(n_windows_table, lines.n_lines)
     S, alpha, gamma = _line_params(lines, T, P, Pp, conc)
     alpha = effective_alpha(shape, alpha)
     co = tuple(c.contiguous() for c in voigt_coefficients(S, alpha, gamma))
-    coef = pack_coefficients(window_mode("farall", shape), S, alpha, gamma)
+    m = window_mode("farall", shape)
     bcoef = chi_rates(T) if shape in PHCO2_FAMILY else None
-    return n_states, dev, alpha, co, coef, bcoef
+    fast = far_reciprocal_ok(m, co, 1, cut, bcoef)
+    return n_states, dev, alpha, co, _pack(m, co), bcoef, fast
 
 
 def sigma_stencil(plan: LineWindowPlan, lines, T, P, Pp, conc=None, shape: str = "voigt"):
@@ -481,10 +650,10 @@ def sigma_stencil(plan: LineWindowPlan, lines, T, P, Pp, conc=None, shape: str =
     geom = stencil_geometry(plan, lines)
     if geom is None:
         raise ValueError("the stencil geometry rejects this grid and catalog")
-    n_states, dev, _, co, coef, bcoef = _route_operands(lines, T, P, Pp, plan.windows(), conc,
-                                                        shape)
+    n_states, dev, _, co, coef, bcoef, fast = _route_operands(lines, T, P, Pp, plan.windows(),
+                                                              conc, shape, plan.cut)
     out = launch_mode(window_mode("farall", shape), plan.device_arrays(dev), lines, coef,
-                      n_states, plan.n_nu, _zones(plan.cut), bcoef=bcoef)
+                      n_states, plan.n_nu, _zones(plan.cut), bcoef=bcoef, fast=fast)
     return stencil_correction(out, geom, co, plan.cut, T=chi_T(shape, T))
 
 
@@ -495,7 +664,8 @@ def _coarse_arrays(geom, dev):
             hi, lo = two_float(blocks)
             return {"nu_hi": torch.as_tensor(hi.reshape(-1), device=dev),
                     "nu_lo": torch.as_tensor(lo.reshape(-1), device=dev),
-                    "win": torch.as_tensor(windows, dtype=torch.int32, device=dev)}
+                    "win": torch.as_tensor(windows, dtype=torch.int32, device=dev),
+                    "win_host": windows}
         got = geom._on_device[dev] = {"fine": grid(geom.fine_blocks, geom.fine_windows),
                                       "coarse": grid(geom.coarse_blocks, geom.coarse_windows)}
     return got
@@ -512,22 +682,24 @@ def sigma_coarse(plan: LineWindowPlan, lines, T, P, Pp, params, conc=None,
     if T.device.type == "cpu":
         return sigma_coarse_plain(plan, lines, T, P, Pp, params, conc, shape)
     geom = coarse_geometry(plan, lines, params)
-    n_states, dev, alpha, co, coef, bcoef = _route_operands(
-        lines, T, P, Pp, geom.coarse_windows, conc, shape)
+    n_states, dev, alpha, co, coef, bcoef, fast = _route_operands(
+        lines, T, P, Pp, geom.coarse_windows, conc, shape, geom.zones["cut"])
     _check_windows(geom.fine_windows, lines.n_lines)
     arrs = _coarse_arrays(geom, dev)
     z = geom.zones
     zones = _zones(**z)
     if geom.stencil is not None:
         fine = launch_mode(window_mode("fine_stencil", shape), arrs["fine"], lines, coef,
-                           n_states, plan.n_nu, zones, bcoef=bcoef)
+                           n_states, plan.n_nu, zones, bcoef=bcoef, fast=fast)
         stencil_correction(fine, geom.stencil, co, z["cut"], weight=(z["D1"], z["D2"]),
                            T=chi_T(shape, T))
     else:
-        fine = launch_mode(window_mode("fine", shape), arrs["fine"], lines, coef, n_states,
-                           plan.n_nu, zones, near_distance(alpha, z["cut_f"]), bcoef=bcoef)
+        fm = window_mode("fine", shape)
+        fcoef = coef if _N_COEF[fm] == coef.shape[-1] else _pack(fm, co)
+        fine = launch_mode(fm, arrs["fine"], lines, fcoef, n_states, plan.n_nu, zones,
+                           near_distance(alpha, z["cut_f"]), bcoef=bcoef, fast=fast)
     far_c = launch_mode(window_mode("coarse", shape), arrs["coarse"], lines, coef, n_states,
-                        geom.params[2], zones, bcoef=bcoef)
+                        geom.params[2], zones, bcoef=bcoef, fast=fast)
     return fine + far_from_coarse(far_c, geom)
 
 
@@ -543,7 +715,8 @@ def _segment_windows(plan: LineWindowPlan, n_lines: int, L_seg: int, dev):
         got = plan._on_device[key] = [
             (g, {"nu_hi": full["nu_hi"][g.blo * B: g.bhi * B],
                  "nu_lo": full["nu_lo"][g.blo * B: g.bhi * B],
-                 "win": torch.as_tensor(g.windows, dtype=torch.int32, device=dev)})
+                 "win": torch.as_tensor(g.windows, dtype=torch.int32, device=dev),
+                 "win_host": g.windows})
             for g in segments(plan, n_lines, L_seg)]
     return got
 
@@ -574,9 +747,10 @@ def sigma_segmented(plan: LineWindowPlan, lines, T, P, Pp, L_seg: int, shape: st
                                        None if conc is None else conc[..., seg.a:seg.b])
         alpha = effective_alpha(shape, alpha)
         d_near = near_distance(alpha, plan.cut) if mode in _D_NEAR_MODES else None
-        launch_mode(mode, grid, sub, pack_coefficients(mode, S, alpha, gamma), n_states,
-                    seg.n_out, zones, d_near, out=out[:, seg.blo * plan.block:],
-                    count_as=_family(shape) + "segmented", bcoef=bcoef)
+        coef, fast = _packed(mode, S, alpha, gamma, 1, plan.cut, bcoef)
+        launch_mode(mode, grid, sub, coef, n_states, seg.n_out, zones, d_near,
+                    out=out[:, seg.blo * plan.block:], count_as=_family(shape) + "segmented",
+                    bcoef=bcoef, fast=fast)
     return out
 
 
@@ -753,9 +927,11 @@ def _dev_grid(dplan: DeviceWindowPlan, kind: str, L: int, dev):
         shift = torch.zeros_like(win)
         shift[..., 0::2] = (torch.arange(k, device=dev) * L)[:, None, None]
         win = (win + shift).reshape(-1, win.shape[-1]).to(torch.int32).contiguous()
-        _check_windows(win.cpu().numpy().astype(np.int64), k * L)
+        host = win.cpu().numpy().astype(np.int64)
+        _check_windows(host, k * L)
         got = dplan._cache[key] = {"nu_hi": hi.to(dev).reshape(-1).contiguous(),
-                                   "nu_lo": lo.to(dev).reshape(-1).contiguous(), "win": win}
+                                   "nu_lo": lo.to(dev).reshape(-1).contiguous(), "win": win,
+                                   "win_host": host}
     return got
 
 
@@ -823,28 +999,33 @@ def device_launches(dplan: DeviceWindowPlan, lines, T, P, Pp, conc, shape: str, 
         d_far, h, n_cc, c_ratio = dplan.coarse_meta
         z = split_zones(dplan.cut, d_far, h)
         zones = _zones(**z)
-        coef = pack_coefficients(window_mode("farall", shape), S, alpha, gamma)
         bcoef = chi_rates(T) if shape in PHCO2_FAMILY else None
         d_near = torch.clamp(15.0 * amax, max=z["cut_f"]).contiguous()
         fm, cm = window_mode("fine", shape), window_mode("coarse", shape)
+        co = voigt_coefficients(S, alpha, gamma)
+        fcoef = _pack(fm, co)
+        coef = fcoef if _N_COEF[cm] == _N_COEF[fm] else _pack(cm, co)
+        fast = far_reciprocal_ok(fm, co, k, dplan.cut, bcoef)
         fgrid, cgrid = _dev_grid(dplan, "fine", L, dev), _dev_grid(dplan, "coarse", L, dev)
         interp = strided_interp(c_ratio, dplan.n_nu)
         launches = [
             ("dev_" + _MODE_NAMES[fm],
-             lambda: launch_mode(fm, fgrid, flat, coef, n, dplan.n_nu, zones, d_near, bcoef=bcoef,
-                                 n_shards=k, count_as="dev_" + _MODE_NAMES[fm])),
+             lambda: launch_mode(fm, fgrid, flat, fcoef, n, dplan.n_nu, zones, d_near,
+                                 bcoef=bcoef, n_shards=k, count_as="dev_" + _MODE_NAMES[fm],
+                                 fast=fast)),
             ("dev_" + _MODE_NAMES[cm],
              lambda: launch_mode(cm, cgrid, flat, coef, n, n_cc, zones, bcoef=bcoef, n_shards=k,
-                                 count_as="dev_" + _MODE_NAMES[cm]))]
+                                 count_as="dev_" + _MODE_NAMES[cm], fast=fast))]
         finish = lambda fine, far_c: fine + far_from_coarse(far_c.view(n * k, n_cc),
                                                             interp).view(n, k * dplan.n_nu)
         return launches, finish
     mode = nosplit_mode(shape) if route == "nosplit" else _mode(shape)
-    coef = pack_coefficients(mode, S, alpha, gamma)
     d_near = (torch.clamp(15.0 * amax, max=dplan.cut).contiguous()
               if mode in _D_NEAR_MODES else None)
     bcoef = chi_rates(T) if mode in _PHCO2_MODES else None
+    coef, fast = _packed(mode, S, alpha, gamma, k, dplan.cut, bcoef)
     grid, zones = _dev_grid(dplan, "plan", L, dev), _zones(dplan.cut)
     return [("dev_" + _MODE_NAMES[mode],
              lambda: launch_mode(mode, grid, flat, coef, n, dplan.n_nu, zones, d_near, bcoef=bcoef,
-                                 n_shards=k, count_as="dev_" + _MODE_NAMES[mode]))], lambda x: x
+                                 n_shards=k, count_as="dev_" + _MODE_NAMES[mode], fast=fast))], \
+        lambda x: x

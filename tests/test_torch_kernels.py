@@ -259,8 +259,10 @@ def test_windowed_modes_match_plain(dense, cuda, mode, grid, n):
                 "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
     d_near = linesum_cuda.near_distance(a, z["cut_f"]) if mode == "fine" else None
     before = dict(sigma_lines.launches_by_mode)
+    fast = linesum_cuda.far_reciprocal_ok(linesum_cuda.WINDOW_MODES[mode],
+                                          voigt_coefficients(S, a, g), 1, zz["cut"])
     out = linesum_cuda.launch_mode(linesum_cuda.WINDOW_MODES[mode], grid_dev, l32, coef, n,
-                                   n_out, linesum_cuda._zones(**zz), d_near)
+                                   n_out, linesum_cuda._zones(**zz), d_near, fast=fast)
     torch.cuda.synchronize()
     assert sigma_lines.launches_by_mode[mode] == before[mode] + 1
     d64 = None if d_near is None else d_near.double().cpu()
@@ -411,7 +413,7 @@ def test_phco2_windowed_modes_match_plain(dense_phco2, cuda, mode, n):
     S, a, g = _line_params(l32, T, P, Pp)
     m = linesum_cuda.window_mode(mode, "phco2")
     coef = linesum_cuda.pack_coefficients(m, S, a, g)
-    assert coef.shape[-1] == linesum_cuda.ST * 3
+    assert coef.shape == (lines.n_lines, n, linesum_cuda._N_COEF[m]) == (lines.n_lines, n, 4)
     T64 = _t(_mode_states(n))
     co64 = voigt_coefficients(*_line_params(lines, *T64))
     z = geom.zones
@@ -426,8 +428,10 @@ def test_phco2_windowed_modes_match_plain(dense_phco2, cuda, mode, n):
                 "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
     d_near = linesum_cuda.near_distance(a, z["cut_f"]) if mode == "fine" else None
     before = sigma_lines.launches_by_mode[f"phco2_{mode}"]
+    bcoef = linesum_cuda.chi_rates(T)
+    fast = linesum_cuda.far_reciprocal_ok(m, voigt_coefficients(S, a, g), 1, zz["cut"], bcoef)
     out = linesum_cuda.launch_mode(m, grid_dev, l32, coef, n, n_out, linesum_cuda._zones(**zz),
-                                   d_near, bcoef=linesum_cuda.chi_rates(T))
+                                   d_near, bcoef=bcoef, fast=fast)
     torch.cuda.synchronize()
     assert sigma_lines.launches_by_mode[f"phco2_{mode}"] == before + 1
     d64 = None if d_near is None else d_near.double().cpu()
@@ -667,6 +671,153 @@ def test_accumulate_leaves_other_columns_unchanged(dense, cuda):
     assert 0 < lo or hi < plan.n_nu
     assert torch.equal(out[:, :lo], before[:, :lo]) and torch.equal(out[:, hi:], before[:, hi:])
     assert torch.equal(out[:, lo:hi], before[:, lo:hi] + fresh)
+
+
+# --- K1's work items: a block whose window holds most lines --------------------
+
+@pytest.fixture(scope="module")
+def crowded():
+    """A 6000-line catalog (its 2349 cm^-1 band ends at 2419 cm^-1) under a
+    grid whose first block (128 points on 2340-2350) sees the band's 851
+    lines within the cut (4 pieces of 256); the other 15 blocks, 0.1 cm^-1
+    apart from 2450 on, lie beyond every line's cut: empty windows."""
+    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(6000, seed=3),
+                                           dtype=torch.float64, device="cpu")
+    nu = np.concatenate([np.linspace(2340.0, 2350.0, 128), 2450.0 + 0.1 * np.arange(1920)])
+    return lines, build_line_window_plan(nu, lines.positions64(), 25.0)
+
+
+def _crowded_launch(kind, lines, plan, cuda, n, out=None):
+    """One K1 launch over the crowded grid, float32 on the card, with its
+    float64 plain version: the split mode (with ``out``: adding into it),
+    COARSE (voigt, phco2) on the same blocks at a split of d_far = 1 cm^-1,
+    and K1-dev (the grid as two shards of the same lines). The launch cuts
+    the windows into pieces of ``linesum_cuda.PIECE_LINES`` as it stands
+    when it runs."""
+    l32 = lines.to(torch.float32, cuda)
+    x = _mode_states(n)
+    T, P, Pp = _t(x, torch.float32, cuda)
+    x64 = _t(x)
+    shape = "phco2" if kind == "coarse_phco2" else "voigt"
+    S, a, g = _line_params(l32, T, P, Pp)
+    grid = plan.device_arrays(cuda)
+    if kind in ("split", "dev"):
+        coef, fast = linesum_cuda._packed(0, S, a, g, 1, plan.cut)
+        d_near = linesum_cuda.near_distance(a, plan.cut)
+        ref = sigma_from_lines(plan, lines, *x64)
+        if kind == "dev":
+            import dataclasses
+            from clearsky_tpu_torch.spectra.lines import PER_LINE_FIELDS
+
+            k, L = 2, lines.n_lines
+            l32 = dataclasses.replace(l32, **{f: torch.cat([getattr(l32, f)] * 2)
+                                              for f in PER_LINE_FIELDS})
+            win = plan.windows().copy()
+            win2 = np.concatenate([win, win + np.array([L, 0])])
+            grid = {"nu_hi": torch.cat([grid["nu_hi"]] * 2),
+                    "nu_lo": torch.cat([grid["nu_lo"]] * 2),
+                    "win": torch.as_tensor(win2, dtype=torch.int32, device=cuda)}
+            coef, fast = torch.cat([coef, coef]), torch.cat([fast, fast])
+            return (lambda: linesum_cuda.launch_mode(0, grid, l32, coef, n, plan.n_nu,
+                                                     linesum_cuda._zones(plan.cut),
+                                                     torch.cat([d_near, d_near]), n_shards=k,
+                                                     fast=fast),
+                    torch.cat([ref, ref], dim=-1))
+        return (lambda: linesum_cuda.launch_mode(0, grid, l32, coef, n, plan.n_nu,
+                                                 linesum_cuda._zones(plan.cut), d_near, out=out,
+                                                 fast=fast), ref)
+    cut = 25.0
+    z = ls.split_zones(cut, 1.0, 0.1)
+    m = linesum_cuda.window_mode("coarse", shape)
+    bcoef = linesum_cuda.chi_rates(T) if shape == "phco2" else None
+    coef, fast = linesum_cuda._packed(m, S, a, g, 1, cut, bcoef)
+    co64 = voigt_coefficients(*_line_params(lines, *x64))
+    _, windows = ls.split_windows(lines.positions64(), plan.nu_blocks, plan.nu_blocks, cut, 1.0,
+                                  0.1)
+    grid = {"nu_hi": grid["nu_hi"], "nu_lo": grid["nu_lo"],
+            "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
+    ref = ls.sigma_mode_plain("coarse", plan.nu_blocks, windows, lines, co64, z,
+                              T=x64[0] if shape == "phco2" else None)[:, :plan.n_nu]
+    return (lambda: linesum_cuda.launch_mode(m, grid, l32, coef, n, plan.n_nu,
+                                             linesum_cuda._zones(**z), bcoef=bcoef, fast=fast),
+            ref)
+
+
+_CROWDED = ["split", "acc", "coarse", "coarse_phco2", "dev"]
+
+
+def _crowded_check(kind, out, ref):
+    if kind.startswith("coarse"):
+        assert bool(torch.isfinite(out).all()) and _of_peak(out, ref) < 1e-5
+    else:
+        _check_sigma(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", _CROWDED)
+@pytest.mark.parametrize("n", [1, 11, 57])
+def test_crowded_window_matches_plain(crowded, cuda, kind, n):
+    """K1 where one block's window holds every line within a cut (4 pieces),
+    against its plain version in float64, the bars of the mode; ``acc`` adds
+    into a sigma and leaves before + the fresh sum, bit for bit."""
+    lines, plan = crowded
+    table, n_slots = linesum_cuda.piece_schedule(plan.windows(), 1, linesum_cuda.PIECE_LINES)
+    assert plan.count[1:].sum() == 0 and plan.count[0] > 3 * linesum_cuda.PIECE_LINES
+    assert int(table[:, 5].max()) == 4 and n_slots == 4
+    if kind == "acc":
+        launch, ref = _crowded_launch("split", lines, plan, cuda, n)
+        fresh = launch()
+        before = torch.randn((n, plan.n_nu), device=cuda)
+        out = before.clone()
+        _crowded_launch("split", lines, plan, cuda, n, out=out)[0]()
+        torch.cuda.synchronize()
+        assert torch.equal(out, before + fresh)
+        _check_sigma(fresh, ref)
+        return
+    launch, ref = _crowded_launch(kind, lines, plan, cuda, n)
+    out = launch()
+    torch.cuda.synchronize()
+    _crowded_check(kind, out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", _CROWDED[:1] + _CROWDED[2:])
+def test_k1_launches_are_bitwise_repeatable(crowded, cuda, kind):
+    """Two launches on the same operands give the same bits: a block's
+    pieces add up in piece order, whichever finishes last."""
+    lines, plan = crowded
+    launch, _ = _crowded_launch(kind, lines, plan, cuda, 57)
+    first = launch().clone()
+    for _ in range(3):
+        assert torch.equal(launch(), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", _CROWDED[:1] + _CROWDED[2:])
+@pytest.mark.parametrize("piece_lines", [1, 7, 32])
+def test_k1_many_pieces_equal_one_piece(crowded, cuda, kind, piece_lines, monkeypatch):
+    """A window cut into many pieces (1, 7 or 32 lines each) against the same
+    window as one piece, within the split mode's bar, and both against the
+    plain version."""
+    lines, plan = crowded
+    launch, ref = _crowded_launch(kind, lines, plan, cuda, 11)
+    monkeypatch.setattr(linesum_cuda, "PIECE_LINES", piece_lines)
+    a = launch().clone()
+    monkeypatch.setattr(linesum_cuda, "PIECE_LINES", 10**6)
+    b = launch()
+    torch.cuda.synchronize()
+    _check_sigma(a, b.double().cpu())
+    _crowded_check(kind, a, ref)
+
+
+@pytest.mark.gpu
+def test_k1_builds_for_half_the_warps(cuda):
+    """Every K1 mode but the no-split sweeps holds at least 32 of an SM's 64
+    warps resident in blocks of 128 threads (registers and shared memory)."""
+    for mode in linesum_cuda._MODE_NAMES:
+        info = linesum_cuda.kernel_info(mode, 128)
+        if mode not in linesum_cuda.NOSPLIT_MODES.values():
+            assert info["resident_warps"] >= 0.5, (mode, info)
 
 
 @pytest.mark.gpu

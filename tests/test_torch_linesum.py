@@ -133,8 +133,10 @@ def test_auto_dispatch_on_cpu_is_plain_and_launches_nothing(cat):
 
 
 def _emulate_kernel(plan, lines, mode, coef, d_near, n_states):
-    """The kernel's arithmetic (csrc/linesum.cu) in float64 on its coefficient pack."""
-    nc = coef.shape[-1] // linesum_cuda.ST
+    """The kernel's arithmetic (csrc/linesum.cu) in float64 on its coefficient
+    pack [n_lines, n_states, n_coef]: the split mode's (Sia, ia, y0, 0, A, c1,
+    c2, k2), the no-split sweep's (Sia, ia, y0, A), lorentz's and doppler's
+    (S, alpha, gamma, 0)."""
     nu_b = torch.tensor(plan.nu_blocks)
     out = torch.zeros(n_states, plan.n_blocks, plan.block, dtype=torch.float64)
     for b in range(plan.n_blocks):
@@ -144,15 +146,14 @@ def _emulate_kernel(plan, lines, mode, coef, d_near, n_states):
         dnu = nu_b[b][:, None] - lines.nu[s0:s0 + cnt][None, :]        # [B, cnt]
         adnu = dnu.abs()
         for st in range(n_states):
-            c = coef[st // linesum_cuda.ST, s0:s0 + cnt].view(cnt, linesum_cuda.ST, nc)
-            c = c[:, st % linesum_cuda.ST]
+            c = coef[s0:s0 + cnt, st]
             if mode == linesum_cuda.NOSPLIT_MODES["voigt"]:
                 f = c[:, 0] * wofz_re(dnu * c[:, 1], c[:, 2].expand_as(dnu))
             elif mode == linesum_cuda.MODES["voigt"]:
                 near = c[:, 0] * wofz_re(dnu * c[:, 1], c[:, 2].expand_as(dnu))
                 D = dnu * dnu
-                m_ = D * c[:, 3]
-                far = c[:, 6] * (c[:, 4] + m_) / ((c[:, 4] - m_) ** 2 + c[:, 5] * D)
+                m_ = D * c[:, 4]
+                far = c[:, 7] * (c[:, 5] + m_) / ((c[:, 5] - m_) ** 2 + c[:, 6] * D)
                 f = torch.where(adnu > d_near, far, near)
             elif mode == linesum_cuda.MODES["lorentz"]:
                 f = c[:, 0] * (c[:, 2] / np.pi) / (dnu * dnu + c[:, 2] ** 2)
@@ -167,7 +168,7 @@ def _emulate_kernel(plan, lines, mode, coef, d_near, n_states):
 def test_kernel_pack_reproduces_plain(cat, shape):
     """The coefficient pack and d_near, run through the kernel's formulas
     (the split mode, the single sweeps and the no-split sweep)."""
-    # 11 states: a full tile of 8 plus a padded one
+    # 11 states: K1's tiles of 8, 2 and 1 states
     Ts = torch.tensor(np.linspace(180.0, 320.0, 11))
     Ps = torch.tensor(np.geomspace(10.0, 1e5, 11))
     nosplit = shape.endswith("_nosplit")
@@ -175,7 +176,7 @@ def test_kernel_pack_reproduces_plain(cat, shape):
     mode = linesum_cuda.nosplit_mode(shape) if nosplit else linesum_cuda._mode(shape)
     S, a, g = _line_params(cat["tl"], Ts, Ps, 0.4 * Ps)
     coef = pack_coefficients(mode, S, a, g)
-    assert coef.shape == (2, cat["tl"].n_lines, 8 * linesum_cuda._N_COEF[mode])
+    assert coef.shape == (cat["tl"].n_lines, 11, linesum_cuda._N_COEF[mode])
     d_near = float(near_distance(a, cat["tp"].cut))
     assert 0.0 < d_near <= cat["tp"].cut
     out = _emulate_kernel(cat["tp"], cat["tl"], mode, coef, d_near, 11)

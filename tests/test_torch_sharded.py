@@ -336,17 +336,22 @@ def test_device_route_policy(cats):
 
 # --- K1-dev's operands through a plain stand-in of the launch ---------------
 
-def _unpack(coef, n_states, nc):
-    """The per-(state, line) values of a K1 pack [n_tiles, n_lines, ST nc]."""
-    n_tiles, n_lines, _ = coef.shape
-    st = linesum_cuda.ST
-    v = coef.view(n_tiles, n_lines, st, nc).permute(0, 2, 1, 3).reshape(n_tiles * st, n_lines,
-                                                                        nc)
-    return tuple(v[:n_states, :, i] for i in range(nc))
+def _unpack(coef, mode):
+    """The per-(state, line) values [n_states, n_lines] of a K1 pack
+    [n_lines, n_states, n_coef] of ``mode``, as the plain tiles take them:
+    (Sia, ia, y0, A, c1, c2, k2) for the Voigt modes (None where the mode's
+    pack leaves a value out), (S, alpha, gamma) for lorentz and doppler."""
+    v = coef.permute(1, 0, 2)
+    cols = [v[..., i] for i in range(v.shape[-1])]
+    if mode in (0, 4):              # (Sia, ia, y0, 0) and (A, c1, c2, k2)
+        return tuple(cols[:3] + cols[4:])
+    if mode in (3, 5, 6):           # the far wing's (A, c1, c2, k2) alone
+        return (None, None, None, *cols)
+    return tuple(cols[:3])          # (Sia, ia, y0, A): NOSPLIT; (S, alpha, gamma, 0)
 
 
 def _stand_in_launch(mode, grid, lines, coef, n_states, n_out, zones, d_near=None, out=None,
-                     count_as=None, bcoef=None, n_shards=1):
+                     count_as=None, bcoef=None, n_shards=1, fast=None):
     """K1's launch as the kernel reads its operands, in plain float64 torch
     (voigt family and single sweeps): shard s's block grid, window rows,
     d_near[s] and output columns; the windows index the flat catalog."""
@@ -354,7 +359,7 @@ def _stand_in_launch(mode, grid, lines, coef, n_states, n_out, zones, d_near=Non
     assert bcoef is None, "the stand-in covers the voigt family"
     z = dict(zip(("cut", "cut_f", "d_lo", "D1", "inv_D", "R1", "inv_R"), list(zones)))
     z["D2"], z["R2"] = z["D1"] + 1.0 / z["inv_D"], z["R1"] + 1.0 / z["inv_R"]
-    co = _unpack(coef.double(), n_states, linesum_cuda._N_COEF[mode])
+    co = _unpack(coef.double(), mode)
     win = grid["win"].long().numpy()
     n_blocks = win.shape[0] // n_shards
     hi = grid["nu_hi"].double() + grid["nu_lo"].double()

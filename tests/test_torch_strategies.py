@@ -400,10 +400,12 @@ def test_correction_placement_matches_jax(plans, weighted):
 
 def _emulate_windowed(mode, blocks64, windows, lines, coef, z, d_near, n_states):
     """The windowed modes of csrc/linesum.cu in float64 on the kernel's pack
-    and window table: per block and window, its zone's mask and weight, FINE
-    with the per-element branch on |dnu| > d_near over its mid window."""
-    ST = linesum_cuda.ST
-    NC = coef.shape[-1] // ST
+    [n_lines, n_states, n_coef] and window table: per block and window, its
+    zone's mask and weight, FINE with the per-element branch on |dnu| >
+    d_near over its mid window (its pack's (Sia, ia, y0, 0) then the far
+    wing's (A, c1, c2, k2); the other modes' pack holds the far wing's
+    alone)."""
+    far = coef.shape[-1] - 4
     nb = torch.tensor(blocks64)
     out = torch.zeros(n_states, *nb.shape, dtype=torch.float64)
     sm = lambda D, A1, A2: ls._smoothstep_d2(D, A1, A2)
@@ -417,9 +419,10 @@ def _emulate_windowed(mode, blocks64, windows, lines, coef, z, d_near, n_states)
             dnu = nb[b][:, None] - lines.nu[s0:s0 + cnt][None, :]
             a, D = dnu.abs(), dnu * dnu
             for st in range(n_states):
-                c = coef[st // ST, s0:s0 + cnt].view(cnt, ST, NC)[:, st % ST]
-                m_ = D * c[:, 3]
-                r1 = c[:, 6] * (c[:, 4] + m_) / ((c[:, 4] - m_) ** 2 + c[:, 5] * D)
+                c = coef[s0:s0 + cnt, st]
+                A, c1, c2, k2 = (c[:, far + i] for i in range(4))
+                m_ = D * A
+                r1 = k2 * (c1 + m_) / ((c1 - m_) ** 2 + c2 * D)
                 if zone == "farall":
                     f, keep = r1, a <= z["cut"]
                 elif zone == "coarse":
@@ -438,10 +441,9 @@ def _emulate_windowed(mode, blocks64, windows, lines, coef, z, d_near, n_states)
 
 
 def _emulate_correction(geom, coef, n_states, cut, n_nu, weight):
-    """stencil_correction_kernel in float64: thread (k, l) reads the pack's
-    (Sia, ia, y0) and adds at q[l] K + k."""
-    ST = linesum_cuda.ST
-    NC = coef.shape[-1] // ST
+    """stencil_correction_kernel in float64: thread (k, l) reads (Sia, ia, y0)
+    (here from the FINE mode's pack [n_lines, n_states, 8]) and adds at q[l]
+    K + k."""
     out = torch.zeros(n_states, n_nu, dtype=torch.float64)
     hi = torch.tensor(geom.dnu_hi, dtype=torch.float64)
     lo = torch.tensor(geom.dnu_lo, dtype=torch.float64)
@@ -450,7 +452,7 @@ def _emulate_correction(geom, coef, n_states, cut, n_nu, weight):
     if weight is not None:
         w = 1.0 - ls._smoothstep_d2((hi + lo) ** 2, *weight)
     for st in range(n_states):
-        c = coef[st // ST].view(-1, ST, NC)[:, st % ST]
+        c = coef[:, st]
         x = c[:, 1] * hi + c[:, 1] * lo
         y = c[:, 2].expand_as(x)
         t2r, t2i = y * y - x * x, -2.0 * x * y
@@ -465,14 +467,15 @@ def _emulate_correction(geom, coef, n_states, cut, n_nu, weight):
 @pytest.mark.parametrize("mode", ["farall", "fine", "fine_stencil", "coarse", "correction"])
 def test_kernel_pack_reproduces_plain_modes(plans, mode):
     """Each new mode's formulas on the real pack and window table (11
-    states: a full tile of 8 and a padded one) against its plain version."""
+    states: K1's tiles of 8, 2 and 1) against its plain version."""
     _, tpl, _, tl = plans["dense_8192"]
     Ts = torch.tensor(np.linspace(180.0, 320.0, 11))
     Ps = torch.tensor(np.geomspace(10.0, 1e5, 11))
     S, a, g = _line_params(tl, Ts, Ps, 0.4 * Ps)
     co = voigt_coefficients(S, a, g)
-    coef = linesum_cuda.pack_coefficients(linesum_cuda.WINDOW_MODES["farall"], S, a, g)
-    assert coef.shape == (2, tl.n_lines, 8 * 7)
+    kmode = linesum_cuda.WINDOW_MODES["fine" if mode == "correction" else mode]
+    coef = linesum_cuda.pack_coefficients(kmode, S, a, g)
+    assert coef.shape == (tl.n_lines, 11, linesum_cuda._N_COEF[kmode])
     geom = ls.coarse_geometry(tpl, tl, ls.coarse_params(tpl, 0.6))
     z = geom.zones
     if mode == "correction":
