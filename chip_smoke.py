@@ -16,8 +16,10 @@ prints one line that starts with its name:
           PyTorch version in float64 on the same inputs (error and bar), the
           median time of kernel and plain float32 version (CUDA events), and
           the kernel's bound (the least time the card could take for the same
-          work: the larger of the bytes moved at 3.35 TB/s and the FP32
-          operations at 67 TFLOP/s, counted on this run's data). K1's split
+          work: the largest of the bytes moved at 3.35 TB/s, the FP32
+          operations at 67 TFLOP/s, the exponentials at the special-function
+          units' rate and, for K6/K7's bfloat16 tail, the tensor-core
+          operations at the dense 989 TFLOP/s, counted on this run's data). K1's split
           mode at 16 states x 2^15 points and at the main path's shape; the
           stencil-near route's FARALL mode and correction at the RCM's shape
           (20 edge states x 16,384 points); the coarse-far route's COARSE and
@@ -63,7 +65,14 @@ prints one line that starts with its name:
           ``main``; a split Gas beside a gray gas, which takes the unfused
           route (raw_sigma, K2); torch.func.jvp of the split Gas's outgoing
           and radiate in the edge temperatures against the float64 unfused
-          pipeline (only K6 and K7 launch)
+          pipeline (only K6 and K7 launch); at the RCM's 16,384 points, a
+          split Gas baked there: radiate on it (only K7 launches) and a step
+          of an RCM on it (the cached cross-sections, K3: the RCM takes no
+          fused route). K6's and K7's kernel lines carry their build
+          (registers, shared and local bytes, resident warps, the
+          persistent blocks a launch starts) and two bounds: the tail's
+          products on the tensor cores (``bound_ms``) and every product on
+          the FP32 pipes (``bound_fp32_only_ms``, PR 8's count)
   nosplit outgoing on DirectGas(strategy="nosplit") at the main shape (only
           the no-split sweep and K2 launch; band OLR within 1e-4 of auto's)
   mix     HITRAN files at full-catalog size: co2.par (40,000 synthetic CO2
@@ -234,6 +243,7 @@ TABLE_SPLIT = 16
 # clock, 132 SMs at the 1,980 MHz boost clock
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
+BF16_TC_OPS_S = 989e12   # dense bfloat16 on the tensor cores, float32 accumulation
 MUFU_S = 16 * 132 * 1.98e9
 # FP32 operations counted in csrc/linesum.cu, a division as one: per
 # (point, line) pair the two-float dnu, |dnu|, D and the masks; per state
@@ -316,17 +326,18 @@ def wall_ms(fn, n: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(ops: float, nbytes: float, exps: float = 0.0) -> dict:
+def bound(ops: float, nbytes: float, exps: float = 0.0, tensor_ops: float = 0.0) -> dict:
     """The least time of a kernel's work: the largest of its FP32 operations
     at the card's peak, its exponentials at the special-function units'
-    rate and its bytes (each input read once, each output written once) at
-    its memory rate; ``bound_unit`` says which (fp32, sfu, hbm)."""
+    rate, its bfloat16 tensor-core operations at the dense tensor rate and
+    its bytes (each input read once, each output written once) at its
+    memory rate; ``bound_unit`` says which (fp32, sfu, tensor, hbm)."""
     t = {"fp32": 1e3 * ops / FP32_OPS_S, "sfu": 1e3 * exps / MUFU_S,
-         "hbm": 1e3 * nbytes / HBM_BYTES_S}
+         "tensor": 1e3 * tensor_ops / BF16_TC_OPS_S, "hbm": 1e3 * nbytes / HBM_BYTES_S}
     unit = max(t, key=t.get)
     return dict(bound_ms=t[unit], bound_by="bytes" if unit == "hbm" else "operations",
                 bound_unit=unit, bound_ops=float(ops), bound_exps=float(exps),
-                bound_bytes=float(nbytes))
+                bound_tensor_ops=float(tensor_ops), bound_bytes=float(nbytes))
 
 
 def nbytes(*xs) -> int:
@@ -1146,6 +1157,33 @@ def phase_table_bake(par, dev):
     return gs
 
 
+def fused_bound(nodes: int, K: int, T: int, L: int, N: int, marches: int,
+                nbytes_: float) -> dict:
+    """K6's (one march) or K7's (two) bound: the tail's products on the
+    tensor cores (two operations an FMA), the lead's FMAs and ~20 FP32
+    operations a layer, stream and march on the FP32 pipes, an exponential
+    a node and point and one a layer, stream and march (K7: and the beam's)
+    at the special-function units, the bytes at the memory rate; with
+    ``bound_fp32_only_ms``, PR 8's count: every product and the march on
+    the FP32 pipes."""
+    march = 20 * L * N * 5 * marches
+    exps = nodes * N + L * N * 5 * marches + (L * N if marches == 2 else 0)
+    b = bound(2 * nodes * K * N + march, nbytes_, exps, 2 * nodes * T * N)
+    b["bound_fp32_only_ms"] = bound(2 * nodes * (K + T) * N + march, nbytes_)["bound_ms"]
+    return b
+
+
+def fused_layout(kind: str, L: int, N: int) -> dict:
+    """K6's or K7's build at L layers and N points: registers, shared bytes
+    (static and dynamic), local bytes, resident warps (share of 64) and the
+    persistent blocks a launch starts."""
+    from clearsky_tpu_torch.rt.fused_table_cuda import kernel_info
+
+    info = kernel_info(kind, L, N)
+    return {k: info[k] for k in ("registers", "shared_bytes", "local_bytes", "resident_warps",
+                                 "ctas")}
+
+
 def kernel_fused(gs, dev, report):
     """K6 (57 nodes) and K7 (38 nodes) against their float64 plain versions
     on the same split operands, at the main column."""
@@ -1163,7 +1201,6 @@ def kernel_fused(gs, dev, report):
     to64 = lambda *xs: [x.double() for x in xs]
     bar = 1e-4
     L, N = N_LEVELS - 1, N_NU_MAIN
-    rows = lead.shape[0] + tail.shape[0]
     common = dict(layers=L, points=N, streams=5, lead_rows=lead.shape[0],
                   tail_rows=tail.shape[0], bar=f"{bar} of peak (tau rtol {bar}, atol 1e-10)",
                   plain_shape="same")
@@ -1178,11 +1215,12 @@ def kernel_fused(gs, dev, report):
     del ref, lead64
     ms = cuda_ms(lambda: fused_olr(lead, tail, bl, bt, wq, B, m, W))
     plain = cuda_ms(lambda: tft._fused_olr_plain(lead, tail, bl, bt, wq, B, m, W))
-    # two operations per (node, row, point) FMA, then the march
     nodes = int(bl.shape[0])
-    b = bound(2 * nodes * rows * N + 20 * L * N * 5, nbytes(lead, tail, bl, bt, wq, B, out))
+    b = fused_bound(nodes, lead.shape[0], tail.shape[0], L, N, 1,
+                    nbytes(lead, tail, bl, bt, wq, B, out))
     emit("kernel", kernel="fused_olr", nodes=nodes, err_of_peak=e_olr,
-         max_abs_err=abs_olr, ms=ms, plain_ms=plain, **common, **b)
+         max_abs_err=abs_olr, ms=ms, plain_ms=plain, **common,
+         **fused_layout("olr", L, N), **b)
     check(bool(torch.isfinite(out).all()) and e_olr < bar,
           f"fused OLR kernel error {e_olr:.3e} of peak exceeds {bar}")
     report["fused_olr"] = dict(max_abs_err=abs_olr, ms=ms, plain_ms=plain, library_ms=None,
@@ -1212,11 +1250,11 @@ def kernel_fused(gs, dev, report):
     plain = cuda_ms(lambda: tft._fused_monoflux_plain(lead, tail, bl, bt, wq, B, S, a, ct_,
                                                       m, W))
     nodes = int(bl.shape[0])
-    b = bound(2 * nodes * rows * N + 2 * 20 * L * N * 5,
-              nbytes(lead, tail, bl, bt, wq, B, S, a, up, dn, tau))
+    b = fused_bound(nodes, lead.shape[0], tail.shape[0], L, N, 2,
+                    nbytes(lead, tail, bl, bt, wq, B, S, a, up, dn, tau))
     emit("kernel", kernel="fused_monoflux", nodes=nodes, err_up_of_peak=e_up,
          err_down_of_peak=e_dn, tau_max_rel_err=tau_rel, max_abs_err=max(abs_up, abs_dn),
-         ms=ms, plain_ms=plain, **common, **b)
+         ms=ms, plain_ms=plain, **common, **fused_layout("monoflux", L, N), **b)
     check(max(e_up, e_dn) < bar and tau_ok,
           f"fused flux kernel error {max(e_up, e_dn):.3e} of peak, tau {tau_rel:.3e}")
     report["fused_monoflux"] = dict(max_abs_err=max(abs_up, abs_dn), ms=ms, plain_ms=plain,
@@ -1274,6 +1312,42 @@ def phase_table(gs, dev, direct_olr):
     check(abs(band_mix - band) < 1e-4 * band, "the mixed stack's band OLR is off the table's")
     calls = {"table_outgoing": lambda: ct.outgoing(Pe, G, Te, MU, gs),
              "table_radiate": lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, gs)}
+    return calls, counts
+
+
+def phase_table_rcm(par, dev):
+    """The table path at the RCM's 16,384 points: a split Gas baked there,
+    radiate on it (K7 at the RCM's grid) and an RCM on it, whose step
+    radiates through the cached cross-sections (raw_sigma, K3: the RCM's
+    step takes no fused route, as in the JAX package's models/rcm.py).
+    Returns the profile calls and the launch counts of one call each."""
+    import clearsky_tpu_torch as ct
+
+    lines = ct.SpectralLines.from_par_dict(par, dtype=torch.float32, device=dev)
+    nu = grid_for(lines, N_NU_RCM)
+    gs = ct.Gas.from_lines(lines, CONC, nu, ct.AtmosphericDomain.create(*TABLE_DOMAIN))
+    gs = gs.split_precision(TABLE_SPLIT)
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    span = float(nu[-1] - nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    rcm = ct.RCM.create(Pe, Te, G, lambda T, P: MU, fS, 0.1, lambda T, P: CP, 1e7, gs,
+                        radmul=2)
+    calls = {"table_radiate_rcm_grid": lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, gs),
+             "table_rcm_step": lambda: ct.step(rcm, RCM_DT)}
+    counts = {}
+    for name, fn in calls.items():
+        counts_reset()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = {k: v for k, v in counts_read().items() if v}
+        emit("counts", path=name, **counts[name])
+        T = out.T if name == "table_rcm_step" else out.F_net
+        check(bool(torch.isfinite(T).all()), f"{name} gave values that are not finite")
+    check(counts["table_radiate_rcm_grid"] == {"fused_monoflux": 1},
+          f"radiate on the split Gas at the RCM's grid launched {counts}")
+    check(counts["table_rcm_step"] == {"monoflux_march": 1},
+          f"the table RCM's step launched {counts['table_rcm_step']}")
     return calls, counts
 
 
@@ -3311,6 +3385,11 @@ def main(argv=None) -> int:
     for k in ("fused_olr", "fused_monoflux"):
         counts[k] = table_counts[k] + table_jvp[k]
     calls.update(table_calls)
+    table_rcm_calls, table_rcm_counts = phase_table_rcm(par, dev)
+    for part in table_rcm_counts.values():
+        for k, v in part.items():
+            counts[k] += v
+    calls.update(table_rcm_calls)
     calls.update(route_calls)
     # the no-split sweep through the entry point, counted on its own
     ns_calls, ns_counts = phase_nosplit(par, dev, direct_olr)

@@ -3,13 +3,15 @@
 // triple, the linear-in-tau layer emission and the column marches of one
 // wavenumber point.
 //
-// The column marches take the layer optical depth through an accessor
-// tau(l), so that K2/K3 read it from device memory and K6/K7 from the shared
-// memory where they formed it. The transmittance triple (t, 1 - t,
-// (1 - t)/tau_m) comes from one expf and a 7-term series below tau_m = 0.25
-// (clearsky_tpu/rt/march_pallas.py::_trans_emit): forming 1 - exp(-tau_m)
-// directly cancels catastrophically in float32 for transparent layers. The
-// sources are built without --use_fast_math, so expf is the accurate one.
+// The column marches take the layer optical depth and the level Planck
+// values through accessors tau(l) and b(l) (and store flux rows through
+// accessors), so that K2/K3 read and write device memory and K6/K7 read the
+// shared memory where they formed tau and staged B. The transmittance
+// triple (t, 1 - t, (1 - t)/tau_m) comes from one expf and a 7-term series
+// below tau_m = 0.25 (clearsky_tpu/rt/march_pallas.py::_trans_emit):
+// forming 1 - exp(-tau_m) directly cancels catastrophically in float32 for
+// transparent layers. The sources are built without --use_fast_math, so
+// expf is the accurate one.
 
 #pragma once
 
@@ -100,53 +102,73 @@ __device__ __forceinline__ float weighted(const float (&I)[NST], const Streams& 
   return e;
 }
 
-// B [L+1, N] (row 0 = top of atmosphere, row L = surface). Returns
-// sum_k W_k I_k at the top after marching up from the surface Planck.
+// b(l) the Planck value at level l of the column (row 0 = top of
+// atmosphere, row L = surface). Returns sum_k W_k I_k at the top after
+// marching up from the surface Planck.
+template <int NST, class Tau, class Planck>
+__device__ __forceinline__ float olr_column_at(const Tau& tau, const Planck& b,
+                                               const Streams& sn, int L) {
+  float I[NST];
+  const float bs = b(L);
+#pragma unroll
+  for (int k = 0; k < NST; ++k) I[k] = bs;
+  for (int l = L - 1; l >= 0; --l) {
+    march_layer(I, sn, tau(l), b(l + 1), b(l));
+  }
+  return weighted(I, sn);
+}
+
+// olr_column_at on B [L+1, N] at point n
 template <int NST, class Tau>
 __device__ __forceinline__ float olr_column(const Tau& tau,
                                             const float* __restrict__ B,
                                             const Streams& sn, int L, int N,
                                             int n) {
-  float I[NST];
-  const float bs = B[(size_t)L * N + n];
-#pragma unroll
-  for (int k = 0; k < NST; ++k) I[k] = bs;
-  for (int l = L - 1; l >= 0; --l) {
-    march_layer(I, sn, tau(l), B[(size_t)(l + 1) * N + n], B[(size_t)l * N + n]);
-  }
-  return weighted(I, sn);
+  return olr_column_at<NST>(tau, [&](int l) { return B[(size_t)l * N + n]; }, sn, L);
 }
 
 // monoflux_pallas's contract: M_down row 0 is the beam top c S, rows 1..L the
 // down-march emission plus the attenuated beam; M_up row L is pi I_surf with
 // I_surf = M_down[L] a / pi + B[L], rows 0..L-1 the up-march emission.
-template <int NST, class Tau>
-__device__ __forceinline__ void monoflux_column(
-    const Tau& tau, const float* __restrict__ B, float S, float albedo,
-    float ctheta, const Streams& sn, int L, int N, int n,
-    float* __restrict__ M_up, float* __restrict__ M_down) {
+// down(l, v) and up(l, v) store row l of M_down and M_up.
+template <int NST, class Tau, class Planck, class Down, class Up>
+__device__ __forceinline__ void monoflux_column_at(
+    const Tau& tau, const Planck& b, float S, float albedo, float ctheta,
+    const Streams& sn, int L, const Down& down_at, const Up& up_at) {
   const float inv_c = 1.0f / ctheta;
   float I[NST];
 #pragma unroll
   for (int k = 0; k < NST; ++k) I[k] = 0.0f;
   float bm = ctheta * S;  // direct beam below level 0
-  M_down[n] = bm;
+  down_at(0, bm);
   float down = bm;
   for (int l = 0; l < L; ++l) {
     const float tl = tau(l);
-    march_layer(I, sn, tl, B[(size_t)l * N + n], B[(size_t)(l + 1) * N + n]);
+    march_layer(I, sn, tl, b(l), b(l + 1));
     bm *= expf(-tl * inv_c);
     down = weighted(I, sn) + bm;
-    M_down[(size_t)(l + 1) * N + n] = down;
+    down_at(l + 1, down);
   }
-  const float I_surf = down * (albedo * INV_PI) + B[(size_t)L * N + n];
-  M_up[(size_t)L * N + n] = PI_F * I_surf;
+  const float I_surf = down * (albedo * INV_PI) + b(L);
+  up_at(L, PI_F * I_surf);
 #pragma unroll
   for (int k = 0; k < NST; ++k) I[k] = I_surf;
   for (int l = L - 1; l >= 0; --l) {
-    march_layer(I, sn, tau(l), B[(size_t)(l + 1) * N + n], B[(size_t)l * N + n]);
-    M_up[(size_t)l * N + n] = weighted(I, sn);
+    march_layer(I, sn, tau(l), b(l + 1), b(l));
+    up_at(l, weighted(I, sn));
   }
+}
+
+// monoflux_column_at on B, M_up and M_down [L+1, N] at point n
+template <int NST, class Tau>
+__device__ __forceinline__ void monoflux_column(
+    const Tau& tau, const float* __restrict__ B, float S, float albedo,
+    float ctheta, const Streams& sn, int L, int N, int n,
+    float* __restrict__ M_up, float* __restrict__ M_down) {
+  monoflux_column_at<NST>(
+      tau, [&](int l) { return B[(size_t)l * N + n]; }, S, albedo, ctheta, sn, L,
+      [&](int l, float v) { M_down[(size_t)l * N + n] = v; },
+      [&](int l, float v) { M_up[(size_t)l * N + n] = v; });
 }
 
 }  // namespace clearsky

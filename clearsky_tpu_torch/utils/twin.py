@@ -117,6 +117,20 @@ class _KernelFunction(torch.autograd.Function):
         return torch.stack(outs), 0
 
 
+def _carries_derivatives(args) -> bool:
+    """True if any tensor of ``args`` carries a derivative (the cases of
+    :func:`refuse_derivatives`)."""
+    grad = torch.is_grad_enabled()
+    dual = getattr(torch.autograd.forward_ad, "_current_level", 0) >= 0
+    for x in args:
+        if not isinstance(x, torch.Tensor):
+            continue
+        if (grad and x.requires_grad) or torch._C._functorch.is_functorch_wrapped_tensor(x) \
+                or (dual and torch.autograd.forward_ad.unpack_dual(x).tangent is not None):
+            return True
+    return False
+
+
 def with_twin(kernel: Callable, plain: Callable, *args):
     """``kernel(*args)``, differentiable as ``plain(*args)`` is.
 
@@ -124,6 +138,10 @@ def with_twin(kernel: Callable, plain: Callable, *args):
     they close over. ``kernel`` and ``plain`` compute the same function
     (a tensor or a tuple of tensors); ``kernel`` is called once per call
     (per slice of a batched primal under ``vmap``), ``plain`` only for
-    derivatives.
+    derivatives. Where no argument carries a derivative the kernel runs
+    without the Function: its apply binds the arguments to a signature on
+    every call, ~0.1 ms of host time.
     """
+    if not _carries_derivatives(args):
+        return kernel(*args)
     return _KernelFunction.apply(kernel, plain, *args)

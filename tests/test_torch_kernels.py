@@ -1001,15 +1001,18 @@ def test_fused_wrappers_carry_derivatives(wrapper, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,k,nstream,N", [(1, 3, 2, 333), (19, 3, 5, 4096), (40, 3, 8, 1000),
-                                           (19, 2, 5, 2**16 + 37), (7, 5, 4, 515),
-                                           (3, 8, 5, 130)])
-def test_fused_kernels_match_plain(cuda, L, k, nstream, N):
+@pytest.mark.parametrize("L,k,nstream,N,T", [(1, 3, 2, 333, 272), (19, 3, 5, 4096, 272),
+                                             (40, 3, 8, 1000, 272),
+                                             (19, 2, 5, 2**16 + 37, 272), (7, 5, 4, 515, 272),
+                                             (3, 8, 5, 130, 272), (128, 8, 5, 4099, 272),
+                                             (19, 3, 5, 4096, 17)])
+def test_fused_kernels_match_plain(cuda, L, k, nstream, N, T):
     """K6 and K7 in float32 against their plain versions in float64 on the
-    same split operands: N not a multiple of the 128-point block (but 4096),
-    one to twenty node groups of 8 (L = 40, k = 3: two rounds of warps),
-    k = 5 and 8 (groups of one layer)."""
-    col = _table_column(L, k, N, seed=L + N)
+    same split operands: N not a multiple of the 128-point tile (but 4096,
+    the 16-byte copies), one to sixteen passes of 64 nodes (L = 128, k = 8:
+    1,024 nodes; L = 40, k = 3: a layer across a pass boundary), k = 5 and
+    8, and T = 17 tail rows (a chunk of one row)."""
+    col = _table_column(L, k, N, seed=L + N, T=T)
     x32 = _table_tensors(col, torch.float32, cuda)
     lead, tail, bl, bt, wq, B, S, a = x32
     x64 = [x.cpu() if x.dtype == torch.bfloat16 else x.double().cpu() for x in x32]
@@ -1024,6 +1027,37 @@ def test_fused_kernels_match_plain(cuda, L, k, nstream, N):
     for kern, ref in ((olr, olr_r), (up, up_r), (dn, dn_r)):
         assert float((kern.double().cpu() - ref).abs().max()) < 1e-4 * float(ref.abs().max())
     np.testing.assert_allclose(tau.double().cpu().numpy(), tau_r.numpy(), rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [4096, 1000])
+def test_fused_launches_are_bitwise_repeatable(cuda, N):
+    """Two launches on the same inputs agree bit for bit (every sum in a
+    fixed order: the tensor-core products, the lead's FMAs, the layer
+    sums), with 16-byte copies (N = 4096) and without."""
+    lead, tail, bl, bt, wq, B, S, a = _table_tensors(_table_column(19, 3, N), torch.float32, cuda)
+    m, W = stream_nodes(5)
+    runs = [(fused_olr(lead, tail, bl, bt, wq, B, m, W),
+             *fused_monoflux(lead, tail, bl, bt, wq, B, S, a, CTHETA, m, W)) for _ in range(2)]
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["olr", "monoflux"])
+def test_fused_kernels_hold_the_designed_warps(cuda, kind):
+    """At 19 layers (the main column) K6 and K7 keep 4 blocks of 4 warps on
+    an SM (16 of 64: the ring, half a pass of sigma, tau and the staged rows
+    in ~56 KB a block, at most 128 registers), spill nothing, and launch one
+    persistent block per resident slot, at most one per 128-point tile."""
+    from clearsky_tpu_torch.rt.fused_table_cuda import kernel_info
+
+    info = kernel_info(kind, 19, 2**19)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert info["resident_warps"] >= 16 / 64
+    assert info["local_bytes"] == 0
+    assert info["ctas"] == min(2**19 // 128, sms * info["blocks_per_sm"])
+    assert kernel_info(kind, 19, 1000)["ctas"] == 8
 
 
 @pytest.mark.gpu
@@ -1055,7 +1089,8 @@ def test_fused_wrappers_reject_bad_inputs(cuda):
 def test_table_contractions_ignore_global_tf32(cuda):
     """With TF32 allowed process-wide, Gas.raw_sigma and cheb2d_coeffs keep
     full float32 (their bars fail under TF32's 10-bit mantissa: ~0.03 in an
-    ln sigma of 55, 3% in sigma)."""
+    ln sigma of 55, 3% in sigma), and K6/K7 give bit for bit what they give
+    without it (the lead's FP32 FMAs never take TF32)."""
     from clearsky_tpu_torch.utils.interp import cheb2d_coeffs
 
     rng = np.random.default_rng(7)
@@ -1076,17 +1111,30 @@ def test_table_contractions_ignore_global_tf32(cuda):
     ref_sig = {"full": g64, "split": g64.split_precision(16)}
     ref_sig = {k: g.raw_sigma(torch.tensor(T), torch.tensor(P)) for k, g in ref_sig.items()}
     ref_c = cheb2d_coeffs(torch.tensor(V))
+    x32 = _table_tensors(_table_column(19, 3, 4096), torch.float32, cuda)
+    m, W = stream_nodes(5)
+
+    def fused():
+        lead, tail, bl, bt, wq, B, S, a = x32
+        return (fused_olr(lead, tail, bl, bt, wq, B, m, W),
+                *fused_monoflux(lead, tail, bl, bt, wq, B, S, a, CTHETA, m, W))
+
     before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
+        fused_off = fused()
+        torch.backends.cuda.matmul.allow_tf32 = True
         g32 = gas(torch.float32, cuda)
         t32, p32 = (torch.tensor(x, dtype=torch.float32, device=cuda) for x in (T, P))
         got = {"full": g32.raw_sigma(t32, p32),
                "split": g32.split_precision(16).raw_sigma(t32, p32)}
         c32 = cheb2d_coeffs(torch.tensor(V, dtype=torch.float32, device=cuda))
+        fused_on = fused()
         assert torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+    for x, y in zip(fused_off, fused_on):
+        assert torch.equal(x, y)
     for k in got:
         np.testing.assert_allclose(got[k].double().cpu().numpy(), ref_sig[k].numpy(),
                                    rtol=1e-4, err_msg=k)
