@@ -251,7 +251,7 @@ MUFU_S = 16 * 132 * 1.98e9
 # by region (the common t and t^2, then regions 1-4, the small-y repair)
 PAIR_OPS, R1_OPS, SMOOTH_OPS = 6, 9, 10
 W4_COMMON, W4_REGION, W4_SMALL_Y = 9, (14, 28, 76, 116), 25
-CORRECTION_OPS = 22   # x, the explicit region 1, the product, the atomic add
+CORRECTION_OPS = 22   # x, the explicit region 1, the product, the sum
 # the phco2 family: per pair the selection of chi's piece; per state the
 # explicit region 1 on (dnu ia, y0 chi), and chi's exponent with expf's FP32
 # part (its exp2 counts against the special-function units, per state and
@@ -697,29 +697,84 @@ def _windowed_line(name, mode, blocks64, windows, n_out, lines, l64, states, z, 
     return out
 
 
+def kernel_device_ms(fn, kernel: str, n: int = 10, tries: int = 3):
+    """Mean device milliseconds of the launches of kernels whose name holds
+    ``kernel`` over n calls of ``fn`` (one launch a call), as torch.profiler
+    traces them: it may drop some, so the mean is over those it traced, and
+    a profile that traced none is taken again (up to ``tries``; then None,
+    not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if evs:
+            return sum(e.time_range.elapsed_us() for e in evs) / len(evs) / 1e3
+    return None
+
+
+def _correction_measure(geom, co, cut, n_nu, weight, T, ops, dev):
+    """The correction kernel's timing, build and bound at one shape: two
+    launches onto zeros must give the same bits (the fixed summation
+    order); ms is CUDA events around one wrapper call on a preallocated
+    sigma that each call adds into, device_ms the profiler's kernel time.
+    With the states' temperatures ``T`` (the chi instance) chi's rates are
+    formed once beforehand, as the routes hand them over. The bound's bytes
+    are those the schedule touches: the reached rows' sigma read and written
+    once, the entries' two-float offsets and line indices, the rows table,
+    the reached lines' (Sia, ia, y0); beside it the bound over all of sigma
+    (the count before the row gather)."""
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    n = int(co[0].shape[0])
+    bcoef = None if T is None else lc.chi_rates(T)
+    once = lambda: lc.stencil_correction(torch.zeros((n, n_nu), device=dev), geom, co, cut,
+                                         weight, T=T, bcoef=bcoef)
+    a, b = once(), once()
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "two launches of the correction gave different bits")
+    buf = torch.zeros((n, n_nu), device=dev)
+    launch = lambda: lc.stencil_correction(buf, geom, co, cut, weight, T=T, bcoef=bcoef)
+    ms = cuda_ms(launch)
+    device_ms = kernel_device_ms(launch, "correction_gather_kernel")
+    del buf
+    sch = ls.correction_rows(geom, cut, n_nu)
+    rows, E, K = sch["rows"], sch["line"].shape[0], geom.K
+    points = int(np.minimum(rows[:, 0] * K + K, n_nu).sum() - (rows[:, 0] * K).sum())
+    reached = int(np.unique(sch["line"]).size)
+    b = bound(ops, 8 * n * points + 8 * E * K + 4 * E + 12 * rows.shape[0] + 12 * n * reached)
+    L = geom.q.shape[0]
+    all_sigma = bound(ops, 8 * 2 * K * L + 4 * L + 12 * n * L + 8 * n * n_nu)
+    info = lc.correction_info(K, n, chi=T is not None)
+    return a, dict(ms=ms, device_ms=device_ms, bitwise_repeat=True,
+                   rows_touched=int(rows.shape[0]), rows=geom.R, points_touched=points,
+                   entries=E, work_items=int(rows.shape[0]) * info["state_tiles"],
+                   registers=info["registers"], shared_bytes=info["shared_bytes"],
+                   local_bytes=info["local_bytes"], threads=info["threads"],
+                   resident_warps=info["resident_warps"],
+                   bound_all_sigma_ms=all_sigma["bound_ms"],
+                   bound_all_sigma_bytes=all_sigma["bound_bytes"]), b
+
+
 def _correction_line(name, geom, lines, l64, states, n_nu, peak, weight, report,
                      record=True):
     """The near-core correction against its float64 plain version, measured
     against each state's peak cross-section (bar 1e-4: float32 rounding
-    next to the region-1 pole at x^2 = 1/2 + y^2, and atomic adds)."""
+    next to the region-1 pole at x^2 = 1/2 + y^2), timed and bounded by
+    :func:`_correction_measure`."""
     from clearsky_tpu_torch.ops import linesum_strategies as ls
-    from clearsky_tpu_torch.ops.linesum_cuda import stencil_correction
 
     dev = states[0].device
     _, co, _ = _mode_operands(lines, states)
     _, co64, _ = _mode_operands(l64, [x.double() for x in states])
     n = int(states[0].shape[0])
-    launch = lambda: stencil_correction(torch.zeros((n, n_nu), device=dev), geom, co, 25.0,
-                                        weight)
-    out = launch()
-    torch.cuda.synchronize()
-    ref = ls.stencil_correction_plain(geom, co64, 25.0, n_nu, weight)
-    err = float(((out.double() - ref).abs() / peak).max())
-    max_abs = float((out.double() - ref).abs().max())
-    del ref
-    ms = cuda_ms(launch)
-    plain_ms = cuda_ms(lambda: ls.stencil_correction_plain(geom, co, 25.0, n_nu, weight), n=3,
-                       warmup=1)
     # the evaluations this run's data needs: x^2 <= 225 and |dnu_hi| <= cut
     # at points inside the grid
     hi = torch.as_tensor(geom.dnu_hi, device=dev)
@@ -734,18 +789,22 @@ def _correction_line(name, geom, lines, l64, states, n_nu, peak, weight, report,
         ops += w4_ops(x[m], co[2][s].expand_as(x)[m]) + CORRECTION_OPS * int(m.sum())
     if weight is not None:
         ops += SMOOTH_OPS * int(inside.sum())
-    # dnu hi and lo, the int32 rows, (Sia, ia, y0) read once; sigma read
-    # and written once
-    L = geom.q.shape[0]
-    b = bound(ops, 8 * hi.numel() + 4 * L + 12 * n * L + 8 * n * n_nu)
+    out, timing, b = _correction_measure(geom, co, 25.0, n_nu, weight, None, ops, dev)
+    ref = ls.stencil_correction_plain(geom, co64, 25.0, n_nu, weight)
+    err = float(((out.double() - ref).abs() / peak).max())
+    max_abs = float((out.double() - ref).abs().max())
+    del ref
+    plain_ms = cuda_ms(lambda: ls.stencil_correction_plain(geom, co, 25.0, n_nu, weight), n=3,
+                       warmup=1)
     emit("kernel", kernel="stencil_correction", weighted=weight is not None, points=n_nu,
          states=n, lines=lines.n_lines, K=geom.K, err_of_peak_sigma=err, max_abs_err=max_abs,
-         bar="1e-4 of each state's peak sigma", ms=ms, plain_ms=plain_ms, plain_shape="same",
-         **b)
+         bar="1e-4 of each state's peak sigma", plain_ms=plain_ms, plain_shape="same",
+         **timing, **b)
     check(bool(torch.isfinite(out).all()) and err < 1e-4,
           f"stencil correction off its float64 plain version by {err:.3e} of peak sigma")
     if record:
-        report[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+        report[name] = dict(max_abs_err=max_abs, ms=timing["ms"], plain_ms=plain_ms,
+                            library_ms=None,
                             shape=f"{n} states x {n_nu} points, K = {geom.K}", **b)
 
 
@@ -2094,26 +2153,15 @@ def kernel_phco2(par, dev, report):
 def _phco2_correction_line(geom, lines, l64, states, plan, peak, weight, report):
     """The correction's chi instance against its float64 plain version on
     the whole grid, measured against each state's peak cross-section (bar
-    1e-4, as the voigt instance's)."""
+    1e-4, as the voigt instance's), timed and bounded by
+    :func:`_correction_measure`."""
     from clearsky_tpu_torch.ops import linesum_strategies as ls
-    from clearsky_tpu_torch.ops.linesum_cuda import stencil_correction
 
     dev = states[0].device
     _, co, _, _ = _phco2_operands(lines, states)
     x64 = [x.double() for x in states]
     _, co64, _, _ = _phco2_operands(l64, x64)
     n, n_nu = int(states[0].shape[0]), plan.n_nu
-    launch = lambda: stencil_correction(torch.zeros((n, n_nu), device=dev), geom, co, plan.cut,
-                                        weight, T=states[0])
-    out = launch()
-    torch.cuda.synchronize()
-    ref = ls.stencil_correction_plain(geom, co64, plan.cut, n_nu, weight, T=x64[0])
-    err = float(((out.double() - ref).abs() / peak).max())
-    max_abs = float((out.double() - ref).abs().max())
-    del ref
-    ms = cuda_ms(launch)
-    plain_ms = cuda_ms(lambda: ls.stencil_correction_plain(geom, co, plan.cut, n_nu, weight,
-                                                           T=states[0]), n=3, warmup=1)
     hi = torch.as_tensor(geom.dnu_hi, device=dev)
     lo = torch.as_tensor(geom.dnu_lo, device=dev)
     q = torch.as_tensor(geom.q, device=dev)
@@ -2129,16 +2177,21 @@ def _phco2_correction_line(geom, lines, l64, states, plan, peak, weight, report)
             reach = max(reach, float((hi + lo).abs()[m].max()))
         ops += w4_ops(x[m], co[2][s].expand_as(x)[m]) + (CORRECTION_OPS + 2) * int(m.sum())
     ops += (SMOOTH_OPS + PH_PAIR_OPS) * int(inside.sum())
-    L = geom.q.shape[0]
-    b = bound(ops, 8 * hi.numel() + 4 * L + 12 * n * L + 8 * n * n_nu)
+    out, timing, b = _correction_measure(geom, co, plan.cut, n_nu, weight, states[0], ops, dev)
+    ref = ls.stencil_correction_plain(geom, co64, plan.cut, n_nu, weight, T=x64[0])
+    err = float(((out.double() - ref).abs() / peak).max())
+    max_abs = float((out.double() - ref).abs().max())
+    del ref
+    plain_ms = cuda_ms(lambda: ls.stencil_correction_plain(geom, co, plan.cut, n_nu, weight,
+                                                           T=states[0]), n=3, warmup=1)
     emit("kernel", kernel="stencil_correction_phco2", weighted=weight is not None, points=n_nu,
          states=n, lines=lines.n_lines, K=geom.K, reach_cm=reach, err_of_peak_sigma=err,
-         max_abs_err=max_abs, bar="1e-4 of each state's peak sigma", ms=ms, plain_ms=plain_ms,
-         plain_shape="same", **b)
+         max_abs_err=max_abs, bar="1e-4 of each state's peak sigma", plain_ms=plain_ms,
+         plain_shape="same", **timing, **b)
     check(bool(torch.isfinite(out).all()) and err < 1e-4,
           f"chi correction off its float64 plain version by {err:.3e} of peak sigma")
     report["stencil_correction_phco2"] = dict(
-        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+        max_abs_err=max_abs, ms=timing["ms"], plain_ms=plain_ms, library_ms=None,
         shape=f"{n} states x {n_nu} points, K = {geom.K}", **b)
 
 
@@ -3240,7 +3293,7 @@ _PHCO2_SHAPE = 7
 _PHCO2_K1 = (7, 8, 9, 10, 11, 13)
 _K1_NAME = re.compile(r"linesum_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))?")
 _FULL_NAME = re.compile(r"fullprofile_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))")
-_CORRECTION_NAME = re.compile(r"stencil_correction_kernel(?:<(true|false)>|ILb([01])E)")
+_CORRECTION_NAME = re.compile(r"correction_gather_kernel(?:<(true|false)|ILb([01])E)")
 _OTHER_KERNELS = {k: re.compile(rf"\b{v}\b") for k, v in (
     ("olr_march", "olr_kernel"), ("monoflux_march", "monoflux_kernel"),
     ("fused_olr", "fused_olr_kernel"), ("fused_monoflux", "fused_monoflux_kernel"))}

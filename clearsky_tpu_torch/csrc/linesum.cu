@@ -42,10 +42,11 @@
 // sqrt(ln 2) into the coefficients, as _grouped_pack (:537) does. With a
 // cut of 500 cm^-1 almost every (point, line) pair is far wing, and each
 // then costs one exponential (the SFU) and one division per state.
-// stencil_correction_kernel replaces the XLA-side _stencil_apply, which adds
+// correction_gather_kernel replaces the XLA-side _stencil_apply, which adds
 // Sia (w4 - region 1) at the grid points of each line's |x| <= 15 core; the
-// TPU placed it with one-hot matrix products, here atomicAdd puts it in
-// place (so its summation order changes from run to run).
+// TPU placed it with one-hot matrix products, here each work item gathers
+// the lines of one row of the stencil's row grid and adds their terms in a
+// fixed order (its design is described above the kernel).
 //
 // What bounds K1 on the H100: arithmetic, not memory. Every (point, line,
 // state) triple inside the cut costs about ten FP32 operations and one
@@ -563,7 +564,7 @@ __device__ __forceinline__ void sweep(int start, int cnt, const Item& it, Stage<
         }
       } else {
         // FARALL (stencil-near route: region 1 over the whole window, the
-        // core corrected afterwards by stencil_correction_kernel), MID_ALL,
+        // core corrected afterwards by correction_gather_kernel), MID_ALL,
         // ANNULUS and COARSE: region 1, weighted but in FARALL
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
@@ -719,53 +720,281 @@ linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
 #undef RUN
 }
 
-// The stencil route's near-core correction: one thread per (window point k,
-// line l), i = k * n_lines + l, looping over the states. Adds
-// Sia (w4 - region 1) [x (1 - W(dnu^2)) when weighted] at grid point
-// q[l] K + k where x^2 <= 225 and |dnu_hi| <= cut, region 1 in the explicit
-// (x, y) algebra of _stencil_apply. dnu_hi/dnu_lo: [2K][n_lines];
-// sia/ia/y0: [n_states][n_lines]; out: [n_states][n_nu], added to.
+// The stencil route's near-core correction, a gather over the K-point rows
+// that lines reach. Adds Sia (w4 - region 1) [x (1 - W(dnu^2)) when
+// weighted] at each point of a line's 2K window where x^2 <= 225 and
+// |dnu_hi| <= cut, region 1 in the explicit (x, y) algebra of _stencil_apply;
 // PH (the phco2 family): y = y0 chi(|dnu_hi + dnu_lo|, T), as _stencil_apply
-// (:1269-1275) has it, the rates from bcoef [n_tiles][2][ST] as K1 reads them.
-// (Within the stencil's reach, 15 alpha(1000 K) / sqrt(ln 2), ~0.1 cm^-1 for
-// CO2, chi is 1; the kernel applies it all the same.)
-template <bool PH>
-__global__ void stencil_correction_kernel(const float* __restrict__ dnu_hi,
-                                          const float* __restrict__ dnu_lo,
-                                          const int* __restrict__ q,
-                                          const float* __restrict__ sia,
-                                          const float* __restrict__ ia,
-                                          const float* __restrict__ y0,
-                                          const float* __restrict__ bcoef, int K,
-                                          int n_lines, int n_states, int n_nu,
-                                          float cut, int weighted, float D1,
-                                          float inv_D, float* __restrict__ out) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)2 * K * n_lines) return;
-  const int k = (int)(i / n_lines);
-  const int l = (int)(i % n_lines);
-  const int p = q[l] * K + k;
-  const float dh = dnu_hi[i];
-  if (p >= n_nu || !(fabsf(dh) <= cut)) return;
-  const float dl = dnu_lo[i];
-  const float dD = dh + dl;
-  float w = 1.0f;
-  if (weighted) w = 1.0f - smooth_d2(dD * dD, D1, inv_D);
-  ChiArg chq{0.0f, 0.0f, 0.0f};
-  if constexpr (PH) chq = chi_arg(fabsf(dD));
-  for (int s = 0; s < n_states; ++s) {
-    const size_t sl = (size_t)s * n_lines + l;
-    const float a = ia[sl];
-    const float x = a * dh + a * dl;
-    if (!(x * x <= 225.0f)) continue;
-    float y = y0[sl];
-    if constexpr (PH) {
-      const float* bt = bcoef + (size_t)(s / ST) * 2 * ST + s % ST;
-      y *= chi_of(chq, bt[0], bt[ST]);
+// (:1269-1275) has it, the rates from bcoef [n_tiles][2][ST] as K1 reads
+// them. (Within the stencil's reach, 15 alpha(1000 K) / sqrt(ln 2), ~0.1
+// cm^-1 for CO2, chi is 1; the kernel applies it all the same.)
+//
+// The host schedule (ops/linesum_strategies.py::correction_rows) lists each
+// row's lines (the halves of their windows that fall in the row) as one run
+// of entries in (q, catalog index) order, with each entry's K offsets
+// dnu_hi/dnu_lo [E][K], and lists only the rows some entry reaches,
+// costliest first: rows [n_rows][3] (row, first entry, end). One block runs
+// a work item (row, tile of G nse states): thread (j, g) owns point j of the
+// row and states s0 + g + G i (i < nse), reads their sigma once (cp.async,
+// in flight from the start), sums their terms in registers in the
+// schedule's order, and writes sigma once where some term was added. No
+// float atomic: two launches give the same bits.
+//
+// What bounds it on the H100 (PERF.md, the correction's step 0): the
+// Humlicek w4 evaluations, 8.5% of the (point, line, state) triples, each in
+// one of four regions (region 4 with an exp, a sin and a cos). Evaluated
+// where they fall (the earlier kernel: a thread a (window point, line), 32
+// lines of one window point a warp, a float atomic a term), a warp runs
+// every region any lane needs: ~11x the work packed 32 to a warp, 0.126 of
+// its 0.171 ms. So a block takes each staged chunk of its row's lines in
+// three steps. (1) Each (entry, state) finds by binary search its run of
+// points [lo, hi) where |dnu_hi| <= min(cut, 15.01 / ia): every point of
+// x^2 <= 225 lies in it (the margin exceeds float32's rounding of x). A
+// block scan lays the runs end to end as a list of candidates. (2) The
+// block evaluates the list on consecutive lanes, each passing candidate's
+// term Sia (w4 - region 1) [x (1 - W)]: a run's points are neighbours, so a
+// warp's lanes share a few regions, and lanes idle only on the few
+// candidates whose exact test fails (~2.7x the work packed 32 to a warp,
+// against ~11x). (3) Each thread adds its candidates' terms in the
+// schedule's order; a state group's union of runs lets it pass over an
+// entry in one test. Its sigma (read once at the start) and the chunk's
+// offsets and coefficients arrive by cp.async.
+constexpr int CORR_THREADS = 256;  // a block: the row's K points x G state groups, whole warps
+constexpr int CORR_TS = 48;        // states a tile at most (G x nse)
+constexpr int CORR_RUNS = 1024;    // (entry, state) runs a chunk at most
+constexpr int CORR_DNU = 1024;     // staged offsets a chunk at most (entries x K)
+constexpr int CORR_CAP = 2048;     // candidates at a time: one entry's at most (8 G K <= 2048)
+constexpr float CORR_X_MAX = 15.01f;
+constexpr unsigned CORR_FAIL = 0xffffffffu;  // a NaN no arithmetic gives: the exact test failed
+
+struct CorrShared {
+  float sia[CORR_RUNS], ia[CORR_RUNS], y0[CORR_RUNS];  // run q = e TS + u: entry e, tile state u
+  float dh[CORR_DNU], dl[CORR_DNU];                     // the entries' offsets: [e][j]
+  float b1[CORR_TS], b2[CORR_TS];                       // chi's rates (PH)
+  float sig[8][CORR_THREADS];                           // each thread's sigma, read once
+  unsigned short lohi[CORR_RUNS];                       // run q's points: lo | hi << 7
+  unsigned run[CORR_RUNS];                              // lo | hi << 7 | (first - lo + 64) << 14
+  unsigned span[CORR_RUNS];                             // [e][g]: lo | hi << 16 over a group
+  unsigned short cand[CORR_CAP];                        // q << 6 | j, the runs end to end
+  float val[CORR_CAP];                                  // each candidate's term, or CORR_FAIL
+  int scan[CORR_THREADS / 32];
+};
+
+// [lo, hi) of v[0..n) (ascending) within [-b, b]: the first v >= -b and the
+// first v > b, the two binary searches interleaved
+__device__ __forceinline__ void run_of(const float* v, int n, float b, int& lo, int& hi) {
+  int a0 = 0, a1 = n, b0 = 0, b1 = n;
+  while (a0 < a1 || b0 < b1) {
+    if (a0 < a1) {
+      const int m = (a0 + a1) >> 1;
+      if (v[m] >= -b) a1 = m; else a0 = m + 1;
     }
-    const float corr = sia[sl] * (wofz_re(x, y) - region1_xy(x, y)) * w;
-    atomicAdd(out + (size_t)s * n_nu + p, corr);
+    if (b0 < b1) {
+      const int m = (b0 + b1) >> 1;
+      if (v[m] > b) b1 = m; else b0 = m + 1;
+    }
   }
+  lo = a0;
+  hi = max(a0, b0);
+}
+
+// exclusive block scan of one count a thread; `total` the block's sum
+__device__ __forceinline__ int block_scan(int v, int* warp_sums, int& total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sums[w] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int k = 0; k < (int)(blockDim.x >> 5); ++k) {
+    const int y = warp_sums[k];
+    before += k < w ? y : 0;
+    all += y;
+  }
+  __syncthreads();  // warp_sums is free for the next scan
+  total = all;
+  return before + x - v;
+}
+
+template <bool PH, int NS>
+__global__ void __launch_bounds__(CORR_THREADS, 4)
+correction_gather_kernel(const int* __restrict__ rows, const int* __restrict__ line,
+                         const float* __restrict__ dnu_hi, const float* __restrict__ dnu_lo,
+                         const float* __restrict__ sia, const float* __restrict__ ia,
+                         const float* __restrict__ y0, const float* __restrict__ bcoef, int K,
+                         int G, int nse, int n_tiles, int n_lines, int n_states, int n_nu,
+                         float cut, int weighted, float D1, float inv_D,
+                         float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char corr_smem[];
+  CorrShared& sm = *reinterpret_cast<CorrShared*>(corr_smem);
+  const int TS = G * nse;
+  const float inv_ts = 1.0f / (float)TS;  // q / TS = (q + 1/2) inv_ts, rounded down (q < 1024)
+  const int ri = blockIdx.x / n_tiles;
+  const int s0 = (blockIdx.x - ri * n_tiles) * TS;
+  const int row = rows[3 * ri], e_begin = rows[3 * ri + 1], e_end = rows[3 * ri + 2];
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int j = t % K, g = t / K;
+  const int p = row * K + j;
+  const int jmax = min(K, n_nu - row * K);  // the row's points inside the grid
+  const bool live = g < G && j < jmax;
+  const int ce = min(CORR_RUNS / TS, CORR_DNU / K);  // entries a chunk
+  // a chunk's offsets and coefficients into shared memory, all in flight
+  // at once (cp.async; 16-byte copies where K is whole quads)
+  const auto stage = [&](int c0, int ne) {
+    if ((K & 3) == 0) {
+      for (int i = 4 * t; i < ne * K; i += 4 * nt) {
+        cp_async16(sm.dh + i, dnu_hi + (size_t)c0 * K + i);
+        cp_async16(sm.dl + i, dnu_lo + (size_t)c0 * K + i);
+      }
+    } else {
+      for (int i = t; i < ne * K; i += nt) {
+        cp_async4(sm.dh + i, dnu_hi + (size_t)c0 * K + i);
+        cp_async4(sm.dl + i, dnu_lo + (size_t)c0 * K + i);
+      }
+    }
+    for (int i = t; i < ne * TS; i += nt) {
+      const int u = i / ne, e = i - u * ne, q = e * TS + u;
+      if (s0 + u < n_states) {
+        const size_t sl = (size_t)(s0 + u) * n_lines + line[c0 + e];
+        cp_async4(&sm.sia[q], sia + sl);
+        cp_async4(&sm.ia[q], ia + sl);
+        cp_async4(&sm.y0[q], y0 + sl);
+      } else {
+        sm.sia[q] = sm.ia[q] = sm.y0[q] = 0.0f;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  int c0 = e_begin, ne = min(ce, e_end - c0);
+  if constexpr (PH) {
+    for (int u = t; u < TS; u += nt) {
+      const float* bt = bcoef + (size_t)(min(s0 + u, n_states - 1) / ST) * 2 * ST +
+                        min(s0 + u, n_states - 1) % ST;
+      cp_async4(&sm.b1[u], bt);
+      cp_async4(&sm.b2[u], bt + ST);
+    }
+  }
+  stage(c0, ne);
+  unsigned valid = 0, hits = 0;
+  float acc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int s = s0 + g + G * i;
+    if (live && i < nse && s < n_states) {
+      valid |= 1u << i;
+      cp_async4(&sm.sig[i][t], out + (size_t)s * n_nu + p);  // sigma's one read
+    }
+    acc[i] = 0.0f;
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 1;\n" ::);  // the first chunk (sigma may still fly)
+  // candidate k's exact test, and its (x, y) and weight where it passes
+  const auto pair_xy = [&](int k, float& x, float& y, float& w) {
+    const int d = sm.cand[k];
+    const int q = d >> 6, jj = d & 63;
+    const int e = __float2int_rz(((float)q + 0.5f) * inv_ts);
+    const float a = sm.ia[q];
+    const float dh = sm.dh[e * K + jj], dl = sm.dl[e * K + jj];
+    x = a * dh + a * dl;
+    if (!(x * x <= 225.0f) || !(fabsf(dh) <= cut)) return false;
+    const float dD = dh + dl;
+    if (weighted) w = 1.0f - smooth_d2(dD * dD, D1, inv_D);
+    y = sm.y0[q];
+    if constexpr (PH) y *= chi_of(chi_arg(fabsf(dD)), sm.b1[q - e * TS], sm.b2[q - e * TS]);
+    return true;
+  };
+  for (;;) {
+    const int n_runs = ne * TS;
+    __syncthreads();
+    // (1) the runs: every point of x^2 <= 225 and |dnu_hi| <= cut (x = ia
+    // dnu, and |x| <= 15 puts ia |dnu_hi| below 15.01)
+    for (int q = t; q < n_runs; q += nt) {
+      const int e = __float2int_rz(((float)q + 0.5f) * inv_ts), u = q - e * TS;
+      int lo = 0, hi = 0;
+      if (s0 + u < n_states) run_of(sm.dh + e * K, jmax, fminf(cut, CORR_X_MAX / sm.ia[q]), lo, hi);
+      sm.lohi[q] = (unsigned short)(lo | hi << 7);
+    }
+    __syncthreads();
+    for (int i = t; i < ne * G; i += nt) {
+      const int e = i / G, gg = i - e * G;
+      int lo = K, hi = 0;
+      for (int k = 0; k < nse; ++k) {
+        const int r = sm.lohi[e * TS + gg + G * k];
+        if ((r >> 7) > (r & 127)) {
+          lo = min(lo, r & 127);
+          hi = max(hi, r >> 7);
+        }
+      }
+      sm.span[i] = (unsigned)lo | (unsigned)hi << 16;
+    }
+    for (int ea = 0; ea < ne;) {
+      // this thread's runs of entries [ea, eb) end to end; the range halves
+      // until the block's fit (one entry's always do)
+      int eb = ne, first, total;
+      for (;;) {
+        int mine = 0;
+        for (int q = t; q < n_runs; q += nt) {
+          const int e = __float2int_rz(((float)q + 0.5f) * inv_ts), r = sm.lohi[q];
+          if (e >= ea && e < eb) mine += (r >> 7) - (r & 127);
+        }
+        first = block_scan(mine, sm.scan, total);
+        if (total <= CORR_CAP || eb - ea == 1) break;
+        eb = ea + (eb - ea) / 2;
+      }
+      for (int q = t; q < n_runs; q += nt) {
+        const int e = __float2int_rz(((float)q + 0.5f) * inv_ts);
+        const int r = sm.lohi[q], lo = r & 127, hi = r >> 7;
+        if (e < ea || e >= eb) continue;
+        sm.run[q] = (unsigned)r | (unsigned)(first - lo + 64) << 14;
+        for (int m = lo; m < hi; ++m) sm.cand[first + m - lo] = (unsigned short)(q << 6 | m);
+        first += hi - lo;
+      }
+      __syncthreads();
+      // (2) each candidate's exact test, and its term where it passes
+      for (int k = t; k < total; k += nt) {
+        float x, y, w = 1.0f;
+        const int q = sm.cand[k] >> 6;
+        float corr = __uint_as_float(CORR_FAIL);
+        if (pair_xy(k, x, y, w)) corr = sm.sia[q] * (wofz_re(x, y) - region1_xy(x, y)) * w;
+        sm.val[k] = corr;
+      }
+      __syncthreads();
+      // (3) this thread's terms in the schedule's order
+      if (live) {
+        for (int e = ea; e < eb; ++e) {
+          const unsigned span = sm.span[e * G + g];
+          if (j < (int)(span & 0xffff) || j >= (int)(span >> 16)) continue;
+#pragma unroll
+          for (int i = 0; i < NS; ++i) {
+            const int q = e * TS + g + G * i;
+            const unsigned rw = sm.run[min(q, CORR_RUNS - 1)];
+            const int lo = rw & 127, hi = rw >> 7 & 127;
+            const bool in = (valid >> i & 1u) && j >= lo && j < hi;
+            const float v = sm.val[in ? (int)(rw >> 14) - 64 + j : 0];
+            if (in && __float_as_uint(v) != CORR_FAIL) {
+              acc[i] += v;
+              hits |= 1u << i;
+            }
+          }
+        }
+      }
+      ea = eb;
+    }
+    c0 += ce;
+    if (c0 >= e_end) break;
+    ne = min(ce, e_end - c0);
+    __syncthreads();  // the chunk is no longer read
+    stage(c0, ne);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    if (hits >> i & 1u) out[(size_t)(s0 + g + G * i) * n_nu + p] = sm.sig[i][t] + acc[i];
 }
 
 // K4 and K5: the full line profile over each block's lines, w4 at every
@@ -894,6 +1123,19 @@ __global__ void fullprofile_kernel(const float* __restrict__ nu_hi,
       if (st < n_states) out[(size_t)st * n_out + p] = acc[s];
     }
   }
+}
+
+// the correction's shared memory is dynamic (above the 48 KB of a static
+// block): opt each instance in once
+template <bool PH, int NS>
+cudaError_t correction_smem() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute((const void*)correction_gather_kernel<PH, NS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(CorrShared));
+  done = e == cudaSuccess;
+  return e;
 }
 
 }  // namespace
@@ -1038,27 +1280,72 @@ int fullprofile_launch(int shape, int gathered, const float* nu_hi, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the near-core correction on `stream` (adds into out); with bcoef
-// (the phco2 family's rates [n_tiles][2][ST]) the chi instance.
-int stencil_correction_launch(const float* dnu_hi, const float* dnu_lo, const int* q,
-                              const float* sia, const float* ia, const float* y0,
-                              const float* bcoef, int K, int n_lines, int n_states, int n_nu,
+// Launch the near-core correction on `stream` (adds into out): one block a
+// work item (rows[n_rows][3] x n_tiles state tiles of G nse states), K G
+// threads rounded up to whole warps; with bcoef (the phco2 family's rates
+// [n_tiles of ST][2][ST]) the chi instance. Returns cudaGetLastError().
+int stencil_correction_launch(const int* rows, const int* line, const float* dnu_hi,
+                              const float* dnu_lo, const float* sia, const float* ia,
+                              const float* y0, const float* bcoef, int n_rows, int K, int G,
+                              int nse, int n_tiles, int n_lines, int n_states, int n_nu,
                               float cut, int weighted, float D1, float inv_D, float* out,
                               void* stream) {
-  const size_t n = (size_t)2 * K * n_lines;
-  if (n == 0 || n_states == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  if (n_rows == 0 || n_states == 0) return 0;
+  if (K < 1 || K > 64 || G < 1 || K * G > CORR_THREADS || nse < 1 || nse > 8 ||
+      G * nse > CORR_TS || (long long)n_rows * n_tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int block = (K * G + 31) / 32 * 32;
+  const unsigned blocks = (unsigned)(n_rows * n_tiles);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bcoef != nullptr)
-    stencil_correction_kernel<true><<<blocks, threads, 0, st>>>(
-        dnu_hi, dnu_lo, q, sia, ia, y0, bcoef, K, n_lines, n_states, n_nu, cut, weighted, D1,
-        inv_D, out);
-  else
-    stencil_correction_kernel<false><<<blocks, threads, 0, st>>>(
-        dnu_hi, dnu_lo, q, sia, ia, y0, bcoef, K, n_lines, n_states, n_nu, cut, weighted, D1,
-        inv_D, out);
+  cudaError_t e = cudaSuccess;
+#define LAUNCH(PH, NS)                                                                        \
+  e = correction_smem<PH, NS>();                                                              \
+  if (e == cudaSuccess)                                                                       \
+    correction_gather_kernel<PH, NS><<<blocks, block, sizeof(CorrShared), st>>>(             \
+        rows, line, dnu_hi, dnu_lo, sia, ia, y0, bcoef, K, G, nse, n_tiles, n_lines, n_states, \
+        n_nu, cut, weighted, D1, inv_D, out)
+#define LAUNCH_NS(PH) \
+  if (nse <= 1) { LAUNCH(PH, 1); } else if (nse <= 2) { LAUNCH(PH, 2); } \
+  else if (nse <= 4) { LAUNCH(PH, 4); } else { LAUNCH(PH, 8); }
+  if (bcoef != nullptr) {
+    LAUNCH_NS(true)
+  } else {
+    LAUNCH_NS(false)
+  }
+#undef LAUNCH_NS
+#undef LAUNCH
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The correction's build for nse states a thread (chi instance if ph):
+// registers, shared bytes (dynamic) and local (spill) bytes a thread, and
+// resident blocks of `block` threads an SM.
+int stencil_correction_info(int ph, int nse, int block, int* info) {
+  cudaFuncAttributes a{};
+  const void* k = nullptr;
+  cudaError_t e = cudaSuccess;
+#define PICK(PH, NS) \
+  { k = (const void*)correction_gather_kernel<PH, NS>; e = correction_smem<PH, NS>(); }
+#define PICK_NS(PH) \
+  if (nse <= 1) PICK(PH, 1) else if (nse <= 2) PICK(PH, 2) else if (nse <= 4) PICK(PH, 4) \
+  else PICK(PH, 8)
+  if (ph) {
+    PICK_NS(true)
+  } else {
+    PICK_NS(false)
+  }
+#undef PICK_NS
+#undef PICK
+  int per_sm = 0;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, block, sizeof(CorrShared));
+  info[0] = a.numRegs;
+  info[1] = (int)sizeof(CorrShared);
+  info[2] = (int)a.localSizeBytes;
+  info[3] = per_sm;
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

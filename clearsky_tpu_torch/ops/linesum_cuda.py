@@ -10,7 +10,12 @@ Voigt mode has two instances: voigt (and voigt_ref) and phco2 (and
 phco2_ref), whose y carries chi(|dnu|, T) with the per-state rates of
 :func:`chi_rates`; the *_ref shapes reach the kernels with alpha / sqrt(ln 2)
 folded into their coefficients (:func:`.linesum.effective_alpha`).
-``stencil_correction`` replaces the XLA-side ``_stencil_apply``. K1-seg
+:func:`stencil_correction` replaces the XLA-side ``_stencil_apply``: one
+block per (row of the stencil's row grid that lines reach, tile of states)
+gathers the row's lines in the order of
+:func:`.linesum_strategies.correction_rows` (built once per geometry on the
+host) and adds each point's terms in that order, with no float atomic, so
+every launch gives the same bits. K1-seg
 (:func:`sigma_segmented`) runs K1 once per catalog segment, adding in place
 (``_pallas_sigma_segmented``); K4 (:func:`sigma_lane`) and K5
 (:func:`sigma_gathered`) are the full-profile kernels of the lane and
@@ -81,6 +86,7 @@ from .linesum_strategies import (
     chi_T,
     _slice_lines,
     coarse_geometry,
+    correction_rows,
     device_route,
     far_from_coarse,
     masked_alpha_max,
@@ -103,7 +109,7 @@ from .linesum_strategies import (
 
 __all__ = ["sigma_lines", "sigma_nosplit", "sigma_stencil", "sigma_coarse", "sigma_segmented",
            "sigma_lane", "sigma_gathered", "sigma_routed", "sigma_device", "device_launches",
-           "stencil_correction", "launch_mode",
+           "stencil_correction", "correction_tiles", "correction_info", "launch_mode",
            "launch_fullprofile", "pack_coefficients", "near_distance", "chi_rates",
            "window_mode", "nosplit_mode", "gather_group", "piece_schedule", "state_tiles",
            "far_reciprocal_ok", "kernel_info", "MODES", "WINDOW_MODES", "NOSPLIT_MODES",
@@ -380,8 +386,12 @@ def _library():
                          _I, _P, _P]
         full.restype = _I
         cor = lib.stencil_correction_launch
-        cor.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _P, _P]
+        cor.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                        _F, _F, _P, _P]
         cor.restype = _I
+        cinfo = lib.stencil_correction_info
+        cinfo.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        cinfo.restype = _I
     return lib
 
 
@@ -566,29 +576,74 @@ def sigma_nosplit(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", c
     return _prepare(plan, lines, T, P, Pp, shape, conc, nosplit=True)()
 
 
-def _stencil_arrays(geom, dev):
-    got = geom._on_device.get(dev)
+# the correction's blocks: a row's K points x G groups of states, at most
+# CORR_THREADS threads; a tile at most CORR_TS states, nse <= 8 a thread
+# (csrc/linesum.cu ``CORR_THREADS``, ``CORR_TS``)
+CORR_THREADS, CORR_TS = 256, 48
+
+
+def correction_tiles(K: int, n_states: int):
+    """The correction's tiles of states for rows of ``K`` points: (G, nse,
+    n_tiles). A block's K G threads (G groups, at most CORR_THREADS // K and
+    the states) each own a point and nse states; the n_tiles tiles of G nse
+    states share the states out as evenly as nse <= min(8, CORR_TS // G)
+    allows."""
+    G = max(1, min(CORR_THREADS // K, n_states))
+    per = min(8, max(1, CORR_TS // G))
+    n_tiles = max(1, -(-n_states // (G * per)))
+    return G, -(-(-(-n_states // n_tiles)) // G), n_tiles
+
+
+def _correction_arrays(geom, cut: float, n_nu: int, dev):
+    """:func:`.linesum_strategies.correction_rows` on ``dev``, cached on the
+    geometry under the device, the cut and the grid's length."""
+    key = (dev, "rows", float(cut), int(n_nu))
+    got = geom._on_device.get(key)
     if got is None:
-        got = geom._on_device[dev] = {
-            "dnu_hi": torch.as_tensor(geom.dnu_hi, device=dev),
-            "dnu_lo": torch.as_tensor(geom.dnu_lo, device=dev),
-            "q": torch.as_tensor(geom.q, dtype=torch.int32, device=dev),
-        }
+        sch = correction_rows(geom, cut, n_nu)
+        got = geom._on_device[key] = {
+            "rows": torch.as_tensor(sch["rows"], dtype=torch.int32, device=dev),
+            "line": torch.as_tensor(sch["line"], dtype=torch.int32, device=dev),
+            "dnu_hi": torch.as_tensor(sch["dnu_hi"], device=dev),
+            "dnu_lo": torch.as_tensor(sch["dnu_lo"], device=dev),
+            "n_rows": int(sch["rows"].shape[0])}
     return got
 
 
-def stencil_correction(out, geom, co, cut: float, weight=None, T=None):
+def correction_info(K: int, n_states: int, chi: bool = False) -> dict:
+    """The correction's build and blocks for rows of ``K`` points and
+    ``n_states`` states (the chi instance if ``chi``): registers, shared
+    bytes (dynamic) and local (spill) bytes, threads a block, resident blocks
+    an SM with the share of its 64 warps they hold, the state tiles and the
+    states a thread."""
+    G, nse, n_tiles = correction_tiles(K, n_states)
+    block = -(-K * G // 32) * 32
+    out = (_I * 4)()
+    err = _library().stencil_correction_info(int(chi), nse, block, out)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+    return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
+            "threads": block, "blocks_per_sm": out[3],
+            "resident_warps": out[3] * block / 32 / 64.0, "state_tiles": n_tiles,
+            "states_per_thread": nse}
+
+
+def stencil_correction(out, geom, co, cut: float, weight=None, T=None, bcoef=None):
     """Add the near-core correction of the stencil geometry ``geom`` into
     ``out`` [n_states, n_nu] in place, and return ``out``.
 
     ``co`` are the :func:`.linesum.voigt_coefficients` [n_states, n_lines]
     (the kernel reads Sia, ia, y0); ``weight`` = (D1, D2) multiplies by the
     coarse split's 1 - W(dnu^2); the states' temperatures ``T`` [n_states]
-    (the phco2 family) put chi on y. CUDA tensors: the correction kernel,
-    whose atomic adds change the summation order from run to run. CPU
-    tensors: :func:`.linesum_strategies.stencil_correction_plain`.
+    (the phco2 family) put chi on y, with chi's rates ``bcoef``
+    (:func:`chi_rates` of T) where the caller holds them. CUDA tensors: the
+    correction kernel, which sums each point's terms in the schedule's
+    order (two launches give the same bits). CPU tensors:
+    :func:`.linesum_strategies.stencil_correction_plain`.
     """
     n_states, n_nu = out.shape
+    if bcoef is not None and T is None:
+        raise ValueError("chi's rates bcoef come with the states' temperatures T")
     if out.device.type == "cpu":
         out += stencil_correction_plain(geom, co, cut, n_nu, weight, T)
         return out
@@ -597,18 +652,20 @@ def stencil_correction(out, geom, co, cut: float, weight=None, T=None):
     check_operand("out", out, (n_states, n_nu), dev)
     for name, x in zip(("Sia", "ia", "y0"), co[:3]):
         check_operand(name, x, (n_states, n_lines), dev)
-    arr = _stencil_arrays(geom, dev)
-    D1, D2 = weight if weight is not None else (0.0, 1.0)
-    bcoef = None
     if T is not None:
         check_operand("T", T, (n_states,), dev)
-        bcoef = chi_rates(T)
+        if bcoef is None:
+            bcoef = chi_rates(T)
+        _check_rates(bcoef, n_states, dev)
+    arr = _correction_arrays(geom, cut, n_nu, dev)
+    G, nse, n_tiles = correction_tiles(geom.K, n_states)
+    D1, D2 = weight if weight is not None else (0.0, 1.0)
     err = _library().stencil_correction_launch(
-        arr["dnu_hi"].data_ptr(), arr["dnu_lo"].data_ptr(), arr["q"].data_ptr(),
-        co[0].data_ptr(), co[1].data_ptr(), co[2].data_ptr(),
-        None if bcoef is None else bcoef.data_ptr(), geom.K, n_lines, n_states,
-        n_nu, float(cut), int(weight is not None), float(D1), 1.0 / (D2 - D1),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        arr["rows"].data_ptr(), arr["line"].data_ptr(), arr["dnu_hi"].data_ptr(),
+        arr["dnu_lo"].data_ptr(), co[0].data_ptr(), co[1].data_ptr(), co[2].data_ptr(),
+        None if bcoef is None else bcoef.data_ptr(), arr["n_rows"], geom.K, G, nse, n_tiles,
+        n_lines, n_states, n_nu, float(cut), int(weight is not None), float(D1),
+        1.0 / (D2 - D1), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"stencil correction launch failed: CUDA error {err}")
@@ -654,7 +711,7 @@ def sigma_stencil(plan: LineWindowPlan, lines, T, P, Pp, conc=None, shape: str =
                                                               conc, shape, plan.cut)
     out = launch_mode(window_mode("farall", shape), plan.device_arrays(dev), lines, coef,
                       n_states, plan.n_nu, _zones(plan.cut), bcoef=bcoef, fast=fast)
-    return stencil_correction(out, geom, co, plan.cut, T=chi_T(shape, T))
+    return stencil_correction(out, geom, co, plan.cut, T=chi_T(shape, T), bcoef=bcoef)
 
 
 def _coarse_arrays(geom, dev):
@@ -692,7 +749,7 @@ def sigma_coarse(plan: LineWindowPlan, lines, T, P, Pp, params, conc=None,
         fine = launch_mode(window_mode("fine_stencil", shape), arrs["fine"], lines, coef,
                            n_states, plan.n_nu, zones, bcoef=bcoef, fast=fast)
         stencil_correction(fine, geom.stencil, co, z["cut"], weight=(z["D1"], z["D2"]),
-                           T=chi_T(shape, T))
+                           T=chi_T(shape, T), bcoef=bcoef)
     else:
         fm = window_mode("fine", shape)
         fcoef = coef if _N_COEF[fm] == coef.shape[-1] else _pack(fm, co)

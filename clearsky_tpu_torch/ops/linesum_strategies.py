@@ -45,8 +45,8 @@ byte budget: JAX's is its 6 MiB of VMEM, the port's the card's L2 cache
 larger). The geometry is the JAX package's, bit for bit,
 in float64 numpy. What the port drops: the stencil's one-hot placement
 tensors and chunk pad classes (the TPU's matrix-unit placement; the port
-adds with atomics) and the branches for traced catalogs (torch has no
-tracers).
+gathers each row's lines in a fixed order, :func:`correction_rows`) and the
+branches for traced catalogs (torch has no tracers).
 """
 
 from __future__ import annotations
@@ -93,6 +93,7 @@ __all__ = [
     "mode_zones",
     "sigma_mode_plain",
     "stencil_correction_plain",
+    "correction_rows",
     "far_from_coarse",
     "sigma_stencil_plain",
     "sigma_nosplit_plain",
@@ -286,6 +287,48 @@ def _cached(plan: LineWindowPlan, key, lines, build):
 def stencil_geometry(plan: LineWindowPlan, lines) -> StencilGeom | None:
     """:func:`_build_stencil_geom`, built once per (plan, catalog)."""
     return _cached(plan, "stencil", lines, lambda: _build_stencil_geom(plan, lines))
+
+
+def correction_rows(geom: StencilGeom, cut: float, n_nu: int) -> dict:
+    """The correction's gather schedule over the K-point rows of ``geom``.
+
+    Line l's window covers rows q[l] (its points k < K) and q[l] + 1 (k >=
+    K). Each half that holds a grid point within ``cut`` of the line and
+    inside the ``n_nu``-point grid is an entry of its row. The entries are
+    sorted by (row, q, catalog index), stably and whatever the catalog's
+    order, so each row's entries are one contiguous run: its lines of q =
+    row - 1, then those of q = row, each in catalog order. That is the
+    order in which the kernel sums a point's terms. Numpy arrays:
+
+    * ``line`` [E]: each entry's catalog index;
+    * ``dnu_hi``, ``dnu_lo`` [E, K] float32: the entry's half of the
+      line's two-float offsets, the row's K points in order;
+    * ``rows`` [n_rows, 3]: (row, first entry, end) of every row that an
+      entry reaches, costliest (most entries) first, stably; rows that no
+      entry reaches are not listed;
+    * ``max_entries``: the most entries of a row.
+    """
+    K, L = geom.K, int(geom.q.shape[0])
+    q = np.asarray(geom.q, np.int64)
+    hi = np.asarray(geom.dnu_hi).reshape(2, K, L)
+    lo = np.asarray(geom.dnu_lo).reshape(2, K, L)
+    inside = (q[None, None, :] + np.arange(2)[:, None, None]) * K \
+        + np.arange(K)[None, :, None] < n_nu                        # [2, K, L]
+    reach = ((np.abs(hi) <= cut) & inside).any(axis=1)              # [2, L]
+    half, line = np.nonzero(reach)                                  # half-major, lines ascending
+    row = q[line] + half
+    order = np.argsort(2 * row - half, kind="stable")               # (row, q, line)
+    half, line, row = half[order], line[order], row[order]
+    first = np.flatnonzero(np.r_[True, row[1:] != row[:-1]]) if row.size else \
+        np.zeros(0, np.int64)
+    end = np.r_[first[1:], row.size].astype(np.int64)
+    count = end - first
+    by_cost = np.argsort(-count, kind="stable")
+    rows = np.stack([row[first], first, end], axis=1)[by_cost].astype(np.int64)
+    return {"line": line.astype(np.int64),
+            "dnu_hi": np.ascontiguousarray(hi[half, :, line]),
+            "dnu_lo": np.ascontiguousarray(lo[half, :, line]),
+            "rows": rows.reshape(-1, 3), "max_entries": int(count.max(initial=0))}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

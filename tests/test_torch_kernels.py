@@ -14,7 +14,7 @@ bar of tests/test_linesum_pallas.py; the windowed modes and the routes: 1e-5 of
 each state's peak, float32 accumulation; the correction: 1e-4 of each
 state's peak cross-section, float32 rounding amplified next to the
 region-1 pole at x^2 = 1/2 + y^2, where the correction is largest, and
-atomic adds in no fixed order; march:
+two launches equal bit for bit (a fixed summation order); march:
 3.5e-6 of peak, the float32 class of BASELINE.md; fused table: 1e-4 of
 peak for the fluxes and rtol 1e-4 for tau, the bars of chip_smoke.py) and
 checks that the wrapper raises on inputs the kernel does not take. The
@@ -463,6 +463,170 @@ def test_phco2_correction_matches_plain(dense_phco2, cuda, weighted):
     ref = ls.stencil_correction_plain(geom, co64, plan.cut, plan.n_nu, weight, T=x64[0])
     peak = sigma_from_lines(plan, lines, *x64, shape="phco2").abs().amax(dim=1, keepdim=True)
     assert float(((out.double().cpu() - ref).abs() / peak).max()) < 1e-4
+
+
+# --- the correction's gather: order, crowding, widths and shapes ---------------
+
+def _reordered(lines, order):
+    """``lines`` with its lines in ``order``."""
+    import dataclasses
+
+    from clearsky_tpu_torch.spectra.lines import PER_LINE_FIELDS
+
+    order = torch.as_tensor(order)
+    return dataclasses.replace(lines, **{f: getattr(lines, f)[order] for f in PER_LINE_FIELDS})
+
+
+def _permuted(lines, seed):
+    """``lines`` in a random order (the readers sort; a merged mixture or a
+    hand-built catalog need not)."""
+    return _reordered(lines, np.random.default_rng(seed).permutation(lines.n_lines))
+
+
+def _sorted(lines):
+    return _reordered(lines, np.argsort(lines.positions64(), kind="stable"))
+
+
+def _correction_case(lines, nu, cut, shape, n, weighted, cuda, K=None, monkeypatch=None):
+    """The correction's operands for ``lines`` on ``nu``: (geometry, float32
+    coefficients and T on the card, float64 ones on the host, weight, each
+    state's peak float64 cross-section). ``K`` forces the stencil width."""
+    plan = build_line_window_plan(nu, np.sort(lines.positions64()), cut)
+    if K is not None:
+        monkeypatch.setattr(ls, "_stencil_width", lambda plan, lines: K)
+    geom = ls._build_stencil_geom(plan, lines)
+    assert geom is not None and (K is None or geom.K == K)
+    x32, x64 = _t(_mode_states(n), torch.float32, cuda), _t(_mode_states(n))
+    co32 = ls.coefficients(lines.to(torch.float32, cuda), *x32, shape=shape)[1]
+    co64 = ls.coefficients(lines, *x64, shape=shape)[1]
+    weight = None
+    if weighted:
+        d_far = ls.coarse_params(plan, 0.6)[0]
+        weight = (d_far * d_far, 4.0 * d_far * d_far)
+    chi = shape.startswith("phco2")
+    peak = sigma_from_lines(plan, _sorted(lines).to(torch.float64, cuda),
+                            *_t(_mode_states(n), device=cuda),
+                            shape=shape).abs().amax(dim=1, keepdim=True).cpu()
+    return (geom, co32, x32[0] if chi else None, co64, x64[0] if chi else None, weight, peak)
+
+
+def _correction_err(case, cut, n_nu, cuda, out=None):
+    """(kernel result, its error against the float64 plain version over each
+    state's peak sigma) of one launch onto zeros (or ``out``)."""
+    geom, co32, T32, co64, T64, weight, peak = case
+    n = co32[0].shape[0]
+    out = torch.zeros((n, n_nu), device=cuda) if out is None else out
+    got = stencil_correction(out, geom, co32, cut, weight, T=T32)
+    torch.cuda.synchronize()
+    ref = ls.stencil_correction_plain(geom, co64, cut, n_nu, weight, T=T64)
+    assert bool(torch.isfinite(got).all())
+    return got, float(((got.double().cpu() - ref).abs() / peak).max())
+
+
+def _dense_case(which, dense, dense_phco2):
+    """(lines, grid, cut, shape) of the voigt or the phco2 dense fixture."""
+    if which == "voigt":
+        lines, plans = dense
+        return lines, plans["odd"].nu, 25.0, "voigt"
+    lines, plan = dense_phco2
+    return lines, plan.nu, plan.cut, "phco2"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("which", ["voigt", "phco2"])
+def test_correction_launches_are_bitwise_repeatable(dense, dense_phco2, cuda, which, weighted):
+    """Each point's terms add in the schedule's order, with no float atomic:
+    two launches on the same inputs (onto zeros, and onto a random sigma)
+    give the same bits, and rows that no line reaches keep theirs."""
+    lines, nu, cut, shape = _dense_case(which, dense, dense_phco2)
+    case = _correction_case(lines, nu, cut, shape, 57, weighted, cuda)
+    geom, co32, T32, _, _, weight, _ = case
+    n_nu = nu.shape[0]
+    a, err = _correction_err(case, cut, n_nu, cuda)
+    b, _ = _correction_err(case, cut, n_nu, cuda)
+    assert torch.equal(a, b) and err < 1e-4
+    base = torch.randn((57, n_nu), generator=torch.Generator().manual_seed(1)).to(cuda)
+    c = stencil_correction(base.clone(), geom, co32, cut, weight, T=T32)
+    d = stencil_correction(base.clone(), geom, co32, cut, weight, T=T32)
+    torch.cuda.synchronize()
+    assert torch.equal(c, d)
+    K = geom.K
+    reached = np.zeros(geom.R, bool)
+    reached[ls.correction_rows(geom, cut, n_nu)["rows"][:, 0]] = True
+    idle = torch.as_tensor(~np.repeat(reached, K)[:n_nu])
+    assert idle.any() and torch.equal(c.cpu()[:, idle], base.cpu()[:, idle])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["voigt", "phco2"])
+def test_correction_of_an_unsorted_catalog(dense, dense_phco2, cuda, which):
+    """A catalog in random order: the schedule sorts each row's lines by
+    (q, catalog index); the kernel agrees with its plain version on the
+    same catalog, and with the sorted catalog's result to float32 rounding
+    (the terms add in another order)."""
+    lines, nu, cut, shape = _dense_case(which, dense, dense_phco2)
+    mixed = _permuted(lines, 7)
+    assert (np.diff(mixed.positions64()) < 0).any()
+    got, err = _correction_err(_correction_case(mixed, nu, cut, shape, 11, True, cuda), cut,
+                               nu.shape[0], cuda)
+    want, _ = _correction_err(_correction_case(lines, nu, cut, shape, 11, True, cuda), cut,
+                              nu.shape[0], cuda)
+    assert err < 1e-4
+    scale = want.abs().amax(dim=1, keepdim=True)
+    assert float(((got - want).abs() / scale).max()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [11, 57])
+@pytest.mark.parametrize("which", ["voigt", "phco2"])
+def test_correction_of_one_crowded_row(dense, dense_phco2, cuda, which, n):
+    """Every line of the catalog in one row of the stencil's row grid: two
+    work items of all the lines, summed through many staged chunks and
+    evaluation rounds, against the plain version."""
+    import dataclasses
+
+    lines, nu, cut, shape = _dense_case(which, dense, dense_phco2)
+    g0 = ls._build_stencil_geom(build_line_window_plan(nu, lines.positions64(), cut), lines)
+    K, r = g0.K, g0.R // 2
+    lo, hi = nu[r * K + K // 2], nu[r * K + K // 2 + K - 1]
+    pos = np.sort(np.random.default_rng(2).uniform(lo, hi, lines.n_lines))
+    crowd = dataclasses.replace(lines, nu=torch.tensor(pos),
+                                nu_lo=torch.zeros(lines.n_lines, dtype=torch.float64))
+    case = _correction_case(crowd, nu, cut, shape, n, True, cuda)
+    assert (case[0].q == r).all()
+    _, err = _correction_err(case, cut, nu.shape[0], cuda)
+    assert err < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [40, 56, 64])
+@pytest.mark.parametrize("which", ["voigt", "phco2"])
+def test_correction_at_each_stencil_width(dense, dense_phco2, cuda, which, K, monkeypatch):
+    """The row widths of the main grids (K = 40 phco2, 56 voigt) and the
+    widest (64), at the main path's 57 states (7 x 8 + 1: two tiles)."""
+    lines, nu, cut, shape = _dense_case(which, dense, dense_phco2)
+    case = _correction_case(lines, nu, cut, shape, 57, True, cuda, K=K,
+                            monkeypatch=monkeypatch)
+    _, err = _correction_err(case, cut, nu.shape[0], cuda)
+    assert err < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["voigt", "phco2"])
+def test_correction_at_the_rcm_shape(cuda, shape):
+    """chip_smoke.py's RCM shape: its 5,599-line catalog on 16,384 points
+    (K = 8), 20 states; the stencil route's unweighted correction for voigt,
+    the coarse route's weighted chi instance for phco2."""
+    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(5599, seed=0),
+                                           dtype=torch.float64, device="cpu")
+    pos = lines.positions64()
+    cut = 25.0 if shape == "voigt" else 500.0
+    nu = np.linspace(max(pos.min() - cut, 1.0), pos.max() + cut, 16384)
+    case = _correction_case(lines, nu, cut, shape, 20, shape == "phco2", cuda)
+    assert case[0].K == 8
+    _, err = _correction_err(case, cut, nu.shape[0], cuda)
+    assert err < 1e-4
 
 
 @pytest.mark.gpu

@@ -441,9 +441,9 @@ def _emulate_windowed(mode, blocks64, windows, lines, coef, z, d_near, n_states)
 
 
 def _emulate_correction(geom, coef, n_states, cut, n_nu, weight):
-    """stencil_correction_kernel in float64: thread (k, l) reads (Sia, ia, y0)
-    (here from the FINE mode's pack [n_lines, n_states, 8]) and adds at q[l]
-    K + k."""
+    """The correction's terms in float64, one (window point k, line l) at a
+    time: (Sia, ia, y0) (here from the FINE mode's pack [n_lines, n_states,
+    8]) added at q[l] K + k."""
     out = torch.zeros(n_states, n_nu, dtype=torch.float64)
     hi = torch.tensor(geom.dnu_hi, dtype=torch.float64)
     lo = torch.tensor(geom.dnu_lo, dtype=torch.float64)
