@@ -698,38 +698,31 @@ def _windowed_line(name, mode, blocks64, windows, n_out, lines, l64, states, z, 
 
 
 def kernel_device_ms(fn, kernel: str, n: int = 10, tries: int = 3):
-    """Mean device milliseconds of the launches of kernels whose name holds
-    ``kernel`` over n calls of ``fn`` (one launch a call), as torch.profiler
-    traces them: it may drop some, so the mean is over those it traced, and
-    a profile that traced none is taken again (up to ``tries``; then None,
-    not measured)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Mean device milliseconds of a launch of ``kernel`` (a name of
+    :func:`_kernel_of`) over n calls of ``fn``, as :func:`traced` takes
+    them: the mean over the launches traced, None where none was."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-        if evs:
-            return sum(e.time_range.elapsed_us() for e in evs) / len(evs) / 1e3
-    return None
+    _, per, _, _ = traced(fn, n, tries)
+    if kernel not in per:
+        return None
+    launches, us = per[kernel]
+    return us / launches / 1e3
 
 
-def _correction_measure(geom, co, cut, n_nu, weight, T, ops, dev):
+def _correction_measure(geom, co, cut, n_nu, weight, T, ops, pairs, dev):
     """The correction kernel's timing, build and bound at one shape: two
     launches onto zeros must give the same bits (the fixed summation
     order); ms is CUDA events around one wrapper call on a preallocated
     sigma that each call adds into, device_ms the profiler's kernel time.
     With the states' temperatures ``T`` (the chi instance) chi's rates are
     formed once beforehand, as the routes hand them over. The bound's bytes
-    are those the schedule touches: the reached rows' sigma read and written
-    once, the entries' two-float offsets and line indices, the rows table,
-    the reached lines' (Sia, ia, y0); beside it the bound over all of sigma
-    (the count before the row gather)."""
+    are those this run's data needs: sigma read and written once at the
+    ``pairs`` (state, point) pairs where some term lands, the entries'
+    two-float offsets and line indices, the rows table, the reached lines'
+    (Sia, ia, y0). Beside it the bound over the reached rows' sigma (every
+    state at every point of a row the schedule lists) and over all of
+    sigma (the count before the row gather)."""
     from clearsky_tpu_torch.ops import linesum_cuda as lc
     from clearsky_tpu_torch.ops import linesum_strategies as ls
 
@@ -743,22 +736,27 @@ def _correction_measure(geom, co, cut, n_nu, weight, T, ops, dev):
     buf = torch.zeros((n, n_nu), device=dev)
     launch = lambda: lc.stencil_correction(buf, geom, co, cut, weight, T=T, bcoef=bcoef)
     ms = cuda_ms(launch)
-    device_ms = kernel_device_ms(launch, "correction_gather_kernel")
+    device_ms = kernel_device_ms(
+        launch, "stencil_correction" if T is None else "stencil_correction_phco2")
     del buf
     sch = ls.correction_rows(geom, cut, n_nu)
     rows, E, K = sch["rows"], sch["line"].shape[0], geom.K
     points = int(np.minimum(rows[:, 0] * K + K, n_nu).sum() - (rows[:, 0] * K).sum())
     reached = int(np.unique(sch["line"]).size)
-    b = bound(ops, 8 * n * points + 8 * E * K + 4 * E + 12 * rows.shape[0] + 12 * n * reached)
+    rest = 8 * E * K + 4 * E + 12 * rows.shape[0] + 12 * n * reached
+    b = bound(ops, 8 * pairs + rest)
+    by_rows = bound(ops, 8 * n * points + rest)
     L = geom.q.shape[0]
     all_sigma = bound(ops, 8 * 2 * K * L + 4 * L + 12 * n * L + 8 * n * n_nu)
     info = lc.correction_info(K, n, chi=T is not None)
     return a, dict(ms=ms, device_ms=device_ms, bitwise_repeat=True,
                    rows_touched=int(rows.shape[0]), rows=geom.R, points_touched=points,
-                   entries=E, work_items=int(rows.shape[0]) * info["state_tiles"],
+                   pairs_touched=pairs, entries=E,
+                   work_items=int(rows.shape[0]) * info["state_tiles"],
                    registers=info["registers"], shared_bytes=info["shared_bytes"],
                    local_bytes=info["local_bytes"], threads=info["threads"],
                    resident_warps=info["resident_warps"],
+                   bound_rows_ms=by_rows["bound_ms"], bound_rows_bytes=by_rows["bound_bytes"],
                    bound_all_sigma_ms=all_sigma["bound_ms"],
                    bound_all_sigma_bytes=all_sigma["bound_bytes"]), b
 
@@ -780,16 +778,17 @@ def _correction_line(name, geom, lines, l64, states, n_nu, peak, weight, report,
     hi = torch.as_tensor(geom.dnu_hi, device=dev)
     lo = torch.as_tensor(geom.dnu_lo, device=dev)
     q = torch.as_tensor(geom.q, device=dev)
-    inside = ((q[None, :] * geom.K + torch.arange(2 * geom.K, device=dev)[:, None]) < n_nu) \
-        & (hi.abs() <= 25.0)
-    ops = 0.0
+    at = q[None, :] * geom.K + torch.arange(2 * geom.K, device=dev)[:, None]
+    inside = (at < n_nu) & (hi.abs() <= 25.0)
+    ops, pairs = 0.0, 0
     for s in range(n):
         x = co[1][s][None, :] * hi + co[1][s][None, :] * lo
         m = inside & (x * x <= 225.0)
         ops += w4_ops(x[m], co[2][s].expand_as(x)[m]) + CORRECTION_OPS * int(m.sum())
+        pairs += int(torch.unique(at[m]).numel())
     if weight is not None:
         ops += SMOOTH_OPS * int(inside.sum())
-    out, timing, b = _correction_measure(geom, co, 25.0, n_nu, weight, None, ops, dev)
+    out, timing, b = _correction_measure(geom, co, 25.0, n_nu, weight, None, ops, pairs, dev)
     ref = ls.stencil_correction_plain(geom, co64, 25.0, n_nu, weight)
     err = float(((out.double() - ref).abs() / peak).max())
     max_abs = float((out.double() - ref).abs().max())
@@ -2165,19 +2164,21 @@ def _phco2_correction_line(geom, lines, l64, states, plan, peak, weight, report)
     hi = torch.as_tensor(geom.dnu_hi, device=dev)
     lo = torch.as_tensor(geom.dnu_lo, device=dev)
     q = torch.as_tensor(geom.q, device=dev)
-    inside = ((q[None, :] * geom.K + torch.arange(2 * geom.K, device=dev)[:, None]) < n_nu) \
-        & (hi.abs() <= plan.cut)
+    at = q[None, :] * geom.K + torch.arange(2 * geom.K, device=dev)[:, None]
+    inside = (at < n_nu) & (hi.abs() <= plan.cut)
     # the farthest the correction acts from a line (x^2 <= 225 at some
     # state): below 3 cm^-1 chi is 1 there, which the kernel computes anyway
-    reach, ops = 0.0, 0.0
+    reach, ops, pairs = 0.0, 0.0, 0
     for s in range(n):
         x = co[1][s][None, :] * hi + co[1][s][None, :] * lo
         m = inside & (x * x <= 225.0)
         if bool(m.any()):
             reach = max(reach, float((hi + lo).abs()[m].max()))
         ops += w4_ops(x[m], co[2][s].expand_as(x)[m]) + (CORRECTION_OPS + 2) * int(m.sum())
+        pairs += int(torch.unique(at[m]).numel())
     ops += (SMOOTH_OPS + PH_PAIR_OPS) * int(inside.sum())
-    out, timing, b = _correction_measure(geom, co, plan.cut, n_nu, weight, states[0], ops, dev)
+    out, timing, b = _correction_measure(geom, co, plan.cut, n_nu, weight, states[0], ops,
+                                         pairs, dev)
     ref = ls.stencil_correction_plain(geom, co64, plan.cut, n_nu, weight, T=x64[0])
     err = float(((out.double() - ref).abs() / peak).max())
     max_abs = float((out.double() - ref).abs().max())
@@ -3321,27 +3322,55 @@ def _kernel_of(name: str):
     return None
 
 
-def phase_profile(calls, n: int = 3):
-    """Where the device time of each main-path call goes (torch.profiler)."""
+def traced(fn, n: int, tries: int = 3):
+    """Device events of n calls of ``fn`` as torch.profiler traces them. The
+    profiler may drop launches, so the launches traced of the kernels of
+    :func:`_kernel_of` are held against those their wrappers counted in the
+    same calls, and the profile is taken again (up to ``tries``) while some
+    are missing. Returns (events, {kernel: [launches traced, their device
+    us]}, {kernel: launches counted}, launches missing in the last try)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for name, fn in calls.items():
-        wall = wall_ms(fn, n=n)
+    for _ in range(tries):
+        before = counts_read()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+        counted = {k: v - before[k] for k, v in counts_read().items() if v > before[k]}
         evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        check(len(evs) > 0, f"the profiler traced no device activity in {name}")
-        device = _busy_us([(e.time_range.start, e.time_range.end) for e in evs]) / n / 1e3
-        per_kernel = {}
+        per = {}
         for e in evs:
             k = _kernel_of(e.name)
             if k is not None:
-                per_kernel[k] = per_kernel.get(k, 0.0) + e.time_range.elapsed_us() / n / 1e3
+                got = per.setdefault(k, [0, 0.0])
+                got[0] += 1
+                got[1] += e.time_range.elapsed_us()
+        # K1-dev's launches count under "dev_" names and trace under K1's:
+        # the totals are compared
+        missing = max(0, sum(counted.values()) - sum(c for c, _ in per.values()))
+        if missing == 0:
+            break
+    return evs, per, counted, missing
+
+
+def phase_profile(calls, n: int = 3):
+    """Where the device time of each main-path call goes (torch.profiler,
+    through :func:`traced`). A kernel's ms a call is the mean over its
+    launches traced times those its wrapper counted (where the profiler
+    dropped some); ``launches_missing`` says how many the last profile
+    lacked, whose time the device ms does not hold."""
+    for name, fn in calls.items():
+        wall = wall_ms(fn, n=n)
+        evs, per, counted, missing = traced(fn, n)
+        check(len(evs) > 0, f"the profiler traced no device activity in {name}")
+        device = _busy_us([(e.time_range.start, e.time_range.end) for e in evs]) / n / 1e3
+        per_kernel = {k: us / c * max(c, counted.get(k, 0)) / n / 1e3
+                      for k, (c, us) in per.items()}
         emit("profile", call=name, calls=n, wall_ms_per_call=wall,
              device_ms_per_call=device, device_ops_per_call=len(evs) / n,
-             kernel_ms_per_call=per_kernel, idle_share=1.0 - device / wall)
+             kernel_ms_per_call=per_kernel, launches_missing=missing,
+             idle_share=1.0 - device / wall)
 
 
 def _seg_launch(plan, lines, states, L_seg, mode, bcoef, dev, conc=None, count_as=None):

@@ -843,18 +843,11 @@ correction_gather_kernel(const int* __restrict__ rows, const int* __restrict__ l
   const bool live = g < G && j < jmax;
   const int ce = min(CORR_RUNS / TS, CORR_DNU / K);  // entries a chunk
   // a chunk's offsets and coefficients into shared memory, all in flight
-  // at once (cp.async; 16-byte copies where K is whole quads)
+  // at once (cp.async; 16-byte copies, K being whole quads)
   const auto stage = [&](int c0, int ne) {
-    if ((K & 3) == 0) {
-      for (int i = 4 * t; i < ne * K; i += 4 * nt) {
-        cp_async16(sm.dh + i, dnu_hi + (size_t)c0 * K + i);
-        cp_async16(sm.dl + i, dnu_lo + (size_t)c0 * K + i);
-      }
-    } else {
-      for (int i = t; i < ne * K; i += nt) {
-        cp_async4(sm.dh + i, dnu_hi + (size_t)c0 * K + i);
-        cp_async4(sm.dl + i, dnu_lo + (size_t)c0 * K + i);
-      }
+    for (int i = 4 * t; i < ne * K; i += 4 * nt) {
+      cp_async16(sm.dh + i, dnu_hi + (size_t)c0 * K + i);
+      cp_async16(sm.dl + i, dnu_lo + (size_t)c0 * K + i);
     }
     for (int i = t; i < ne * TS; i += nt) {
       const int u = i / ne, e = i - u * ne, q = e * TS + u;
@@ -1281,7 +1274,8 @@ int fullprofile_launch(int shape, int gathered, const float* nu_hi, const float*
 }
 
 // Launch the near-core correction on `stream` (adds into out): one block a
-// work item (rows[n_rows][3] x n_tiles state tiles of G nse states), K G
+// work item (rows[n_rows][3] x n_tiles state tiles of G nse states; K a
+// multiple of 4 up to 64, whole quads for the 16-byte copies), K G
 // threads rounded up to whole warps; with bcoef (the phco2 family's rates
 // [n_tiles of ST][2][ST]) the chi instance. Returns cudaGetLastError().
 int stencil_correction_launch(const int* rows, const int* line, const float* dnu_hi,
@@ -1291,7 +1285,7 @@ int stencil_correction_launch(const int* rows, const int* line, const float* dnu
                               float cut, int weighted, float D1, float inv_D, float* out,
                               void* stream) {
   if (n_rows == 0 || n_states == 0) return 0;
-  if (K < 1 || K > 64 || G < 1 || K * G > CORR_THREADS || nse < 1 || nse > 8 ||
+  if (K < 4 || K > 64 || K % 4 != 0 || G < 1 || K * G > CORR_THREADS || nse < 1 || nse > 8 ||
       G * nse > CORR_TS || (long long)n_rows * n_tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int block = (K * G + 31) / 32 * 32;

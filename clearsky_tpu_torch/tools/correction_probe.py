@@ -13,11 +13,10 @@ chi instance (57 x 2^19 over the catalog +- 500 cm^-1, K = 40), the RCM's
 unweighted correction (the stencil route, 20 states x 16,384 points) and
 the RCE's weighted chi instance (20 x 16,384, phco2). ``csrc/linesum.cu``
 of the port in use is compiled once for each cut applied to its text
-(:data:`CUTS`), each with ``-Xptxas -v`` and a small shim that reports the
-kernel's registers, local (spill) bytes, static shared bytes and resident
-blocks an SM (the new design reports them through its wrapper's
-``correction_info``); the wrapper then launches it in place of the port's library,
-on a preallocated output that each call adds into, timed with CUDA events
+(:data:`CUTS`), each with ``-Xptxas -v`` (registers and spills; the
+wrapper's ``correction_info`` reports the build's registers, shared and
+local bytes and resident blocks); the wrapper then launches it in place of
+the port's library, on a preallocated output that each call adds into, timed with CUDA events
 around one wrapper call (median of 10: host time included, as
 chip_smoke.py's ``ms``) and by the profiler (the kernel's own device time,
 mean of 10). Each result is one ``probe`` line, with the launch's blocks
@@ -25,15 +24,10 @@ mean of 10). Each result is one ``probe`` line, with the launch's blocks
 window reaches and their share, and the bytes of those rows' sigma read and
 written once.
 
-The cuts know two designs. The earlier kernel ("old": one thread a (window
-point, line), a loop over the states, a float atomicAdd a term):
-``mask`` (the state loop's loads and mask test, no w4 and no atomic),
-``w4`` (the w4 evaluations summed in a register and stored once, no
-atomic) and ``atomics`` (the mask test and an atomic of a cheap term, no
-w4). The row gather ("new": one block a (row, state tile), the row's
-lines staged in shared memory, its candidate terms evaluated as one list,
-a sum in schedule order, one read and one write of sigma): ``stage`` (the staging and sigma's read and write alone:
-no runs, no candidates), ``mask`` (the runs, the candidates' tests, the
+The cuts of the row gather (one block a (row, state tile), the row's lines
+staged in shared memory, its candidate terms evaluated as one list, a sum
+in schedule order, one read and one write of sigma): ``stage`` (the
+staging and sigma's read and write alone: no runs, no candidates), ``mask`` (the runs, the candidates' tests, the
 ordered sums, a cheap term in place of w4 - region 1), ``no_rmw``
 (everything but sigma's read) and ``no_sum`` (everything but the ordered
 sums). ``--root TREE`` imports ``clearsky_tpu_torch`` from TREE
@@ -48,12 +42,11 @@ points, and 6 steps of the RCE run (one refresh); one chip_smoke.py
 ``profile`` line each (wall and device ms, device operations, kernel ms).
 
 ``--count`` needs none: on the host it counts, for the two main shapes, the
-w4 work that four evaluation orders issue (the op counts of chip_smoke.py's
-``W4_COMMON``, ``W4_REGION`` and ``W4_SMALL_Y`` per region a warp of 32
-lanes runs): where the earlier kernel evaluates (32 lines at one window point
-a warp), where a gather evaluates each thread's terms as it meets them,
-the passing terms packed in order, and packed by region; each over the
-work packed 32 to a warp without divergence. One ``count`` line a shape.
+w4 work that three evaluation orders of the gather issue (the op counts of
+chip_smoke.py's ``W4_COMMON``, ``W4_REGION`` and ``W4_SMALL_Y`` per region
+a warp of 32 lanes runs): each thread's terms where it meets them, the
+passing terms packed in order, and packed by region; each over the work
+packed 32 to a warp without divergence. One ``count`` line a shape.
 """
 
 from __future__ import annotations
@@ -73,75 +66,25 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 cs = None  # chip_smoke, loaded by main()
 
-_OLD_TERM = "    const float corr = sia[sl] * (wofz_re(x, y) - region1_xy(x, y)) * w;\n"
-_OLD_ATOMIC = "    atomicAdd(out + (size_t)s * n_nu + p, corr);\n  }\n}\n"
-_OLD_LOOP = "  for (int s = 0; s < n_states; ++s) {\n    const size_t sl"
-_OLD_ACC = ("  float acc = 0.0f;\n  for (int s = 0; s < n_states; ++s) {\n"
-            "    const size_t sl")
-# the old kernel's cuts: the sum kept in a register (stored where it could
-# not be 0 by chance, so the compiler keeps the loads), or a cheap term
-_OLD_CHEAP = "    const float corr = sia[sl] * y * w;\n"
-CUTS_OLD = {
+# the cuts of csrc/linesum.cu ``correction_gather_kernel``; the results of a
+# cut copy are not kept
+_RUNS = "      if (s0 + u < n_states) run_of("
+_WRITE = ("    if (hits >> i & 1u) out[", "    if (valid >> i & 1u) out[")
+_EVAL = ("        if (pair_xy(k, x, y, w)) corr = sm.sia[q] * (wofz_re(x, y) - region1_xy(x, y)) * w;\n")
+_READ = "      cp_async4(&sm.sig[i][t], out + (size_t)s * n_nu + p);  // sigma's one read\n"
+_SUM = "      if (live) {\n        for (int e = ea; e < eb; ++e) {\n"
+CUTS = {
     "none": [],
-    "mask": [(_OLD_LOOP, _OLD_ACC), (_OLD_TERM, _OLD_CHEAP),
-             (_OLD_ATOMIC, "    acc += corr;\n  }\n  if (acc == 1.2345e-30f) out[p] = acc;\n}\n")],
-    "w4": [(_OLD_LOOP, _OLD_ACC),
-           (_OLD_ATOMIC, "    acc += corr;\n  }\n  if (acc != 0.0f) out[i] = acc;\n}\n")],
-    "atomics": [(_OLD_TERM, _OLD_CHEAP)],
+    "stage": [(_RUNS, "      if (n_states < 0) run_of("), _WRITE],
+    "mask": [(_EVAL, "        if (pair_xy(k, x, y, w)) corr = sm.sia[q] * x * y * w;\n")],
+    "no_rmw": [(_READ, "      sm.sig[i][t] = 0.0f;\n")],
+    "no_sum": [(_SUM, "      if (live && n_states < 0) {\n        for (int e = ea; e < eb; ++e) {\n"),
+               _WRITE],
 }
-# the new kernel's cuts (csrc/linesum.cu ``correction_gather_kernel``); the
-# results of a cut copy are not kept
-_NEW_RUNS = "      if (s0 + u < n_states) run_of("
-_NEW_WRITE = ("    if (hits >> i & 1u) out[", "    if (valid >> i & 1u) out[")
-_NEW_EVAL = ("        if (pair_xy(k, x, y, w)) corr = sm.sia[q] * (wofz_re(x, y) - region1_xy(x, y)) * w;\n")
-_NEW_READ = "      cp_async4(&sm.sig[i][t], out + (size_t)s * n_nu + p);  // sigma's one read\n"
-_NEW_SUM = "      if (live) {\n        for (int e = ea; e < eb; ++e) {\n"
-CUTS_NEW = {
-    "none": [],
-    "stage": [(_NEW_RUNS, "      if (n_states < 0) run_of("), _NEW_WRITE],
-    "mask": [(_NEW_EVAL, "        if (pair_xy(k, x, y, w)) corr = sm.sia[q] * x * y * w;\n")],
-    "no_rmw": [(_NEW_READ, "      sm.sig[i][t] = 0.0f;\n")],
-    "no_sum": [(_NEW_SUM, "      if (live && n_states < 0) {\n        for (int e = ea; e < eb; ++e) {\n"),
-               _NEW_WRITE],
-}
-CUTS = {"old": CUTS_OLD, "new": CUTS_NEW}
-
-_SHIM = {
-    "old": r'''
-#include "{src}"
-extern "C" int probe_info(int ph, int block, int* info) {{
-  cudaFuncAttributes a{{}};
-  int per_sm = 0;
-  const void* k = ph ? (const void*)stencil_correction_kernel<true>
-                     : (const void*)stencil_correction_kernel<false>;
-  cudaError_t e = cudaFuncGetAttributes(&a, k);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, block, 0);
-  info[0] = a.numRegs;
-  info[1] = (int)a.localSizeBytes;
-  info[2] = (int)a.sharedSizeBytes;
-  info[3] = per_sm;
-  return (int)e;
-}}
-''',
-    # the new design reports its build itself (linesum_cuda.correction_info)
-    "new": '#include "{src}"\n',
-}
-
-
-def design_of(src: str) -> str:
-    """"old" (a thread a (window point, line), float atomics) or "new"
-    (a block a row and state tile, the row gather)."""
-    if "stencil_correction_kernel(" in src and "atomicAdd(out" in src:
-        return "old"
-    if "correction_gather_kernel(" in src:
-        return "new"
-    raise ValueError("csrc/linesum.cu holds a correction of neither design the probe knows")
-
-
 def cut_source(src: str, cut: str) -> str:
     """``src`` with the edits of ``cut``; raises where an edit's text is
     missing, so that a changed source cannot give a silent uncut copy."""
-    for old, new in CUTS[design_of(src)][cut]:
+    for old, new in CUTS[cut]:
         if src.count(old) != 1:
             raise ValueError(f"cut {cut!r}: the source holds {src.count(old)} copies of "
                              f"{old.strip()[:60]!r}")
@@ -164,7 +107,7 @@ def _ptxas(stderr: str) -> dict:
         if m:
             fn = m.group(1)
             continue
-        if fn and ("stencil_correction_kernel" in fn or "correction_gather_kernel" in fn):
+        if fn and "correction_gather_kernel" in fn:
             r = re.search(r"Used (\d+) registers", line)
             s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if r:
@@ -175,38 +118,30 @@ def _ptxas(stderr: str) -> dict:
 
 
 def build_cuts(root: str, out_dir: str):
-    """Compile every cut of TREE's linesum.cu in parallel: (design, {cut: (lib, ptxas)})."""
+    """Compile every cut of TREE's linesum.cu in parallel: {cut: (lib, ptxas)}."""
     from clearsky_tpu_torch.utils import cuda_build
 
     csrc = os.path.join(root, "clearsky_tpu_torch", "csrc")
     out_dir = os.path.abspath(out_dir)
     with open(os.path.join(csrc, "linesum.cu")) as f:
         src = f.read()
-    design = design_of(src)
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for cut in CUTS[design]:
+    for cut in CUTS:
         cu = os.path.join(out_dir, f"linesum_{cut}.cu")
         with open(cu, "w") as f:
             f.write(cut_source(src, cut))
-        shim = os.path.join(out_dir, f"shim_{cut}.cu")
-        with open(shim, "w") as f:
-            f.write(_SHIM[design].format(src=cu))
         so = os.path.join(out_dir, f"liblinesum_{cut}.so")
         procs[cut] = (so, subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc, "-o", so,
-             shim], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             cu], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for cut, (so, p) in procs.items():
         _, err = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on cut {cut}:\n{err}")
-        lib = ctypes.CDLL(so)
-        if design == "old":
-            lib.probe_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-            lib.probe_info.restype = ctypes.c_int
-        libs[cut] = (lib, _ptxas(err))
-    return design, libs
+        libs[cut] = (ctypes.CDLL(so), _ptxas(err))
+    return libs
 
 
 
@@ -214,7 +149,7 @@ def build_cuts(root: str, out_dir: str):
 def touched_rows(geom, cut: float, n_nu: int) -> int:
     """Rows of the K-point row grid that some line's in-cut window reaches
     (a grid point within the cut and inside the grid), counted on the host
-    from the geometry alone, whatever the design."""
+    from the geometry alone."""
     K = geom.K
     k = np.arange(2 * K)[:, None]
     reach = (np.abs(geom.dnu_hi) <= cut) & (geom.q[None, :] * K + k < n_nu)   # [2K, L]
@@ -292,13 +227,11 @@ def count(seed: int):
         n, K = ia.shape[0], geom.K
         hi, lo = geom.dnu_hi.astype(np.float64), geom.dnu_lo.astype(np.float64)
         inside = (geom.q[None, :] * K + np.arange(2 * K)[:, None] < n_nu) & (np.abs(hi) <= cut)
-        old = packed = 0.0
-        for s in range(n):                  # a warp: 32 lines at one window point
+        packed = 0.0
+        for s in range(n):
             x = ia[s][None, :] * (hi + lo)
             y = np.broadcast_to(y0[s][None, :], x.shape)
             act = inside & (x * x <= 225.0)
-            a, r, sy = _warps(act.ravel(), _region(x, y).ravel(), (y < 0.01).ravel())
-            old += _warp_ops(a, r, sy)
             packed += float((cs.W4_COMMON + np.asarray(cs.W4_REGION)[_region(x, y)[act]]
                              + cs.W4_SMALL_Y * (y < 0.01)[act]).sum()) / 32.0
         sch = ls.correction_rows(geom, cut, n_nu)
@@ -328,7 +261,7 @@ def count(seed: int):
                 o = np.argsort(reg, kind="stable")
                 byregion += _warp_ops(*_warps(one, reg[o], small[o]))
         cs.emit("count", instance=name, packed_ops=packed,
-                ratio_pair_kernel=old / packed, ratio_gather_where_they_fall=where / packed,
+                ratio_gather_where_they_fall=where / packed,
                 ratio_packed_in_order=inorder / packed, ratio_packed_by_region=byregion / packed)
 
 
@@ -376,8 +309,7 @@ def correction_probe(seed: int, dev, out_dir: str):
                          capture_output=True, text=True, timeout=60)
     cs.emit("probe", part="env", package_root=root, card=torch.cuda.get_device_name(dev),
             nvidia_smi=smi.stdout.strip().splitlines()[dev.index or 0])
-    design, libs = build_cuts(root, out_dir)
-    kernel = "stencil_correction_kernel" if design == "old" else "correction_gather_kernel"
+    libs = build_cuts(root, out_dir)
     cases = shapes(seed, dev)
     real = lc.load_library
     try:
@@ -390,22 +322,15 @@ def correction_probe(seed: int, dev, out_dir: str):
                       lc.stencil_correction(buf, geom, co, c, w, T=T))
                 fn()
                 torch.cuda.synchronize()
-                L = int(geom.q.shape[0])
-                if design == "old":
-                    got = (ctypes.c_int * 4)()
-                    err = lib.probe_info(int(T is not None), 256, got)
-                    info = dict(registers=got[0], local_bytes=got[1], shared_bytes=got[2],
-                                blocks_per_sm=got[3], threads=256, info_err=err)
-                    items = -(-2 * geom.K * L // 256)
-                else:
-                    info = lc.correction_info(geom.K, n, chi=T is not None)
-                    items = lc._correction_arrays(geom, cut_cm, n_nu, dev)["n_rows"] * \
-                        info["state_tiles"]
+                info = lc.correction_info(geom.K, n, chi=T is not None)
+                items = lc._correction_arrays(geom, cut_cm, n_nu, dev)["n_rows"] * \
+                    info["state_tiles"]
                 rows = touched_rows(geom, cut_cm, n_nu)
                 points = min(rows * geom.K, n_nu)
-                cs.emit("probe", kernel="stencil_correction", instance=name, design=design,
-                        cut=cut, ms=cs.cuda_ms(fn), device_ms=cs.kernel_device_ms(fn, kernel),
-                        states=n, points=n_nu, K=geom.K, lines=L, weighted=weight is not None,
+                kernel = "stencil_correction" if T is None else "stencil_correction_phco2"
+                cs.emit("probe", kernel="stencil_correction", instance=name, cut=cut,
+                        ms=cs.cuda_ms(fn), device_ms=cs.kernel_device_ms(fn, kernel),
+                        states=n, points=n_nu, K=geom.K, lines=int(geom.q.shape[0]), weighted=weight is not None,
                         work_items=items, rows=geom.R, rows_touched=rows,
                         rows_touched_share=rows / geom.R, sigma_rmw_bytes=8 * n * points,
                         **info, ptxas=ptx)

@@ -296,3 +296,15 @@ def test_wrapper_on_cpu_takes_the_plain_version(phco2):
     assert torch.equal(out, ref)
     with pytest.raises(ValueError):
         linesum_cuda.stencil_correction(out, geom, co, cut, bcoef=linesum_cuda.chi_rates(Tt))
+
+
+@pytest.mark.parametrize("cut", ["none", "stage", "mask", "no_rmw", "no_sum"])
+def test_probe_cuts_apply_to_the_kernel_source(cut):
+    """tools/correction_probe.py cuts csrc/linesum.cu by text edits: each
+    edit of each cut finds its text exactly once in today's source."""
+    from clearsky_tpu_torch.tools import correction_probe
+    from clearsky_tpu_torch.utils.cuda_build import CSRC
+
+    src = (CSRC / "linesum.cu").read_text()
+    out = correction_probe.cut_source(src, cut)
+    assert (out == src) == (cut == "none")
