@@ -26,7 +26,10 @@ prints one line that starts with its name:
           FINE_STENCIL modes and weighted correction at the main shape (57
           Lobatto states x 2^19 points), its FINE mode at 57 x 2^20; the
           no-split sweep's voigt instance at 57 x 2^19 and phco2 instance at
-          16 x 2^15 (each also against the split mode, rtol 1e-4)
+          16 x 2^15 (each also against the split mode, rtol 1e-4); K2 and K3
+          at 19 layers x 2^19, 38 x 16,384 and 160 x 16,384 for 1, 5 and 8
+          streams (two launches bit for bit; the 5-stream lines with the
+          profiler's device ms and the launch plan)
   routes  the line sum through each route at the main shape (grouped,
           stencil, coarse) and at the RCM's (grouped, stencil): CUDA-event
           ms per call of sigma_from_lines_auto (first to last launch, host
@@ -986,57 +989,104 @@ def phase_routes(data, strategies, expect_auto):
     return calls
 
 
-def kernel_march(seed, dev, report):
-    """K2 and K3 on the adversarial 20-level column at 2^19 points, 5 streams."""
-    from clearsky_tpu_torch.rt.discretized import _olr_march, _monoflux_march
-    from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
-    from clearsky_tpu_torch.utils.quadrature import stream_nodes
-
-    L, N = N_LEVELS - 1, N_NU_MAIN
+def march_column(L: int, N: int, seed: int):
+    """The marches' adversarial column (tau, B, S, albedo) as numpy float64:
+    transparent (0, 1e-9), series-branch (1e-4), exponentially distributed
+    and, over a third of the points, opaque (1e4) layers."""
     rng = np.random.default_rng(seed + 2)
-    # transparent (0, 1e-9), series-branch (1e-4), ordinary and opaque layers
     tau = rng.exponential(0.5, (L, N))
     tau[0], tau[1], tau[2] = 0.0, 1e-9, 1e-4
     tau[-1, : N // 3] = 1e4
     B = 0.5 + rng.random((L + 1, N))
-    S = rng.random(N)
-    a = 0.5 * rng.random(N)
-    x32 = [torch.tensor(x, dtype=torch.float32, device=dev) for x in (tau, B, S, a)]
-    x64 = [x.double() for x in x32]
-    m, W = stream_nodes(5)
-    ct = math.cos(0.841)
+    return tau, B, rng.random(N), 0.5 * rng.random(N)
 
-    olr_k = olr_march(x32[0], x32[1], m, W)
-    up_k, dn_k = monoflux_march(*x32, ct, m, W)
-    torch.cuda.synchronize()
-    olr_r = _olr_march(x64[0], x64[1], m, W)
-    up_r, dn_r = _monoflux_march(*x64, ct, m, W)
-    err = lambda k, r: float((k.double() - r).abs().max())
-    abs_olr, abs_up, abs_dn = err(olr_k, olr_r), err(up_k, up_r), err(dn_k, dn_r)
-    e_olr = abs_olr / float(olr_r.abs().max())
-    e_up, e_dn = abs_up / float(up_r.abs().max()), abs_dn / float(dn_r.abs().max())
+
+def march_bound(L: int, N: int, nst: int, nbytes_: int, mono: bool) -> dict:
+    """K2's (one march) or K3's (two, and the beam) bound: ~20 FP32
+    operations a (stream, layer) a march (the step's series, select and
+    source; the exponential's FP32 part), an exponential a (stream, layer)
+    a march at the special-function units' rate and, for K3, one a layer
+    for the beam; the bytes each input read once and each output written
+    once."""
+    marches = 2 if mono else 1
+    return bound(20 * marches * L * N * nst, nbytes_,
+                 exps=marches * L * N * nst + (L * N if mono else 0))
+
+
+# K2/K3's columns: the main path's 19 x 2^19, the RCM's 38 x 16,384 (radmul
+# 2) and an L beyond one shared-memory tile of the spread layout (K2
+# stages 2 chunks, K3 4)
+MARCH_COLUMNS = ((N_LEVELS - 1, N_NU_MAIN), (2 * (N_LEVELS - 1), N_NU_RCM), (160, N_NU_RCM))
+MARCH_STREAMS = (1, 5, 8)
+
+
+def kernel_march(seed, dev, report):
+    """K2 and K3 on the adversarial column at each of MARCH_COLUMNS, for 1,
+    5 and 8 streams, against the plain float64 march (3.5e-6 of peak), two
+    launches bit for bit; at 5 streams timed (CUDA events around a wrapper
+    call, the profiler's device time), with the launch plan, the build and
+    the bound."""
+    from clearsky_tpu_torch.rt import march_cuda
+    from clearsky_tpu_torch.rt.discretized import _olr_march, _monoflux_march
+    from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
+    from clearsky_tpu_torch.utils.quadrature import stream_nodes
+
     bar = 3.5e-6
-    ms_olr = cuda_ms(lambda: olr_march(x32[0], x32[1], m, W))
-    plain_olr = cuda_ms(lambda: _olr_march(x32[0], x32[1], m, W))
-    ms_mono = cuda_ms(lambda: monoflux_march(*x32, ct, m, W))
-    plain_mono = cuda_ms(lambda: _monoflux_march(*x32, ct, m, W))
-    # ~20 FP32 operations per (layer, point, stream) a sweep: the layer's
-    # transmission exp, the series/exp split of 1 - e^-tau and the source
-    b_olr = bound(20 * L * N * 5, nbytes(x32[0], x32[1], olr_k))
-    b_mono = bound(2 * 20 * L * N * 5, nbytes(*x32, up_k, dn_k))
-    common = dict(layers=L, points=N, streams=5, bar=f"{bar} of peak", plain_shape="same")
-    emit("kernel", kernel="olr_march", err_of_peak=e_olr, max_abs_err=abs_olr,
-         ms=ms_olr, plain_ms=plain_olr, **common, **b_olr)
-    emit("kernel", kernel="monoflux_march", err_up_of_peak=e_up, err_down_of_peak=e_dn,
-         max_abs_err=max(abs_up, abs_dn), ms=ms_mono, plain_ms=plain_mono, **common, **b_mono)
-    check(e_olr < bar, f"OLR march kernel error {e_olr:.3e} of peak exceeds {bar}")
-    check(max(e_up, e_dn) < bar,
-          f"flux march kernel error {max(e_up, e_dn):.3e} of peak exceeds {bar}")
-    shape = f"{L} layers x {N} points, 5 streams"
-    report["olr_march"] = dict(max_abs_err=abs_olr, ms=ms_olr, plain_ms=plain_olr,
-                               library_ms=None, shape=shape, **b_olr)
-    report["monoflux_march"] = dict(max_abs_err=max(abs_up, abs_dn), ms=ms_mono,
-                                    plain_ms=plain_mono, library_ms=None, shape=shape, **b_mono)
+    ct = math.cos(0.841)
+    rows = {"olr_march": [], "monoflux_march": []}
+    for L, N in MARCH_COLUMNS:
+        x32 = [torch.tensor(x, dtype=torch.float32, device=dev)
+               for x in march_column(L, N, seed)]
+        x64 = [x.double() for x in x32]
+        errs = {"olr_march": {}, "monoflux_march": {}}
+        for nst in MARCH_STREAMS:
+            m, W = stream_nodes(nst)
+            olr = [olr_march(x32[0], x32[1], m, W) for _ in range(2)]
+            mono = [monoflux_march(*x32, ct, m, W) for _ in range(2)]
+            torch.cuda.synchronize()
+            check(torch.equal(olr[0], olr[1]) and
+                  all(torch.equal(a, b) for a, b in zip(*mono)),
+                  f"two launches of K2/K3 at {L} x {N}, {nst} streams differ")
+            olr_r = _olr_march(x64[0], x64[1], m, W)
+            up_r, dn_r = _monoflux_march(*x64, ct, m, W)
+            for name, pairs in (("olr_march", ((olr[0], olr_r),)),
+                                ("monoflux_march", ((mono[0][0], up_r), (mono[0][1], dn_r)))):
+                ab = max(float((k.double() - r).abs().max()) for k, r in pairs)
+                e = max(float((k.double() - r).abs().max()) / float(r.abs().max())
+                        for k, r in pairs)
+                check(all(bool(torch.isfinite(k).all()) for k, _ in pairs) and e < bar,
+                      f"{name} at {L} x {N}, {nst} streams: {e:.3e} of peak exceeds {bar}")
+                errs[name][nst] = (e, ab)
+            del olr, mono, olr_r, up_r, dn_r
+        m, W = stream_nodes(5)
+        calls = {"olr_march": (lambda: olr_march(x32[0], x32[1], m, W),
+                               lambda: _olr_march(x32[0], x32[1], m, W)),
+                 "monoflux_march": (lambda: monoflux_march(*x32, ct, m, W),
+                                    lambda: _monoflux_march(*x32, ct, m, W))}
+        for name, (fn, plain) in calls.items():
+            mono = name == "monoflux_march"
+            out = fn()
+            torch.cuda.synchronize()
+            outs = out if mono else (out,)
+            b = march_bound(L, N, 5, nbytes(*(x32 if mono else x32[:2]), *outs), mono)
+            ms, device_ms = cuda_ms(fn), kernel_device_ms(fn, name)
+            plain_ms = cuda_ms(plain, n=3, warmup=1)
+            info = march_cuda.kernel_info("monoflux" if mono else "olr", L, N, 5)
+            ab5 = errs[name][5][1]
+            emit("kernel", kernel=name, layers=L, points=N, streams=5, ms=ms,
+                 device_ms=device_ms, plain_ms=plain_ms, max_abs_err=ab5,
+                 err_of_peak={str(k): v[0] for k, v in errs[name].items()},
+                 bar=f"{bar} of peak, 1, 5 and 8 streams", repeatable=True,
+                 plain_shape="same", **info, **b)
+            rows[name].append(dict(shape=f"{L} layers x {N} points, 5 streams", ms=ms,
+                                   device_ms=device_ms, plain_ms=plain_ms, max_abs_err=ab5,
+                                   registers=info["registers"], shared=info["shared"],
+                                   spread=info["spread"], **b))
+        del x32, x64
+    for name, r in rows.items():
+        main, *more = r
+        report[name] = dict(main, library_ms=None, more=dict(device_ms=main["device_ms"],
+                                                             columns=more))
 
 
 def phase_main(par, dev):
@@ -1644,6 +1694,17 @@ def kernel_mix(mix, dev, states, report=None):
         del out, ref32
 
 
+def farall_bound(plan, lines, n: int) -> dict:
+    """FARALL's bound over ``plan`` at ``n`` states, counted as
+    :func:`kernel_stencil` counts it: the in-cut (point, line) pairs at
+    PAIR_OPS and R1_OPS a state; the grid, the lines, the pack (4 floats a
+    line and state) and the window table read once, sigma written once."""
+    pairs = pairs_within(plan.nu, lines.positions64(), plan.cut)
+    nbytes_ = (8 * plan.n_blocks * plan.block + 8 * lines.n_lines + 16 * n * lines.n_lines
+               + 4 * plan.windows().size + 4 * n * plan.n_nu)
+    return dict(bound(pairs * (PAIR_OPS + n * R1_OPS), nbytes_), in_cut_pairs=pairs)
+
+
 def phase_mix_entry(mix, dev):
     """outgoing and radiate on (MultiGas, CIA tables) at 2^19 points with the
     default constructors, and outgoing without the CIA, each with its own
@@ -1690,6 +1751,11 @@ def phase_mix_entry(mix, dev):
         check(set(counts[name]) == ROUTE_KERNELS[routes[name]] | {march},
               f"{name} launched {counts[name]}, not only the {routes[name]} route and {march}")
     check(routes["mix_outgoing"] == "segmented", "outgoing on the mix does not run segmented")
+    if routes["mix_radiate"] == "stencil":
+        # FARALL's bound at radiate's shape (its device time: the profile)
+        emit("mix", step="farall_bound", kernel="linesum_farall", call="mix_radiate",
+             states=38, lines=mg.lines.n_lines, points=mg.plan.n_nu,
+             **farall_bound(mg.plan, mg.lines, 38))
     total = {}
     for c in counts.values():
         for k, v in c.items():
@@ -3551,7 +3617,8 @@ def main(argv=None) -> int:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": k, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": counts[k], **{f: report[k][f] for f in keys}}
+                "launches": counts[k], **{f: report[k][f] for f in keys},
+                **report[k].get("more", {})}
                for k, (source, replaces) in KERNELS.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

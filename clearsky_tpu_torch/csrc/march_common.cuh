@@ -1,17 +1,18 @@
 // Device code shared by the march kernels (march.cu: K2, K3) and the fused
-// table kernels (fused_table.cu: K6, K7): the stream set, the transmittance
-// triple, the linear-in-tau layer emission and the column marches of one
-// wavenumber point.
+// table kernels (fused_table.cu: K6, K7): the stream set and its dispatch
+// on the stream count, and the column marches of one wavenumber point that
+// K6/K7 run (the transmittance triple, the linear-in-tau layer emission,
+// the OLR and whole-column marches). K2/K3 have their own layer step since
+// PR 11 (march.cu: no division, a reciprocal a layer).
 //
 // The column marches take the layer optical depth and the level Planck
 // values through accessors tau(l) and b(l) (and store flux rows through
-// accessors), so that K2/K3 read and write device memory and K6/K7 read the
-// shared memory where they formed tau and staged B. The transmittance
-// triple (t, 1 - t, (1 - t)/tau_m) comes from one expf and a 7-term series
-// below tau_m = 0.25 (clearsky_tpu/rt/march_pallas.py::_trans_emit):
-// forming 1 - exp(-tau_m) directly cancels catastrophically in float32 for
-// transparent layers. The sources are built without --use_fast_math, so
-// expf is the accurate one.
+// accessors), so that K6/K7 read the shared memory where they formed tau
+// and staged B. The transmittance triple (t, 1 - t, (1 - t)/tau_m) comes
+// from one expf and a 7-term series below tau_m = 0.25
+// (clearsky_tpu/rt/march_pallas.py::_trans_emit): forming 1 - exp(-tau_m)
+// directly cancels catastrophically in float32 for transparent layers. The
+// sources are built without --use_fast_math, so expf is the accurate one.
 
 #pragma once
 
@@ -118,15 +119,6 @@ __device__ __forceinline__ float olr_column_at(const Tau& tau, const Planck& b,
   return weighted(I, sn);
 }
 
-// olr_column_at on B [L+1, N] at point n
-template <int NST, class Tau>
-__device__ __forceinline__ float olr_column(const Tau& tau,
-                                            const float* __restrict__ B,
-                                            const Streams& sn, int L, int N,
-                                            int n) {
-  return olr_column_at<NST>(tau, [&](int l) { return B[(size_t)l * N + n]; }, sn, L);
-}
-
 // monoflux_pallas's contract: M_down row 0 is the beam top c S, rows 1..L the
 // down-march emission plus the attenuated beam; M_up row L is pi I_surf with
 // I_surf = M_down[L] a / pi + B[L], rows 0..L-1 the up-march emission.
@@ -157,18 +149,6 @@ __device__ __forceinline__ void monoflux_column_at(
     march_layer(I, sn, tau(l), b(l + 1), b(l));
     up_at(l, weighted(I, sn));
   }
-}
-
-// monoflux_column_at on B, M_up and M_down [L+1, N] at point n
-template <int NST, class Tau>
-__device__ __forceinline__ void monoflux_column(
-    const Tau& tau, const float* __restrict__ B, float S, float albedo,
-    float ctheta, const Streams& sn, int L, int N, int n,
-    float* __restrict__ M_up, float* __restrict__ M_down) {
-  monoflux_column_at<NST>(
-      tau, [&](int l) { return B[(size_t)l * N + n]; }, S, albedo, ctheta, sn, L,
-      [&](int l, float v) { M_down[(size_t)l * N + n] = v; },
-      [&](int l, float v) { M_up[(size_t)l * N + n] = v; });
 }
 
 }  // namespace clearsky

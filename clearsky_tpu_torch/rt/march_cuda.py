@@ -2,9 +2,12 @@
 
 K2 replaces ``clearsky_tpu/rt/march_pallas.py::_olr_kernel`` (the TOA-only
 upward march of ``outgoing``) and K3 replaces ``::_march_kernel`` (down march,
-stellar beam, Lambertian surface and up march of ``monoflux``). One thread
-runs one wavenumber point through every layer, with the stream intensities
-in registers.
+stellar beam, Lambertian surface and up march of ``monoflux``).
+:func:`march_plan` chooses their layout from the shape: where the card is
+full, one thread a wavenumber point with the stream intensities in
+registers; where the points are few, a warp a stream over a block of 32
+points whose column tile is staged in shared memory (the source note of
+``csrc/march.cu``). The kernels receive the plan's numbers.
 
 :func:`olr_march` and :func:`monoflux_march` launch their kernel for CUDA
 tensors and take the plain versions in :mod:`.discretized` for CPU tensors.
@@ -14,7 +17,8 @@ are the plain versions' (:func:`..utils.twin.with_twin`), as the JAX
 package's custom JVPs route tangents through its scan marches.
 
 :func:`trans_emit` is the shared transmittance/emission helper of the plain
-march, the arithmetic the kernels reproduce in float32.
+march; the kernels' float32 step rearranges it (``csrc/march.cu``
+``layer_step``: no division, the series/exp split at 0.25 kept).
 """
 
 from __future__ import annotations
@@ -27,9 +31,18 @@ import torch
 from ..utils.cuda_build import check_operand, load_library
 from ..utils import twin
 
-__all__ = ["trans_emit", "olr_march", "monoflux_march", "MAX_STREAMS"]
+__all__ = ["trans_emit", "olr_march", "monoflux_march", "march_plan", "kernel_info",
+           "MAX_STREAMS"]
 
 MAX_STREAMS = 8  # csrc/march.cu ``MAX_STREAMS``
+
+SMS = 132                       # the H100's streaming multiprocessors
+SPREAD_BELOW = 1024             # points an SM under which a warp marches one stream
+POINT_THREADS = 128             # block of the one-thread-a-point layout
+SPREAD_POINTS = 32              # points a block of the spread layout (a warp a stream)
+SM_SHARED = 232448              # shared bytes an SM's blocks may hold (227 KB)
+SPREAD_SHARED = SM_SHARED // 4  # a spread block's budget: 4 blocks an SM
+POINT_SHARED = SM_SHARED // 8   # K3's kept column, a block of the point layout
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +77,62 @@ def trans_emit(tm):
     ratio = torch.where(small, r, omt_l / torch.where(small, torch.ones_like(tm), tm))
     omt = torch.where(small, tm * r, omt_l)
     return 1.0 - omt, omt, ratio
+
+
+def march_plan(kind: str, L: int, N: int, nst: int) -> dict:
+    """The launch of K2 (``kind`` "olr") or K3 ("monoflux") at L layers, N
+    points and nst streams, as ``csrc/march.cu`` takes it.
+
+    ``spread`` where N < SMS x SPREAD_BELOW (one thread a point would fill
+    under half the card's thread slots): blocks of ``block_points`` = 32 points
+    and ``slices`` warps (a warp a stream; K3 one more for the beam), each
+    staging ``chunk`` layers of tau, 1/tau and B with the weighted
+    intensities of every level in ``shared`` bytes, within a quarter of an
+    SM's 227 KB. Otherwise blocks of 128 points, a thread a point; K3 keeps
+    its first ``chunk`` layers (tau and B) in shared memory for the up
+    march, within an eighth. ``blocks`` = ceil(N / block_points)."""
+    if kind not in ("olr", "monoflux"):
+        raise ValueError(f"no march kernel {kind!r}")
+    if L < 1 or N < 1 or not 1 <= nst <= MAX_STREAMS:
+        raise ValueError(f"no march plan for L={L}, N={N}, {nst} streams")
+    mono = kind == "monoflux"
+    spread = N < SMS * SPREAD_BELOW
+    if spread:
+        P, slices = SPREAD_POINTS, nst + mono
+        # floats a block: tau, 1/tau and B rows (3 chunk + 1) and the
+        # weighted intensities (K3: chunk x slices, with I_surf; K2: slices)
+        per_layer, fixed = (3 + slices, 2) if mono else (3, 1 + slices)
+        chunk = min(L, (SPREAD_SHARED // (4 * P) - fixed) // per_layer)
+        shared = 4 * P * (per_layer * chunk + fixed)
+    else:
+        P, slices = POINT_THREADS, 1
+        chunk = min(L, POINT_SHARED // (8 * P)) if mono else 0
+        shared = 8 * P * chunk
+    return dict(spread=spread, block_points=P, slices=slices, threads=P * slices, chunk=chunk,
+                shared=shared, blocks=-(-N // P))
+
+
+def kernel_info(kind: str, L: int, N: int, nst: int, lib=None) -> dict:
+    """The plan of a launch at (L, N, nst) with the build's registers and
+    local (spill) bytes a thread and its resident blocks and warps an SM (of
+    64), from ``lib`` (default: the port's library)."""
+    plan = march_plan(kind, L, N, nst)
+    lib = lib or load_library("march")
+    fn = lib.march_kernel_info
+    fn.argtypes = [_I, _I, _I, _I, ctypes.c_longlong, _P]
+    fn.restype = _I
+    out = (_I * 3)()
+    err = fn(int(kind == "monoflux"), int(plan["spread"]), nst, plan["threads"],
+             plan["shared"], ctypes.cast(out, _P))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+    return dict(plan, registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                resident_warps=out[2] * plan["threads"] // 32)
+
+
+def _plan_args(kind, L, N, nst):
+    p = march_plan(kind, L, N, nst)
+    return [int(p["spread"]), p["block_points"], p["chunk"], p["shared"]]
 
 
 def _library(symbol: str, argtypes):
@@ -117,9 +186,11 @@ def _olr_launch(tau, B, m, W):
     check_operand("tau", tau, (L, N), dev)
     check_operand("B", B, (L + 1, N), dev)
     out = torch.empty(N, dtype=torch.float32, device=dev)
-    fn = _library("olr_launch", [_P, _P, _P, _P, _I, _I, _I, _P, _P])
+    fn = _library("olr_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
+                                 _P, _P])
     err = fn(tau.data_ptr(), B.data_ptr(), m.ctypes.data, W.ctypes.data, len(m),
-             L, N, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+             L, N, *_plan_args("olr", L, N, len(m)), out.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"OLR march kernel launch failed: CUDA error {err}")
     olr_march.launches += 1
@@ -162,10 +233,11 @@ def _monoflux_launch(tau, B, S_nu, albedo_nu, ctheta, m, W):
     M_up = torch.empty((L + 1, N), dtype=torch.float32, device=dev)
     M_down = torch.empty((L + 1, N), dtype=torch.float32, device=dev)
     fn = _library("monoflux_launch",
-                  [_P, _P, _P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _P, _P, _P])
+                  [_P, _P, _P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _I, _I, _I,
+                   ctypes.c_longlong, _P, _P, _P])
     err = fn(tau.data_ptr(), B.data_ptr(), S_nu.data_ptr(), albedo_nu.data_ptr(),
              ctheta, m.ctypes.data, W.ctypes.data, len(m), L, N,
-             M_up.data_ptr(), M_down.data_ptr(),
+             *_plan_args("monoflux", L, N, len(m)), M_up.data_ptr(), M_down.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flux march kernel launch failed: CUDA error {err}")

@@ -1064,6 +1064,43 @@ def test_march_kernels_match_plain(cuda, nstream):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nstream", [1, 5, 8])
+@pytest.mark.parametrize("L,N", [(19, 2**19), (38, 16384), (160, 16384), (38, 16385),
+                                 (40, 140001)])
+def test_march_kernels_at_the_main_shapes(cuda, L, N, nstream):
+    """K2/K3 in both layouts of their plan (a warp a stream below 135,168
+    points, a thread a point above), at the main path's shapes (19 x 2^19,
+    the RCM's 38 x 16,384), at L beyond one shared-memory tile (160 layers:
+    K2 stages 2 chunks, K3 4; 40 layers above K3's 28 kept ones) and at
+    ragged N, against the plain float64 march: 3.5e-6 of peak. Two launches
+    give the same bits."""
+    m, W = stream_nodes(nstream)
+    x32 = _t(_column(L, N, seed=L + nstream), torch.float32, cuda)
+    x64 = [x.double() for x in x32]
+    olr = [olr_march(x32[0], x32[1], m, W) for _ in range(2)]
+    mono = [monoflux_march(*x32, CTHETA, m, W) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(olr[0], olr[1])
+    assert all(torch.equal(a, b) for a, b in zip(*mono))
+    olr_r = td._olr_march(x64[0], x64[1], m, W)
+    up_r, dn_r = td._monoflux_march(*x64, CTHETA, m, W)
+    for k, r in ((olr[0], olr_r), (mono[0][0], up_r), (mono[0][1], dn_r)):
+        assert bool(torch.isfinite(k).all())
+        assert float((k.double() - r).abs().max()) < 3.5e-6 * float(r.abs().max())
+
+
+@pytest.mark.gpu
+def test_march_kernel_info_matches_the_plan(cuda):
+    """The build of each layout holds its plan's block: resident blocks,
+    no spills."""
+    for kind, L, N in (("olr", 19, 2**19), ("monoflux", 19, 2**19), ("olr", 38, 16384),
+                       ("monoflux", 38, 16384), ("monoflux", 160, 16384)):
+        info = march_cuda.kernel_info(kind, L, N, 5)
+        assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0, info
+        assert info == {**march_cuda.march_plan(kind, L, N, 5), **info}
+
+
+@pytest.mark.gpu
 def test_march_wrappers_reject_bad_inputs(cuda):
     tau, B, S, a = _t(_column(L=4, N=256), torch.float32, cuda)
     m, W = stream_nodes(5)
