@@ -640,14 +640,26 @@ def k1_layout(mode: int, grid: dict, n_states: int) -> dict:
     """K1's build and work items for one launch of ``mode`` over ``grid``:
     registers, shared bytes and resident warps (of 64 an SM) of its blocks,
     the work items (pieces x state tiles: the launch's blocks), the pieces,
-    and the lines per grid block (its windows together), max and mean."""
+    and the lines per grid block (its windows together), max and mean; for
+    the window modes their plan's piece length, groups, threads a block,
+    state tiles and share of rows on the scratch path."""
     from clearsky_tpu_torch.ops import linesum_cuda as lc
 
+    w = grid["win"].cpu().numpy()[:, 1::2].sum(axis=1)
+    if mode in lc._WINDOW_KERNEL_MODES:
+        plan = lc.window_plan(mode, grid, n_states)
+        info = lc.kernel_info(mode, plan["threads"])
+        return dict(registers=info["registers"], shared_bytes=info["shared_bytes"],
+                    local_bytes=info["local_bytes"], resident_warps=info["resident_warps"],
+                    ctas=plan["blocks"], pieces=plan["pieces"], piece_lines=plan["piece_lines"],
+                    groups=plan["groups"], threads=plan["threads"], state_tiles=plan["tiles"],
+                    scratch_slots=plan["scratch_slots"],
+                    scratch_row_share=plan["scratch_row_share"],
+                    max_window_lines=int(w.max(initial=0)), mean_window_lines=float(w.mean()))
     n_win = lc._N_WIN[mode]
     _, n_pieces, n_slots = lc._pieces(grid, n_win)
     block = grid["nu_hi"].shape[0] // grid["win"].shape[0]
     info = lc.kernel_info(mode, block)
-    w = grid["win"].cpu().numpy()[:, 1::2].sum(axis=1)
     return dict(registers=info["registers"], shared_bytes=info["shared_bytes"],
                 local_bytes=info["local_bytes"], resident_warps=info["resident_warps"],
                 ctas=n_pieces * lc.state_tiles(n_states), pieces=n_pieces,
@@ -656,10 +668,12 @@ def k1_layout(mode: int, grid: dict, n_states: int) -> dict:
 
 
 def _windowed_line(name, mode, blocks64, windows, n_out, lines, l64, states, z, d_near,
-                   pair_ops, n_points, report, extra=None):
+                   pair_ops, n_points, report, extra=None, sfu=None):
     """One windowed K1 mode against its float64 plain version (of each
     state's peak, bar 1e-5: float32 accumulation), timed beside the plain
-    float32 version, with its bound."""
+    float32 version (CUDA events; the profiler's device ms beside), with its
+    bound, ``sfu`` (:func:`sfu_of`) and a check that two launches give the
+    same bits."""
     from clearsky_tpu_torch.ops import linesum_strategies as ls
     from clearsky_tpu_torch.ops.linesum import two_float
     from clearsky_tpu_torch.ops.linesum_cuda import (launch_mode, far_reciprocal_ok,
@@ -679,25 +693,35 @@ def _windowed_line(name, mode, blocks64, windows, n_out, lines, l64, states, z, 
                                  d_near, fast=fast)
     out = launch()
     torch.cuda.synchronize()
+    check(torch.equal(out, launch()), f"two launches of K1 mode {mode} gave different bits")
     d64 = None if d_near is None else d_near.double()
     ref = ls.sigma_mode_plain(mode, blocks64, windows, l64, co64, z, d64)[:, :n_out]
     err = of_peak(out, ref)
     max_abs = float((out.double() - ref).abs().max())
     del ref
     ms = cuda_ms(launch)
+    device_ms = kernel_device_ms(launch, MODE_KERNEL[mode])
     plain = lambda: ls.sigma_mode_plain(mode, blocks64, windows, lines, co, z, d_near)
     plain_ms = cuda_ms(plain, n=3, warmup=1)
     b = bound(pair_ops(co), linesum_bytes(n_points, lines.n_lines, coef, grid["win"], n, n_out))
+    more = dict(device_ms=device_ms, **(sfu or {}))
     emit("kernel", kernel=MODE_KERNEL[mode], mode=mode, points=n_out, states=n,
          lines=lines.n_lines, err_of_peak=err, max_abs_err=max_abs,
          bar="1e-5 of each state's peak", ms=ms, plain_ms=plain_ms, plain_shape="same",
-         far_reciprocal=bool(fast.item()), **k1_layout(WINDOW_MODES[mode], grid, n),
-         **(extra or {}), **b)
+         far_reciprocal=bool(fast.item()), bitwise_repeat=True, **more,
+         **k1_layout(WINDOW_MODES[mode], grid, n), **(extra or {}), **b)
     check(bool(torch.isfinite(out).all()) and err < 1e-5,
           f"K1 mode {mode} off its float64 plain version by {err:.3e} of peak")
     report[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
-                        shape=f"{n} states x {n_out} points", **b)
+                        shape=f"{n} states x {n_out} points", more=more, **b)
     return out
+
+
+def sfu_of(mufu_ops: float) -> dict:
+    """The time of ``mufu_ops`` reciprocals and exponentials at the special
+    function units' rate (MUFU_S): where it exceeds the FP32 bound, the
+    build's MUFU operations set the floor, not the FP32 work."""
+    return dict(sfu_ms=1e3 * mufu_ops / MUFU_S, sfu_ops=float(mufu_ops))
 
 
 def kernel_device_ms(fn, kernel: str, n: int = 10, tries: int = 3):
@@ -831,7 +855,8 @@ def kernel_stencil(par, dev, report):
     out = _windowed_line("linesum_farall", "farall", plan.nu_blocks, plan.windows(), plan.n_nu,
                          lines, l64, states, {"cut": plan.cut}, None,
                          lambda co: pairs * (PAIR_OPS + n * R1_OPS),
-                         plan.n_blocks * plan.block, report, dict(in_cut_pairs=pairs))
+                         plan.n_blocks * plan.block, report, dict(in_cut_pairs=pairs),
+                         sfu_of(pairs * n))
     # and at the bar of the grouped check, with the float32 reference at the cut edges
     _, co64, _ = _mode_operands(l64, [x.double() for x in states])
     _, co32, _ = _mode_operands(lines, states)
@@ -874,7 +899,8 @@ def kernel_coarse(ms_main, par, dev, report):
     _windowed_line("linesum_fine_stencil", "fine_stencil", geom.fine_blocks, geom.fine_windows,
                    plan.n_nu, lines, l64, states, z, None,
                    lambda co: (mid + ann) * (PAIR_OPS + SMOOTH_OPS + n * (R1_OPS + 1)),
-                   geom.fine_blocks.size, report, dict(mid_pairs=mid, annulus_pairs=ann))
+                   geom.fine_blocks.size, report, dict(mid_pairs=mid, annulus_pairs=ann),
+                   sfu_of((mid + ann) * n))
     peak = ms_main["ref"].abs().amax(dim=1, keepdim=True)
     _correction_line("stencil_correction", geom.stencil, lines, l64, states, plan.n_nu, peak,
                      (z["D1"], z["D2"]), report)
@@ -1705,6 +1731,80 @@ def farall_bound(plan, lines, n: int) -> dict:
     return dict(bound(pairs * (PAIR_OPS + n * R1_OPS), nbytes_), in_cut_pairs=pairs)
 
 
+def kernel_farall_mix(mix, dev, report):
+    """FARALL where the mix's ``radiate`` runs it (the stencil route at 38
+    states x 2^19 points, 55,000 lines): its operands taken from that call,
+    the kernel alone timed (CUDA events and the profiler's device ms), two
+    launches held to the same bits, the result against its float64 plain
+    version on the same inputs on sampled blocks (every 16th and the band
+    centres; bar 1e-5 of each state's peak there), the plain float32
+    version timed on the same sample, the bound of :func:`farall_bound` and
+    the reciprocals at the special-function units (:func:`sfu_of`)."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import _line_params, voigt_coefficients
+
+    mg, cia, nu = mix["mg"], mix["cia"], mix["nu"]
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    span = float(nu[-1] - nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    seen, real = [], lc.sigma_stencil
+
+    def record(plan, lines, T, P, Pp, conc=None, shape="voigt"):
+        seen.append((plan, lines, T, P, Pp, conc, shape))
+        return real(plan, lines, T, P, Pp, conc, shape)
+
+    lc.sigma_stencil = record
+    try:
+        ct.radiate(Pe, G, column(Pe), MU, fS, 0.1, mg, cia)
+        torch.cuda.synchronize()
+    finally:
+        lc.sigma_stencil = real
+    check(len(seen) == 1, f"the mix's radiate ran the stencil route {len(seen)} times, not once")
+    plan, lines, T, P, Pp, conc, shape = seen[0]
+    n = int(T.shape[0])
+    _, _, _, co, coef, _, fast = lc._route_operands(lines, T, P, Pp, plan.windows(), conc,
+                                                     shape, plan.cut)
+    grid = plan.device_arrays(dev)
+    z = {"cut": plan.cut}
+    launch = lambda: lc.launch_mode(3, grid, lines, coef, n, plan.n_nu, lc._zones(plan.cut),
+                                    fast=fast)
+    out = launch()
+    torch.cuda.synchronize()
+    check(torch.equal(out, launch()), "two launches of FARALL on the mix gave different bits")
+    ms = cuda_ms(launch, n=5)
+    device_ms = kernel_device_ms(launch, "linesum_farall")
+    idx = sample_blocks(plan.nu_blocks)
+    got, valid = sampled(out, idx, plan.block, plan.n_nu)
+    del out
+    x64 = [x.double() for x in (T, P, Pp)]
+    co64 = voigt_coefficients(*_line_params(lines.to(torch.float64), *x64,
+                                            None if conc is None else conc.double()))
+    blocks, windows = plan.nu_blocks[idx], plan.windows()[idx]
+    ref = ls.sigma_mode_plain("farall", blocks, windows, lines.to(torch.float64), co64, z)
+    err = float(((got.double() - ref).abs()[:, valid]
+                 / ref[:, valid].abs().amax(dim=1, keepdim=True)).max())
+    max_abs = float((got.double() - ref).abs()[:, valid].max())
+    del ref
+    _, plain_ms = one_call(lambda: ls.sigma_mode_plain("farall", blocks, windows, lines, co, z))
+    b = farall_bound(plan, lines, n)
+    sfu = sfu_of(b["in_cut_pairs"] * n)
+    more = dict(device_ms=device_ms, **sfu)
+    emit("kernel", kernel="linesum_farall", call="mix_radiate", mode="farall", points=plan.n_nu,
+         states=n, lines=lines.n_lines, err_of_peak=err, max_abs_err=max_abs,
+         bar="1e-5 of each state's peak on the sample", ms=ms, plain_ms=plain_ms,
+         plain_shape=f"sampled blocks: {len(idx)} of {plan.n_blocks} (every {SAMPLE_STRIDE}th "
+                     "and the band centres)", far_reciprocal=bool(fast.item()),
+         bitwise_repeat=True, **more, **k1_layout(3, grid, n), **b)
+    check(bool(torch.isfinite(got).all()) and err < 1e-5,
+          f"FARALL on the mix off its float64 plain version by {err:.3e} of peak")
+    report["linesum_farall"].setdefault("more", {})["mix_radiate"] = dict(
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, plain_sample=f"{len(idx)} of "
+        f"{plan.n_blocks} blocks", shape=f"{n} states x {plan.n_nu} points, "
+        f"{lines.n_lines} lines", bound_ms=b["bound_ms"], bound_by=b["bound_by"], **more)
+
+
 def phase_mix_entry(mix, dev):
     """outgoing and radiate on (MultiGas, CIA tables) at 2^19 points with the
     default constructors, and outgoing without the CIA, each with its own
@@ -2009,9 +2109,9 @@ def segment_budget(plan, lines, n: int, k: int = 3) -> int:
                 if ls._segment_cap("phco2", "grouped", n, lim, plan.slab) >= want)
 
 
-def _phco2_operands(lines, states, shape="phco2"):
-    """alpha, the voigt coefficients (co), the phco2 family's 3-value pack of
-    the windowed modes and chi's rates."""
+def _phco2_operands(lines, states, shape="phco2", mode="farall"):
+    """alpha, the voigt coefficients (co), the phco2 family's pack of the
+    windowed ``mode`` and chi's rates."""
     from clearsky_tpu_torch.ops import linesum_strategies as ls
     from clearsky_tpu_torch.ops.linesum_cuda import chi_rates, pack_coefficients, window_mode
     from clearsky_tpu_torch.ops.linesum import _line_params, effective_alpha
@@ -2019,22 +2119,24 @@ def _phco2_operands(lines, states, shape="phco2"):
     S, alpha, gamma = _line_params(lines, *states)
     alpha = effective_alpha(shape, alpha)
     a, co = ls.coefficients(lines, *states, shape=shape)
-    return a, co, pack_coefficients(window_mode("farall", shape), S, alpha, gamma), \
+    return a, co, pack_coefficients(window_mode(mode, shape), S, alpha, gamma), \
         chi_rates(states[0])
 
 
 def _phco2_mode_line(name, mode, blocks64, windows, n_out, lines, l64, states, z, d_near,
-                     ops_exps, report, stride=SAMPLE_STRIDE, extra=None):
+                     ops_exps, report, stride=SAMPLE_STRIDE, extra=None, sfu=None):
     """A phco2 instance of a windowed K1 mode against its float64 plain
     version on a sample of blocks (bar 1e-5 of each state's peak there:
     float32 accumulation), timed beside the plain float32 version on the
-    same sample, with its bound on the whole grid."""
+    same sample (CUDA events; the profiler's device ms beside), with its
+    bound on the whole grid, ``sfu`` (:func:`sfu_of`) and a check that two
+    launches give the same bits."""
     from clearsky_tpu_torch.ops import linesum_strategies as ls
     from clearsky_tpu_torch.ops.linesum import two_float
     from clearsky_tpu_torch.ops.linesum_cuda import launch_mode, window_mode, _zones
 
     dev = states[0].device
-    _, co, coef, bcoef = _phco2_operands(lines, states)
+    _, co, coef, bcoef = _phco2_operands(lines, states, mode=mode)
     x64 = [x.double() for x in states]
     _, co64, _, _ = _phco2_operands(l64, x64)
     hi, lo = two_float(blocks64)
@@ -2051,6 +2153,7 @@ def _phco2_mode_line(name, mode, blocks64, windows, n_out, lines, l64, states, z
                                  fast=fast)
     out = launch()
     torch.cuda.synchronize()
+    check(torch.equal(out, launch()), f"two launches of K1 mode phco2_{mode} gave different bits")
     idx = sample_blocks(blocks64, stride)
     B = blocks64.shape[1]
     got, valid = sampled(out, idx, B, n_out)
@@ -2061,23 +2164,25 @@ def _phco2_mode_line(name, mode, blocks64, windows, n_out, lines, l64, states, z
     max_abs = float((got.double() - ref).abs()[:, valid].max())
     del ref
     ms = cuda_ms(launch, n=5)
+    device_ms = kernel_device_ms(launch, name)
     _, plain_ms = one_call(lambda: ls.sigma_mode_plain(mode, blocks64[idx], windows[idx], lines,
                                                        co, z, d_near, T=states[0]))
     ops, exps = ops_exps
     b = bound(ops, linesum_bytes(blocks64.size, lines.n_lines, coef, grid["win"], n, n_out)
               + bcoef.numel() * 4, exps)
     shape = f"{n} states x {n_out} points"
+    more = dict(device_ms=device_ms, **(sfu or {}))
     emit("kernel", kernel=name, mode=f"phco2_{mode}", points=n_out, states=n,
          lines=lines.n_lines, err_of_peak=err, max_abs_err=max_abs,
          bar="1e-5 of each state's peak on the sample", ms=ms, plain_ms=plain_ms,
          plain_shape=f"sampled blocks: {len(idx)} of {blocks64.shape[0]} (every {stride}th "
                      "and the band centres)", far_reciprocal=bool(fast.item()),
-         **k1_layout(m, grid, n), **(extra or {}), **b)
+         bitwise_repeat=True, **more, **k1_layout(m, grid, n), **(extra or {}), **b)
     check(bool(torch.isfinite(out).all()) and err < 1e-5,
           f"K1 mode phco2_{mode} off its float64 plain version by {err:.3e} of peak")
     report[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
                         shape=shape, plain_sample=f"{len(idx)} of {blocks64.shape[0]} blocks",
-                        **b)
+                        more=more, **b)
     return out
 
 
@@ -2184,7 +2289,8 @@ def kernel_phco2(par, dev, report):
         plan.n_nu, lines, l64, states, z, None,
         ((mid + ann) * (PAIR_OPS + PH_PAIR_OPS + SMOOTH_OPS + n * (PH_R1_OPS + 1))
          + (mid3 + ann) * n * CHI_OPS, (mid3 + ann) * n), report,
-        extra=dict(mid_pairs=mid, annulus_pairs=ann, K=geom.stencil.K))
+        extra=dict(mid_pairs=mid, annulus_pairs=ann, K=geom.stencil.K),
+        sfu=sfu_of(2 * (mid + ann) * n))
     del fine
     # the chi correction, on the whole grid, against each state's peak on
     # the sample (which holds the band centres)
@@ -3348,7 +3454,8 @@ def _busy_us(intervals):
 
 
 # K1's template instances by mode number (csrc/linesum.cu ``Mode``) and
-# accumulate flag (K1-seg's launches: linesum_kernel<0, true>), K4/K5 by
+# accumulate flag (K1-seg's launches: linesum_kernel<0, true>; the window
+# modes' window_kernel<3>, ...), K4/K5 by
 # their shape and gathered flag, the correction by its chi flag, in the
 # demangled (linesum_kernel<3, false>) or mangled (linesum_kernelILi3ELb0EEv)
 # name
@@ -3358,7 +3465,7 @@ _K1_MODE = {0: "linesum", 3: "linesum_farall", 4: "linesum_fine", 5: "linesum_fi
             11: "linesum_phco2_coarse", 12: "linesum_nosplit", 13: "linesum_phco2_nosplit"}
 _PHCO2_SHAPE = 7
 _PHCO2_K1 = (7, 8, 9, 10, 11, 13)
-_K1_NAME = re.compile(r"linesum_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))?")
+_K1_NAME = re.compile(r"(?:linesum|window)_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))?")
 _FULL_NAME = re.compile(r"fullprofile_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))")
 _CORRECTION_NAME = re.compile(r"correction_gather_kernel(?:<(true|false)|ILb([01])E)")
 _OTHER_KERNELS = {k: re.compile(rf"\b{v}\b") for k, v in (
@@ -3553,6 +3660,7 @@ def main(argv=None) -> int:
     kernel_mix(mix, dev, mix["states4"])
     kernel_mix(mix, dev, mix["states"], report)
     entry, mix_calls, mix_counts = phase_mix_entry(mix, dev)
+    kernel_farall_mix(mix, dev, report)
     counts_reset()
     rcm_mix = phase_mix_rcm(mix, dev)
     rcm_mix_counts = {k: v for k, v in counts_read().items() if v}

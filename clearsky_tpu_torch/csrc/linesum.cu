@@ -216,8 +216,7 @@ struct Zones {
 };
 
 // what a sweep over one window adds
-enum Zone { Z_SPLIT, Z_LORENTZ, Z_DOPPLER, Z_FARALL, Z_MID, Z_MID_ALL, Z_ANNULUS, Z_COARSE,
-            Z_FULL };
+enum Zone { Z_SPLIT, Z_LORENTZ, Z_DOPPLER, Z_MID, Z_ANNULUS, Z_COARSE, Z_FULL };
 
 // the zones whose terms are region 1 (beyond d_near, in Z_SPLIT and Z_MID)
 __host__ __device__ constexpr bool has_far(int zone) {
@@ -504,11 +503,10 @@ __device__ __forceinline__ void sweep(int start, int cnt, const Item& it, Stage<
       // the zone's mask and its switching weight, shared by the NS states
       float w = 1.0f;
       if constexpr (ZONE == Z_SPLIT || ZONE == Z_LORENTZ || ZONE == Z_DOPPLER ||
-                    ZONE == Z_FARALL || ZONE == Z_FULL) {
+                    ZONE == Z_FULL) {
         if (!(adnu <= z.cut)) continue;
-      } else if constexpr (ZONE == Z_MID || ZONE == Z_MID_ALL) {
-        // FINE (mid zone region 1 and near zone w4) and FINE_STENCIL (region
-        // 1 over the whole mid zone), weighted 1 - W
+      } else if constexpr (ZONE == Z_MID) {
+        // FINE: mid zone region 1 and near zone w4, weighted 1 - W
         if (!(adnu <= z.cut_f)) continue;
         w = 1.0f - smooth_d2(D, z.D1, z.inv_D);
       } else if constexpr (ZONE == Z_ANNULUS) {
@@ -563,15 +561,13 @@ __device__ __forceinline__ void sweep(int start, int cnt, const Item& it, Stage<
           }
         }
       } else {
-        // FARALL (stencil-near route: region 1 over the whole window, the
-        // core corrected afterwards by correction_gather_kernel), MID_ALL,
-        // ANNULUS and COARSE: region 1, weighted but in FARALL
+        // ANNULUS (FINE's shells at the cut) and COARSE: region 1, weighted
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
           const float chi = PH ? chi2_of(q, sm.B[s], sm.B[ST + s]) : 1.0f;
           float num, den;
           far_parts<PH>(c[s * NQ + NQ - 1], D, chi, num, den);
-          add_far<FAST, ZONE != Z_FARALL, true>(acc[s], num, den, w);
+          add_far<FAST, true, true>(acc[s], num, den, w);
         }
       }
     }
@@ -625,12 +621,10 @@ __device__ void run_item(const int4 pa, const int4 pb, int shard, bool fast, con
   if constexpr (VM == VOIGT_SPLIT) SWEEP(Z_SPLIT);
   else if constexpr (VM == LORENTZ) SWEEP(Z_LORENTZ);
   else if constexpr (VM == DOPPLER) SWEEP(Z_DOPPLER);
-  else if constexpr (VM == FARALL) SWEEP(Z_FARALL);
   else if constexpr (VM == COARSE) SWEEP(Z_COARSE);
   else if constexpr (VM == NOSPLIT) SWEEP(Z_FULL);
   else if (win > 0) SWEEP(Z_ANNULUS);
-  else if constexpr (VM == FINE) SWEEP(Z_MID);
-  else SWEEP(Z_MID_ALL);
+  else SWEEP(Z_MID);
 #undef SWEEP
 
   const int part = pb.x, nparts = pb.y, slot = pb.z;
@@ -714,6 +708,345 @@ linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
   switch (ns) {
     case 8: RUN(8); break;
     case 4: RUN(4); break;
+    case 2: RUN(2); break;
+    default: RUN(1); break;
+  }
+#undef RUN
+}
+
+// The region-1 window modes, FARALL (the stencil-near route: region 1 over
+// each block's whole window, the core corrected afterwards by
+// correction_gather_kernel) and FINE_STENCIL (the coarse split's fine pass
+// beside that correction: region 1 weighted 1 - W over |dnu| <= cut_f, and
+// the two annuli at the cut weighted by the outer roll), voigt and phco2
+// (wmodes farall :451 and fine_stencil :459 of _kernel_resident_grouped),
+// have a kernel of their own, window_kernel. Measured on one H100 in PR 8's
+// sweep above (PERF.md, PR 12's step 0), they lost their time three ways:
+//   * issued instructions: a (point, line, state) triple took ~12 (the
+//     quad's LDS.128, six FP32 operations for (num, den), the pole's clamp,
+//     MUFU.RCP, two Newton FFMAs, the sum), ~30 for phco2; at the mix's 38 x
+//     2^19 (18.3 G triples) that and the pair work came to 9.06 ms;
+//   * too few warps at the RCM's 20 x 16,384: ~4.5 blocks of 4 warps an SM,
+//     each thread a chain of a piece's <= 256 lines x 8 states;
+//   * FINE_STENCIL's fixed cost per work item: every window at least one
+//     piece, so a row with lines in two or three windows went through
+//     scratch, a fence and the arrival counter, for ~16 lines a row.
+// The design answers each:
+//   (a) region 1 in one quad a (line, state), rewritten so that each triple
+//       takes three FFMAs, one MUFU.RCP and the summing FFMA: with x^2 = D A
+//       and w = 1/2 - y^2 - x^2, the denominator (1/2 + y^2 - x^2)^2 + 4 x^2
+//       y^2 is w^2 + 2 y^2 and the numerator's 1/2 + y^2 + x^2 is 1 - w, so
+//       voigt's pack (A, h, g, k2) = (ia^2, 1/2 - y0^2, 2 y0^2, S gamma A /
+//       pi) gives w = fma(-D, A, h), den = fma(w, w, g), num = fma(-k2, w,
+//       k2); phco2's (c, y0, A, 0), c = 0.5641896 Sia, the same on y = y0 chi
+//       with chi's exp2 taken as ex2.approx, the approximation exp2f takes,
+//       without the subnormal handling no chi (a normal float) needs. Where the wrapper's flag shows
+//       every denominator in [2^-120, 2^120] the reciprocal is one
+//       rcp.approx (<= 1 ulp, no Newton step); den >= 2 y^2 needs no clamp,
+//       and the pack gives a line of zero strength den = 1 and num = 0;
+//   (b) a launch plan (ops/linesum_cuda.py::window_plan) picks the piece
+//       length and how many groups of a row's threads split a piece's lines
+//       (G <= 4, block = G x the row's points): each group sums its part of
+//       every staged chunk, and the groups' sums are added in group order
+//       through shared memory, so a launch of few rows fills the card;
+//   (c) a work item covers a row's three windows as one stream of lines in
+//       (window, line) order, each staged line knowing its zone from its
+//       place in the stream, so a row of <= piece-length lines is one item
+//       with no scratch; longer rows are cut into pieces added in piece
+//       order through scratch, as in K1's other modes;
+//   (d) states in balanced tiles: ceil(n / 8) tiles of n / T or n / T + 1
+//       states (57 = 8 + 7 x 7, 38 = 3 x 8 + 2 x 7), so no tile repeats the
+//       pair work for one or two states.
+// No float atomic touches sigma: two launches give the same bits.
+constexpr int WCH = 64;          // lines a staged chunk of window_kernel
+constexpr int MAX_GROUPS = 4;    // thread groups that split a piece's lines
+constexpr int RED_FLOATS = 3 * ST * 128;  // the groups' sums, (G - 1) x NS x points
+
+__host__ __device__ constexpr bool is_window(int mode) {
+  return mode == FARALL || mode == FINE_STENCIL || mode == PH_FARALL || mode == PH_FINE_STENCIL;
+}
+
+__host__ __device__ constexpr int window_tiles(int n) { return (n + ST - 1) / ST; }
+
+// tile t of the balanced tiling: states [s0, s0 + ns)
+__device__ __forceinline__ void window_tile(int t, int n, int& s0, int& ns) {
+  const int T = window_tiles(n), q = n / T, r = n - q * T;
+  s0 = t * q + min(t, r);
+  ns = q + (t < r ? 1 : 0);
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float rcp_approx(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return r;
+}
+
+struct WindowStage {
+  union {
+    float4 c[2][WCH * ST];     // two chunks' quads, [line][state of the tile]
+    float red[RED_FLOATS];     // then the groups' sums
+  };
+  float2 pos[2][WCH];          // the chunks' two-float line positions
+  float B[2 * ST];             // chi's rates of the tile (phco2)
+  int last;
+};
+static_assert(sizeof(float) * RED_FLOATS <= sizeof(float4) * 2 * WCH * ST,
+              "the groups' sums fit in the chunk buffers");
+
+// One line's region-1 terms of the NS states of the tile at this thread's
+// point: D = dnu^2, wt the zone's weight (WEIGHTED), q chi's arguments (PH)
+template <int NS, bool PH, bool FAST, bool WEIGHTED>
+__device__ __forceinline__ void region1_line(const float4* c, float D, float wt,
+                                             const ChiArg& q, const float* B,
+                                             float (&acc)[NS]) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const float4 k = c[s];
+    float num, den;
+    if constexpr (PH) {
+      const float chi = ex2_approx(-fmaf(B[s], q.u, fmaf(B[ST + s], q.v, q.w)));
+      const float y = k.y * chi;
+      const float y2 = y * y;
+      const float w = fmaf(-D, k.z, 0.5f - y2);
+      den = fmaf(w, w, y2 + y2);
+      const float cy = (WEIGHTED ? k.x * wt : k.x) * y;
+      num = fmaf(-cy, w, cy);
+    } else {
+      const float w = fmaf(-D, k.x, k.y);
+      den = fmaf(w, w, k.z);
+      const float kw = WEIGHTED ? k.w * wt : k.w;
+      num = fmaf(-kw, w, kw);
+    }
+    if constexpr (FAST) acc[s] = fmaf(num, rcp_approx(den), acc[s]);
+    else acc[s] += num / den;
+  }
+}
+
+// What a window item sees: its point (two-float), the row's windows as one
+// stream (window k's lines start at ws[k] and fill the stream's [end[k - 1],
+// end[k])), and the launch's operands
+template <int NW>
+struct WindowItem {
+  float nh, nl;
+  int ws[NW], end[NW];
+  int s0, n_states;
+  const float* line_hi;
+  const float* line_lo;
+  const float4* coef;
+  // the catalog index of the stream's line i
+  __device__ __forceinline__ int line(int i) const {
+    if constexpr (NW == 1) {
+      return ws[0] + i;
+    } else {
+      return i < end[0] ? ws[0] + i : i < end[1] ? ws[1] + i - end[0] : ws[2] + i - end[1];
+    }
+  }
+};
+
+// Sum the stream's lines [o, o + cnt) into acc: chunks of WCH lines staged
+// with cp.async (chunk k + 1 in flight while chunk k is summed), group g of
+// the block's G summing lines [g per, (g + 1) per) of each chunk
+template <int NS, int NW, bool PH, bool FAST>
+__device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
+                                             const WindowItem<NW>& it, WindowStage& sm,
+                                             const Zones& z, float (&acc)[NS]) {
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int n_chunks = (cnt + WCH - 1) / WCH;
+  const int per = (WCH + G - 1) / G;
+  auto stage = [&](int k) {
+    const int c0 = o + k * WCH;
+    const int n = min(WCH, cnt - k * WCH);
+    const int buf = k & 1;
+    for (int i = tid; i < n; i += nthreads) {
+      const int l = it.line(c0 + i);
+      cp_async4(&sm.pos[buf][i].x, it.line_hi + l);
+      cp_async4(&sm.pos[buf][i].y, it.line_lo + l);
+    }
+    for (int i = tid; i < n * NS; i += nthreads) {
+      const int j = i / NS;
+      cp_async16(&sm.c[buf][i],
+                 it.coef + (size_t)it.line(c0 + j) * it.n_states + it.s0 + (i - j * NS));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if (n_chunks > 0) stage(0);
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k + 1 < n_chunks) {
+      stage(k + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const int buf = k & 1;
+    const int c0 = o + k * WCH;
+    const int j1 = min(min(WCH, cnt - k * WCH), (g + 1) * per);
+    for (int j = g * per; j < j1; ++j) {
+      // two-float dnu, as in K1's other modes
+      const float2 ps = sm.pos[buf][j];
+      const float dnu = (it.nh - ps.x) + (it.nl - ps.y);
+      const float adnu = fabsf(dnu);
+      const float D = dnu * dnu;
+      float wt = 1.0f;
+      if constexpr (NW == 3) {
+        if (c0 + j < it.end[0]) {
+          // the mid window: region 1 over |dnu| <= cut_f, weighted 1 - W
+          if (!(adnu <= z.cut_f)) continue;
+          wt = 1.0f - smooth_d2(D, z.D1, z.inv_D);
+        } else {
+          // the annuli [cut - w_roll, cut], weighted by the outer roll
+          if (!(adnu <= z.cut && D > z.R1)) continue;
+          wt = smooth_d2(D, z.R1, z.inv_R);
+        }
+      } else {
+        if (!(adnu <= z.cut)) continue;
+      }
+      ChiArg q{0.0f, 0.0f, 0.0f};
+      if constexpr (PH) q = chi_arg2(adnu);
+      region1_line<NS, PH, FAST, NW == 3>(&sm.c[buf][j * NS], D, wt, q, sm.B, acc);
+    }
+    __syncthreads();  // chunk k's buffer is refilled by stage(k + 2)
+  }
+}
+
+// One work item of a tile of NS states: the groups sweep the piece, their
+// sums meet in group order; a row of several pieces adds its pieces'
+// partials in piece order through scratch (the last to arrive writes)
+template <int MODE, int NS>
+__device__ void window_item(const int4 pa, const int4 pb, int B, bool fast,
+                            WindowItem<n_windows(MODE)>& it, WindowStage& sm,
+                            const float* bcoef, const Zones& z, int tile, int n_tiles,
+                            int n_out, float* scratch, int* counters, float* out) {
+  constexpr bool PH = is_phco2(MODE);
+  constexpr int NW = n_windows(MODE);
+  const int tid = threadIdx.x;
+  const int G = blockDim.x / B;
+  const int g = tid / B, pl = tid - g * B;
+  const int n_states = it.n_states;
+  const int s0 = it.s0;
+  if constexpr (PH) {
+    if (tid < NS) {
+      const int st = s0 + tid;
+      const float* bt = bcoef + (size_t)(st / ST) * 2 * ST + st % ST;
+      sm.B[tid] = bt[0] * LOG2E;
+      sm.B[ST + tid] = bt[ST] * LOG2E;
+    }
+    __syncthreads();
+  }
+  float acc[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) acc[s] = 0.0f;
+  if (fast) window_sweep<NS, NW, PH, true>(pa.z, pa.w, g, G, it, sm, z, acc);
+  else window_sweep<NS, NW, PH, false>(pa.z, pa.w, g, G, it, sm, z, acc);
+  if (G > 1) {
+    // the last chunk's barrier has passed: the buffers hold the groups' sums
+    if (g > 0) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) sm.red[((g - 1) * NS + s) * B + pl] = acc[s];
+    }
+    __syncthreads();
+    if (g == 0) {
+      for (int k = 1; k < G; ++k) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) acc[s] += sm.red[((k - 1) * NS + s) * B + pl];
+      }
+    }
+  }
+  const int row = pa.x, part = pb.x, nparts = pb.y, slot = pb.z;
+  if (nparts > 1) {
+    // partials [slot][n_states][B]; the row's arrival count per tile
+    if (g == 0) {
+      float* mine = scratch + ((size_t)(slot + part) * n_states + s0) * B + pl;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) __stcg(mine + (size_t)s * B, acc[s]);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) sm.last = atomicAdd(counters + (size_t)row * n_tiles + tile, 1) == nparts - 1;
+    __syncthreads();
+    if (!sm.last) return;
+    __threadfence();
+    if (g == 0) {
+      float tot[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) tot[s] = 0.0f;
+      for (int k = 0; k < nparts; ++k) {
+        const float* src = scratch + ((size_t)(slot + k) * n_states + s0) * B + pl;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) tot[s] += k == part ? acc[s] : __ldcg(src + (size_t)s * B);
+      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) acc[s] = tot[s];
+    }
+  }
+  const int p = row * B + pl;
+  if (g == 0 && p < n_out) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) out[(size_t)(s0 + s) * n_out + p] = acc[s];
+  }
+}
+
+// window_kernel: one block per work item (a piece of a row's windows and a
+// balanced tile of states), G groups of B threads, thread (g, j) at the
+// row's point j. pieces [n_pieces][8] int32: (row, 0, offset, count, part,
+// n_parts, slot, 0), offset and count in the row's stream of lines (its
+// windows of win [n_rows][2 NW] one after another), the costliest first;
+// grid.x = n_pieces n_tiles, tile fastest. out: [n_states][n_out], written;
+// scratch [n_slots][n_states][B] and counters [n_rows][n_tiles] (zero) serve
+// the rows of more than one piece. bcoef (phco2) the rates [n_tiles of
+// ST][2][ST]; fast[0] the reciprocal's flag.
+template <int MODE>
+__global__ void __launch_bounds__(512, 2)
+window_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
+              const float* __restrict__ line_hi, const float* __restrict__ line_lo,
+              const float4* __restrict__ coef, const int* __restrict__ win,
+              const int4* __restrict__ pieces, const int* __restrict__ fast_p,
+              const float* __restrict__ bcoef, Zones z, int B, int n_states, int n_out,
+              float* __restrict__ scratch, int* __restrict__ counters,
+              float* __restrict__ out) {
+  constexpr int NW = n_windows(MODE);
+  __shared__ __align__(16) WindowStage sm;
+  const int n_tiles = window_tiles(n_states);
+  const int item = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x - item * n_tiles;
+  const int4 pa = pieces[2 * item];
+  const int4 pb = pieces[2 * item + 1];
+  const int pl = threadIdx.x % B;
+  WindowItem<NW> it;
+  it.nh = nu_hi[(size_t)pa.x * B + pl];
+  it.nl = nu_lo[(size_t)pa.x * B + pl];
+  int end = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    it.ws[k] = win[(size_t)pa.x * 2 * NW + 2 * k];
+    end += win[(size_t)pa.x * 2 * NW + 2 * k + 1];
+    it.end[k] = end;
+  }
+  int s0, ns;
+  window_tile(tile, n_states, s0, ns);
+  it.s0 = s0;
+  it.n_states = n_states;
+  it.line_hi = line_hi;
+  it.line_lo = line_lo;
+  it.coef = coef;
+  const bool fast = fast_p[0] != 0;
+#define RUN(NS)                                                                              \
+  window_item<MODE, NS>(pa, pb, B, fast, it, sm, bcoef, z, tile, n_tiles, n_out, scratch, \
+                        counters, out)
+  switch (ns) {
+    case 8: RUN(8); break;
+    case 7: RUN(7); break;
+    case 6: RUN(6); break;
+    case 5: RUN(5); break;
+    case 4: RUN(4); break;
+    case 3: RUN(3); break;
     case 2: RUN(2); break;
     default: RUN(1); break;
   }
@@ -1143,6 +1476,10 @@ int linesum_windows_per_block(int mode) { return n_windows(mode); }
 
 int linesum_state_tiles(int n_states) { return n_state_tiles(n_states); }
 
+int linesum_window_tiles(int n_states) { return window_tiles(n_states); }
+
+int linesum_window_chunk() { return WCH; }
+
 // Launch `mode` on `stream`: n_pieces work items (pieces, [n_pieces][8]
 // int32, see linesum_kernel) times the state tiles of n_states, blocks of
 // `block` threads over rows of n_blocks blocks a shard; coef: the pack
@@ -1183,14 +1520,10 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
     case VOIGT_SPLIT: LAUNCH_ACC(VOIGT_SPLIT); break;
     case LORENTZ: LAUNCH_ACC(LORENTZ); break;
     case DOPPLER: LAUNCH_ACC(DOPPLER); break;
-    case FARALL: LAUNCH(FARALL); break;
     case FINE: LAUNCH(FINE); break;
-    case FINE_STENCIL: LAUNCH(FINE_STENCIL); break;
     case COARSE: LAUNCH(COARSE); break;
     case PH_SPLIT: LAUNCH_ACC(PH_SPLIT); break;
-    case PH_FARALL: LAUNCH(PH_FARALL); break;
     case PH_FINE: LAUNCH(PH_FINE); break;
-    case PH_FINE_STENCIL: LAUNCH(PH_FINE_STENCIL); break;
     case PH_COARSE: LAUNCH(PH_COARSE); break;
     case NOSPLIT: LAUNCH_ACC(NOSPLIT); break;
     case PH_NOSPLIT: LAUNCH_ACC(PH_NOSPLIT); break;
@@ -1201,6 +1534,71 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
 #undef LAUNCH
 #undef LAUNCH_AS
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the window mode `mode` (FARALL, FINE_STENCIL and their phco2
+// instances) on `stream`: n_pieces work items (pieces [n_pieces][8] int32,
+// see window_kernel) over rows of B points, times the balanced state tiles,
+// in blocks of `groups` x B threads; coef: the window pack [n_lines][n_states]
+// [4]; win: the rows' window table [n_rows][2 n_windows(mode)]; zones: host
+// float[7]; fast: one int32 (nonzero: every region-1 denominator lies in
+// [2^-120, 2^120]); bcoef: the phco2 rates [n_tiles of ST][2][ST]; out:
+// [n_states][n_out], written; scratch and counters (zeroed) for the rows of
+// several pieces. Returns cudaGetLastError() (0 on success).
+int window_launch(int mode, const float* nu_hi, const float* nu_lo, const float* line_hi,
+                  const float* line_lo, const float* coef, const int* win, const int* pieces,
+                  int n_pieces, const int* fast, const float* bcoef, const float* zones, int B,
+                  int groups, int n_states, int n_out, float* scratch, int* counters, float* out,
+                  void* stream) {
+  const long long items = (long long)n_pieces * window_tiles(n_states);
+  if (!is_window(mode) || items < 1 || items > 0x7fffffffLL || B < 1 || groups < 1 ||
+      groups > MAX_GROUPS || B * groups > 512 || (groups - 1) * B * ST > RED_FLOATS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_phco2(mode) && bcoef == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Zones z{zones[0], zones[1], zones[2], zones[3], zones[4], zones[5], zones[6]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* c4 = reinterpret_cast<const float4*>(coef);
+  const int4* p4 = reinterpret_cast<const int4*>(pieces);
+#define LAUNCH(M)                                                                          \
+  window_kernel<M><<<(unsigned)items, B * groups, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, \
+                                                           c4, win, p4, fast, bcoef, z, B, \
+                                                           n_states, n_out, scratch,       \
+                                                           counters, out)
+  switch (mode) {
+    case FARALL: LAUNCH(FARALL); break;
+    case FINE_STENCIL: LAUNCH(FINE_STENCIL); break;
+    case PH_FARALL: LAUNCH(PH_FARALL); break;
+    case PH_FINE_STENCIL: LAUNCH(PH_FINE_STENCIL); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// window_kernel's build for `mode`: info[0] registers a thread, info[1]
+// static shared bytes, info[2] local (spill) bytes a thread, info[3]
+// resident blocks of `threads` threads an SM. Returns the CUDA error.
+int window_kernel_info(int mode, int threads, int* info) {
+  cudaFuncAttributes a{};
+  int per_sm = 0;
+  cudaError_t e = cudaErrorInvalidValue;
+#define INFO(M)                                                                              \
+  e = cudaFuncGetAttributes(&a, window_kernel<M>);                                           \
+  if (e == cudaSuccess)                                                                      \
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_kernel<M>, threads, 0)
+  switch (mode) {
+    case FARALL: INFO(FARALL); break;
+    case FINE_STENCIL: INFO(FINE_STENCIL); break;
+    case PH_FARALL: INFO(PH_FARALL); break;
+    case PH_FINE_STENCIL: INFO(PH_FINE_STENCIL); break;
+    default: break;
+  }
+#undef INFO
+  info[0] = a.numRegs;
+  info[1] = (int)a.sharedSizeBytes;
+  info[2] = (int)a.localSizeBytes;
+  info[3] = per_sm;
+  return static_cast<int>(e);
 }
 
 // K1's build for `mode` (cudaFuncGetAttributes, of its writing instance): info[0] registers a
@@ -1220,14 +1618,10 @@ int linesum_kernel_info(int mode, int block, int* info) {
     case VOIGT_SPLIT: INFO(VOIGT_SPLIT); break;
     case LORENTZ: INFO(LORENTZ); break;
     case DOPPLER: INFO(DOPPLER); break;
-    case FARALL: INFO(FARALL); break;
     case FINE: INFO(FINE); break;
-    case FINE_STENCIL: INFO(FINE_STENCIL); break;
     case COARSE: INFO(COARSE); break;
     case PH_SPLIT: INFO(PH_SPLIT); break;
-    case PH_FARALL: INFO(PH_FARALL); break;
     case PH_FINE: INFO(PH_FINE); break;
-    case PH_FINE_STENCIL: INFO(PH_FINE_STENCIL); break;
     case PH_COARSE: INFO(PH_COARSE); break;
     case NOSPLIT: INFO(NOSPLIT); break;
     case PH_NOSPLIT: INFO(PH_NOSPLIT); break;

@@ -29,7 +29,12 @@ unpacked per-state rows. K1 runs one block per work item: a piece of at most
 :data:`PIECE_LINES` lines of a block's windows and a tile of states
 (:func:`piece_schedule`, built once per grid on the host), the costliest
 first; the pieces of one block add up in piece order, so every launch gives
-the same bits.
+the same bits. The region-1 window modes (FARALL, FINE_STENCIL, voigt and
+phco2) run a kernel of their own on their own pack (:func:`window_pack`):
+work items over a row's windows as one stream of lines, split among groups
+of the row's threads and over balanced tiles of states as
+:func:`window_plan` lays them out; they too add pieces and groups in a fixed
+order.
 
 :func:`sigma_lines` (split mode), :func:`sigma_nosplit`, :func:`sigma_stencil`,
 :func:`sigma_coarse`, :func:`sigma_segmented`, :func:`sigma_lane` and
@@ -112,8 +117,9 @@ __all__ = ["sigma_lines", "sigma_nosplit", "sigma_stencil", "sigma_coarse", "sig
            "stencil_correction", "correction_tiles", "correction_info", "launch_mode",
            "launch_fullprofile", "pack_coefficients", "near_distance", "chi_rates",
            "window_mode", "nosplit_mode", "gather_group", "piece_schedule", "state_tiles",
-           "far_reciprocal_ok", "kernel_info", "MODES", "WINDOW_MODES", "NOSPLIT_MODES",
-           "GATHER_BYTES", "PIECE_LINES"]
+           "far_reciprocal_ok", "kernel_info", "window_pack", "window_tiles",
+           "window_tile_sizes", "window_schedule", "window_plan", "MODES", "WINDOW_MODES",
+           "NOSPLIT_MODES", "GATHER_BYTES", "PIECE_LINES"]
 
 # kernel modes (csrc/linesum.cu ``Mode``): over the plan's windows, voigt
 # and phco2 run the split mode and lorentz and doppler the single sweep; the
@@ -150,6 +156,20 @@ ST = 8  # states per tile at most, and chi's rates' tile; csrc/linesum.cu ``ST``
 # lines per K1 work item at most: a block's windows are cut into pieces of
 # this many lines (csrc/linesum.cu sums a block's pieces in piece order)
 PIECE_LINES = 256
+# the region-1 window modes (FARALL, FINE_STENCIL and their phco2 instances)
+# run csrc/linesum.cu ``window_kernel``: their own pack, work items over a
+# row's windows as one stream, groups of threads splitting a piece's lines,
+# balanced state tiles; :func:`window_plan` picks the piece length and the
+# groups (None) unless these are set (tests set them)
+_WINDOW_KERNEL_MODES = (3, 5, 8, 10)
+WINDOW_CHUNK = 64          # lines a staged chunk (csrc/linesum.cu ``WCH``)
+MAX_GROUPS = 4
+WINDOW_PIECE_MAX = 2048
+WINDOW_PIECE_LINES = None
+WINDOW_GROUPS = None
+# an SM's resident warps at window_kernel's 64 registers a thread, and the
+# H100's SMs (the plan's count off the card)
+_RESIDENT_WARPS, _H100_SMS = 32, 132
 # K5's gathered slabs (S, alpha, gamma: 12 bytes a state, block and slab
 # line) are built for at most this many bytes of states at a time
 GATHER_BYTES = 2**30
@@ -190,9 +210,10 @@ def pack_coefficients(mode: int, S, alpha, gamma):
     From :func:`.linesum.voigt_coefficients` on the profile's Doppler width
     ``alpha`` (the *_ref shapes' already divided by sqrt(ln 2)): the split
     and FINE modes pack (Sia, ia, y0, 0) and the far wing's (A, c1, c2, k2);
-    FARALL, FINE_STENCIL and COARSE (A, c1, c2, k2) alone; every phco2 mode
-    and NOSPLIT (Sia, ia, y0, A); lorentz and doppler (S, alpha, gamma, 0).
-    A tile of states reads each line's run of ``n_coef`` floats per state.
+    COARSE (A, c1, c2, k2) alone; the other phco2 modes and NOSPLIT (Sia,
+    ia, y0, A); lorentz and doppler (S, alpha, gamma, 0); the window modes
+    (FARALL, FINE_STENCIL) :func:`window_pack`'s. A tile of states reads
+    each line's run of ``n_coef`` floats per state.
     """
     if mode in (1, 2):
         cols = (S, alpha, gamma, torch.zeros_like(S))
@@ -204,13 +225,36 @@ def _pack(mode: int, co):
     """:func:`pack_coefficients` of a Voigt-family mode from the
     :func:`.linesum.voigt_coefficients` ``co``."""
     Sia, ia, y0, A, c1, c2, k2 = co
-    if mode in (0, 4):
+    if mode in _WINDOW_KERNEL_MODES:
+        cols = window_pack(mode, co)
+    elif mode in (0, 4):
         cols = (Sia, ia, y0, torch.zeros_like(Sia), A, c1, c2, k2)
-    elif mode in (3, 5, 6):
+    elif mode == 6:
         cols = (A, c1, c2, k2)
     else:
         cols = (Sia, ia, y0, A)
     return torch.stack(cols, dim=-1).transpose(0, 1).contiguous()
+
+
+def window_pack(mode: int, co):
+    """The window modes' quad of each (state, line), from the
+    :func:`.linesum.voigt_coefficients` ``co``: region 1 as the kernel
+    evaluates it, with x^2 = D A and w = 1/2 - y^2 - x^2, den = w^2 + 2 y^2
+    and num = (1/2 + y^2 + x^2) = 1 - w. Voigt (FARALL, FINE_STENCIL): (A,
+    1/2 - y0^2, 2 y0^2, k2), the term k2 (1 - w) / (w^2 + 2 y0^2); phco2:
+    (0.5641896 Sia, y0, A, 0), the term 0.5641896 Sia y (1 - w) / (w^2 + 2
+    y^2) at y = y0 chi. A line whose term is zero whatever its denominator
+    (k2 = 0; Sia = 0) gets the quad (0, 0, 1, 0) (phco2: (0, 1, 0, 0)),
+    whose denominator is 1."""
+    Sia, _, y0, A, _, _, k2 = co
+    zero = torch.zeros_like(A)
+    if mode in _PHCO2_MODES:
+        live = Sia != 0
+        return (Sia * 0.5641896, torch.where(live, y0, 1.0), torch.where(live, A, 0.0), zero)
+    live = k2 != 0
+    y2 = y0 * y0
+    return (torch.where(live, A, 0.0), torch.where(live, 0.5 - y2, 0.0),
+            torch.where(live, 2.0 * y2, 1.0), k2)
 
 
 def _packed(mode: int, S, alpha, gamma, n_shards: int, cut: float, bcoef=None):
@@ -227,6 +271,99 @@ def state_tiles(n_states: int) -> int:
     """K1's tiles of states: ``n // ST`` of ``ST``, then one of 4, 2 and 1
     for each bit of the remainder (csrc/linesum.cu ``n_state_tiles``)."""
     return n_states // ST + bin(n_states % ST).count("1")
+
+
+def window_tiles(n_states: int) -> int:
+    """The window modes' balanced tiles: ceil(n / ST) tiles of n // T or
+    n // T + 1 states (csrc/linesum.cu ``window_tiles``, ``window_tile``)."""
+    return -(-n_states // ST)
+
+
+def window_tile_sizes(n_states: int) -> list:
+    """The states of each balanced tile, in tile order."""
+    T = window_tiles(n_states)
+    q, r = divmod(n_states, T) if T else (0, 0)
+    return [q + (t < r) for t in range(T)]
+
+
+def window_schedule(windows, n_win: int, piece_lines: int):
+    """The window modes' work items over a window table [n_rows, 2 n_win] of
+    (start, count): (pieces [n_pieces, 8] int32, n_slots).
+
+    A row's windows are one stream of lines in (window, line) order; a
+    piece is (row, 0, offset, count, part, n_parts, slot, 0), lines [offset,
+    offset + count) of that stream, at most ``piece_lines``. A row's pieces
+    are numbered 0..n_parts-1 in stream order, the order in which the kernel
+    adds their partial sums; a row of more than one piece owns the scratch
+    slots [slot, slot + n_parts), a row without lines one empty piece.
+    Pieces are listed by line count, largest first (stable)."""
+    w = np.asarray(windows, np.int64).reshape(-1, 2 * n_win)
+    total = w[:, 1::2].sum(axis=1)
+    per = np.maximum(1, -(-total // piece_lines))
+    row = np.repeat(np.arange(w.shape[0]), per)
+    part = np.arange(row.size) - np.repeat(np.cumsum(per) - per, per)
+    start = part * piece_lines
+    count = np.clip(total[row] - start, 0, piece_lines)
+    owned = np.where(per > 1, per, 0)
+    slot = (np.cumsum(owned) - owned)[row]
+    zero = np.zeros_like(row)
+    table = np.stack([row, zero, start, count, part, per[row], slot, zero], axis=1)
+    order = np.argsort(-count, kind="stable")
+    return table[order].astype(np.int32), int(owned.sum())
+
+
+def _sms(dev) -> int:
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).multi_processor_count
+    return _H100_SMS
+
+
+def window_plan(mode: int, grid: dict, n_states: int) -> dict:
+    """The launch plan of a window mode over ``grid`` at ``n_states``, cached
+    in the grid dict: the piece length (twice the mean lines a row, in whole
+    chunks, at most :data:`WINDOW_PIECE_MAX`: a row of up to twice the mean
+    is one work item, a denser one is cut so that no item holds far more
+    than the others) and the groups G (1, 2 or 4) of a row's threads that
+    split each piece's lines: the most whose blocks (G x the row's points
+    threads, at most 512) stay within one wave of the card's resident warps
+    (:data:`_RESIDENT_WARPS` an SM). Returns the plan with its schedule
+    (:func:`window_schedule`): piece_lines, groups, threads, tiles, pieces,
+    blocks, rows, scratch_row_share, scratch_slots, and ``table`` (the
+    pieces on the grid's device)."""
+    dev = grid["win"].device
+    key = ("window_plan", mode, n_states, WINDOW_PIECE_LINES, WINDOW_GROUPS, _sms(dev))
+    got = grid.get(key)
+    if got is not None:
+        return got
+    win = grid.get("win_host")
+    if win is None:
+        win = grid["win"].cpu().numpy()
+    win = np.asarray(win, np.int64)
+    n_win = _N_WIN[mode]
+    rows = win.shape[0]
+    block = grid["nu_hi"].shape[0] // max(rows, 1)
+    lines = win[:, 1::2].sum(axis=1)
+    P = WINDOW_PIECE_LINES
+    if P is None:
+        mean = float(lines.mean()) if rows else 0.0
+        P = int(min(WINDOW_PIECE_MAX,
+                    max(WINDOW_CHUNK, -(-int(np.ceil(2.0 * mean)) // WINDOW_CHUNK) * WINDOW_CHUNK)))
+    table, n_slots = window_schedule(win, n_win, P)
+    tiles = window_tiles(n_states)
+    items = table.shape[0] * tiles
+    warps = -(-block // 32)
+    G = WINDOW_GROUPS
+    if G is None:
+        G = 1
+        while (2 * G <= MAX_GROUPS and 2 * G * block <= 512
+               and items * 2 * G * warps <= _sms(dev) * _RESIDENT_WARPS):
+            G *= 2
+    parts = np.bincount(table[:, 0], minlength=rows)
+    got = grid[key] = dict(piece_lines=P, groups=G, threads=G * block, tiles=tiles,
+                           pieces=int(table.shape[0]), blocks=items, rows=rows,
+                           scratch_row_share=float((parts > 1).mean()) if rows else 0.0,
+                           scratch_slots=n_slots, table=torch.as_tensor(table, device=dev))
+    return got
 
 
 def piece_schedule(windows, n_win: int, piece_lines: int):
@@ -371,8 +508,11 @@ def _library():
         layout = (lib.linesum_states_per_tile(),
                   {m: lib.linesum_coef_per_state(m) for m in _N_COEF},
                   {m: lib.linesum_windows_per_block(m) for m in _N_WIN},
-                  [lib.linesum_state_tiles(n) for n in range(4 * ST)])
-        want = (ST, _N_COEF, _N_WIN, [state_tiles(n) for n in range(4 * ST)])
+                  [lib.linesum_state_tiles(n) for n in range(4 * ST)],
+                  [lib.linesum_window_tiles(n) for n in range(4 * ST)],
+                  lib.linesum_window_chunk())
+        want = (ST, _N_COEF, _N_WIN, [state_tiles(n) for n in range(4 * ST)],
+                [window_tiles(n) for n in range(4 * ST)], WINDOW_CHUNK)
         if layout != want:
             raise RuntimeError(f"csrc/linesum.cu packs {layout}, this wrapper {want}")
         fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, ctypes.POINTER(_F),
@@ -381,6 +521,13 @@ def _library():
         info = lib.linesum_kernel_info
         info.argtypes = [_I, _I, ctypes.POINTER(_I)]
         info.restype = _I
+        wl = lib.window_launch
+        wl.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, ctypes.POINTER(_F), _I, _I,
+                       _I, _I, _P, _P, _P, _P]
+        wl.restype = _I
+        wi = lib.window_kernel_info
+        wi.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        wi.restype = _I
         full = lib.fullprofile_launch
         full.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                          _I, _P, _P]
@@ -398,9 +545,12 @@ def _library():
 def kernel_info(mode: int, block: int = 128) -> dict:
     """K1's build of ``mode`` on the card: registers and local (spill)
     bytes a thread, static shared bytes a block, and resident blocks of
-    ``block`` threads an SM with the share of the SM's 64 warps they hold."""
+    ``block`` threads an SM with the share of the SM's 64 warps they hold
+    (the window modes: ``window_kernel``, ``block`` the plan's threads)."""
     out = (_I * 4)()
-    err = _library().linesum_kernel_info(mode, block, out)
+    lib = _library()
+    info = lib.window_kernel_info if mode in _WINDOW_KERNEL_MODES else lib.linesum_kernel_info
+    err = info(mode, block, out)
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
     return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
@@ -504,6 +654,12 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
     if fast is None:
         fast = torch.zeros(n_shards, dtype=torch.int32, device=dev)
     check_operand("fast", fast, (n_shards,), dev, torch.int32)
+    if mode in _WINDOW_KERNEL_MODES:
+        if n_shards != 1:
+            raise ValueError(f"mode {_MODE_NAMES[mode]} runs one shard")
+        _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast, block, out)
+        _count(count_as or _MODE_NAMES[mode])
+        return out
     pieces, n_pieces, n_slots = _pieces(grid, _N_WIN[mode])
     scratch = counters = None
     if n_slots:
@@ -523,6 +679,27 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
         raise RuntimeError(f"line-sum kernel launch failed: CUDA error {err}")
     _count(count_as or _MODE_NAMES[mode])
     return out
+
+
+def _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast, block, out):
+    """window_kernel's launch of ``mode`` into ``out`` by :func:`window_plan`."""
+    plan = window_plan(mode, grid, n_states)
+    dev = coef.device
+    scratch = counters = None
+    if plan["scratch_slots"]:
+        scratch = torch.empty(plan["scratch_slots"] * n_states * block, dtype=torch.float32,
+                              device=dev)
+        counters = torch.zeros(plan["rows"] * plan["tiles"], dtype=torch.int32, device=dev)
+    err = _library().window_launch(
+        mode, grid["nu_hi"].data_ptr(), grid["nu_lo"].data_ptr(), lines.nu.data_ptr(),
+        lines.nu_lo.data_ptr(), coef.data_ptr(), grid["win"].data_ptr(),
+        plan["table"].data_ptr(), plan["pieces"], fast.data_ptr(),
+        None if bcoef is None else bcoef.data_ptr(), zones, block, plan["groups"], n_states,
+        n_out, None if scratch is None else scratch.data_ptr(),
+        None if counters is None else counters.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"line-sum window kernel launch failed: CUDA error {err}")
 
 
 def _prepare(plan: LineWindowPlan, lines, T, P, Pp, shape: str, conc=None,
@@ -684,8 +861,9 @@ def _route_operands(lines, T, P, Pp, n_windows_table, conc, shape, cut: float):
     """Checks and operands of the routes' windowed modes for the Voigt-family
     ``shape``: (n_states, dev, alpha, co, coef, bcoef, fast), alpha the
     profile's Doppler widths, co their :func:`.linesum.voigt_coefficients`,
-    coef the family's pack, bcoef its :func:`chi_rates` (phco2) or None and
-    fast the reciprocal's flag at ``cut`` (every windowed mode's)."""
+    coef the family's window pack (FARALL's and FINE_STENCIL's), bcoef its
+    :func:`chi_rates` (phco2) or None and fast the reciprocal's flag at
+    ``cut`` (every windowed mode's)."""
     split_check(shape)
     n_states, dev = _checked(lines, T, P, Pp, conc)
     _check_windows(n_windows_table, lines.n_lines)
@@ -755,8 +933,9 @@ def sigma_coarse(plan: LineWindowPlan, lines, T, P, Pp, params, conc=None,
         fcoef = coef if _N_COEF[fm] == coef.shape[-1] else _pack(fm, co)
         fine = launch_mode(fm, arrs["fine"], lines, fcoef, n_states, plan.n_nu, zones,
                            near_distance(alpha, z["cut_f"]), bcoef=bcoef, fast=fast)
-    far_c = launch_mode(window_mode("coarse", shape), arrs["coarse"], lines, coef, n_states,
-                        geom.params[2], zones, bcoef=bcoef, fast=fast)
+    cm = window_mode("coarse", shape)
+    far_c = launch_mode(cm, arrs["coarse"], lines, _pack(cm, co), n_states, geom.params[2],
+                        zones, bcoef=bcoef, fast=fast)
     return fine + far_from_coarse(far_c, geom)
 
 

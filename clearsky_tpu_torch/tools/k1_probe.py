@@ -15,13 +15,35 @@ unpacked under ``build/``) and builds its kernels there; the shapes and
 helpers are this checkout's chip_smoke.py. ``--step0`` adds each windowed
 launch cut to its densest 1% of blocks and to the rest, and writes the
 ptxas report and the SASS of TREE's ``csrc/linesum.cu`` under ``--out``.
-Needs one CUDA card.
+
+    python3 clearsky_tpu_torch/tools/k1_probe.py --window [--cuts] [--root TREE]
+    python3 clearsky_tpu_torch/tools/k1_probe.py --calls [--root TREE]
+
+``--window`` times the region-1 window modes where the main path runs them:
+FARALL at the mix's ``radiate`` (38 states x 2^19, 55,000 lines) and at the
+RCM's refresh (20 x 16,384), FINE_STENCIL at the auto ``outgoing`` (57 x
+2^19) and PH_FINE_STENCIL at the phco2 auto ``outgoing`` (57 x 2^19, cut
+500) and at the RCE's refresh (57 x 16,384). Each launch is captured from
+that entry point (``launch_mode``'s arguments) and replayed alone: CUDA
+events around one launch (``ms``) and the profiler's device time
+(``device_ms``), the build (registers, spills, resident warps), the work
+items (blocks, items, rows on the scratch path). ``--cuts`` also builds
+TREE's ``linesum.cu`` cut by text edits (:data:`WINDOW_CUTS`): ``arith``
+(the pack's quads made in registers, not staged), ``stage`` (the staging
+and its pipeline, no line summed), and times FINE_STENCIL's ``items``
+(one work item a row: the mid window alone, no scratch); and the SASS of
+each mode's loop bodies (instructions, reciprocals, exponentials) through
+``cuobjdump -sass``. ``--calls`` profiles the entry points that run these
+modes (chip_smoke.py's ``profile`` lines): the mix's ``radiate``, the auto
+``outgoing``, the phco2 auto ``outgoing``, an RCM refresh and step, the RCE
+run. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -311,6 +333,328 @@ def k1_probe(seed, dev, step0, out_dir):
                       "outgoing_grouped": lambda: ct.outgoing(Pe, cs.G, Te, cs.MU, grouped)})
 
 
+# --- the region-1 window modes (FARALL, FINE_STENCIL) --------------------------
+
+# case: (K1 mode, chip_smoke's kernel name)
+WINDOW_CASES = {"farall_mix": (3, "linesum_farall"), "farall_rcm": (3, "linesum_farall"),
+                "fine_stencil": (5, "linesum_fine_stencil"),
+                "phco2_fine_stencil": (10, "linesum_phco2_fine_stencil"),
+                "phco2_fine_stencil_16384": (10, "linesum_phco2_fine_stencil")}
+
+# register quads of the ``arith`` cut: a line's (A, c1, c2, k2) or phco2's
+# (Sia, ia, y0, A) at alpha 0.01 cm^-1 and y 0.01, varied with the line
+_QUAD = r"""
+template <bool PH>
+__device__ __forceinline__ float4 probe_quad(int j, int s) {
+  const float f = 1.0f + 0.001f * (float)(j + s);
+  return PH ? make_float4(1e-20f * f, 100.0f, 0.01f * f, 1e4f * f)
+            : make_float4(1e4f * f, 0.5001f, 4.0f * f, 1e-20f * f);
+}
+"""
+# the cuts of PR 8's sweep (PRs 8-11): the quad staging and the quad read,
+# and the line loop
+_PR8_SWEEP = ("// Accumulate the lines [start, start + cnt) of one window of the item into\n",
+              _QUAD + "// Accumulate the lines [start, start + cnt) of one window of the item into\n")
+_PR8_STAGE_QUADS = ("      cp_async16(&sm.c[buf][i], base + (size_t)(l0 + j) * ls + (i - j * W));\n",
+                    "      (void)j;\n")
+_PR8_READ_QUADS = ("      const float4* c = &sm.c[buf][j * W];\n",
+                   "      float4 c[W];\n#pragma unroll\n"
+                   "      for (int s = 0; s < W; ++s) c[s] = probe_quad<PH>(j, s);\n")
+_PR8_LOOP = ("    for (int j = 0; j < n; ++j) {\n      // two-float dnu: the hi",
+             "    for (int j = 0; j < n && n < 0; ++j) {\n      // two-float dnu: the hi")
+# the same cuts of window_kernel (PR 12): its quads (A, h, g, k2) or phco2's
+# (c, y0, A, 0) at the same alpha and y
+_QUAD12 = r"""
+template <bool PH>
+__device__ __forceinline__ float4 probe_quad(int j, int s) {
+  const float f = 1.0f + 0.001f * (float)(j + s);
+  return PH ? make_float4(1e-20f * f, 0.01f * f, 1e4f * f, 0.0f)
+            : make_float4(1e4f * f, 0.4999f, 2e-4f * f, 1e-20f * f);
+}
+"""
+_PR12_LINE = ("// One line's region-1 terms of the NS states of the tile at this thread's\n",
+              _QUAD12 + "// One line's region-1 terms of the NS states of the tile at this thread's\n")
+_PR12_STAGE_QUADS = ("      cp_async16(&sm.c[buf][i],\n                 it.coef + (size_t)it.line(c0 + j) "
+                     "* it.n_states + it.s0 + (i - j * NS));\n", "      (void)j;\n")
+_PR12_READ_QUADS = ("      region1_line<NS, PH, FAST, NW == 3>(&sm.c[buf][j * NS], D, wt, q, sm.B, acc);\n",
+                    "      float4 cq[NS];\n#pragma unroll\n"
+                    "      for (int s = 0; s < NS; ++s) cq[s] = probe_quad<PH>(j, s);\n"
+                    "      region1_line<NS, PH, FAST, NW == 3>(cq, D, wt, q, sm.B, acc);\n")
+_PR12_LOOP = ("    for (int j = g * per; j < j1; ++j) {\n",
+              "    for (int j = g * per; j < j1 && j1 < 0; ++j) {\n")
+WINDOW_CUTS = {"pr8": {"none": [], "arith": [_PR8_SWEEP, _PR8_STAGE_QUADS, _PR8_READ_QUADS],
+                       "stage": [_PR8_LOOP]},
+               "pr12": {"none": [], "arith": [_PR12_LINE, _PR12_STAGE_QUADS, _PR12_READ_QUADS],
+                        "stage": [_PR12_LOOP]}}
+
+
+def window_design(src: str) -> str:
+    """The design of TREE's window modes: "pr8" (PR 8's work items, every
+    mode through ``sweep``) or "pr12" (``window_kernel``)."""
+    if "void window_sweep(" in src:
+        return "pr12"
+    if "void sweep(int start, int cnt, const Item& it" in src:
+        return "pr8"
+    raise ValueError("csrc/linesum.cu is of no design the probe knows")
+
+
+def window_cut_source(src: str, cut: str) -> str:
+    """``src`` with the edits of ``cut``; raises where an edit's text is not
+    there exactly once (a changed source gives no silent uncut copy)."""
+    for old, new in WINDOW_CUTS[window_design(src)][cut]:
+        if src.count(old) != 1:
+            raise ValueError(f"cut {cut!r}: the source holds {src.count(old)} copies of "
+                             f"{old.strip()[:60]!r}")
+        src = src.replace(old, new)
+    return src
+
+
+_INSTANCE = re.compile(r"(?:linesum|window)_kernelILi(\d+)E(?:Lb0E|ELb0E|E)")
+
+
+def _instance_mode(fn: str):
+    """K1's mode of a writing instance's mangled name, else None."""
+    if "ELb1E" in fn:
+        return None
+    m = _INSTANCE.search(fn)
+    return int(m.group(1)) if m else None
+
+
+def _ptxas_by_mode(stderr: str) -> dict:
+    """{mode: {registers, spill_store_bytes}} from ptxas -v."""
+    out, fn = {}, None
+    for line in stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line) or \
+            re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        mode = _instance_mode(fn) if fn else None
+        if mode is not None:
+            r = re.search(r"Used (\d+) registers", line)
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if r:
+                out.setdefault(mode, {})["registers"] = int(r.group(1))
+            if sp:
+                out.setdefault(mode, {})["spill_store_bytes"] = int(sp.group(1))
+    return out
+
+
+def sass_loops(sass: str) -> dict:
+    """{mode: [(instructions, MUFU.RCP, MUFU.EX2, FCHK, LDS) of each loop
+    body that holds a MUFU]} of the writing K1 instances in ``cuobjdump
+    -sass`` text: a loop is a branch to an earlier address, its body the
+    instructions from that address to the branch."""
+    funcs, mode = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            mode = _instance_mode(m.group(1))
+            if mode is not None:
+                funcs.setdefault(mode, [])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if mode is not None and m:
+            funcs[mode].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for mode, ins in funcs.items():
+        for at, text in ins:
+            b = re.search(r"BRA\w*(?:\.\w+)*\s+(?:`\()?(?:\.L_x_\d+\)?\s*)?0x([0-9a-f]+)", text)
+            if not b or int(b.group(1), 16) >= at:
+                continue
+            body = [t for a, t in ins if int(b.group(1), 16) <= a <= at]
+            cnt = lambda k: sum(k in t for t in body)
+            if cnt("MUFU"):
+                out.setdefault(mode, []).append((len(body), cnt("MUFU.RCP"), cnt("MUFU.EX2"),
+                                                 cnt("FCHK"), cnt("LDS")))
+    return out
+
+
+def build_window_cuts(root: str, out_dir: str):
+    """Compile every cut of TREE's linesum.cu in parallel: {cut: (lib,
+    ptxas by mode, SASS loops by mode)}."""
+    import ctypes
+
+    from clearsky_tpu_torch.utils import cuda_build
+
+    csrc = os.path.join(root, "clearsky_tpu_torch", "csrc")
+    out_dir = os.path.abspath(out_dir)
+    with open(os.path.join(csrc, "linesum.cu")) as f:
+        src = f.read()
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for cut in WINDOW_CUTS[window_design(src)]:
+        cu = os.path.join(out_dir, f"linesum_{cut}.cu")
+        with open(cu, "w") as f:
+            f.write(window_cut_source(src, cut))
+        so = os.path.join(out_dir, f"liblinesum_{cut}.so")
+        procs[cut] = (so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc, "-o", so,
+             cu], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    dump = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    libs = {}
+    for cut, (so, p) in procs.items():
+        _, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on cut {cut}:\n{err[-3000:]}")
+        loops = {}
+        if os.path.isfile(dump):
+            d = subprocess.run([dump, "-sass", so], capture_output=True, text=True, timeout=600)
+            loops = sass_loops(d.stdout) if d.returncode == 0 else {}
+        libs[cut] = (ctypes.CDLL(so), _ptxas_by_mode(err), loops)
+    return libs
+
+
+def window_launches(seed, dev) -> dict:
+    """{case: (launch_mode's args, kwargs)} of each window case, captured
+    from the entry point that launches it: the mix's ``radiate`` (FARALL, 38
+    states), an RCM refresh at 16,384 points (FARALL, 20), the auto
+    ``outgoing`` (FINE_STENCIL), the phco2 auto ``outgoing`` (PH_FINE_STENCIL)
+    and the dense-CO2 RCE's refresh at 16,384 points."""
+    import math
+
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.spectra.synthetic import synthetic_co2_par
+
+    par = synthetic_co2_par(cs.N_LINES, seed=seed)
+    lines = ct.SpectralLines.from_par_dict(par)
+    Pe = ct.pressuregrid(cs.PT, cs.PS, cs.N_LEVELS)
+    Te = cs.column(Pe)
+    fmu, fcp = (lambda T, P: cs.MU), (lambda T, P: cs.CP)
+
+    def fS_of(nu):
+        span = float(nu[-1] - nu[0])
+        return lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+
+    build = os.path.join(ROOT, "build", "k1_probe_mix")
+    os.makedirs(build, exist_ok=True)
+    mix = cs.phase_mix_build(seed, dev, build)
+    rcm_gas = ct.DirectGas.from_lines(lines, cs.CONC, cs.grid_for(lines, cs.N_NU_RCM))
+    rcm = ct.RCM.create(Pe, Te, cs.G, fmu, fS_of(rcm_gas.nu), 0.1, fcp, 1e7, rcm_gas, radmul=2)
+    voigt = ct.DirectGas.from_lines(lines, cs.CONC, cs.grid_for(lines, cs.N_NU_MAIN))
+    phco2 = ct.DirectGas.from_lines(lines, cs.CONC, cs.phco2_grid(lines, cs.N_NU_MAIN),
+                                    shape="phco2")
+    adiabat = ct.DryAdiabat.create(cs.TS_RCE, cs.PS, cs.CP, cs.MU, Tstrat=160.0)
+    rce_gas = ct.DirectGas.from_lines(lines, cs.CONC, cs.phco2_grid(lines, cs.N_NU_RCM),
+                                      shape="phco2")
+    rce = ct.RCM.create(Pe, adiabat(Pe).numpy(), cs.G, fmu, fS_of(rce_gas.nu), 0.1, fcp, 1e7,
+                        rce_gas, radmul=2)
+    calls = {"farall_mix": lambda: ct.radiate(Pe, cs.G, Te, cs.MU, fS_of(mix["nu"]), 0.1,
+                                              mix["mg"], mix["cia"]),
+             "farall_rcm": lambda: ct.update_absorber(rcm),
+             "fine_stencil": lambda: ct.outgoing(Pe, cs.G, Te, cs.MU, voigt),
+             "phco2_fine_stencil": lambda: ct.outgoing(Pe, cs.G, cs.column(Pe, cs.TS_RCE),
+                                                       cs.MU, phco2),
+             "phco2_fine_stencil_16384": lambda: ct.update_absorber(rce)}
+    real, got = lc.launch_mode, {}
+    for case, call in calls.items():
+        seen = []
+
+        def record(*a, **k):
+            seen.append((a, k))
+            return real(*a, **k)
+
+        lc.launch_mode = record
+        try:
+            call()
+            torch.cuda.synchronize()
+        finally:
+            lc.launch_mode = real
+        mode = WINDOW_CASES[case][0]
+        hits = [x for x in seen if x[0][0] == mode]
+        cs.check(len(hits) >= 1, f"{case}: the entry point launched no mode {mode}")
+        got[case] = hits[-1]
+    return got
+
+
+def _items(lc, mode: int, grid: dict, n_states: int) -> dict:
+    """The launch's work items: pieces, blocks, and rows on the scratch path."""
+    if hasattr(lc, "window_plan"):
+        return {k: v for k, v in lc.window_plan(mode, grid, n_states).items() if k != "table"}
+    table, n_slots = lc.piece_schedule(grid["win"].cpu().numpy(), lc._N_WIN[mode],
+                                       lc.PIECE_LINES)
+    parts = np.bincount(table[:, 0], minlength=grid["win"].shape[0])
+    return dict(pieces=int(table.shape[0]), blocks=int(table.shape[0]) * lc.state_tiles(n_states),
+                threads=grid["nu_hi"].shape[0] // grid["win"].shape[0],
+                rows=int(parts.size), scratch_row_share=float((parts > 1).mean()))
+
+
+def window_probe(seed, dev, cuts: bool, out_dir: str):
+    """Each window case alone, whole (and with ``cuts`` cut), one ``probe``
+    line each."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.utils import cuda_build
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ct.__file__)))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    cs.emit("probe", part="env", package_root=root, card=torch.cuda.get_device_name(dev),
+            nvidia_smi=smi.stdout.strip().splitlines()[dev.index or 0])
+    t0 = time.perf_counter()
+    libs = build_window_cuts(root, out_dir) if cuts else {}
+    cs.emit("probe", part="cuts", seconds=time.perf_counter() - t0, cuts=list(libs))
+    launches = window_launches(seed, dev)
+    real_launch = lc.launch_mode
+    default = cuda_build.load_library("linesum")
+    for cut in ["none"] + [c for c in libs if c != "none"]:
+        lib, ptx, loops = libs.get(cut, (default, {}, {}))
+        cuda_build._LIBS["linesum"] = lib
+        try:
+            for case, (a, k) in launches.items():
+                mode, name = WINDOW_CASES[case]
+                fn = lambda a=a, k=k: real_launch(*a, **k)
+                fn()
+                torch.cuda.synchronize()
+                grid, n_states = a[1], a[4]
+                items = _items(lc, mode, grid, n_states)
+                info = lc.kernel_info(mode, items["threads"])
+                w = grid["win"].cpu().numpy()[:, 1::2].sum(axis=1)
+                cs.emit("probe", kernel=name, case=case, cut=cut, states=n_states,
+                        points=a[5], lines=a[2].n_lines, ms=cs.cuda_ms(fn),
+                        device_ms=cs.kernel_device_ms(fn, name), **info, **items,
+                        max_window_lines=int(w.max(initial=0)), mean_window_lines=float(w.mean()),
+                        ptxas=ptx.get(mode, {}), sass_loops=loops.get(mode, []))
+                if cut == "none" and mode in (5, 10) and not hasattr(lc, "window_plan"):
+                    # one work item a row: the mid window alone, no scratch
+                    win = grid["win"].clone()
+                    win[:, 2:] = 0
+                    one = {"nu_hi": grid["nu_hi"], "nu_lo": grid["nu_lo"], "win": win}
+                    keep, lc.PIECE_LINES = lc.PIECE_LINES, 1 << 30
+                    try:
+                        f1 = lambda a=a, k=k: real_launch(a[0], one, *a[2:], **k)
+                        f1()
+                        torch.cuda.synchronize()
+                        cs.emit("probe", kernel=name, case=case, cut="items",
+                                states=n_states, points=a[5], ms=cs.cuda_ms(f1),
+                                device_ms=cs.kernel_device_ms(f1, name),
+                                **_items(lc, mode, one, n_states))
+                    finally:
+                        lc.PIECE_LINES = keep
+        finally:
+            cuda_build._LIBS["linesum"] = default
+
+
+def window_calls(seed, dev) -> dict:
+    """The entry-point calls that run FARALL or FINE_STENCIL: march_probe's
+    (auto ``outgoing``, RCM refresh and step, RCE run and step, the mix's
+    ``radiate``) and the phco2 auto ``outgoing``."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.spectra.synthetic import synthetic_co2_par
+    from clearsky_tpu_torch.tools import march_probe
+
+    march_probe.cs = cs
+    calls = march_probe.entry_calls(seed, dev)
+    lines = ct.SpectralLines.from_par_dict(synthetic_co2_par(cs.N_LINES, seed=seed))
+    Pe = ct.pressuregrid(cs.PT, cs.PS, cs.N_LEVELS)
+    phco2 = ct.DirectGas.from_lines(lines, cs.CONC, cs.phco2_grid(lines, cs.N_NU_MAIN),
+                                    shape="phco2")
+    Te = cs.column(Pe, cs.TS_RCE)
+    calls["phco2_outgoing"] = lambda: ct.outgoing(Pe, cs.G, Te, cs.MU, phco2)
+    return calls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -318,7 +662,12 @@ def main(argv=None) -> int:
                     help="also the densest blocks, the ptxas report and the SASS")
     ap.add_argument("--root", default=None, help="import clearsky_tpu_torch from this tree")
     ap.add_argument("--out", default="build/k1_probe",
-                    help="with --step0: where the ptxas report and SASS go")
+                    help="with --step0 or --cuts: where the ptxas report, SASS and cuts go")
+    ap.add_argument("--window", action="store_true",
+                    help="the region-1 window modes where the main path runs them")
+    ap.add_argument("--cuts", action="store_true", help="with --window: also the cut builds")
+    ap.add_argument("--calls", action="store_true",
+                    help="profile the entry-point calls that run the window modes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_probe: no CUDA device", file=sys.stderr)
@@ -330,7 +679,17 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.abspath(args.root) if args.root else ROOT)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    k1_probe(args.seed, dev, args.step0, args.out)
+    if args.calls:
+        calls = window_calls(args.seed, dev)
+        for fn in calls.values():           # set-up, library loads, caches
+            fn()
+        torch.cuda.synchronize()
+        cs.phase_profile(calls)
+    elif args.window:
+        window_probe(args.seed, dev, args.cuts,
+                     os.path.join(args.out, "root" if args.root else "self"))
+    else:
+        k1_probe(args.seed, dev, args.step0, args.out)
     return 0
 
 

@@ -403,8 +403,9 @@ def _emulate_windowed(mode, blocks64, windows, lines, coef, z, d_near, n_states)
     [n_lines, n_states, n_coef] and window table: per block and window, its
     zone's mask and weight, FINE with the per-element branch on |dnu| >
     d_near over its mid window (its pack's (Sia, ia, y0, 0) then the far
-    wing's (A, c1, c2, k2); the other modes' pack holds the far wing's
-    alone)."""
+    wing's (A, c1, c2, k2)); COARSE's pack holds the far wing's alone, and
+    FARALL's and FINE_STENCIL's the window pack (A, h, g, k2), region 1 as
+    k2 (1 - w) / (w^2 + g) at w = h - D A."""
     far = coef.shape[-1] - 4
     nb = torch.tensor(blocks64)
     out = torch.zeros(n_states, *nb.shape, dtype=torch.float64)
@@ -420,9 +421,14 @@ def _emulate_windowed(mode, blocks64, windows, lines, coef, z, d_near, n_states)
             a, D = dnu.abs(), dnu * dnu
             for st in range(n_states):
                 c = coef[s0:s0 + cnt, st]
-                A, c1, c2, k2 = (c[:, far + i] for i in range(4))
-                m_ = D * A
-                r1 = k2 * (c1 + m_) / ((c1 - m_) ** 2 + c2 * D)
+                if mode in ("farall", "fine_stencil"):
+                    A, h, gg, k2 = (c[:, i] for i in range(4))
+                    w_ = h - D * A
+                    r1 = k2 * (1.0 - w_) / (w_ * w_ + gg)
+                else:
+                    A, c1, c2, k2 = (c[:, far + i] for i in range(4))
+                    m_ = D * A
+                    r1 = k2 * (c1 + m_) / ((c1 - m_) ** 2 + c2 * D)
                 if zone == "farall":
                     f, keep = r1, a <= z["cut"]
                 elif zone == "coarse":
