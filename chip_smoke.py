@@ -648,11 +648,12 @@ def k1_layout(mode: int, grid: dict, n_states: int) -> dict:
     w = grid["win"].cpu().numpy()[:, 1::2].sum(axis=1)
     if mode in lc._WINDOW_KERNEL_MODES:
         plan = lc.window_plan(mode, grid, n_states)
-        info = lc.kernel_info(mode, plan["threads"])
+        info = lc.kernel_info(mode, plan["threads"], plan["points_per_thread"])
         return dict(registers=info["registers"], shared_bytes=info["shared_bytes"],
                     local_bytes=info["local_bytes"], resident_warps=info["resident_warps"],
                     ctas=plan["blocks"], pieces=plan["pieces"], piece_lines=plan["piece_lines"],
-                    groups=plan["groups"], threads=plan["threads"], state_tiles=plan["tiles"],
+                    groups=plan["groups"], points_per_thread=plan["points_per_thread"],
+                    threads=plan["threads"], state_tiles=plan["tiles"],
                     scratch_slots=plan["scratch_slots"],
                     scratch_row_share=plan["scratch_row_share"],
                     max_window_lines=int(w.max(initial=0)), mean_window_lines=float(w.mean()))
@@ -1851,11 +1852,7 @@ def phase_mix_entry(mix, dev):
         check(set(counts[name]) == ROUTE_KERNELS[routes[name]] | {march},
               f"{name} launched {counts[name]}, not only the {routes[name]} route and {march}")
     check(routes["mix_outgoing"] == "segmented", "outgoing on the mix does not run segmented")
-    if routes["mix_radiate"] == "stencil":
-        # FARALL's bound at radiate's shape (its device time: the profile)
-        emit("mix", step="farall_bound", kernel="linesum_farall", call="mix_radiate",
-             states=38, lines=mg.lines.n_lines, points=mg.plan.n_nu,
-             **farall_bound(mg.plan, mg.lines, 38))
+    check(routes["mix_radiate"] == "stencil", "radiate on the mix does not run the stencil route")
     total = {}
     for c in counts.values():
         for k, v in c.items():

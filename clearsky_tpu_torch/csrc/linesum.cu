@@ -9,9 +9,11 @@
 //   * split (voigt: Humlicek region 1 in the far wing, full w4 near the
 //     core) and single sweep (lorentz, doppler), through _pallas_sigma_impl;
 //   * FARALL (wmode "farall": region 1 over the whole window), the kernel of
-//     the stencil-near route;
-//   * FINE, FINE_STENCIL and COARSE (wmodes "fine", "fine_stencil",
-//     "coarse"), the two passes of the coarse-far split (_coarse_core);
+//     the stencil-near route, and FINE_STENCIL (wmode "fine_stencil"), the
+//     coarse-far split's fine pass beside the correction: these two, voigt
+//     and phco2, run window_kernel (its design further down);
+//   * FINE and COARSE (wmodes "fine", "coarse"), the two passes of the
+//     coarse-far split (_coarse_core) without the stencil;
 //   * NOSPLIT (strategy "nosplit": use_split false, :1360 and :621): the
 //     full Humlicek w4 with the small-y repair at every in-cut (point, line,
 //     state), one sweep over the window with no near/far split, on the
@@ -157,9 +159,11 @@ __host__ __device__ constexpr int voigt_mode(int mode) {
 
 // 16-byte quads per (line, state) in K1's pack [n_lines][n_states][4 n_quads]:
 //   VOIGT_SPLIT, FINE: (Sia, ia, y0, 0) and the far wing's (A, c1, c2, k2);
-//   FARALL, FINE_STENCIL, COARSE: (A, c1, c2, k2), region 1 alone;
+//   COARSE: (A, c1, c2, k2), region 1 alone;
 //   the phco2 family: (Sia, ia, y0, A), region 1 on x^2 = D A and y = y0 chi;
-//   NOSPLIT: (Sia, ia, y0, A), A unread; LORENTZ, DOPPLER: (S, alpha, gamma, 0)
+//   NOSPLIT: (Sia, ia, y0, A), A unread; LORENTZ, DOPPLER: (S, alpha, gamma, 0);
+//   FARALL, FINE_STENCIL: (A, 1/2 - y0^2, 2 y0^2, k2); PH_FARALL,
+//   PH_FINE_STENCIL: (0.5641896 Sia, y0, A, 0) (window_kernel's, below)
 __host__ __device__ constexpr int n_quads(int mode) {
   return (mode == VOIGT_SPLIT || mode == FINE) ? 2 : 1;
 }
@@ -758,7 +762,10 @@ linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
 //       states (57 = 8 + 7 x 7, 38 = 3 x 8 + 2 x 7), so no tile repeats the
 //       pair work for one or two states.
 // No float atomic touches sigma: two launches give the same bits.
-constexpr int WCH = 64;          // lines a staged chunk of window_kernel
+// lines a staged chunk of window_kernel: 64, and 32 for voigt's
+// FINE_STENCIL, whose rows hold ~16 lines (a smaller block stage keeps more
+// of its short-lived blocks resident)
+__host__ __device__ constexpr int window_chunk(int mode) { return mode == FINE_STENCIL ? 32 : 64; }
 constexpr int MAX_GROUPS = 4;    // thread groups that split a piece's lines
 constexpr int RED_FLOATS = 3 * ST * 128;  // the groups' sums, (G - 1) x NS x points
 
@@ -787,53 +794,78 @@ __device__ __forceinline__ float rcp_approx(float d) {
   return r;
 }
 
+template <int WCH>
 struct WindowStage {
   union {
     float4 c[2][WCH * ST];     // two chunks' quads, [line][state of the tile]
     float red[RED_FLOATS];     // then the groups' sums
   };
   float2 pos[2][WCH];          // the chunks' two-float line positions
-  float B[2 * ST];             // chi's rates of the tile (phco2)
+  float B[2 * ST];             // chi's rates of the tile (phco2), in base 2
   int last;
 };
-static_assert(sizeof(float) * RED_FLOATS <= sizeof(float4) * 2 * WCH * ST,
-              "the groups' sums fit in the chunk buffers");
 
-// One line's region-1 terms of the NS states of the tile at this thread's
-// point: D = dnu^2, wt the zone's weight (WEIGHTED), q chi's arguments (PH)
-template <int NS, bool PH, bool FAST, bool WEIGHTED>
-__device__ __forceinline__ void region1_line(const float4* c, float D, float wt,
-                                             const ChiArg& q, const float* B,
-                                             float (&acc)[NS]) {
+// chi's arguments in base 2 (chi_arg2) as clamps: u = clamp(a - 3, 0, 27),
+// v = clamp(a - 30, 0, 90), w' = 0.0232 log2(e) max(a - 120, 0), the same
+// values as chi_arg2's pieces
+__device__ __forceinline__ ChiArg chi_arg2_clamped(float a) {
+  return {fminf(fmaxf(a - 3.0f, 0.0f), 27.0f), fminf(fmaxf(a - 30.0f, 0.0f), 90.0f),
+          (0.0232f * LOG2E) * fmaxf(a - 120.0f, 0.0f)};
+}
+
+// chi's exponent as a line's points need it (phco2): CHI_FULL B1 u + B2 v +
+// w'; CHI_U (every point within 30 cm^-1, where v = w' = 0) B1 u, the same
+// value; CHI_UNIT (within 3 cm^-1) none: chi is 1
+enum ChiForm { CHI_FULL, CHI_U, CHI_UNIT };
+
+// One (line, state)'s region-1 term at one point, added into acc: D =
+// dnu^2, wt the zone's weight (WEIGHTED), q chi's arguments and B1, B2 the
+// state's rates (PH, in the form CHI)
+template <bool PH, bool FAST, bool WEIGHTED, int CHI = CHI_FULL>
+__device__ __forceinline__ void region1_term(const float4& k, float D, float wt,
+                                             const ChiArg& q, float B1, float B2,
+                                             float& acc) {
+  float num, den;
+  if constexpr (PH) {
+    float y = k.y;
+    if constexpr (CHI == CHI_U) y *= ex2_approx(-(B1 * q.u));
+    if constexpr (CHI == CHI_FULL) y *= ex2_approx(-fmaf(B1, q.u, fmaf(B2, q.v, q.w)));
+    const float y2 = y * y;
+    const float w = fmaf(-D, k.z, 0.5f - y2);
+    den = fmaf(w, w, y2 + y2);
+    const float cy = (WEIGHTED ? k.x * wt : k.x) * y;
+    num = fmaf(-cy, w, cy);
+  } else {
+    const float w = fmaf(-D, k.x, k.y);
+    den = fmaf(w, w, k.z);
+    const float kw = WEIGHTED ? k.w * wt : k.w;
+    num = fmaf(-kw, w, kw);
+  }
+  if constexpr (FAST) acc = fmaf(num, rcp_approx(den), acc);
+  else acc += num / den;
+}
+
+// A line's terms of the NS states at every one of the thread's PTS points
+template <int NS, int PTS, bool PH, bool FAST, bool WEIGHTED, int CHI>
+__device__ __forceinline__ void region1_line(const float4* c, const float (&D)[PTS],
+                                             const float (&wt)[PTS], const ChiArg (&q)[PTS],
+                                             const float (&B1)[NS], const float (&B2)[NS],
+                                             float (&acc)[PTS][NS]) {
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
-    const float4 k = c[s];
-    float num, den;
-    if constexpr (PH) {
-      const float chi = ex2_approx(-fmaf(B[s], q.u, fmaf(B[ST + s], q.v, q.w)));
-      const float y = k.y * chi;
-      const float y2 = y * y;
-      const float w = fmaf(-D, k.z, 0.5f - y2);
-      den = fmaf(w, w, y2 + y2);
-      const float cy = (WEIGHTED ? k.x * wt : k.x) * y;
-      num = fmaf(-cy, w, cy);
-    } else {
-      const float w = fmaf(-D, k.x, k.y);
-      den = fmaf(w, w, k.z);
-      const float kw = WEIGHTED ? k.w * wt : k.w;
-      num = fmaf(-kw, w, kw);
-    }
-    if constexpr (FAST) acc[s] = fmaf(num, rcp_approx(den), acc[s]);
-    else acc[s] += num / den;
+    const float4 k4 = c[s];
+#pragma unroll
+    for (int p = 0; p < PTS; ++p)
+      region1_term<PH, FAST, WEIGHTED, CHI>(k4, D[p], wt[p], q[p], B1[s], B2[s], acc[p][s]);
   }
 }
 
-// What a window item sees: its point (two-float), the row's windows as one
-// stream (window k's lines start at ws[k] and fill the stream's [end[k - 1],
-// end[k])), and the launch's operands
-template <int NW>
+// What a window item sees: its PTS points (two-float), the row's windows as
+// one stream (window k's lines start at ws[k] and fill the stream's [end[k -
+// 1], end[k])), its tile's states and the launch's operands
+template <int NW, int PTS>
 struct WindowItem {
-  float nh, nl;
+  float nh[PTS], nl[PTS];
   int ws[NW], end[NW];
   int s0, n_states;
   const float* line_hi;
@@ -851,11 +883,14 @@ struct WindowItem {
 
 // Sum the stream's lines [o, o + cnt) into acc: chunks of WCH lines staged
 // with cp.async (chunk k + 1 in flight while chunk k is summed), group g of
-// the block's G summing lines [g per, (g + 1) per) of each chunk
-template <int NS, int NW, bool PH, bool FAST>
+// the block's G summing lines [g per, (g + 1) per) of each chunk; each
+// thread's PTS points share every staged quad it reads
+template <int NS, int NW, int PTS, bool PH, bool FAST, int WCH>
 __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
-                                             const WindowItem<NW>& it, WindowStage& sm,
-                                             const Zones& z, float (&acc)[NS]) {
+                                             const WindowItem<NW, PTS>& it,
+                                             WindowStage<WCH>& sm, const Zones& z,
+                                             float (&acc)[PTS][NS]) {
+  constexpr bool WEIGHTED = NW == 3;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int n_chunks = (cnt + WCH - 1) / WCH;
@@ -876,6 +911,12 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
+  float B1[NS], B2[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    B1[s] = PH ? sm.B[s] : 0.0f;
+    B2[s] = PH ? sm.B[ST + s] : 0.0f;
+  }
   if (n_chunks > 0) stage(0);
   for (int k = 0; k < n_chunks; ++k) {
     if (k + 1 < n_chunks) {
@@ -889,28 +930,65 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
     const int c0 = o + k * WCH;
     const int j1 = min(min(WCH, cnt - k * WCH), (g + 1) * per);
     for (int j = g * per; j < j1; ++j) {
-      // two-float dnu, as in K1's other modes
+      // two-float dnu at each point, as in K1's other modes; the zone's
+      // mask and weight
       const float2 ps = sm.pos[buf][j];
-      const float dnu = (it.nh - ps.x) + (it.nl - ps.y);
-      const float adnu = fabsf(dnu);
-      const float D = dnu * dnu;
-      float wt = 1.0f;
-      if constexpr (NW == 3) {
-        if (c0 + j < it.end[0]) {
-          // the mid window: region 1 over |dnu| <= cut_f, weighted 1 - W
-          if (!(adnu <= z.cut_f)) continue;
-          wt = 1.0f - smooth_d2(D, z.D1, z.inv_D);
+      const bool mid = NW == 3 && c0 + j < it.end[0];
+      float D[PTS], wt[PTS];
+      ChiArg q[PTS];
+      bool in[PTS];
+      bool any = false, all = true, unit = PH, near = PH, flat = WEIGHTED;
+#pragma unroll
+      for (int p = 0; p < PTS; ++p) {
+        const float dnu = (it.nh[p] - ps.x) + (it.nl[p] - ps.y);
+        const float adnu = fabsf(dnu);
+        D[p] = dnu * dnu;
+        wt[p] = 1.0f;
+        if constexpr (NW == 3) {
+          if (mid) {
+            // the mid window: region 1 over |dnu| <= cut_f, weighted 1 - W
+            in[p] = adnu <= z.cut_f;
+            wt[p] = 1.0f - smooth_d2(D[p], z.D1, z.inv_D);
+          } else {
+            // the annuli [cut - w_roll, cut], weighted by the outer roll
+            in[p] = adnu <= z.cut && D[p] > z.R1;
+            wt[p] = smooth_d2(D[p], z.R1, z.inv_R);
+          }
         } else {
-          // the annuli [cut - w_roll, cut], weighted by the outer roll
-          if (!(adnu <= z.cut && D > z.R1)) continue;
-          wt = smooth_d2(D, z.R1, z.inv_R);
+          in[p] = adnu <= z.cut;
+        }
+        if constexpr (PH) {
+          q[p] = chi_arg2_clamped(adnu);
+          unit = unit && adnu < 3.0f;
+          near = near && adnu < 30.0f;
+        }
+        flat = flat && wt[p] == 1.0f;
+        any = any || in[p];
+        all = all && in[p];
+      }
+      if (!any) continue;
+      const float4* c = &sm.c[buf][j * NS];
+      if (all) {
+        // the same values in fewer operations where the line's points allow:
+        // phco2's chi in its shorter forms, a weight of 1 left out
+        if constexpr (PH) {
+          if (unit) region1_line<NS, PTS, PH, FAST, WEIGHTED, CHI_UNIT>(c, D, wt, q, B1, B2, acc);
+          else if (near) region1_line<NS, PTS, PH, FAST, WEIGHTED, CHI_U>(c, D, wt, q, B1, B2, acc);
+          else region1_line<NS, PTS, PH, FAST, WEIGHTED, CHI_FULL>(c, D, wt, q, B1, B2, acc);
+        } else if (flat) {
+          region1_line<NS, PTS, PH, FAST, false, CHI_FULL>(c, D, wt, q, B1, B2, acc);
+        } else {
+          region1_line<NS, PTS, PH, FAST, WEIGHTED, CHI_FULL>(c, D, wt, q, B1, B2, acc);
         }
       } else {
-        if (!(adnu <= z.cut)) continue;
+#pragma unroll
+        for (int p = 0; p < PTS; ++p) {
+          if (!in[p]) continue;
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            region1_term<PH, FAST, WEIGHTED>(c[s], D[p], wt[p], q[p], B1[s], B2[s], acc[p][s]);
+        }
       }
-      ChiArg q{0.0f, 0.0f, 0.0f};
-      if constexpr (PH) q = chi_arg2(adnu);
-      region1_line<NS, PH, FAST, NW == 3>(&sm.c[buf][j * NS], D, wt, q, sm.B, acc);
     }
     __syncthreads();  // chunk k's buffer is refilled by stage(k + 2)
   }
@@ -919,16 +997,18 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
 // One work item of a tile of NS states: the groups sweep the piece, their
 // sums meet in group order; a row of several pieces adds its pieces'
 // partials in piece order through scratch (the last to arrive writes)
-template <int MODE, int NS>
+template <int MODE, int NS, int PTS>
 __device__ void window_item(const int4 pa, const int4 pb, int B, bool fast,
-                            WindowItem<n_windows(MODE)>& it, WindowStage& sm,
+                            const WindowItem<n_windows(MODE), PTS>& it,
+                            WindowStage<window_chunk(MODE)>& sm,
                             const float* bcoef, const Zones& z, int tile, int n_tiles,
                             int n_out, float* scratch, int* counters, float* out) {
   constexpr bool PH = is_phco2(MODE);
   constexpr int NW = n_windows(MODE);
   const int tid = threadIdx.x;
-  const int G = blockDim.x / B;
-  const int g = tid / B, pl = tid - g * B;
+  const int TP = B / PTS;  // a group's threads: the row's points, PTS each
+  const int G = blockDim.x / TP;
+  const int g = tid / TP, pl = tid - g * TP;
   const int n_states = it.n_states;
   const int s0 = it.s0;
   if constexpr (PH) {
@@ -940,22 +1020,32 @@ __device__ void window_item(const int4 pa, const int4 pb, int B, bool fast,
     }
     __syncthreads();
   }
-  float acc[NS];
+  float acc[PTS][NS];
 #pragma unroll
-  for (int s = 0; s < NS; ++s) acc[s] = 0.0f;
-  if (fast) window_sweep<NS, NW, PH, true>(pa.z, pa.w, g, G, it, sm, z, acc);
-  else window_sweep<NS, NW, PH, false>(pa.z, pa.w, g, G, it, sm, z, acc);
+  for (int p = 0; p < PTS; ++p) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) acc[p][s] = 0.0f;
+  }
+  constexpr int WCH = window_chunk(MODE);
+  if (fast) window_sweep<NS, NW, PTS, PH, true, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
+  else window_sweep<NS, NW, PTS, PH, false, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
   if (G > 1) {
     // the last chunk's barrier has passed: the buffers hold the groups' sums
     if (g > 0) {
 #pragma unroll
-      for (int s = 0; s < NS; ++s) sm.red[((g - 1) * NS + s) * B + pl] = acc[s];
+      for (int p = 0; p < PTS; ++p) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) sm.red[((g - 1) * NS + s) * B + pl + p * TP] = acc[p][s];
+      }
     }
     __syncthreads();
     if (g == 0) {
       for (int k = 1; k < G; ++k) {
 #pragma unroll
-        for (int s = 0; s < NS; ++s) acc[s] += sm.red[((k - 1) * NS + s) * B + pl];
+        for (int p = 0; p < PTS; ++p) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) acc[p][s] += sm.red[((k - 1) * NS + s) * B + pl + p * TP];
+        }
       }
     }
   }
@@ -965,7 +1055,10 @@ __device__ void window_item(const int4 pa, const int4 pb, int B, bool fast,
     if (g == 0) {
       float* mine = scratch + ((size_t)(slot + part) * n_states + s0) * B + pl;
 #pragma unroll
-      for (int s = 0; s < NS; ++s) __stcg(mine + (size_t)s * B, acc[s]);
+      for (int p = 0; p < PTS; ++p) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) __stcg(mine + (size_t)s * B + p * TP, acc[p][s]);
+      }
     }
     __threadfence();
     __syncthreads();
@@ -974,54 +1067,71 @@ __device__ void window_item(const int4 pa, const int4 pb, int B, bool fast,
     if (!sm.last) return;
     __threadfence();
     if (g == 0) {
-      float tot[NS];
+      float tot[PTS][NS];
 #pragma unroll
-      for (int s = 0; s < NS; ++s) tot[s] = 0.0f;
+      for (int p = 0; p < PTS; ++p) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) tot[p][s] = 0.0f;
+      }
       for (int k = 0; k < nparts; ++k) {
         const float* src = scratch + ((size_t)(slot + k) * n_states + s0) * B + pl;
 #pragma unroll
-        for (int s = 0; s < NS; ++s) tot[s] += k == part ? acc[s] : __ldcg(src + (size_t)s * B);
+        for (int p = 0; p < PTS; ++p) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            tot[p][s] += k == part ? acc[p][s] : __ldcg(src + (size_t)s * B + p * TP);
+        }
       }
 #pragma unroll
-      for (int s = 0; s < NS; ++s) acc[s] = tot[s];
+      for (int p = 0; p < PTS; ++p) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) acc[p][s] = tot[p][s];
+      }
     }
   }
-  const int p = row * B + pl;
-  if (g == 0 && p < n_out) {
+  if (g == 0) {
 #pragma unroll
-    for (int s = 0; s < NS; ++s) out[(size_t)(s0 + s) * n_out + p] = acc[s];
+    for (int p = 0; p < PTS; ++p) {
+      const int pt = row * B + pl + p * TP;
+      if (pt < n_out) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) out[(size_t)(s0 + s) * n_out + pt] = acc[p][s];
+      }
+    }
   }
 }
 
 // window_kernel: one block per work item (a piece of a row's windows and a
-// balanced tile of states), G groups of B threads, thread (g, j) at the
-// row's point j. pieces [n_pieces][8] int32: (row, 0, offset, count, part,
-// n_parts, slot, 0), offset and count in the row's stream of lines (its
-// windows of win [n_rows][2 NW] one after another), the costliest first;
-// grid.x = n_pieces n_tiles, tile fastest. out: [n_states][n_out], written;
-// scratch [n_slots][n_states][B] and counters [n_rows][n_tiles] (zero) serve
-// the rows of more than one piece. bcoef (phco2) the rates [n_tiles of
-// ST][2][ST]; fast[0] the reciprocal's flag.
-template <int MODE>
-__global__ void __launch_bounds__(512, 2)
-window_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
-              const float* __restrict__ line_hi, const float* __restrict__ line_lo,
-              const float4* __restrict__ coef, const int* __restrict__ win,
-              const int4* __restrict__ pieces, const int* __restrict__ fast_p,
-              const float* __restrict__ bcoef, Zones z, int B, int n_states, int n_out,
-              float* __restrict__ scratch, int* __restrict__ counters,
-              float* __restrict__ out) {
+// balanced tile of states), G groups of B / PTS threads, thread (g, j) at the
+// row's points j + i B / PTS (i < PTS). pieces [n_pieces][8] int32: (row, 0,
+// offset, count, part, n_parts, slot, 0), offset and count in the row's
+// stream of lines (its windows of win [n_rows][2 NW] one after another), the
+// costliest first; grid.x = n_pieces n_tiles, tile fastest. out:
+// [n_states][n_out], written; scratch [n_slots][n_states][B] and counters
+// [n_rows][n_tiles] (zero) serve the rows of more than one piece. bcoef
+// (phco2) the rates [n_tiles of ST][2][ST]; fast[0] the reciprocal's flag.
+template <int MODE, int PTS>
+__device__ __forceinline__ void window_run(const float* nu_hi, const float* nu_lo,
+                                           const float* line_hi, const float* line_lo,
+                                           const float4* coef, const int* win,
+                                           const int4* pieces, bool fast, const float* bcoef,
+                                           const Zones& z, int B, int n_states, int n_out,
+                                           float* scratch, int* counters, float* out,
+                                           WindowStage<window_chunk(MODE)>& sm) {
   constexpr int NW = n_windows(MODE);
-  __shared__ __align__(16) WindowStage sm;
   const int n_tiles = window_tiles(n_states);
   const int item = blockIdx.x / n_tiles;
   const int tile = blockIdx.x - item * n_tiles;
   const int4 pa = pieces[2 * item];
   const int4 pb = pieces[2 * item + 1];
-  const int pl = threadIdx.x % B;
-  WindowItem<NW> it;
-  it.nh = nu_hi[(size_t)pa.x * B + pl];
-  it.nl = nu_lo[(size_t)pa.x * B + pl];
+  const int TP = B / PTS;
+  const int pl = threadIdx.x % TP;
+  WindowItem<NW, PTS> it;
+#pragma unroll
+  for (int p = 0; p < PTS; ++p) {
+    it.nh[p] = nu_hi[(size_t)pa.x * B + pl + p * TP];
+    it.nl[p] = nu_lo[(size_t)pa.x * B + pl + p * TP];
+  }
   int end = 0;
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
@@ -1036,10 +1146,9 @@ window_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
   it.line_hi = line_hi;
   it.line_lo = line_lo;
   it.coef = coef;
-  const bool fast = fast_p[0] != 0;
-#define RUN(NS)                                                                              \
-  window_item<MODE, NS>(pa, pb, B, fast, it, sm, bcoef, z, tile, n_tiles, n_out, scratch, \
-                        counters, out)
+#define RUN(NS)                                                                            \
+  window_item<MODE, NS, PTS>(pa, pb, B, fast, it, sm, bcoef, z, tile, n_tiles, n_out, \
+                             scratch, counters, out)
   switch (ns) {
     case 8: RUN(8); break;
     case 7: RUN(7); break;
@@ -1051,6 +1160,20 @@ window_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
     default: RUN(1); break;
   }
 #undef RUN
+}
+
+template <int MODE, int PTS>
+__global__ void __launch_bounds__(512, 2)
+window_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
+              const float* __restrict__ line_hi, const float* __restrict__ line_lo,
+              const float4* __restrict__ coef, const int* __restrict__ win,
+              const int4* __restrict__ pieces, const int* __restrict__ fast_p,
+              const float* __restrict__ bcoef, Zones z, int B, int n_states, int n_out,
+              float* __restrict__ scratch, int* __restrict__ counters,
+              float* __restrict__ out) {
+  __shared__ __align__(16) WindowStage<window_chunk(MODE)> sm;
+  window_run<MODE, PTS>(nu_hi, nu_lo, line_hi, line_lo, coef, win, pieces, fast_p[0] != 0,
+                        bcoef, z, B, n_states, n_out, scratch, counters, out, sm);
 }
 
 // The stencil route's near-core correction, a gather over the K-point rows
@@ -1478,7 +1601,7 @@ int linesum_state_tiles(int n_states) { return n_state_tiles(n_states); }
 
 int linesum_window_tiles(int n_states) { return window_tiles(n_states); }
 
-int linesum_window_chunk() { return WCH; }
+int linesum_window_chunk(int mode) { return window_chunk(mode); }
 
 // Launch `mode` on `stream`: n_pieces work items (pieces, [n_pieces][8]
 // int32, see linesum_kernel) times the state tiles of n_states, blocks of
@@ -1539,7 +1662,7 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
 // Launch the window mode `mode` (FARALL, FINE_STENCIL and their phco2
 // instances) on `stream`: n_pieces work items (pieces [n_pieces][8] int32,
 // see window_kernel) over rows of B points, times the balanced state tiles,
-// in blocks of `groups` x B threads; coef: the window pack [n_lines][n_states]
+// in blocks of `groups` x B / pts threads, pts (1 or 2) points a thread; coef: the window pack [n_lines][n_states]
 // [4]; win: the rows' window table [n_rows][2 n_windows(mode)]; zones: host
 // float[7]; fast: one int32 (nonzero: every region-1 denominator lies in
 // [2^-120, 2^120]); bcoef: the phco2 rates [n_tiles of ST][2][ST]; out:
@@ -1548,22 +1671,29 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
 int window_launch(int mode, const float* nu_hi, const float* nu_lo, const float* line_hi,
                   const float* line_lo, const float* coef, const int* win, const int* pieces,
                   int n_pieces, const int* fast, const float* bcoef, const float* zones, int B,
-                  int groups, int n_states, int n_out, float* scratch, int* counters, float* out,
-                  void* stream) {
-  const long long items = (long long)n_pieces * window_tiles(n_states);
-  if (!is_window(mode) || items < 1 || items > 0x7fffffffLL || B < 1 || groups < 1 ||
-      groups > MAX_GROUPS || B * groups > 512 || (groups - 1) * B * ST > RED_FLOATS)
+                  int groups, int pts, int n_states, int n_out, float* scratch, int* counters,
+                  float* out, void* stream) {
+  const long long blocks = (long long)n_pieces * window_tiles(n_states);
+  const int threads = groups * B / max(pts, 1);
+  if (!is_window(mode) || blocks < 1 || blocks > 0x7fffffffLL || B < 1 || groups < 1 ||
+      groups > MAX_GROUPS || (pts != 1 && pts != 2) || B % pts != 0 || threads > 512 ||
+      (groups - 1) * B * ST > RED_FLOATS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_phco2(mode) && bcoef == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const Zones z{zones[0], zones[1], zones[2], zones[3], zones[4], zones[5], zones[6]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* c4 = reinterpret_cast<const float4*>(coef);
   const int4* p4 = reinterpret_cast<const int4*>(pieces);
-#define LAUNCH(M)                                                                          \
-  window_kernel<M><<<(unsigned)items, B * groups, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, \
+#define LAUNCH_AS(M, P)                                                                     \
+  window_kernel<M, P><<<(unsigned)blocks, threads, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, \
                                                            c4, win, p4, fast, bcoef, z, B, \
                                                            n_states, n_out, scratch,       \
                                                            counters, out)
+#define LAUNCH(M)     \
+  if (pts == 2)       \
+    LAUNCH_AS(M, 2);  \
+  else                \
+    LAUNCH_AS(M, 1)
   switch (mode) {
     case FARALL: LAUNCH(FARALL); break;
     case FINE_STENCIL: LAUNCH(FINE_STENCIL); break;
@@ -1572,20 +1702,28 @@ int window_launch(int mode, const float* nu_hi, const float* nu_lo, const float*
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LAUNCH
+#undef LAUNCH_AS
   return static_cast<int>(cudaGetLastError());
 }
 
-// window_kernel's build for `mode`: info[0] registers a thread, info[1]
-// static shared bytes, info[2] local (spill) bytes a thread, info[3]
-// resident blocks of `threads` threads an SM. Returns the CUDA error.
-int window_kernel_info(int mode, int threads, int* info) {
+// window_kernel's build for `mode` at `pts` points a thread: info[0]
+// registers a thread, info[1] static shared bytes, info[2] local (spill)
+// bytes a thread, info[3] resident blocks of `threads` threads an SM.
+// Returns the CUDA error.
+int window_kernel_info(int mode, int pts, int threads, int* info) {
   cudaFuncAttributes a{};
   int per_sm = 0;
   cudaError_t e = cudaErrorInvalidValue;
-#define INFO(M)                                                                              \
-  e = cudaFuncGetAttributes(&a, window_kernel<M>);                                           \
-  if (e == cudaSuccess)                                                                      \
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_kernel<M>, threads, 0)
+#define INFO_AS(M, P)                                                                         \
+  e = cudaFuncGetAttributes(&a, window_kernel<M, P>);                                         \
+  if (e == cudaSuccess)                                                                       \
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_kernel<M, P>, threads, 0)
+#define INFO(M)       \
+  if (pts == 2) {     \
+    INFO_AS(M, 2);    \
+  } else {            \
+    INFO_AS(M, 1);    \
+  }
   switch (mode) {
     case FARALL: INFO(FARALL); break;
     case FINE_STENCIL: INFO(FINE_STENCIL); break;
@@ -1594,6 +1732,7 @@ int window_kernel_info(int mode, int threads, int* info) {
     default: break;
   }
 #undef INFO
+#undef INFO_AS
   info[0] = a.numRegs;
   info[1] = (int)a.sharedSizeBytes;
   info[2] = (int)a.localSizeBytes;

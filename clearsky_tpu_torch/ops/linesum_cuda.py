@@ -159,14 +159,17 @@ PIECE_LINES = 256
 # the region-1 window modes (FARALL, FINE_STENCIL and their phco2 instances)
 # run csrc/linesum.cu ``window_kernel``: their own pack, work items over a
 # row's windows as one stream, groups of threads splitting a piece's lines,
-# balanced state tiles; :func:`window_plan` picks the piece length and the
-# groups (None) unless these are set (tests set them)
+# balanced state tiles; :func:`window_plan` picks the piece length, the
+# groups and the points a thread (None) unless these are set (tests and
+# tools/k1_probe.py set them)
 _WINDOW_KERNEL_MODES = (3, 5, 8, 10)
-WINDOW_CHUNK = 64          # lines a staged chunk (csrc/linesum.cu ``WCH``)
+WINDOW_CHUNK = 64          # lines a staged chunk (csrc/linesum.cu ``window_chunk``)
+_WINDOW_CHUNKS = {3: 64, 5: 32, 8: 64, 10: 64}     # by mode: voigt's FINE_STENCIL 32
 MAX_GROUPS = 4
 WINDOW_PIECE_MAX = 2048
 WINDOW_PIECE_LINES = None
 WINDOW_GROUPS = None
+WINDOW_POINTS = None
 # an SM's resident warps at window_kernel's 64 registers a thread, and the
 # H100's SMs (the plan's count off the card)
 _RESIDENT_WARPS, _H100_SMS = 32, 132
@@ -320,18 +323,22 @@ def _sms(dev) -> int:
 
 def window_plan(mode: int, grid: dict, n_states: int) -> dict:
     """The launch plan of a window mode over ``grid`` at ``n_states``, cached
-    in the grid dict: the piece length (twice the mean lines a row, in whole
-    chunks, at most :data:`WINDOW_PIECE_MAX`: a row of up to twice the mean
-    is one work item, a denser one is cut so that no item holds far more
-    than the others) and the groups G (1, 2 or 4) of a row's threads that
-    split each piece's lines: the most whose blocks (G x the row's points
-    threads, at most 512) stay within one wave of the card's resident warps
-    (:data:`_RESIDENT_WARPS` an SM). Returns the plan with its schedule
-    (:func:`window_schedule`): piece_lines, groups, threads, tiles, pieces,
-    blocks, rows, scratch_row_share, scratch_slots, and ``table`` (the
-    pieces on the grid's device)."""
+    in the grid dict. Where the rows' tiles fill a wave of the card's
+    resident warps (:data:`_RESIDENT_WARPS` an SM), a block runs one group
+    of the row's threads, each thread of the voigt modes owns two of the
+    row's points (which share every staged quad it reads; phco2's, with
+    more work a term, one), and a piece holds up to twice the mean lines a
+    row (whole chunks, 256 to :data:`WINDOW_PIECE_MAX`). Where they do not
+    (the RCM's 16,384 points), G = 4 groups of the row's threads (at most
+    512 threads, a point each) split each piece's lines, and a piece holds
+    the mean lines a row: a dense row is cut and no thread's chain is long.
+    Returns the plan with its schedule (:func:`window_schedule`):
+    piece_lines, groups, points_per_thread, threads, tiles, pieces, blocks,
+    rows, scratch_row_share, scratch_slots, and ``table`` (the pieces on
+    the grid's device)."""
     dev = grid["win"].device
-    key = ("window_plan", mode, n_states, WINDOW_PIECE_LINES, WINDOW_GROUPS, _sms(dev))
+    key = ("window_plan", mode, n_states, WINDOW_PIECE_LINES, WINDOW_GROUPS, WINDOW_POINTS,
+           _sms(dev))
     got = grid.get(key)
     if got is not None:
         return got
@@ -342,26 +349,25 @@ def window_plan(mode: int, grid: dict, n_states: int) -> dict:
     n_win = _N_WIN[mode]
     rows = win.shape[0]
     block = grid["nu_hi"].shape[0] // max(rows, 1)
-    lines = win[:, 1::2].sum(axis=1)
-    P = WINDOW_PIECE_LINES
-    if P is None:
-        mean = float(lines.mean()) if rows else 0.0
-        P = int(min(WINDOW_PIECE_MAX,
-                    max(WINDOW_CHUNK, -(-int(np.ceil(2.0 * mean)) // WINDOW_CHUNK) * WINDOW_CHUNK)))
-    table, n_slots = window_schedule(win, n_win, P)
+    mean = float(win[:, 1::2].sum(axis=1).mean()) if rows else 0.0
+    chunks = lambda x: -(-int(np.ceil(x)) // WINDOW_CHUNK) * WINDOW_CHUNK
     tiles = window_tiles(n_states)
-    items = table.shape[0] * tiles
-    warps = -(-block // 32)
+    many = rows * tiles * -(-block // 32) >= _sms(dev) * _RESIDENT_WARPS
+    pts = WINDOW_POINTS or (2 if many and mode in (3, 5) and block % 2 == 0 else 1)
+    tp = block // pts
     G = WINDOW_GROUPS
     if G is None:
-        G = 1
-        while (2 * G <= MAX_GROUPS and 2 * G * block <= 512
-               and items * 2 * G * warps <= _sms(dev) * _RESIDENT_WARPS):
-            G *= 2
+        G = 1 if many else max(1, min(MAX_GROUPS, 512 // tp))
+    P = WINDOW_PIECE_LINES
+    if P is None:
+        P = (min(WINDOW_PIECE_MAX, max(4 * WINDOW_CHUNK, chunks(2.0 * mean))) if many
+             else max(WINDOW_CHUNK, chunks(mean)))
+    table, n_slots = window_schedule(win, n_win, P)
     parts = np.bincount(table[:, 0], minlength=rows)
-    got = grid[key] = dict(piece_lines=P, groups=G, threads=G * block, tiles=tiles,
-                           pieces=int(table.shape[0]), blocks=items, rows=rows,
-                           scratch_row_share=float((parts > 1).mean()) if rows else 0.0,
+    got = grid[key] = dict(piece_lines=P, groups=G, points_per_thread=pts, threads=G * tp,
+                           tiles=tiles,
+                           pieces=int(table.shape[0]), blocks=int(table.shape[0]) * tiles,
+                           rows=rows, scratch_row_share=float((parts > 1).mean()) if rows else 0.0,
                            scratch_slots=n_slots, table=torch.as_tensor(table, device=dev))
     return got
 
@@ -510,9 +516,9 @@ def _library():
                   {m: lib.linesum_windows_per_block(m) for m in _N_WIN},
                   [lib.linesum_state_tiles(n) for n in range(4 * ST)],
                   [lib.linesum_window_tiles(n) for n in range(4 * ST)],
-                  lib.linesum_window_chunk())
+                  {m: lib.linesum_window_chunk(m) for m in _WINDOW_CHUNKS})
         want = (ST, _N_COEF, _N_WIN, [state_tiles(n) for n in range(4 * ST)],
-                [window_tiles(n) for n in range(4 * ST)], WINDOW_CHUNK)
+                [window_tiles(n) for n in range(4 * ST)], _WINDOW_CHUNKS)
         if layout != want:
             raise RuntimeError(f"csrc/linesum.cu packs {layout}, this wrapper {want}")
         fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, ctypes.POINTER(_F),
@@ -523,10 +529,10 @@ def _library():
         info.restype = _I
         wl = lib.window_launch
         wl.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, ctypes.POINTER(_F), _I, _I,
-                       _I, _I, _P, _P, _P, _P]
+                       _I, _I, _I, _P, _P, _P, _P]
         wl.restype = _I
         wi = lib.window_kernel_info
-        wi.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        wi.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
         wi.restype = _I
         full = lib.fullprofile_launch
         full.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
@@ -542,15 +548,18 @@ def _library():
     return lib
 
 
-def kernel_info(mode: int, block: int = 128) -> dict:
+def kernel_info(mode: int, block: int = 128, points: int = 1) -> dict:
     """K1's build of ``mode`` on the card: registers and local (spill)
     bytes a thread, static shared bytes a block, and resident blocks of
     ``block`` threads an SM with the share of the SM's 64 warps they hold
-    (the window modes: ``window_kernel``, ``block`` the plan's threads)."""
+    (the window modes: ``window_kernel`` at ``points`` points a thread,
+    ``block`` the plan's threads)."""
     out = (_I * 4)()
     lib = _library()
-    info = lib.window_kernel_info if mode in _WINDOW_KERNEL_MODES else lib.linesum_kernel_info
-    err = info(mode, block, out)
+    if mode in _WINDOW_KERNEL_MODES:
+        err = lib.window_kernel_info(mode, points, block, out)
+    else:
+        err = lib.linesum_kernel_info(mode, block, out)
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
     return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
@@ -694,8 +703,9 @@ def _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast,
         mode, grid["nu_hi"].data_ptr(), grid["nu_lo"].data_ptr(), lines.nu.data_ptr(),
         lines.nu_lo.data_ptr(), coef.data_ptr(), grid["win"].data_ptr(),
         plan["table"].data_ptr(), plan["pieces"], fast.data_ptr(),
-        None if bcoef is None else bcoef.data_ptr(), zones, block, plan["groups"], n_states,
-        n_out, None if scratch is None else scratch.data_ptr(),
+        None if bcoef is None else bcoef.data_ptr(), zones, block, plan["groups"],
+        plan["points_per_thread"], n_states, n_out,
+        None if scratch is None else scratch.data_ptr(),
         None if counters is None else counters.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

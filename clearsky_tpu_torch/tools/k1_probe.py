@@ -5,9 +5,11 @@ of the port compare inside one run on the card.
 
     python3 clearsky_tpu_torch/tools/k1_probe.py [--step0] [--root TREE]
 
-Each instance is timed with CUDA events (median of 5) and printed as one
-``probe`` line with its window statistics (lines per grid block: max, mean,
-99th percentile, the share in the densest 1% of blocks); each call's
+Each instance is timed with CUDA events (median of 5) and by the profiler
+(its device ms) and printed as one ``probe`` line with a digest of its
+output's bytes (two trees whose digests agree gave the same bits) and its
+window statistics (lines per grid block: max, mean, 99th percentile, the
+share in the densest 1% of blocks); each call's
 ``profile`` line is chip_smoke.py's: wall and device ms a call, device ops,
 each kernel's share and the idle share. ``--root TREE`` imports
 ``clearsky_tpu_torch`` from TREE (another checkout, e.g. the parent commit
@@ -33,7 +35,9 @@ TREE's ``linesum.cu`` cut by text edits (:data:`WINDOW_CUTS`): ``arith``
 and its pipeline, no line summed), and times FINE_STENCIL's ``items``
 (one work item a row: the mid window alone, no scratch); and the SASS of
 each mode's loop bodies (instructions, reciprocals, exponentials) through
-``cuobjdump -sass``. ``--calls`` profiles the entry points that run these
+``cuobjdump -sass`` (the window kernel's whole SASS in ``--out``).
+``--plans`` also times the window kernel under other launch plans (groups,
+piece length, points a thread: :data:`PLAN_VARIANTS`). ``--calls`` profiles the entry points that run these
 modes (chip_smoke.py's ``profile`` lines): the mix's ``radiate``, the auto
 ``outgoing``, the phco2 auto ``outgoing``, an RCM refresh and step, the RCE
 run. Needs one CUDA card.
@@ -42,6 +46,7 @@ run. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import re
 import subprocess
@@ -201,6 +206,12 @@ def k1_probe_cases(seed, dev, step0=False):
     return cases
 
 
+# the profiler's names (chip_smoke._kernel_of) of the cases whose own differ:
+# K1-dev traces as K1's unsharded mode
+_TRACED = {"linesum_dev": "linesum", "linesum_dev_fine": "linesum_fine",
+           "linesum_dev_coarse": "linesum_coarse", "linesum_dev_phco2": "linesum_phco2"}
+
+
 def _fast_kw(lc, mode, S, alpha, gamma, cut, bcoef=None) -> dict:
     """``launch_mode``'s ``fast`` for the pack of (S, alpha, gamma), computed
     before a timed launch; empty for a version of the port whose K1 has no
@@ -318,9 +329,13 @@ def k1_probe(seed, dev, step0, out_dir):
                                               lc._zones(mg.plan.cut), dn, **kw)), {}))
     cs.emit("probe", part="setup", seconds=time.perf_counter() - t0, cases=len(cases))
     for name, launch, stats in cases:
-        launch()
+        out = launch()
         torch.cuda.synchronize()
-        cs.emit("probe", kernel=name, ms=cs.cuda_ms(launch, n=5), **stats)
+        digest = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        del out
+        traced = None if "@" in name else cs.kernel_device_ms(launch, _TRACED.get(name, name))
+        cs.emit("probe", kernel=name, ms=cs.cuda_ms(launch, n=5), device_ms=traced,
+                digest=digest, **stats)
         del launch
     Pe = ct.pressuregrid(cs.PT, cs.PS, cs.N_LEVELS)
     Te = cs.column(Pe)
@@ -372,14 +387,13 @@ __device__ __forceinline__ float4 probe_quad(int j, int s) {
             : make_float4(1e4f * f, 0.4999f, 2e-4f * f, 1e-20f * f);
 }
 """
-_PR12_LINE = ("// One line's region-1 terms of the NS states of the tile at this thread's\n",
-              _QUAD12 + "// One line's region-1 terms of the NS states of the tile at this thread's\n")
+_PR12_LINE = ("// One (line, state)'s region-1 term at one point, added into acc: D =\n",
+              _QUAD12 + "// One (line, state)'s region-1 term at one point, added into acc: D =\n")
 _PR12_STAGE_QUADS = ("      cp_async16(&sm.c[buf][i],\n                 it.coef + (size_t)it.line(c0 + j) "
                      "* it.n_states + it.s0 + (i - j * NS));\n", "      (void)j;\n")
-_PR12_READ_QUADS = ("      region1_line<NS, PH, FAST, NW == 3>(&sm.c[buf][j * NS], D, wt, q, sm.B, acc);\n",
-                    "      float4 cq[NS];\n#pragma unroll\n"
-                    "      for (int s = 0; s < NS; ++s) cq[s] = probe_quad<PH>(j, s);\n"
-                    "      region1_line<NS, PH, FAST, NW == 3>(cq, D, wt, q, sm.B, acc);\n")
+_PR12_READ_QUADS = ("      const float4* c = &sm.c[buf][j * NS];\n",
+                    "      float4 c[NS];\n#pragma unroll\n"
+                    "      for (int s = 0; s < NS; ++s) c[s] = probe_quad<PH>(j, s);\n")
 _PR12_LOOP = ("    for (int j = g * per; j < j1; ++j) {\n",
               "    for (int j = g * per; j < j1 && j1 < 0; ++j) {\n")
 WINDOW_CUTS = {"pr8": {"none": [], "arith": [_PR8_SWEEP, _PR8_STAGE_QUADS, _PR8_READ_QUADS],
@@ -391,7 +405,7 @@ WINDOW_CUTS = {"pr8": {"none": [], "arith": [_PR8_SWEEP, _PR8_STAGE_QUADS, _PR8_
 def window_design(src: str) -> str:
     """The design of TREE's window modes: "pr8" (PR 8's work items, every
     mode through ``sweep``) or "pr12" (``window_kernel``)."""
-    if "void window_sweep(" in src:
+    if "void window_sweep(int o, int cnt, int g, int G," in src:
         return "pr12"
     if "void sweep(int start, int cnt, const Item& it" in src:
         return "pr8"
@@ -501,6 +515,17 @@ def build_window_cuts(root: str, out_dir: str):
         if os.path.isfile(dump):
             d = subprocess.run([dump, "-sass", so], capture_output=True, text=True, timeout=600)
             loops = sass_loops(d.stdout) if d.returncode == 0 else {}
+            if cut == "none" and d.returncode == 0:
+                # the window modes' SASS, for reading their loops
+                keep, on = [], False
+                for line in d.stdout.splitlines():
+                    m = re.search(r"Function : (\S+)", line)
+                    if m:
+                        on = "window_kernel" in m.group(1)
+                    if on:
+                        keep.append(line)
+                with open(os.path.join(out_dir, "sass_window.txt"), "w") as f:
+                    f.write("\n".join(keep))
         libs[cut] = (ctypes.CDLL(so), _ptxas_by_mode(err), loops)
     return libs
 
@@ -580,9 +605,16 @@ def _items(lc, mode: int, grid: dict, n_states: int) -> dict:
                 rows=int(parts.size), scratch_row_share=float((parts > 1).mean()))
 
 
-def window_probe(seed, dev, cuts: bool, out_dir: str):
-    """Each window case alone, whole (and with ``cuts`` cut), one ``probe``
-    line each."""
+# launch plans tried by --plans: (groups, piece lines, points a thread),
+# None for the plan's own choice
+PLAN_VARIANTS = {"few": [(g, p, t) for g in (2, 4) for p in (128, None) for t in (1, 2)],
+                 "many": [(1, p, t) for p in (256, None) for t in (1, 2)]}
+
+
+def window_probe(seed, dev, cuts: bool, out_dir: str, plans: bool = False):
+    """Each window case alone, whole (and with ``cuts`` cut; with ``plans``
+    under the launch plans of :data:`PLAN_VARIANTS`, where the tree has a
+    plan), one ``probe`` line each."""
     import clearsky_tpu_torch as ct
     from clearsky_tpu_torch.ops import linesum_cuda as lc
     from clearsky_tpu_torch.utils import cuda_build
@@ -597,6 +629,22 @@ def window_probe(seed, dev, cuts: bool, out_dir: str):
     cs.emit("probe", part="cuts", seconds=time.perf_counter() - t0, cuts=list(libs))
     launches = window_launches(seed, dev)
     real_launch = lc.launch_mode
+    if plans and hasattr(lc, "window_plan"):
+        for case, (a, k) in launches.items():
+            mode, name = WINDOW_CASES[case]
+            grid, n_states = a[1], a[4]
+            few = lc.window_plan(mode, grid, n_states)["groups"] > 1
+            for g, p, t in PLAN_VARIANTS["few" if few else "many"]:
+                lc.WINDOW_GROUPS, lc.WINDOW_PIECE_LINES, lc.WINDOW_POINTS = g, p, t
+                try:
+                    fn = lambda a=a, k=k: real_launch(*a, **k)
+                    fn()
+                    torch.cuda.synchronize()
+                    cs.emit("probe", kernel=name, case=case, cut="plan",
+                            device_ms=cs.kernel_device_ms(fn, name),
+                            **_items(lc, mode, grid, n_states))
+                finally:
+                    lc.WINDOW_GROUPS = lc.WINDOW_PIECE_LINES = lc.WINDOW_POINTS = None
     default = cuda_build.load_library("linesum")
     for cut in ["none"] + [c for c in libs if c != "none"]:
         lib, ptx, loops = libs.get(cut, (default, {}, {}))
@@ -609,7 +657,9 @@ def window_probe(seed, dev, cuts: bool, out_dir: str):
                 torch.cuda.synchronize()
                 grid, n_states = a[1], a[4]
                 items = _items(lc, mode, grid, n_states)
-                info = lc.kernel_info(mode, items["threads"])
+                pts = items.get("points_per_thread")
+                info = (lc.kernel_info(mode, items["threads"], pts) if pts
+                        else lc.kernel_info(mode, items["threads"]))
                 w = grid["win"].cpu().numpy()[:, 1::2].sum(axis=1)
                 cs.emit("probe", kernel=name, case=case, cut=cut, states=n_states,
                         points=a[5], lines=a[2].n_lines, ms=cs.cuda_ms(fn),
@@ -666,6 +716,8 @@ def main(argv=None) -> int:
     ap.add_argument("--window", action="store_true",
                     help="the region-1 window modes where the main path runs them")
     ap.add_argument("--cuts", action="store_true", help="with --window: also the cut builds")
+    ap.add_argument("--plans", action="store_true",
+                    help="with --window: also other launch plans of the window kernel")
     ap.add_argument("--calls", action="store_true",
                     help="profile the entry-point calls that run the window modes")
     args = ap.parse_args(argv)
@@ -687,7 +739,7 @@ def main(argv=None) -> int:
         cs.phase_profile(calls)
     elif args.window:
         window_probe(args.seed, dev, args.cuts,
-                     os.path.join(args.out, "root" if args.root else "self"))
+                     os.path.join(args.out, "root" if args.root else "self"), args.plans)
     else:
         k1_probe(args.seed, dev, args.step0, args.out)
     return 0

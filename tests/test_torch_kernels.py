@@ -854,9 +854,11 @@ def crowded():
 def _crowded_launch(kind, lines, plan, cuda, n, out=None):
     """One K1 launch over the crowded grid, float32 on the card, with its
     float64 plain version: the split mode (with ``out``: adding into it),
-    COARSE (voigt, phco2) on the same blocks at a split of d_far = 1 cm^-1,
-    and K1-dev (the grid as two shards of the same lines). The launch cuts
-    the windows into pieces of ``linesum_cuda.PIECE_LINES`` as it stands
+    COARSE (voigt, phco2) and FINE_STENCIL on the same blocks at a split of
+    d_far = 1 cm^-1, FARALL (voigt, phco2) over the plan's windows, and
+    K1-dev (the grid as two shards of the same lines). The launch cuts
+    the windows into pieces of ``linesum_cuda.PIECE_LINES`` (the window
+    modes: as ``linesum_cuda.window_plan`` lays them out) as it stands
     when it runs."""
     l32 = lines.to(torch.float32, cuda)
     x = _mode_states(n)
@@ -890,8 +892,31 @@ def _crowded_launch(kind, lines, plan, cuda, n, out=None):
         return (lambda: linesum_cuda.launch_mode(0, grid, l32, coef, n, plan.n_nu,
                                                  linesum_cuda._zones(plan.cut), d_near, out=out,
                                                  fast=fast), ref)
+    if kind.startswith("farall"):
+        shape = "phco2" if kind == "farall_phco2" else "voigt"
+        m = linesum_cuda.window_mode("farall", shape)
+        bcoef = linesum_cuda.chi_rates(T) if shape == "phco2" else None
+        coef, fast = linesum_cuda._packed(m, S, a, g, 1, plan.cut, bcoef)
+        co64 = voigt_coefficients(*_line_params(lines, *x64))
+        ref = ls.sigma_mode_plain("farall", plan.nu_blocks, plan.windows(), lines, co64,
+                                  {"cut": plan.cut},
+                                  T=x64[0] if shape == "phco2" else None)[:, :plan.n_nu]
+        return (lambda: linesum_cuda.launch_mode(m, grid, l32, coef, n, plan.n_nu,
+                                                 linesum_cuda._zones(plan.cut), bcoef=bcoef,
+                                                 fast=fast), ref)
     cut = 25.0
     z = ls.split_zones(cut, 1.0, 0.1)
+    if kind == "fine_stencil":
+        coef, fast = linesum_cuda._packed(5, S, a, g, 1, cut)
+        co64 = voigt_coefficients(*_line_params(lines, *x64))
+        windows, _ = ls.split_windows(lines.positions64(), plan.nu_blocks, plan.nu_blocks, cut,
+                                      1.0, 0.1)
+        grid = {"nu_hi": grid["nu_hi"], "nu_lo": grid["nu_lo"],
+                "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
+        ref = ls.sigma_mode_plain("fine_stencil", plan.nu_blocks, windows, lines, co64,
+                                  z)[:, :plan.n_nu]
+        return (lambda: linesum_cuda.launch_mode(5, grid, l32, coef, n, plan.n_nu,
+                                                 linesum_cuda._zones(**z), fast=fast), ref)
     m = linesum_cuda.window_mode("coarse", shape)
     bcoef = linesum_cuda.chi_rates(T) if shape == "phco2" else None
     coef, fast = linesum_cuda._packed(m, S, a, g, 1, cut, bcoef)
@@ -907,11 +932,13 @@ def _crowded_launch(kind, lines, plan, cuda, n, out=None):
             ref)
 
 
-_CROWDED = ["split", "acc", "coarse", "coarse_phco2", "dev"]
+_CROWDED = ["split", "acc", "coarse", "coarse_phco2", "dev", "farall", "farall_phco2",
+            "fine_stencil"]
+_WINDOW_KINDS = ["farall", "farall_phco2", "fine_stencil"]
 
 
 def _crowded_check(kind, out, ref):
-    if kind.startswith("coarse"):
+    if kind.startswith(("coarse", "farall", "fine_stencil")):
         assert bool(torch.isfinite(out).all()) and _of_peak(out, ref) < 1e-5
     else:
         _check_sigma(out, ref)
@@ -966,11 +993,38 @@ def test_k1_many_pieces_equal_one_piece(crowded, cuda, kind, piece_lines, monkey
     lines, plan = crowded
     launch, ref = _crowded_launch(kind, lines, plan, cuda, 11)
     monkeypatch.setattr(linesum_cuda, "PIECE_LINES", piece_lines)
+    monkeypatch.setattr(linesum_cuda, "WINDOW_PIECE_LINES", piece_lines)
     a = launch().clone()
     monkeypatch.setattr(linesum_cuda, "PIECE_LINES", 10**6)
+    monkeypatch.setattr(linesum_cuda, "WINDOW_PIECE_LINES", 10**6)
     b = launch()
     torch.cuda.synchronize()
     _check_sigma(a, b.double().cpu())
+    _crowded_check(kind, a, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", _WINDOW_KINDS)
+@pytest.mark.parametrize("groups,points", [(1, 2), (2, 1), (2, 2), (4, 2)])
+def test_window_groups_equal_one_group(crowded, cuda, kind, groups, points, monkeypatch):
+    """The window kernel's thread groups (each summing its part of every
+    chunk, the groups' sums added in group order) and points a thread
+    against one group of one point a thread: the same bits with one group
+    (a point's terms in the same order), else within float32 reordering
+    (1e-6 of each state's peak); both against the plain version."""
+    lines, plan = crowded
+    launch, ref = _crowded_launch(kind, lines, plan, cuda, 11)
+    monkeypatch.setattr(linesum_cuda, "WINDOW_GROUPS", groups)
+    monkeypatch.setattr(linesum_cuda, "WINDOW_POINTS", points)
+    a = launch().clone()
+    assert torch.equal(launch(), a)
+    monkeypatch.setattr(linesum_cuda, "WINDOW_GROUPS", 1)
+    monkeypatch.setattr(linesum_cuda, "WINDOW_POINTS", 1)
+    b = launch()
+    torch.cuda.synchronize()
+    if groups == 1:
+        assert torch.equal(a, b)
+    assert _of_peak(a, b.double().cpu()) < 1e-6
     _crowded_check(kind, a, ref)
 
 

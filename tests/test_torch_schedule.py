@@ -144,12 +144,28 @@ def test_piece_sums_match_plain_and_jax(cat, shape, P_lines):
     np.testing.assert_allclose(got.numpy()[m], jref[m], rtol=1e-9)
 
 
-def test_state_tiles_cover_the_states():
-    """K1's tiles: n // 8 of 8, then one of 4, 2, 1 per bit of the rest."""
+@pytest.mark.parametrize("kind", ["k1", "window"])
+def test_state_tiles_cover_the_states(kind):
+    """K1's tiles: n // 8 of 8, then one of 4, 2, 1 per bit of the rest; the
+    window modes' balanced tiles: ceil(n / 8) of n // T or n // T + 1 states
+    in tile order, so that no tile repeats the pair work for a state or two
+    (57 = 8 + 7 x 7, 38 = 3 x 8 + 2 x 7)."""
+    if kind == "k1":
+        for n in range(0, 70):
+            sizes = [8] * (n // 8) + [w for w in (4, 2, 1) if n % 8 & w]
+            assert linesum_cuda.state_tiles(n) == len(sizes) and sum(sizes) == n
+        assert linesum_cuda.state_tiles(57) == 8 and linesum_cuda.state_tiles(38) == 6
+        return
     for n in range(0, 70):
-        sizes = [8] * (n // 8) + [w for w in (4, 2, 1) if n % 8 & w]
-        assert linesum_cuda.state_tiles(n) == len(sizes) and sum(sizes) == n
-    assert linesum_cuda.state_tiles(57) == 8 and linesum_cuda.state_tiles(38) == 6
+        sizes = linesum_cuda.window_tile_sizes(n)
+        assert len(sizes) == linesum_cuda.window_tiles(n) == -(-n // 8) and sum(sizes) == n
+        if n:
+            assert max(sizes) <= 8 and max(sizes) - min(sizes) <= 1
+            assert sizes == sorted(sizes, reverse=True)
+        if n >= 8:
+            assert min(sizes) >= 4
+    assert linesum_cuda.window_tile_sizes(57) == [8] + [7] * 7
+    assert linesum_cuda.window_tile_sizes(38) == [8, 8, 8, 7, 7]
 
 
 # --- the pack: the tiled layout against the line-major one ---------------------
@@ -283,3 +299,252 @@ def test_far_reciprocal_bound_holds_the_denominators(cat, shape):
     assert linesum_cuda.far_reciprocal_ok(mode, two, 2, cut, bcoef).tolist() == [0, 1]
     # a mode with no far wing gives no flag
     assert linesum_cuda.far_reciprocal_ok(12, co32, 1, cut).tolist() == [0]
+
+
+# --- the window modes (FARALL, FINE_STENCIL): work items and arithmetic ----------
+
+def _stream(w_row, n_win):
+    """A row's lines as window_kernel streams them: window by window, each in
+    line order (the order of JAX's sweeps: the mid window, then the annuli)."""
+    return [line for k in range(n_win)
+            for line in range(w_row[2 * k], w_row[2 * k] + w_row[2 * k + 1])]
+
+
+def _stream_line(w_row, n_win, i):
+    """csrc/linesum.cu ``WindowItem::line``: the catalog index of the
+    stream's line i, from the windows' starts and running ends."""
+    end = np.cumsum(w_row[1::2][:n_win])
+    for k in range(n_win):
+        if i < end[k]:
+            return int(w_row[2 * k] + i - (end[k - 1] if k else 0))
+    raise IndexError(i)
+
+
+@pytest.mark.parametrize("P_lines", [1, 7, 64, 256])
+def test_window_pieces_cover_each_row_once(cat, P_lines):
+    """window_kernel's work items: each row's windows as one stream (the mid
+    window, then both annuli, each in line order), cut into pieces of at
+    most P lines numbered in stream order, every stream line in exactly one
+    piece; pieces listed largest first; rows of several pieces own disjoint
+    scratch slots; a row without lines one empty piece."""
+    for name, win, n_win in _tables(cat):
+        w = np.asarray(win, np.int64).reshape(-1, 2 * n_win)
+        table, n_slots = linesum_cuda.window_schedule(w, n_win, P_lines)
+        row, win_col, start, count, part, n_parts, slot, zero = table.T.astype(np.int64)
+        assert table.dtype == np.int32 and not zero.any() and not win_col.any(), name
+        assert count.max() <= P_lines and count.min() >= 0, name
+        assert np.all(np.diff(count) <= 0), name
+        total = w[:, 1::2].sum(axis=1)
+        per_row = np.bincount(row, minlength=w.shape[0])
+        assert np.all(per_row == np.maximum(1, -(-total // P_lines))), name
+        assert np.all(n_parts == per_row[row]), name
+        for r in range(w.shape[0]):
+            m = np.flatnonzero(row == r)
+            m = m[np.argsort(part[m])]
+            np.testing.assert_array_equal(part[m], np.arange(m.size))
+            covered = np.concatenate([np.arange(a, a + c) for a, c in zip(start[m], count[m])])
+            np.testing.assert_array_equal(covered, np.arange(total[r]))
+            if r % 7 == 0:       # the stream's mapping, as the kernel computes it
+                assert [_stream_line(w[r], n_win, i) for i in range(total[r])] == \
+                    _stream(w[r], n_win)
+        owned = per_row[row] > 1
+        slots = slot[owned] + part[owned]
+        assert len(set(slots.tolist())) == owned.sum(), name
+        assert n_slots == 0 or slots.max() < n_slots, name
+
+
+def _f(x):
+    """float64 arithmetic rounded once to float32: a fused multiply-add."""
+    return x.float()
+
+
+def _emulate_window(mode, shape, blocks64, windows, lines, coef, z, T, P_lines, G):
+    """csrc/linesum.cu ``window_kernel`` in float32 on its pack and window
+    table: per row, each piece's lines streamed in the mode's chunks,
+    group g summing lines [g per, (g + 1) per) of each chunk in order, the
+    groups' sums added in group order, a row's pieces in piece order; per
+    triple the kernel's algebra, each fmaf one rounding (the reciprocal
+    exact in float32 where the kernel's rcp.approx is within 1 ulp)."""
+    from clearsky_tpu_torch.ops.linesum import two_float
+
+    hi, lo = (torch.as_tensor(x) for x in two_float(blocks64))
+    n_rows, B = hi.shape
+    n_win = windows.shape[1] // 2
+    n = coef.shape[1]
+    ph = shape == "phco2"
+    if ph:
+        LOG2E = np.float32(1.4426950408889634)
+        rates = linesum_cuda.chi_rates(T).permute(1, 0, 2).reshape(2, -1)[:, :n]
+        b1, b2 = (rates[i][:, None] * torch.tensor(LOG2E) for i in (0, 1))
+    table, _ = linesum_cuda.window_schedule(windows, n_win, P_lines)
+    table = table[np.lexsort((table[:, 4], table[:, 0]))].astype(np.int64)
+    ch = linesum_cuda._WINDOW_CHUNKS[linesum_cuda.window_mode(mode, shape)]
+    per = -(-ch // G)
+    out = torch.zeros((n, n_rows * B), dtype=torch.float32)
+    for r in range(n_rows):
+        w = windows[r]
+        end0 = w[1]
+        tot = None
+        for _, _, o, cnt, *_ in table[table[:, 0] == r]:
+            sums = torch.zeros((G, n, B), dtype=torch.float32)
+            for k in range(-(-cnt // ch)):
+                n_k = min(ch, cnt - k * ch)
+                for g in range(G):
+                    for j in range(g * per, min(n_k, (g + 1) * per)):
+                        ci = o + k * ch + j
+                        line = _stream_line(w, n_win, ci)
+                        dnu = (hi[r] - lines.nu[line]) + (lo[r] - lines.nu_lo[line])
+                        adnu, D = dnu.abs(), dnu * dnu
+                        wt = torch.ones_like(D)
+                        if mode == "fine_stencil" and ci < end0:
+                            mask = adnu <= z["cut_f"]
+                            wt = 1.0 - _smooth32(D, z["D1"], z["D2"])
+                        elif mode == "fine_stencil":
+                            mask = (adnu <= z["cut"]) & (D > z["R1"])
+                            wt = _smooth32(D, z["R1"], z["R2"])
+                        else:
+                            mask = adnu <= z["cut"]
+                        c = coef[line]                       # [n, 4]
+                        D64, wt64 = D.double()[None], wt.double()[None]
+                        if ph:
+                            u, v, ww = _chi_arg2(adnu)
+                            e = _f(b1.double() * u.double()
+                                   + _f(b2.double() * v.double() + ww.double()).double())
+                            chi = torch.exp2(-e)
+                            y = c[:, 1:2] * chi
+                            y2 = y * y
+                            wq = _f(-D64 * c[:, 2:3].double() + (0.5 - y2).double())
+                            den = _f(wq.double() ** 2 + (y2 + y2).double())
+                            cy = ((c[:, 0:1] * wt[None]) if mode == "fine_stencil"
+                                  else c[:, 0:1]) * y
+                        else:
+                            wq = _f(-D64 * c[:, 0:1].double() + c[:, 1:2].double())
+                            den = _f(wq.double() ** 2 + c[:, 2:3].double())
+                            cy = (c[:, 3:4] * wt[None]) if mode == "fine_stencil" else \
+                                c[:, 3:4].expand_as(den)
+                        num = _f(-cy.double() * wq.double() + cy.double())
+                        r_ = 1.0 / den
+                        new = _f(num.double() * r_.double() + sums[g].double())
+                        sums[g] = torch.where(mask[None], new, sums[g])
+            acc = sums[0]
+            for g in range(1, G):
+                acc = acc + sums[g]
+            tot = acc if tot is None else tot + acc
+        out[:, r * B:(r + 1) * B] = tot
+    return out
+
+
+def _smooth32(D, A1, A2):
+    """csrc/linesum.cu ``smooth_d2`` in float32, its inverse width rounded
+    from float64 as the launch's ``Zones`` holds it."""
+    inv = torch.tensor(1.0 / (A2 - A1), dtype=torch.float32)
+    w = torch.clamp((D - torch.tensor(A1, dtype=torch.float32)) * inv, 0.0, 1.0)
+    return w * w * w * (10.0 + w * (-15.0 + 6.0 * w))
+
+
+def _chi_arg2(a):
+    """csrc/linesum.cu ``chi_arg2`` in float32: the piece's (u, v, w') of
+    chi = 2^-(B1' u + B2' v + w')."""
+    z = torch.zeros_like(a)
+    u = torch.where(a < 3.0, z, torch.where(a < 30.0, a - 3.0, torch.full_like(a, 27.0)))
+    v = torch.where(a < 30.0, z, torch.where(a < 120.0, a - 30.0, torch.full_like(a, 90.0)))
+    w = torch.where(a < 120.0, z, np.float32(0.0232 * 1.4426950408889634) * (a - 120.0))
+    return u, v, w
+
+
+@pytest.fixture(scope="module")
+def window_cases():
+    """Per (mode, shape): the window mode's grid, windows, zones and states
+    on a 300-line catalog, with the float32 plain route's other parts and
+    JAX's float32 route (interpret mode): FARALL in the stencil route on
+    610-780 cm^-1 at 512 points, FINE_STENCIL in the coarse route with its
+    stencil fine pass on 2300-2350 cm^-1 at 8192 points."""
+    from clearsky_tpu.ops import linesum_pallas as jp
+    from clearsky_tpu_torch.ops.linesum import DEFAULT_CUT
+
+    par = synthetic_co2_par(300, seed=7)
+    jl = JLines.from_par_dict(par)
+    tl = convert.spectral_lines(jl, dtype=torch.float64, device="cpu")
+    t32 = tl.to(torch.float32)
+    Tn, Pn = np.array([200.0, 260.0, 300.0]), np.array([10.0, 3e3, 9e4])
+    x32 = [torch.tensor(x, dtype=torch.float32) for x in (Tn, Pn, 0.5 * Pn)]
+    x64 = [x.double() for x in x32]
+    out = {}
+    for mode, nu in (("farall", np.linspace(610.0, 780.0, 512)),
+                     ("fine_stencil", np.linspace(2300.0, 2350.0, 8192))):
+        for shape in ("voigt", "phco2"):
+            cut = DEFAULT_CUT[shape]
+            jpl = jplan(nu, np.asarray(jl.nu), cut)
+            tpl = build_line_window_plan(nu, tl.positions64(), cut)
+            _, co32 = ls.coefficients(t32, *x32, shape=shape)
+            _, co64 = ls.coefficients(tl, *x64, shape=shape)
+            Tc = ls.chi_T(shape, x32[0])
+            Tc64 = ls.chi_T(shape, x64[0])
+            strategy = "stencil" if mode == "farall" else "coarse"
+            jref = np.asarray(jp.sigma_from_lines_pallas(
+                jpl, jl, jnp.asarray(Tn), jnp.asarray(Pn), jnp.asarray(0.5 * Pn), shape,
+                interpret=True, strategy=strategy))
+            if mode == "farall":
+                assert ls.route(tpl, tl, shape, "stencil", 3) == "stencil"
+                blocks, windows, z = tpl.nu_blocks, tpl.windows(), {"cut": tpl.cut}
+                route32 = ls.sigma_stencil_plain(tpl, t32, *x32, shape=shape)
+            else:
+                params = ls._resolve(tpl, tl, shape, "coarse", 3)[1]
+                geom = ls.coarse_geometry(tpl, tl, params)
+                assert geom.stencil is not None
+                blocks, windows, z = geom.fine_blocks, geom.fine_windows, geom.zones
+                route32 = ls.sigma_coarse_plain(tpl, t32, *x32, params, shape=shape)
+            part32 = ls.sigma_mode_plain(mode, blocks, windows, t32, co32, z, T=Tc)
+            ref64 = ls.sigma_mode_plain(mode, blocks, windows, tl, co64, z, T=Tc64)
+            m = linesum_cuda.window_mode(mode, shape)
+            coef = linesum_cuda._pack(m, co32)
+            out[mode, shape] = dict(blocks=blocks, windows=np.asarray(windows, np.int64), z=z,
+                                    lines=t32, T=x32[0], coef=coef, jref=jref,
+                                    rest32=(route32 - part32[:, :tpl.n_nu]).double(),
+                                    ref64=ref64, n_nu=tpl.n_nu, m=m)
+    return out
+
+
+@pytest.mark.parametrize("P_lines,G", [(None, None), (7, 4), (64, 2)])
+@pytest.mark.parametrize("shape", ["voigt", "phco2"])
+@pytest.mark.parametrize("mode", ["farall", "fine_stencil"])
+def test_window_kernel_sums_match_plain_and_jax(window_cases, mode, shape, P_lines, G):
+    """The window kernel's arithmetic and order (pack (A, 1/2 - y0^2, 2 y0^2,
+    k2) or (0.5641896 Sia, y0, A, 0), region 1 as k2 (1 - w) / (w^2 + 2
+    y^2), pieces and groups as the plan lays them out, or as given) in a
+    float32 emulation: against its plain version in float64 (1e-5 of each
+    state's peak, the windowed modes' bar), and, its part swapped into the
+    float32 plain route, against JAX's float32 route (1e-5 of peak, the
+    bar of the plain routes against JAX's)."""
+    c = window_cases[mode, shape]
+    n = c["coef"].shape[1]
+    if P_lines is None:
+        win = c["windows"]
+        B = c["blocks"].shape[1]
+        grid = {"nu_hi": torch.zeros(win.shape[0] * B), "nu_lo": torch.zeros(win.shape[0] * B),
+                "win": torch.as_tensor(win, dtype=torch.int32), "win_host": win}
+        plan = linesum_cuda.window_plan(c["m"], grid, n)
+        P_lines, G = plan["piece_lines"], plan["groups"]
+    got = _emulate_window(mode, shape, c["blocks"], c["windows"], c["lines"], c["coef"],
+                          c["z"], c["T"], P_lines, G)
+    assert bool(torch.isfinite(got).all())
+    ref = c["ref64"]
+    pk = ref.abs().amax(dim=1, keepdim=True)
+    assert float(((got.double() - ref).abs() / pk).max()) < 1e-5
+    route = (got[:, :c["n_nu"]].double() + c["rest32"]).numpy()
+    jref = c["jref"]
+    assert float((np.abs(route - jref) / np.abs(jref).max(axis=1, keepdims=True)).max()) < 1e-5
+
+
+@pytest.mark.parametrize("cut", ["none", "arith", "stage"])
+def test_probe_cuts_apply_to_the_window_kernel(cut):
+    """tools/k1_probe.py's cuts of the window modes find their text in
+    csrc/linesum.cu exactly once (a changed source cannot give a silent
+    uncut copy), and ``arith`` and ``stage`` change it."""
+    from clearsky_tpu_torch.tools import k1_probe
+    from clearsky_tpu_torch.utils.cuda_build import CSRC
+
+    src = (CSRC / "linesum.cu").read_text()
+    assert k1_probe.window_design(src) == "pr12"
+    out = k1_probe.window_cut_source(src, cut)
+    assert (out == src) == (cut == "none")

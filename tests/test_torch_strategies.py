@@ -503,6 +503,54 @@ def test_kernel_pack_reproduces_plain_modes(plans, mode):
     assert float(((got - ref).abs() / pk).max()) <= 1e-12
 
 
+@pytest.mark.parametrize("case", ["rcm_16384", "rce_16384_phco2", "main_2e19"])
+def test_window_plan_fills_the_card(plans, big, case):
+    """window_kernel's launch plan at the main path's shapes (chip_smoke's
+    catalog): FARALL at the RCM's 20 states x 16,384 points, phco2's
+    FINE_STENCIL at the RCE's (20 x 16,384, cut 500) and FINE_STENCIL at 57
+    x 2^19. Blocks of at most 512 threads (G groups of a row's points). At
+    16,384 points (128 rows) four groups of a point a thread, pieces of
+    about the mean lines a row, and at least a full wave of the H100's 132
+    SMs x 32 resident warps; at 2^19 one group of two points a thread (the
+    voigt modes), pieces of up to twice the mean (256 at least), so that a
+    dense row is cut and no item holds far more than the others."""
+    _, tpl, _, tl = plans["main_2e19" if case == "main_2e19" else "rcm_16384"]
+    if case == "rce_16384_phco2":
+        pos = tl.positions64()
+        nu = np.linspace(max(pos.min() - 500.0, 1.0), pos.max() + 500.0, 16384)
+        tpl = build_line_window_plan(nu, pos, 500.0)
+    if case == "rcm_16384":
+        blocks, win, mode, n = tpl.nu_blocks, tpl.windows(), 3, 20
+    else:
+        shape = "phco2" if case == "rce_16384_phco2" else "voigt"
+        n = 20 if shape == "phco2" else 57
+        name, params = ls._resolve(tpl, tl, shape, "auto", n)
+        assert name == "coarse"
+        geom = ls.coarse_geometry(tpl, tl, params)
+        assert geom.stencil is not None
+        blocks, win = geom.fine_blocks, geom.fine_windows
+        mode = linesum_cuda.window_mode("fine_stencil", shape)
+    B = blocks.shape[1]
+    grid = {"nu_hi": torch.zeros(blocks.size), "nu_lo": torch.zeros(blocks.size),
+            "win": torch.as_tensor(win, dtype=torch.int32), "win_host": win}
+    plan = linesum_cuda.window_plan(mode, grid, n)
+    pts = plan["points_per_thread"]
+    assert plan["groups"] in (1, 2, 4) and pts == (2 if case == "main_2e19" else 1)
+    assert plan["threads"] == plan["groups"] * B // pts <= 512
+    assert plan["tiles"] == -(-n // 8) and plan["blocks"] == plan["pieces"] * plan["tiles"]
+    warps = plan["blocks"] * plan["threads"] // 32
+    mean = np.asarray(win, np.int64)[:, 1::2].sum(axis=1).mean()
+    chunk = linesum_cuda.WINDOW_CHUNK
+    if case == "main_2e19":
+        assert plan["groups"] == 1 and plan["blocks"] >= 132 * 16
+        assert plan["piece_lines"] <= max(4 * chunk, 2 * mean + chunk)
+    else:
+        assert plan["groups"] == 4
+        assert plan["piece_lines"] <= mean + chunk and warps >= 132 * 32
+    # the plan is cached with the grid, keyed by what it depends on
+    assert linesum_cuda.window_plan(mode, grid, n) is plan
+
+
 # --- the gas, convert, and the device defaults -------------------------------
 
 @pytest.mark.parametrize("strategy", ["auto", "grouped", "stencil", "coarse"])
