@@ -1780,10 +1780,10 @@ def kernel_farall_mix(mix, dev, report):
     got, valid = sampled(out, idx, plan.block, plan.n_nu)
     del out
     x64 = [x.double() for x in (T, P, Pp)]
-    co64 = voigt_coefficients(*_line_params(lines.to(torch.float64), *x64,
-                                            None if conc is None else conc.double()))
+    l64 = lines.to(torch.float64)
+    co64 = voigt_coefficients(*_line_params(l64, *x64, None if conc is None else conc.double()))
     blocks, windows = plan.nu_blocks[idx], plan.windows()[idx]
-    ref = ls.sigma_mode_plain("farall", blocks, windows, lines.to(torch.float64), co64, z)
+    ref = ls.sigma_mode_plain("farall", blocks, windows, l64, co64, z)
     err = float(((got.double() - ref).abs()[:, valid]
                  / ref[:, valid].abs().amax(dim=1, keepdim=True)).max())
     max_abs = float((got.double() - ref).abs()[:, valid].max())

@@ -457,6 +457,7 @@ struct Item {
   int s0, n_states;
   const float* line_hi;
   const float* line_lo;
+  const float* line_amin;
   const float4* coef;
 };
 
@@ -724,8 +725,9 @@ linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
 // beside that correction: region 1 weighted 1 - W over |dnu| <= cut_f, and
 // the two annuli at the cut weighted by the outer roll), voigt and phco2
 // (wmodes farall :451 and fine_stencil :459 of _kernel_resident_grouped),
-// have a kernel of their own, window_kernel. Measured on one H100 in PR 8's
-// sweep above (PERF.md, PR 12's step 0), they lost their time three ways:
+// have a kernel of their own, window_kernel. Measured on one H100 in the
+// sweep above (PERF.md, the window modes' step 0), they lost their time
+// three ways:
 //   * issued instructions: a (point, line, state) triple took ~12 (the
 //     quad's LDS.128, six FP32 operations for (num, den), the pole's clamp,
 //     MUFU.RCP, two Newton FFMAs, the sum), ~30 for phco2; at the mix's 38 x
@@ -742,15 +744,28 @@ linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
 //       y^2 is w^2 + 2 y^2 and the numerator's 1/2 + y^2 + x^2 is 1 - w, so
 //       voigt's pack (A, h, g, k2) = (ia^2, 1/2 - y0^2, 2 y0^2, S gamma A /
 //       pi) gives w = fma(-D, A, h), den = fma(w, w, g), num = fma(-k2, w,
-//       k2); phco2's (c, y0, A, 0), c = 0.5641896 Sia, the same on y = y0 chi
-//       with chi's exp2 taken as ex2.approx, the approximation exp2f takes,
-//       without the subnormal handling no chi (a normal float) needs. Where the wrapper's flag shows
-//       every denominator in [2^-120, 2^120] the reciprocal is one
-//       rcp.approx (<= 1 ulp, no Newton step); den >= 2 y^2 needs no clamp,
-//       and the pack gives a line of zero strength den = 1 and num = 0;
+//       k2); phco2's (c, y0, A, 0), c = 0.5641896 Sia, the same on y = y0
+//       chi, with chi's exp2 taken as ex2.approx (the approximation exp2f
+//       takes, without the subnormal handling no chi, a normal float,
+//       needs). Where the wrapper's flag shows every denominator in
+//       [2^-120, 2^120] the reciprocal is one rcp.approx (<= 1 ulp, no
+//       Newton step); den >= 2 y^2 needs no clamp, and the pack gives a line
+//       of zero strength den = 1 and num = 0. Where all of a thread's points
+//       allow it, a line takes a shorter form of the same values: phco2's
+//       chi as 2^-(B1 u) within 30 cm^-1 and as 1 within 3 cm^-1, voigt's
+//       FINE_STENCIL without a weight of 1. Within two Doppler widths of a
+//       line for some state (D amin <= 4, amin the line's least ia^2),
+//       around region 1's pole (x^2 = 1/2 + y^2), which the correction takes
+//       out again, the terms take far_parts' algebra with the Newton step,
+//       as the plain version and the earlier sweep do: there the float32
+//       residue of the pole's cancellation follows the rounding of the two
+//       region 1s, and the new algebra's left up to 5x the plain version's
+//       at some states;
 //   (b) a launch plan (ops/linesum_cuda.py::window_plan) picks the piece
-//       length and how many groups of a row's threads split a piece's lines
-//       (G <= 4, block = G x the row's points): each group sums its part of
+//       length, how many groups of a row's threads split a piece's lines
+//       (G <= 4) and how many of the row's points a thread owns (PTS = 2 for
+//       the voigt modes on a full card: one staged quad serves both, and
+//       the loop's per-line cost is shared): each group sums its part of
 //       every staged chunk, and the groups' sums are added in group order
 //       through shared memory, so a launch of few rows fills the card;
 //   (c) a work item covers a row's three windows as one stream of lines in
@@ -761,7 +776,11 @@ linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
 //   (d) states in balanced tiles: ceil(n / 8) tiles of n / T or n / T + 1
 //       states (57 = 8 + 7 x 7, 38 = 3 x 8 + 2 x 7), so no tile repeats the
 //       pair work for one or two states.
-// No float atomic touches sigma: two launches give the same bits.
+// No float atomic touches sigma: two launches give the same bits. Measured
+// on one H100 (PERF.md): FARALL at the mix's width 9.06 -> 5.89 ms, at the
+// RCM's 0.071 -> 0.037 (each block's prologue, staging and pieces' scratch
+// now a third of it), FINE_STENCIL 0.319 -> 0.217 (the sigma it writes and
+// its per-block fixed cost), phco2's 1.33 -> 0.97 (two MUFUs a triple).
 // lines a staged chunk of window_kernel: 64, and 32 for voigt's
 // FINE_STENCIL, whose rows hold ~16 lines (a smaller block stage keeps more
 // of its short-lived blocks resident)
@@ -801,6 +820,7 @@ struct WindowStage {
     float red[RED_FLOATS];     // then the groups' sums
   };
   float2 pos[2][WCH];          // the chunks' two-float line positions
+  float amin[2][WCH];          // the lines' least A = ia^2 over the states
   float B[2 * ST];             // chi's rates of the tile (phco2), in base 2
   int last;
 };
@@ -821,11 +841,33 @@ enum ChiForm { CHI_FULL, CHI_U, CHI_UNIT };
 // One (line, state)'s region-1 term at one point, added into acc: D =
 // dnu^2, wt the zone's weight (WEIGHTED), q chi's arguments and B1, B2 the
 // state's rates (PH, in the form CHI)
-template <bool PH, bool FAST, bool WEIGHTED, int CHI = CHI_FULL>
+template <bool PH, bool FAST, bool WEIGHTED, int CHI = CHI_FULL, bool CORE = false>
 __device__ __forceinline__ void region1_term(const float4& k, float D, float wt,
                                              const ChiArg& q, float B1, float B2,
                                              float& acc) {
   float num, den;
+  if constexpr (CORE) {
+    // within a core the correction takes region 1 out again: there the
+    // terms take far_parts' algebra, as the plain version does, from the
+    // same pack (c1 = 1/2 + y0^2 = g / 2 + 1/2, c2 = 4 y0^2 A = 2 g A)
+    if constexpr (PH) {
+      const float y = k.y * ex2_approx(-fmaf(B1, q.u, fmaf(B2, q.v, q.w)));
+      const float y2 = y * y;
+      const float x2 = D * k.z;
+      const float h = 0.5f + y2;
+      const float br = h - x2;
+      den = fmaf(br, br, 4.0f * (x2 * y2));
+      num = k.x * (y * (h + x2));
+    } else {
+      const float c1 = fmaf(k.z, 0.5f, 0.5f);
+      const float m = D * k.x;
+      const float br = c1 - m;
+      den = fmaf(br, br, ((k.z + k.z) * k.x) * D);
+      num = k.w * (c1 + m);
+    }
+    add_far<FAST, WEIGHTED, true>(acc, num, den, wt);
+    return;
+  }
   if constexpr (PH) {
     float y = k.y;
     if constexpr (CHI == CHI_U) y *= ex2_approx(-(B1 * q.u));
@@ -846,7 +888,7 @@ __device__ __forceinline__ void region1_term(const float4& k, float D, float wt,
 }
 
 // A line's terms of the NS states at every one of the thread's PTS points
-template <int NS, int PTS, bool PH, bool FAST, bool WEIGHTED, int CHI>
+template <int NS, int PTS, bool PH, bool FAST, bool WEIGHTED, int CHI, bool CORE = false>
 __device__ __forceinline__ void region1_line(const float4* c, const float (&D)[PTS],
                                              const float (&wt)[PTS], const ChiArg (&q)[PTS],
                                              const float (&B1)[NS], const float (&B2)[NS],
@@ -856,7 +898,8 @@ __device__ __forceinline__ void region1_line(const float4* c, const float (&D)[P
     const float4 k4 = c[s];
 #pragma unroll
     for (int p = 0; p < PTS; ++p)
-      region1_term<PH, FAST, WEIGHTED, CHI>(k4, D[p], wt[p], q[p], B1[s], B2[s], acc[p][s]);
+      region1_term<PH, FAST, WEIGHTED, CHI, CORE>(k4, D[p], wt[p], q[p], B1[s], B2[s],
+                                                  acc[p][s]);
   }
 }
 
@@ -870,6 +913,7 @@ struct WindowItem {
   int s0, n_states;
   const float* line_hi;
   const float* line_lo;
+  const float* line_amin;
   const float4* coef;
   // the catalog index of the stream's line i
   __device__ __forceinline__ int line(int i) const {
@@ -903,6 +947,7 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
       const int l = it.line(c0 + i);
       cp_async4(&sm.pos[buf][i].x, it.line_hi + l);
       cp_async4(&sm.pos[buf][i].y, it.line_lo + l);
+      cp_async4(&sm.amin[buf][i], it.line_amin + l);
     }
     for (int i = tid; i < n * NS; i += nthreads) {
       const int j = i / NS;
@@ -933,11 +978,12 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
       // two-float dnu at each point, as in K1's other modes; the zone's
       // mask and weight
       const float2 ps = sm.pos[buf][j];
+      const float am = sm.amin[buf][j];
       const bool mid = NW == 3 && c0 + j < it.end[0];
       float D[PTS], wt[PTS];
       ChiArg q[PTS];
-      bool in[PTS];
-      bool any = false, all = true, unit = PH, near = PH, flat = WEIGHTED;
+      bool in[PTS], cor[PTS];
+      bool any = false, all = true, core = false, unit = PH, near = PH, flat = WEIGHTED;
 #pragma unroll
       for (int p = 0; p < PTS; ++p) {
         const float dnu = (it.nh[p] - ps.x) + (it.nl[p] - ps.y);
@@ -962,13 +1008,20 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
           unit = unit && adnu < 3.0f;
           near = near && adnu < 30.0f;
         }
+        // within two Doppler widths of the line (x^2 <= 4) for some state:
+        // around region 1's pole (x^2 = 1/2 + y^2), which the correction
+        // cancels, at every y where den there (~ 2 y^2) is small
+        cor[p] = D[p] * am <= 4.0f;
+        core = core || (in[p] && cor[p]);
         flat = flat && wt[p] == 1.0f;
         any = any || in[p];
         all = all && in[p];
       }
       if (!any) continue;
       const float4* c = &sm.c[buf][j * NS];
-      if (all) {
+      if (all && core) {
+        region1_line<NS, PTS, PH, FAST, WEIGHTED, CHI_FULL, true>(c, D, wt, q, B1, B2, acc);
+      } else if (all) {
         // the same values in fewer operations where the line's points allow:
         // phco2's chi in its shorter forms, a weight of 1 left out
         if constexpr (PH) {
@@ -984,9 +1037,17 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
 #pragma unroll
         for (int p = 0; p < PTS; ++p) {
           if (!in[p]) continue;
+          if (cor[p]) {
 #pragma unroll
-          for (int s = 0; s < NS; ++s)
-            region1_term<PH, FAST, WEIGHTED>(c[s], D[p], wt[p], q[p], B1[s], B2[s], acc[p][s]);
+            for (int s = 0; s < NS; ++s)
+              region1_term<PH, FAST, WEIGHTED, CHI_FULL, true>(c[s], D[p], wt[p], q[p], B1[s],
+                                                               B2[s], acc[p][s]);
+          } else {
+#pragma unroll
+            for (int s = 0; s < NS; ++s)
+              region1_term<PH, FAST, WEIGHTED>(c[s], D[p], wt[p], q[p], B1[s], B2[s],
+                                               acc[p][s]);
+          }
         }
       }
     }
@@ -1113,7 +1174,8 @@ __device__ void window_item(const int4 pa, const int4 pb, int B, bool fast,
 template <int MODE, int PTS>
 __device__ __forceinline__ void window_run(const float* nu_hi, const float* nu_lo,
                                            const float* line_hi, const float* line_lo,
-                                           const float4* coef, const int* win,
+                                           const float* line_amin, const float4* coef,
+                                           const int* win,
                                            const int4* pieces, bool fast, const float* bcoef,
                                            const Zones& z, int B, int n_states, int n_out,
                                            float* scratch, int* counters, float* out,
@@ -1145,6 +1207,7 @@ __device__ __forceinline__ void window_run(const float* nu_hi, const float* nu_l
   it.n_states = n_states;
   it.line_hi = line_hi;
   it.line_lo = line_lo;
+  it.line_amin = line_amin;
   it.coef = coef;
 #define RUN(NS)                                                                            \
   window_item<MODE, NS, PTS>(pa, pb, B, fast, it, sm, bcoef, z, tile, n_tiles, n_out, \
@@ -1166,14 +1229,15 @@ template <int MODE, int PTS>
 __global__ void __launch_bounds__(512, 2)
 window_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
               const float* __restrict__ line_hi, const float* __restrict__ line_lo,
-              const float4* __restrict__ coef, const int* __restrict__ win,
-              const int4* __restrict__ pieces, const int* __restrict__ fast_p,
-              const float* __restrict__ bcoef, Zones z, int B, int n_states, int n_out,
-              float* __restrict__ scratch, int* __restrict__ counters,
-              float* __restrict__ out) {
+              const float* __restrict__ line_amin, const float4* __restrict__ coef,
+              const int* __restrict__ win, const int4* __restrict__ pieces,
+              const int* __restrict__ fast_p, const float* __restrict__ bcoef, Zones z, int B,
+              int n_states, int n_out, float* __restrict__ scratch,
+              int* __restrict__ counters, float* __restrict__ out) {
   __shared__ __align__(16) WindowStage<window_chunk(MODE)> sm;
-  window_run<MODE, PTS>(nu_hi, nu_lo, line_hi, line_lo, coef, win, pieces, fast_p[0] != 0,
-                        bcoef, z, B, n_states, n_out, scratch, counters, out, sm);
+  window_run<MODE, PTS>(nu_hi, nu_lo, line_hi, line_lo, line_amin, coef, win, pieces,
+                        fast_p[0] != 0, bcoef, z, B, n_states, n_out, scratch, counters, out,
+                        sm);
 }
 
 // The stencil route's near-core correction, a gather over the K-point rows
@@ -1662,14 +1726,17 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
 // Launch the window mode `mode` (FARALL, FINE_STENCIL and their phco2
 // instances) on `stream`: n_pieces work items (pieces [n_pieces][8] int32,
 // see window_kernel) over rows of B points, times the balanced state tiles,
-// in blocks of `groups` x B / pts threads, pts (1 or 2) points a thread; coef: the window pack [n_lines][n_states]
+// in blocks of `groups` x B / pts threads, pts (1 or 2) points a thread;
+// line_amin: each line's least A = ia^2 over the states (the reach of its
+// cores; +inf for a line of zero strength in every state); coef: the window pack [n_lines][n_states]
 // [4]; win: the rows' window table [n_rows][2 n_windows(mode)]; zones: host
 // float[7]; fast: one int32 (nonzero: every region-1 denominator lies in
 // [2^-120, 2^120]); bcoef: the phco2 rates [n_tiles of ST][2][ST]; out:
 // [n_states][n_out], written; scratch and counters (zeroed) for the rows of
 // several pieces. Returns cudaGetLastError() (0 on success).
 int window_launch(int mode, const float* nu_hi, const float* nu_lo, const float* line_hi,
-                  const float* line_lo, const float* coef, const int* win, const int* pieces,
+                  const float* line_lo, const float* line_amin, const float* coef,
+                  const int* win, const int* pieces,
                   int n_pieces, const int* fast, const float* bcoef, const float* zones, int B,
                   int groups, int pts, int n_states, int n_out, float* scratch, int* counters,
                   float* out, void* stream) {
@@ -1686,9 +1753,9 @@ int window_launch(int mode, const float* nu_hi, const float* nu_lo, const float*
   const int4* p4 = reinterpret_cast<const int4*>(pieces);
 #define LAUNCH_AS(M, P)                                                                     \
   window_kernel<M, P><<<(unsigned)blocks, threads, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, \
-                                                           c4, win, p4, fast, bcoef, z, B, \
-                                                           n_states, n_out, scratch,       \
-                                                           counters, out)
+                                                           line_amin, c4, win, p4, fast,   \
+                                                           bcoef, z, B, n_states, n_out,   \
+                                                           scratch, counters, out)
 #define LAUNCH(M)     \
   if (pts == 2)       \
     LAUNCH_AS(M, 2);  \

@@ -117,7 +117,7 @@ __all__ = ["sigma_lines", "sigma_nosplit", "sigma_stencil", "sigma_coarse", "sig
            "stencil_correction", "correction_tiles", "correction_info", "launch_mode",
            "launch_fullprofile", "pack_coefficients", "near_distance", "chi_rates",
            "window_mode", "nosplit_mode", "gather_group", "piece_schedule", "state_tiles",
-           "far_reciprocal_ok", "kernel_info", "window_pack", "window_tiles",
+           "far_reciprocal_ok", "kernel_info", "window_pack", "window_core_reach", "window_tiles",
            "window_tile_sizes", "window_schedule", "window_plan", "MODES", "WINDOW_MODES",
            "NOSPLIT_MODES", "GATHER_BYTES", "PIECE_LINES"]
 
@@ -163,8 +163,8 @@ PIECE_LINES = 256
 # groups and the points a thread (None) unless these are set (tests and
 # tools/k1_probe.py set them)
 _WINDOW_KERNEL_MODES = (3, 5, 8, 10)
-WINDOW_CHUNK = 64          # lines a staged chunk (csrc/linesum.cu ``window_chunk``)
-_WINDOW_CHUNKS = {3: 64, 5: 32, 8: 64, 10: 64}     # by mode: voigt's FINE_STENCIL 32
+# lines a staged chunk by mode (csrc/linesum.cu ``window_chunk``)
+WINDOW_CHUNKS = {3: 64, 5: 32, 8: 64, 10: 64}
 MAX_GROUPS = 4
 WINDOW_PIECE_MAX = 2048
 WINDOW_PIECE_LINES = None
@@ -328,7 +328,8 @@ def window_plan(mode: int, grid: dict, n_states: int) -> dict:
     of the row's threads, each thread of the voigt modes owns two of the
     row's points (which share every staged quad it reads; phco2's, with
     more work a term, one), and a piece holds up to twice the mean lines a
-    row (whole chunks, 256 to :data:`WINDOW_PIECE_MAX`). Where they do not
+    row (whole chunks, four at least, :data:`WINDOW_PIECE_MAX` at most).
+    Where they do not
     (the RCM's 16,384 points), G = 4 groups of the row's threads (at most
     512 threads, a point each) split each piece's lines, and a piece holds
     the mean lines a row: a dense row is cut and no thread's chain is long.
@@ -350,7 +351,8 @@ def window_plan(mode: int, grid: dict, n_states: int) -> dict:
     rows = win.shape[0]
     block = grid["nu_hi"].shape[0] // max(rows, 1)
     mean = float(win[:, 1::2].sum(axis=1).mean()) if rows else 0.0
-    chunks = lambda x: -(-int(np.ceil(x)) // WINDOW_CHUNK) * WINDOW_CHUNK
+    ch = WINDOW_CHUNKS[mode]
+    chunks = lambda x: -(-int(np.ceil(x)) // ch) * ch
     tiles = window_tiles(n_states)
     many = rows * tiles * -(-block // 32) >= _sms(dev) * _RESIDENT_WARPS
     pts = WINDOW_POINTS or (2 if many and mode in (3, 5) and block % 2 == 0 else 1)
@@ -360,8 +362,8 @@ def window_plan(mode: int, grid: dict, n_states: int) -> dict:
         G = 1 if many else max(1, min(MAX_GROUPS, 512 // tp))
     P = WINDOW_PIECE_LINES
     if P is None:
-        P = (min(WINDOW_PIECE_MAX, max(4 * WINDOW_CHUNK, chunks(2.0 * mean))) if many
-             else max(WINDOW_CHUNK, chunks(mean)))
+        P = (min(WINDOW_PIECE_MAX, max(4 * ch, chunks(2.0 * mean))) if many
+             else max(ch, chunks(mean)))
     table, n_slots = window_schedule(win, n_win, P)
     parts = np.bincount(table[:, 0], minlength=rows)
     got = grid[key] = dict(piece_lines=P, groups=G, points_per_thread=pts, threads=G * tp,
@@ -516,9 +518,9 @@ def _library():
                   {m: lib.linesum_windows_per_block(m) for m in _N_WIN},
                   [lib.linesum_state_tiles(n) for n in range(4 * ST)],
                   [lib.linesum_window_tiles(n) for n in range(4 * ST)],
-                  {m: lib.linesum_window_chunk(m) for m in _WINDOW_CHUNKS})
+                  {m: lib.linesum_window_chunk(m) for m in WINDOW_CHUNKS})
         want = (ST, _N_COEF, _N_WIN, [state_tiles(n) for n in range(4 * ST)],
-                [window_tiles(n) for n in range(4 * ST)], _WINDOW_CHUNKS)
+                [window_tiles(n) for n in range(4 * ST)], WINDOW_CHUNKS)
         if layout != want:
             raise RuntimeError(f"csrc/linesum.cu packs {layout}, this wrapper {want}")
         fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, ctypes.POINTER(_F),
@@ -528,8 +530,8 @@ def _library():
         info.argtypes = [_I, _I, ctypes.POINTER(_I)]
         info.restype = _I
         wl = lib.window_launch
-        wl.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, ctypes.POINTER(_F), _I, _I,
-                       _I, _I, _I, _P, _P, _P, _P]
+        wl.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, ctypes.POINTER(_F), _I,
+                       _I, _I, _I, _I, _P, _P, _P, _P]
         wl.restype = _I
         wi = lib.window_kernel_info
         wi.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
@@ -690,10 +692,20 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
     return out
 
 
+def window_core_reach(mode: int, coef):
+    """Each line's least A = ia^2 over the states of the window pack ``coef``
+    [n_lines, n_states, 4] (+inf where every state's term is zero): the
+    kernel takes the plain version's algebra where D A <= 4 for some state,
+    around region 1's pole (x^2 = 1/2 + y^2), which the correction cancels."""
+    A = coef[..., 2 if mode in _PHCO2_MODES else 0]
+    return torch.where(A > 0, A, float("inf")).amin(dim=1).contiguous()
+
+
 def _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast, block, out):
     """window_kernel's launch of ``mode`` into ``out`` by :func:`window_plan`."""
     plan = window_plan(mode, grid, n_states)
     dev = coef.device
+    amin = window_core_reach(mode, coef)
     scratch = counters = None
     if plan["scratch_slots"]:
         scratch = torch.empty(plan["scratch_slots"] * n_states * block, dtype=torch.float32,
@@ -701,7 +713,7 @@ def _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast,
         counters = torch.zeros(plan["rows"] * plan["tiles"], dtype=torch.int32, device=dev)
     err = _library().window_launch(
         mode, grid["nu_hi"].data_ptr(), grid["nu_lo"].data_ptr(), lines.nu.data_ptr(),
-        lines.nu_lo.data_ptr(), coef.data_ptr(), grid["win"].data_ptr(),
+        lines.nu_lo.data_ptr(), amin.data_ptr(), coef.data_ptr(), grid["win"].data_ptr(),
         plan["table"].data_ptr(), plan["pieces"], fast.data_ptr(),
         None if bcoef is None else bcoef.data_ptr(), zones, block, plan["groups"],
         plan["points_per_thread"], n_states, n_out,

@@ -32,12 +32,16 @@ events around one launch (``ms``) and the profiler's device time
 items (blocks, items, rows on the scratch path). ``--cuts`` also builds
 TREE's ``linesum.cu`` cut by text edits (:data:`WINDOW_CUTS`): ``arith``
 (the pack's quads made in registers, not staged), ``stage`` (the staging
-and its pipeline, no line summed), and times FINE_STENCIL's ``items``
+and its pipeline, no line summed), ``newton`` (the window kernel's
+reciprocal with a Newton step), and times FINE_STENCIL's ``items``
 (one work item a row: the mid window alone, no scratch); and the SASS of
 each mode's loop bodies (instructions, reciprocals, exponentials) through
 ``cuobjdump -sass`` (the window kernel's whole SASS in ``--out``).
 ``--plans`` also times the window kernel under other launch plans (groups,
-piece length, points a thread: :data:`PLAN_VARIANTS`). ``--calls`` profiles the entry points that run these
+piece length, points a thread: :data:`PLAN_VARIANTS`). ``--routes`` lists
+each state's error of the stencil and coarse routes at the main shape
+against float64, beside the plain float32 routes' and chip_smoke.py's bar,
+for the kernel whole and built without its core algebra (``no_core``). ``--calls`` profiles the entry points that run these
 modes (chip_smoke.py's ``profile`` lines): the mix's ``radiate``, the auto
 ``outgoing``, the phco2 auto ``outgoing``, an RCM refresh and step, the RCE
 run. Needs one CUDA card.
@@ -366,20 +370,20 @@ __device__ __forceinline__ float4 probe_quad(int j, int s) {
             : make_float4(1e4f * f, 0.5001f, 4.0f * f, 1e-20f * f);
 }
 """
-# the cuts of PR 8's sweep (PRs 8-11): the quad staging and the quad read,
-# and the line loop
-_PR8_SWEEP = ("// Accumulate the lines [start, start + cnt) of one window of the item into\n",
+# the cuts of the shared sweep (every mode's before the window kernel): the
+# quad staging and the quad read, and the line loop
+_SWEEP_QUAD = ("// Accumulate the lines [start, start + cnt) of one window of the item into\n",
               _QUAD + "// Accumulate the lines [start, start + cnt) of one window of the item into\n")
-_PR8_STAGE_QUADS = ("      cp_async16(&sm.c[buf][i], base + (size_t)(l0 + j) * ls + (i - j * W));\n",
+_SWEEP_STAGE_QUADS = ("      cp_async16(&sm.c[buf][i], base + (size_t)(l0 + j) * ls + (i - j * W));\n",
                     "      (void)j;\n")
-_PR8_READ_QUADS = ("      const float4* c = &sm.c[buf][j * W];\n",
+_SWEEP_READ_QUADS = ("      const float4* c = &sm.c[buf][j * W];\n",
                    "      float4 c[W];\n#pragma unroll\n"
                    "      for (int s = 0; s < W; ++s) c[s] = probe_quad<PH>(j, s);\n")
-_PR8_LOOP = ("    for (int j = 0; j < n; ++j) {\n      // two-float dnu: the hi",
+_SWEEP_LOOP = ("    for (int j = 0; j < n; ++j) {\n      // two-float dnu: the hi",
              "    for (int j = 0; j < n && n < 0; ++j) {\n      // two-float dnu: the hi")
-# the same cuts of window_kernel (PR 12): its quads (A, h, g, k2) or phco2's
+# the same cuts of window_kernel: its quads (A, h, g, k2) or phco2's
 # (c, y0, A, 0) at the same alpha and y
-_QUAD12 = r"""
+_WINDOW_QUAD = r"""
 template <bool PH>
 __device__ __forceinline__ float4 probe_quad(int j, int s) {
   const float f = 1.0f + 0.001f * (float)(j + s);
@@ -387,28 +391,32 @@ __device__ __forceinline__ float4 probe_quad(int j, int s) {
             : make_float4(1e4f * f, 0.4999f, 2e-4f * f, 1e-20f * f);
 }
 """
-_PR12_LINE = ("// One (line, state)'s region-1 term at one point, added into acc: D =\n",
-              _QUAD12 + "// One (line, state)'s region-1 term at one point, added into acc: D =\n")
-_PR12_STAGE_QUADS = ("      cp_async16(&sm.c[buf][i],\n                 it.coef + (size_t)it.line(c0 + j) "
+_WINDOW_LINE = ("// One (line, state)'s region-1 term at one point, added into acc: D =\n",
+              _WINDOW_QUAD + "// One (line, state)'s region-1 term at one point, added into acc: D =\n")
+_WINDOW_STAGE_QUADS = ("      cp_async16(&sm.c[buf][i],\n                 it.coef + (size_t)it.line(c0 + j) "
                      "* it.n_states + it.s0 + (i - j * NS));\n", "      (void)j;\n")
-_PR12_READ_QUADS = ("      const float4* c = &sm.c[buf][j * NS];\n",
+_WINDOW_READ_QUADS = ("      const float4* c = &sm.c[buf][j * NS];\n",
                     "      float4 c[NS];\n#pragma unroll\n"
                     "      for (int s = 0; s < NS; ++s) c[s] = probe_quad<PH>(j, s);\n")
-_PR12_LOOP = ("    for (int j = g * per; j < j1; ++j) {\n",
+_WINDOW_LOOP = ("    for (int j = g * per; j < j1; ++j) {\n",
               "    for (int j = g * per; j < j1 && j1 < 0; ++j) {\n")
-WINDOW_CUTS = {"pr8": {"none": [], "arith": [_PR8_SWEEP, _PR8_STAGE_QUADS, _PR8_READ_QUADS],
-                       "stage": [_PR8_LOOP]},
-               "pr12": {"none": [], "arith": [_PR12_LINE, _PR12_STAGE_QUADS, _PR12_READ_QUADS],
-                        "stage": [_PR12_LOOP]}}
+WINDOW_CUTS = {"sweep": {"none": [], "arith": [_SWEEP_QUAD, _SWEEP_STAGE_QUADS, _SWEEP_READ_QUADS],
+                       "stage": [_SWEEP_LOOP]},
+               "window": {"none": [], "arith": [_WINDOW_LINE, _WINDOW_STAGE_QUADS, _WINDOW_READ_QUADS],
+                        "stage": [_WINDOW_LOOP],
+                        "newton": [("  if constexpr (FAST) acc = fmaf(num, rcp_approx(den), acc);\n",
+                                    "  if constexpr (FAST) acc = fmaf(num, rcp_newton(den), acc);\n")],
+                        "no_core": [("        cor[p] = D[p] * am <= 4.0f;\n",
+                                     "        cor[p] = false;\n")]}}
 
 
 def window_design(src: str) -> str:
-    """The design of TREE's window modes: "pr8" (PR 8's work items, every
-    mode through ``sweep``) or "pr12" (``window_kernel``)."""
+    """The design of TREE's window modes: "sweep" (every mode through the
+    shared ``sweep``) or "window" (``window_kernel``)."""
     if "void window_sweep(int o, int cnt, int g, int G," in src:
-        return "pr12"
+        return "window"
     if "void sweep(int start, int cnt, const Item& it" in src:
-        return "pr8"
+        return "sweep"
     raise ValueError("csrc/linesum.cu is of no design the probe knows")
 
 
@@ -686,6 +694,50 @@ def window_probe(seed, dev, cuts: bool, out_dir: str, plans: bool = False):
             cuda_build._LIBS["linesum"] = default
 
 
+def route_errors(seed, dev, out_dir: str, cuts=("none", "no_core")):
+    """Each state's error of the stencil and coarse routes at the main shape
+    (57 states x 2^19) against the float64 line sum, as chip_smoke.py's
+    ``routes`` phase bars them (of each state's peak; the float32 plain
+    version at the cut edges), for the window kernel built whole and cut
+    (``no_core``: no correction algebra near the cores), beside the plain
+    float32 routes' and the bar max(2 x grouped's, 1e-6, 2 x plain
+    float32's): one ``probe`` line a state."""
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.spectra.synthetic import synthetic_co2_par
+    from clearsky_tpu_torch.utils import cuda_build
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(lc.__file__)))
+    keep = WINDOW_CUTS["window"]
+    WINDOW_CUTS["window"] = {c: keep[c] for c in cuts}
+    try:
+        libs = build_window_cuts(os.path.dirname(root), out_dir)
+    finally:
+        WINDOW_CUTS["window"] = keep
+    d = cs.kernel_linesum_main_shape(synthetic_co2_par(cs.N_LINES, seed=seed), dev, {})
+    lines, plan, states = d["lines"], d["plan"], d["states"]
+    ref = cs.at_edges(d["ref"], d["ref32"], d["edge"])
+    pk = ref.abs().amax(dim=1, keepdim=True)
+    err = lambda out: ((out.double() - ref).abs() / pk).amax(dim=1).cpu().numpy()
+    params = ls._resolve(plan, lines, "voigt", "coarse")[1]
+    got = {"stencil_plain32": err(ls.sigma_stencil_plain(plan, lines, *states)),
+           "coarse_plain32": err(ls.sigma_coarse_plain(plan, lines, *states, params)),
+           "grouped": err(lc.sigma_lines(plan, lines, *states))}
+    default = cuda_build.load_library("linesum")
+    try:
+        for cut, (lib, _, _) in libs.items():
+            cuda_build._LIBS["linesum"] = lib
+            got["stencil_" + cut] = err(lc.sigma_stencil(plan, lines, *states))
+            got["coarse_" + cut] = err(lc.sigma_coarse(plan, lines, *states, params))
+    finally:
+        cuda_build._LIBS["linesum"] = default
+    g = float(got["grouped"].max())
+    for i, P in enumerate(states[1].double().cpu().tolist()):
+        bar = max(2.0 * g, 1e-6, 2.0 * float(got["stencil_plain32"][i]))
+        cs.emit("probe", part="routes", state=i, P=P, bar=bar,
+                **{k: float(v[i]) for k, v in got.items() if k != "grouped"})
+
+
 def window_calls(seed, dev) -> dict:
     """The entry-point calls that run FARALL or FINE_STENCIL: march_probe's
     (auto ``outgoing``, RCM refresh and step, RCE run and step, the mix's
@@ -720,6 +772,8 @@ def main(argv=None) -> int:
                     help="with --window: also other launch plans of the window kernel")
     ap.add_argument("--calls", action="store_true",
                     help="profile the entry-point calls that run the window modes")
+    ap.add_argument("--routes", action="store_true",
+                    help="each state's error of the stencil and coarse routes, whole and no_core")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_probe: no CUDA device", file=sys.stderr)
@@ -731,7 +785,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.abspath(args.root) if args.root else ROOT)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    if args.calls:
+    if args.routes:
+        route_errors(args.seed, dev, os.path.join(args.out, "routes"))
+    elif args.calls:
         calls = window_calls(args.seed, dev)
         for fn in calls.values():           # set-up, library loads, caches
             fn()

@@ -364,7 +364,9 @@ def _emulate_window(mode, shape, blocks64, windows, lines, coef, z, T, P_lines, 
     group g summing lines [g per, (g + 1) per) of each chunk in order, the
     groups' sums added in group order, a row's pieces in piece order; per
     triple the kernel's algebra, each fmaf one rounding (the reciprocal
-    exact in float32 where the kernel's rcp.approx is within 1 ulp)."""
+    exact in float32 where the kernel's rcp.approx is within 1 ulp), and
+    within two Doppler widths of a line (D amin <= 4, a point at a time) the
+    plain version's algebra."""
     from clearsky_tpu_torch.ops.linesum import two_float
 
     hi, lo = (torch.as_tensor(x) for x in two_float(blocks64))
@@ -376,9 +378,11 @@ def _emulate_window(mode, shape, blocks64, windows, lines, coef, z, T, P_lines, 
         LOG2E = np.float32(1.4426950408889634)
         rates = linesum_cuda.chi_rates(T).permute(1, 0, 2).reshape(2, -1)[:, :n]
         b1, b2 = (rates[i][:, None] * torch.tensor(LOG2E) for i in (0, 1))
+    m = linesum_cuda.window_mode(mode, shape)
+    amin = linesum_cuda.window_core_reach(m, coef)
     table, _ = linesum_cuda.window_schedule(windows, n_win, P_lines)
     table = table[np.lexsort((table[:, 4], table[:, 0]))].astype(np.int64)
-    ch = linesum_cuda._WINDOW_CHUNKS[linesum_cuda.window_mode(mode, shape)]
+    ch = linesum_cuda.WINDOW_CHUNKS[m]
     per = -(-ch // G)
     out = torch.zeros((n, n_rows * B), dtype=torch.float32)
     for r in range(n_rows):
@@ -406,6 +410,7 @@ def _emulate_window(mode, shape, blocks64, windows, lines, coef, z, T, P_lines, 
                             mask = adnu <= z["cut"]
                         c = coef[line]                       # [n, 4]
                         D64, wt64 = D.double()[None], wt.double()[None]
+                        core = (D * amin[line] <= 4.0)[None]
                         if ph:
                             u, v, ww = _chi_arg2(adnu)
                             e = _f(b1.double() * u.double()
@@ -423,6 +428,24 @@ def _emulate_window(mode, shape, blocks64, windows, lines, coef, z, T, P_lines, 
                             cy = (c[:, 3:4] * wt[None]) if mode == "fine_stencil" else \
                                 c[:, 3:4].expand_as(den)
                         num = _f(-cy.double() * wq.double() + cy.double())
+                        # within a core the correction's algebra (far_parts)
+                        if ph:
+                            x2 = D[None] * c[:, 2:3]
+                            hh = 0.5 + y2
+                            br = hh - x2
+                            den_c = _f(br.double() ** 2 + (4.0 * (x2 * y2)).double())
+                            num_c = c[:, 0:1] * (y * (hh + x2))
+                        else:
+                            c1 = _f(c[:, 2:3].double() * 0.5 + 0.5)
+                            m_ = D[None] * c[:, 0:1]
+                            br = c1 - m_
+                            den_c = _f(br.double() ** 2
+                                       + (((c[:, 2:3] + c[:, 2:3]) * c[:, 0:1]) * D[None]).double())
+                            num_c = c[:, 3:4] * (c1 + m_)
+                        if mode == "fine_stencil":
+                            num_c = num_c * wt[None]
+                        den = torch.where(core, den_c, den)
+                        num = torch.where(core, num_c, num)
                         r_ = 1.0 / den
                         new = _f(num.double() * r_.double() + sums[g].double())
                         sums[g] = torch.where(mask[None], new, sums[g])
@@ -536,15 +559,15 @@ def test_window_kernel_sums_match_plain_and_jax(window_cases, mode, shape, P_lin
     assert float((np.abs(route - jref) / np.abs(jref).max(axis=1, keepdims=True)).max()) < 1e-5
 
 
-@pytest.mark.parametrize("cut", ["none", "arith", "stage"])
+@pytest.mark.parametrize("cut", ["none", "arith", "stage", "newton", "no_core"])
 def test_probe_cuts_apply_to_the_window_kernel(cut):
     """tools/k1_probe.py's cuts of the window modes find their text in
     csrc/linesum.cu exactly once (a changed source cannot give a silent
-    uncut copy), and ``arith`` and ``stage`` change it."""
+    uncut copy), and every cut but ``none`` changes it."""
     from clearsky_tpu_torch.tools import k1_probe
     from clearsky_tpu_torch.utils.cuda_build import CSRC
 
     src = (CSRC / "linesum.cu").read_text()
-    assert k1_probe.window_design(src) == "pr12"
+    assert k1_probe.window_design(src) == "window"
     out = k1_probe.window_cut_source(src, cut)
     assert (out == src) == (cut == "none")

@@ -512,8 +512,8 @@ def test_window_plan_fills_the_card(plans, big, case):
     16,384 points (128 rows) four groups of a point a thread, pieces of
     about the mean lines a row, and at least a full wave of the H100's 132
     SMs x 32 resident warps; at 2^19 one group of two points a thread (the
-    voigt modes), pieces of up to twice the mean (256 at least), so that a
-    dense row is cut and no item holds far more than the others."""
+    voigt modes), pieces of up to twice the mean (four chunks at least), so
+    that a dense row is cut and no item holds far more than the others."""
     _, tpl, _, tl = plans["main_2e19" if case == "main_2e19" else "rcm_16384"]
     if case == "rce_16384_phco2":
         pos = tl.positions64()
@@ -540,7 +540,7 @@ def test_window_plan_fills_the_card(plans, big, case):
     assert plan["tiles"] == -(-n // 8) and plan["blocks"] == plan["pieces"] * plan["tiles"]
     warps = plan["blocks"] * plan["threads"] // 32
     mean = np.asarray(win, np.int64)[:, 1::2].sum(axis=1).mean()
-    chunk = linesum_cuda.WINDOW_CHUNK
+    chunk = linesum_cuda.WINDOW_CHUNKS[mode]
     if case == "main_2e19":
         assert plan["groups"] == 1 and plan["blocks"] >= 132 * 16
         assert plan["piece_lines"] <= max(4 * chunk, 2 * mean + chunk)
