@@ -1732,19 +1732,11 @@ def farall_bound(plan, lines, n: int) -> dict:
     return dict(bound(pairs * (PAIR_OPS + n * R1_OPS), nbytes_), in_cut_pairs=pairs)
 
 
-def kernel_farall_mix(mix, dev, report):
-    """FARALL where the mix's ``radiate`` runs it (the stencil route at 38
-    states x 2^19 points, 55,000 lines): its operands taken from that call,
-    the kernel alone timed (CUDA events and the profiler's device ms), two
-    launches held to the same bits, the result against its float64 plain
-    version on the same inputs on sampled blocks (every 16th and the band
-    centres; bar 1e-5 of each state's peak there), the plain float32
-    version timed on the same sample, the bound of :func:`farall_bound` and
-    the reciprocals at the special-function units (:func:`sfu_of`)."""
+def farall_mix_case(mix):
+    """The stencil route's arguments (plan, lines, T, P, Pp, conc, shape)
+    where the mix's ``radiate`` runs it, taken from one call."""
     import clearsky_tpu_torch as ct
     from clearsky_tpu_torch.ops import linesum_cuda as lc
-    from clearsky_tpu_torch.ops import linesum_strategies as ls
-    from clearsky_tpu_torch.ops.linesum import _line_params, voigt_coefficients
 
     mg, cia, nu = mix["mg"], mix["cia"], mix["nu"]
     Pe = ct.pressuregrid(PT, PS, N_LEVELS)
@@ -1763,7 +1755,42 @@ def kernel_farall_mix(mix, dev, report):
     finally:
         lc.sigma_stencil = real
     check(len(seen) == 1, f"the mix's radiate ran the stencil route {len(seen)} times, not once")
-    plan, lines, T, P, Pp, conc, shape = seen[0]
+    return seen[0]
+
+
+def farall_sample_ref(plan, lines, T, P, Pp, conc, idx):
+    """FARALL's float64 plain version on the blocks ``idx`` of ``plan``."""
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import _line_params, voigt_coefficients
+
+    x64 = [x.double() for x in (T, P, Pp)]
+    l64 = lines.to(torch.float64)
+    co64 = voigt_coefficients(*_line_params(l64, *x64, None if conc is None else conc.double()))
+    return ls.sigma_mode_plain("farall", plan.nu_blocks[idx], plan.windows()[idx], l64, co64,
+                               {"cut": plan.cut})
+
+
+def sample_error(got, ref, valid):
+    """(max error of each state's peak, max absolute error, the state of the
+    largest) of ``got`` against ``ref`` on the points ``valid``."""
+    d = (got.double() - ref).abs()[:, valid]
+    per = (d / ref[:, valid].abs().amax(dim=1, keepdim=True)).amax(dim=1)
+    return float(per.max()), float(d.max()), int(per.argmax())
+
+
+def kernel_farall_mix(mix, dev, report):
+    """FARALL where the mix's ``radiate`` runs it (the stencil route at 38
+    states x 2^19 points, 55,000 lines): its operands taken from that call,
+    the kernel alone timed (CUDA events and the profiler's device ms), two
+    launches held to the same bits, the result against its float64 plain
+    version on the same inputs on sampled blocks (every 16th and the band
+    centres; bar 1e-5 of each state's peak there), the plain float32
+    version timed on the same sample, the bound of :func:`farall_bound` and
+    the reciprocals at the special-function units (:func:`sfu_of`)."""
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    plan, lines, T, P, Pp, conc, shape = farall_mix_case(mix)
     n = int(T.shape[0])
     _, _, _, co, coef, _, fast = lc._route_operands(lines, T, P, Pp, plan.windows(), conc,
                                                      shape, plan.cut)
@@ -1779,15 +1806,10 @@ def kernel_farall_mix(mix, dev, report):
     idx = sample_blocks(plan.nu_blocks)
     got, valid = sampled(out, idx, plan.block, plan.n_nu)
     del out
-    x64 = [x.double() for x in (T, P, Pp)]
-    l64 = lines.to(torch.float64)
-    co64 = voigt_coefficients(*_line_params(l64, *x64, None if conc is None else conc.double()))
-    blocks, windows = plan.nu_blocks[idx], plan.windows()[idx]
-    ref = ls.sigma_mode_plain("farall", blocks, windows, l64, co64, z)
-    err = float(((got.double() - ref).abs()[:, valid]
-                 / ref[:, valid].abs().amax(dim=1, keepdim=True)).max())
-    max_abs = float((got.double() - ref).abs()[:, valid].max())
+    ref = farall_sample_ref(plan, lines, T, P, Pp, conc, idx)
+    err, max_abs, _ = sample_error(got, ref, valid)
     del ref
+    blocks, windows = plan.nu_blocks[idx], plan.windows()[idx]
     _, plain_ms = one_call(lambda: ls.sigma_mode_plain("farall", blocks, windows, lines, co, z))
     b = farall_bound(plan, lines, n)
     sfu = sfu_of(b["in_cut_pairs"] * n)
@@ -2448,7 +2470,8 @@ def phase_phco2(par, dev):
     (constructor defaults) on 2^19 points over the catalog +- 500 cm^-1, the
     20-level column of a 285 K surface, 5 streams: outgoing and radiate on
     "auto" (the coarse route), outgoing on "grouped" (band OLR within 1e-4
-    of auto's) and outgoing at 2^20 points (the in-kernel fine pass)."""
+    of auto's) and outgoing at 2^20 points (the in-kernel fine pass; band
+    OLR within 1e-4 of the grouped route's there)."""
     import clearsky_tpu_torch as ct
     from clearsky_tpu_torch.constants import SIGMA_SB
     from clearsky_tpu_torch.ops import linesum_strategies as ls
@@ -2458,6 +2481,8 @@ def phase_phco2(par, dev):
     gas = ct.DirectGas.from_lines(lines, CONC, nu, shape="phco2")
     grouped = ct.DirectGas.from_lines(lines, CONC, nu, shape="phco2", strategy="grouped")
     gas20 = ct.DirectGas.from_lines(lines, CONC, phco2_grid(lines, N_NU_FINE), shape="phco2")
+    grouped20 = ct.DirectGas.from_lines(lines, CONC, phco2_grid(lines, N_NU_FINE), shape="phco2",
+                                        strategy="grouped")
     routes = {f"{k}_{n}": ls.route(g.plan, lines, "phco2", "auto", n_states=n)
               for k, g in (("2e19", gas), ("2e20", gas20)) for n in (57, 38)}
     check(set(routes.values()) == {"coarse"}, f"phco2's auto does not route coarse: {routes}")
@@ -2483,9 +2508,11 @@ def phase_phco2(par, dev):
     olr, F, olr_g, olr20 = out.values()
     nu64 = gas.nu.double()
     band, band_g = (float(ct.trapz(nu64, x.double())) for x in (olr, olr_g))
-    band20 = float(ct.trapz(gas20.nu.double(), olr20.double()))
+    band20, band20_g = (float(ct.trapz(gas20.nu.double(), x.double()))
+                        for x in (olr20, ct.outgoing(Pe, G, Te, MU, grouped20)))
     bb = SIGMA_SB * Te[-1] ** 4
     rel = abs(band - band_g) / band_g
+    rel20 = abs(band20 - band20_g) / band20_g
     for k in ("F_up", "F_down", "F_net"):
         check(bool(torch.isfinite(getattr(F, k)).all()), f"phco2 radiate {k} is not finite")
     check(bool(torch.isfinite(olr).all()) and bool(torch.isfinite(olr_g).all())
@@ -2495,11 +2522,13 @@ def phase_phco2(par, dev):
          catalog=f"{lines.dtype} on {lines.device}", points=N_NU_MAIN, levels=N_LEVELS,
          streams=5, cut=PHCO2_CUT, nu_range=[float(nu[0]), float(nu[-1])], routes=routes,
          band_olr_W_m2=band, grouped_band_olr_W_m2=band_g, auto_vs_grouped_band_rel=rel,
-         bar=1e-4, band_olr_2e20_W_m2=band20, sigma_Ts4_W_m2=float(bb),
+         bar=1e-4, band_olr_2e20_W_m2=band20, grouped_band_olr_2e20_W_m2=band20_g,
+         auto_vs_grouped_band_rel_2e20=rel20, sigma_Ts4_W_m2=float(bb),
          F_net_toa_W_m2=float(F.F_net[0]), F_down_surface_W_m2=float(F.F_down[-1]),
          wall_ms_per_call=ms, grouped_over_auto=ms["phco2_outgoing_grouped"]
          / ms["phco2_outgoing"])
     check(rel < 1e-4, f"phco2 auto and grouped band OLR differ by {rel:.3e}")
+    check(rel20 < 1e-4, f"phco2 auto and grouped band OLR at 2^20 differ by {rel20:.3e}")
     return calls, counts
 
 

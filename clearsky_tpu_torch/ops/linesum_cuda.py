@@ -160,16 +160,14 @@ PIECE_LINES = 256
 # run csrc/linesum.cu ``window_kernel``: their own pack, work items over a
 # row's windows as one stream, groups of threads splitting a piece's lines,
 # balanced state tiles; :func:`window_plan` picks the piece length, the
-# groups and the points a thread (None) unless these are set (tests and
-# tools/k1_probe.py set them)
+# groups and the points a thread
 _WINDOW_KERNEL_MODES = (3, 5, 8, 10)
 # lines a staged chunk by mode (csrc/linesum.cu ``window_chunk``)
 WINDOW_CHUNKS = {3: 64, 5: 32, 8: 64, 10: 64}
 MAX_GROUPS = 4
 WINDOW_PIECE_MAX = 2048
-WINDOW_PIECE_LINES = None
-WINDOW_GROUPS = None
-WINDOW_POINTS = None
+# the plan's choices a caller may set (launch_mode's ``window``)
+_PLAN_KEYS = ("piece_lines", "groups", "points_per_thread")
 # an SM's resident warps at window_kernel's 64 registers a thread, and the
 # H100's SMs (the plan's count off the card)
 _RESIDENT_WARPS, _H100_SMS = 32, 132
@@ -321,7 +319,7 @@ def _sms(dev) -> int:
     return _H100_SMS
 
 
-def window_plan(mode: int, grid: dict, n_states: int) -> dict:
+def window_plan(mode: int, grid: dict, n_states: int, override=None) -> dict:
     """The launch plan of a window mode over ``grid`` at ``n_states``, cached
     in the grid dict. Where the rows' tiles fill a wave of the card's
     resident warps (:data:`_RESIDENT_WARPS` an SM), a block runs one group
@@ -336,10 +334,13 @@ def window_plan(mode: int, grid: dict, n_states: int) -> dict:
     Returns the plan with its schedule (:func:`window_schedule`):
     piece_lines, groups, points_per_thread, threads, tiles, pieces, blocks,
     rows, scratch_row_share, scratch_slots, and ``table`` (the pieces on
-    the grid's device)."""
+    the grid's device). ``override`` sets any of piece_lines, groups and
+    points_per_thread in its place (tests, tools/k1_probe.py)."""
     dev = grid["win"].device
-    key = ("window_plan", mode, n_states, WINDOW_PIECE_LINES, WINDOW_GROUPS, WINDOW_POINTS,
-           _sms(dev))
+    override = dict(override or {})
+    if set(override) - set(_PLAN_KEYS):
+        raise ValueError(f"a window plan sets only {_PLAN_KEYS}, not {sorted(override)}")
+    key = ("window_plan", mode, n_states, tuple(sorted(override.items())), _sms(dev))
     got = grid.get(key)
     if got is not None:
         return got
@@ -355,12 +356,11 @@ def window_plan(mode: int, grid: dict, n_states: int) -> dict:
     chunks = lambda x: -(-int(np.ceil(x)) // ch) * ch
     tiles = window_tiles(n_states)
     many = rows * tiles * -(-block // 32) >= _sms(dev) * _RESIDENT_WARPS
-    pts = WINDOW_POINTS or (2 if many and mode in (3, 5) and block % 2 == 0 else 1)
+    pts = override.get("points_per_thread") or (
+        2 if many and mode in (3, 5) and block % 2 == 0 else 1)
     tp = block // pts
-    G = WINDOW_GROUPS
-    if G is None:
-        G = 1 if many else max(1, min(MAX_GROUPS, 512 // tp))
-    P = WINDOW_PIECE_LINES
+    G = override.get("groups") or (1 if many else max(1, min(MAX_GROUPS, 512 // tp)))
+    P = override.get("piece_lines")
     if P is None:
         P = (min(WINDOW_PIECE_MAX, max(4 * ch, chunks(2.0 * mean))) if many
              else max(ch, chunks(mean)))
@@ -606,7 +606,7 @@ def _count(name: str) -> None:
 
 def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, zones,
                 d_near=None, out=None, count_as=None, bcoef=None, n_shards: int = 1,
-                fast=None):
+                fast=None, window=None):
     """One K1 launch into a new sigma[n_states, n_shards * n_out], or added
     into the first n_out columns of ``out``.
 
@@ -625,7 +625,8 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
     n_out] view with unit column stride, added to in place (K1-seg).
     ``n_shards`` > 1 is K1-dev: shard s's blocks, window rows and d_near[s]
     give columns [s n_out, (s + 1) n_out); its windows index the catalog
-    ``lines`` (the shards' slabs side by side). The launch counts under
+    ``lines`` (the shards' slabs side by side). ``window`` (the window
+    modes): :func:`window_plan`'s ``override``. The launch counts under
     ``count_as``, else under its mode.
     """
     win = grid["win"]
@@ -665,10 +666,13 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
     if fast is None:
         fast = torch.zeros(n_shards, dtype=torch.int32, device=dev)
     check_operand("fast", fast, (n_shards,), dev, torch.int32)
+    if window is not None and mode not in _WINDOW_KERNEL_MODES:
+        raise ValueError("a window plan goes with the window modes, and only with them")
     if mode in _WINDOW_KERNEL_MODES:
         if n_shards != 1:
             raise ValueError(f"mode {_MODE_NAMES[mode]} runs one shard")
-        _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast, block, out)
+        _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast, block, out,
+                       window)
         _count(count_as or _MODE_NAMES[mode])
         return out
     pieces, n_pieces, n_slots = _pieces(grid, _N_WIN[mode])
@@ -701,9 +705,11 @@ def window_core_reach(mode: int, coef):
     return torch.where(A > 0, A, float("inf")).amin(dim=1).contiguous()
 
 
-def _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast, block, out):
-    """window_kernel's launch of ``mode`` into ``out`` by :func:`window_plan`."""
-    plan = window_plan(mode, grid, n_states)
+def _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast, block, out,
+                   window=None):
+    """window_kernel's launch of ``mode`` into ``out`` by :func:`window_plan`
+    (its choices overridden by ``window``)."""
+    plan = window_plan(mode, grid, n_states, window)
     dev = coef.device
     amin = window_core_reach(mode, coef)
     scratch = counters = None
@@ -952,8 +958,7 @@ def sigma_coarse(plan: LineWindowPlan, lines, T, P, Pp, params, conc=None,
                            T=chi_T(shape, T), bcoef=bcoef)
     else:
         fm = window_mode("fine", shape)
-        fcoef = coef if _N_COEF[fm] == coef.shape[-1] else _pack(fm, co)
-        fine = launch_mode(fm, arrs["fine"], lines, fcoef, n_states, plan.n_nu, zones,
+        fine = launch_mode(fm, arrs["fine"], lines, _pack(fm, co), n_states, plan.n_nu, zones,
                            near_distance(alpha, z["cut_f"]), bcoef=bcoef, fast=fast)
     cm = window_mode("coarse", shape)
     far_c = launch_mode(cm, arrs["coarse"], lines, _pack(cm, co), n_states, geom.params[2],

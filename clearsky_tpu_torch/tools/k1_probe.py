@@ -18,7 +18,8 @@ helpers are this checkout's chip_smoke.py. ``--step0`` adds each windowed
 launch cut to its densest 1% of blocks and to the rest, and writes the
 ptxas report and the SASS of TREE's ``csrc/linesum.cu`` under ``--out``.
 
-    python3 clearsky_tpu_torch/tools/k1_probe.py --window [--cuts] [--root TREE]
+    python3 clearsky_tpu_torch/tools/k1_probe.py --window [--cuts [NAMES]] [--plans] [--root TREE]
+    python3 clearsky_tpu_torch/tools/k1_probe.py --errors [NAMES] [--root TREE]
     python3 clearsky_tpu_torch/tools/k1_probe.py --calls [--root TREE]
 
 ``--window`` times the region-1 window modes where the main path runs them:
@@ -30,10 +31,13 @@ that entry point (``launch_mode``'s arguments) and replayed alone: CUDA
 events around one launch (``ms``) and the profiler's device time
 (``device_ms``), the build (registers, spills, resident warps), the work
 items (blocks, items, rows on the scratch path). ``--cuts`` also builds
-TREE's ``linesum.cu`` cut by text edits (:data:`WINDOW_CUTS`): ``arith``
-(the pack's quads made in registers, not staged), ``stage`` (the staging
-and its pipeline, no line summed), ``newton`` (the window kernel's
-reciprocal with a Newton step), and times FINE_STENCIL's ``items``
+TREE's ``linesum.cu`` cut by text edits (:data:`WINDOW_CUTS`; all, or
+those of a comma list NAMES): ``arith`` (the pack's quads made in
+registers, not staged), ``stage`` (the staging and its pipeline, no line
+summed), ``newton`` (the window kernel's reciprocal with a Newton step),
+``no_core`` (no correction algebra near the cores), ``no_chi_forms`` and
+``no_flat`` (without a line's shorter forms: phco2's chi within 3 and 30
+cm^-1, the weight of 1 left out), and times FINE_STENCIL's ``items``
 (one work item a row: the mid window alone, no scratch); and the SASS of
 each mode's loop bodies (instructions, reciprocals, exponentials) through
 ``cuobjdump -sass`` (the window kernel's whole SASS in ``--out``).
@@ -41,10 +45,14 @@ each mode's loop bodies (instructions, reciprocals, exponentials) through
 piece length, points a thread: :data:`PLAN_VARIANTS`). ``--routes`` lists
 each state's error of the stencil and coarse routes at the main shape
 against float64, beside the plain float32 routes' and chip_smoke.py's bar,
-for the kernel whole and built without its core algebra (``no_core``). ``--calls`` profiles the entry points that run these
-modes (chip_smoke.py's ``profile`` lines): the mix's ``radiate``, the auto
-``outgoing``, the phco2 auto ``outgoing``, an RCM refresh and step, the RCE
-run. Needs one CUDA card.
+for the kernel whole and built without its core algebra (``no_core``).
+``--errors [NAMES]`` holds FARALL at the mix's ``radiate`` against float64
+on chip_smoke.py's sampled blocks: built whole (and cut), with the pack's
+reciprocal flag and with the IEEE division, and the plain float32 version.
+``--calls`` profiles the entry points that run these modes (chip_smoke.py's
+``profile`` lines): the mix's ``radiate``, the auto ``outgoing``, the phco2
+auto ``outgoing``, an RCM refresh and step, the RCE run. Needs one CUDA
+card.
 """
 
 from __future__ import annotations
@@ -398,6 +406,10 @@ _WINDOW_STAGE_QUADS = ("      cp_async16(&sm.c[buf][i],\n                 it.coe
 _WINDOW_READ_QUADS = ("      const float4* c = &sm.c[buf][j * NS];\n",
                     "      float4 c[NS];\n#pragma unroll\n"
                     "      for (int s = 0; s < NS; ++s) c[s] = probe_quad<PH>(j, s);\n")
+# the flags of a line's shorter forms: phco2's chi (CHI_UNIT, CHI_U) and
+# the weight of 1 left out
+_WINDOW_FORMS = ("      bool any = false, all = true, core = false, unit = PH, near = PH, "
+                 "flat = WEIGHTED;\n")
 _WINDOW_LOOP = ("    for (int j = g * per; j < j1; ++j) {\n",
               "    for (int j = g * per; j < j1 && j1 < 0; ++j) {\n")
 WINDOW_CUTS = {"sweep": {"none": [], "arith": [_SWEEP_QUAD, _SWEEP_STAGE_QUADS, _SWEEP_READ_QUADS],
@@ -407,7 +419,11 @@ WINDOW_CUTS = {"sweep": {"none": [], "arith": [_SWEEP_QUAD, _SWEEP_STAGE_QUADS, 
                         "newton": [("  if constexpr (FAST) acc = fmaf(num, rcp_approx(den), acc);\n",
                                     "  if constexpr (FAST) acc = fmaf(num, rcp_newton(den), acc);\n")],
                         "no_core": [("        cor[p] = D[p] * am <= 4.0f;\n",
-                                     "        cor[p] = false;\n")]}}
+                                     "        cor[p] = false;\n")],
+                        "no_chi_forms": [(_WINDOW_FORMS, _WINDOW_FORMS.replace(
+                            "unit = PH, near = PH", "unit = false, near = false"))],
+                        "no_flat": [(_WINDOW_FORMS, _WINDOW_FORMS.replace(
+                            "flat = WEIGHTED;", "flat = false;"))]}}
 
 
 def window_design(src: str) -> str:
@@ -492,9 +508,10 @@ def sass_loops(sass: str) -> dict:
     return out
 
 
-def build_window_cuts(root: str, out_dir: str):
-    """Compile every cut of TREE's linesum.cu in parallel: {cut: (lib,
-    ptxas by mode, SASS loops by mode)}."""
+def build_window_cuts(root: str, out_dir: str, names=None):
+    """Compile every cut of TREE's linesum.cu (those of ``names`` and
+    ``none``, where given) in parallel: {cut: (lib, ptxas by mode, SASS
+    loops by mode)}."""
     import ctypes
 
     from clearsky_tpu_torch.utils import cuda_build
@@ -506,6 +523,8 @@ def build_window_cuts(root: str, out_dir: str):
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for cut in WINDOW_CUTS[window_design(src)]:
+        if names is not None and cut not in names and cut != "none":
+            continue
         cu = os.path.join(out_dir, f"linesum_{cut}.cu")
         with open(cu, "w") as f:
             f.write(window_cut_source(src, cut))
@@ -601,10 +620,12 @@ def window_launches(seed, dev) -> dict:
     return got
 
 
-def _items(lc, mode: int, grid: dict, n_states: int) -> dict:
-    """The launch's work items: pieces, blocks, and rows on the scratch path."""
+def _items(lc, mode: int, grid: dict, n_states: int, over=None) -> dict:
+    """The launch's work items: pieces, blocks, and rows on the scratch path
+    (the window plan's, ``over`` its override)."""
     if hasattr(lc, "window_plan"):
-        return {k: v for k, v in lc.window_plan(mode, grid, n_states).items() if k != "table"}
+        return {k: v for k, v in lc.window_plan(mode, grid, n_states, over).items()
+                if k != "table"}
     table, n_slots = lc.piece_schedule(grid["win"].cpu().numpy(), lc._N_WIN[mode],
                                        lc.PIECE_LINES)
     parts = np.bincount(table[:, 0], minlength=grid["win"].shape[0])
@@ -619,8 +640,9 @@ PLAN_VARIANTS = {"few": [(g, p, t) for g in (2, 4) for p in (128, None) for t in
                  "many": [(1, p, t) for p in (256, None) for t in (1, 2)]}
 
 
-def window_probe(seed, dev, cuts: bool, out_dir: str, plans: bool = False):
-    """Each window case alone, whole (and with ``cuts`` cut; with ``plans``
+def window_probe(seed, dev, cuts, out_dir: str, plans: bool = False):
+    """Each window case alone, whole (and with ``cuts`` cut: True for every
+    cut, else a list of names; with ``plans``
     under the launch plans of :data:`PLAN_VARIANTS`, where the tree has a
     plan), one ``probe`` line each."""
     import clearsky_tpu_torch as ct
@@ -633,7 +655,7 @@ def window_probe(seed, dev, cuts: bool, out_dir: str, plans: bool = False):
     cs.emit("probe", part="env", package_root=root, card=torch.cuda.get_device_name(dev),
             nvidia_smi=smi.stdout.strip().splitlines()[dev.index or 0])
     t0 = time.perf_counter()
-    libs = build_window_cuts(root, out_dir) if cuts else {}
+    libs = build_window_cuts(root, out_dir, None if cuts is True else cuts) if cuts else {}
     cs.emit("probe", part="cuts", seconds=time.perf_counter() - t0, cuts=list(libs))
     launches = window_launches(seed, dev)
     real_launch = lc.launch_mode
@@ -643,16 +665,14 @@ def window_probe(seed, dev, cuts: bool, out_dir: str, plans: bool = False):
             grid, n_states = a[1], a[4]
             few = lc.window_plan(mode, grid, n_states)["groups"] > 1
             for g, p, t in PLAN_VARIANTS["few" if few else "many"]:
-                lc.WINDOW_GROUPS, lc.WINDOW_PIECE_LINES, lc.WINDOW_POINTS = g, p, t
-                try:
-                    fn = lambda a=a, k=k: real_launch(*a, **k)
-                    fn()
-                    torch.cuda.synchronize()
-                    cs.emit("probe", kernel=name, case=case, cut="plan",
-                            device_ms=cs.kernel_device_ms(fn, name),
-                            **_items(lc, mode, grid, n_states))
-                finally:
-                    lc.WINDOW_GROUPS = lc.WINDOW_PIECE_LINES = lc.WINDOW_POINTS = None
+                over = {"groups": g, "piece_lines": p, "points_per_thread": t}
+                over = {key: v for key, v in over.items() if v is not None}
+                fn = lambda a=a, k=k, over=over: real_launch(*a, **k, window=over)
+                fn()
+                torch.cuda.synchronize()
+                cs.emit("probe", kernel=name, case=case, cut="plan",
+                        device_ms=cs.kernel_device_ms(fn, name),
+                        **_items(lc, mode, grid, n_states, over))
     default = cuda_build.load_library("linesum")
     for cut in ["none"] + [c for c in libs if c != "none"]:
         lib, ptx, loops = libs.get(cut, (default, {}, {}))
@@ -738,6 +758,54 @@ def route_errors(seed, dev, out_dir: str, cuts=("none", "no_core")):
                 **{k: float(v[i]) for k, v in got.items() if k != "grouped"})
 
 
+def farall_errors(seed, dev, out_dir: str, cuts=()):
+    """FARALL where the mix's ``radiate`` runs it (38 states x 2^19, 55,000
+    lines) against its float64 plain version on chip_smoke.py's sampled
+    blocks, as its ``kernel`` line bars it (1e-5 of each state's peak): the
+    kernel as built with the pack's reciprocal flag (``fast``) and with the
+    IEEE division (the flag off), each cut of ``cuts`` (e.g. ``newton``)
+    likewise, and the plain float32 version (the IEEE division, another
+    order of sums): one ``probe`` line each, the largest error of a state's
+    peak, the largest absolute error and the state where the first lies."""
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.utils import cuda_build
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(lc.__file__))))
+    libs = build_window_cuts(root, out_dir, list(cuts)) if cuts else {}
+    build = os.path.join(ROOT, "build", "k1_probe_mix")
+    os.makedirs(build, exist_ok=True)
+    plan, lines, T, P, Pp, conc, shape = cs.farall_mix_case(cs.phase_mix_build(seed, dev, build))
+    n = int(T.shape[0])
+    _, _, _, co, coef, _, fast = lc._route_operands(lines, T, P, Pp, plan.windows(), conc,
+                                                     shape, plan.cut)
+    grid = plan.device_arrays(dev)
+    idx = cs.sample_blocks(plan.nu_blocks)
+    ref = cs.farall_sample_ref(plan, lines, T, P, Pp, conc, idx)
+    _, valid = cs.sampled(torch.zeros((n, plan.n_nu), device=dev), idx, plan.block, plan.n_nu)
+    plain = ls.sigma_mode_plain("farall", plan.nu_blocks[idx], plan.windows()[idx], lines, co,
+                                {"cut": plan.cut})
+    cs.emit("probe", part="farall_errors", package_root=root, kernel="plain_float32",
+            **dict(zip(("err_of_peak", "max_abs_err", "state"),
+                       cs.sample_error(plain, ref, valid))))
+    default = cuda_build.load_library("linesum")
+    try:
+        for cut in ["none"] + [c for c in libs if c != "none"]:
+            cuda_build._LIBS["linesum"] = libs[cut][0] if cut in libs else default
+            for flag in ("pack", "off"):
+                f = fast if flag == "pack" else torch.zeros_like(fast)
+                out = lc.launch_mode(3, grid, lines, coef, n, plan.n_nu, lc._zones(plan.cut),
+                                     fast=f)
+                got, _ = cs.sampled(out, idx, plan.block, plan.n_nu)
+                del out
+                e = cs.sample_error(got, ref, valid)
+                cs.emit("probe", part="farall_errors", package_root=root, kernel="farall",
+                        cut=cut, fast=flag, pack_fast=bool(fast.item()),
+                        **dict(zip(("err_of_peak", "max_abs_err", "state"), e)))
+    finally:
+        cuda_build._LIBS["linesum"] = default
+
+
 def window_calls(seed, dev) -> dict:
     """The entry-point calls that run FARALL or FINE_STENCIL: march_probe's
     (auto ``outgoing``, RCM refresh and step, RCE run and step, the mix's
@@ -767,11 +835,15 @@ def main(argv=None) -> int:
                     help="with --step0 or --cuts: where the ptxas report, SASS and cuts go")
     ap.add_argument("--window", action="store_true",
                     help="the region-1 window modes where the main path runs them")
-    ap.add_argument("--cuts", action="store_true", help="with --window: also the cut builds")
+    ap.add_argument("--cuts", nargs="?", const="all", default=None,
+                    help="with --window: also the cut builds (all, or a comma list of names)")
     ap.add_argument("--plans", action="store_true",
                     help="with --window: also other launch plans of the window kernel")
     ap.add_argument("--calls", action="store_true",
                     help="profile the entry-point calls that run the window modes")
+    ap.add_argument("--errors", nargs="?", const="", default=None,
+                    help="FARALL's error on the mix's sample, built whole (and the cuts of a "
+                         "comma list)")
     ap.add_argument("--routes", action="store_true",
                     help="each state's error of the stencil and coarse routes, whole and no_core")
     args = ap.parse_args(argv)
@@ -785,7 +857,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.abspath(args.root) if args.root else ROOT)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    if args.routes:
+    if args.errors is not None:
+        farall_errors(args.seed, dev, os.path.join(args.out, "errors"),
+                      [c for c in args.errors.split(",") if c])
+    elif args.routes:
         route_errors(args.seed, dev, os.path.join(args.out, "routes"))
     elif args.calls:
         calls = window_calls(args.seed, dev)
@@ -794,7 +869,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         cs.phase_profile(calls)
     elif args.window:
-        window_probe(args.seed, dev, args.cuts,
+        cuts = args.cuts == "all" or (args.cuts.split(",") if args.cuts else False)
+        window_probe(args.seed, dev, cuts,
                      os.path.join(args.out, "root" if args.root else "self"), args.plans)
     else:
         k1_probe(args.seed, dev, args.step0, args.out)

@@ -661,6 +661,35 @@ def test_family_routes_match_plain_and_count_modes(dense_phco2, cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["phco2", "voigt"])
+def test_coarse_route_without_stencil_matches_plain(dense_phco2, cuda, shape, monkeypatch):
+    """The coarse route where the stencil geometry rejects the grid (as at
+    2^20 points): the FINE mode's fine pass on its own pack and COARSE, on
+    the card against the float64 plain version on the same geometry."""
+    import dataclasses
+
+    lines, plan = dense_phco2
+    if shape == "voigt":
+        plan = build_line_window_plan(np.linspace(2300.0, 2350.0, 8192), lines.positions64(),
+                                      25.0)
+    l32 = lines.to(torch.float32, cuda)
+    x32, x64 = _t(_mode_states(11), torch.float32, cuda), _t(_mode_states(11))
+    params = ls.coarse_params(plan, 0.6)
+    nostencil = lambda g: dataclasses.replace(g, stencil=None, _on_device={})
+    geom = nostencil(ls.coarse_geometry(plan, l32, params))
+    monkeypatch.setattr(linesum_cuda, "coarse_geometry", lambda *a: geom)
+    by_mode = dict(sigma_lines.launches_by_mode)
+    out = linesum_cuda.sigma_coarse(plan, l32, *x32, params, shape=shape)
+    torch.cuda.synchronize()
+    got = {k: v - by_mode[k] for k, v in sigma_lines.launches_by_mode.items() if v != by_mode[k]}
+    fam = "phco2_" if shape == "phco2" else ""
+    assert got == {fam + "fine": 1, fam + "coarse": 1}
+    ref = ls.coarse_route_plain(nostencil(ls.coarse_geometry(plan, lines, params)), lines, *x64,
+                                shape=shape)
+    assert bool(torch.isfinite(out).all()) and _of_peak(out, ref) < 1e-5
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["segmented", "lane", "gathered"])
 @pytest.mark.parametrize("shape", ["phco2", "voigt_ref"])
 def test_family_large_catalog_kernels_match_plain(dense_phco2, cuda, kind, shape):
@@ -857,9 +886,9 @@ def _crowded_launch(kind, lines, plan, cuda, n, out=None):
     COARSE (voigt, phco2) and FINE_STENCIL on the same blocks at a split of
     d_far = 1 cm^-1, FARALL (voigt, phco2) over the plan's windows, and
     K1-dev (the grid as two shards of the same lines). The launch cuts
-    the windows into pieces of ``linesum_cuda.PIECE_LINES`` (the window
-    modes: as ``linesum_cuda.window_plan`` lays them out) as it stands
-    when it runs."""
+    the windows into pieces of ``linesum_cuda.PIECE_LINES`` as it stands
+    when it runs (the window modes: as ``linesum_cuda.window_plan`` lays
+    them out, its choices overridden by the launch's keyword ``window``)."""
     l32 = lines.to(torch.float32, cuda)
     x = _mode_states(n)
     T, P, Pp = _t(x, torch.float32, cuda)
@@ -884,14 +913,14 @@ def _crowded_launch(kind, lines, plan, cuda, n, out=None):
                     "nu_lo": torch.cat([grid["nu_lo"]] * 2),
                     "win": torch.as_tensor(win2, dtype=torch.int32, device=cuda)}
             coef, fast = torch.cat([coef, coef]), torch.cat([fast, fast])
-            return (lambda: linesum_cuda.launch_mode(0, grid, l32, coef, n, plan.n_nu,
+            return (lambda **kw: linesum_cuda.launch_mode(0, grid, l32, coef, n, plan.n_nu,
                                                      linesum_cuda._zones(plan.cut),
                                                      torch.cat([d_near, d_near]), n_shards=k,
-                                                     fast=fast),
+                                                     fast=fast, **kw),
                     torch.cat([ref, ref], dim=-1))
-        return (lambda: linesum_cuda.launch_mode(0, grid, l32, coef, n, plan.n_nu,
-                                                 linesum_cuda._zones(plan.cut), d_near, out=out,
-                                                 fast=fast), ref)
+        return (lambda **kw: linesum_cuda.launch_mode(0, grid, l32, coef, n, plan.n_nu,
+                                                      linesum_cuda._zones(plan.cut), d_near,
+                                                      out=out, fast=fast, **kw), ref)
     if kind.startswith("farall"):
         shape = "phco2" if kind == "farall_phco2" else "voigt"
         m = linesum_cuda.window_mode("farall", shape)
@@ -901,9 +930,9 @@ def _crowded_launch(kind, lines, plan, cuda, n, out=None):
         ref = ls.sigma_mode_plain("farall", plan.nu_blocks, plan.windows(), lines, co64,
                                   {"cut": plan.cut},
                                   T=x64[0] if shape == "phco2" else None)[:, :plan.n_nu]
-        return (lambda: linesum_cuda.launch_mode(m, grid, l32, coef, n, plan.n_nu,
-                                                 linesum_cuda._zones(plan.cut), bcoef=bcoef,
-                                                 fast=fast), ref)
+        return (lambda **kw: linesum_cuda.launch_mode(m, grid, l32, coef, n, plan.n_nu,
+                                                      linesum_cuda._zones(plan.cut), bcoef=bcoef,
+                                                      fast=fast, **kw), ref)
     cut = 25.0
     z = ls.split_zones(cut, 1.0, 0.1)
     if kind == "fine_stencil":
@@ -915,8 +944,9 @@ def _crowded_launch(kind, lines, plan, cuda, n, out=None):
                 "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
         ref = ls.sigma_mode_plain("fine_stencil", plan.nu_blocks, windows, lines, co64,
                                   z)[:, :plan.n_nu]
-        return (lambda: linesum_cuda.launch_mode(5, grid, l32, coef, n, plan.n_nu,
-                                                 linesum_cuda._zones(**z), fast=fast), ref)
+        return (lambda **kw: linesum_cuda.launch_mode(5, grid, l32, coef, n, plan.n_nu,
+                                                      linesum_cuda._zones(**z), fast=fast, **kw),
+                ref)
     m = linesum_cuda.window_mode("coarse", shape)
     bcoef = linesum_cuda.chi_rates(T) if shape == "phco2" else None
     coef, fast = linesum_cuda._packed(m, S, a, g, 1, cut, bcoef)
@@ -927,9 +957,9 @@ def _crowded_launch(kind, lines, plan, cuda, n, out=None):
             "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
     ref = ls.sigma_mode_plain("coarse", plan.nu_blocks, windows, lines, co64, z,
                               T=x64[0] if shape == "phco2" else None)[:, :plan.n_nu]
-    return (lambda: linesum_cuda.launch_mode(m, grid, l32, coef, n, plan.n_nu,
-                                             linesum_cuda._zones(**z), bcoef=bcoef, fast=fast),
-            ref)
+    return (lambda **kw: linesum_cuda.launch_mode(m, grid, l32, coef, n, plan.n_nu,
+                                                  linesum_cuda._zones(**z), bcoef=bcoef,
+                                                  fast=fast, **kw), ref)
 
 
 _CROWDED = ["split", "acc", "coarse", "coarse_phco2", "dev", "farall", "farall_phco2",
@@ -992,12 +1022,11 @@ def test_k1_many_pieces_equal_one_piece(crowded, cuda, kind, piece_lines, monkey
     plain version."""
     lines, plan = crowded
     launch, ref = _crowded_launch(kind, lines, plan, cuda, 11)
+    pieces = lambda p: {"window": {"piece_lines": p}} if kind in _WINDOW_KINDS else {}
     monkeypatch.setattr(linesum_cuda, "PIECE_LINES", piece_lines)
-    monkeypatch.setattr(linesum_cuda, "WINDOW_PIECE_LINES", piece_lines)
-    a = launch().clone()
+    a = launch(**pieces(piece_lines)).clone()
     monkeypatch.setattr(linesum_cuda, "PIECE_LINES", 10**6)
-    monkeypatch.setattr(linesum_cuda, "WINDOW_PIECE_LINES", 10**6)
-    b = launch()
+    b = launch(**pieces(10**6))
     torch.cuda.synchronize()
     _check_sigma(a, b.double().cpu())
     _crowded_check(kind, a, ref)
@@ -1006,7 +1035,7 @@ def test_k1_many_pieces_equal_one_piece(crowded, cuda, kind, piece_lines, monkey
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", _WINDOW_KINDS)
 @pytest.mark.parametrize("groups,points", [(1, 2), (2, 1), (2, 2), (4, 2)])
-def test_window_groups_equal_one_group(crowded, cuda, kind, groups, points, monkeypatch):
+def test_window_groups_equal_one_group(crowded, cuda, kind, groups, points):
     """The window kernel's thread groups (each summing its part of every
     chunk, the groups' sums added in group order) and points a thread
     against one group of one point a thread: the same bits with one group
@@ -1014,13 +1043,10 @@ def test_window_groups_equal_one_group(crowded, cuda, kind, groups, points, monk
     (1e-6 of each state's peak); both against the plain version."""
     lines, plan = crowded
     launch, ref = _crowded_launch(kind, lines, plan, cuda, 11)
-    monkeypatch.setattr(linesum_cuda, "WINDOW_GROUPS", groups)
-    monkeypatch.setattr(linesum_cuda, "WINDOW_POINTS", points)
-    a = launch().clone()
-    assert torch.equal(launch(), a)
-    monkeypatch.setattr(linesum_cuda, "WINDOW_GROUPS", 1)
-    monkeypatch.setattr(linesum_cuda, "WINDOW_POINTS", 1)
-    b = launch()
+    plan_of = lambda g, t: {"window": {"groups": g, "points_per_thread": t}}
+    a = launch(**plan_of(groups, points)).clone()
+    assert torch.equal(launch(**plan_of(groups, points)), a)
+    b = launch(**plan_of(1, 1))
     torch.cuda.synchronize()
     if groups == 1:
         assert torch.equal(a, b)

@@ -549,6 +549,14 @@ def test_window_plan_fills_the_card(plans, big, case):
         assert plan["piece_lines"] <= mean + chunk and warps >= 132 * 32
     # the plan is cached with the grid, keyed by what it depends on
     assert linesum_cuda.window_plan(mode, grid, n) is plan
+    # a caller's override sets its choices and is cached apart
+    over = {"groups": 2, "piece_lines": 64, "points_per_thread": 1}
+    mine = linesum_cuda.window_plan(mode, grid, n, over)
+    assert {k: mine[k] for k in over} == over and mine["threads"] == 2 * B
+    assert linesum_cuda.window_plan(mode, grid, n, dict(over)) is mine
+    assert linesum_cuda.window_plan(mode, grid, n) is plan
+    with pytest.raises(ValueError, match="sets only"):
+        linesum_cuda.window_plan(mode, grid, n, {"threads": 64})
 
 
 # --- the gas, convert, and the device defaults -------------------------------
