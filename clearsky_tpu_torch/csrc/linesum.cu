@@ -750,11 +750,10 @@ linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
 //       needs). Where the wrapper's flag shows every denominator in
 //       [2^-120, 2^120] the reciprocal is one rcp.approx (<= 1 ulp, no
 //       Newton step); den >= 2 y^2 needs no clamp, and the pack gives a line
-//       of zero strength den = 1 and num = 0. Where all of a thread's points
-//       allow it, a line takes a shorter form of the same values: phco2's
-//       chi as 2^-(B1 u) within 30 cm^-1 and as 1 within 3 cm^-1, voigt's
-//       FINE_STENCIL without a weight of 1. Within two Doppler widths of a
-//       line for some state (D amin <= 4, amin the line's least ia^2),
+//       of zero strength den = 1 and num = 0. (Shorter forms of the same
+//       values per line, phco2's chi within 3 and 30 cm^-1 and a weight of
+//       1 left out, did not pay on balance; PERF.md has their times.)
+//       Within two Doppler widths of a line for some state (D amin <= 4, amin the line's least ia^2),
 //       around region 1's pole (x^2 = 1/2 + y^2), which the correction takes
 //       out again, the terms take far_parts' algebra with the Newton step,
 //       as the plain version and the earlier sweep do: there the float32
@@ -833,15 +832,10 @@ __device__ __forceinline__ ChiArg chi_arg2_clamped(float a) {
           (0.0232f * LOG2E) * fmaxf(a - 120.0f, 0.0f)};
 }
 
-// chi's exponent as a line's points need it (phco2): CHI_FULL B1 u + B2 v +
-// w'; CHI_U (every point within 30 cm^-1, where v = w' = 0) B1 u, the same
-// value; CHI_UNIT (within 3 cm^-1) none: chi is 1
-enum ChiForm { CHI_FULL, CHI_U, CHI_UNIT };
-
 // One (line, state)'s region-1 term at one point, added into acc: D =
 // dnu^2, wt the zone's weight (WEIGHTED), q chi's arguments and B1, B2 the
-// state's rates (PH, in the form CHI)
-template <bool PH, bool FAST, bool WEIGHTED, int CHI = CHI_FULL, bool CORE = false>
+// state's rates (PH)
+template <bool PH, bool FAST, bool WEIGHTED, bool CORE = false>
 __device__ __forceinline__ void region1_term(const float4& k, float D, float wt,
                                              const ChiArg& q, float B1, float B2,
                                              float& acc) {
@@ -869,9 +863,7 @@ __device__ __forceinline__ void region1_term(const float4& k, float D, float wt,
     return;
   }
   if constexpr (PH) {
-    float y = k.y;
-    if constexpr (CHI == CHI_U) y *= ex2_approx(-(B1 * q.u));
-    if constexpr (CHI == CHI_FULL) y *= ex2_approx(-fmaf(B1, q.u, fmaf(B2, q.v, q.w)));
+    const float y = k.y * ex2_approx(-fmaf(B1, q.u, fmaf(B2, q.v, q.w)));
     const float y2 = y * y;
     const float w = fmaf(-D, k.z, 0.5f - y2);
     den = fmaf(w, w, y2 + y2);
@@ -888,7 +880,7 @@ __device__ __forceinline__ void region1_term(const float4& k, float D, float wt,
 }
 
 // A line's terms of the NS states at every one of the thread's PTS points
-template <int NS, int PTS, bool PH, bool FAST, bool WEIGHTED, int CHI, bool CORE = false>
+template <int NS, int PTS, bool PH, bool FAST, bool WEIGHTED, bool CORE>
 __device__ __forceinline__ void region1_line(const float4* c, const float (&D)[PTS],
                                              const float (&wt)[PTS], const ChiArg (&q)[PTS],
                                              const float (&B1)[NS], const float (&B2)[NS],
@@ -898,8 +890,7 @@ __device__ __forceinline__ void region1_line(const float4* c, const float (&D)[P
     const float4 k4 = c[s];
 #pragma unroll
     for (int p = 0; p < PTS; ++p)
-      region1_term<PH, FAST, WEIGHTED, CHI, CORE>(k4, D[p], wt[p], q[p], B1[s], B2[s],
-                                                  acc[p][s]);
+      region1_term<PH, FAST, WEIGHTED, CORE>(k4, D[p], wt[p], q[p], B1[s], B2[s], acc[p][s]);
   }
 }
 
@@ -983,7 +974,7 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
       float D[PTS], wt[PTS];
       ChiArg q[PTS];
       bool in[PTS], cor[PTS];
-      bool any = false, all = true, core = false, unit = PH, near = PH, flat = WEIGHTED;
+      bool any = false, all = true, core = false;
 #pragma unroll
       for (int p = 0; p < PTS; ++p) {
         const float dnu = (it.nh[p] - ps.x) + (it.nl[p] - ps.y);
@@ -1003,36 +994,21 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
         } else {
           in[p] = adnu <= z.cut;
         }
-        if constexpr (PH) {
-          q[p] = chi_arg2_clamped(adnu);
-          unit = unit && adnu < 3.0f;
-          near = near && adnu < 30.0f;
-        }
+        if constexpr (PH) q[p] = chi_arg2_clamped(adnu);
         // within two Doppler widths of the line (x^2 <= 4) for some state:
         // around region 1's pole (x^2 = 1/2 + y^2), which the correction
         // cancels, at every y where den there (~ 2 y^2) is small
         cor[p] = D[p] * am <= 4.0f;
         core = core || (in[p] && cor[p]);
-        flat = flat && wt[p] == 1.0f;
         any = any || in[p];
         all = all && in[p];
       }
       if (!any) continue;
       const float4* c = &sm.c[buf][j * NS];
       if (all && core) {
-        region1_line<NS, PTS, PH, FAST, WEIGHTED, CHI_FULL, true>(c, D, wt, q, B1, B2, acc);
+        region1_line<NS, PTS, PH, FAST, WEIGHTED, true>(c, D, wt, q, B1, B2, acc);
       } else if (all) {
-        // the same values in fewer operations where the line's points allow:
-        // phco2's chi in its shorter forms, a weight of 1 left out
-        if constexpr (PH) {
-          if (unit) region1_line<NS, PTS, PH, FAST, WEIGHTED, CHI_UNIT>(c, D, wt, q, B1, B2, acc);
-          else if (near) region1_line<NS, PTS, PH, FAST, WEIGHTED, CHI_U>(c, D, wt, q, B1, B2, acc);
-          else region1_line<NS, PTS, PH, FAST, WEIGHTED, CHI_FULL>(c, D, wt, q, B1, B2, acc);
-        } else if (flat) {
-          region1_line<NS, PTS, PH, FAST, false, CHI_FULL>(c, D, wt, q, B1, B2, acc);
-        } else {
-          region1_line<NS, PTS, PH, FAST, WEIGHTED, CHI_FULL>(c, D, wt, q, B1, B2, acc);
-        }
+        region1_line<NS, PTS, PH, FAST, WEIGHTED, false>(c, D, wt, q, B1, B2, acc);
       } else {
 #pragma unroll
         for (int p = 0; p < PTS; ++p) {
@@ -1040,8 +1016,8 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
           if (cor[p]) {
 #pragma unroll
             for (int s = 0; s < NS; ++s)
-              region1_term<PH, FAST, WEIGHTED, CHI_FULL, true>(c[s], D[p], wt[p], q[p], B1[s],
-                                                               B2[s], acc[p][s]);
+              region1_term<PH, FAST, WEIGHTED, true>(c[s], D[p], wt[p], q[p], B1[s], B2[s],
+                                                     acc[p][s]);
           } else {
 #pragma unroll
             for (int s = 0; s < NS; ++s)

@@ -34,11 +34,10 @@ items (blocks, items, rows on the scratch path). ``--cuts`` also builds
 TREE's ``linesum.cu`` cut by text edits (:data:`WINDOW_CUTS`; all, or
 those of a comma list NAMES): ``arith`` (the pack's quads made in
 registers, not staged), ``stage`` (the staging and its pipeline, no line
-summed), ``newton`` (the window kernel's reciprocal with a Newton step),
-``no_core`` (no correction algebra near the cores), ``no_chi_forms`` and
-``no_flat`` (without a line's shorter forms: phco2's chi within 3 and 30
-cm^-1, the weight of 1 left out), and times FINE_STENCIL's ``items``
-(one work item a row: the mid window alone, no scratch); and the SASS of
+summed), ``newton`` (the window kernel's reciprocal with a Newton step) and
+``no_core`` (no correction algebra near the cores), and times
+FINE_STENCIL's ``items`` (one work item a row: the mid window alone, no
+scratch); and the SASS of
 each mode's loop bodies (instructions, reciprocals, exponentials) through
 ``cuobjdump -sass`` (the window kernel's whole SASS in ``--out``).
 ``--plans`` also times the window kernel under other launch plans (groups,
@@ -406,10 +405,6 @@ _WINDOW_STAGE_QUADS = ("      cp_async16(&sm.c[buf][i],\n                 it.coe
 _WINDOW_READ_QUADS = ("      const float4* c = &sm.c[buf][j * NS];\n",
                     "      float4 c[NS];\n#pragma unroll\n"
                     "      for (int s = 0; s < NS; ++s) c[s] = probe_quad<PH>(j, s);\n")
-# the flags of a line's shorter forms: phco2's chi (CHI_UNIT, CHI_U) and
-# the weight of 1 left out
-_WINDOW_FORMS = ("      bool any = false, all = true, core = false, unit = PH, near = PH, "
-                 "flat = WEIGHTED;\n")
 _WINDOW_LOOP = ("    for (int j = g * per; j < j1; ++j) {\n",
               "    for (int j = g * per; j < j1 && j1 < 0; ++j) {\n")
 WINDOW_CUTS = {"sweep": {"none": [], "arith": [_SWEEP_QUAD, _SWEEP_STAGE_QUADS, _SWEEP_READ_QUADS],
@@ -419,11 +414,7 @@ WINDOW_CUTS = {"sweep": {"none": [], "arith": [_SWEEP_QUAD, _SWEEP_STAGE_QUADS, 
                         "newton": [("  if constexpr (FAST) acc = fmaf(num, rcp_approx(den), acc);\n",
                                     "  if constexpr (FAST) acc = fmaf(num, rcp_newton(den), acc);\n")],
                         "no_core": [("        cor[p] = D[p] * am <= 4.0f;\n",
-                                     "        cor[p] = false;\n")],
-                        "no_chi_forms": [(_WINDOW_FORMS, _WINDOW_FORMS.replace(
-                            "unit = PH, near = PH", "unit = false, near = false"))],
-                        "no_flat": [(_WINDOW_FORMS, _WINDOW_FORMS.replace(
-                            "flat = WEIGHTED;", "flat = false;"))]}}
+                                     "        cor[p] = false;\n")]}}
 
 
 def window_design(src: str) -> str:
