@@ -9,11 +9,11 @@
 //   * split (voigt: Humlicek region 1 in the far wing, full w4 near the
 //     core) and single sweep (lorentz, doppler), through _pallas_sigma_impl;
 //   * FARALL (wmode "farall": region 1 over the whole window), the kernel of
-//     the stencil-near route, and FINE_STENCIL (wmode "fine_stencil"), the
-//     coarse-far split's fine pass beside the correction: these two, voigt
-//     and phco2, run window_kernel (its design further down);
-//   * FINE and COARSE (wmodes "fine", "coarse"), the two passes of the
-//     coarse-far split (_coarse_core) without the stencil;
+//     the stencil-near route, FINE_STENCIL (wmode "fine_stencil"), the
+//     coarse-far split's fine pass beside the correction, and FINE (wmode
+//     "fine"), its fine pass where the stencil rejects the grid: these
+//     three, voigt and phco2, run window_kernel (its design further down);
+//   * COARSE (wmode "coarse"), the coarse-far split's far field;
 //   * NOSPLIT (strategy "nosplit": use_split false, :1360 and :621): the
 //     full Humlicek w4 with the small-y repair at every in-cut (point, line,
 //     state), one sweep over the window with no near/far split, on the
@@ -84,7 +84,7 @@
 //       (wofz_re_call) that keeps its registers out of the far loop;
 //   (c) chunks of CH = 32 lines (positions and the tile's quads) are staged
 //       with cp.async, chunk k + 1 in flight while chunk k is summed; 8.8 KB
-//       (16.9 KB for the two-quad split and FINE packs) of shared memory
+//       (16.9 KB for the split mode's two-quad pack) of shared memory
 //       and at most 64 registers a thread (__launch_bounds__(512, 2)) hold 32
 //       or more of 64 warps an SM in blocks of 128 threads. Tensor cores do
 //       not apply: the sum is a rational function of each triple, not a
@@ -93,8 +93,7 @@
 // split's switching weights on the shared D = dnu^2, chi's piece) is done
 // once for the tile's states; a per-element branch on |dnu| > d_near
 // replaces the TPU kernel's two masked sweeps (far: region 1; near: full w4)
-// in the split and FINE modes (the masks are the same, so the sum is the
-// same; FINE's near sub-window is its mid window).
+// in the split mode (the masks are the same, so the sum is the same).
 // K1-dev replaces linesum_pallas.py::sigma_from_lines_pallas_device (:1705):
 // the same modes over a stack of spectral shards, each with its own block
 // grid, its own windows into its own line slab, and its own d_near from its
@@ -120,6 +119,8 @@
 // operands shown to be normal).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -158,14 +159,16 @@ __host__ __device__ constexpr int voigt_mode(int mode) {
 }
 
 // 16-byte quads per (line, state) in K1's pack [n_lines][n_states][4 n_quads]:
-//   VOIGT_SPLIT, FINE: (Sia, ia, y0, 0) and the far wing's (A, c1, c2, k2);
+//   VOIGT_SPLIT: (Sia, ia, y0, 0) and the far wing's (A, c1, c2, k2);
 //   COARSE: (A, c1, c2, k2), region 1 alone;
 //   the phco2 family: (Sia, ia, y0, A), region 1 on x^2 = D A and y = y0 chi;
 //   NOSPLIT: (Sia, ia, y0, A), A unread; LORENTZ, DOPPLER: (S, alpha, gamma, 0);
 //   FARALL, FINE_STENCIL: (A, 1/2 - y0^2, 2 y0^2, k2); PH_FARALL,
-//   PH_FINE_STENCIL: (0.5641896 Sia, y0, A, 0) (window_kernel's, below)
+//   PH_FINE_STENCIL: (0.5641896 Sia, y0, A, 0) (window_kernel's, below);
+//   FINE, PH_FINE: their window quad, then the near core's (Sia, ia, y0, r),
+//   laid out [n_lines][2][n_states][4] (window_kernel's FINE path, below)
 __host__ __device__ constexpr int n_quads(int mode) {
-  return (mode == VOIGT_SPLIT || mode == FINE) ? 2 : 1;
+  return (mode == VOIGT_SPLIT || mode == FINE || mode == PH_FINE) ? 2 : 1;
 }
 
 // line windows per block: FINE and FINE_STENCIL sweep the mid window and the
@@ -220,9 +223,9 @@ struct Zones {
 };
 
 // what a sweep over one window adds
-enum Zone { Z_SPLIT, Z_LORENTZ, Z_DOPPLER, Z_MID, Z_ANNULUS, Z_COARSE, Z_FULL };
+enum Zone { Z_SPLIT, Z_LORENTZ, Z_DOPPLER, Z_COARSE, Z_FULL };
 
-// the zones whose terms are region 1 (beyond d_near, in Z_SPLIT and Z_MID)
+// the zones whose terms are region 1 (beyond d_near, in Z_SPLIT)
 __host__ __device__ constexpr bool has_far(int zone) {
   return zone != Z_LORENTZ && zone != Z_DOPPLER && zone != Z_FULL;
 }
@@ -510,15 +513,6 @@ __device__ __forceinline__ void sweep(int start, int cnt, const Item& it, Stage<
       if constexpr (ZONE == Z_SPLIT || ZONE == Z_LORENTZ || ZONE == Z_DOPPLER ||
                     ZONE == Z_FULL) {
         if (!(adnu <= z.cut)) continue;
-      } else if constexpr (ZONE == Z_MID) {
-        // FINE: mid zone region 1 and near zone w4, weighted 1 - W
-        if (!(adnu <= z.cut_f)) continue;
-        w = 1.0f - smooth_d2(D, z.D1, z.inv_D);
-      } else if constexpr (ZONE == Z_ANNULUS) {
-        // the shell [cut - w_roll, cut] weighted by the outer roll: keeps the
-        // hard truncation at the cut exact on the fine grid
-        if (!(adnu <= z.cut && D > z.R1)) continue;
-        w = smooth_d2(D, z.R1, z.inv_R);
       } else {  // Z_COARSE: the smooth far field W Wout on the coarse grid
         if (!(adnu <= z.cut && adnu > z.d_lo)) continue;
         w = smooth_d2(D, z.D1, z.inv_D) * (1.0f - smooth_d2(D, z.R1, z.inv_R));
@@ -545,7 +539,7 @@ __device__ __forceinline__ void sweep(int start, int cnt, const Item& it, Stage<
           const float chi = PH ? chi2_of(q, sm.B[s], sm.B[ST + s]) : 1.0f;
           acc[s] += c[s].x * wofz_re(dnu * c[s].y, c[s].z * chi);
         }
-      } else if constexpr (ZONE == Z_SPLIT || ZONE == Z_MID) {
+      } else if constexpr (ZONE == Z_SPLIT) {
         // a per-element branch replaces the TPU kernel's two masked sweeps:
         // region 1 beyond d_near, the full w4 within it
         if (adnu > it.d_near) {
@@ -554,19 +548,18 @@ __device__ __forceinline__ void sweep(int start, int cnt, const Item& it, Stage<
             const float chi = PH ? chi2_of(q, sm.B[s], sm.B[ST + s]) : 1.0f;
             float num, den;
             far_parts<PH>(c[s * NQ + NQ - 1], D, chi, num, den);
-            add_far<FAST, ZONE == Z_MID, false>(acc[s], num, den, w);
+            add_far<FAST, false, false>(acc[s], num, den, w);
           }
         } else {
 #pragma unroll
           for (int s = 0; s < NS; ++s) {
             const float chi = PH ? chi2_of(q, sm.B[s], sm.B[ST + s]) : 1.0f;
             const float4 cn = c[s * NQ];
-            const float f = cn.x * wofz_re_call(dnu * cn.y, cn.z * chi);
-            acc[s] += ZONE == Z_MID ? f * w : f;
+            acc[s] += cn.x * wofz_re_call(dnu * cn.y, cn.z * chi);
           }
         }
       } else {
-        // ANNULUS (FINE's shells at the cut) and COARSE: region 1, weighted
+        // COARSE: region 1, weighted
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
           const float chi = PH ? chi2_of(q, sm.B[s], sm.B[ST + s]) : 1.0f;
@@ -621,15 +614,13 @@ __device__ void run_item(const int4 pa, const int4 pb, int shard, bool fast, con
   float acc[NS];
 #pragma unroll
   for (int s = 0; s < NS; ++s) acc[s] = 0.0f;
-  const int win = pa.y, start = pa.z, cnt = pa.w;
+  const int start = pa.z, cnt = pa.w;
 #define SWEEP(ZONE) sweep_zone<ZONE, NS, NQ, PH>(start, cnt, fast, it, sm, z, acc)
   if constexpr (VM == VOIGT_SPLIT) SWEEP(Z_SPLIT);
   else if constexpr (VM == LORENTZ) SWEEP(Z_LORENTZ);
   else if constexpr (VM == DOPPLER) SWEEP(Z_DOPPLER);
   else if constexpr (VM == COARSE) SWEEP(Z_COARSE);
   else if constexpr (VM == NOSPLIT) SWEEP(Z_FULL);
-  else if (win > 0) SWEEP(Z_ANNULUS);
-  else SWEEP(Z_MID);
 #undef SWEEP
 
   const int part = pb.x, nparts = pb.y, slot = pb.z;
@@ -700,7 +691,7 @@ linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
   Item it;
   it.nh = nu_hi[(size_t)pa.x * blockDim.x + threadIdx.x];
   it.nl = nu_lo[(size_t)pa.x * blockDim.x + threadIdx.x];
-  it.d_near = (VM == VOIGT_SPLIT || VM == FINE) ? d_near_p[shard] : 0.0f;
+  it.d_near = VM == VOIGT_SPLIT ? d_near_p[shard] : 0.0f;
   it.s0 = s0;
   it.n_states = n_states;
   it.line_hi = line_hi;
@@ -781,14 +772,17 @@ linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
 // now a third of it), FINE_STENCIL 0.319 -> 0.217 (the sigma it writes and
 // its per-block fixed cost), phco2's 1.33 -> 0.97 (two MUFUs a triple).
 // lines a staged chunk of window_kernel: 64, and 32 for voigt's
-// FINE_STENCIL, whose rows hold ~16 lines (a smaller block stage keeps more
-// of its short-lived blocks resident)
-__host__ __device__ constexpr int window_chunk(int mode) { return mode == FINE_STENCIL ? 32 : 64; }
+// FINE_STENCIL and FINE, whose rows hold ~16 lines (a smaller block stage
+// keeps more of its short-lived blocks resident)
+__host__ __device__ constexpr int window_chunk(int mode) {
+  return mode == FINE_STENCIL || mode == FINE ? 32 : 64;
+}
 constexpr int MAX_GROUPS = 4;    // thread groups that split a piece's lines
 constexpr int RED_FLOATS = 3 * ST * 128;  // the groups' sums, (G - 1) x NS x points
 
 __host__ __device__ constexpr bool is_window(int mode) {
-  return mode == FARALL || mode == FINE_STENCIL || mode == PH_FARALL || mode == PH_FINE_STENCIL;
+  return mode == FARALL || mode == FINE_STENCIL || mode == PH_FARALL || mode == PH_FINE_STENCIL ||
+         mode == FINE || mode == PH_FINE;
 }
 
 __host__ __device__ constexpr int window_tiles(int n) { return (n + ST - 1) / ST; }
@@ -819,7 +813,8 @@ struct WindowStage {
     float red[RED_FLOATS];     // then the groups' sums
   };
   float2 pos[2][WCH];          // the chunks' two-float line positions
-  float amin[2][WCH];          // the lines' least A = ia^2 over the states
+  float aux[2][WCH];           // the lines' least A = ia^2 over the states (FINE: the
+                               // lines' near reach over the tile)
   float B[2 * ST];             // chi's rates of the tile (phco2), in base 2
   int last;
 };
@@ -835,7 +830,7 @@ __device__ __forceinline__ ChiArg chi_arg2_clamped(float a) {
 // One (line, state)'s region-1 term at one point, added into acc: D =
 // dnu^2, wt the zone's weight (WEIGHTED), q chi's arguments and B1, B2 the
 // state's rates (PH)
-template <bool PH, bool FAST, bool WEIGHTED, bool CORE = false>
+template <bool PH, bool FAST, bool WEIGHTED, bool CORE = false, bool CHI1 = false>
 __device__ __forceinline__ void region1_term(const float4& k, float D, float wt,
                                              const ChiArg& q, float B1, float B2,
                                              float& acc) {
@@ -863,7 +858,8 @@ __device__ __forceinline__ void region1_term(const float4& k, float D, float wt,
     return;
   }
   if constexpr (PH) {
-    const float y = k.y * ex2_approx(-fmaf(B1, q.u, fmaf(B2, q.v, q.w)));
+    // CHI1: every |dnu| < 3 cm^-1, where chi is 1 (and ex2.approx(0) is 1)
+    const float y = CHI1 ? k.y : k.y * ex2_approx(-fmaf(B1, q.u, fmaf(B2, q.v, q.w)));
     const float y2 = y * y;
     const float w = fmaf(-D, k.z, 0.5f - y2);
     den = fmaf(w, w, y2 + y2);
@@ -880,7 +876,7 @@ __device__ __forceinline__ void region1_term(const float4& k, float D, float wt,
 }
 
 // A line's terms of the NS states at every one of the thread's PTS points
-template <int NS, int PTS, bool PH, bool FAST, bool WEIGHTED, bool CORE>
+template <int NS, int PTS, bool PH, bool FAST, bool WEIGHTED, bool CORE, bool CHI1 = false>
 __device__ __forceinline__ void region1_line(const float4* c, const float (&D)[PTS],
                                              const float (&wt)[PTS], const ChiArg (&q)[PTS],
                                              const float (&B1)[NS], const float (&B2)[NS],
@@ -890,7 +886,8 @@ __device__ __forceinline__ void region1_line(const float4* c, const float (&D)[P
     const float4 k4 = c[s];
 #pragma unroll
     for (int p = 0; p < PTS; ++p)
-      region1_term<PH, FAST, WEIGHTED, CORE>(k4, D[p], wt[p], q[p], B1[s], B2[s], acc[p][s]);
+      region1_term<PH, FAST, WEIGHTED, CORE, CHI1>(k4, D[p], wt[p], q[p], B1[s], B2[s],
+                                                   acc[p][s]);
   }
 }
 
@@ -938,7 +935,7 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
       const int l = it.line(c0 + i);
       cp_async4(&sm.pos[buf][i].x, it.line_hi + l);
       cp_async4(&sm.pos[buf][i].y, it.line_lo + l);
-      cp_async4(&sm.amin[buf][i], it.line_amin + l);
+      cp_async4(&sm.aux[buf][i], it.line_amin + l);
     }
     for (int i = tid; i < n * NS; i += nthreads) {
       const int j = i / NS;
@@ -969,7 +966,7 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
       // two-float dnu at each point, as in K1's other modes; the zone's
       // mask and weight
       const float2 ps = sm.pos[buf][j];
-      const float am = sm.amin[buf][j];
+      const float am = sm.aux[buf][j];
       const bool mid = NW == 3 && c0 + j < it.end[0];
       float D[PTS], wt[PTS];
       ChiArg q[PTS];
@@ -1031,15 +1028,198 @@ __device__ __forceinline__ void window_sweep(int o, int cnt, int g, int G,
   }
 }
 
+
+// FINE (the coarse split's fine pass where the stencil rejects the grid:
+// region 1 weighted 1 - W over d_near < |dnu| <= cut_f, Humlicek's w4
+// weighted 1 - W within d_near, the two annuli at the cut) in window_kernel.
+// Measured on one H100 in the general sweep (PERF.md, FINE's step 0), it lost its
+// time to the general sweep and the near core: every mid triple took the
+// ~15-instruction region 1 of a two-quad pack (its staging 44% of the
+// launch); within d_near (15 of the launch's widest Doppler widths) w4 ran
+// at every pair, three in four of them in its region 1, each a call that a
+// warp's lanes took in every region any of them needed; each window was a
+// piece of its own. The design:
+//   (a) the row's mid window and annuli are one stream of lines on the
+//       window kernel's pieces, groups, points a thread and balanced tiles,
+//       region 1 on the window quad (no core algebra: beyond a pair's near
+//       reach |x| + y >= 15, far from region 1's pole); phco2 takes y = y0
+//       without chi's exponential where the line's points all lie within 3
+//       cm^-1 (chi = 1 there, and ex2.approx(0) is 1: the same bits);
+//   (b) the near core is per (line, state): a pair takes w4 where |dnu| <=
+//       r = min(d_near, (15.01 - y0) / ia), where |x| + y < 15.01 may hold,
+//       and region 1 beyond, where w4 is its region 1 (s >= 15, y >= 0.01:
+//       no small-y repair), the window quad's function (for voigt up to its
+//       constant, 1/sqrt(pi) for w4's 0.5641896, 2.9e-8 apart: below
+//       float32's rounding); where y0 < 0.01, and for phco2 where d_near >=
+//       3 cm^-1 (chi may bring y below y0 beyond), r = d_near, the plain
+//       version's zone. Three in four of the launch's w4 calls go;
+//   (c) a line of the mid window whose reach over the tile's states
+//       (line_reach, one float a line and tile, staged with the chunk)
+//       meets the row is a near line: its group takes each (state, point)
+//       in turn, w4 (the call, its quad (Sia, ia, y0, reach) read from the
+//       pack where the line is near) within the pair's reach, region 1
+//       beyond, in the line's place in the stream. Measured (PERF.md, FINE's
+//       design runs): a block-wide gather of the w4 pairs laid out by region, so
+//       that a warp runs one region, cost more than the divergence it
+//       removed (a few percent of the triples are near); so did one call
+//       site for a line's pairs, w4 inlined, and 128 registers a thread;
+//   (d) a shard axis: a row is shard s's block b (row = s n_blocks + b), with
+//       d_near[s], the reciprocal's flag[s] and output columns [s n_out,
+//       (s + 1) n_out), so K1-dev's stack of shards is one launch and a
+//       shard's columns are the same bits alone or in a stack (the plan
+//       takes each shard from its own rows).
+// No float atomic: two launches give the same bits.
+constexpr float NEAR_EPS = 1e-5f;  // cm^-1: the near-line test's margin (a superset)
+
+// What a FINE item sees beyond a window item's: its row's first and last
+// points (two-float), its shard's d_near, the lines' near reach per tile and
+// its tile
+template <int PTS>
+struct FineItem : WindowItem<3, PTS> {
+  float f_hi, f_lo, l_hi, l_lo, d_near;
+  const float* line_reach;
+  int tile, n_tiles;
+};
+
+// a pair's near reach from its (line, state)'s reach ry (the w4 quad's last
+// place: (15.01 - y0) / ia, +inf where y0 < 0.01, -inf where Sia = 0):
+// min(d_near, ry); phco2 beyond d_near = 3 cm^-1, where chi may bring y
+// below y0, d_near for a line of nonzero strength. Taken with a line's
+// largest ry over the tile's states (line_reach) it gives the largest over
+// the tile's pairs.
+template <bool PH>
+__device__ __forceinline__ float near_reach(float ry, float d_near) {
+  if (PH && d_near >= 3.0f) return ry > -3.0e38f ? d_near : -1.0f;
+  return fminf(d_near, ry);
+}
+
+// whether a line of the mid window may have near pairs in the row: its
+// reach over the tile's states (ry, the largest) meets the row's span
+template <bool PH, int PTS>
+__device__ __forceinline__ bool near_line(const float2 ps, float ry, const FineItem<PTS>& it) {
+  const float r = near_reach<PH>(ry, it.d_near);
+  const float d0 = (it.f_hi - ps.x) + (it.f_lo - ps.y);
+  const float d1 = (it.l_hi - ps.x) + (it.l_lo - ps.y);
+  return r >= 0.0f && d0 <= r + NEAR_EPS && d1 >= -r - NEAR_EPS;
+}
+
+// window_sweep's FINE instance: each chunk's lines of group g, region 1 on
+// the window quads, a near line's pairs within their reach w4
+template <int NS, int PTS, bool PH, bool FAST, int WCH>
+__device__ __forceinline__ void fine_sweep(int o, int cnt, int g, int G,
+                                           const FineItem<PTS>& it, WindowStage<WCH>& sm,
+                                           const Zones& z, float (&acc)[PTS][NS]) {
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int n_chunks = (cnt + WCH - 1) / WCH;
+  const int per = (WCH + G - 1) / G;
+  const size_t ls = 2 * (size_t)it.n_states;  // quads a line in the pack: [2][n_states]
+  auto stage = [&](int k) {
+    const int c0 = o + k * WCH;
+    const int n = min(WCH, cnt - k * WCH);
+    const int buf = k & 1;
+    for (int i = tid; i < n; i += nthreads) {
+      const int l = it.line(c0 + i);
+      cp_async4(&sm.pos[buf][i].x, it.line_hi + l);
+      cp_async4(&sm.pos[buf][i].y, it.line_lo + l);
+      cp_async4(&sm.aux[buf][i], it.line_reach + (size_t)l * it.n_tiles + it.tile);
+    }
+    for (int i = tid; i < n * NS; i += nthreads) {
+      const int j = i / NS;
+      cp_async16(&sm.c[buf][i], it.coef + (size_t)it.line(c0 + j) * ls + it.s0 + (i - j * NS));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  float B1[NS], B2[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    B1[s] = PH ? sm.B[s] : 0.0f;
+    B2[s] = PH ? sm.B[ST + s] : 0.0f;
+  }
+  if (n_chunks > 0) stage(0);
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k + 1 < n_chunks) {
+      stage(k + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const int buf = k & 1;
+    const int c0 = o + k * WCH;
+    const int j1 = min(min(WCH, cnt - k * WCH), (g + 1) * per);
+    for (int j = g * per; j < j1; ++j) {
+      const float2 ps = sm.pos[buf][j];
+      const bool mid = c0 + j < it.end[0];
+      float dnu[PTS], D[PTS], wt[PTS];
+      ChiArg q[PTS];
+      bool in[PTS];
+      bool any = false, all = true, chi1 = true;
+#pragma unroll
+      for (int p = 0; p < PTS; ++p) {
+        dnu[p] = (it.nh[p] - ps.x) + (it.nl[p] - ps.y);
+        const float adnu = fabsf(dnu[p]);
+        D[p] = dnu[p] * dnu[p];
+        if (mid) {
+          // the mid window: region 1 over |dnu| <= cut_f, weighted 1 - W
+          in[p] = adnu <= z.cut_f;
+          wt[p] = 1.0f - smooth_d2(D[p], z.D1, z.inv_D);
+        } else {
+          // the annuli [cut - w_roll, cut], weighted by the outer roll
+          in[p] = adnu <= z.cut && D[p] > z.R1;
+          wt[p] = smooth_d2(D[p], z.R1, z.inv_R);
+        }
+        if constexpr (PH) q[p] = chi_arg2_clamped(adnu);
+        any = any || in[p];
+        all = all && in[p];
+        chi1 = chi1 && adnu < 3.0f;
+      }
+      if (!any) continue;
+      const float4* c = sm.c[buf] + j * NS;
+      if (mid && near_line<PH>(ps, sm.aux[buf][j], it)) {
+        // a near line: w4 within each pair's reach, region 1 beyond
+        const float4* nq4 = it.coef + (size_t)it.line(c0 + j) * ls + it.n_states + it.s0;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const float4 nq = nq4[s];
+          const float r = near_reach<PH>(nq.w, it.d_near);
+#pragma unroll
+          for (int p = 0; p < PTS; ++p) {
+            if (fabsf(dnu[p]) <= r) {
+              const float chi = PH ? chi2_of(chi_arg2(fabsf(dnu[p])), B1[s], B2[s]) : 1.0f;
+              acc[p][s] += nq.x * wofz_re_call(dnu[p] * nq.y, nq.z * chi) * wt[p];
+            } else if (in[p]) {
+              region1_term<PH, FAST, true>(c[s], D[p], wt[p], q[p], B1[s], B2[s], acc[p][s]);
+            }
+          }
+        }
+      } else if (all && PH && chi1) {
+        region1_line<NS, PTS, PH, FAST, true, false, true>(c, D, wt, q, B1, B2, acc);
+      } else if (all) {
+        region1_line<NS, PTS, PH, FAST, true, false>(c, D, wt, q, B1, B2, acc);
+      } else {
+#pragma unroll
+        for (int p = 0; p < PTS; ++p) {
+          if (!in[p]) continue;
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            region1_term<PH, FAST, true>(c[s], D[p], wt[p], q[p], B1[s], B2[s], acc[p][s]);
+        }
+      }
+    }
+    __syncthreads();  // chunk k's buffer is refilled by stage(k + 2)
+  }
+}
+
 // One work item of a tile of NS states: the groups sweep the piece, their
 // sums meet in group order; a row of several pieces adds its pieces'
 // partials in piece order through scratch (the last to arrive writes)
-template <int MODE, int NS, int PTS>
-__device__ void window_item(const int4 pa, const int4 pb, int B, bool fast,
-                            const WindowItem<n_windows(MODE), PTS>& it,
-                            WindowStage<window_chunk(MODE)>& sm,
-                            const float* bcoef, const Zones& z, int tile, int n_tiles,
-                            int n_out, float* scratch, int* counters, float* out) {
+template <int MODE, int NS, int PTS, class Item>
+__device__ void window_item(const int4 pa, const int4 pb, int B, bool fast, const Item& it,
+                            WindowStage<window_chunk(MODE)>& sm, const float* bcoef,
+                            const Zones& z, int tile, int n_tiles,
+                            int rb, int col0, int n_out, int ld_out, float* scratch,
+                            int* counters, float* out) {
   constexpr bool PH = is_phco2(MODE);
   constexpr int NW = n_windows(MODE);
   const int tid = threadIdx.x;
@@ -1064,8 +1244,13 @@ __device__ void window_item(const int4 pa, const int4 pb, int B, bool fast,
     for (int s = 0; s < NS; ++s) acc[p][s] = 0.0f;
   }
   constexpr int WCH = window_chunk(MODE);
-  if (fast) window_sweep<NS, NW, PTS, PH, true, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
-  else window_sweep<NS, NW, PTS, PH, false, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
+  if constexpr (voigt_mode(MODE) == FINE) {
+    if (fast) fine_sweep<NS, PTS, PH, true, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
+    else fine_sweep<NS, PTS, PH, false, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
+  } else {
+    if (fast) window_sweep<NS, NW, PTS, PH, true, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
+    else window_sweep<NS, NW, PTS, PH, false, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
+  }
   if (G > 1) {
     // the last chunk's barrier has passed: the buffers hold the groups' sums
     if (g > 0) {
@@ -1129,10 +1314,10 @@ __device__ void window_item(const int4 pa, const int4 pb, int B, bool fast,
   if (g == 0) {
 #pragma unroll
     for (int p = 0; p < PTS; ++p) {
-      const int pt = row * B + pl + p * TP;
+      const int pt = rb * B + pl + p * TP;
       if (pt < n_out) {
 #pragma unroll
-        for (int s = 0; s < NS; ++s) out[(size_t)(s0 + s) * n_out + pt] = acc[p][s];
+        for (int s = 0; s < NS; ++s) out[(size_t)(s0 + s) * ld_out + col0 + pt] = acc[p][s];
       }
     }
   }
@@ -1144,19 +1329,24 @@ __device__ void window_item(const int4 pa, const int4 pb, int B, bool fast,
 // offset, count, part, n_parts, slot, 0), offset and count in the row's
 // stream of lines (its windows of win [n_rows][2 NW] one after another), the
 // costliest first; grid.x = n_pieces n_tiles, tile fastest. out:
-// [n_states][n_out], written; scratch [n_slots][n_states][B] and counters
-// [n_rows][n_tiles] (zero) serve the rows of more than one piece. bcoef
-// (phco2) the rates [n_tiles of ST][2][ST]; fast[0] the reciprocal's flag.
+// [n_states][n_shards n_out], written; scratch [n_slots][n_states][B] and
+// counters [n_rows][n_tiles] (zero) serve the rows of more than one piece.
+// bcoef (phco2) the rates [n_tiles of ST][2][ST]; fast the reciprocal's flag
+// (FINE: one a shard, row = shard n_blocks + block, with d_near a shard and
+// line_reach [n_lines][n_tiles]; the other modes: one shard, fast[0]).
 template <int MODE, int PTS>
 __device__ __forceinline__ void window_run(const float* nu_hi, const float* nu_lo,
                                            const float* line_hi, const float* line_lo,
-                                           const float* line_amin, const float4* coef,
-                                           const int* win,
-                                           const int4* pieces, bool fast, const float* bcoef,
-                                           const Zones& z, int B, int n_states, int n_out,
-                                           float* scratch, int* counters, float* out,
+                                           const float* line_amin, const float* line_reach,
+                                           const float4* coef, const int* win,
+                                           const int4* pieces, const int* fast_p,
+                                           const float* d_near_p, const float* bcoef,
+                                           const Zones& z, int B, int n_blocks, int n_states,
+                                           int n_out, int ld_out, float* scratch,
+                                           int* counters, float* out,
                                            WindowStage<window_chunk(MODE)>& sm) {
   constexpr int NW = n_windows(MODE);
+  constexpr bool IS_FINE = voigt_mode(MODE) == FINE;
   const int n_tiles = window_tiles(n_states);
   const int item = blockIdx.x / n_tiles;
   const int tile = blockIdx.x - item * n_tiles;
@@ -1164,7 +1354,7 @@ __device__ __forceinline__ void window_run(const float* nu_hi, const float* nu_l
   const int4 pb = pieces[2 * item + 1];
   const int TP = B / PTS;
   const int pl = threadIdx.x % TP;
-  WindowItem<NW, PTS> it;
+  std::conditional_t<IS_FINE, FineItem<PTS>, WindowItem<NW, PTS>> it;
 #pragma unroll
   for (int p = 0; p < PTS; ++p) {
     it.nh[p] = nu_hi[(size_t)pa.x * B + pl + p * TP];
@@ -1185,9 +1375,24 @@ __device__ __forceinline__ void window_run(const float* nu_hi, const float* nu_l
   it.line_lo = line_lo;
   it.line_amin = line_amin;
   it.coef = coef;
+  int shard = 0, rb = pa.x;
+  if constexpr (IS_FINE) {
+    shard = pa.x / n_blocks;
+    rb = pa.x - shard * n_blocks;
+    const size_t r0 = (size_t)pa.x * B;
+    it.f_hi = nu_hi[r0];
+    it.f_lo = nu_lo[r0];
+    it.l_hi = nu_hi[r0 + B - 1];
+    it.l_lo = nu_lo[r0 + B - 1];
+    it.d_near = d_near_p[shard];
+    it.line_reach = line_reach;
+    it.tile = tile;
+    it.n_tiles = n_tiles;
+  }
+  const bool fast = fast_p[shard] != 0;
 #define RUN(NS)                                                                            \
-  window_item<MODE, NS, PTS>(pa, pb, B, fast, it, sm, bcoef, z, tile, n_tiles, n_out, \
-                             scratch, counters, out)
+  window_item<MODE, NS, PTS>(pa, pb, B, fast, it, sm, bcoef, z, tile, n_tiles, rb,       \
+                             shard * n_out, n_out, ld_out, scratch, counters, out)
   switch (ns) {
     case 8: RUN(8); break;
     case 7: RUN(7); break;
@@ -1205,15 +1410,17 @@ template <int MODE, int PTS>
 __global__ void __launch_bounds__(512, 2)
 window_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
               const float* __restrict__ line_hi, const float* __restrict__ line_lo,
-              const float* __restrict__ line_amin, const float4* __restrict__ coef,
-              const int* __restrict__ win, const int4* __restrict__ pieces,
-              const int* __restrict__ fast_p, const float* __restrict__ bcoef, Zones z, int B,
-              int n_states, int n_out, float* __restrict__ scratch,
-              int* __restrict__ counters, float* __restrict__ out) {
+              const float* __restrict__ line_amin, const float* __restrict__ line_reach,
+              const float4* __restrict__ coef, const int* __restrict__ win,
+              const int4* __restrict__ pieces, const int* __restrict__ fast_p,
+              const float* __restrict__ d_near_p, const float* __restrict__ bcoef, Zones z,
+              int B, int n_blocks, int n_states, int n_out, int ld_out,
+              float* __restrict__ scratch, int* __restrict__ counters,
+              float* __restrict__ out) {
   __shared__ __align__(16) WindowStage<window_chunk(MODE)> sm;
-  window_run<MODE, PTS>(nu_hi, nu_lo, line_hi, line_lo, line_amin, coef, win, pieces,
-                        fast_p[0] != 0, bcoef, z, B, n_states, n_out, scratch, counters, out,
-                        sm);
+  window_run<MODE, PTS>(nu_hi, nu_lo, line_hi, line_lo, line_amin, line_reach, coef, win,
+                        pieces, fast_p, d_near_p, bcoef, z, B, n_blocks, n_states, n_out, ld_out,
+                        scratch, counters, out, sm);
 }
 
 // The stencil route's near-core correction, a gather over the K-point rows
@@ -1683,10 +1890,8 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
     case VOIGT_SPLIT: LAUNCH_ACC(VOIGT_SPLIT); break;
     case LORENTZ: LAUNCH_ACC(LORENTZ); break;
     case DOPPLER: LAUNCH_ACC(DOPPLER); break;
-    case FINE: LAUNCH(FINE); break;
     case COARSE: LAUNCH(COARSE); break;
     case PH_SPLIT: LAUNCH_ACC(PH_SPLIT); break;
-    case PH_FINE: LAUNCH(PH_FINE); break;
     case PH_COARSE: LAUNCH(PH_COARSE); break;
     case NOSPLIT: LAUNCH_ACC(NOSPLIT); break;
     case PH_NOSPLIT: LAUNCH_ACC(PH_NOSPLIT); break;
@@ -1699,39 +1904,48 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the window mode `mode` (FARALL, FINE_STENCIL and their phco2
+// Launch the window mode `mode` (FARALL, FINE_STENCIL, FINE and their phco2
 // instances) on `stream`: n_pieces work items (pieces [n_pieces][8] int32,
-// see window_kernel) over rows of B points, times the balanced state tiles,
-// in blocks of `groups` x B / pts threads, pts (1 or 2) points a thread;
-// line_amin: each line's least A = ia^2 over the states (the reach of its
-// cores; +inf for a line of zero strength in every state); coef: the window pack [n_lines][n_states]
-// [4]; win: the rows' window table [n_rows][2 n_windows(mode)]; zones: host
-// float[7]; fast: one int32 (nonzero: every region-1 denominator lies in
-// [2^-120, 2^120]); bcoef: the phco2 rates [n_tiles of ST][2][ST]; out:
-// [n_states][n_out], written; scratch and counters (zeroed) for the rows of
-// several pieces. Returns cudaGetLastError() (0 on success).
+// see window_kernel) over rows of B points, n_blocks rows a shard (FINE;
+// the other modes one shard), times the balanced state tiles, in blocks of
+// `groups` x B / pts threads, pts (1 or 2) points a thread; line_amin
+// (FARALL, FINE_STENCIL): each line's least A = ia^2 over the states (the
+// reach of its cores; +inf for a line of zero strength in every state);
+// line_reach (FINE): each line's near reach over each state tile
+// [n_lines][n_tiles] (< 0: none); coef: the window pack [n_lines][n_states]
+// [4] (FINE: [n_lines][2][n_states][4], the window quads, then the w4
+// quads); win: the rows' window table [n_rows][2 n_windows(mode)]; zones:
+// host float[7]; fast: one int32 a shard (nonzero: every region-1
+// denominator lies in [2^-120, 2^120]); d_near (FINE): one float a shard;
+// bcoef: the phco2 rates [n_tiles of ST][2][ST]; out: [n_states][ld_out],
+// shard s's columns [s n_out, (s + 1) n_out) written; scratch and counters
+// (zeroed) for the rows of several pieces. Returns cudaGetLastError() (0
+// on success).
 int window_launch(int mode, const float* nu_hi, const float* nu_lo, const float* line_hi,
-                  const float* line_lo, const float* line_amin, const float* coef,
-                  const int* win, const int* pieces,
-                  int n_pieces, const int* fast, const float* bcoef, const float* zones, int B,
-                  int groups, int pts, int n_states, int n_out, float* scratch, int* counters,
-                  float* out, void* stream) {
+                  const float* line_lo, const float* line_amin, const float* line_reach,
+                  const float* coef, const int* win, const int* pieces, int n_pieces,
+                  const int* fast, const float* d_near, const float* bcoef,
+                  const float* zones, int B, int n_blocks, int groups, int pts, int n_states,
+                  int n_out, int ld_out, float* scratch, int* counters, float* out,
+                  void* stream) {
   const long long blocks = (long long)n_pieces * window_tiles(n_states);
   const int threads = groups * B / max(pts, 1);
+  const bool fine = voigt_mode(mode) == FINE;
   if (!is_window(mode) || blocks < 1 || blocks > 0x7fffffffLL || B < 1 || groups < 1 ||
       groups > MAX_GROUPS || (pts != 1 && pts != 2) || B % pts != 0 || threads > 512 ||
-      (groups - 1) * B * ST > RED_FLOATS)
+      (groups - 1) * B * ST > RED_FLOATS || n_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_phco2(mode) && bcoef == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (fine != (line_reach != nullptr && d_near != nullptr) || (!fine && ld_out != n_out))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Zones z{zones[0], zones[1], zones[2], zones[3], zones[4], zones[5], zones[6]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* c4 = reinterpret_cast<const float4*>(coef);
   const int4* p4 = reinterpret_cast<const int4*>(pieces);
-#define LAUNCH_AS(M, P)                                                                     \
-  window_kernel<M, P><<<(unsigned)blocks, threads, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, \
-                                                           line_amin, c4, win, p4, fast,   \
-                                                           bcoef, z, B, n_states, n_out,   \
-                                                           scratch, counters, out)
+#define LAUNCH_AS(M, P)                                                                  \
+  window_kernel<M, P><<<(unsigned)blocks, threads, 0, st>>>(                             \
+      nu_hi, nu_lo, line_hi, line_lo, line_amin, line_reach, c4, win, p4, fast, d_near,  \
+      bcoef, z, B, n_blocks, n_states, n_out, ld_out, scratch, counters, out)
 #define LAUNCH(M)     \
   if (pts == 2)       \
     LAUNCH_AS(M, 2);  \
@@ -1740,8 +1954,10 @@ int window_launch(int mode, const float* nu_hi, const float* nu_lo, const float*
   switch (mode) {
     case FARALL: LAUNCH(FARALL); break;
     case FINE_STENCIL: LAUNCH(FINE_STENCIL); break;
+    case FINE: LAUNCH(FINE); break;
     case PH_FARALL: LAUNCH(PH_FARALL); break;
     case PH_FINE_STENCIL: LAUNCH(PH_FINE_STENCIL); break;
+    case PH_FINE: LAUNCH(PH_FINE); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LAUNCH
@@ -1770,8 +1986,10 @@ int window_kernel_info(int mode, int pts, int threads, int* info) {
   switch (mode) {
     case FARALL: INFO(FARALL); break;
     case FINE_STENCIL: INFO(FINE_STENCIL); break;
+    case FINE: INFO(FINE); break;
     case PH_FARALL: INFO(PH_FARALL); break;
     case PH_FINE_STENCIL: INFO(PH_FINE_STENCIL); break;
+    case PH_FINE: INFO(PH_FINE); break;
     default: break;
   }
 #undef INFO
@@ -1800,10 +2018,8 @@ int linesum_kernel_info(int mode, int block, int* info) {
     case VOIGT_SPLIT: INFO(VOIGT_SPLIT); break;
     case LORENTZ: INFO(LORENTZ); break;
     case DOPPLER: INFO(DOPPLER); break;
-    case FINE: INFO(FINE); break;
     case COARSE: INFO(COARSE); break;
     case PH_SPLIT: INFO(PH_SPLIT); break;
-    case PH_FINE: INFO(PH_FINE); break;
     case PH_COARSE: INFO(PH_COARSE); break;
     case NOSPLIT: INFO(NOSPLIT); break;
     case PH_NOSPLIT: INFO(PH_NOSPLIT); break;

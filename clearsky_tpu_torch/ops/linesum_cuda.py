@@ -29,12 +29,13 @@ unpacked per-state rows. K1 runs one block per work item: a piece of at most
 :data:`PIECE_LINES` lines of a block's windows and a tile of states
 (:func:`piece_schedule`, built once per grid on the host), the costliest
 first; the pieces of one block add up in piece order, so every launch gives
-the same bits. The region-1 window modes (FARALL, FINE_STENCIL, voigt and
+the same bits. The window modes (FARALL, FINE_STENCIL and FINE, voigt and
 phco2) run a kernel of their own on their own pack (:func:`window_pack`):
 work items over a row's windows as one stream of lines, split among groups
 of the row's threads and over balanced tiles of states as
 :func:`window_plan` lays them out; they too add pieces and groups in a fixed
-order.
+order. FINE takes w4 only within each (line, state)'s near reach
+(:func:`fine_reach`), and its launch covers a stack of shards (K1-dev).
 
 :func:`sigma_lines` (split mode), :func:`sigma_nosplit`, :func:`sigma_stencil`,
 :func:`sigma_coarse`, :func:`sigma_segmented`, :func:`sigma_lane` and
@@ -117,7 +118,8 @@ __all__ = ["sigma_lines", "sigma_nosplit", "sigma_stencil", "sigma_coarse", "sig
            "stencil_correction", "correction_tiles", "correction_info", "launch_mode",
            "launch_fullprofile", "pack_coefficients", "near_distance", "chi_rates",
            "window_mode", "nosplit_mode", "gather_group", "piece_schedule", "state_tiles",
-           "far_reciprocal_ok", "kernel_info", "window_pack", "window_core_reach", "window_tiles",
+           "far_reciprocal_ok", "kernel_info", "window_pack", "window_core_reach", "fine_reach",
+           "window_tiles",
            "window_tile_sizes", "window_schedule", "window_plan", "MODES", "WINDOW_MODES",
            "NOSPLIT_MODES", "GATHER_BYTES", "PIECE_LINES"]
 
@@ -136,9 +138,11 @@ _MODE_NAMES = {0: "voigt_split", 1: "lorentz", 2: "doppler", 3: "farall", 4: "fi
                9: "phco2_fine", 10: "phco2_fine_stencil", 11: "phco2_coarse",
                12: "nosplit", 13: "phco2_nosplit"}
 _PHCO2_MODES = (7, 8, 9, 10, 11, 13)
-# floats per (line, state) in K1's pack: two quads for the split and FINE
-# modes (the core's and the far wing's), one for every other mode
-_N_COEF = {m: (8 if m in (0, 4) else 4) for m in _MODE_NAMES}
+# floats per (line, state) in K1's pack: two quads for the split mode (the
+# core's and the far wing's) and FINE (the window quad and the near core's),
+# one for every other mode
+_FINE_MODES = (4, 9)
+_N_COEF = {m: (8 if m in (0,) + _FINE_MODES else 4) for m in _MODE_NAMES}
 # the modes whose terms include region 1 (the reciprocal's candidates)
 _FAR_MODES = (0, 3, 4, 5, 6, 7, 8, 9, 10, 11)
 _N_WIN = {m: (3 if m in (4, 5, 9, 10) else 1) for m in _MODE_NAMES}
@@ -156,14 +160,17 @@ ST = 8  # states per tile at most, and chi's rates' tile; csrc/linesum.cu ``ST``
 # lines per K1 work item at most: a block's windows are cut into pieces of
 # this many lines (csrc/linesum.cu sums a block's pieces in piece order)
 PIECE_LINES = 256
-# the region-1 window modes (FARALL, FINE_STENCIL and their phco2 instances)
+# the window modes (FARALL, FINE_STENCIL, FINE and their phco2 instances)
 # run csrc/linesum.cu ``window_kernel``: their own pack, work items over a
 # row's windows as one stream, groups of threads splitting a piece's lines,
 # balanced state tiles; :func:`window_plan` picks the piece length, the
 # groups and the points a thread
-_WINDOW_KERNEL_MODES = (3, 5, 8, 10)
+_WINDOW_KERNEL_MODES = (3, 4, 5, 8, 9, 10)
 # lines a staged chunk by mode (csrc/linesum.cu ``window_chunk``)
-WINDOW_CHUNKS = {3: 64, 5: 32, 8: 64, 10: 64}
+WINDOW_CHUNKS = {3: 64, 4: 32, 5: 32, 8: 64, 9: 64, 10: 64}
+# FINE's near reach (csrc/linesum.cu ``near_reach``): the margin on |x| + y,
+# and w4's small-y repair's bound on y
+NEAR_X, SMALL_Y = 15.01, 0.01
 MAX_GROUPS = 4
 WINDOW_PIECE_MAX = 2048
 # the plan's choices a caller may set (launch_mode's ``window``)
@@ -210,11 +217,12 @@ def pack_coefficients(mode: int, S, alpha, gamma):
 
     From :func:`.linesum.voigt_coefficients` on the profile's Doppler width
     ``alpha`` (the *_ref shapes' already divided by sqrt(ln 2)): the split
-    and FINE modes pack (Sia, ia, y0, 0) and the far wing's (A, c1, c2, k2);
-    COARSE (A, c1, c2, k2) alone; the other phco2 modes and NOSPLIT (Sia,
-    ia, y0, A); lorentz and doppler (S, alpha, gamma, 0); the window modes
-    (FARALL, FINE_STENCIL) :func:`window_pack`'s. A tile of states reads
-    each line's run of ``n_coef`` floats per state.
+    mode packs (Sia, ia, y0, 0) and the far wing's (A, c1, c2, k2); COARSE
+    (A, c1, c2, k2) alone; the split and no-split phco2 modes and NOSPLIT
+    (Sia, ia, y0, A); lorentz and doppler (S, alpha, gamma, 0); the window
+    modes (FARALL, FINE_STENCIL, FINE) :func:`window_pack`'s, FINE's as
+    [n_lines, 2, n_states, 4]. A tile of states reads each line's run of
+    ``n_coef`` floats per state.
     """
     if mode in (1, 2):
         cols = (S, alpha, gamma, torch.zeros_like(S))
@@ -226,9 +234,12 @@ def _pack(mode: int, co):
     """:func:`pack_coefficients` of a Voigt-family mode from the
     :func:`.linesum.voigt_coefficients` ``co``."""
     Sia, ia, y0, A, c1, c2, k2 = co
+    if mode in _FINE_MODES:
+        return torch.stack([torch.stack(q, dim=-1).transpose(0, 1)
+                            for q in window_pack(mode, co)], dim=1).contiguous()
     if mode in _WINDOW_KERNEL_MODES:
         cols = window_pack(mode, co)
-    elif mode in (0, 4):
+    elif mode == 0:
         cols = (Sia, ia, y0, torch.zeros_like(Sia), A, c1, c2, k2)
     elif mode == 6:
         cols = (A, c1, c2, k2)
@@ -246,16 +257,25 @@ def window_pack(mode: int, co):
     (0.5641896 Sia, y0, A, 0), the term 0.5641896 Sia y (1 - w) / (w^2 + 2
     y^2) at y = y0 chi. A line whose term is zero whatever its denominator
     (k2 = 0; Sia = 0) gets the quad (0, 0, 1, 0) (phco2: (0, 1, 0, 0)),
-    whose denominator is 1."""
-    Sia, _, y0, A, _, _, k2 = co
+    whose denominator is 1. FINE (modes 4 and 9) adds the near core's quad
+    (Sia, ia, y0, ry), ry the (line, state)'s reach beside d_near
+    (:func:`fine_reach`): -inf where Sia = 0, else +inf where y0 < 0.01,
+    else (15.01 - y0) / ia; returns the two quads' columns."""
+    Sia, ia, y0, A, _, _, k2 = co
     zero = torch.zeros_like(A)
     if mode in _PHCO2_MODES:
         live = Sia != 0
-        return (Sia * 0.5641896, torch.where(live, y0, 1.0), torch.where(live, A, 0.0), zero)
-    live = k2 != 0
-    y2 = y0 * y0
-    return (torch.where(live, A, 0.0), torch.where(live, 0.5 - y2, 0.0),
-            torch.where(live, 2.0 * y2, 1.0), k2)
+        quad = (Sia * 0.5641896, torch.where(live, y0, 1.0), torch.where(live, A, 0.0), zero)
+    else:
+        live = k2 != 0
+        y2 = y0 * y0
+        quad = (torch.where(live, A, 0.0), torch.where(live, 0.5 - y2, 0.0),
+                torch.where(live, 2.0 * y2, 1.0), k2)
+    if mode not in _FINE_MODES:
+        return quad
+    near = torch.where(Sia != 0, torch.where(y0 < SMALL_Y, float("inf"), (NEAR_X - y0) / ia),
+                       float("-inf"))
+    return quad, (Sia, ia, y0, near)
 
 
 def _packed(mode: int, S, alpha, gamma, n_shards: int, cut: float, bcoef=None):
@@ -319,7 +339,7 @@ def _sms(dev) -> int:
     return _H100_SMS
 
 
-def window_plan(mode: int, grid: dict, n_states: int, override=None) -> dict:
+def window_plan(mode: int, grid: dict, n_states: int, override=None, n_shards: int = 1) -> dict:
     """The launch plan of a window mode over ``grid`` at ``n_states``, cached
     in the grid dict. Where the rows' tiles fill a wave of the card's
     resident warps (:data:`_RESIDENT_WARPS` an SM), a block runs one group
@@ -331,16 +351,21 @@ def window_plan(mode: int, grid: dict, n_states: int, override=None) -> dict:
     (the RCM's 16,384 points), G = 4 groups of the row's threads (at most
     512 threads, a point each) split each piece's lines, and a piece holds
     the mean lines a row: a dense row is cut and no thread's chain is long.
+    Over a stack of ``n_shards`` shards (FINE's K1-dev launch) each shard
+    is planned from its own rows (its piece length from its own mean, the
+    fill from one shard's rows), so that a shard's pieces, groups and
+    points a thread, and so its bits, are the same alone or in a stack.
     Returns the plan with its schedule (:func:`window_schedule`):
-    piece_lines, groups, points_per_thread, threads, tiles, pieces, blocks,
-    rows, scratch_row_share, scratch_slots, and ``table`` (the pieces on
-    the grid's device). ``override`` sets any of piece_lines, groups and
-    points_per_thread in its place (tests, tools/k1_probe.py)."""
+    piece_lines (a tuple a shard over a stack), groups, points_per_thread,
+    threads, tiles, pieces, blocks, rows, scratch_row_share, scratch_slots,
+    and ``table`` (the pieces on the grid's device). ``override`` sets any
+    of piece_lines, groups and points_per_thread in its place (tests,
+    tools/k1_probe.py)."""
     dev = grid["win"].device
     override = dict(override or {})
     if set(override) - set(_PLAN_KEYS):
         raise ValueError(f"a window plan sets only {_PLAN_KEYS}, not {sorted(override)}")
-    key = ("window_plan", mode, n_states, tuple(sorted(override.items())), _sms(dev))
+    key = ("window_plan", mode, n_states, tuple(sorted(override.items())), _sms(dev), n_shards)
     got = grid.get(key)
     if got is not None:
         return got
@@ -350,22 +375,34 @@ def window_plan(mode: int, grid: dict, n_states: int, override=None) -> dict:
     win = np.asarray(win, np.int64)
     n_win = _N_WIN[mode]
     rows = win.shape[0]
+    nb = rows // n_shards
     block = grid["nu_hi"].shape[0] // max(rows, 1)
-    mean = float(win[:, 1::2].sum(axis=1).mean()) if rows else 0.0
     ch = WINDOW_CHUNKS[mode]
     chunks = lambda x: -(-int(np.ceil(x)) // ch) * ch
     tiles = window_tiles(n_states)
-    many = rows * tiles * -(-block // 32) >= _sms(dev) * _RESIDENT_WARPS
+    many = nb * tiles * -(-block // 32) >= _sms(dev) * _RESIDENT_WARPS
     pts = override.get("points_per_thread") or (
-        2 if many and mode in (3, 5) and block % 2 == 0 else 1)
+        2 if many and mode in (3, 4, 5) and block % 2 == 0 else 1)
     tp = block // pts
     G = override.get("groups") or (1 if many else max(1, min(MAX_GROUPS, 512 // tp)))
-    P = override.get("piece_lines")
-    if P is None:
-        P = (min(WINDOW_PIECE_MAX, max(4 * ch, chunks(2.0 * mean))) if many
-             else max(ch, chunks(mean)))
-    table, n_slots = window_schedule(win, n_win, P)
+    tables, Ps, n_slots = [], [], 0
+    for s in range(n_shards):
+        w = win[s * nb:(s + 1) * nb]
+        mean = float(w[:, 1::2].sum(axis=1).mean()) if nb else 0.0
+        P = override.get("piece_lines")
+        if P is None:
+            P = (min(WINDOW_PIECE_MAX, max(4 * ch, chunks(2.0 * mean))) if many
+                 else max(ch, chunks(mean)))
+        t, slots = window_schedule(w, n_win, P)
+        t[:, 0] += s * nb
+        t[:, 6] += n_slots
+        tables.append(t)
+        Ps.append(P)
+        n_slots += slots
+    table = np.concatenate(tables)
+    table = table[np.argsort(-table[:, 3], kind="stable")]
     parts = np.bincount(table[:, 0], minlength=rows)
+    P = Ps[0] if n_shards == 1 else tuple(Ps)
     got = grid[key] = dict(piece_lines=P, groups=G, points_per_thread=pts, threads=G * tp,
                            tiles=tiles,
                            pieces=int(table.shape[0]), blocks=int(table.shape[0]) * tiles,
@@ -530,8 +567,8 @@ def _library():
         info.argtypes = [_I, _I, ctypes.POINTER(_I)]
         info.restype = _I
         wl = lib.window_launch
-        wl.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, ctypes.POINTER(_F), _I,
-                       _I, _I, _I, _I, _P, _P, _P, _P]
+        wl.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                       ctypes.POINTER(_F), _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
         wl.restype = _I
         wi = lib.window_kernel_info
         wi.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
@@ -641,7 +678,8 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
     if block > 512 or n_blocks * block < n_out or grid["nu_hi"].shape[0] != win.shape[0] * block:
         raise ValueError(f"a grid of {n_blocks} blocks of {block} points a shard cannot give "
                          f"{n_out} outputs (at most 512 threads a block)")
-    check_operand("coef", coef, (lines.n_lines, n_states, _N_COEF[mode]), dev)
+    check_operand("coef", coef, (lines.n_lines, 2, n_states, 4) if mode in _FINE_MODES
+                  else (lines.n_lines, n_states, _N_COEF[mode]), dev)
     if (mode in _D_NEAR_MODES) != (d_near is not None):
         raise ValueError("d_near goes with the split and FINE modes, and only with them")
     if d_near is not None:
@@ -669,10 +707,10 @@ def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, z
     if window is not None and mode not in _WINDOW_KERNEL_MODES:
         raise ValueError("a window plan goes with the window modes, and only with them")
     if mode in _WINDOW_KERNEL_MODES:
-        if n_shards != 1:
+        if n_shards != 1 and mode not in _FINE_MODES:
             raise ValueError(f"mode {_MODE_NAMES[mode]} runs one shard")
         _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast, block, out,
-                       window)
+                       window, d_near, n_shards)
         _count(count_as or _MODE_NAMES[mode])
         return out
     pieces, n_pieces, n_slots = _pieces(grid, _N_WIN[mode])
@@ -705,24 +743,54 @@ def window_core_reach(mode: int, coef):
     return torch.where(A > 0, A, float("inf")).amin(dim=1).contiguous()
 
 
+def fine_reach(coef):
+    """Each line's largest reach ry over each balanced tile of states
+    [n_lines, n_tiles], from FINE's pack ``coef`` [n_lines, 2, n_states, 4]
+    (its w4 quads' last place): the kernel's near lines in a row are those
+    whose tile's reach, taken with the shard's d_near as each pair's is,
+    meets it.
+
+    A (line, state)'s pair takes w4 where |dnu| <= r = min(d_near, ry), ry
+    = (15.01 - y0) / ia, the pairs where |x| + y < 15.01 may hold, and
+    region 1 beyond, where w4 is region 1 (|x| + y >= 15, y >= 0.01: no
+    small-y repair), the window quad's function (phco2's with w4's
+    constant 0.5641896; voigt's takes 1/sqrt(pi), 2.9e-8 apart, below
+    float32's rounding). Where y0 < 0.01 ry = +inf, and for phco2 where
+    d_near >= 3 cm^-1 (beyond which chi may bring y below y0) r = d_near
+    for every line of nonzero strength: the plain version's near zone
+    (csrc/linesum.cu ``near_reach``). ry = -inf where Sia = 0."""
+    L, _, n, _ = coef.shape
+    T = window_tiles(n)
+    q, rem = divmod(n, T)
+    ry = coef[:, 1, :, 3]
+    head = ry[:, :rem * (q + 1)].reshape(L, rem, q + 1).amax(dim=2)
+    tail = ry[:, rem * (q + 1):].reshape(L, T - rem, q).amax(dim=2)
+    return torch.cat([head, tail], dim=1)
+
+
 def _launch_window(mode, grid, lines, coef, n_states, n_out, zones, bcoef, fast, block, out,
-                   window=None):
+                   window=None, d_near=None, n_shards=1):
     """window_kernel's launch of ``mode`` into ``out`` by :func:`window_plan`
     (its choices overridden by ``window``)."""
-    plan = window_plan(mode, grid, n_states, window)
+    plan = window_plan(mode, grid, n_states, window, n_shards)
     dev = coef.device
-    amin = window_core_reach(mode, coef)
+    amin = reach = None
+    if mode in _FINE_MODES:
+        reach = fine_reach(coef)
+    else:
+        amin = window_core_reach(mode, coef)
     scratch = counters = None
     if plan["scratch_slots"]:
         scratch = torch.empty(plan["scratch_slots"] * n_states * block, dtype=torch.float32,
                               device=dev)
         counters = torch.zeros(plan["rows"] * plan["tiles"], dtype=torch.int32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
     err = _library().window_launch(
         mode, grid["nu_hi"].data_ptr(), grid["nu_lo"].data_ptr(), lines.nu.data_ptr(),
-        lines.nu_lo.data_ptr(), amin.data_ptr(), coef.data_ptr(), grid["win"].data_ptr(),
-        plan["table"].data_ptr(), plan["pieces"], fast.data_ptr(),
-        None if bcoef is None else bcoef.data_ptr(), zones, block, plan["groups"],
-        plan["points_per_thread"], n_states, n_out,
+        lines.nu_lo.data_ptr(), ptr(amin), ptr(reach), coef.data_ptr(), grid["win"].data_ptr(),
+        plan["table"].data_ptr(), plan["pieces"], fast.data_ptr(), ptr(d_near), ptr(bcoef),
+        zones, block, grid["win"].shape[0] // n_shards, plan["groups"],
+        plan["points_per_thread"], n_states, n_out, out.shape[1],
         None if scratch is None else scratch.data_ptr(),
         None if counters is None else counters.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -1266,8 +1334,7 @@ def device_launches(dplan: DeviceWindowPlan, lines, T, P, Pp, conc, shape: str, 
         d_near = torch.clamp(15.0 * amax, max=z["cut_f"]).contiguous()
         fm, cm = window_mode("fine", shape), window_mode("coarse", shape)
         co = voigt_coefficients(S, alpha, gamma)
-        fcoef = _pack(fm, co)
-        coef = fcoef if _N_COEF[cm] == _N_COEF[fm] else _pack(cm, co)
+        fcoef, ccoef = _pack(fm, co), _pack(cm, co)   # each mode its own layout
         fast = far_reciprocal_ok(fm, co, k, dplan.cut, bcoef)
         fgrid, cgrid = _dev_grid(dplan, "fine", L, dev), _dev_grid(dplan, "coarse", L, dev)
         interp = strided_interp(c_ratio, dplan.n_nu)
@@ -1277,7 +1344,7 @@ def device_launches(dplan: DeviceWindowPlan, lines, T, P, Pp, conc, shape: str, 
                                  bcoef=bcoef, n_shards=k, count_as="dev_" + _MODE_NAMES[fm],
                                  fast=fast)),
             ("dev_" + _MODE_NAMES[cm],
-             lambda: launch_mode(cm, cgrid, flat, coef, n, n_cc, zones, bcoef=bcoef, n_shards=k,
+             lambda: launch_mode(cm, cgrid, flat, ccoef, n, n_cc, zones, bcoef=bcoef, n_shards=k,
                                  count_as="dev_" + _MODE_NAMES[cm], fast=fast))]
         finish = lambda fine, far_c: fine + far_from_coarse(far_c.view(n * k, n_cc),
                                                             interp).view(n, k * dplan.n_nu)

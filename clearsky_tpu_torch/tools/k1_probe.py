@@ -50,8 +50,23 @@ on chip_smoke.py's sampled blocks: built whole (and cut), with the pack's
 reciprocal flag and with the IEEE division, and the plain float32 version.
 ``--calls`` profiles the entry points that run these modes (chip_smoke.py's
 ``profile`` lines): the mix's ``radiate``, the auto ``outgoing``, the phco2
-auto ``outgoing``, an RCM refresh and step, the RCE run. Needs one CUDA
-card.
+auto ``outgoing``, an RCM refresh and step, the RCE run.
+
+    python3 clearsky_tpu_torch/tools/k1_probe.py --fine [--cuts [NAMES]] [--root TREE]
+
+``--fine`` times K1's FINE mode (the coarse split's fine pass where the
+stencil rejects the grid) where the main path runs it: the auto ``outgoing``
+at 2^20 (voigt, phco2) and the sharded auto ``outgoing`` of 4 shards at 2^19
+(voigt, phco2), each launch captured from its entry point and replayed
+alone, with its build and work items and what it computes on this data
+(mid, near and annulus pairs, d_near, the near triples by Humlicek region,
+those a per-(line, state) reach keeps, and the w4 work as warps of
+consecutive points run it against the same work packed 32 to a warp);
+``--cuts`` builds TREE's FINE cut (:data:`FINE_CUTS`, by its design: the
+general sweep or the window kernel's FINE path): ``arith``, ``stage``, ``no_near``
+(the near pairs take region 1), and times ``items`` (one work item a row);
+then the profile of those four calls and the auto ``outgoing`` at 2^19.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -405,8 +420,8 @@ _WINDOW_STAGE_QUADS = ("      cp_async16(&sm.c[buf][i],\n                 it.coe
 _WINDOW_READ_QUADS = ("      const float4* c = &sm.c[buf][j * NS];\n",
                     "      float4 c[NS];\n#pragma unroll\n"
                     "      for (int s = 0; s < NS; ++s) c[s] = probe_quad<PH>(j, s);\n")
-_WINDOW_LOOP = ("    for (int j = g * per; j < j1; ++j) {\n",
-              "    for (int j = g * per; j < j1 && j1 < 0; ++j) {\n")
+_WINDOW_LOOP = ("    for (int j = g * per; j < j1; ++j) {\n      // two-float dnu at each point",
+              "    for (int j = g * per; j < j1 && j1 < 0; ++j) {\n      // two-float dnu at each point")
 WINDOW_CUTS = {"sweep": {"none": [], "arith": [_SWEEP_QUAD, _SWEEP_STAGE_QUADS, _SWEEP_READ_QUADS],
                        "stage": [_SWEEP_LOOP]},
                "window": {"none": [], "arith": [_WINDOW_LINE, _WINDOW_STAGE_QUADS, _WINDOW_READ_QUADS],
@@ -427,10 +442,10 @@ def window_design(src: str) -> str:
     raise ValueError("csrc/linesum.cu is of no design the probe knows")
 
 
-def window_cut_source(src: str, cut: str) -> str:
-    """``src`` with the edits of ``cut``; raises where an edit's text is not
-    there exactly once (a changed source gives no silent uncut copy)."""
-    for old, new in WINDOW_CUTS[window_design(src)][cut]:
+def cut_source(src: str, cut: str, edits) -> str:
+    """``src`` with the ``edits`` of ``cut``; raises where an edit's text is
+    not there exactly once (a changed source gives no silent uncut copy)."""
+    for old, new in edits:
         if src.count(old) != 1:
             raise ValueError(f"cut {cut!r}: the source holds {src.count(old)} copies of "
                              f"{old.strip()[:60]!r}")
@@ -438,7 +453,12 @@ def window_cut_source(src: str, cut: str) -> str:
     return src
 
 
-_INSTANCE = re.compile(r"(?:linesum|window)_kernelILi(\d+)E(?:Lb0E|ELb0E|E)")
+def window_cut_source(src: str, cut: str) -> str:
+    """``src`` with the window modes' cut ``cut`` (:data:`WINDOW_CUTS`)."""
+    return cut_source(src, cut, WINDOW_CUTS[window_design(src)][cut])
+
+
+_INSTANCE = re.compile(r"(?:linesum|window)_kernelILi(\d+)E(?:Lb0E|ELb0E|Li\d+EE|E)")
 
 
 def _instance_mode(fn: str):
@@ -499,10 +519,13 @@ def sass_loops(sass: str) -> dict:
     return out
 
 
-def build_window_cuts(root: str, out_dir: str, names=None):
-    """Compile every cut of TREE's linesum.cu (those of ``names`` and
-    ``none``, where given) in parallel: {cut: (lib, ptxas by mode, SASS
-    loops by mode)}."""
+def build_cuts(root: str, out_dir: str, cuts: dict, names=None, keep=None):
+    """Compile the cuts ``cuts`` ({name: edits}) of TREE's linesum.cu (those
+    of ``names`` and ``none``, where given) in parallel: {cut: (lib, ptxas by
+    mode, SASS loops by mode, SASS text of the functions whose mangled name
+    ``keep`` accepts; by default K1's FINE instances)}. An edit whose text is
+    not in the source exactly once raises (no silent uncut copy)."""
+    keep = keep or (lambda fn: _instance_mode(fn) in (4, 9))
     import ctypes
 
     from clearsky_tpu_torch.utils import cuda_build
@@ -513,12 +536,12 @@ def build_window_cuts(root: str, out_dir: str, names=None):
         src = f.read()
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for cut in WINDOW_CUTS[window_design(src)]:
+    for cut, edits in cuts.items():
         if names is not None and cut not in names and cut != "none":
             continue
         cu = os.path.join(out_dir, f"linesum_{cut}.cu")
         with open(cu, "w") as f:
-            f.write(window_cut_source(src, cut))
+            f.write(cut_source(src, cut, edits))
         so = os.path.join(out_dir, f"liblinesum_{cut}.so")
         procs[cut] = (so, subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc, "-o", so,
@@ -529,23 +552,34 @@ def build_window_cuts(root: str, out_dir: str, names=None):
         _, err = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on cut {cut}:\n{err[-3000:]}")
-        loops = {}
+        loops, kept = {}, []
         if os.path.isfile(dump):
             d = subprocess.run([dump, "-sass", so], capture_output=True, text=True, timeout=600)
-            loops = sass_loops(d.stdout) if d.returncode == 0 else {}
-            if cut == "none" and d.returncode == 0:
-                # the window modes' SASS, for reading their loops
-                keep, on = [], False
+            if d.returncode == 0:
+                loops = sass_loops(d.stdout)
+                on = False
                 for line in d.stdout.splitlines():
                     m = re.search(r"Function : (\S+)", line)
                     if m:
-                        on = "window_kernel" in m.group(1)
+                        on = keep(m.group(1))
                     if on:
-                        keep.append(line)
-                with open(os.path.join(out_dir, "sass_window.txt"), "w") as f:
-                    f.write("\n".join(keep))
-        libs[cut] = (ctypes.CDLL(so), _ptxas_by_mode(err), loops)
+                        kept.append(line)
+        libs[cut] = (ctypes.CDLL(so), _ptxas_by_mode(err), loops, "\n".join(kept))
     return libs
+
+
+def build_window_cuts(root: str, out_dir: str, names=None):
+    """Compile every cut of TREE's window modes (those of ``names`` and
+    ``none``, where given) in parallel: {cut: (lib, ptxas by mode, SASS
+    loops by mode)}; the window kernel's SASS in ``out_dir``."""
+    with open(os.path.join(root, "clearsky_tpu_torch", "csrc", "linesum.cu")) as f:
+        design = window_design(f.read())
+    libs = build_cuts(root, out_dir, WINDOW_CUTS[design], names,
+                      lambda fn: "window_kernel" in fn)
+    if "none" in libs:
+        with open(os.path.join(os.path.abspath(out_dir), "sass_window.txt"), "w") as f:
+            f.write(libs["none"][3])
+    return {cut: v[:3] for cut, v in libs.items()}
 
 
 def window_launches(seed, dev) -> dict:
@@ -614,7 +648,7 @@ def window_launches(seed, dev) -> dict:
 def _items(lc, mode: int, grid: dict, n_states: int, over=None) -> dict:
     """The launch's work items: pieces, blocks, and rows on the scratch path
     (the window plan's, ``over`` its override)."""
-    if hasattr(lc, "window_plan"):
+    if hasattr(lc, "window_plan") and mode in lc._WINDOW_KERNEL_MODES:
         return {k: v for k, v in lc.window_plan(mode, grid, n_states, over).items()
                 if k != "table"}
     table, n_slots = lc.piece_schedule(grid["win"].cpu().numpy(), lc._N_WIN[mode],
@@ -816,6 +850,262 @@ def window_calls(seed, dev) -> dict:
     return calls
 
 
+# --- K1's FINE mode (the coarse split's in-kernel fine pass) --------------------
+
+# case: (K1 mode, the profiler's name of the instance); K1-dev traces as K1's
+FINE_CASES = {"fine": (4, "linesum_fine"), "phco2_fine": (9, "linesum_phco2_fine"),
+              "dev_fine": (4, "linesum_fine"), "dev_phco2_fine": (9, "linesum_phco2_fine")}
+# the cuts of FINE by its design: the general sweep (linesum_kernel's mid zone) or the
+# window kernel's FINE path (fine_sweep: its mid pass and near phase)
+_FINE_NO_NEAR = ("  return r >= 0.0f && d0 <= r + NEAR_EPS && d1 >= -r - NEAR_EPS;\n",
+                 "  return false && r >= 0.0f && d0 <= r + NEAR_EPS && d1 >= -r - NEAR_EPS;\n")
+FINE_CUTS = {
+    "sweep": {"none": [], "arith": [_SWEEP_QUAD, _SWEEP_STAGE_QUADS, _SWEEP_READ_QUADS],
+              "stage": [_SWEEP_LOOP],
+              "no_near": [("        if (adnu > it.d_near) {\n", "        if (true) {\n")]},
+    "window": {"none": [],
+               "arith": [_WINDOW_LINE,
+                         ("      cp_async16(&sm.c[buf][i], it.coef + (size_t)it.line(c0 + j) * ls"
+                          " + it.s0 + (i - j * NS));\n", "      (void)j;\n"),
+                         ("      const float4* c = sm.c[buf] + j * NS;\n",
+                          "      float4 c[NS];\n#pragma unroll\n"
+                          "      for (int s = 0; s < NS; ++s) c[s] = probe_quad<PH>(j, s);\n")],
+               "stage": [("    for (int j = g * per; j < j1; ++j) {\n      const float2 ps",
+                          "    for (int j = g * per; j < j1 && j1 < 0; ++j) {\n      const float2 ps"),
+                         _FINE_NO_NEAR],
+               "no_near": [_FINE_NO_NEAR]},
+}
+
+
+def fine_design(src: str) -> str:
+    """The design of TREE's FINE mode: "sweep" (linesum_kernel) or "window"
+    (window_kernel's FINE path)."""
+    return "window" if "void fine_sweep(" in src else "sweep"
+
+
+def fine_cut_source(src: str, cut: str) -> str:
+    """``src`` with FINE's cut ``cut`` (:data:`FINE_CUTS`)."""
+    return cut_source(src, cut, FINE_CUTS[fine_design(src)][cut])
+
+
+def fine_calls(seed, dev) -> dict:
+    """The entry-point calls that run FINE (auto ``outgoing`` at 2^20, voigt
+    and phco2; the sharded auto ``outgoing`` of 4 shards at 2^19, voigt and
+    phco2) and the auto ``outgoing`` at 2^19 (FINE_STENCIL, for contrast)."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.spectra.synthetic import synthetic_co2_par
+
+    lines = ct.SpectralLines.from_par_dict(synthetic_co2_par(cs.N_LINES, seed=seed))
+    Pe = ct.pressuregrid(cs.PT, cs.PS, cs.N_LEVELS)
+    Te, Tph = cs.column(Pe), cs.column(Pe, cs.TS_RCE)
+    gas = lambda nu, **k: ct.DirectGas.from_lines(lines, cs.CONC, nu, **k)
+    g20 = gas(cs.grid_for(lines, cs.N_NU_FINE))
+    p20 = gas(cs.phco2_grid(lines, cs.N_NU_FINE), shape="phco2")
+    sv = ct.shard_line_gas(gas(cs.grid_for(lines, cs.N_NU_MAIN)), cs.N_SHARDS)
+    sp = ct.shard_line_gas(gas(cs.phco2_grid(lines, cs.N_NU_MAIN), shape="phco2"), cs.N_SHARDS)
+    g19 = gas(cs.grid_for(lines, cs.N_NU_MAIN))
+    return {"fine": lambda: ct.outgoing(Pe, cs.G, Te, cs.MU, g20),
+            "phco2_fine": lambda: ct.outgoing(Pe, cs.G, Tph, cs.MU, p20),
+            "dev_fine": lambda: ct.outgoing(Pe, cs.G, Te, cs.MU, sv),
+            "dev_phco2_fine": lambda: ct.outgoing(Pe, cs.G, Tph, cs.MU, sp),
+            "outgoing_2e19": lambda: ct.outgoing(Pe, cs.G, Te, cs.MU, g19)}
+
+
+def fine_launches(calls) -> dict:
+    """{case: launch_mode's bound arguments} of the FINE launch each call of
+    :data:`FINE_CASES` makes, captured from the entry point."""
+    import inspect
+
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+
+    real, got = lc.launch_mode, {}
+    sig = inspect.signature(real)
+    for case, (mode, _) in FINE_CASES.items():
+        seen = []
+
+        def record(*a, **k):
+            seen.append(sig.bind(*a, **k).arguments)
+            return real(*a, **k)
+
+        lc.launch_mode = record
+        try:
+            calls[case]()
+            torch.cuda.synchronize()
+        finally:
+            lc.launch_mode = real
+        hits = [x for x in seen if x["mode"] == mode]
+        cs.check(len(hits) == 1, f"{case}: the entry point made {len(hits)} launches of mode {mode}")
+        got[case] = hits[0]
+    return got
+
+
+def fine_pairs(lc, b: dict, max_pairs: int = 2**24) -> dict:
+    """What one FINE launch ``b`` (launch_mode's arguments) computes, counted
+    on its data: (point, line) pairs of the mid zone (|dnu| <= cut_f in the
+    mid window), within d_near (the near zone, the w4 pairs), and of the
+    annuli; the near triples (with each state) by w4 region (1-4 as
+    chip_smoke.w4_ops splits them) and those a per-(line, state) reach keeps
+    (|x| <= 15.01; |x| + y < 15.01: where w4 is not region 1); and the w4
+    work as a warp of 32 consecutive points of a row runs it (the sum over
+    (warp, line, state) of every region some lane needs) against the same
+    triples packed 32 to a warp."""
+    grid, lines, coef = b["grid"], b["lines"], b["coef"]
+    n, k = b["n_states"], b.get("n_shards", 1)
+    z = list(b["zones"])                       # cut, cut_f, d_lo, D1, inv_D, R1, inv_R
+    cut, cut_f, R1 = z[0], z[1], z[5]
+    win = grid["win"].long()
+    rows = win.shape[0]
+    B = grid["nu_hi"].shape[0] // rows
+    nb = rows // k
+    d_near = b["d_near"].float()
+    dev = coef.device
+    ph = b["mode"] in lc._PHCO2_MODES
+    # the (Sia, ia, y0, .) quads: FINE's second quad [L, 2, n, 4], or the
+    # first of the general sweep's [L, n, 8] (voigt) and [L, n, 4] (phco2) packs
+    w4q = coef[:, 1] if coef.dim() == 4 else coef[..., :4]
+    out = dict(rows=rows, block=B, shards=k, states=n, d_near=d_near.tolist())
+    counts = {key: 0 for key in ("mid_pairs", "near_pairs", "annulus_pairs")}
+    reg = torch.zeros(5, dtype=torch.float64, device=dev)   # near triples by region (1-4)
+    keep_x = keep_xy = 0
+    warp_ops = packed_ops = 0.0
+    ops = torch.tensor([0.0, *cs.W4_REGION], dtype=torch.float64, device=dev)
+    for w in range(3):
+        starts, cnts = win[:, 2 * w], win[:, 2 * w + 1]
+        row = torch.repeat_interleave(torch.arange(rows, device=dev), cnts)
+        first = torch.cumsum(cnts, 0) - cnts
+        line = (torch.arange(row.numel(), device=dev) - torch.repeat_interleave(first, cnts)
+                + torch.repeat_interleave(starts, cnts))
+        step = max(1, max_pairs // B)
+        for a in range(0, row.numel(), step):
+            r, l = row[a:a + step], line[a:a + step]
+            pts = r[:, None] * B + torch.arange(B, device=dev)[None, :]
+            dnu = ((grid["nu_hi"][pts] - lines.nu[l][:, None])
+                   + (grid["nu_lo"][pts] - lines.nu_lo[l][:, None]))
+            adnu = dnu.abs()
+            if w:
+                counts["annulus_pairs"] += int(((adnu <= cut) & (dnu * dnu > R1)).sum())
+                continue
+            counts["mid_pairs"] += int((adnu <= cut_f).sum())
+            near = adnu <= d_near[r // nb][:, None]
+            counts["near_pairs"] += int(near.sum())
+            ri, pi = near.nonzero(as_tuple=True)
+            if ri.numel() == 0:
+                continue
+            ln = l[ri]
+            x = dnu[ri, pi][None, :] * w4q[ln, :, 1].T           # [n, pairs]
+            y = w4q[ln, :, 2].T.expand_as(x)                     # chi = 1 within 3 cm^-1
+            ax, s = x.abs(), x.abs() + y
+            r1 = s >= 15.0
+            r2 = ~r1 & (s >= 5.5)
+            r3 = ~r1 & ~r2 & (y >= 0.195 * ax - 0.176)
+            region = torch.where(r1, 1, torch.where(r2, 2, torch.where(r3, 3, 4)))
+            reg += torch.bincount(region.reshape(-1), minlength=5).double()
+            keep_x += int((ax <= 15.01).sum())
+            keep_xy += int((s < 15.01).sum())
+            # the warp's w4 work: every region a lane of (warp, line, state) needs
+            wid = (r[ri] * B + pi) // 32
+            key = (wid * lines.nu.shape[0] + ln)[None, :] * n + torch.arange(n, device=dev)[:, None]
+            uk, inv = torch.unique(key.reshape(-1), return_inverse=True)
+            bits = torch.zeros(uk.numel(), 5, dtype=torch.bool, device=dev)
+            for q in range(1, 5):
+                m = torch.zeros(uk.numel(), dtype=torch.long, device=dev)
+                m.scatter_reduce_(0, inv, (region.reshape(-1) == q).long(), reduce="amax")
+                bits[:, q] = m > 0
+            warp_ops += float((bits.double() * ops).sum()) * 32.0
+            packed_ops += float(ops[region.reshape(-1)].sum())
+    out.update(counts, near_triples_by_region=reg[1:].tolist(), near_triples_x_le_15=keep_x,
+               near_triples_w4_not_region1=keep_xy,
+               w4_divergence=warp_ops / packed_ops if packed_ops else None)
+    if ph:
+        out["chi_one_in_near_zone"] = bool(float(d_near.max()) < 3.0)
+    return out
+
+
+def fine_probe(seed, dev, cuts, out_dir: str):
+    """Each FINE case alone (:data:`FINE_CASES`, captured from its entry
+    point), whole and cut (``cuts``: True for every cut of TREE's design,
+    else a list of names; ``items``: one work item a row), with its build,
+    work items and counted pairs; then the profile of the entry-point calls
+    (:func:`fine_calls`). One ``probe`` line a case and cut, one ``profile``
+    line a call."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.utils import cuda_build
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ct.__file__)))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    cs.emit("probe", part="env", package_root=root, card=torch.cuda.get_device_name(dev),
+            nvidia_smi=smi.stdout.strip().splitlines()[dev.index or 0])
+    with open(os.path.join(root, "clearsky_tpu_torch", "csrc", "linesum.cu")) as f:
+        design = fine_design(f.read())
+    t0 = time.perf_counter()
+    libs = {}
+    if cuts:
+        libs = build_cuts(root, out_dir, FINE_CUTS[design], None if cuts is True else cuts)
+        for cut, (_, _, _, sass) in libs.items():
+            if sass:
+                with open(os.path.join(out_dir, f"sass_fine_{cut}.txt"), "w") as f:
+                    f.write(sass)
+    cs.emit("probe", part="cuts", design=design, seconds=time.perf_counter() - t0,
+            cuts=list(libs))
+    calls = fine_calls(seed, dev)
+    launches = fine_launches(calls)
+    real = lc.launch_mode
+    windowed = 4 in getattr(lc, "_WINDOW_KERNEL_MODES", ())
+    for case, b in launches.items():
+        mode, name = FINE_CASES[case]
+        grid, n = b["grid"], b["n_states"]
+        if windowed:
+            plan = {k: v for k, v in lc.window_plan(mode, grid, n, n_shards=b.get("n_shards", 1))
+                    .items() if k != "table"}
+            info = lc.kernel_info(mode, plan["threads"], plan["points_per_thread"])
+        else:
+            threads = grid["nu_hi"].shape[0] // grid["win"].shape[0]
+            info = lc.kernel_info(mode, threads)
+            plan = _items(lc, mode, grid, n)
+        cs.emit("probe", kernel=name, case=case, part="pairs", lines=b["lines"].n_lines,
+                points=b["n_out"] * b.get("n_shards", 1), **{**plan, **info, **fine_pairs(lc, b)})
+    default = cuda_build.load_library("linesum")
+    for cut in ["none"] + [c for c in libs if c != "none"] + ["items"]:
+        lib = libs[cut][0] if cut in libs else default
+        cuda_build._LIBS["linesum"] = lib
+        try:
+            for case, b in launches.items():
+                mode, name = FINE_CASES[case]
+                args = dict(b)
+                if cut == "items":
+                    # one work item a row: the mid window alone, no scratch
+                    if windowed:
+                        args["window"] = {"piece_lines": 1 << 20}
+                    else:
+                        win = b["grid"]["win"].clone()
+                        win[:, 2:] = 0
+                        args["grid"] = {"nu_hi": b["grid"]["nu_hi"],
+                                        "nu_lo": b["grid"]["nu_lo"], "win": win}
+                keep = lc.PIECE_LINES
+                if cut == "items" and not windowed:
+                    lc.PIECE_LINES = 1 << 30
+                try:
+                    fn = lambda args=args: real(**args)
+                    out = fn()
+                    torch.cuda.synchronize()
+                    digest = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16]
+                    del out
+                    cs.emit("probe", kernel=name, case=case, cut=cut, ms=cs.cuda_ms(fn, n=5),
+                            device_ms=cs.kernel_device_ms(fn, name), digest=digest,
+                            ptxas=libs[cut][1].get(mode, {}) if cut in libs else {},
+                            sass_loops=libs[cut][2].get(mode, []) if cut in libs else [])
+                finally:
+                    lc.PIECE_LINES = keep
+        finally:
+            cuda_build._LIBS["linesum"] = default
+    for fn in calls.values():               # set-up, caches
+        fn()
+    torch.cuda.synchronize()
+    cs.phase_profile(calls)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -837,6 +1127,8 @@ def main(argv=None) -> int:
                          "comma list)")
     ap.add_argument("--routes", action="store_true",
                     help="each state's error of the stencil and coarse routes, whole and no_core")
+    ap.add_argument("--fine", action="store_true",
+                    help="K1's FINE mode where the main path runs it (with --cuts: cut builds)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_probe: no CUDA device", file=sys.stderr)
@@ -853,6 +1145,10 @@ def main(argv=None) -> int:
                       [c for c in args.errors.split(",") if c])
     elif args.routes:
         route_errors(args.seed, dev, os.path.join(args.out, "routes"))
+    elif args.fine:
+        cuts = args.cuts == "all" or (args.cuts.split(",") if args.cuts else False)
+        fine_probe(args.seed, dev, cuts,
+                   os.path.join(args.out, "fine_root" if args.root else "fine_self"))
     elif args.calls:
         calls = window_calls(args.seed, dev)
         for fn in calls.values():           # set-up, library loads, caches

@@ -413,7 +413,10 @@ def test_phco2_windowed_modes_match_plain(dense_phco2, cuda, mode, n):
     S, a, g = _line_params(l32, T, P, Pp)
     m = linesum_cuda.window_mode(mode, "phco2")
     coef = linesum_cuda.pack_coefficients(m, S, a, g)
-    assert coef.shape == (lines.n_lines, n, linesum_cuda._N_COEF[m]) == (lines.n_lines, n, 4)
+    if mode == "fine":
+        assert coef.shape == (lines.n_lines, 2, n, 4)
+    else:
+        assert coef.shape == (lines.n_lines, n, linesum_cuda._N_COEF[m]) == (lines.n_lines, n, 4)
     T64 = _t(_mode_states(n))
     co64 = voigt_coefficients(*_line_params(lines, *T64))
     z = geom.zones
@@ -868,16 +871,20 @@ def test_accumulate_leaves_other_columns_unchanged(dense, cuda):
 
 # --- K1's work items: a block whose window holds most lines --------------------
 
+def _crowded_grid():
+    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(6000, seed=3),
+                                           dtype=torch.float64, device="cpu")
+    nu = np.concatenate([np.linspace(2340.0, 2350.0, 128), 2450.0 + 0.1 * np.arange(1920)])
+    return lines, build_line_window_plan(nu, lines.positions64(), 25.0)
+
+
 @pytest.fixture(scope="module")
 def crowded():
     """A 6000-line catalog (its 2349 cm^-1 band ends at 2419 cm^-1) under a
     grid whose first block (128 points on 2340-2350) sees the band's 851
     lines within the cut (4 pieces of 256); the other 15 blocks, 0.1 cm^-1
     apart from 2450 on, lie beyond every line's cut: empty windows."""
-    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(6000, seed=3),
-                                           dtype=torch.float64, device="cpu")
-    nu = np.concatenate([np.linspace(2340.0, 2350.0, 128), 2450.0 + 0.1 * np.arange(1920)])
-    return lines, build_line_window_plan(nu, lines.positions64(), 25.0)
+    return _crowded_grid()
 
 
 def _crowded_launch(kind, lines, plan, cuda, n, out=None):
@@ -935,6 +942,24 @@ def _crowded_launch(kind, lines, plan, cuda, n, out=None):
                                                       fast=fast, **kw), ref)
     cut = 25.0
     z = ls.split_zones(cut, 1.0, 0.1)
+    if kind.startswith("fine") and kind != "fine_stencil":
+        # FINE (voigt, phco2) on the same blocks, the near core of d_near
+        shape = "phco2" if kind == "fine_phco2" else "voigt"
+        m = linesum_cuda.window_mode("fine", shape)
+        bcoef = linesum_cuda.chi_rates(T) if shape == "phco2" else None
+        coef, fast = linesum_cuda._packed(m, S, a, g, 1, cut, bcoef)
+        d_near = linesum_cuda.near_distance(linesum_cuda.effective_alpha(shape, a), z["cut_f"])
+        a64, co64 = ls.coefficients(lines, *x64, shape=shape)
+        windows, _ = ls.split_windows(lines.positions64(), plan.nu_blocks, plan.nu_blocks, cut,
+                                      1.0, 0.1)
+        grid = {"nu_hi": grid["nu_hi"], "nu_lo": grid["nu_lo"],
+                "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
+        ref = ls.sigma_mode_plain("fine", plan.nu_blocks, windows, lines, co64, z,
+                                  torch.clamp(15.0 * a64.max(), max=z["cut_f"]),
+                                  T=x64[0] if shape == "phco2" else None)[:, :plan.n_nu]
+        return (lambda **kw: linesum_cuda.launch_mode(m, grid, l32, coef, n, plan.n_nu,
+                                                      linesum_cuda._zones(**z), d_near,
+                                                      bcoef=bcoef, fast=fast, **kw), ref)
     if kind == "fine_stencil":
         coef, fast = linesum_cuda._packed(5, S, a, g, 1, cut)
         co64 = voigt_coefficients(*_line_params(lines, *x64))
@@ -963,12 +988,12 @@ def _crowded_launch(kind, lines, plan, cuda, n, out=None):
 
 
 _CROWDED = ["split", "acc", "coarse", "coarse_phco2", "dev", "farall", "farall_phco2",
-            "fine_stencil"]
-_WINDOW_KINDS = ["farall", "farall_phco2", "fine_stencil"]
+            "fine_stencil", "fine", "fine_phco2"]
+_WINDOW_KINDS = ["farall", "farall_phco2", "fine_stencil", "fine", "fine_phco2"]
 
 
 def _crowded_check(kind, out, ref):
-    if kind.startswith(("coarse", "farall", "fine_stencil")):
+    if kind.startswith(("coarse", "farall", "fine")):
         assert bool(torch.isfinite(out).all()) and _of_peak(out, ref) < 1e-5
     else:
         _check_sigma(out, ref)
@@ -1052,6 +1077,34 @@ def test_window_groups_equal_one_group(crowded, cuda, kind, groups, points):
         assert torch.equal(a, b)
     assert _of_peak(a, b.double().cpu()) < 1e-6
     _crowded_check(kind, a, ref)
+
+
+# sha1 of the window modes' output bytes on the crowded grid (57 states),
+# as the kernels gave them before FINE joined the window kernel: its path
+# leaves the other modes' bits
+WINDOW_DIGESTS = {"farall": "f00d0d824dff16ce1558c6ca43a3af2cdbf631cc",
+                  "farall_phco2": "a8bd45e6e61f53804db356d62ebaaf8c8280af25",
+                  "fine_stencil": "74eeea8ecb2bacd0c7c966fde3492c5c189d0ff9"}
+
+
+def window_digests(cuda):
+    """{kind: sha1 of the output bytes} of FARALL (voigt, phco2) and
+    FINE_STENCIL on the crowded grid at 57 states, for :data:`WINDOW_DIGESTS`."""
+    import hashlib
+
+    lines, plan = _crowded_grid()
+    out = {}
+    for kind in ("farall", "farall_phco2", "fine_stencil"):
+        launch, _ = _crowded_launch(kind, lines, plan, cuda, 57)
+        out[kind] = hashlib.sha1(launch().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+@pytest.mark.gpu
+def test_other_window_modes_keep_their_bits(cuda):
+    """FARALL (voigt, phco2) and FINE_STENCIL give the bits recorded before
+    FINE joined the window kernel, on fixed inputs: FINE's path leaves them."""
+    assert window_digests(cuda) == WINDOW_DIGESTS
 
 
 @pytest.mark.gpu
@@ -1658,7 +1711,7 @@ def test_k1_dev_matches_plain(sharded_cats, cuda, family, shape, strategy, modes
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("family,strategy", [("voigt", "grouped"), ("voigt", "coarse"),
-                                             ("phco2", "grouped")])
+                                             ("phco2", "grouped"), ("phco2", "coarse")])
 def test_k1_dev_one_launch_is_its_shards(sharded_cats, cuda, family, strategy):
     """Every shard in one launch gives each shard's columns bit for bit as
     the shard alone does; one shard of the whole grid is K1 itself."""

@@ -19,6 +19,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import clearsky_tpu_torch as ct
 from clearsky_tpu.spectra.lines import SpectralLines as JLines
 from clearsky_tpu.ops.linesum import build_line_window_plan as jplan, sigma_from_lines as jsigma
 from clearsky_tpu_torch import convert
@@ -207,7 +208,8 @@ def test_line_major_pack_reads_as_the_tiled_one(cat, mode):
     S, a, g = _line_params(lines, *states)
     n = len(T)
     new = linesum_cuda.pack_coefficients(mode, S, a, g)
-    assert new.shape == (lines.n_lines, n, linesum_cuda._N_COEF[mode])
+    assert new.shape == ((lines.n_lines, 2, n, 4) if mode == 4
+                         else (lines.n_lines, n, linesum_cuda._N_COEF[mode]))
     nc_old = 3 if mode in (1, 2, 12) else 7
     old = _old_unpack(_old_pack(mode, S, a, g), n, nc_old)
     got = _unpack(new, mode)
@@ -229,23 +231,26 @@ def test_line_major_pack_reads_as_the_tiled_one(cat, mode):
     hi, lo = (torch.as_tensor(x.reshape(-1)) for x in linesum_cuda.two_float(blocks))
     grid = {"nu_hi": hi, "nu_lo": lo, "win": torch.as_tensor(windows, dtype=torch.int32)}
     sig_new = _stand_in_launch(mode, grid, lines, new, n, n_out, zones, d_near)
-    old_as_new = torch.stack([c if c is not None else torch.zeros_like(S)
-                              for c in _old_layout_as_new(mode, old)], -1).transpose(0, 1)
-    sig_old = _stand_in_launch(mode, grid, lines, old_as_new.contiguous(), n, n_out, zones,
+    sig_old = _stand_in_launch(mode, grid, lines, _old_layout_as_new(mode, old), n, n_out, zones,
                                d_near)
     np.testing.assert_array_equal(sig_new.numpy(), sig_old.numpy())
 
 
 def _old_layout_as_new(mode, old):
-    """The tiled pack's values placed where the line-major pack keeps them."""
+    """The tiled pack's values placed where the line-major pack keeps them
+    (0 where the stand-in reads nothing; FINE [n_lines, 2, n_states, 4]:
+    its window quad's A and k2, then the core's (Sia, ia, y0))."""
+    zero = torch.zeros_like(old[0])
+    stack = lambda cols: torch.stack([zero if c is None else c for c in cols], -1).transpose(0, 1)
     if mode in (0, 4):
         Sia, ia, y0, A, c1, c2, k2 = old
-        return (Sia, ia, y0, None, A, c1, c2, k2)
+        if mode == 4:
+            return torch.stack([stack((A, None, None, k2)), stack((Sia, ia, y0, None))],
+                               dim=1).contiguous()
+        return stack((Sia, ia, y0, None, A, c1, c2, k2)).contiguous()
     if mode == 6:
-        return old[3:]
-    if mode == 12:
-        return (*old, None)
-    return (*old, None)
+        return stack(old[3:]).contiguous()
+    return stack((*old, None)).contiguous()
 
 
 # --- the reciprocal's bound ---------------------------------------------------
@@ -571,3 +576,390 @@ def test_probe_cuts_apply_to_the_window_kernel(cut):
     assert k1_probe.window_design(src) == "window"
     out = k1_probe.window_cut_source(src, cut)
     assert (out == src) == (cut == "none")
+
+
+@pytest.mark.parametrize("cut", ["none", "arith", "stage", "no_near"])
+def test_probe_cuts_apply_to_the_fine_path(cut):
+    """tools/k1_probe.py's cuts of FINE (``--fine --cuts``) find their text
+    in csrc/linesum.cu exactly once, and every cut but ``none`` changes it."""
+    from clearsky_tpu_torch.tools import k1_probe
+    from clearsky_tpu_torch.utils.cuda_build import CSRC
+
+    src = (CSRC / "linesum.cu").read_text()
+    assert k1_probe.fine_design(src) == "window"
+    out = k1_probe.fine_cut_source(src, cut)
+    assert (out == src) == (cut == "none")
+
+
+# --- FINE on the window kernel: w4 within each pair's near reach ---------------
+
+def _fma(a, b, c):
+    """fmaf: a b + c rounded once to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _fine_region1(ph, k, D, wt, b1, b2, chi_q):
+    """csrc/linesum.cu ``region1_term<PH, FAST, true>`` of one line at the
+    row's points, float32 with each fmaf rounded once: (num, den) [ns, B]
+    from its window quads ``k`` [ns, 4], D and the weight wt [B]."""
+    if ph:
+        u, v, ww = chi_q
+        y = k[:, 1:2] * torch.exp2(-_fma(b1[:, None], u[None], _fma(b2[:, None], v[None],
+                                                                   ww[None])))
+        y2 = y * y
+        w = _fma(-D[None], k[:, 2:3], 0.5 - y2)
+        den = _fma(w, w, y2 + y2)
+        cy = (k[:, 0:1] * wt[None]) * y
+    else:
+        w = _fma(-D[None], k[:, 0:1], k[:, 1:2])
+        den = _fma(w, w, k[:, 2:3])
+        cy = (k[:, 3:4] * wt[None]).expand_as(den)
+    return _fma(-cy, w, cy), den
+
+
+def _emulate_fine(ph, b, table, G, PTS):
+    """csrc/linesum.cu ``window_kernel``'s FINE path in float32 on a launch's
+    operands ``b`` (launch_mode's arguments: grid, flat catalog, pack
+    [n_lines, 2, n_states, 4], d_near a shard, zones, chi's rates), the
+    pieces ``table`` (:func:`window_plan`'s, or :func:`window_schedule`'s)
+    and :func:`fine_reach`: per row and balanced tile, each piece's lines
+    streamed in chunks, group g summing lines [g per, (g + 1) per) of each
+    in stream order: region 1 on the window quads (each fmaf rounded once,
+    the reciprocal exact in float32 where the kernel's rcp.approx errs by at
+    most 1 ulp); a near line (a mid-window line whose tile reach meets the
+    row) w4 within each (line, state)'s reach, Sia w4 (1 - W), and region 1
+    beyond; groups, then pieces, summed in order."""
+    from clearsky_tpu_torch.ops.faddeeva import wofz_re
+
+    grid, lines, coef = b["grid"], b["lines"], b["coef"]
+    n, n_out, k_sh = b["n_states"], b["n_out"], b.get("n_shards", 1)
+    mode = b["mode"]
+    z = dict(zip(("cut", "cut_f", "d_lo", "D1", "inv_D", "R1", "inv_R"),
+                 (torch.tensor(v, dtype=torch.float32) for v in b["zones"])))
+    win = np.asarray(grid["win"], np.int64)
+    rows = win.shape[0]
+    B = grid["nu_hi"].shape[0] // rows
+    nb = rows // k_sh
+    hi, lo = grid["nu_hi"].view(rows, B), grid["nu_lo"].view(rows, B)
+    d_near = b["d_near"]
+    reach = linesum_cuda.fine_reach(coef)
+    smooth = lambda D, A1, inv: (lambda w: w * w * w * (10.0 + w * (-15.0 + 6.0 * w)))(
+        torch.clamp((D - A1) * inv, 0.0, 1.0))
+    if ph:
+        rates = b["bcoef"].permute(1, 0, 2).reshape(2, -1)[:, :n]
+        b1, b2 = (rates[i] * torch.tensor(np.float32(1.4426950408889634)) for i in (0, 1))
+    table = np.asarray(table, np.int64)
+    table = table[np.lexsort((table[:, 4], table[:, 0]))]
+    ch = linesum_cuda.WINDOW_CHUNKS[mode]
+    per = -(-ch // G)
+    sizes = linesum_cuda.window_tile_sizes(n)
+    out = torch.zeros((n, k_sh * n_out), dtype=torch.float32)
+    eps = torch.tensor(1e-5, dtype=torch.float32)
+    for r in range(rows):
+        sh, rb = divmod(r, nb)
+        w_row, end0 = win[r], win[r][1]
+        nh, nl = hi[r], lo[r]
+        dn = d_near[sh]
+        for t, ns in enumerate(sizes):
+            s0 = sum(sizes[:t])
+            sl = slice(s0, s0 + ns)
+            bb = (b1[sl], b2[sl]) if ph else (None, None)
+            tot = None
+            for _, _, o, cnt, *_ in table[table[:, 0] == r]:
+                sums = torch.zeros((G, ns, B), dtype=torch.float32)
+                for kc in range(-(-cnt // ch)):
+                    c0, nk = o + kc * ch, min(ch, cnt - kc * ch)
+                    for g in range(G):
+                        for j in range(g * per, min(nk, (g + 1) * per)):
+                            l = _stream_line(w_row, 3, c0 + j)
+                            dnu = (nh - lines.nu[l]) + (nl - lines.nu_lo[l])
+                            a, D = dnu.abs(), dnu * dnu
+                            mid = c0 + j < end0
+                            if mid:
+                                keep, wt = a <= z["cut_f"], 1.0 - smooth(D, z["D1"], z["inv_D"])
+                            else:
+                                keep = (a <= z["cut"]) & (D > z["R1"])
+                                wt = smooth(D, z["R1"], z["inv_R"])
+                            num, den = _fine_region1(ph, coef[l, 0, sl], D, wt, *bb, _chi_arg2(a))
+                            keep = keep[None].expand(ns, B)
+                            rr = torch.minimum(dn, reach[l, t])
+                            if ph and dn >= 3.0:
+                                rr = torch.where(reach[l, t] > -3e38, dn, -1.0)
+                            d0 = (nh[0] - lines.nu[l]) + (nl[0] - lines.nu_lo[l])
+                            d1 = (nh[-1] - lines.nu[l]) + (nl[-1] - lines.nu_lo[l])
+                            if mid and rr >= 0 and d0 <= rr + eps and d1 >= -rr - eps:
+                                # a near line: w4 within each pair's reach
+                                nq = coef[l, 1, sl]                          # [ns, 4]
+                                rs = torch.minimum(dn, nq[:, 3])
+                                if ph and dn >= 3.0:
+                                    rs = torch.where(nq[:, 3] > -3e38, dn, -1.0)
+                                isc = a[None] <= rs[:, None]                 # [ns, B]
+                                chi = 1.0
+                                if ph:
+                                    u, v, ww = _chi_arg2(a)
+                                    chi = torch.exp2(-(b1[sl][:, None] * u[None])
+                                                     - b2[sl][:, None] * v[None] - ww[None])
+                                x = dnu[None] * nq[:, 1:2]
+                                w4 = nq[:, 0:1] * wofz_re(x, (nq[:, 2:3] * chi).expand_as(x))
+                                sums[g] = torch.where(isc, sums[g] + w4 * wt[None], sums[g])
+                                keep = keep & ~isc
+                            sums[g] = torch.where(keep, _fma(num, 1.0 / den, sums[g]), sums[g])
+                acc = sums[0]
+                for g in range(1, G):
+                    acc = acc + sums[g]
+                tot = acc if tot is None else tot + acc
+            cols = np.arange(B)
+            ok = rb * B + cols < n_out
+            out[sl, sh * n_out + rb * B + cols[ok]] = tot[:, ok]
+    return out
+
+
+def _fine_operands(lines, plan, states, shape):
+    """FINE's launch operands on the coarse split's fine grid of ``plan``
+    (where its stencil geometry rejects), as ``sigma_coarse`` makes them,
+    float32 on the CPU, with the float64 plain version of the mode."""
+    name, params = ls._resolve(plan, lines, shape, "coarse", int(states[0].shape[0]))
+    assert name == "coarse"
+    geom = ls.coarse_geometry(plan, lines, params)
+    assert geom.stencil is None
+    l32 = lines.to(torch.float32)
+    x32 = [x.float() for x in states]
+    alpha, co = ls.coefficients(l32, *x32, shape=shape)
+    m = linesum_cuda.window_mode("fine", shape)
+    z = geom.zones
+    b = dict(mode=m, grid=linesum_cuda._coarse_arrays(geom, torch.device("cpu"))["fine"],
+             lines=l32, coef=linesum_cuda._pack(m, co), n_states=int(x32[0].shape[0]),
+             n_out=plan.n_nu, zones=linesum_cuda._zones(**z),
+             d_near=linesum_cuda.near_distance(alpha, z["cut_f"]),
+             bcoef=linesum_cuda.chi_rates(x32[0]) if shape == "phco2" else None)
+    a64, co64 = ls.coefficients(lines, *states, shape=shape)
+    ref = ls.sigma_mode_plain("fine", geom.fine_blocks, geom.fine_windows, lines, co64, z,
+                              torch.clamp(15.0 * a64.max(), max=z["cut_f"]),
+                              T=ls.chi_T(shape, states[0]))
+    return b, ref, geom
+
+
+@pytest.fixture(scope="module")
+def fine_cases():
+    """FINE's operands where the main path runs it (the coarse split where
+    the stencil geometry rejects the grid, K > 64), voigt and phco2 at cut
+    25 cm^-1 on states from 10 Pa (y0 < 0.01: the small-y repair) to 9e4
+    Pa (y0 > 15: no w4 pairs): ``dense``, a 1500-line catalog on 2330-2350
+    cm^-1 at 2^14 points (~1.8 near lines a row), with JAX's float32
+    coarse route (interpret mode) and the
+    float32 plain route's other parts; ``crowded``, a block of 128 points
+    on 2340-2350 cm^-1 whose mid window holds ~100 lines within d_near
+    (several chunks of near lines), beside 15 empty blocks."""
+    from clearsky_tpu.ops import linesum_pallas as jp
+
+    Tn, Pn = np.array([200.0, 260.0, 300.0]), np.array([10.0, 3e3, 9e4])
+    states = [torch.tensor(x, dtype=torch.float64) for x in (Tn, Pn, 0.5 * Pn)]
+    out = {}
+    par = synthetic_co2_par(1500, seed=3)
+    jl = JLines.from_par_dict(par)
+    tl = convert.spectral_lines(jl, dtype=torch.float64, device="cpu")
+    nu = np.linspace(2330.0, 2350.0, 2**14)
+    plan = build_line_window_plan(nu, tl.positions64(), 25.0)
+    for shape in ("voigt", "phco2"):
+        b, ref, geom = _fine_operands(tl, plan, states, shape)
+        jref = np.asarray(jp.sigma_from_lines_pallas(
+            jplan(nu, np.asarray(jl.nu), 25.0), jl, jnp.asarray(Tn), jnp.asarray(Pn),
+            jnp.asarray(0.5 * Pn), shape, interpret=True, strategy="coarse"))
+        x32 = [x.float() for x in states]
+        route32 = ls.coarse_route_plain(geom, tl.to(torch.float32), *x32, shape=shape)
+        _, co32 = ls.coefficients(tl.to(torch.float32), *x32, shape=shape)
+        a32 = ls.coefficients(tl.to(torch.float32), *x32, shape=shape)[0]
+        part32 = ls.sigma_mode_plain("fine", geom.fine_blocks, geom.fine_windows,
+                                     tl.to(torch.float32), co32, geom.zones,
+                                     torch.clamp(15.0 * a32.max(), max=geom.zones["cut_f"]),
+                                     T=ls.chi_T(shape, x32[0]))[:, :plan.n_nu]
+        out["dense", shape] = dict(b=b, ref=ref, jref=jref, n_nu=plan.n_nu,
+                                   rest32=(route32 - part32).double())
+    crowd = ct.SpectralLines.from_par_dict(synthetic_co2_par(6000, seed=3),
+                                           dtype=torch.float64, device="cpu")
+    cnu = np.concatenate([np.linspace(2340.0, 2350.0, 128), 2450.0 + 0.1 * np.arange(1920)])
+    cplan = build_line_window_plan(cnu, crowd.positions64(), 25.0)
+    for shape in ("voigt", "phco2"):
+        l32 = crowd.to(torch.float32)
+        x32 = [x.float() for x in states]
+        alpha, co = ls.coefficients(l32, *x32, shape=shape)
+        z = ls.split_zones(25.0, 1.0, 0.1)
+        windows, _ = ls.split_windows(crowd.positions64(), cplan.nu_blocks, cplan.nu_blocks,
+                                      25.0, 1.0, 0.1)
+        hi, lo = (torch.as_tensor(v.reshape(-1)) for v in linesum_cuda.two_float(cplan.nu_blocks))
+        m = linesum_cuda.window_mode("fine", shape)
+        d32 = linesum_cuda.near_distance(alpha, z["cut_f"])
+        b = dict(mode=m, grid={"nu_hi": hi, "nu_lo": lo, "win": torch.as_tensor(windows)},
+                 lines=l32, coef=linesum_cuda._pack(m, co), n_states=3, n_out=cplan.n_nu,
+                 zones=linesum_cuda._zones(**z), d_near=d32,
+                 bcoef=linesum_cuda.chi_rates(x32[0]) if shape == "phco2" else None)
+        a64, co64 = ls.coefficients(crowd, *states, shape=shape)
+        ref = ls.sigma_mode_plain("fine", cplan.nu_blocks, windows, crowd, co64, z,
+                                  torch.clamp(15.0 * a64.max(), max=z["cut_f"]),
+                                  T=ls.chi_T(shape, states[0]))
+        out["crowded", shape] = dict(b=b, ref=ref)
+    return out
+
+
+def _of_peak(got, ref):
+    return float(((got.double() - ref).abs() / ref.abs().amax(dim=1, keepdim=True)).max())
+
+
+@pytest.mark.parametrize("P_lines,G,pts", [(None, None, None), (7, 4, 1), (64, 2, 2)])
+@pytest.mark.parametrize("shape", ["voigt", "phco2"])
+@pytest.mark.parametrize("geometry", ["dense", "crowded"])
+def test_fine_kernel_sums_match_plain_and_jax(fine_cases, geometry, shape, P_lines, G, pts):
+    """FINE on the window kernel (its pack: the window quad, then (Sia, ia,
+    y0, reach); w4 within each (line, state)'s near reach, region 1 beyond;
+    pieces and groups as the plan lays them out, or as given) in a
+    float32 emulation: against its plain version in float64 (1e-5 of each
+    state's peak, the windowed modes' bar), and, its part swapped into the
+    float32 plain route, against JAX's float32 coarse route with the
+    in-kernel fine pass (1e-5 of peak, the bar of the plain routes against
+    JAX's)."""
+    c = fine_cases[geometry, shape]
+    b = c["b"]
+    win = np.asarray(b["grid"]["win"], np.int64)
+    if P_lines is None:
+        plan = linesum_cuda.window_plan(b["mode"], dict(b["grid"]), b["n_states"])
+        table, G, pts = plan["table"].numpy(), plan["groups"], plan["points_per_thread"]
+    else:
+        table = linesum_cuda.window_schedule(win, 3, P_lines)[0]
+    got = _emulate_fine(shape == "phco2", b, table, G, pts)
+    assert bool(torch.isfinite(got).all())
+    assert _of_peak(got, c["ref"]) < 1e-5
+    if geometry == "dense":
+        route = (got[:, :c["n_nu"]].double() + c["rest32"]).numpy()
+        jref = c["jref"]
+        assert float((np.abs(route - jref) / np.abs(jref).max(axis=1, keepdims=True)).max()) < 1e-5
+
+
+@pytest.mark.parametrize("shape", ["voigt", "phco2"])
+def test_fine_near_reach(fine_cases, shape):
+    """Each (line, state)'s near reach on the dense grid: d_near where y0 <
+    0.01 (the small-y repair: the plain version's zone), shorter where y0 is
+    larger (w4 is its region 1 beyond |x| + y = 15) and none where y0 >
+    15.01 (the high-pressure state, whose w4 is region 1 throughout); a
+    line's tile reach with d_near is the largest of its states'; the
+    crowded block holds more near lines than a chunk's 32."""
+    dense = fine_cases["dense", shape]["b"]
+    live = (dense["coef"][:, 1, :, 0] != 0).all(dim=1)
+    r = torch.minimum(dense["d_near"], dense["coef"][:, 1, :, 3])[live]   # [live lines, n]
+    assert bool((r[:, -1] < 0).all()) and bool((r[:, 0] > 0).all())
+    assert bool((r[:, 0] == dense["d_near"]).any())
+    assert bool(((r[:, 1] > 0) & (r[:, 1] < dense["d_near"])).any())
+    reach = linesum_cuda.fine_reach(dense["coef"])
+    assert torch.equal(torch.minimum(dense["d_near"], reach[live, 0]), r.amax(dim=1))
+    b = fine_cases["crowded", shape]["b"]
+    crowd = torch.minimum(b["d_near"], linesum_cuda.fine_reach(b["coef"])[:, 0])
+    hi = b["grid"]["nu_hi"][:128].double()
+    pos = b["lines"].nu.double()
+    near = (crowd >= 0) & (pos >= hi.min() - crowd.double()) & (pos <= hi.max() + crowd.double())
+    assert int(near.sum()) > 32
+
+
+_LAUNCH_MODE = linesum_cuda.launch_mode
+
+
+def _captured_dev_launches(monkeypatch, sg, states, shape):
+    """K1-dev's coarse-route launches on CPU tensors: {launch-count name:
+    launch_mode's bound arguments}, as ``device_launches`` packs them."""
+    import inspect
+
+    sig = inspect.signature(_LAUNCH_MODE)
+    got = {}
+
+    def record(*a, **k):
+        args = sig.bind(*a, **k).arguments
+        got[args["count_as"]] = args
+        return torch.zeros((args["n_states"], args.get("n_shards", 1) * args["n_out"]))
+
+    monkeypatch.setattr(linesum_cuda, "launch_mode", record)
+    monkeypatch.setattr(linesum_cuda, "_checked", lambda lines, T, P, Pp, conc=None:
+                        (T.shape[0], T.device))
+    launches, _ = linesum_cuda.device_launches(sg.plans, sg.lines, *states, None, shape, "coarse")
+    for _, f in launches:
+        f()
+    return got
+
+
+@pytest.fixture(scope="module")
+def fine_stack():
+    """The dense FINE grid (1500 lines, 2330-2350 cm^-1, 2^14 points) in 4
+    spectral shards, float32 on the CPU: voigt's fine blocks of 512 points,
+    phco2's of 128; the states of :func:`fine_cases`."""
+    Tn, Pn = np.array([200.0, 260.0, 300.0]), np.array([10.0, 3e3, 9e4])
+    states = [torch.tensor(x, dtype=torch.float32) for x in (Tn, Pn, 0.5 * Pn)]
+    lines = ct.SpectralLines.from_par_dict(synthetic_co2_par(1500, seed=3),
+                                           dtype=torch.float32, device="cpu")
+    nu = np.linspace(2330.0, 2350.0, 2**14)
+    return {shape: (shard_line_gas(DirectGas.from_lines(lines, 0.9, nu, shape=shape), 4), states)
+            for shape in ("voigt", "phco2")}
+
+
+@pytest.mark.parametrize("shape", ["voigt", "phco2"])
+def test_device_launches_pack_each_mode_on_its_own(monkeypatch, fine_stack, shape):
+    """K1-dev's coarse route hands FINE its own pack (the window quad, then
+    (Sia, ia, y0, reach), [n_lines, 2, n_states, 4]) and COARSE its own
+    (voigt (A, c1, c2, k2), phco2 (Sia, ia, y0, A)), whatever their widths:
+    a COARSE launch handed FINE's pack fails here."""
+    from clearsky_tpu_torch.ops.linesum import effective_alpha
+
+    sg, states = fine_stack[shape]
+    got = _captured_dev_launches(monkeypatch, sg, states, shape)
+    fm, cm = (linesum_cuda.window_mode(m, shape) for m in ("fine", "coarse"))
+    fine, coarse = got["dev_" + linesum_cuda._MODE_NAMES[fm]], got["dev_" + linesum_cuda._MODE_NAMES[cm]]
+    flat = linesum_cuda._flat_lines(sg.lines)
+    S, a, g = _line_params(flat, *states)
+    co = voigt_coefficients(S, effective_alpha(shape, a), g)
+    assert fine["mode"] == fm and coarse["mode"] == cm
+    assert torch.equal(fine["coef"], linesum_cuda._pack(fm, co))
+    assert torch.equal(coarse["coef"], linesum_cuda._pack(cm, co))
+    assert coarse["coef"].shape == (flat.n_lines, 3, 4)
+    assert fine["coef"].shape == (flat.n_lines, 2, 3, 4)
+
+
+@pytest.mark.parametrize("shape", ["voigt", "phco2"])
+def test_fine_stack_of_shards_matches_each_shard(monkeypatch, fine_stack, shape):
+    """FINE over a stack of 4 shards in one launch (rows s n_blocks + b,
+    d_near and columns a shard): every row of every shard in exactly one
+    work item of the plan; the float32 emulation of the stacked launch
+    against each shard's plain FINE in float64 (1e-5 of each state's
+    peak), and each shard's columns the same bits as that shard launched
+    alone."""
+    from clearsky_tpu_torch.ops.linesum import shard_lines
+
+    sg, states = fine_stack[shape]
+    b = _captured_dev_launches(monkeypatch, sg, states, shape)[
+        "dev_" + linesum_cuda._MODE_NAMES[linesum_cuda.window_mode("fine", shape)]]
+    k, n_nu = sg.plans.n_shards, sg.plans.n_nu
+    assert b["n_shards"] == k and b["d_near"].shape == (k,)
+    plan = linesum_cuda.window_plan(b["mode"], dict(b["grid"]), 3, n_shards=k)
+    table = plan["table"].numpy()
+    rows = np.bincount(table[:, 0], minlength=b["grid"]["win"].shape[0])
+    total = np.asarray(b["grid"]["win"])[:, 1::2].sum(axis=1)
+    P_rows = np.repeat(np.asarray(plan["piece_lines"]), total.size // k)
+    assert np.array_equal(rows, np.maximum(1, -(-total // P_rows)))
+    got = _emulate_fine(shape == "phco2", b, table, plan["groups"], plan["points_per_thread"])
+    d_far, h, _, _ = sg.plans.coarse_meta
+    z = ls.split_zones(sg.plans.cut, d_far, h)
+    x64 = [x.double() for x in states]
+    p = sg.plans
+    for s in range(k):
+        l64 = shard_lines(sg.lines.to(torch.float64), s)
+        alpha, co = ls.coefficients(l64, *x64, shape=shape)
+        dn = torch.clamp(15.0 * ls.masked_alpha_max(alpha, l64.nu), max=z["cut_f"])
+        blocks = p.fine_blocks[s].double().numpy() + p.fine_blocks_lo[s].double().numpy()
+        ref = ls.sigma_mode_plain("fine", blocks, p.fine_windows[s].numpy().astype(np.int64),
+                                  l64, co, z, dn, T=ls.chi_T(shape, x64[0]))[:, :n_nu]
+        assert _of_peak(got[:, s * n_nu:(s + 1) * n_nu], ref) < 1e-5
+    one = sg.spectral_slab(n_nu, 2 * n_nu)
+    b1 = _captured_dev_launches(monkeypatch, one, states, shape)[
+        "dev_" + linesum_cuda._MODE_NAMES[linesum_cuda.window_mode("fine", shape)]]
+    plan1 = linesum_cuda.window_plan(b1["mode"], dict(b1["grid"]), 3)
+    assert plan1["piece_lines"] == plan["piece_lines"][1]
+    assert (plan1["groups"], plan1["points_per_thread"]) == (plan["groups"],
+                                                            plan["points_per_thread"])
+    alone = _emulate_fine(shape == "phco2", b1, plan1["table"].numpy(), plan1["groups"],
+                          plan1["points_per_thread"])
+    assert torch.equal(alone, got[:, n_nu:2 * n_nu])

@@ -338,12 +338,18 @@ def test_device_route_policy(cats):
 
 def _unpack(coef, mode):
     """The per-(state, line) values [n_states, n_lines] of a K1 pack
-    [n_lines, n_states, n_coef] of ``mode``, as the plain tiles take them:
-    (Sia, ia, y0, A, c1, c2, k2) for the Voigt modes (None where the mode's
-    pack leaves a value out), (S, alpha, gamma) for lorentz and doppler."""
+    [n_lines, n_states, n_coef] of ``mode`` (FINE's [n_lines, 2, n_states,
+    4]), as the plain tiles take them: (Sia, ia, y0, A, c1, c2, k2) for the
+    Voigt modes (None where the mode's pack leaves a value out), (S, alpha,
+    gamma) for lorentz and doppler."""
+    if mode == 4:                   # (A, 1/2 - y0^2, 2 y0^2, k2), then (Sia, ia, y0, r)
+        w, c = coef[:, 0].transpose(0, 1), coef[:, 1].transpose(0, 1)
+        y2 = c[..., 2] * c[..., 2]
+        return (c[..., 0], c[..., 1], c[..., 2], w[..., 0], 0.5 + y2, 4.0 * y2 * w[..., 0],
+                w[..., 3])
     v = coef.permute(1, 0, 2)
     cols = [v[..., i] for i in range(v.shape[-1])]
-    if mode in (0, 4):              # (Sia, ia, y0, 0) and (A, c1, c2, k2)
+    if mode == 0:                   # (Sia, ia, y0, 0) and (A, c1, c2, k2)
         return tuple(cols[:3] + cols[4:])
     if mode in (3, 5, 6):           # the far wing's (A, c1, c2, k2) alone
         return (None, None, None, *cols)

@@ -398,14 +398,21 @@ def test_correction_placement_matches_jax(plans, weighted):
 
 # --- the kernel's arithmetic on its pack ---------------------------------------
 
+# w4's region-1 constant over the far wing's 1/sqrt(pi)
+W4_R1 = 0.5641896 * np.sqrt(np.pi)
+
+
 def _emulate_windowed(mode, blocks64, windows, lines, coef, z, d_near, n_states):
     """The windowed modes of csrc/linesum.cu in float64 on the kernel's pack
     [n_lines, n_states, n_coef] and window table: per block and window, its
-    zone's mask and weight, FINE with the per-element branch on |dnu| >
-    d_near over its mid window (its pack's (Sia, ia, y0, 0) then the far
-    wing's (A, c1, c2, k2)); COARSE's pack holds the far wing's alone, and
-    FARALL's and FINE_STENCIL's the window pack (A, h, g, k2), region 1 as
-    k2 (1 - w) / (w^2 + g) at w = h - D A."""
+    zone's mask and weight; COARSE's pack holds the far wing's (A, c1, c2,
+    k2) alone, and FARALL's, FINE_STENCIL's and FINE's the window pack (A,
+    h, g, k2), region 1 as k2 (1 - w) / (w^2 + g) at w = h - D A; FINE's
+    [n_lines, 2, n_states, 4] adds (Sia, ia, y0, ry), w4 over its mid window
+    where |dnu| <= min(d_near, ry), each (line, state)'s near reach, and
+    beyond it within d_near (|x| + y >= 15, y >= 0.01) region 1 as w4 takes
+    it, with its constant 0.5641896 (the voigt quad's 1/sqrt(pi) is 2.9e-8
+    from it, below float32's rounding, which the kernel computes in)."""
     far = coef.shape[-1] - 4
     nb = torch.tensor(blocks64)
     out = torch.zeros(n_states, *nb.shape, dtype=torch.float64)
@@ -420,8 +427,8 @@ def _emulate_windowed(mode, blocks64, windows, lines, coef, z, d_near, n_states)
             dnu = nb[b][:, None] - lines.nu[s0:s0 + cnt][None, :]
             a, D = dnu.abs(), dnu * dnu
             for st in range(n_states):
-                c = coef[s0:s0 + cnt, st]
-                if mode in ("farall", "fine_stencil"):
+                c = coef[s0:s0 + cnt, 0, st] if mode == "fine" else coef[s0:s0 + cnt, st]
+                if mode in ("farall", "fine_stencil", "fine"):
                     A, h, gg, k2 = (c[:, i] for i in range(4))
                     w_ = h - D * A
                     r1 = k2 * (1.0 - w_) / (w_ * w_ + gg)
@@ -440,16 +447,18 @@ def _emulate_windowed(mode, blocks64, windows, lines, coef, z, d_near, n_states)
                     wgt = 1.0 - sm(D, z["D1"], z["D2"])
                     f, keep = r1 * wgt, a <= z["cut_f"]
                     if zone == "mid":
-                        w4 = c[:, 0] * wofz_re(dnu * c[:, 1], c[:, 2].expand_as(dnu))
-                        f = torch.where(a > d_near, f, w4 * wgt)
+                        nq = coef[s0:s0 + cnt, 1, st]
+                        w4 = nq[:, 0] * wofz_re(dnu * nq[:, 1], nq[:, 2].expand_as(dnu))
+                        r = torch.clamp(nq[:, 3], max=d_near)
+                        f = torch.where(a > d_near, f, torch.where(a > r, f * W4_R1, w4 * wgt))
                 out[st, b] += torch.where(keep, f, 0.0).sum(-1)
     return out.reshape(n_states, -1)
 
 
 def _emulate_correction(geom, coef, n_states, cut, n_nu, weight):
     """The correction's terms in float64, one (window point k, line l) at a
-    time: (Sia, ia, y0) (here from the FINE mode's pack [n_lines, n_states,
-    8]) added at q[l] K + k."""
+    time: (Sia, ia, y0) (here from the FINE mode's pack [n_lines, 2,
+    n_states, 4], its second quad) added at q[l] K + k."""
     out = torch.zeros(n_states, n_nu, dtype=torch.float64)
     hi = torch.tensor(geom.dnu_hi, dtype=torch.float64)
     lo = torch.tensor(geom.dnu_lo, dtype=torch.float64)
@@ -458,7 +467,7 @@ def _emulate_correction(geom, coef, n_states, cut, n_nu, weight):
     if weight is not None:
         w = 1.0 - ls._smoothstep_d2((hi + lo) ** 2, *weight)
     for st in range(n_states):
-        c = coef[:, st]
+        c = coef[:, 1, st]
         x = c[:, 1] * hi + c[:, 1] * lo
         y = c[:, 2].expand_as(x)
         t2r, t2i = y * y - x * x, -2.0 * x * y
@@ -481,7 +490,8 @@ def test_kernel_pack_reproduces_plain_modes(plans, mode):
     co = voigt_coefficients(S, a, g)
     kmode = linesum_cuda.WINDOW_MODES["fine" if mode == "correction" else mode]
     coef = linesum_cuda.pack_coefficients(kmode, S, a, g)
-    assert coef.shape == (tl.n_lines, 11, linesum_cuda._N_COEF[kmode])
+    assert coef.shape == ((tl.n_lines, 2, 11, 4) if kmode == 4
+                          else (tl.n_lines, 11, linesum_cuda._N_COEF[kmode]))
     geom = ls.coarse_geometry(tpl, tl, ls.coarse_params(tpl, 0.6))
     z = geom.zones
     if mode == "correction":
