@@ -86,7 +86,8 @@ prints one line that starts with its name:
           segmented (route, segments, pack bytes, budget); ``kernel`` lines
           for K1-seg on the mix and K4 (lane) and K5 (gathered) on its CO2
           catalog at 4 states and at the main path's 57 (K1-seg's 8 state
-          tiles, K5's 19 groups of 3 states); outgoing and radiate on
+          tiles; K4 and K5 one launch of every state, with their build,
+          work items and each call's peak memory); outgoing and radiate on
           (MultiGas, CIA) and outgoing without the CIA (only K1-seg and
           K2/K3 launch); the RCM
           on the mix at 16,384 points (the route auto prints there, and K3;
@@ -256,6 +257,9 @@ MUFU_S = 16 * 132 * 1.98e9
 # the region-1 tile and its accumulation; a smoothstep; and Re w(x + iy)
 # by region (the common t and t^2, then regions 1-4, the small-y repair)
 PAIR_OPS, R1_OPS, SMOOTH_OPS = 6, 9, 10
+# K4/K5's small-y form beyond a (line, state)'s near reach: x^2, its
+# reciprocal, the product and four FMAs (the series' three and the sum)
+SMALL_Y_OPS = 7
 W4_COMMON, W4_REGION, W4_SMALL_Y = 9, (14, 28, 76, 116), 25
 CORRECTION_OPS = 22   # x, the explicit region 1, the product, the sum
 # the phco2 family: per pair the selection of chi's piece; per state the
@@ -370,16 +374,13 @@ def w4_ops(x, y) -> float:
     return float(ops + sum(c * int(m.sum()) for c, m in zip(W4_REGION, (r1, r2, r3, r4))))
 
 
-def near_w4_ops(grid, pos, ia, y0, d_near: float, max_elems: int = 2**25, T=None) -> float:
-    """Operations of the w4 tiles of the (point, line) pairs within d_near,
-    for every state (ia, y0: [n_states, n_lines] on the card; with the
-    states' temperatures ``T``, y = y0 chi(dnu, T) as the phco2 family has
-    it), in runs of lines of at most ``max_elems`` (pair, state) elements."""
+def _pairs_near(grid, pos, d_near: float, per: int, dev):
+    """The (point, line) pairs with |dnu| <= d_near, in runs of lines of at
+    most ``per`` pairs: (line indices, dnu [1, pairs] float32) on ``dev``."""
     lo = np.searchsorted(grid, pos - d_near, side="left")
     hi = np.searchsorted(grid, pos + d_near, side="right")
     csum = np.cumsum(hi - lo)
-    per = max(1, max_elems // ia.shape[0])
-    total, a = 0.0, 0
+    a = 0
     while a < len(pos):
         before = int(csum[a - 1]) if a else 0
         b = max(a + 1, int(np.searchsorted(csum, before + per, side="right")))
@@ -390,18 +391,72 @@ def near_w4_ops(grid, pos, ia, y0, d_near: float, max_elems: int = 2**25, T=None
         keep = np.abs(grid[point] - pos[line]) <= d_near
         line, dnu = line[keep], (grid[point] - pos[line])[keep]
         if line.size:
-            dev = ia.device
-            li = torch.as_tensor(line, device=dev)
-            d = torch.as_tensor(dnu, dtype=torch.float32, device=dev)[None, :]
-            x = d * ia[:, li]
-            y = y0[:, li].expand_as(x)
-            if T is not None:
-                from clearsky_tpu_torch.ops.lineshape import chi_phco2
-
-                y = y * chi_phco2(d, T[:, None])
-            total += w4_ops(x, y) + 2.0 * x.numel()
+            yield (torch.as_tensor(line, device=dev),
+                   torch.as_tensor(dnu, dtype=torch.float32, device=dev)[None, :])
         a = b
+
+
+def _w4_y(d, li, y0, T):
+    """w4's y at the pairs (dnu ``d``, lines ``li``): y0, times chi(dnu, T)
+    for the phco2 family (``T`` the states' temperatures)."""
+    y = y0[:, li].expand(y0.shape[0], d.shape[1])
+    if T is None:
+        return y
+    from clearsky_tpu_torch.ops.lineshape import chi_phco2
+
+    return y * chi_phco2(d, T[:, None])
+
+
+def near_w4_ops(grid, pos, ia, y0, d_near: float, max_elems: int = 2**25, T=None) -> float:
+    """Operations of the w4 tiles of the (point, line) pairs within d_near,
+    for every state (ia, y0: [n_states, n_lines] on the card; with the
+    states' temperatures ``T``, y = y0 chi(dnu, T) as the phco2 family has
+    it), in runs of lines of at most ``max_elems`` (pair, state) elements."""
+    total = 0.0
+    for li, d in _pairs_near(grid, pos, d_near, max(1, max_elems // ia.shape[0]), ia.device):
+        x = d * ia[:, li]
+        total += w4_ops(x, _w4_y(d, li, y0, T)) + 2.0 * x.numel()
     return total
+
+
+def full_ops(grid, pos, ia, y0, reach, cut: float, T=None, max_elems: int = 2**25) -> dict:
+    """K4/K5's work on this run's data, each in-cut (point, line, state) at
+    the cost of the form that computes it: w4 by region (:func:`w4_ops`,
+    with the product and the sum) within the (line, state)'s near reach
+    ``reach`` [n_states, n_lines] (-inf: a line of zero strength, no work),
+    beyond it region 1 (R1_OPS; the phco2 family, ``T`` given, PH_R1_OPS)
+    or, for voigt where y0 < 0.01, the small-y form (SMALL_Y_OPS); per pair
+    the two-float dnu (phco2: and chi's piece, and CHI_OPS a state beyond 3
+    cm^-1). Returns {ops, exps (chi's exponentials), mufu (those and a
+    reciprocal a triple), triples, within_reach, small_y_beyond}."""
+    dev = ia.device
+    n = ia.shape[0]
+    cnt = torch.as_tensor(np.searchsorted(grid, pos + cut, side="right")
+                          - np.searchsorted(grid, pos - cut, side="left"),
+                          dtype=torch.float64, device=dev)
+    live = torch.isfinite(reach)
+    small = live & (y0 < 0.01) if T is None else torch.zeros_like(live)
+    triples = float((live.double() * cnt).sum())
+    small_all = float((small.double() * cnt).sum())
+    d_max = min(float(torch.where(live, reach, 0.0).max()), cut)
+    w_ops = within = small_within = 0.0
+    for li, d in _pairs_near(grid, pos, d_max, max(1, max_elems // n), dev):
+        inner = d.abs() <= reach[:, li]
+        x = (d * ia[:, li])[inner]
+        w_ops += w4_ops(x, _w4_y(d, li, y0, T)[inner]) + 2.0 * x.numel()
+        within += float(inner.sum())
+        small_within += float((inner & small[:, li]).sum())
+    pairs = pairs_within(grid, pos, cut)
+    beyond, small_beyond = triples - within, small_all - small_within
+    if T is None:
+        ops = (pairs * PAIR_OPS + w_ops + (beyond - small_beyond) * R1_OPS
+               + small_beyond * SMALL_Y_OPS)
+        exps = 0.0
+    else:
+        exps = float(pairs_beyond(grid, pos, cut) * n)
+        ops = pairs * (PAIR_OPS + PH_PAIR_OPS) + w_ops + beyond * PH_R1_OPS + exps * CHI_OPS
+    return dict(ops=ops, exps=exps, mufu=triples + exps, triples=triples, within_reach=within,
+                small_y_beyond=small_beyond)
 
 
 def column(Pe, Ts: float = 288.0):
@@ -1598,17 +1653,21 @@ def _seg_bound(plan, lines, S, alpha, gamma, L_seg, n):
     return bound(ops, nb)
 
 
-def _full_bound(plan, lines, S, alpha, gamma, n, layout_bytes):
-    """K4/K5's bound on this run's data: w4 by region at every in-cut pair
-    and state, and the two-float dnu per pair; the layout's bytes read
-    once and sigma written once."""
-    from clearsky_tpu_torch.ops.linesum import voigt_coefficients
-
-    pos = lines.positions64()
-    ia, y0 = voigt_coefficients(S, alpha, gamma)[1:3]
-    pairs = pairs_within(plan.nu, pos, plan.cut)
-    ops = pairs * PAIR_OPS + near_w4_ops(plan.nu, pos, ia, y0, plan.cut)
-    return bound(ops, layout_bytes + 8 * plan.n_blocks * plan.block + 4 * n * plan.n_nu)
+def full_bound(plan, lines, coef, n: int, T=None) -> dict:
+    """K4/K5's bound on this run's data (:func:`full_ops` on the pack
+    ``coef`` of :func:`linesum_cuda.full_pack`: w4 by region within each
+    (line, state)'s near reach, the window quad's region 1 or small-y form
+    beyond it; phco2 with its states' temperatures ``T``); the function's
+    inputs (positions, (S, alpha, gamma) a state and line, the window table,
+    the grid) read once and sigma written once; with the reciprocals and
+    exponentials at the special-function units (:func:`sfu_of`)."""
+    w4q = coef[:, 1].transpose(0, 1)
+    w = full_ops(plan.nu, lines.positions64(), w4q[..., 1], w4q[..., 2], w4q[..., 3], plan.cut,
+                 T=T)
+    b = bound(w["ops"], (8 + 12 * n) * lines.n_lines + 8 * plan.n_blocks * plan.block
+              + 8 * plan.n_blocks + 4 * n * plan.n_nu, w["exps"])
+    return dict(b, **sfu_of(w["mufu"]), in_cut_triples=w["triples"],
+                triples_within_reach=w["within_reach"], small_y_beyond=w["small_y_beyond"])
 
 
 def _mix_line(name, out, ref, ref32, edge, ms, plain_ms, b, report, **extra):
@@ -1629,8 +1688,10 @@ def kernel_mix(mix, dev, states, report=None):
     """K1-seg on the mix, K4 and K5 on its CO2 catalog at ``states`` (T, P)
     on 2^19 points, each against its float64 plain version (float32 at the
     cut edges). At the main path's 57 states K1-seg runs 8 state tiles in
-    each segment and K5 19 groups of 3 states, as on the main path; those
-    lines go in ``report``. K4's float64 sum is K5's reference too: both
+    each segment, K4 and K5 one launch of every state (the window kernel's
+    FULL mode in balanced tiles), as on the main path; those lines go in
+    ``report``, with K4's and K5's build, work items, device ms and the
+    peak memory of each call. K4's float64 sum is K5's reference too: both
     plain versions are the exact profile over each block's window, and a
     float64 gather of 57 states' slabs would take 33 GB."""
     import clearsky_tpu_torch as ct
@@ -1676,61 +1737,41 @@ def kernel_mix(mix, dev, states, report=None):
               state_tiles=lc.state_tiles(n), wrapper_ms=wrapper_ms, **layout)
     del out, ref, ref32
 
-    # K4 and K5 on the CO2 catalog
+    # K4 and K5 on the CO2 catalog: the pack made beforehand, one launch each
     co2 = mix["co2"]
     cplan = ct.DirectGas.from_lines(co2, MIX_CO2, mix["nu"], strategy="lane").plan
     Pp4 = MIX_CO2 * P4
     x64 = (T4.double(), P4.double(), Pp4.double())
     edge = cut_edges(cplan, co2.positions64())
     S, a, g = _line_params(co2, T4, P4, Pp4)
+    coef, reach, fast = lc.full_pack("voigt", S, a, g, cplan.cut)
     grid = cplan.device_arrays(dev)
+    b = full_bound(cplan, co2, coef, n)
     ref = None
     for name, kern, plain in (("linesum_lane", lc.sigma_lane, ls.sigma_lane_plain),
                               ("linesum_gathered", lc.sigma_gathered, ls.sigma_gathered_plain)):
+        gathered = name == "linesum_gathered"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
         out = kern(cplan, co2, T4, P4, Pp4)
         torch.cuda.synchronize()
-        if name == "linesum_lane":
-            lay = ls.lane_layout(cplan, co2, S, a, g)
-            win = torch.as_tensor(lay.windows, dtype=torch.int32, device=dev)
-            st, cn = win[:, 0].contiguous(), win[:, 1].contiguous()
-            launch = lambda: lc.launch_fullprofile("voigt", False, grid, lay.nu, lay.nu_lo,
-                                                   lay.S, lay.alpha, lay.gamma, st, cn,
-                                                   lay.nu.shape[0], cplan.cut, cplan.n_nu)
-            layout_bytes = 8 * lay.nu.shape[0] + 12 * n * lay.nu.shape[0] + 8 * cplan.n_blocks
-            extra = dict(lines_padded=int(lay.nu.shape[0]))
-        else:
-            # the wrapper's state groups, each one's slabs gathered beforehand
-            step = lc.gather_group(cplan)
-            cn = grid["win"][:, 1].contiguous()
-            acc = torch.empty((n, cplan.n_nu), device=dev)
-            groups = [(i, ls.gathered_slabs(cplan, co2, S[i:i + step], a[i:i + step],
-                                            g[i:i + step])) for i in range(0, n, step)]
-            slab_pad = groups[0][1].slab_pad
-
-            def launch():
-                for i, gs in groups:
-                    lc.launch_fullprofile("voigt", True, grid, gs.nu, gs.nu_lo, gs.S, gs.alpha,
-                                          gs.gamma, cn, cn, slab_pad, cplan.cut, cplan.n_nu,
-                                          out=acc[i:i + gs.S.shape[0]])
-
-            slab_bytes = 12 * n * cplan.n_blocks * slab_pad
-            layout_bytes = (slab_bytes + len(groups) * (8 * cplan.n_blocks * slab_pad
-                                                        + 4 * cplan.n_blocks))
-            extra = dict(slab_pad=slab_pad, gathered_slab_bytes=slab_bytes,
-                         gathered_slab_bytes_per_state=slab_bytes // n,
-                         mix_slab_bytes_per_state=12 * plan.n_blocks
-                         * (-(-plan.slab // 128) * 128),
-                         states_per_launch=step, launches_per_call=len(groups))
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        launch = lambda: lc.launch_fullprofile("voigt", gathered, grid, co2, coef, n, cplan.n_nu,
+                                               cplan.cut, reach, fast)
         ms = cuda_ms(launch, n=3, warmup=1)
-        if name == "linesum_gathered":
-            del groups, acc
+        device_ms = kernel_device_ms(launch, "linesum_full", n=3)
         wrapper_ms = cuda_ms(lambda: kern(cplan, co2, T4, P4, Pp4), n=3, warmup=1)
+        plan = lc.full_plan("voigt", grid, n)
+        info = lc.kernel_info(lc.full_mode("voigt"), plan["threads"], plan["points_per_thread"])
         if ref is None:
             ref = ls.sigma_lane_plain(cplan, co2.to(torch.float64), *x64)
         ref32, plain_ms = one_call(lambda: plain(cplan, co2, T4, P4, Pp4))
-        b = _full_bound(cplan, co2, S, a, g, n, layout_bytes)
         _mix_line(name, out, ref, ref32, edge, ms, plain_ms, b, report, lines=co2.n_lines,
-                  wrapper_ms=wrapper_ms, float64_reference="sigma_lane_plain", **extra)
+                  wrapper_ms=wrapper_ms, device_ms=device_ms, launches_per_call=1,
+                  call_peak_bytes=peak, pack_bytes=nbytes(coef, reach),
+                  float64_reference="sigma_lane_plain", **info,
+                  **{k: v for k, v in plan.items() if k != "table"})
         del out, ref32
 
 
@@ -1969,7 +2010,8 @@ def check_mix_rcm(rcm, ms_steps, mg, route, cia):
 def phase_mix_strategies(mix, entry, dev):
     """outgoing on the CO2 catalog as DirectGas with strategy "lane" and
     "gathered": each launches its own kernel and K2 only, and its band OLR
-    is within 1e-4 of auto's. Returns the launch counts of the two runs."""
+    is within 1e-4 of auto's. Returns the launch counts of the two runs and
+    the two calls (for the profile)."""
     import clearsky_tpu_torch as ct
     from clearsky_tpu_torch.ops import linesum_strategies as ls
 
@@ -1979,9 +2021,10 @@ def phase_mix_strategies(mix, entry, dev):
     n = int(mix["states"][0].shape[0])
     auto_route = ls.route(auto.plan, co2, "voigt", "auto", n_states=n)
     band_auto = float(ct.trapz(nu64, ct.outgoing(Pe, G, Te, MU, auto).double()))
-    counts, out = {}, {}
+    counts, out, calls = {}, {}, {}
     for strategy in ("lane", "gathered"):
         gas = ct.DirectGas.from_lines(co2, MIX_CO2, nu, strategy=strategy)
+        calls[f"outgoing_mix_co2_{strategy}"] = lambda gas=gas: ct.outgoing(Pe, G, Te, MU, gas)
         check(ls.route(gas.plan, co2, "voigt", strategy, n_states=n) == strategy,
               f"strategy {strategy} does not take its own route on the CO2 catalog")
         counts_reset()
@@ -1998,7 +2041,7 @@ def phase_mix_strategies(mix, entry, dev):
         check(rel < 1e-4, f"band OLR on {strategy} off auto's by {rel:.3e}")
     emit("mix", step="strategies", lines=co2.n_lines, auto_route=auto_route,
          auto_band_olr_W_m2=band_auto, bar=1e-4, **out)
-    return counts
+    return counts, calls
 
 
 def phase_mix_cia(mix, dev):
@@ -2459,23 +2502,30 @@ def kernel_phco2_strategies(par, seed, dev, report):
                                                             shape="phco2"))
     _mix_line("linesum_phco2_segmented", out, exact, ref32, edge, ms, plain_ms, b, report,
               segments=len(segs), segment_lines=L_seg, budget_bytes=budget)
-    # K4 and K5: w4 (y = y0 chi) at every in-cut pair and state
-    full_ops = (pairs * (PAIR_OPS + PH_PAIR_OPS) + p3 * n * CHI_OPS
-                + near_w4_ops(plan.nu, pos, co[1], co[2], plan.cut, T=T))
+    # K4 and K5: w4 (y = y0 chi) within each (line, state)'s near reach,
+    # region 1 beyond (:func:`full_ops`); the pack made beforehand, one
+    # launch each
+    coef, reach, fast = lc.full_pack("phco2", S, alpha, gamma, plan.cut, bcoef)
+    grid = plan.device_arrays(dev)
+    b = full_bound(plan, lines, coef, n, T=T)
     for kind, kern in (("lane", lc.sigma_lane), ("gathered", lc.sigma_gathered)):
+        gathered = kind == "gathered"
         out = kern(plan, lines, *states, shape="phco2")
         torch.cuda.synchronize()
-        ms = cuda_ms(lambda: kern(plan, lines, *states, shape="phco2"), n=3, warmup=1)
+        launch = lambda: lc.launch_fullprofile("phco2", gathered, grid, lines, coef, n,
+                                               plan.n_nu, plan.cut, reach, fast, bcoef)
+        ms = cuda_ms(launch, n=5, warmup=1)
+        device_ms = kernel_device_ms(launch, "linesum_phco2_full", n=5)
+        wrapper_ms = cuda_ms(lambda: kern(plan, lines, *states, shape="phco2"), n=3, warmup=1)
         plain = ls.sigma_lane_plain if kind == "lane" else ls.sigma_gathered_plain
         _, plain_ms = one_call(lambda: plain(plan, lines, *states, shape="phco2"))
-        slab_pad = -(-plan.slab // 128) * 128
-        if kind == "lane":
-            lay_bytes = (8 + 12 * n) * ls.lane_layout(plan, lines, S, alpha, gamma).nu.shape[0]
-        else:
-            lay_bytes = (8 + 12 * n) * plan.n_blocks * slab_pad
-        b = bound(full_ops, lay_bytes + 8 * plan.n_blocks * plan.block + 8 * plan.n_blocks
-                  + 4 * n * plan.n_nu, p3 * n)
-        _mix_line(f"linesum_phco2_{kind}", out, exact, ref32, edge, ms, plain_ms, b, report)
+        fplan = lc.full_plan("phco2", grid, n)
+        info = lc.kernel_info(lc.full_mode("phco2"), fplan["threads"],
+                              fplan["points_per_thread"])
+        _mix_line(f"linesum_phco2_{kind}", out, exact, ref32, edge, ms, plain_ms, b, report,
+                  wrapper_ms=wrapper_ms, device_ms=device_ms, launches_per_call=1,
+                  pack_bytes=4 * (coef.numel() + reach.numel()), **info,
+                  **{k: v for k, v in fplan.items() if k != "table"})
     return dict(lines=lines, plan=plan, states=states)
 
 
@@ -3603,10 +3653,11 @@ _K1_MODE = {0: "linesum", 3: "linesum_farall", 4: "linesum_fine", 5: "linesum_fi
             6: "linesum_coarse", 7: "linesum_phco2", 8: "linesum_phco2_farall",
             9: "linesum_phco2_fine", 10: "linesum_phco2_fine_stencil",
             11: "linesum_phco2_coarse", 12: "linesum_nosplit", 13: "linesum_phco2_nosplit"}
-_PHCO2_SHAPE = 7
 _PHCO2_K1 = (7, 8, 9, 10, 11, 13)
 _K1_NAME = re.compile(r"(?:linesum|window)_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))?")
-_FULL_NAME = re.compile(r"fullprofile_kernel(?:<|ILi)(\d+)(?:, ?(true|false)|ELb([01]))")
+# K4/K5: the window kernel's FULL modes (14-17; K4 and K5 share an
+# instance: a profile names them linesum_full, linesum_phco2_full)
+_FULL_NAME = re.compile(r"window_kernel(?:<|ILi)(1[4-7])(?:,|E)")
 _CORRECTION_NAME = re.compile(r"correction_gather_kernel(?:<(true|false)|ILb([01])E)")
 _OTHER_KERNELS = {k: re.compile(rf"\b{v}\b") for k, v in (
     ("olr_march", "olr_kernel"), ("monoflux_march", "monoflux_kernel"),
@@ -3614,17 +3665,15 @@ _OTHER_KERNELS = {k: re.compile(rf"\b{v}\b") for k, v in (
 
 
 def _kernel_of(name: str):
+    m = _FULL_NAME.search(name)
+    if m:
+        return "linesum_phco2_full" if m.group(1) == "15" else "linesum_full"
     m = _K1_NAME.search(name)
     if m:
         fam = "phco2_" if int(m.group(1)) in _PHCO2_K1 else ""
         if m.group(2) == "true" or m.group(3) == "1":
             return f"linesum_{fam}segmented"
         return _K1_MODE.get(int(m.group(1)), "linesum_other")
-    m = _FULL_NAME.search(name)
-    if m:
-        fam = "phco2_" if int(m.group(1)) == _PHCO2_SHAPE else ""
-        kind = "gathered" if m.group(2) == "true" or m.group(3) == "1" else "lane"
-        return f"linesum_{fam}{kind}"
     m = _CORRECTION_NAME.search(name)
     if m:
         return "stencil_correction_phco2" if "true" in m.groups() or "1" in m.groups() \
@@ -3808,7 +3857,7 @@ def main(argv=None) -> int:
     check(set(rcm_mix_counts) == ROUTE_KERNELS[rcm_mix[3]] | {"monoflux_march"},
           f"the mix RCM on the {rcm_mix[3]} route launched {rcm_mix_counts}")
     check_mix_rcm(*rcm_mix, mix["cia"])
-    strategy_counts = phase_mix_strategies(mix, entry, dev)
+    strategy_counts, strategy_calls = phase_mix_strategies(mix, entry, dev)
     for part in (mix_counts, rcm_mix_counts, *strategy_counts.values()):
         for k, v in part.items():
             counts[k] += v
@@ -3818,6 +3867,7 @@ def main(argv=None) -> int:
         check(counts[k] > 0, f"kernel {k} was not launched on the mix's main path")
     phase_mix_cia(mix, dev)
     calls.update(mix_calls)
+    calls.update(strategy_calls)
     calls.update(phase_mix_l2(mix, dev))
     del mix, entry, rcm_mix
 

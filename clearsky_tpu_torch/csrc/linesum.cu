@@ -2,7 +2,8 @@
 // line windows of TIPS-scaled Voigt, sub-Lorentzian CO2 (phco2), Lorentz or
 // Doppler line profiles (and its catalog-segmented use, K1-seg); the
 // near-core correction of the stencil-near route; and the full-profile
-// kernels K4 (lane-major) and K5 (gathered slabs), further down.
+// kernels K4 and K5 (strategies "lane" and "gathered"), the window kernel's
+// FULL modes further down.
 //
 // Replaces clearsky_tpu/ops/linesum_pallas.py::_kernel_resident_grouped,
 // launched by _grouped_call, in all its modes:
@@ -17,7 +18,7 @@
 //   * NOSPLIT (strategy "nosplit": use_split false, :1360 and :621): the
 //     full Humlicek w4 with the small-y repair at every in-cut (point, line,
 //     state), one sweep over the window with no near/far split, on the
-//     (Sia, ia, y0) pack, as K4's fullprofile_kernel evaluates it;
+//     (Sia, ia, y0) pack;
 //   * K1-seg (_pallas_sigma_segmented, which runs _pallas_sigma_impl's
 //     split, no-split and single-sweep modes once per catalog segment): a
 //     launch with `accumulate` (the kernel's ACC instance, which a profile
@@ -133,7 +134,10 @@ enum Mode {
   // the phco2 family's instances of the Voigt modes
   PH_SPLIT = 7, PH_FARALL = 8, PH_FINE = 9, PH_FINE_STENCIL = 10, PH_COARSE = 11,
   // the no-split sweep over the plan's windows, voigt and phco2
-  NOSPLIT = 12, PH_NOSPLIT = 13
+  NOSPLIT = 12, PH_NOSPLIT = 13,
+  // K4 and K5, the full profile over each row's window (window_kernel's
+  // FULL path): voigt, phco2, lorentz, doppler
+  FULL = 14, PH_FULL = 15, FULL_LORENTZ = 16, FULL_DOPPLER = 17
 };
 
 constexpr float INV_PI = 0.318309886183790672f;
@@ -142,7 +146,7 @@ constexpr float INV_SQRT_PI = 0.564189583547756287f;
 // each predicate names its modes: a mode number says nothing by its order
 __host__ __device__ constexpr bool is_phco2(int mode) {
   return mode == PH_SPLIT || mode == PH_FARALL || mode == PH_FINE ||
-         mode == PH_FINE_STENCIL || mode == PH_COARSE || mode == PH_NOSPLIT;
+         mode == PH_FINE_STENCIL || mode == PH_COARSE || mode == PH_NOSPLIT || mode == PH_FULL;
 }
 
 // the Voigt mode whose sweeps a phco2 mode runs
@@ -154,6 +158,7 @@ __host__ __device__ constexpr int voigt_mode(int mode) {
     case PH_FINE_STENCIL: return FINE_STENCIL;
     case PH_COARSE: return COARSE;
     case PH_NOSPLIT: return NOSPLIT;
+    case PH_FULL: return FULL;
     default: return mode;
   }
 }
@@ -166,9 +171,12 @@ __host__ __device__ constexpr int voigt_mode(int mode) {
 //   FARALL, FINE_STENCIL: (A, 1/2 - y0^2, 2 y0^2, k2); PH_FARALL,
 //   PH_FINE_STENCIL: (0.5641896 Sia, y0, A, 0) (window_kernel's, below);
 //   FINE, PH_FINE: their window quad, then the near core's (Sia, ia, y0, r),
-//   laid out [n_lines][2][n_states][4] (window_kernel's FINE path, below)
+//   laid out [n_lines][2][n_states][4] (window_kernel's FINE path, below);
+//   FULL, PH_FULL: the same two quads (K4/K5's, window_kernel's FULL path);
+//   FULL_LORENTZ: (S gamma / pi, gamma^2, 0, 0); FULL_DOPPLER: (Sia, A, 0, 0)
 __host__ __device__ constexpr int n_quads(int mode) {
-  return (mode == VOIGT_SPLIT || mode == FINE || mode == PH_FINE) ? 2 : 1;
+  return (mode == VOIGT_SPLIT || mode == FINE || mode == PH_FINE || mode == FULL ||
+          mode == PH_FULL) ? 2 : 1;
 }
 
 // line windows per block: FINE and FINE_STENCIL sweep the mid window and the
@@ -436,6 +444,10 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -773,16 +785,26 @@ linesum_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
 // its per-block fixed cost), phco2's 1.33 -> 0.97 (two MUFUs a triple).
 // lines a staged chunk of window_kernel: 64, and 32 for voigt's
 // FINE_STENCIL and FINE, whose rows hold ~16 lines (a smaller block stage
-// keeps more of its short-lived blocks resident)
+// keeps more of its short-lived blocks resident), and for voigt's FULL,
+// whose blocks of two warps shared memory held to 11 an SM at 64 (4-6%
+// faster at the mix's width, PERF.md)
 __host__ __device__ constexpr int window_chunk(int mode) {
-  return mode == FINE_STENCIL || mode == FINE ? 32 : 64;
+  return mode == FINE_STENCIL || mode == FINE || mode == FULL ? 32 : 64;
 }
 constexpr int MAX_GROUPS = 4;    // thread groups that split a piece's lines
 constexpr int RED_FLOATS = 3 * ST * 128;  // the groups' sums, (G - 1) x NS x points
 
+// K4/K5's modes: the full profile over each row's window
+__host__ __device__ constexpr bool is_full(int mode) {
+  return voigt_mode(mode) == FULL || mode == FULL_LORENTZ || mode == FULL_DOPPLER;
+}
+
+// the FULL modes with w4 and its near reach (voigt, phco2)
+__host__ __device__ constexpr bool full_w4(int mode) { return voigt_mode(mode) == FULL; }
+
 __host__ __device__ constexpr bool is_window(int mode) {
   return mode == FARALL || mode == FINE_STENCIL || mode == PH_FARALL || mode == PH_FINE_STENCIL ||
-         mode == FINE || mode == PH_FINE;
+         mode == FINE || mode == PH_FINE || is_full(mode);
 }
 
 __host__ __device__ constexpr int window_tiles(int n) { return (n + ST - 1) / ST; }
@@ -806,18 +828,23 @@ __device__ __forceinline__ float rcp_approx(float d) {
   return r;
 }
 
-template <int WCH>
+template <int WCH, class AUX = float>
 struct WindowStage {
   union {
     float4 c[2][WCH * ST];     // two chunks' quads, [line][state of the tile]
     float red[RED_FLOATS];     // then the groups' sums
   };
   float2 pos[2][WCH];          // the chunks' two-float line positions
-  float aux[2][WCH];           // the lines' least A = ia^2 over the states (FINE: the
-                               // lines' near reach over the tile)
+  AUX aux[2][WCH];             // the lines' least A = ia^2 over the states (FINE: the
+                               // lines' near reach over the tile; FULL's w4 modes: that
+                               // reach and the tile's small-y flag)
   float B[2 * ST];             // chi's rates of the tile (phco2), in base 2
   int last;
 };
+
+// a window mode's shared memory
+template <int MODE>
+using ModeStage = WindowStage<window_chunk(MODE), std::conditional_t<full_w4(MODE), float2, float>>;
 
 // chi's arguments in base 2 (chi_arg2) as clamps: u = clamp(a - 3, 0, 27),
 // v = clamp(a - 30, 0, 90), w' = 0.0232 log2(e) max(a - 120, 0), the same
@@ -1211,12 +1238,236 @@ __device__ __forceinline__ void fine_sweep(int o, int cnt, int g, int G,
   }
 }
 
+// K4 and K5 (the full profile over each row's window: strategies "lane"
+// and "gathered", replacing linesum_pallas.py::_kernel_resident and
+// ::_kernel) in window_kernel, modes FULL (voigt), PH_FULL (phco2),
+// FULL_LORENTZ and FULL_DOPPLER. They compute Humlicek's w4 with its
+// small-y repair at every in-cut (point, line, state) (phco2: at y = y0
+// chi(|dnu|, T)), or the exact Lorentz or Doppler profile. Measured on one
+// H100 (PERF.md, K4/K5's step 0), the earlier simple kernel (a block a grid
+// block and tile of 8 states, w4 inlined at every triple) lost its time to
+// w4's code at every triple (~530 SASS instructions, two IEEE divisions even in
+// region 1), though 99.96% of the triples are w4's region 1 and 99.7% lie in
+// warps wholly in it; K5 also to its host gather of each block's slab, in
+// groups of 3 states (19 launches at 57 states in tiles padded to 8, each
+// launch's tail set by its densest blocks). The design:
+//   (a) the window kernel's work items, groups, points a thread and
+//       balanced tiles over the plan's window of each row, read in place
+//       from the catalog (the lines K5's slab held; the lane layout's
+//       window adds before them lines beyond every point's cut, whose terms
+//       are 0, so K4 makes the same launch); one launch for every state;
+//   (b) a pack [n_lines][2][n_states][4] made once a call on the device:
+//       the window quad, then w4's quad (Sia, ia, y0, r), r the (line,
+//       state)'s near reach, (15.01 - y0) / ia, beyond which |x| + y >= 15
+//       (w4's region 1; phco2: 15.01 / ia where 3 ia < 15.01, chi may bring
+//       y below y0 beyond 3 cm^-1), and each line's largest reach over each
+//       tile (with the voigt tile's small-y flag) staged with its chunk;
+//   (c) beyond the reach, region 1 in the window quad's algebra (FARALL's:
+//       three FMAs, one reciprocal, the sum), where w4 with its repair is
+//       region 1 up to float32's rounding (voigt's constant 1/sqrt(pi) for
+//       0.5641896, 2.9e-8 apart), and where y < 0.01, w4's small-y repair
+//       there: y g(x) with the asymptotic g and e^{-x^2} = 0 in float32 at
+//       |x| >= 15, one reciprocal of x^2 and three FMAs (voigt: a (line,
+//       state) whose y0 < 0.01 carries the quad (A, 0, -1, 2 Sia y0 /
+//       sqrt(pi)), uniform over a warp; phco2: chosen per pair on y = y0
+//       chi). A line whose tile reach meets the row (a near line) takes w4,
+//       as a call, within each pair's reach;
+//   (d) phco2's chi is one ex2.approx of the rates pre-scaled to base 2,
+//       and y = y0 where a line's points all lie within 3 cm^-1.
+// The reciprocal is rcp.approx where the wrapper's flag (far_reciprocal_ok,
+// from the pack's coefficients) shows every denominator to be normal, else
+// the IEEE division; Lorentz divides, Doppler takes expf. No float atomic:
+// two launches give the same bits. Measured on one H100 (PERF.md):
+// K4 62.6 -> 9.3 ms, K5 231 -> 9.4 at 57 x 2^19 (the near lines' path 1.8
+// ms of it), phco2 7.9 -> 1.07 at 16 x 2^15.
+
+// voigt beyond the reach where y0 < 0.01: Sia y0 g(x), g = 2/sqrt(pi) (1/2x^2
+// + 3/4x^4 + 15/8x^6 + 105/16x^8), from the quad (A, 0, -1, 2 Sia y0 / sqrt(pi))
+template <bool FAST>
+__device__ __forceinline__ void small_y_term(const float4& k, float D, float& acc) {
+  const float x2 = D * k.x;
+  const float r = FAST ? rcp_approx(x2) : 1.0f / x2;
+  acc = fmaf(k.w * r, fmaf(r, fmaf(r, fmaf(r, 6.5625f, 1.875f), 0.75f), 0.5f), acc);
+}
+
+// phco2 beyond the reach, on the window quad (c, y0, A, 0), c = 0.5641896
+// Sia, at y = y0 chi: region 1, or where y < 0.01 the small-y repair's c y
+// 2 g(x) / (2/sqrt(pi)); one reciprocal, of the selected denominator
+template <bool FAST, bool CHI1>
+__device__ __forceinline__ void ph_full_term(const float4& k, float D, const ChiArg& q,
+                                             float B1, float B2, float& acc) {
+  const float y = CHI1 ? k.y : k.y * ex2_approx(-fmaf(B1, q.u, fmaf(B2, q.v, q.w)));
+  const float y2 = y * y;
+  const float w = fmaf(-D, k.z, 0.5f - y2);
+  const float cy = k.x * y;
+  const bool small = y < 0.01f;
+  const float d = small ? D * k.z : fmaf(w, w, y2 + y2);
+  const float r = FAST ? rcp_approx(d) : 1.0f / d;
+  const float f = small ? (cy + cy) * fmaf(r, fmaf(r, fmaf(r, 6.5625f, 1.875f), 0.75f), 0.5f)
+                        : fmaf(-cy, w, cy);
+  acc = fmaf(f, r, acc);
+}
+
+// one (line, state)'s term at one point beyond its reach
+template <bool PH, bool FAST, bool CHI1 = false>
+__device__ __forceinline__ void full_far(const float4& k, float D, const ChiArg& q, float B1,
+                                         float B2, float& acc) {
+  if constexpr (PH) {
+    ph_full_term<FAST, CHI1>(k, D, q, B1, B2, acc);
+  } else if (k.z < 0.0f) {
+    small_y_term<FAST>(k, D, acc);
+  } else {
+    region1_term<false, FAST, false>(k, D, 1.0f, q, B1, B2, acc);
+  }
+}
+
+// What a FULL item sees beyond a window item's: its row's first and last
+// points (two-float), the lines' reach and small-y flag per tile, its tile
+template <int PTS>
+struct FullItem : WindowItem<1, PTS> {
+  float f_hi, f_lo, l_hi, l_lo;
+  const float2* line_reach;
+  int tile, n_tiles;
+};
+
+// window_sweep's FULL instance: each chunk's lines of group g over the
+// row's one window, staged from the catalog in place
+template <int MODE, int NS, int PTS, bool FAST, int WCH, class It>
+__device__ __forceinline__ void full_sweep(int o, int cnt, int g, int G, const It& it,
+                                           ModeStage<MODE>& sm, const Zones& z,
+                                           float (&acc)[PTS][NS]) {
+  constexpr bool PH = is_phco2(MODE);
+  constexpr bool W4 = full_w4(MODE);
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int n_chunks = (cnt + WCH - 1) / WCH;
+  const int per = (WCH + G - 1) / G;
+  const size_t ls = (size_t)n_quads(MODE) * it.n_states;  // floats4 a line in the pack
+  auto stage = [&](int k) {
+    const int c0 = o + k * WCH;
+    const int n = min(WCH, cnt - k * WCH);
+    const int buf = k & 1;
+    for (int i = tid; i < n; i += nthreads) {
+      const int l = it.ws[0] + c0 + i;
+      cp_async4(&sm.pos[buf][i].x, it.line_hi + l);
+      cp_async4(&sm.pos[buf][i].y, it.line_lo + l);
+      if constexpr (W4) cp_async8(&sm.aux[buf][i], it.line_reach + (size_t)l * it.n_tiles + it.tile);
+    }
+    for (int i = tid; i < n * NS; i += nthreads) {
+      const int j = i / NS;
+      cp_async16(&sm.c[buf][i], it.coef + (size_t)(it.ws[0] + c0 + j) * ls + it.s0 + (i - j * NS));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  float B1[NS], B2[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    B1[s] = PH ? sm.B[s] : 0.0f;
+    B2[s] = PH ? sm.B[ST + s] : 0.0f;
+  }
+  if (n_chunks > 0) stage(0);
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k + 1 < n_chunks) {
+      stage(k + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const int buf = k & 1;
+    const int c0 = o + k * WCH;
+    const int j1 = min(min(WCH, cnt - k * WCH), (g + 1) * per);
+    for (int j = g * per; j < j1; ++j) {
+      // line j of the chunk: each point's two-float dnu and the cut's mask
+      const float2 ps = sm.pos[buf][j];
+      float dnu[PTS], D[PTS];
+      ChiArg q[PTS];
+      bool in[PTS];
+      bool any = false, all = true, chi1 = true;
+#pragma unroll
+      for (int p = 0; p < PTS; ++p) {
+        dnu[p] = (it.nh[p] - ps.x) + (it.nl[p] - ps.y);
+        const float adnu = fabsf(dnu[p]);
+        D[p] = dnu[p] * dnu[p];
+        in[p] = adnu <= z.cut;
+        if constexpr (PH) q[p] = chi_arg2_clamped(adnu);
+        any = any || in[p];
+        all = all && in[p];
+        chi1 = chi1 && adnu < 3.0f;
+      }
+      if (!any) continue;
+      const float4* c = sm.c[buf] + NS * j;
+      if constexpr (MODE == FULL_LORENTZ || MODE == FULL_DOPPLER) {
+#pragma unroll
+        for (int p = 0; p < PTS; ++p) {
+          if (!in[p]) continue;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            if constexpr (MODE == FULL_LORENTZ) acc[p][s] += c[s].x / (D[p] + c[s].y);
+            else acc[p][s] += c[s].x * expf(-D[p] * c[s].y);
+          }
+        }
+      } else {
+        const float2 ax = sm.aux[buf][j];
+        const float d0 = (it.f_hi - ps.x) + (it.f_lo - ps.y);
+        const float d1 = (it.l_hi - ps.x) + (it.l_lo - ps.y);
+        if (ax.x >= 0.0f && d0 <= ax.x + NEAR_EPS && d1 >= -ax.x - NEAR_EPS) {
+          // a near line: w4 within each pair's reach, its far term beyond
+          const float4* nq4 = it.coef + (size_t)(it.ws[0] + c0 + j) * ls + it.n_states + it.s0;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const float4 nq = nq4[s];
+#pragma unroll
+            for (int p = 0; p < PTS; ++p) {
+              if (!in[p]) continue;
+              if (fabsf(dnu[p]) <= nq.w) {
+                const float chi = PH ? chi2_of(chi_arg2(fabsf(dnu[p])), B1[s], B2[s]) : 1.0f;
+                acc[p][s] += nq.x * wofz_re_call(dnu[p] * nq.y, nq.z * chi);
+              } else {
+                full_far<PH, FAST>(c[s], D[p], q[p], B1[s], B2[s], acc[p][s]);
+              }
+            }
+          }
+        } else if (all && PH && chi1) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+#pragma unroll
+            for (int p = 0; p < PTS; ++p)
+              full_far<PH, FAST, true>(c[s], D[p], q[p], B1[s], B2[s], acc[p][s]);
+          }
+        } else if (all && (PH || ax.y == 0.0f)) {
+          // no state of the tile takes the small-y form here (voigt): FARALL's
+          // region 1; phco2 chooses per pair
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const float4 k4 = c[s];
+#pragma unroll
+            for (int p = 0; p < PTS; ++p) {
+              if constexpr (PH) ph_full_term<FAST, false>(k4, D[p], q[p], B1[s], B2[s], acc[p][s]);
+              else region1_term<false, FAST, false>(k4, D[p], 1.0f, q[p], B1[s], B2[s], acc[p][s]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+#pragma unroll
+            for (int p = 0; p < PTS; ++p) {
+              if (in[p]) full_far<PH, FAST>(c[s], D[p], q[p], B1[s], B2[s], acc[p][s]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // chunk k's buffer is refilled by stage(k + 2)
+  }
+}
+
 // One work item of a tile of NS states: the groups sweep the piece, their
 // sums meet in group order; a row of several pieces adds its pieces'
 // partials in piece order through scratch (the last to arrive writes)
 template <int MODE, int NS, int PTS, class Item>
 __device__ void window_item(const int4 pa, const int4 pb, int B, bool fast, const Item& it,
-                            WindowStage<window_chunk(MODE)>& sm, const float* bcoef,
+                            ModeStage<MODE>& sm, const float* bcoef,
                             const Zones& z, int tile, int n_tiles,
                             int rb, int col0, int n_out, int ld_out, float* scratch,
                             int* counters, float* out) {
@@ -1244,7 +1495,14 @@ __device__ void window_item(const int4 pa, const int4 pb, int B, bool fast, cons
     for (int s = 0; s < NS; ++s) acc[p][s] = 0.0f;
   }
   constexpr int WCH = window_chunk(MODE);
-  if constexpr (voigt_mode(MODE) == FINE) {
+  if constexpr (is_full(MODE)) {
+    if constexpr (full_w4(MODE)) {
+      if (fast) full_sweep<MODE, NS, PTS, true, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
+      else full_sweep<MODE, NS, PTS, false, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
+    } else {
+      full_sweep<MODE, NS, PTS, false, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
+    }
+  } else if constexpr (voigt_mode(MODE) == FINE) {
     if (fast) fine_sweep<NS, PTS, PH, true, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
     else fine_sweep<NS, PTS, PH, false, WCH>(pa.z, pa.w, g, G, it, sm, z, acc);
   } else {
@@ -1344,9 +1602,10 @@ __device__ __forceinline__ void window_run(const float* nu_hi, const float* nu_l
                                            const Zones& z, int B, int n_blocks, int n_states,
                                            int n_out, int ld_out, float* scratch,
                                            int* counters, float* out,
-                                           WindowStage<window_chunk(MODE)>& sm) {
+                                           ModeStage<MODE>& sm) {
   constexpr int NW = n_windows(MODE);
   constexpr bool IS_FINE = voigt_mode(MODE) == FINE;
+  constexpr bool IS_FULL = is_full(MODE);
   const int n_tiles = window_tiles(n_states);
   const int item = blockIdx.x / n_tiles;
   const int tile = blockIdx.x - item * n_tiles;
@@ -1354,7 +1613,8 @@ __device__ __forceinline__ void window_run(const float* nu_hi, const float* nu_l
   const int4 pb = pieces[2 * item + 1];
   const int TP = B / PTS;
   const int pl = threadIdx.x % TP;
-  std::conditional_t<IS_FINE, FineItem<PTS>, WindowItem<NW, PTS>> it;
+  std::conditional_t<IS_FINE, FineItem<PTS>,
+                     std::conditional_t<IS_FULL, FullItem<PTS>, WindowItem<NW, PTS>>> it;
 #pragma unroll
   for (int p = 0; p < PTS; ++p) {
     it.nh[p] = nu_hi[(size_t)pa.x * B + pl + p * TP];
@@ -1389,6 +1649,16 @@ __device__ __forceinline__ void window_run(const float* nu_hi, const float* nu_l
     it.tile = tile;
     it.n_tiles = n_tiles;
   }
+  if constexpr (IS_FULL) {
+    const size_t r0 = (size_t)pa.x * B;
+    it.f_hi = nu_hi[r0];
+    it.f_lo = nu_lo[r0];
+    it.l_hi = nu_hi[r0 + B - 1];
+    it.l_lo = nu_lo[r0 + B - 1];
+    it.line_reach = reinterpret_cast<const float2*>(line_reach);
+    it.tile = tile;
+    it.n_tiles = n_tiles;
+  }
   const bool fast = fast_p[shard] != 0;
 #define RUN(NS)                                                                            \
   window_item<MODE, NS, PTS>(pa, pb, B, fast, it, sm, bcoef, z, tile, n_tiles, rb,       \
@@ -1417,7 +1687,7 @@ window_kernel(const float* __restrict__ nu_hi, const float* __restrict__ nu_lo,
               int B, int n_blocks, int n_states, int n_out, int ld_out,
               float* __restrict__ scratch, int* __restrict__ counters,
               float* __restrict__ out) {
-  __shared__ __align__(16) WindowStage<window_chunk(MODE)> sm;
+  __shared__ __align__(16) ModeStage<MODE> sm;
   window_run<MODE, PTS>(nu_hi, nu_lo, line_hi, line_lo, line_amin, line_reach, coef, win,
                         pieces, fast_p, d_near_p, bcoef, z, B, n_blocks, n_states, n_out, ld_out,
                         scratch, counters, out, sm);
@@ -1693,134 +1963,6 @@ correction_gather_kernel(const int* __restrict__ rows, const int* __restrict__ l
     if (hits >> i & 1u) out[(size_t)(s0 + g + G * i) * n_nu + p] = sm.sig[i][t] + acc[i];
 }
 
-// K4 and K5: the full line profile over each block's lines, w4 at every
-// voigt and phco2 pair (no near/far split; phco2 with y = y0 chi(|dnu|, T),
-// the rates from bcoef [n_tiles][2][ST] in shared memory), Lorentz or
-// Doppler otherwise.
-//   * K4, GATHERED = false, replaces linesum_pallas.py::_kernel_resident
-//     (the lane branch of _pallas_sigma_impl, strategy "lane"): the per-state
-//     rows S, alpha, gamma [n_states][row] unpacked, lines padded past the
-//     catalog at 1e30 cm^-1 with zero strength; each block's window starts
-//     at start[b] (a CHUNK multiple) and holds count[b] lines, 0 for a block
-//     with none.
-//   * K5, GATHERED = true, replaces linesum_pallas.py::_kernel (the gathered
-//     fallback, strategy "gathered"): each block's slab of row lines was
-//     gathered before the launch into positions [n_blocks][row] and per-state
-//     rows [n_states][n_blocks][row]; count[b] of them are real.
-// What bounds it on the H100: arithmetic. The full Humlicek w4 runs at
-// every (point, line, state) inside the cut, ~10x the far-wing region 1 of
-// K1's split mode; K5 adds the gathered slabs' bytes, 12 bytes a (state,
-// block, slab line), read once. The design is K1's single sweep: a block of
-// one thread per grid point and a tile of ST states (grid y); the window
-// (K4) or the slab (K5) streams through shared memory in chunks of CH lines,
-// read row by row so that a warp reads consecutive addresses; the
-// reciprocal 1/alpha and the profile factors are formed once per (line,
-// state) as a chunk is staged (the TPU kernel's reciprocals on its [1, chunk]
-// rows), and the ST accumulators stay in registers.
-// out: [n_states][n_out]
-template <int SHAPE, bool GATHERED>
-__global__ void fullprofile_kernel(const float* __restrict__ nu_hi,
-                                   const float* __restrict__ nu_lo,
-                                   const float* __restrict__ line_hi,
-                                   const float* __restrict__ line_lo,
-                                   const float* __restrict__ S,
-                                   const float* __restrict__ alpha,
-                                   const float* __restrict__ gamma,
-                                   const int* __restrict__ start,
-                                   const int* __restrict__ count,
-                                   const float* __restrict__ bcoef, int row, int n_blocks,
-                                   float cut, int n_states, int n_out,
-                                   float* __restrict__ out) {
-  constexpr bool PH = SHAPE == PH_SPLIT;
-  __shared__ float s_hi[CH];
-  __shared__ float s_lo[CH];
-  __shared__ float s_f[3][CH * ST];  // per (line, state): the profile's factors
-  __shared__ float s_B[2 * ST];
-
-  const int b = blockIdx.x;
-  const int tile = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int p = b * blockDim.x + tid;  // grids are padded to whole blocks
-  const float nh = nu_hi[p];
-  const float nl = nu_lo[p];
-  const size_t base = GATHERED ? (size_t)b * row : (size_t)start[b];
-  const size_t sstride = GATHERED ? (size_t)n_blocks * row : (size_t)row;
-  const int cnt = count[b];
-  if constexpr (PH) {
-    if (tid < 2 * ST) s_B[tid] = bcoef[(size_t)tile * 2 * ST + tid];
-    __syncthreads();
-  }
-
-  float acc[ST];
-#pragma unroll
-  for (int s = 0; s < ST; ++s) acc[s] = 0.0f;
-
-  for (int c0 = 0; c0 < cnt; c0 += CH) {
-    const int n = min(CH, cnt - c0);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int i = tid; i < n; i += nthreads) {
-      s_hi[i] = line_hi[base + c0 + i];
-      s_lo[i] = line_lo[base + c0 + i];
-    }
-    for (int i = tid; i < n * ST; i += nthreads) {
-      const int s = i / n;
-      const int j = i - s * n;
-      const int st = tile * ST + s;
-      // voigt, phco2 and doppler: (S ia / sqrt(pi), ia, gamma ia); lorentz:
-      // (S, gamma); a padding state contributes exactly 0
-      float f0 = 0.0f, f1 = 1.0f, f2 = 1.0f;
-      if (st < n_states) {
-        const size_t k = (size_t)st * sstride + base + c0 + j;
-        const float Sv = S[k];
-        if constexpr (SHAPE == LORENTZ) {
-          f0 = Sv;
-          f1 = gamma[k];
-        } else {
-          const float ia = 1.0f / alpha[k];
-          f0 = Sv * INV_SQRT_PI * ia;
-          f1 = ia;
-          f2 = gamma[k] * ia;
-        }
-      }
-      s_f[0][j * ST + s] = f0;
-      s_f[1][j * ST + s] = f1;
-      s_f[2][j * ST + s] = f2;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < n; ++j) {
-      // two-float dnu, as in K1
-      const float dnu = (nh - s_hi[j]) + (nl - s_lo[j]);
-      if (!(fabsf(dnu) <= cut)) continue;
-      ChiArg q{0.0f, 0.0f, 0.0f};
-      if constexpr (PH) q = chi_arg(fabsf(dnu));
-#pragma unroll
-      for (int s = 0; s < ST; ++s) {
-        const float f0 = s_f[0][j * ST + s], f1 = s_f[1][j * ST + s];
-        if constexpr (SHAPE == VOIGT_SPLIT) {
-          acc[s] += f0 * wofz_re(dnu * f1, s_f[2][j * ST + s]);
-        } else if constexpr (PH) {
-          acc[s] += f0 * wofz_re(dnu * f1, s_f[2][j * ST + s] * chi_of(q, s_B[s], s_B[ST + s]));
-        } else if constexpr (SHAPE == LORENTZ) {
-          acc[s] += f0 * (f1 * INV_PI) / (dnu * dnu + f1 * f1);
-        } else {
-          const float arg = dnu * f1;
-          acc[s] += f0 * expf(-arg * arg);
-        }
-      }
-    }
-  }
-
-  if (p < n_out) {
-#pragma unroll
-    for (int s = 0; s < ST; ++s) {
-      const int st = tile * ST + s;
-      if (st < n_states) out[(size_t)st * n_out + p] = acc[s];
-    }
-  }
-}
-
 // the correction's shared memory is dynamic (above the 48 KB of a static
 // block): opt each instance in once
 template <bool PH, int NS>
@@ -1905,16 +2047,19 @@ int linesum_launch(int mode, const float* nu_hi, const float* nu_lo,
 }
 
 // Launch the window mode `mode` (FARALL, FINE_STENCIL, FINE and their phco2
-// instances) on `stream`: n_pieces work items (pieces [n_pieces][8] int32,
-// see window_kernel) over rows of B points, n_blocks rows a shard (FINE;
-// the other modes one shard), times the balanced state tiles, in blocks of
+// instances; K4/K5's FULL modes) on `stream`: n_pieces work items (pieces
+// [n_pieces][8] int32, see window_kernel) over rows of B points, n_blocks
+// rows a shard (FINE; the other modes one shard), times the balanced state
+// tiles, in blocks of
 // `groups` x B / pts threads, pts (1 or 2) points a thread; line_amin
 // (FARALL, FINE_STENCIL): each line's least A = ia^2 over the states (the
 // reach of its cores; +inf for a line of zero strength in every state);
 // line_reach (FINE): each line's near reach over each state tile
-// [n_lines][n_tiles] (< 0: none); coef: the window pack [n_lines][n_states]
-// [4] (FINE: [n_lines][2][n_states][4], the window quads, then the w4
-// quads); win: the rows' window table [n_rows][2 n_windows(mode)]; zones:
+// [n_lines][n_tiles] (< 0: none; FULL, PH_FULL: [n_lines][n_tiles][2], the
+// reach and the voigt tile's small-y flag); coef: the window pack
+// [n_lines][n_states][4] (FINE, FULL, PH_FULL: [n_lines][2][n_states][4],
+// the window quads, then the w4 quads); win: the rows' window table
+// [n_rows][2 n_windows(mode)] (FULL: the plan's windows); zones:
 // host float[7]; fast: one int32 a shard (nonzero: every region-1
 // denominator lies in [2^-120, 2^120]); d_near (FINE): one float a shard;
 // bcoef: the phco2 rates [n_tiles of ST][2][ST]; out: [n_states][ld_out],
@@ -1936,8 +2081,12 @@ int window_launch(int mode, const float* nu_hi, const float* nu_lo, const float*
       (groups - 1) * B * ST > RED_FLOATS || n_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_phco2(mode) && bcoef == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (fine != (line_reach != nullptr && d_near != nullptr) || (!fine && ld_out != n_out))
+  if (is_full(mode)) {
+    if (full_w4(mode) != (line_reach != nullptr) || d_near != nullptr || ld_out != n_out)
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (fine != (line_reach != nullptr && d_near != nullptr) || (!fine && ld_out != n_out)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Zones z{zones[0], zones[1], zones[2], zones[3], zones[4], zones[5], zones[6]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* c4 = reinterpret_cast<const float4*>(coef);
@@ -1958,6 +2107,10 @@ int window_launch(int mode, const float* nu_hi, const float* nu_lo, const float*
     case PH_FARALL: LAUNCH(PH_FARALL); break;
     case PH_FINE_STENCIL: LAUNCH(PH_FINE_STENCIL); break;
     case PH_FINE: LAUNCH(PH_FINE); break;
+    case FULL: LAUNCH(FULL); break;
+    case PH_FULL: LAUNCH(PH_FULL); break;
+    case FULL_LORENTZ: LAUNCH(FULL_LORENTZ); break;
+    case FULL_DOPPLER: LAUNCH(FULL_DOPPLER); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LAUNCH
@@ -1990,6 +2143,10 @@ int window_kernel_info(int mode, int pts, int threads, int* info) {
     case PH_FARALL: INFO(PH_FARALL); break;
     case PH_FINE_STENCIL: INFO(PH_FINE_STENCIL); break;
     case PH_FINE: INFO(PH_FINE); break;
+    case FULL: INFO(FULL); break;
+    case PH_FULL: INFO(PH_FULL); break;
+    case FULL_LORENTZ: INFO(FULL_LORENTZ); break;
+    case FULL_DOPPLER: INFO(FULL_DOPPLER); break;
     default: break;
   }
 #undef INFO
@@ -2031,38 +2188,6 @@ int linesum_kernel_info(int mode, int block, int* info) {
   info[2] = (int)a.localSizeBytes;
   info[3] = per_sm;
   return static_cast<int>(e);
-}
-
-// Launch K4 (gathered = 0) or K5 (gathered = 1) for `shape` (VOIGT_SPLIT
-// for voigt, PH_SPLIT for phco2, LORENTZ, DOPPLER) on `stream`; row: the
-// padded catalog length (K4) or the slab length (K5); start: K4's aligned
-// window starts (unread by K5); bcoef: phco2's rates [n_tiles][2][ST].
-// Returns cudaGetLastError() (0 on success).
-int fullprofile_launch(int shape, int gathered, const float* nu_hi, const float* nu_lo,
-                       const float* line_hi, const float* line_lo, const float* S,
-                       const float* alpha, const float* gamma, const int* start,
-                       const int* count, const float* bcoef, int row, int n_blocks, int block,
-                       float cut, int n_states, int n_out, float* out, void* stream) {
-  const dim3 grid(n_blocks, (n_states + ST - 1) / ST);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (shape == PH_SPLIT && bcoef == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define LAUNCH(SH, G)                                                                     \
-  fullprofile_kernel<SH, G><<<grid, block, 0, st>>>(nu_hi, nu_lo, line_hi, line_lo, S, alpha, \
-                                                    gamma, start, count, bcoef, row, n_blocks, \
-                                                    cut, n_states, n_out, out)
-#define LAUNCH_G(SH) \
-  if (gathered) LAUNCH(SH, true); else LAUNCH(SH, false)
-  switch (shape) {
-    case VOIGT_SPLIT: LAUNCH_G(VOIGT_SPLIT); break;
-    case LORENTZ: LAUNCH_G(LORENTZ); break;
-    case DOPPLER: LAUNCH_G(DOPPLER); break;
-    case PH_SPLIT: LAUNCH_G(PH_SPLIT); break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef LAUNCH_G
-#undef LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the near-core correction on `stream` (adds into out): one block a

@@ -19,19 +19,24 @@ every launch gives the same bits. K1-seg
 (:func:`sigma_segmented`) runs K1 once per catalog segment, adding in place
 (``_pallas_sigma_segmented``); K4 (:func:`sigma_lane`) and K5
 (:func:`sigma_gathered`) are the full-profile kernels of the lane and
-gathered branches (``_kernel_resident``, ``_kernel``). Before a K1 launch
+gathered branches (``_kernel_resident``, ``_kernel``): the window kernel's
+FULL modes over the plan's window of each row, read in place from the
+catalog (K4 and K5 make the same launch), on a pack of two
+quads a (line, state) (:func:`full_pack`) with w4 only within each (line,
+state)'s near reach, one launch a call. Before a K1 launch
 the per-(state, line) profile coefficients are computed here in plain torch
 on the device, as ``_grouped_pack`` does in XLA, and packed line-major in
 16-byte quads (:func:`pack_coefficients`), so that a block stages each
 chunk of lines for its tile of states with 16-byte asynchronous copies and
-reads one state's far-wing values with one 16-byte load; K4 and K5 take
-unpacked per-state rows. K1 runs one block per work item: a piece of at most
+reads one state's far-wing values with one 16-byte load. K1 runs one block
+per work item: a piece of at most
 :data:`PIECE_LINES` lines of a block's windows and a tile of states
 (:func:`piece_schedule`, built once per grid on the host), the costliest
 first; the pieces of one block add up in piece order, so every launch gives
 the same bits. The window modes (FARALL, FINE_STENCIL and FINE, voigt and
-phco2) run a kernel of their own on their own pack (:func:`window_pack`):
-work items over a row's windows as one stream of lines, split among groups
+phco2; K4/K5's FULL modes) run a kernel of their own on their own pack
+(:func:`window_pack`, :func:`full_pack`): work items over a row's windows
+as one stream of lines, split among groups
 of the row's threads and over balanced tiles of states as
 :func:`window_plan` lays them out; they too add pieces and groups in a fixed
 order. FINE takes w4 only within each (line, state)'s near reach
@@ -66,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -87,7 +93,6 @@ from .linesum import (
     voigt_coefficients,
 )
 from .linesum_strategies import (
-    CHUNK,
     _resolve,
     chi_T,
     _slice_lines,
@@ -99,8 +104,6 @@ from .linesum_strategies import (
     resident_budget,
     split_zones,
     strided_interp,
-    gathered_slabs,
-    lane_layout,
     segments,
     sigma_coarse_plain,
     sigma_gathered_plain,
@@ -117,11 +120,12 @@ __all__ = ["sigma_lines", "sigma_nosplit", "sigma_stencil", "sigma_coarse", "sig
            "sigma_lane", "sigma_gathered", "sigma_routed", "sigma_device", "device_launches",
            "stencil_correction", "correction_tiles", "correction_info", "launch_mode",
            "launch_fullprofile", "pack_coefficients", "near_distance", "chi_rates",
-           "window_mode", "nosplit_mode", "gather_group", "piece_schedule", "state_tiles",
+           "window_mode", "nosplit_mode", "full_mode", "full_pack", "full_plan",
+           "piece_schedule", "state_tiles",
            "far_reciprocal_ok", "kernel_info", "window_pack", "window_core_reach", "fine_reach",
            "window_tiles",
            "window_tile_sizes", "window_schedule", "window_plan", "MODES", "WINDOW_MODES",
-           "NOSPLIT_MODES", "GATHER_BYTES", "PIECE_LINES"]
+           "NOSPLIT_MODES", "FULL_MODES", "PIECE_LINES"]
 
 # kernel modes (csrc/linesum.cu ``Mode``): over the plan's windows, voigt
 # and phco2 run the split mode and lorentz and doppler the single sweep; the
@@ -138,6 +142,14 @@ _MODE_NAMES = {0: "voigt_split", 1: "lorentz", 2: "doppler", 3: "farall", 4: "fi
                9: "phco2_fine", 10: "phco2_fine_stencil", 11: "phco2_coarse",
                12: "nosplit", 13: "phco2_nosplit"}
 _PHCO2_MODES = (7, 8, 9, 10, 11, 13)
+# K4 and K5 (strategies "lane" and "gathered") run window_kernel's FULL
+# modes, one a shape (csrc/linesum.cu ``FULL``, ``PH_FULL``, ...); voigt and
+# phco2 with w4 within a near reach (their pack two quads a (line, state)),
+# lorentz and doppler on one quad
+FULL_MODES = {"voigt": 14, "voigt_ref": 14, "phco2": 15, "phco2_ref": 15, "lorentz": 16,
+              "doppler": 17}
+_FULL_W4 = (14, 15)
+_FULL_NAMES = {14: "full", 15: "phco2_full", 16: "full_lorentz", 17: "full_doppler"}
 # floats per (line, state) in K1's pack: two quads for the split mode (the
 # core's and the far wing's) and FINE (the window quad and the near core's),
 # one for every other mode
@@ -145,7 +157,7 @@ _FINE_MODES = (4, 9)
 _N_COEF = {m: (8 if m in (0,) + _FINE_MODES else 4) for m in _MODE_NAMES}
 # the modes whose terms include region 1 (the reciprocal's candidates)
 _FAR_MODES = (0, 3, 4, 5, 6, 7, 8, 9, 10, 11)
-_N_WIN = {m: (3 if m in (4, 5, 9, 10) else 1) for m in _MODE_NAMES}
+_N_WIN = {m: (3 if m in (4, 5, 9, 10) else 1) for m in (*_MODE_NAMES, *_FULL_NAMES)}
 # the modes that take d_near: the split modes and FINE
 _D_NEAR_MODES = (0, 4, 7, 9)
 # the modes that may add into sigma (K1-seg): split, no-split and single sweep
@@ -167,7 +179,7 @@ PIECE_LINES = 256
 # groups and the points a thread
 _WINDOW_KERNEL_MODES = (3, 4, 5, 8, 9, 10)
 # lines a staged chunk by mode (csrc/linesum.cu ``window_chunk``)
-WINDOW_CHUNKS = {3: 64, 4: 32, 5: 32, 8: 64, 9: 64, 10: 64}
+WINDOW_CHUNKS = {3: 64, 4: 32, 5: 32, 8: 64, 9: 64, 10: 64, 14: 32, 15: 64, 16: 64, 17: 64}
 # FINE's near reach (csrc/linesum.cu ``near_reach``): the margin on |x| + y,
 # and w4's small-y repair's bound on y
 NEAR_X, SMALL_Y = 15.01, 0.01
@@ -178,9 +190,6 @@ _PLAN_KEYS = ("piece_lines", "groups", "points_per_thread")
 # an SM's resident warps at window_kernel's 64 registers a thread, and the
 # H100's SMs (the plan's count off the card)
 _RESIDENT_WARPS, _H100_SMS = 32, 132
-# K5's gathered slabs (S, alpha, gamma: 12 bytes a state, block and slab
-# line) are built for at most this many bytes of states at a time
-GATHER_BYTES = 2**30
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -382,7 +391,7 @@ def window_plan(mode: int, grid: dict, n_states: int, override=None, n_shards: i
     tiles = window_tiles(n_states)
     many = nb * tiles * -(-block // 32) >= _sms(dev) * _RESIDENT_WARPS
     pts = override.get("points_per_thread") or (
-        2 if many and mode in (3, 4, 5) and block % 2 == 0 else 1)
+        2 if many and mode in (3, 4, 5, 14, 16, 17) and block % 2 == 0 else 1)
     tp = block // pts
     G = override.get("groups") or (1 if many else max(1, min(MAX_GROUPS, 512 // tp)))
     tables, Ps, n_slots = [], [], 0
@@ -551,12 +560,13 @@ def _library():
         # the coefficient, window and tile layouts are shared with the C
         # side: hold them to it
         layout = (lib.linesum_states_per_tile(),
-                  {m: lib.linesum_coef_per_state(m) for m in _N_COEF},
+                  {m: lib.linesum_coef_per_state(m) for m in (*_N_COEF, *_FULL_NAMES)},
                   {m: lib.linesum_windows_per_block(m) for m in _N_WIN},
                   [lib.linesum_state_tiles(n) for n in range(4 * ST)],
                   [lib.linesum_window_tiles(n) for n in range(4 * ST)],
                   {m: lib.linesum_window_chunk(m) for m in WINDOW_CHUNKS})
-        want = (ST, _N_COEF, _N_WIN, [state_tiles(n) for n in range(4 * ST)],
+        want = (ST, {**_N_COEF, **{m: 8 if m in _FULL_W4 else 4 for m in _FULL_NAMES}},
+                _N_WIN, [state_tiles(n) for n in range(4 * ST)],
                 [window_tiles(n) for n in range(4 * ST)], WINDOW_CHUNKS)
         if layout != want:
             raise RuntimeError(f"csrc/linesum.cu packs {layout}, this wrapper {want}")
@@ -573,10 +583,6 @@ def _library():
         wi = lib.window_kernel_info
         wi.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
         wi.restype = _I
-        full = lib.fullprofile_launch
-        full.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                         _I, _P, _P]
-        full.restype = _I
         cor = lib.stencil_correction_launch
         cor.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                         _F, _F, _P, _P]
@@ -592,10 +598,10 @@ def kernel_info(mode: int, block: int = 128, points: int = 1) -> dict:
     bytes a thread, static shared bytes a block, and resident blocks of
     ``block`` threads an SM with the share of the SM's 64 warps they hold
     (the window modes: ``window_kernel`` at ``points`` points a thread,
-    ``block`` the plan's threads)."""
+    ``block`` the plan's threads; K4/K5's FULL modes likewise)."""
     out = (_I * 4)()
     lib = _library()
-    if mode in _WINDOW_KERNEL_MODES:
+    if mode in _WINDOW_KERNEL_MODES or mode in _FULL_NAMES:
         err = lib.window_kernel_info(mode, points, block, out)
     else:
         err = lib.linesum_kernel_info(mode, block, out)
@@ -1085,50 +1091,145 @@ def sigma_segmented(plan: LineWindowPlan, lines, T, P, Pp, L_seg: int, shape: st
     return out
 
 
-def launch_fullprofile(shape: str, gathered: bool, grid: dict, nu, nu_lo, S, alpha, gamma,
-                       start, count, row: int, cut: float, n_out: int, out=None, T=None):
-    """One K4 (``gathered`` False) or K5 launch into sigma[n_states, n_out]
-    (new, or the contiguous ``out``).
+def full_mode(shape: str) -> int:
+    """K4/K5's window-kernel mode of ``shape``."""
+    if shape not in FULL_MODES:
+        raise ValueError(f"the full-profile kernels have no shape {shape!r}")
+    return FULL_MODES[shape]
 
-    ``grid``: the plan's ``nu_hi``/``nu_lo`` block grid; ``nu``/``nu_lo``
-    the line positions ([row] padded catalog for K4, [n_blocks * row] slabs
-    for K5), ``S``/``alpha``/``gamma`` the per-state rows
-    ([n_states, len(nu)]; alpha the profile's width, a *_ref shape's
-    already divided by sqrt(ln 2)), ``start``/``count`` int32 [n_blocks]
-    (K4's aligned window starts; K5 reads only the counts); ``T``
-    [n_states] the phco2 family's temperatures, and only theirs.
-    """
-    dev = S.device
-    n_blocks = count.shape[0]
-    block = grid["nu_hi"].shape[0] // max(n_blocks, 1)
-    n_states = S.shape[0]
-    n_pos = n_blocks * row if gathered else row
-    if block > 1024 or n_blocks * block != grid["nu_hi"].shape[0] or n_blocks * block < n_out:
-        raise ValueError(f"a grid of {n_blocks} blocks cannot give {n_out} outputs")
-    for name, x in (("nu", nu), ("nu_lo", nu_lo)):
-        check_operand(name, x, (n_pos,), dev)
-    for name, x in (("S", S), ("alpha", alpha), ("gamma", gamma)):
-        check_operand(name, x, (n_states, n_pos), dev)
-    for name, x in (("start", start), ("count", count)):
-        if x.dtype != torch.int32 or x.device != dev or tuple(x.shape) != (n_blocks,):
-            raise ValueError(f"{name} must be int32 [{n_blocks}] on {dev}")
-    if (shape in PHCO2_FAMILY) != (T is not None):
-        raise ValueError("T goes with the phco2 family, and only with it")
-    bcoef = None
-    if T is not None:
-        check_operand("T", T, (n_states,), dev)
-        bcoef = chi_rates(T)
-    if out is None:
-        out = torch.empty((n_states, n_out), dtype=torch.float32, device=dev)
+
+def full_reach(ry, small=None):
+    """Each line's largest near reach over each balanced tile of states and,
+    with ``small`` ([n_lines, n_states] bool), whether some state of the tile
+    takes the small-y form: [n_lines, n_tiles, 2] from ``ry`` [n_lines,
+    n_states] (-inf where a line has no state of nonzero strength)."""
+    L, n = ry.shape
+    T = window_tiles(n)
+    q, rem = divmod(n, T)
+
+    def tiles(x, reduce):
+        head = reduce(x[:, :rem * (q + 1)].reshape(L, rem, q + 1))
+        tail = reduce(x[:, rem * (q + 1):].reshape(L, T - rem, q))
+        return torch.cat([head, tail], dim=1)
+
+    r = tiles(ry, lambda x: x.amax(dim=2))
+    f = torch.zeros_like(r) if small is None else tiles(small, lambda x: x.any(dim=2)).to(r.dtype)
+    return torch.stack([r, f], dim=-1).contiguous()
+
+
+def full_pack(shape: str, S, alpha, gamma, cut: float, bcoef=None):
+    """K4/K5's operands from the per-(state, line) (S, alpha, gamma)
+    [n_states, n_lines] (alpha the profile's width, a *_ref shape's already
+    divided by sqrt(ln 2)): (coef, reach, fast), made on the device once a
+    call.
+
+    Voigt and phco2: coef [n_lines, 2, n_states, 4], the window quad, then
+    w4's (Sia, ia, y0, r), r the (line, state)'s near reach beyond which
+    |x| + y >= 15 (w4's region 1): (15.01 - y0) / ia (phco2 where 3 ia <
+    15.01, beyond 3 cm^-1 chi may bring y below y0: 15.01 / ia), -inf where
+    Sia = 0. The window quad: voigt's (A, 1/2 - y0^2, 2 y0^2, k2), or where
+    y0 < 0.01 (A, 0, -1, 2 Sia y0 / sqrt(pi)), the small-y repair's term
+    Sia y0 g(x) beyond the reach; phco2's (0.5641896 Sia, y0, A, 0); a line
+    of zero strength (0, 0, 1, 0) (phco2: (0, 1, 1, 0)), whose term is 0.
+    reach: :func:`full_reach` of r (voigt with each tile's small-y flag).
+    Lorentz: coef [n_lines, n_states, 4] of (S gamma / pi, gamma^2, 0, 0);
+    Doppler: (Sia, A, 0, 0); reach None. fast: int32 [1], the reciprocal's
+    flag (:func:`far_reciprocal_ok` of the FINE instance's denominators,
+    whose bound also holds the small-y form's x^2)."""
+    mode = full_mode(shape)
+    no = torch.zeros(1, dtype=torch.int32, device=S.device)
+    if mode == 16:
+        cols = (S * gamma * (1.0 / math.pi), gamma * gamma)
+    elif mode == 17:
+        co = voigt_coefficients(S, alpha, gamma)
+        cols = (co[0], co[3])
+    if mode in (16, 17):
+        z = torch.zeros_like(S)
+        return torch.stack(cols + (z, z), dim=-1).transpose(0, 1).contiguous(), None, no
+    co = voigt_coefficients(S, alpha, gamma)
+    Sia, ia, y0, A, _, _, k2 = co
+    live = Sia != 0
+    zero = torch.zeros_like(A)
+    if mode == 15:
+        quad = (Sia * 0.5641896, torch.where(live, y0, 1.0), torch.where(live, A, 1.0), zero)
+        reach = torch.where(3.0 * ia >= NEAR_X, (NEAR_X - y0) / ia, NEAR_X / ia)
+        small = None
     else:
-        check_operand("out", out, (n_states, n_out), dev)
-    if n_states == 0:
-        return out
-    err = _library().fullprofile_launch(
-        _mode(shape), int(gathered), grid["nu_hi"].data_ptr(), grid["nu_lo"].data_ptr(),
-        nu.data_ptr(), nu_lo.data_ptr(), S.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
-        start.data_ptr(), count.data_ptr(), None if bcoef is None else bcoef.data_ptr(), row,
-        n_blocks, block, float(cut), n_states, n_out, out.data_ptr(),
+        small = live & (y0 < SMALL_Y)
+        y2 = y0 * y0
+        quad = (torch.where(live, A, 0.0), torch.where(live & ~small, 0.5 - y2, 0.0),
+                torch.where(small, -1.0, torch.where(live, 2.0 * y2, 1.0)),
+                torch.where(small, Sia * y0 * (2.0 / math.sqrt(math.pi)), k2))
+        reach = (NEAR_X - y0) / ia
+    ry = torch.where(live, reach, float("-inf"))
+    coef = torch.stack([torch.stack(quad, dim=-1).transpose(0, 1),
+                        torch.stack((Sia, ia, y0, ry), dim=-1).transpose(0, 1)],
+                       dim=1).contiguous()
+    rt = full_reach(ry.transpose(0, 1), None if small is None else small.transpose(0, 1))
+    return coef, rt, far_reciprocal_ok(9 if mode == 15 else 4, co, 1, cut, bcoef)
+
+
+def full_plan(shape: str, grid: dict, n_states: int, window=None) -> dict:
+    """The launch plan of K4 and K5 over the plan's ``grid`` at
+    ``n_states``: :func:`window_plan` of the shape's FULL mode, cached in
+    the grid dict."""
+    return window_plan(full_mode(shape), grid, n_states, window)
+
+
+def launch_fullprofile(shape: str, gathered: bool, grid: dict, lines, coef, n_states: int,
+                       n_out: int, cut: float, reach=None, fast=None, bcoef=None, window=None):
+    """One K4 (``gathered`` False) or K5 launch into a new sigma[n_states,
+    n_out]: the window kernel's FULL mode of ``shape`` over one window a row
+    of ``grid`` (the plan's ``nu_hi``/``nu_lo`` block grid and window table
+    ``win``), every state in one launch. K4 and K5 make the same launch:
+    the lane layout's windows add, before each of the plan's, lines beyond
+    every point's cut, whose terms are 0. ``lines`` is
+    the catalog the windows index (positions read in place), ``coef``,
+    ``reach`` and ``fast`` the :func:`full_pack` of its (S, alpha, gamma),
+    ``bcoef`` the :func:`chi_rates` of the phco2 family, and only of it;
+    ``window`` :func:`window_plan`'s ``override``. Counts under "gathered"
+    where ``gathered`` is true, else "lane" (the phco2 family's under
+    "phco2_")."""
+    mode = full_mode(shape)
+    win = grid["win"]
+    dev = coef.device
+    n_rows = win.shape[0]
+    block = grid["nu_hi"].shape[0] // max(n_rows, 1)
+    if (tuple(win.shape) != (n_rows, 2) or win.dtype != torch.int32 or block > 512
+            or n_rows * block != grid["nu_hi"].shape[0] or n_rows * block < n_out):
+        raise ValueError(f"a grid of {n_rows} blocks of {block} points and an int32 window "
+                         f"table [n_blocks, 2] cannot give {n_out} outputs")
+    w4 = mode in _FULL_W4
+    check_operand("coef", coef, (lines.n_lines, 2, n_states, 4) if w4
+                  else (lines.n_lines, n_states, 4), dev)
+    if w4 != (reach is not None):
+        raise ValueError("the near reach goes with voigt and phco2, and only with them")
+    if reach is not None:
+        check_operand("reach", reach, (lines.n_lines, window_tiles(n_states), 2), dev)
+    if (mode == 15) != (bcoef is not None):
+        raise ValueError("chi's rates go with the phco2 family, and only with it")
+    if bcoef is not None:
+        _check_rates(bcoef, n_states, dev)
+    if fast is None:
+        fast = torch.zeros(1, dtype=torch.int32, device=dev)
+    check_operand("fast", fast, (1,), dev, torch.int32)
+    _check_windows(grid["win_host"], lines.n_lines)
+    out = torch.empty((n_states, n_out), dtype=torch.float32, device=dev)
+    if n_states == 0 or lines.n_lines == 0:
+        return out.zero_()
+    plan = window_plan(mode, grid, n_states, window)
+    scratch = counters = None
+    if plan["scratch_slots"]:
+        scratch = torch.empty(plan["scratch_slots"] * n_states * block, dtype=torch.float32,
+                              device=dev)
+        counters = torch.zeros(plan["rows"] * plan["tiles"], dtype=torch.int32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    err = _library().window_launch(
+        mode, grid["nu_hi"].data_ptr(), grid["nu_lo"].data_ptr(), lines.nu.data_ptr(),
+        lines.nu_lo.data_ptr(), None, ptr(reach), coef.data_ptr(), win.data_ptr(),
+        plan["table"].data_ptr(), plan["pieces"], fast.data_ptr(), None, ptr(bcoef),
+        _zones(cut), block, n_rows, plan["groups"], plan["points_per_thread"], n_states, n_out,
+        n_out, ptr(scratch), ptr(counters), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"full-profile kernel launch failed: CUDA error {err}")
@@ -1136,55 +1237,38 @@ def launch_fullprofile(shape: str, gathered: bool, grid: dict, nu, nu_lo, S, alp
     return out
 
 
-def sigma_lane(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
-    """K4, flat states [n_states]: the full profile over each block's
-    CHUNK-aligned window of unpacked per-state rows
-    (:func:`.linesum_strategies.lane_layout`). CPU tensors: its plain
-    version."""
-    if T.device.type == "cpu":
-        return sigma_lane_plain(plan, lines, T, P, Pp, shape, conc)
+def _full_call(plan: LineWindowPlan, lines, T, P, Pp, shape: str, conc, gathered: bool):
+    """K4 or K5 on the card: the pack made on the device (the line
+    parameters freed before sigma is allocated), one launch."""
     n_states, dev = _checked(lines, T, P, Pp, conc)
     _check_windows(plan.windows(), lines.n_lines)
+    full_mode(shape)
     S, alpha, gamma = _line_params(lines, T, P, Pp, conc)
-    lay = lane_layout(plan, lines, S, effective_alpha(shape, alpha), gamma)
-    win = torch.as_tensor(lay.windows, dtype=torch.int32, device=dev)
-    return launch_fullprofile(shape, False, plan.device_arrays(dev), lay.nu, lay.nu_lo, lay.S,
-                              lay.alpha, lay.gamma, win[:, 0].contiguous(),
-                              win[:, 1].contiguous(), lay.nu.shape[0], plan.cut, plan.n_nu,
-                              T=chi_T(shape, T))
+    bcoef = chi_rates(T) if shape in PHCO2_FAMILY else None
+    coef, reach, fast = full_pack(shape, S, effective_alpha(shape, alpha), gamma, plan.cut, bcoef)
+    del S, alpha, gamma
+    return launch_fullprofile(shape, gathered, plan.device_arrays(dev), lines, coef, n_states,
+                              plan.n_nu, plan.cut, reach, fast, bcoef)
 
 
-def gather_group(plan: LineWindowPlan) -> int:
-    """States per K5 launch: the gathered slabs of a group stay within
-    :data:`GATHER_BYTES`, in whole tiles of ``ST`` states where that allows."""
-    slab_pad = -(-max(1, plan.slab) // CHUNK) * CHUNK
-    per_state = 12 * plan.n_blocks * slab_pad
-    n = max(1, GATHER_BYTES // per_state)
-    return n // ST * ST if n >= ST else n
+def sigma_lane(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
+    """K4, flat states [n_states]: the full profile over each block's window,
+    read in place from the catalog (the lines of the lane layout's window,
+    :func:`.linesum_strategies.lane_layout`, that some point's cut
+    reaches), every state in one launch. CPU tensors: its plain version."""
+    if T.device.type == "cpu":
+        return sigma_lane_plain(plan, lines, T, P, Pp, shape, conc)
+    return _full_call(plan, lines, T, P, Pp, shape, conc, False)
 
 
 def sigma_gathered(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
-    """K5, flat states [n_states]: each block's slab gathered by plain
-    indexing (:func:`.linesum_strategies.gathered_slabs`), then the full
-    profile over it; states in groups of :func:`gather_group`. CPU tensors:
-    its plain version."""
+    """K5, flat states [n_states]: the full profile over each block's window
+    (the lines its gathered slab holds,
+    :func:`.linesum_strategies.gathered_slabs`), read in place from the
+    catalog, every state in one launch. CPU tensors: its plain version."""
     if T.device.type == "cpu":
         return sigma_gathered_plain(plan, lines, T, P, Pp, shape, conc)
-    n_states, dev = _checked(lines, T, P, Pp, conc)
-    _check_windows(plan.windows(), lines.n_lines)
-    grid = plan.device_arrays(dev)
-    count = grid["win"][:, 1].contiguous()
-    out = torch.empty((n_states, plan.n_nu), dtype=torch.float32, device=dev)
-    step = gather_group(plan)
-    for a in range(0, n_states, step):
-        b = min(a + step, n_states)
-        c = None if conc is None or conc.dim() == 1 else conc[a:b]
-        S, alpha, gamma = _line_params(lines, T[a:b], P[a:b], Pp[a:b], conc if c is None else c)
-        g = gathered_slabs(plan, lines, S, effective_alpha(shape, alpha), gamma)
-        launch_fullprofile(shape, True, grid, g.nu, g.nu_lo, g.S, g.alpha, g.gamma, count,
-                           count, g.slab_pad, plan.cut, plan.n_nu, out=out[a:b],
-                           T=chi_T(shape, T[a:b]))
-    return out
+    return _full_call(plan, lines, T, P, Pp, shape, conc, True)
 
 
 def sigma_routed(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt",

@@ -66,6 +66,20 @@ consecutive points run it against the same work packed 32 to a warp);
 general sweep or the window kernel's FINE path): ``arith``, ``stage``, ``no_near``
 (the near pairs take region 1), and times ``items`` (one work item a row);
 then the profile of those four calls and the auto ``outgoing`` at 2^19.
+
+    python3 clearsky_tpu_torch/tools/k1_probe.py --full [--cuts [NAMES]] [--plans] [--no-pairs] [--root TREE]
+
+``--full`` times K4 and K5 (the window kernel's FULL modes) at
+chip_smoke.py's shapes (the mix's CO2 catalog at 57 states x 2^19, cut 25;
+config 2 at 16 x 2^15, cut 500, phco2), each launch captured from the
+route's wrapper (``sigma_lane``, ``sigma_gathered``) and replayed, with its
+build, the densest 1% of blocks alone, the work counted on the data
+(triples by w4 region, with y < 0.01, in warps wholly region 1, and the
+warps' region multiplicity; ``--no-pairs`` skips it), the peak memory of
+each call and the profile of ``outgoing`` on "lane" and "gathered";
+``--cuts`` builds TREE's K4/K5 cut or changed (:data:`FULL_CUTS`:
+``arith``, ``stage``, ``no_near``, ``chunk64``), with each loop body's
+SASS; ``--plans`` other launch plans of the FULL path.
 Needs one CUDA card.
 """
 
@@ -469,8 +483,10 @@ def _instance_mode(fn: str):
     return int(m.group(1)) if m else None
 
 
-def _ptxas_by_mode(stderr: str) -> dict:
-    """{mode: {registers, spill_store_bytes}} from ptxas -v."""
+def _ptxas_by_mode(stderr: str, key=None) -> dict:
+    """{mode: {registers, spill_store_bytes}} from ptxas -v (``key``: the
+    instance's key in a mangled name, by default K1's mode)."""
+    key = key or _instance_mode
     out, fn = {}, None
     for line in stderr.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line) or \
@@ -478,7 +494,7 @@ def _ptxas_by_mode(stderr: str) -> dict:
         if m:
             fn = m.group(1)
             continue
-        mode = _instance_mode(fn) if fn else None
+        mode = key(fn) if fn else None
         if mode is not None:
             r = re.search(r"Used (\d+) registers", line)
             sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -489,16 +505,18 @@ def _ptxas_by_mode(stderr: str) -> dict:
     return out
 
 
-def sass_loops(sass: str) -> dict:
+def sass_loops(sass: str, key=None) -> dict:
     """{mode: [(instructions, MUFU.RCP, MUFU.EX2, FCHK, LDS) of each loop
-    body that holds a MUFU]} of the writing K1 instances in ``cuobjdump
-    -sass`` text: a loop is a branch to an earlier address, its body the
-    instructions from that address to the branch."""
+    body that holds a MUFU]} of the writing K1 instances (``key``: another
+    instance key of a mangled name) in ``cuobjdump -sass`` text: a loop is
+    a branch to an earlier address, its body the instructions from that
+    address to the branch."""
+    key = key or _instance_mode
     funcs, mode = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            mode = _instance_mode(m.group(1))
+            mode = key(m.group(1))
             if mode is not None:
                 funcs.setdefault(mode, [])
             continue
@@ -519,11 +537,12 @@ def sass_loops(sass: str) -> dict:
     return out
 
 
-def build_cuts(root: str, out_dir: str, cuts: dict, names=None, keep=None):
+def build_cuts(root: str, out_dir: str, cuts: dict, names=None, keep=None, key=None):
     """Compile the cuts ``cuts`` ({name: edits}) of TREE's linesum.cu (those
     of ``names`` and ``none``, where given) in parallel: {cut: (lib, ptxas by
     mode, SASS loops by mode, SASS text of the functions whose mangled name
-    ``keep`` accepts; by default K1's FINE instances)}. An edit whose text is
+    ``keep`` accepts; by default K1's FINE instances)}, by the instance
+    ``key`` of a mangled name (by default K1's mode). An edit whose text is
     not in the source exactly once raises (no silent uncut copy)."""
     keep = keep or (lambda fn: _instance_mode(fn) in (4, 9))
     import ctypes
@@ -556,7 +575,7 @@ def build_cuts(root: str, out_dir: str, cuts: dict, names=None, keep=None):
         if os.path.isfile(dump):
             d = subprocess.run([dump, "-sass", so], capture_output=True, text=True, timeout=600)
             if d.returncode == 0:
-                loops = sass_loops(d.stdout)
+                loops = sass_loops(d.stdout, key)
                 on = False
                 for line in d.stdout.splitlines():
                     m = re.search(r"Function : (\S+)", line)
@@ -564,7 +583,7 @@ def build_cuts(root: str, out_dir: str, cuts: dict, names=None, keep=None):
                         on = keep(m.group(1))
                     if on:
                         kept.append(line)
-        libs[cut] = (ctypes.CDLL(so), _ptxas_by_mode(err), loops, "\n".join(kept))
+        libs[cut] = (ctypes.CDLL(so), _ptxas_by_mode(err, key), loops, "\n".join(kept))
     return libs
 
 
@@ -1106,6 +1125,328 @@ def fine_probe(seed, dev, cuts, out_dir: str):
     cs.phase_profile(calls)
 
 
+# --- the full-profile kernels K4 and K5 ----------------------------------------
+
+# case: (shape, route, chip_smoke's kernel name)
+FULL_CASES = {"lane": ("voigt", "lane", "linesum_lane"),
+              "gathered": ("voigt", "gathered", "linesum_gathered"),
+              "phco2_lane": ("phco2", "lane", "linesum_phco2_lane"),
+              "phco2_gathered": ("phco2", "gathered", "linesum_phco2_gathered")}
+
+# the window kernel's FULL path cut or changed: ``arith`` its window quads
+# made in registers (FARALL's probe quads), not staged; ``stage`` the
+# staging alone; ``no_near`` no near line (every pair its far term);
+# ``chunk64`` every FULL mode in chunks of 64 lines (voigt's are 32: less
+# shared memory a block; the plan's pieces are cut in 32-line chunks, which
+# a 64-line stage takes whole or in part)
+FULL_CUTS = {
+    "none": [],
+    "arith": [_WINDOW_LINE,
+              ("      cp_async16(&sm.c[buf][i], it.coef + (size_t)(it.ws[0] + c0 + j) * ls + "
+               "it.s0 + (i - j * NS));\n", "      (void)j;\n"),
+              ("      const float4* c = sm.c[buf] + NS * j;\n",
+               "      float4 c[NS];\n#pragma unroll\n"
+               "      for (int s = 0; s < NS; ++s) c[s] = probe_quad<PH>(j, s);\n")],
+    "stage": [("    for (int j = g * per; j < j1; ++j) {\n      // line j of the chunk:",
+               "    for (int j = g * per; j < j1 && j1 < 0; ++j) {\n      // line j of the chunk:")],
+    "no_near": [("        if (ax.x >= 0.0f && d0 <= ax.x + NEAR_EPS && d1 >= -ax.x - NEAR_EPS) {\n",
+                 "        if (false && ax.x >= 0.0f && d0 <= ax.x + NEAR_EPS) {\n")],
+    "chunk64": [("using ModeStage = WindowStage<window_chunk(MODE), ",
+                 "using ModeStage = WindowStage<(is_full(MODE) ? 64 : window_chunk(MODE)), "),
+                ("  constexpr int WCH = window_chunk(MODE);\n",
+                 "  constexpr int WCH = is_full(MODE) ? 64 : window_chunk(MODE);\n")]}
+
+
+# window_kernel's FULL modes (csrc/linesum.cu ``Mode``)
+FULL_MODE_KEYS = (14, 15, 16, 17)
+
+
+def _full_key(fn: str):
+    """A K4/K5 instance's key in a mangled name: the window kernel's mode,
+    else None."""
+    mode = _instance_mode(fn)
+    return mode if mode in FULL_MODE_KEYS else None
+
+# other launch plans of the window kernel's FULL path (``--full --plans``)
+FULL_PLAN_VARIANTS = {"voigt": [{"points_per_thread": 1}, {"piece_lines": 512},
+                                {"piece_lines": 4096}],
+                      "phco2": [{"groups": 1}, {"groups": 2}, {"piece_lines": 512}]}
+
+
+def full_inputs(seed, dev) -> dict:
+    """{shape: (plan, lines, states)}: the mix's CO2 catalog (40,000 lines)
+    at the main column's 57 states on 2^19 points, cut 25 (voigt), and
+    config 2 at chip_smoke's 16 phco2 kernel states on 2^15 points, cut 500
+    (phco2), as chip_smoke.py's ``kernel`` lines take them."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.spectra.synthetic import synthetic_co2_par
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ct.__file__)))
+    build = os.path.join(root, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        paths = cs.write_mix_files(seed, tmp)
+        co2 = ct.SpectralLines.from_par(paths["co2"], numin=cs.MIX_NU[0] - 25.0,
+                                        numax=cs.MIX_NU[1] + 25.0)
+    nu = np.linspace(*cs.MIX_NU, cs.N_NU_MAIN)
+    cplan = ct.DirectGas.from_lines(co2, cs.MIX_CO2, nu, strategy="lane").plan
+    (T, P), _ = cs.mix_states(dev)
+    lines = ct.SpectralLines.from_par_dict(synthetic_co2_par(cs.N_LINES, seed=seed),
+                                             dtype=torch.float32, device=dev)
+    pplan = ct.DirectGas.from_lines(lines, cs.CONC, cs.phco2_grid(lines, cs.N_NU_KERNEL),
+                                    shape="phco2", strategy="stencil").plan
+    rng = np.random.default_rng(seed + 5)
+    Tn = rng.uniform(160.0, 285.0, cs.N_STATES_KERNEL)
+    Pn = np.geomspace(cs.PT, cs.PS, cs.N_STATES_KERNEL)
+    sk = [torch.tensor(x, dtype=torch.float32, device=dev) for x in (Tn, Pn, cs.CONC * Pn)]
+    return {"voigt": (cplan, co2, (T, P, cs.MIX_CO2 * P)), "phco2": (pplan, lines, sk)}
+
+
+def full_capture(inputs, case: str):
+    """(launches, output) of one K4/K5 case: each ``launch_fullprofile``
+    call the route's wrapper makes, as bound arguments (its operands kept),
+    and the wrapper's output."""
+    import inspect
+
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+
+    shape, route, _ = FULL_CASES[case]
+    plan, lines, states = inputs[shape]
+    real, seen = lc.launch_fullprofile, []
+    sig = inspect.signature(real)
+
+    def record(*a, **k):
+        seen.append(dict(sig.bind(*a, **k).arguments))
+        return real(*a, **k)
+
+    lc.launch_fullprofile = record
+    try:
+        kern = lc.sigma_lane if route == "lane" else lc.sigma_gathered
+        out = kern(plan, lines, *states, shape=shape)
+        torch.cuda.synchronize()
+    finally:
+        lc.launch_fullprofile = real
+    return seen, out
+
+
+def full_replay(launches):
+    """A function of no arguments that makes the captured launch (one a
+    call) again and returns sigma."""
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+
+    (a,) = launches
+    return lambda: lc.launch_fullprofile(**a)
+
+
+def _only_rows(launches, keep_rows):
+    """The captured launches with every grid block but ``keep_rows`` left
+    without lines in the window table."""
+    out = []
+    for a in launches:
+        g = a["grid"]
+        win = g["win"].clone()
+        mask = torch.ones(win.shape[0], dtype=torch.bool, device=win.device)
+        mask[keep_rows] = False
+        win[mask, 1::2] = 0
+        out.append(dict(a, grid={"nu_hi": g["nu_hi"], "nu_lo": g["nu_lo"], "win": win,
+                                 "win_host": win.cpu().numpy().astype(np.int64)}))
+    return out
+
+
+def _launch_device_ms(fn, n: int = 5):
+    """(device ms a call of every traced kernel, launches a call by kernel
+    name) of ``fn``, through chip_smoke's profiler helper."""
+    fn()
+    torch.cuda.synchronize()
+    _, per, _, _ = cs.traced(fn, n)
+    return (sum(us for _, us in per.values()) / n / 1e3,
+            {k: c / n for k, (c, _) in per.items()})
+
+
+def full_pairs(plan, lines, states, shape: str, stride: int = 16,
+               max_elems: int = 2**26) -> dict:
+    """What K4/K5 compute on one case's data, counted on every ``stride``-th
+    grid block (row): in-cut (point, line) pairs and (point, line, state)
+    triples, the triples by w4 region (1-4, as chip_smoke.w4_ops splits
+    them) and with y < 0.01 (the small-y repair), the triples whose warp (32
+    consecutive points of a row) has every in-cut lane in region 1, and the
+    w4 work as warps run it (every region a lane of (warp, line, state)
+    needs) against the same triples packed 32 to a warp."""
+    from clearsky_tpu_torch.ops.linesum import _line_params, effective_alpha, voigt_coefficients
+    from clearsky_tpu_torch.ops.lineshape import chi_phco2
+
+    dev = states[0].device
+    S, alpha, gamma = _line_params(lines, *states)
+    alpha = effective_alpha(shape, alpha)
+    _, ia, y0 = voigt_coefficients(S, alpha, gamma)[:3]
+    n = ia.shape[0]
+    win = np.asarray(plan.windows(), np.int64)
+    grid = torch.as_tensor(np.asarray(plan.nu_blocks), device=dev)          # [nb, B] float64
+    pos = torch.as_tensor(lines.positions64(), device=dev)
+    B = grid.shape[1]
+    rows = np.arange(0, win.shape[0], stride)
+    ops = torch.tensor([0.0, *cs.W4_REGION], dtype=torch.float64, device=dev)
+    reg = torch.zeros(5, dtype=torch.float64, device=dev)
+    pairs = small = whole_r1 = 0
+    warp_ops = packed_ops = 0.0
+    Tn = states[0][:, None, None]
+    for r in rows:
+        a, c = int(win[r, 0]), int(win[r, 1])
+        if c == 0:
+            continue
+        step = max(1, max_elems // (n * B))
+        for l0 in range(a, a + c, step):
+            l1 = min(a + c, l0 + step)
+            dnu = grid[r][:, None] - pos[None, l0:l1]                          # [B, nl]
+            inc = dnu.abs() <= plan.cut
+            pairs += int(inc.sum())
+            d32 = dnu.float()
+            x = d32[None] * ia[:, None, l0:l1]                                  # [n, B, nl]
+            y = y0[:, None, l0:l1].expand_as(x)
+            if shape in ("phco2", "phco2_ref"):
+                y = y * chi_phco2(d32.abs()[None], Tn)
+            ax, s = x.abs(), x.abs() + y
+            r1 = s >= 15.0
+            r2 = ~r1 & (s >= 5.5)
+            r3 = ~r1 & ~r2 & (y >= 0.195 * ax - 0.176)
+            region = torch.where(r1, 1, torch.where(r2, 2, torch.where(r3, 3, 4)))
+            region = torch.where(inc[None], region, 0)
+            reg += torch.bincount(region.reshape(-1), minlength=5).double()
+            small += int(((y < 0.01) & inc[None]).sum())
+            # warps: [n, B / 32, 32, nl]
+            rw = region.view(n, B // 32, 32, -1)
+            need = torch.stack([(rw == q).any(dim=2) for q in range(1, 5)], dim=-1)  # [n, w, nl, 4]
+            cnt = (rw > 0).sum(dim=2)                                          # in-cut lanes
+            only1 = need[..., 0] & ~need[..., 1:].any(dim=-1)
+            whole_r1 += int(cnt[only1].sum())
+            warp_ops += float((need.double() * ops[1:]).sum()) * 32.0
+            packed_ops += float(ops[region.reshape(-1)].sum())
+    scale = win.shape[0] / max(1, len(rows))
+    triples = float(reg[1:].sum())
+    return dict(sampled_rows=int(len(rows)), row_scale=scale, in_cut_pairs=pairs * scale,
+                in_cut_triples=triples * scale,
+                triples_by_region=[float(v) * scale for v in reg[1:].tolist()],
+                triples_small_y=small * scale,
+                share_in_whole_region1_warps=whole_r1 / triples if triples else None,
+                w4_warp_multiplicity=warp_ops / packed_ops if packed_ops else None)
+
+
+def full_build_info(lc, launches, shape: str) -> dict:
+    """Registers, shared and local bytes and resident warps of the FULL
+    instance the launches run, with its launch plan."""
+    a = launches[0]
+    plan = lc.full_plan(shape, a["grid"], a["n_states"], a.get("window"))
+    info = lc.kernel_info(lc.full_mode(shape), plan["threads"], plan["points_per_thread"])
+    return dict(info, launches_per_call=len(launches),
+                **{k: v for k, v in plan.items() if k != "table"})
+
+
+def full_probe(seed, dev, cuts, out_dir: str, pairs: bool = True, plans: bool = False):
+    """K4 and K5 alone at chip_smoke.py's shapes (:data:`FULL_CASES`), each
+    launch captured from its route's wrapper and replayed: CUDA events (one
+    call: every launch a call makes) and the profiler's device ms, a digest
+    of sigma, the build, the densest 1% of blocks alone, the counted work
+    (:func:`full_pairs`); ``cuts`` (True, or a list of names:
+    :data:`FULL_CUTS`) rebuilds TREE's kernel cut; ``plans`` times the other
+    launch plans (:data:`FULL_PLAN_VARIANTS`); then the peak memory of the
+    gathered call and the profile of ``outgoing`` on "lane" and "gathered"
+    on the mix's CO2 catalog."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.utils import cuda_build
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ct.__file__)))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    cs.emit("probe", part="env", package_root=root, card=torch.cuda.get_device_name(dev),
+            nvidia_smi=smi.stdout.strip().splitlines()[dev.index or 0])
+    t0 = time.perf_counter()
+    libs = {}
+    if cuts:
+        libs = build_cuts(root, out_dir, FULL_CUTS, None if cuts is True else cuts,
+                          lambda fn: _full_key(fn) is not None, key=_full_key)
+        for cut, (_, _, _, sass) in libs.items():
+            with open(os.path.join(out_dir, f"sass_full_{cut}.txt"), "w") as f:
+                f.write(sass)
+    cs.emit("probe", part="cuts", seconds=time.perf_counter() - t0, cuts=list(libs))
+    inputs = full_inputs(seed, dev)
+    default = cuda_build.load_library("linesum")
+    for case, (shape, route, name) in FULL_CASES.items():
+        launches, out = full_capture(inputs, case)
+        digest = hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        del out
+        plan = inputs[shape][0]
+        info = full_build_info(lc, launches, shape)
+        stats = _window_stats(plan.windows())
+        cs.emit("probe", kernel=name, case=case, part="build", launches=len(launches),
+                **{**stats, **info})
+        if route == "lane":
+            T = inputs[shape][2][0] if shape == "phco2" else None
+            a = launches[0]
+            cs.emit("probe", kernel=name, case=case, part="bound",
+                    **cs.full_bound(plan, a["lines"], a["coef"], a["n_states"], T))
+        if pairs and route == "lane":
+            cs.emit("probe", kernel=name, case=case, part="pairs",
+                    **full_pairs(*inputs[shape], shape))
+        for cut in ["none"] + [c for c in libs if c != "none"]:
+            cuda_build._LIBS["linesum"] = libs[cut][0] if cut in libs else default
+            try:
+                fn = full_replay(launches)
+                got = fn()
+                torch.cuda.synchronize()
+                d = hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest()[:16]
+                del got
+                dms, per = _launch_device_ms(fn, n=3)
+                cs.emit("probe", kernel=name, case=case, cut=cut, ms=cs.cuda_ms(fn, n=3, warmup=1),
+                        device_ms=dms, traced_launches=per, digest=d,
+                        digest_matches_wrapper=d == digest,
+                        ptxas={str(k): v for k, v in libs[cut][1].items()} if cut in libs else {},
+                        sass_loops={str(k): v for k, v in libs[cut][2].items()}
+                        if cut in libs else {})
+            finally:
+                cuda_build._LIBS["linesum"] = default
+        if plans:
+            for over in FULL_PLAN_VARIANTS.get(shape, []):
+                fn = full_replay([dict(a, window=over) for a in launches])
+                cs.emit("probe", kernel=name, case=case, cut="plan", window=over,
+                        device_ms=_launch_device_ms(fn, n=3)[0])
+        c = np.asarray(plan.windows(), np.int64)[:, 1]
+        order = np.argsort(-c, kind="stable")
+        k = max(1, len(order) // 100)
+        dense = torch.as_tensor(np.sort(order[:k]), device=dev)
+        rest = torch.as_tensor(np.sort(order[k:]), device=dev)
+        for tag, rows in (("densest_1pct", dense), ("other_99pct", rest)):
+            fn = full_replay(_only_rows(launches, rows))
+            cs.emit("probe", kernel=name, case=case, cut=tag,
+                    device_ms=_launch_device_ms(fn, n=3)[0])
+        del launches
+        torch.cuda.empty_cache()
+    # the gathered call's peak memory, and the entry points
+    plan, co2, states = inputs["voigt"]
+    peaks = {}
+    for route in ("lane", "gathered"):
+        kern = lc.sigma_lane if route == "lane" else lc.sigma_gathered
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        out = kern(plan, co2, *states)
+        torch.cuda.synchronize()
+        peaks[route] = dict(peak_bytes=torch.cuda.max_memory_allocated(dev) - before,
+                            out_bytes=out.numel() * out.element_size())
+        del out
+    cs.emit("probe", part="memory", states=int(states[0].shape[0]), **peaks)
+    Pe = ct.pressuregrid(cs.PT, cs.PS, cs.N_LEVELS)
+    Te = cs.column(Pe)
+    nu = np.linspace(*cs.MIX_NU, cs.N_NU_MAIN)
+    calls = {f"outgoing_{r}": (lambda g=ct.DirectGas.from_lines(co2, cs.MIX_CO2, nu, strategy=r):
+                               ct.outgoing(Pe, cs.G, Te, cs.MU, g)) for r in ("lane", "gathered")}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    cs.phase_profile(calls)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1119,7 +1460,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cuts", nargs="?", const="all", default=None,
                     help="with --window: also the cut builds (all, or a comma list of names)")
     ap.add_argument("--plans", action="store_true",
-                    help="with --window: also other launch plans of the window kernel")
+                    help="with --window or --full: also other launch plans of the window kernel")
     ap.add_argument("--calls", action="store_true",
                     help="profile the entry-point calls that run the window modes")
     ap.add_argument("--errors", nargs="?", const="", default=None,
@@ -1129,6 +1470,11 @@ def main(argv=None) -> int:
                     help="each state's error of the stencil and coarse routes, whole and no_core")
     ap.add_argument("--fine", action="store_true",
                     help="K1's FINE mode where the main path runs it (with --cuts: cut builds)")
+    ap.add_argument("--full", action="store_true",
+                    help="K4 and K5 where the lane and gathered routes run them (with --cuts: "
+                         "cut builds)")
+    ap.add_argument("--no-pairs", action="store_true",
+                    help="with --full: skip counting the work on the data")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_probe: no CUDA device", file=sys.stderr)
@@ -1145,6 +1491,11 @@ def main(argv=None) -> int:
                       [c for c in args.errors.split(",") if c])
     elif args.routes:
         route_errors(args.seed, dev, os.path.join(args.out, "routes"))
+    elif args.full:
+        cuts = args.cuts == "all" or (args.cuts.split(",") if args.cuts else False)
+        full_probe(args.seed, dev, cuts,
+                   os.path.join(args.out, "full_root" if args.root else "full_self"),
+                   not args.no_pairs, args.plans)
     elif args.fine:
         cuts = args.cuts == "all" or (args.cuts.split(",") if args.cuts else False)
         fine_probe(args.seed, dev, cuts,

@@ -740,13 +740,14 @@ def test_phco2_wrappers_reject_bad_inputs(dense_phco2, cuda):
     with pytest.raises(TypeError):        # float64 rates
         linesum_cuda.launch_mode(m, grid, l32, coef, 3, plan.n_nu, zones,
                                  bcoef=linesum_cuda.chi_rates(T).double())
-    lay = ls.lane_layout(plan, l32, S, a, g)
-    win = torch.as_tensor(lay.windows, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):       # phco2 without its temperatures
-        linesum_cuda.launch_fullprofile("phco2", False, grid, lay.nu, lay.nu_lo, lay.S,
-                                        lay.alpha, lay.gamma, win[:, 0].contiguous(),
-                                        win[:, 1].contiguous(), lay.nu.shape[0], plan.cut,
-                                        plan.n_nu)
+    bc = linesum_cuda.chi_rates(T)
+    coef, reach, fast = linesum_cuda.full_pack("phco2", S, a, g, plan.cut, bc)
+    with pytest.raises(ValueError):       # phco2 without chi's rates
+        linesum_cuda.launch_fullprofile("phco2", False, grid, l32, coef, 3, plan.n_nu, plan.cut,
+                                        reach, fast)
+    with pytest.raises(ValueError):       # phco2 without its near reach
+        linesum_cuda.launch_fullprofile("phco2", True, grid, l32, coef, 3, plan.n_nu, plan.cut,
+                                        None, fast, bc)
     with pytest.raises(ValueError):       # the stencil route takes the Voigt family only
         linesum_cuda.sigma_stencil(plan, l32, T, P, Pp, shape="lorentz")
 
@@ -1118,22 +1119,21 @@ def test_k1_builds_for_half_the_warps(cuda):
 
 
 @pytest.mark.gpu
-def test_gathered_kernel_runs_states_in_groups(dense, cuda, monkeypatch):
-    """A byte budget of three states' slabs: four launches for 11 states,
-    each state as in one launch."""
+def test_gathered_kernel_runs_every_state_in_one_launch(dense, cuda):
+    """K5 at 11 states: one launch a call, no slab gathered; its output is
+    the states' calls in groups of 3 (as the simple K5 ran them), to
+    float32 summation order."""
     lines, plans = dense
     plan = plans["uniform"]
     l32 = lines.to(torch.float32, cuda)
     x = _t(_mode_states(11), torch.float32, cuda)
-    whole = linesum_cuda.sigma_gathered(plan, l32, *x)
-    slab_pad = -(-plan.slab // 128) * 128
-    monkeypatch.setattr(linesum_cuda, "GATHER_BYTES", 3 * 12 * plan.n_blocks * slab_pad)
-    assert linesum_cuda.gather_group(plan) == 3
     before = sigma_lines.launches_by_mode["gathered"]
-    grouped = linesum_cuda.sigma_gathered(plan, l32, *x)
+    whole = linesum_cuda.sigma_gathered(plan, l32, *x)
     torch.cuda.synchronize()
-    assert sigma_lines.launches_by_mode["gathered"] == before + 4
-    assert torch.equal(grouped, whole)
+    assert sigma_lines.launches_by_mode["gathered"] == before + 1
+    parts = torch.cat([linesum_cuda.sigma_gathered(plan, l32, *(v[a:a + 3] for v in x))
+                       for a in range(0, 11, 3)])
+    np.testing.assert_allclose(parts.cpu().numpy(), whole.cpu().numpy(), rtol=1e-5, atol=1e-32)
 
 
 @pytest.mark.gpu
@@ -1166,17 +1166,118 @@ def test_large_catalog_wrappers_reject_bad_inputs(dense, cuda):
     with pytest.raises(ValueError):           # only the split and single-sweep modes add
         linesum_cuda.launch_mode(3, grid, l32, coef, 3, plan.n_nu, linesum_cuda._zones(25.0),
                                  out=torch.zeros((3, plan.n_nu), device=cuda))
-    lay = ls.lane_layout(plan, l32, S, a, g)
-    win = torch.as_tensor(lay.windows, device=cuda)   # int64
-    with pytest.raises(ValueError):
-        linesum_cuda.launch_fullprofile("voigt", False, grid, lay.nu, lay.nu_lo, lay.S, lay.alpha,
-                                        lay.gamma, win[:, 0], win[:, 1], lay.nu.shape[0],
-                                        25.0, plan.n_nu)
-    with pytest.raises(ValueError):           # rows of another length
-        linesum_cuda.launch_fullprofile("voigt", False, grid, lay.nu, lay.nu_lo,
-                                        lay.S[:, 1:].contiguous(), lay.alpha, lay.gamma,
-                                        win[:, 0].int(), win[:, 1].int(), lay.nu.shape[0],
-                                        25.0, plan.n_nu)
+    coef, reach, fast = linesum_cuda.full_pack("voigt", S, a, g, 25.0)
+    int64 = dict(grid, win=grid["win"].long())
+    with pytest.raises(ValueError):           # an int64 window table
+        linesum_cuda.launch_fullprofile("voigt", True, int64, l32, coef, 3, plan.n_nu, 25.0,
+                                        reach, fast)
+    with pytest.raises(ValueError):           # a pack of another catalog
+        linesum_cuda.launch_fullprofile("voigt", False, grid, l32, coef[1:].contiguous(), 3,
+                                        plan.n_nu, 25.0, reach, fast)
+    with pytest.raises(TypeError):            # a float64 pack
+        linesum_cuda.launch_fullprofile("voigt", False, grid, l32, coef.double(), 3, plan.n_nu,
+                                        25.0, reach, fast)
+
+
+# --- K4 and K5: the window kernel's FULL modes --------------------------------
+
+FULL_SHAPES = ("voigt", "phco2", "lorentz", "doppler")
+
+
+def _full_case(shape, crowded, dense_phco2, n):
+    """(plan, float64 lines, float64 states) of a crowded window: the
+    crowded grid's first block sees 851 lines within 25 cm^-1 (voigt,
+    lorentz, doppler); phco2 the 400-line catalog under a 2048-point grid at
+    cut 500, every block's window the whole catalog; ``n`` states from 2 Pa
+    (y0 < 0.01) to 1e5 Pa."""
+    if shape == "phco2":
+        lines, _ = dense_phco2
+        pos = lines.positions64()
+        plan = build_line_window_plan(np.linspace(pos.min() - 500.0, pos.max() + 500.0, 2048),
+                                      pos, 500.0)
+    else:
+        lines, plan = crowded
+    x = (np.linspace(180.0, 310.0, n), np.geomspace(2.0, 1e5, n))
+    return plan, lines, x + (0.5 * x[1],)
+
+
+def _full_call(kind, shape, plan, lines, x, cuda, window=None):
+    """K4 ("lane") or K5 through launch_fullprofile, the pack made as the
+    wrappers make it, on the plan ``window`` overrides."""
+    l32 = lines.to(torch.float32, cuda)
+    T, P, Pp = _t(x, torch.float32, cuda)
+    S, a, g = _line_params(l32, T, P, Pp)
+    bc = linesum_cuda.chi_rates(T) if shape == "phco2" else None
+    coef, reach, fast = linesum_cuda.full_pack(shape, S, a, g, plan.cut, bc)
+    return linesum_cuda.launch_fullprofile(shape, kind == "gathered", plan.device_arrays(cuda),
+                                           l32, coef, T.shape[0], plan.n_nu, plan.cut, reach,
+                                           fast, bc, window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["lane", "gathered"])
+@pytest.mark.parametrize("shape", FULL_SHAPES)
+def test_full_kernels_at_57_states_in_a_crowded_window(crowded, dense_phco2, cuda, shape, kind):
+    """K4 and K5 at 57 states (y0 < 0.01 among them) over a window of more
+    than 256 lines, in pieces of the plan's length and of 64 lines, against
+    the plain version in float64; one launch a call."""
+    plan, lines, x = _full_case(shape, crowded, dense_phco2, 57)
+    assert int(plan.count.max()) > 256
+    ref = {"lane": ls.sigma_lane_plain, "gathered": ls.sigma_gathered_plain}[kind](
+        plan, lines, *_t(x), shape=shape)
+    key = ("phco2_" if shape == "phco2" else "") + kind
+    for window in (None, {"piece_lines": 64}):
+        before = sigma_lines.launches_by_mode[key]
+        out = _full_call(kind, shape, plan, lines, x, cuda, window)
+        torch.cuda.synchronize()
+        assert sigma_lines.launches_by_mode[key] == before + 1
+        _check_sigma(out, ref)
+    grid = plan.device_arrays(cuda)
+    got = linesum_cuda.full_plan(shape, grid, 57, {"piece_lines": 64})
+    assert got["pieces"] > plan.n_blocks and got["scratch_slots"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FULL_SHAPES)
+def test_full_kernels_are_bitwise_repeatable(crowded, dense_phco2, cuda, shape):
+    """Two launches of K4 and of K5 (pieces of 64 lines through scratch) give
+    the same bits: no float atomic."""
+    plan, lines, x = _full_case(shape, crowded, dense_phco2, 11)
+    for kind in ("lane", "gathered"):
+        a = _full_call(kind, shape, plan, lines, x, cuda, {"piece_lines": 64})
+        b = _full_call(kind, shape, plan, lines, x, cuda, {"piece_lines": 64})
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FULL_SHAPES)
+def test_k4_against_k5(crowded, dense_phco2, cuda, shape):
+    """K4 and K5 sum the same in-cut lines in the same order (the lane
+    layout's windows add only lines beyond every point's cut), through the
+    same launch: the same bits, each route's counter counted once."""
+    plan, lines, x = _full_case(shape, crowded, dense_phco2, 57)
+    fam = "phco2_" if shape == "phco2" else ""
+    before = {k: sigma_lines.launches_by_mode[fam + k] for k in ("lane", "gathered")}
+    k4 = _full_call("lane", shape, plan, lines, x, cuda)
+    k5 = _full_call("gathered", shape, plan, lines, x, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(k4, k5)
+    assert all(sigma_lines.launches_by_mode[fam + k] == v + 1 for k, v in before.items())
+
+
+@pytest.mark.gpu
+def test_full_kernels_build_without_heavy_spills(cuda):
+    """K4/K5's FULL instances at one and two points a thread (blocks of one
+    128-point row): at most 64 registers and 256 bytes of local memory a
+    thread, and a quarter of an SM's warps resident at least (the voigt
+    instance's two points a thread runs blocks of 2 warps, which registers
+    and shared memory cap)."""
+    for mode in linesum_cuda.FULL_MODES.values():
+        for points in (1, 2):
+            info = linesum_cuda.kernel_info(mode, 128 // points, points)
+            assert info["registers"] <= 64 and info["local_bytes"] <= 256, (mode, points, info)
+            assert info["resident_warps"] >= 0.25, (mode, points, info)
 
 
 @pytest.mark.gpu
