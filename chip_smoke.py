@@ -26,10 +26,12 @@ prints one line that starts with its name:
           FINE_STENCIL modes and weighted correction at the main shape (57
           Lobatto states x 2^19 points), its FINE mode at 57 x 2^20; the
           no-split sweep's voigt instance at 57 x 2^19 and phco2 instance at
-          16 x 2^15 (each also against the split mode, rtol 1e-4); K2 and K3
-          at 19 layers x 2^19, 38 x 16,384 and 160 x 16,384 for 1, 5 and 8
-          streams (two launches bit for bit; the 5-stream lines with the
-          profiler's device ms and the launch plan)
+          16 x 2^15 (each also against the split mode, rtol 1e-4; their bound
+          counted as K4's, which computes the same function: each in-cut
+          triple at the form that computes it); K2 and K3 at 19 layers x
+          2^19, 38 x 16,384, 160 x 16,384 and RadauEq's 152 x 2^19 for 1, 5
+          and 8 streams (two launches bit for bit; the 5-stream lines with
+          the profiler's device ms and the launch plan)
   routes  the line sum through each route at the main shape (grouped,
           stencil, coarse) and at the RCM's (grouped, stencil): CUDA-event
           ms per call of sigma_from_lines_auto (first to last launch, host
@@ -46,8 +48,9 @@ prints one line that starts with its name:
           outgoing at 2^20 points (where the stencil geometry rejects and
           the coarse route's fine pass runs in the kernel)
   counts  the kernels' launch counts over each part of the main path:
-          ``main`` (the calls above) and ``rcm`` (RCM.create and
-          3 x (update_absorber, step) at 16,384 points)
+          ``main`` (the calls above), ``rcm`` (RCM.create and
+          3 x (update_absorber, step) at 16,384 points), ``api``, ``mix``,
+          ``sharded``
   rcm     milliseconds of each of those steps (the first one cold), and
           the heating of the last state against the plain float64 version
   jacobian  jacobian(mode="fwd") on that RCM with the cross-sections frozen
@@ -78,6 +81,28 @@ prints one line that starts with its name:
           the FP32 pipes (``bound_fp32_only_ms``, PR 8's count)
   nosplit outgoing on DirectGas(strategy="nosplit") at the main shape (only
           the no-split sweep and K2 launch; band OLR within 1e-4 of auto's)
+  api     the rest of the single-column API at the main path's width:
+          RadauEq(refine=8) ``outgoing`` and ``radiate`` on the main column
+          (152 refined layers, 456 Lobatto states) with their launches (only
+          line-sum kernels and K2, or line-sum kernels and K3), ms, profiler
+          device ms and peak memory; the outgoing call's line sum (456
+          states x 2^19, the stencil route) against float64 on sampled
+          blocks at the route's bars; each call within 1e-6 of peak of the
+          same computation spelled out with Discretized on the refined levels,
+          and the band OLR's difference from Discretized on the caller's
+          levels (convergence, no bar); the scalar form at 16 levels; an RCM
+          on RadauEq(refine=4) at 16,384 points (create, update_absorber,
+          two steps; heating against float64, 5e-3 of peak; n_cells; its
+          state through a checkpoint, bit for bit); optical_depth and
+          transmittance in both call forms at 2^19 against float64 on
+          sampled blocks at the coarse route's bars, and the path's own
+          transmittance at its route's (exact: 2e-3/e; coarse: twice its
+          plain float32 version's); top_fluxes,
+          top_imbalance and bottom_fluxes against radiate's rows (bit for
+          bit); a SemiGrayGas beside the DirectGas through outgoing; the
+          table's split Gas through save_gas/load_gas (K6 outgoing bit for
+          bit); annualfluxfactors in float32 on the card against float64
+          (1e-6)
   mix     HITRAN files at full-catalog size: co2.par (40,000 synthetic CO2
           lines), h2o.par (20,000 H2O lines) and CO2-CO2.cia, written from
           the seed and read back by the port's readers; the MultiGas (CO2 at
@@ -1100,9 +1125,12 @@ def march_bound(L: int, N: int, nst: int, nbytes_: int, mono: bool) -> dict:
 
 
 # K2/K3's columns: the main path's 19 x 2^19, the RCM's 38 x 16,384 (radmul
-# 2) and an L beyond one shared-memory tile of the spread layout (K2
-# stages 2 chunks, K3 4)
-MARCH_COLUMNS = ((N_LEVELS - 1, N_NU_MAIN), (2 * (N_LEVELS - 1), N_NU_RCM), (160, N_NU_RCM))
+# 2), an L beyond one shared-memory tile of the spread layout (K2 stages 2
+# chunks, K3 4) and RadauEq(refine=8)'s 152 x 2^19 (the point layout, K3
+# keeping 28 of its layers in shared memory and reading the rest back)
+RADAU_REFINE = 8
+MARCH_COLUMNS = ((N_LEVELS - 1, N_NU_MAIN), (2 * (N_LEVELS - 1), N_NU_RCM), (160, N_NU_RCM),
+                 (RADAU_REFINE * (N_LEVELS - 1), N_NU_MAIN))
 MARCH_STREAMS = (1, 5, 8)
 
 
@@ -2858,18 +2886,24 @@ def _split_rel(split, nosplit) -> float:
     return float(((split.double() - nosplit.double()).abs()[m] / nosplit.double().abs()[m]).max())
 
 
-def _nosplit_ops(grid, pos, ia, y0, cut, n, T=None):
-    """FP32 operations and exponentials of the no-split sweep on this data:
-    one full w4 (by region, with the small-y repair) per in-cut pair and
-    state; for the phco2 family chi's piece per pair and its exponent per
-    state beyond 3 cm^-1."""
-    pairs = pairs_within(grid, pos, cut)
-    ops = pairs * PAIR_OPS + near_w4_ops(grid, pos, ia, y0, cut, T=T)
-    if T is None:
-        return ops, 0.0, dict(in_cut_pairs=pairs)
-    p3 = pairs_beyond(grid, pos, cut)
-    return (ops + pairs * PH_PAIR_OPS + p3 * n * CHI_OPS, p3 * n,
-            dict(in_cut_pairs=pairs, pairs_beyond_3_cm=p3))
+def _nosplit_bound(plan, lines, states, shape, bytes_, bcoef=None) -> dict:
+    """The no-split sweep's bound: it computes K4's function (the full
+    profile at every in-cut (point, line, state)), so its work is counted
+    as K4's is (:func:`full_bound` on the FULL pack of the same states:
+    w4 by region within each (line, state)'s near reach, region 1 or the
+    small-y form beyond it; phco2 with chi), and its bytes are the sweep's
+    own ``bytes_`` (its grid, pack and window table read once, sigma
+    written once)."""
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops.linesum import _line_params
+
+    S, alpha, gamma = _line_params(lines, *states)
+    T = states[0] if shape == "phco2" else None
+    coef = lc.full_pack(shape, S, alpha, gamma, plan.cut, bcoef)[0]
+    w = full_bound(plan, lines, coef, int(states[0].shape[0]), T=T)
+    b = bound(w["bound_ops"], bytes_, w["bound_exps"])
+    return dict(b, **{k: w[k] for k in ("sfu_ms", "in_cut_triples", "triples_within_reach",
+                                         "small_y_beyond")})
 
 
 def kernel_nosplit(ms_main, par, seed, dev, report):
@@ -2880,7 +2914,7 @@ def kernel_nosplit(ms_main, par, seed, dev, report):
     the same shape within rtol 1e-4 of it."""
     import clearsky_tpu_torch as ct
     from clearsky_tpu_torch.ops import linesum_strategies as ls
-    from clearsky_tpu_torch.ops.linesum import _line_params, voigt_coefficients
+    from clearsky_tpu_torch.ops.linesum import _line_params
     from clearsky_tpu_torch.ops.linesum_cuda import (NOSPLIT_MODES, _prepare, chi_rates,
                                                      pack_coefficients)
 
@@ -2896,15 +2930,14 @@ def kernel_nosplit(ms_main, par, seed, dev, report):
     del out
     _, plain_ms = one_call(lambda: ls.sigma_nosplit_plain(plan, lines, *states))
     S, alpha, gamma = _line_params(lines, *states)
-    ia, y0 = voigt_coefficients(S, alpha, gamma)[1:3]
-    ops, _, pairs = _nosplit_ops(plan.nu, pos, ia, y0, plan.cut, n)
     coef = pack_coefficients(NOSPLIT_MODES["voigt"], S, alpha, gamma)
-    b = bound(ops, linesum_bytes(plan.n_blocks * plan.block, lines.n_lines, coef,
-                                 plan.device_arrays(dev)["win"], n, plan.n_nu))
+    b = _nosplit_bound(plan, lines, states, "voigt",
+                       linesum_bytes(plan.n_blocks * plan.block, lines.n_lines, coef,
+                                     plan.device_arrays(dev)["win"], n, plan.n_nu))
     emit("kernel", kernel="linesum_nosplit", mode="nosplit", points=N_NU_MAIN, states=n,
          lines=lines.n_lines, max_abs_err=max_abs, max_rel_err=max_rel, split_mode_rel=split,
          bar=bar, cut_edge_points=int(ms_main["edge"].sum()), ms=ms, plain_ms_one_call=plain_ms,
-         plain_shape="same", **pairs, **b)
+         plain_shape="same", in_cut_pairs=pairs_within(plan.nu, pos, plan.cut), **b)
     check(ok, f"the no-split sweep disagrees with float64: max rel {max_rel:.3e}")
     check(split < 1e-4, f"the split mode is off the no-split sweep by {split:.3e}")
     report["linesum_nosplit"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
@@ -2935,18 +2968,20 @@ def kernel_nosplit(ms_main, par, seed, dev, report):
     split = _split_rel(_prepare(plan, lines, *states, "phco2")(), out)
     ms = cuda_ms(launch, n=5)
     S, alpha, gamma = _line_params(lines, *states)
-    ia, y0 = voigt_coefficients(S, alpha, gamma)[1:3]
-    ops, exps, pairs = _nosplit_ops(plan.nu, lines.positions64(), ia, y0, plan.cut, n,
-                                    T=states[0])
     coef = pack_coefficients(NOSPLIT_MODES["phco2"], S, alpha, gamma)
-    b = bound(ops, linesum_bytes(plan.n_blocks * plan.block, lines.n_lines, coef,
-                                 plan.device_arrays(dev)["win"], n, plan.n_nu)
-              + 4 * chi_rates(states[0]).numel(), exps)
+    bcoef = chi_rates(states[0])
+    b = _nosplit_bound(plan, lines, states, "phco2",
+                       linesum_bytes(plan.n_blocks * plan.block, lines.n_lines, coef,
+                                     plan.device_arrays(dev)["win"], n, plan.n_nu)
+                       + 4 * bcoef.numel(), bcoef)
+    pos = lines.positions64()
     emit("kernel", kernel="linesum_phco2_nosplit", mode="phco2_nosplit", points=N_NU_KERNEL,
          states=n, lines=lines.n_lines, max_abs_err=max_abs, max_rel_err=max_rel,
          split_mode_rel=split, bar=bar + " (float64 on the sample)",
          cut_edge_points=int(edge.sum()), ms=ms, plain_ms_one_call=plain_ms,
-         plain_shape=f"sampled blocks: {len(idx)} of {plan.n_blocks}", **pairs, **b)
+         plain_shape=f"sampled blocks: {len(idx)} of {plan.n_blocks}",
+         in_cut_pairs=pairs_within(plan.nu, pos, plan.cut),
+         pairs_beyond_3_cm=pairs_beyond(plan.nu, pos, plan.cut), **b)
     check(ok, f"the phco2 no-split sweep disagrees with float64: max rel {max_rel:.3e}")
     check(split < 1e-4, f"the phco2 split mode is off the no-split sweep by {split:.3e}")
     report["linesum_phco2_nosplit"] = dict(
@@ -3131,6 +3166,459 @@ def phase_table_jvp(gs, dev):
 
 
 # --- the sharded path: ShardedLineGas, K1-dev, the sharded programs -------------
+
+# the rest of the single-column API: RadauEq(refine=8) on the main column
+# (19 x 8 layers, 456 Lobatto states), its scalar form at 16 levels (127
+# layers), an RCM on RadauEq(refine=4) at the RCM's grid, the optical
+# depth's float64 reference on every 16th block (its 2-tuple form's 508
+# states on every 64th), the Earth's orbit for the annual factors
+API_REFINE_RCM = 4
+API_SCALAR_LEVELS = 16
+API_THETA = 0.5
+EARTH = (0.0167, 0.4091, 1.7963)   # eccentricity, obliquity, precession [rad]
+LINE_SUM_KERNELS = {k for k in KERNELS if k.startswith(("linesum", "stencil_correction"))}
+
+
+def _launched() -> dict:
+    return {k: v for k, v in counts_read().items() if v}
+
+
+def _call_profile(fn, dev, n: int = 3) -> dict:
+    """:func:`profile_call` of ``fn`` and one call's peak device memory
+    beyond what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    return dict(profile_call(fn, n), peak_bytes=peak)
+
+
+def _only(launched: dict, march: str, what: str):
+    """Only line-sum kernels (K1's modes and the correction) and ``march``
+    launched, each at least once: no plain version ran in their place."""
+    check(set(launched) - LINE_SUM_KERNELS == {march} and launched[march] == 1
+          and bool(set(launched) & LINE_SUM_KERNELS),
+          f"{what} launched {launched}, not line-sum kernels and one {march}")
+
+
+def _of_peak(a, b) -> float:
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def stencil_call_check(par, call, out, stride: int, what: str) -> dict:
+    """One stencil-route line sum taken from an entry point's call (its
+    arguments ``call`` and float32 result ``out``, [states, n_nu]) against
+    the float64 exact sum on sampled blocks (every ``stride``-th and the band
+    centres), at the route's bars of :func:`phase_routes`: each state's
+    error of its peak below max(2 x grouped's, 1e-6, 2 x the plain float32
+    stencil route's on the same inputs), rtol 2e-3 where sigma exceeds 1e-2
+    of its peak, and |sigma| < 1e-30 where the exact sum is <= 1e-35 (the
+    plain float32 exact sum stands in at the cut edges, :func:`cut_edges`).
+    Returns the figures."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import sigma_from_lines, sigma_from_lines_auto
+
+    plan, lines, T, P, Pp, conc, shape = call
+    n = int(T.shape[0])
+    idx = sample_blocks(plan.nu_blocks, stride)
+    sub = subplan(plan, idx)
+    got, valid = sampled(out, idx, plan.block, plan.n_nu)
+    l64 = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device=T.device)
+    x64 = [x.double() for x in (T, P, Pp)]
+    c64 = None if conc is None else conc.double()
+    ref = at_edges(sigma_from_lines(sub, l64, *x64, shape, c64),
+                   sigma_from_lines(sub, lines, T, P, Pp, shape, conc),
+                   cut_edges(sub, lines.positions64()))[:, valid]
+    got = got[:, valid]
+    pk = ref.abs().amax(dim=1, keepdim=True)
+    per_state = lambda x: ((x.double() - ref).abs() / pk).amax(dim=1)
+    grouped = sigma_from_lines_auto(plan, lines, T, P, Pp, shape, conc, strategy="grouped")
+    e_grouped = float(per_state(sampled(grouped, idx, plan.block, plan.n_nu)[0][:, valid]).max())
+    del grouped
+    # the plain float32 route on the whole grid, 64 states at a time
+    e_plain = []
+    for a in range(0, n, 64):
+        plain = ls.sigma_stencil_plain(plan, lines, T[a:a + 64], P[a:a + 64], Pp[a:a + 64],
+                                       conc, shape)
+        d = sampled(plain, idx, plan.block, plan.n_nu)[0][:, valid].double() - ref[a:a + 64]
+        e_plain.append((d.abs() / pk[a:a + 64]).amax(dim=1))
+        del plain, d
+    e_plain = torch.cat(e_plain)
+    e_state = per_state(got)
+    bar = torch.clamp(2.0 * e_plain, min=max(2.0 * e_grouped, 1e-6))
+    rel = (got.double() - ref).abs() / ref.abs().clamp(min=1e-300)
+    r2 = float(rel[ref.abs() > 1e-2 * pk].max())
+    tiny = ref.abs() <= 1e-35
+    z = float(got.abs()[tiny].max()) if bool(tiny.any()) else 0.0
+    fig = dict(states=n, points=plan.n_nu, sampled_blocks=f"{len(idx)} of {plan.n_blocks}",
+               err_of_peak=float(e_state.max()), grouped_err_of_peak=e_grouped,
+               plain_f32_err_of_peak=float(e_plain.max()),
+               rel_above_1e2_peak=r2, max_where_exact_below_1e35=z)
+    check(bool(torch.isfinite(got).all()) and bool((e_state < bar).all()),
+          f"{what}: the stencil route's sigma off float64 by {float(e_state.max()):.3e} of "
+          f"its state's peak, above max(2 x grouped's, 1e-6, 2 x plain float32's)")
+    check(r2 < 2e-3, f"{what}: the stencil route's sigma off float64 by rtol {r2:.3e} "
+                     "where it exceeds 1e-2 of its peak")
+    check(z < 1e-30, f"{what}: the stencil route gives {z:.3e} where the exact sum is 0")
+    return fig
+
+
+def phase_api_radau(par, dev):
+    """RadauEq(refine=8) on the main column (5,599 lines, 2^19 points, 20
+    levels, 5 streams, float32 on the card): ``outgoing`` and ``radiate``
+    on the vector P (the refined march's launches counted, each call's
+    time, device time, memory); the line sum of the outgoing call (456
+    states x 2^19 on the stencil route) against float64 on sampled blocks
+    at the route's bars (:func:`stencil_call_check`); both calls held
+    against the same computation spelled
+    out with Discretized(nlobatto=3) on ``_refined`` levels and the same T
+    and mu (T interpolated against the caller's levels): band OLR and each
+    of the caller's rows within 1e-6 of peak; the band OLR's difference
+    from Discretized on the caller's levels (no bar: convergence); and the
+    scalar form at 16 levels against Discretized at 16 x 8 levels. Returns
+    the launch counts of the RadauEq calls."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.constants import R_GAS
+    from clearsky_tpu_torch.rt.discretized import integrate_flux
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.rt.fluxes import _refined
+
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = grid_for(lines, N_NU_MAIN)
+    gas = ct.DirectGas.from_lines(lines, CONC, nu)
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    span = float(nu[-1] - nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    core = ct.RadauEq(refine=RADAU_REFINE)
+    disc = ct.Discretized(nlobatto=core.nlobatto)
+    nu64 = gas.nu.double()
+    band = lambda x: float(ct.trapz(nu64, x.double()))
+    total = {}
+
+    def counted(fn):
+        counts_reset()
+        out = fn()
+        torch.cuda.synchronize()
+        got = _launched()
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return out, got
+
+    # the line sum of the outgoing call taken as it runs, for its check
+    # against float64 below
+    seen, real = [], lc.sigma_stencil
+
+    def record(*call):
+        out = real(*call)
+        seen.append((call, out.clone()))
+        return out
+
+    lc.sigma_stencil = record
+    try:
+        olr, c_out = counted(lambda: ct.outgoing(Pe, G, Te, MU, gas, core=core))
+    finally:
+        lc.sigma_stencil = real
+    check(len(seen) == 1, f"RadauEq outgoing ran the stencil route {len(seen)} times, not once")
+    F, c_rad = counted(lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, gas, core=core))
+    _only(c_out, "olr_march", "RadauEq outgoing")
+    _only(c_rad, "monoflux_march", "RadauEq radiate")
+    check(olr.shape == (N_NU_MAIN,) and bool(torch.isfinite(olr).all()),
+          "RadauEq OLR spectrum is not finite or has the wrong shape")
+    check(tuple(F.M_up.shape) == (N_LEVELS, N_NU_MAIN)
+          and tuple(F.tau.shape) == (N_LEVELS - 1, N_NU_MAIN)
+          and all(bool(torch.isfinite(x).all()) for x in F), "RadauEq radiate is not finite")
+
+    call, sig = seen.pop()
+    check(tuple(sig.shape) == (3 * RADAU_REFINE * (N_LEVELS - 1), N_NU_MAIN),
+          f"RadauEq outgoing summed lines at {tuple(sig.shape)}")
+    line_sum = stencil_call_check(par, call, sig, 4 * SAMPLE_STRIDE, "RadauEq outgoing")
+    del call, sig, seen
+
+    # the same computation spelled out on the refined levels
+    Pr, idx = _refined(Pe, RADAU_REFINE)
+    prof = ct.AtmosphericProfile.create(torch.tensor(Pe, dtype=torch.float32, device=dev),
+                                        torch.tensor(Te, dtype=torch.float32, device=dev))
+    olr_r = ct.outgoing(Pr, G, prof, MU, gas, core=disc)
+    F_r = ct.radiate(Pr, G, prof, MU, fS, 0.1, gas, core=disc)
+    # the fluxes at the caller's levels: the refined call's rows idx,
+    # integrated over the spectrum as RadauEq's radiate integrates them
+    rows = torch.as_tensor(idx, device=dev)
+    M_up_r, M_down_r = F_r.M_up[rows], F_r.M_down[rows]
+    F_up_r, F_down_r = integrate_flux(M_up_r, M_down_r, gas.nu)
+    errs = {"olr": _of_peak(olr, olr_r),
+            "band_olr_rel": abs(band(olr) - band(olr_r)) / band(olr_r),
+            "M_up": _of_peak(F.M_up, M_up_r), "M_down": _of_peak(F.M_down, M_down_r),
+            "F_up": _of_peak(F.F_up, F_up_r), "F_down": _of_peak(F.F_down, F_down_r),
+            "tau": _of_peak(F.tau, F_r.tau.reshape(N_LEVELS - 1, RADAU_REFINE, -1).sum(1))}
+    # the refined call's own integral over all its rows, at the caller's
+    # levels: the same values summed in another order (no bar)
+    f_order = max(_of_peak(F.F_up, F_r.F_up[rows]), _of_peak(F.F_down, F_r.F_down[rows]))
+    bitwise = (torch.equal(olr, olr_r) and torch.equal(F.M_up, M_up_r)
+               and torch.equal(F.M_down, M_down_r))
+    del olr_r, F_r
+    # convergence: the caller's own levels with the Discretized march
+    olr_c = ct.outgoing(Pe, G, Te, MU, gas, core=disc)
+    conv = (band(olr) - band(olr_c)) / band(olr_c)
+    del olr_c
+    p_out = _call_profile(lambda: ct.outgoing(Pe, G, Te, MU, gas, core=core), dev)
+    p_rad = _call_profile(lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, gas, core=core), dev)
+
+    # the scalar form at 16 levels: 16 x 8 levels spaced in sqrt P
+    fT = lambda P: torch.clamp(288.0 * (P / PS) ** (R_GAS / (MU * CP)), min=160.0)
+    olr_s, c_s = counted(lambda: ct.outgoing(PS, G, fT, MU, gas, core=core, Ptop=PT,
+                                             nlevels=API_SCALAR_LEVELS))
+    _only(c_s, "olr_march", "RadauEq outgoing (scalar P)")
+    olr_sr = ct.outgoing(PS, G, fT, MU, gas, core=disc, Ptop=PT,
+                         nlevels=API_SCALAR_LEVELS * RADAU_REFINE)
+    err_s = _of_peak(olr_s, olr_sr)
+    ms_s = wall_ms(lambda: ct.outgoing(PS, G, fT, MU, gas, core=core, Ptop=PT,
+                                       nlevels=API_SCALAR_LEVELS))
+    emit("api", step="radau_eq", refine=RADAU_REFINE, points=N_NU_MAIN, levels=N_LEVELS,
+         refined_layers=RADAU_REFINE * (N_LEVELS - 1),
+         lobatto_states=3 * RADAU_REFINE * (N_LEVELS - 1), streams=5,
+         band_olr_W_m2=band(olr), F_net_toa_W_m2=float(F.F_net[0]),
+         line_sum_vs_float64=line_sum, err_of_peak_vs_spelled_out=errs, bar=1e-6, bitwise_equal_spelled_out=bitwise,
+         F_rows_of_refined_integral_of_peak=f_order,
+         band_olr_rel_vs_discretized_caller_levels=conv,
+         outgoing=dict(launches=c_out, **p_out), radiate=dict(launches=c_rad, **p_rad),
+         scalar=dict(nlevels=API_SCALAR_LEVELS, refined_layers=API_SCALAR_LEVELS
+                     * RADAU_REFINE - 1, launches=c_s, err_of_peak_vs_spelled_out=err_s,
+                     band_olr_W_m2=band(olr_s), ms_per_call=ms_s))
+    for k, v in errs.items():
+        check(v < 1e-6, f"RadauEq {k} off the spelled-out refined call by {v:.3e} of peak")
+    check(err_s < 1e-6, f"RadauEq's scalar form off the spelled-out call by {err_s:.3e}")
+    return total
+
+
+def phase_api_rcm(par, dev, tmp):
+    """An RCM on RadauEq(refine=4) at the RCM's 16,384 points (20 edge
+    levels, radmul 2: 152 radiative layers): create, update_absorber and two
+    steps (launches counted), the heating against its plain float64 version
+    (5e-3 of peak), n_cells; then its state through save_rcm_state and
+    load_rcm_state (the same temperatures, cache and heating bits). Returns
+    the launch counts and the model."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.utils.checkpoint import save_rcm_state, load_rcm_state
+
+    lines = ct.SpectralLines.from_par_dict(par, dtype=torch.float32, device=dev)
+    nu = grid_for(lines, N_NU_RCM)
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    span = float(nu[-1] - nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    gas = ct.DirectGas.from_lines(lines, CONC, nu)
+    core = ct.RadauEq(refine=API_REFINE_RCM)
+    counts_reset()
+    rcm = ct.RCM.create(Pe, column(Pe), G, lambda T, P: MU, fS, 0.1, lambda T, P: CP, 1e7, gas,
+                        core=core, radmul=2)
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        rcm = ct.step(ct.update_absorber(rcm), RCM_DT)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launched = _launched()
+    check(set(launched) - LINE_SUM_KERNELS == {"monoflux_march"}
+          and launched["monoflux_march"] == 2,
+          f"the RadauEq RCM launched {launched}, not line-sum kernels and two K3")
+    L = rcm.Pr.shape[0] - 1
+    check(L == API_REFINE_RCM * 2 * (N_LEVELS - 1), f"the RadauEq RCM marches {L} layers")
+    check(bool(torch.isfinite(rcm.T).all()), "RadauEq RCM temperatures are not finite")
+    H = ct.heating(rcm).double().cpu()
+    gas64 = ct.DirectGas.from_lines(lines.to(torch.float64, "cpu"), CONC, nu)
+    to64 = lambda x: x.double().cpu()
+    ref = dataclasses.replace(
+        rcm, Pe=to64(rcm.Pe), P=to64(rcm.P), T=to64(rcm.T), Pr=to64(rcm.Pr),
+        S_nu=to64(rcm.S_nu), a_nu=to64(rcm.a_nu),
+        A=ct.AcceleratedAbsorber.create(to64(rcm.A.T), to64(rcm.Pe), gas64))
+    H_ref = ct.heating(ref)
+    err = float((H - H_ref).abs().max() / H_ref.abs().max())
+    path = os.path.join(tmp, "rcm_state.npz")
+    save_rcm_state(path, rcm)
+    back = load_rcm_state(path, ct.RCM.create(Pe, column(Pe), G, lambda T, P: MU, fS, 0.1,
+                                              lambda T, P: CP, 1e7, gas, core=core, radmul=2))
+    same = (torch.equal(back.T, rcm.T) and torch.equal(back.A.ln_sigma, rcm.A.ln_sigma)
+            and torch.equal(ct.heating(back), ct.heating(rcm)))
+    emit("api", step="rcm_radau_eq", refine=API_REFINE_RCM, points=N_NU_RCM,
+         edge_levels=N_LEVELS, radmul=2, radiative_layers=L, n_cells=rcm.n_cells,
+         launches=launched, ms_per_step=ms, heating_err_of_peak=err, bar=5e-3,
+         heating_peak_K_per_day=float(H_ref.abs().max() * 86400),
+         checkpoint_round_trip_bitwise=same)
+    check(rcm.n_cells == N_LEVELS, f"n_cells is {rcm.n_cells}")
+    check(err < 5e-3, f"RadauEq RCM heating off float64 by {err:.3e} of peak")
+    check(same, "the RCM state did not come back bit for bit from its checkpoint")
+    return launched, rcm
+
+
+def phase_api_depth(par, dev):
+    """optical_depth and transmittance at 2^19 in both call forms (the
+    caller's 20 levels, 4 Lobatto nodes a layer: 76 states; the 2-tuple
+    (Ps, Pt) on 128 levels spaced in sqrt P: 508 states), at zenith angle
+    0.5, against float64 (the plain line sum on the card on sampled blocks,
+    the quadrature on the host) at the coarse route's bars: tau within
+    rtol 2e-3 where above 1e-4 of its peak and 5e-2 where above 1e-6; the
+    transmittance of the path scaled to a peak tau of 1e4 within 5e-3 at
+    every point and 1e-5 in the band mean (the route's transmittance bars).
+    The transmittance of the path itself, by the route its line sum took:
+    on an exact route (rtol 2e-3 wherever sigma exceeds 1e-35) within
+    2e-3/e, the most that bar allows (tau e^-tau <= 1/e); on the coarse
+    route, which bounds nothing below 1e-6 of tau's peak (where tau ~ 1
+    lies), at most twice the error of the route's own plain float32 version
+    on the same inputs, at every point and in the mean over the band.
+    Returns the launch counts of the card calls."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.constants import R_GAS
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    l64 = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device=dev)
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = grid_for(lines, N_NU_MAIN)
+    gas = ct.DirectGas.from_lines(lines, CONC, nu)
+    plan = gas.plan
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    fT = lambda P: torch.clamp(288.0 * (P / PS) ** (R_GAS / (MU * CP)), min=160.0)
+    total, rows, bars = {}, {}, []
+    for form, P, T, stride in (("vector", Pe, Te, SAMPLE_STRIDE),
+                               ("pair", (PS, PT), fT, 4 * SAMPLE_STRIDE)):
+        counts_reset()
+        tau = ct.optical_depth(P, G, T, MU, API_THETA, gas)
+        trans = ct.transmittance(P, G, T, MU, API_THETA, gas)
+        torch.cuda.synchronize()
+        launched = _launched()
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        check(set(launched) <= LINE_SUM_KERNELS and bool(launched),
+              f"optical_depth ({form}) launched {launched}")
+        check(tau.shape == (N_NU_MAIN,) and bool(torch.isfinite(tau).all())
+              and bool((tau >= 0).all()), f"optical depth ({form}) is not finite and >= 0")
+        check(torch.equal(trans, torch.exp(-tau)), f"transmittance ({form}) is not exp(-tau)")
+        ms = wall_ms(lambda: ct.optical_depth(P, G, T, MU, API_THETA, gas))
+        idx = sample_blocks(plan.nu_blocks, stride)
+        sub = subplan(plan, idx)
+        gray, sigma64 = _host_reference_gas(l64, sub, "voigt", sub.nu)
+        ref = ct.optical_depth(P, G, T, MU, API_THETA, gray, sigma64)
+        got, valid = sampled(tau[None], idx, plan.block, plan.n_nu)
+        got, ref = got[0][valid].double().cpu(), ref[valid.cpu()]
+        pk = float(ref.abs().max())
+        rel = (got - ref).abs() / ref.abs().clamp(min=1e-300)
+        r4 = float(rel[ref.abs() > 1e-4 * pk].max())
+        r6 = float(rel[ref.abs() > 1e-6 * pk].max())
+        # the route's transmittance bars hold the path scaled to a peak tau
+        # of 1e4
+        N_col = 1e4 / pk
+        dtr = torch.exp(-N_col * got) - torch.exp(-N_col * ref)
+        t_pt, t_band = float(dtr.abs().max()), float(dtr.mean().abs())
+        # the path's own, by its route
+        raw = (torch.exp(-got) - torch.exp(-ref)).abs()
+        n_states = 4 * (N_LEVELS - 1 if form == "vector" else 127)
+        route, param = ls._resolve(plan, lines, "voigt", "auto", n_states)
+        if route == "coarse":
+            def sigma_plain(nu_, T_, P_):
+                Tc, Pc = (x[..., 0].to(dev, torch.float32).reshape(-1) for x in (T_, P_))
+                full = CONC * ls.sigma_coarse_plain(plan, lines, Tc, Pc, CONC * Pc, param)
+                out = sampled(full, idx, plan.block, plan.n_nu)[0]
+                return out.double().cpu().reshape(*T_.shape[:-1], -1)
+
+            tau_p = ct.optical_depth(P, G, T, MU, API_THETA, gray, sigma_plain)[valid.cpu()]
+            raw_p = (torch.exp(-tau_p) - torch.exp(-ref)).abs()
+            own = dict(plain_f32_transmittance_max_diff=float(raw_p.max()),
+                       plain_f32_transmittance_band_mean_diff=float(raw_p.mean()))
+            bars += [(form, "transmittance (coarse route)", float(raw.max()),
+                      2.0 * float(raw_p.max())),
+                     (form, "band mean transmittance (coarse route)", float(raw.mean()),
+                      2.0 * float(raw_p.mean()))]
+        else:
+            own = {}
+            bars.append((form, f"transmittance ({route} route)", float(raw.max()),
+                         2e-3 / math.e))
+        rows[form] = dict(states=n_states, route=route, launches=launched, ms_per_call=ms,
+                          tau_peak=pk, rel_above_1e4_peak=r4, rel_above_1e6_peak=r6,
+                          transmittance_at_peak_tau_1e4_max_diff=t_pt,
+                          transmittance_at_peak_tau_1e4_band_mean_diff=t_band,
+                          transmittance_max_diff=float(raw.max()),
+                          transmittance_band_mean_diff=float(raw.mean()), **own,
+                          sampled_blocks=f"{len(idx)} of {plan.n_blocks}")
+        bars += [(form, "rel where tau > 1e-4 peak", r4, 2e-3),
+                 (form, "rel where tau > 1e-6 peak", r6, 5e-2),
+                 (form, "transmittance at peak tau 1e4", t_pt, 5e-3),
+                 (form, "band mean transmittance at peak tau 1e4", t_band, 1e-5)]
+        del tau, trans
+    emit("api", step="optical_depth", points=N_NU_MAIN, theta=API_THETA, **rows)
+    for form, what, v, bar in bars:
+        check(v < bar, f"optical_depth ({form}): {what} {v:.3e} exceeds {bar}")
+    return total
+
+
+def phase_api_rest(par, gs, dev, tmp):
+    """top_fluxes, top_imbalance and bottom_fluxes against radiate's rows
+    (bit for bit); a SemiGrayGas beside the main DirectGas through
+    outgoing (above its cut-off the OLR of the DirectGas alone, bit for
+    bit); the table phase's split Gas through save_gas and load_gas
+    (outgoing through K6, bit for bit); annualfluxfactors on the card in
+    float32 against float64 on the host (1e-6). Returns the launch counts
+    of the card calls."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.utils.checkpoint import save_gas, load_gas
+
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = grid_for(lines, N_NU_MAIN)
+    gas = ct.DirectGas.from_lines(lines, CONC, nu)
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    span = float(nu[-1] - nu[0])
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / span)
+    args = (Pe, G, Te, MU, fS, 0.1, gas)
+    counts_reset()
+    F = ct.radiate(*args)
+    top, imb, bottom = ct.top_fluxes(*args), ct.top_imbalance(*args), ct.bottom_fluxes(*args)
+    torch.cuda.synchronize()
+    same_rows = (torch.equal(top[0], F.F_up[0]) and torch.equal(top[1], F.F_down[0])
+                 and torch.equal(imb, F.F_up[0] - F.F_down[0])
+                 and torch.equal(bottom[0], F.F_up[-1]) and torch.equal(bottom[1], F.F_down[-1]))
+
+    nucut = 1000.0
+    semi = ct.SemiGrayGas.create(5e-27, nu, nucut)
+    olr_direct = ct.outgoing(Pe, G, Te, MU, gas)
+    olr_stack = ct.outgoing(Pe, G, Te, MU, semi, gas)
+    torch.cuda.synchronize()
+    above = gas.nu > nucut
+    semi_ok = (bool(torch.isfinite(olr_stack).all())
+               and torch.equal(olr_stack[above], olr_direct[above])
+               and float(ct.trapz(gas.nu.double(), olr_stack.double()))
+               < float(ct.trapz(gas.nu.double(), olr_direct.double())))
+
+    path = os.path.join(tmp, "gas.npz")
+    save_gas(path, gs)
+    back = load_gas(path, fC=CONC, device=dev)
+    olr_t = ct.outgoing(Pe, G, Te, MU, gs)
+    olr_b = ct.outgoing(Pe, G, Te, MU, back)
+    torch.cuda.synchronize()
+    launched = _launched()
+    gas_same = (torch.equal(olr_t, olr_b) and torch.equal(back.coeffs, gs.coeffs)
+                and torch.equal(back.coeffs_tail.view(torch.int16), gs.coeffs_tail.view(torch.int16)))
+    file_mb = os.path.getsize(path) / 1e6
+
+    th, F_card = ct.annualfluxfactors(*EARTH, dtype=torch.float32, device=dev)
+    _, F_host = ct.annualfluxfactors(*EARTH, dtype=torch.float64, device="cpu")
+    orb = float((F_card.double().cpu() - F_host).abs().max())
+    emit("api", step="rest", top_bottom_rows_bitwise=same_rows,
+         top_fluxes_W_m2=[float(x) for x in top], top_imbalance_W_m2=float(imb),
+         bottom_fluxes_W_m2=[float(x) for x in bottom], semigray_nucut=nucut,
+         semigray_stack_ok=semi_ok, gas_checkpoint_bitwise=gas_same, gas_checkpoint_mb=file_mb,
+         launches=launched, annualfluxfactors_max_diff=orb, annual_bar=1e-6,
+         annualfluxfactors_device=str(F_card.device))
+    check(same_rows, "top_fluxes/top_imbalance/bottom_fluxes are not radiate's rows")
+    check(semi_ok, "the SemiGrayGas stack's OLR is not the DirectGas's above the cut-off "
+                   "or not lower in band")
+    check(launched.get("fused_olr", 0) == 2, f"the table outgoing did not take K6: {launched}")
+    check(gas_same, "the checkpointed split Gas's K6 outgoing is not bit for bit the same")
+    check(F_card.is_cuda and orb < 1e-6, f"annualfluxfactors on the card off by {orb:.3e}")
+    return launched
+
 
 def _shards(sg, states):
     """Each shard's float64 grid, its real lines' positions and their
@@ -3716,23 +4204,27 @@ def traced(fn, n: int, tries: int = 3):
     return evs, per, counted, missing
 
 
-def phase_profile(calls, n: int = 3):
-    """Where the device time of each main-path call goes (torch.profiler,
+def profile_call(fn, n: int = 3, what: str = "the call") -> dict:
+    """Wall ms a call and where its device time goes (torch.profiler,
     through :func:`traced`). A kernel's ms a call is the mean over its
     launches traced times those its wrapper counted (where the profiler
     dropped some); ``launches_missing`` says how many the last profile
     lacked, whose time the device ms does not hold."""
+    wall = wall_ms(fn, n=n)
+    evs, per, counted, missing = traced(fn, n)
+    check(len(evs) > 0, f"the profiler traced no device activity in {what}")
+    device = _busy_us([(e.time_range.start, e.time_range.end) for e in evs]) / n / 1e3
+    return dict(wall_ms_per_call=wall, device_ms_per_call=device,
+                device_ops_per_call=len(evs) / n,
+                kernel_ms_per_call={k: us / c * max(c, counted.get(k, 0)) / n / 1e3
+                                    for k, (c, us) in per.items()},
+                launches_missing=missing, idle_share=1.0 - device / wall)
+
+
+def phase_profile(calls, n: int = 3):
+    """Where the device time of each main-path call goes (:func:`profile_call`)."""
     for name, fn in calls.items():
-        wall = wall_ms(fn, n=n)
-        evs, per, counted, missing = traced(fn, n)
-        check(len(evs) > 0, f"the profiler traced no device activity in {name}")
-        device = _busy_us([(e.time_range.start, e.time_range.end) for e in evs]) / n / 1e3
-        per_kernel = {k: us / c * max(c, counted.get(k, 0)) / n / 1e3
-                      for k, (c, us) in per.items()}
-        emit("profile", call=name, calls=n, wall_ms_per_call=wall,
-             device_ms_per_call=device, device_ops_per_call=len(evs) / n,
-             kernel_ms_per_call=per_kernel, launches_missing=missing,
-             idle_share=1.0 - device / wall)
+        emit("profile", call=name, calls=n, **profile_call(fn, n, name))
 
 
 def _seg_launch(plan, lines, states, L_seg, mode, bcoef, dev, conc=None, count_as=None):
@@ -3840,10 +4332,22 @@ def main(argv=None) -> int:
     counts = {k: counts[k] + ns_counts[k] for k in counts}
     calls.update(ns_calls)
 
-    # the mix: HITRAN files at full-catalog size; each part of its main path
-    # counted on its own
+    # the rest of the single-column API, each part counted on its own
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
+    t0 = time.perf_counter()
+    api_counts = [phase_api_radau(par, dev), phase_api_depth(par, dev)]
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        api_counts.append(phase_api_rcm(par, dev, tmp)[0])
+        api_counts.append(phase_api_rest(par, gs, dev, tmp))
+    for part in api_counts:
+        for k, v in part.items():
+            counts[k] += v
+    emit("counts", path="api", seconds=time.perf_counter() - t0,
+         **{k: sum(p.get(k, 0) for p in api_counts) for k in sorted(set().union(*api_counts))})
+
+    # the mix: HITRAN files at full-catalog size; each part of its main path
+    # counted on its own
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         mix = phase_mix_build(args.seed, dev, tmp)
     kernel_mix(mix, dev, mix["states4"])

@@ -21,32 +21,96 @@ the RCM's dH/dT by forward mode or by finite differences. ``parallel``
 shards the wavenumber grid over processes (``torch.distributed``): each
 line-by-line gas becomes per-shard line slabs (``ShardedLineGas``, summed
 by K1-dev, every shard of a rank in one launch), each rank radiates its
-slab, and one all-reduce adds the spectral integrals.
+slab, and one all-reduce adds the spectral integrals. Around the column
+path: slant optical depth and transmittance, the grid-refined core
+``RadauEq`` (the same kernels on a grid refined in sqrt P), the Planck
+family, checkpoints of baked gases and model state (``utils.checkpoint``,
+the JAX package's file format), the scipy validation oracle
+(``rt.ode_ref``) and orbital forcing (``orbital``).
 
 The module paths mirror ``clearsky_tpu``'s. Everything computes in the dtype
 and on the device of its inputs; CUDA tensors go through the kernels of
 ``csrc/`` (float32), CPU tensors through their plain PyTorch versions.
 """
 
-from .constants import SIGMA_SB
+from . import constants
+from .constants import (
+    C_LIGHT,
+    H_PLANCK,
+    K_BOLTZ,
+    SIGMA_SB,
+    R_GAS,
+    P_ATM,
+    N_AVOGADRO,
+    DALTON,
+    G_GRAV,
+    LOSCHMIDT_SQ,
+    T_REF_HITRAN,
+    T_ICE,
+    P_MIN,
+)
 from .utils.grids import chebygrid, meshgrid, deriv
 from .utils.rootfind import regula_falsi, secant
-from .ops.lineshape import fvoigt, fvoigt_ref, chi_phco2
+from .ops.planck import (
+    nu2f,
+    f2nu,
+    nu2lam,
+    lam2nu,
+    lam2f,
+    f2lam,
+    planck,
+    normplanck,
+    dplanck,
+    stefanboltzmann,
+    equilibrium_temperature,
+    dtau_dP,
+)
+from .ops.faddeeva import wofz_re
+from .ops.lineshape import (
+    scale_intensity,
+    alpha_doppler,
+    gamma_lorentz,
+    fdoppler,
+    florentz,
+    fvoigt,
+    fvoigt_ref,
+    chi_phco2,
+)
+from .ops.linesum import build_line_window_plan, sigma_from_lines
 from .spectra.lines import SpectralLines
 from .spectra.par import read_par
+from .spectra.molparam import molparam
 from .spectra.synthetic import synthetic_co2_par
 from .absorption.domain import AtmosphericDomain
-from .absorption.gas import Gas, DirectGas, GrayGas, MultiGas, WellMixedGas, VariableGas
+from .absorption.gas import (
+    Gas,
+    DirectGas,
+    GrayGas,
+    SemiGrayGas,
+    MultiGas,
+    WellMixedGas,
+    VariableGas,
+    opacity_error,
+)
 from .absorption.cia import read_cia, CIATables, CIA, cia_xsec
-from .absorption.absorbers import AbsorberStack, AcceleratedAbsorber
-from .rt.discretized import FluxPack
+from .absorption.absorbers import AbsorberStack, AcceleratedAbsorber, unify_absorbers
+from .atmosphere.profile import AtmosphericProfile
+from .rt.discretized import FluxPack, march_kernel_mode
+from .rt.fused_table import table_olr_fused, table_monoflux_fused, fused_table_applicable
 from .rt.fluxes import (
     Discretized,
+    Radau,
+    RadauEq,
+    optical_depth,
+    transmittance,
     outgoing,
     monochromatic_fluxes,
     radiate,
     fluxes,
     net_fluxes,
+    top_fluxes,
+    top_imbalance,
+    bottom_fluxes,
 )
 from .atmosphere.hydrostatics import scale_height, hydrostatic, altitude, Hydrostatic
 from .atmosphere.adiabats import (
@@ -79,47 +143,81 @@ from .models.rcm import (
 )
 from .utils.grids import trapz, pressuregrid, logrange
 from .absorption.sharded import ShardedLineGas, shard_line_gas
-from . import parallel
+from .orbital import (
+    periapsis,
+    apoapsis,
+    semimajoraxis,
+    eccentricity,
+    meananomaly,
+    trueanomaly,
+    eccentricanomaly,
+    orbitalperiod,
+    orbitaldistance,
+    orbit,
+    substellarlatitude,
+    hourangle,
+    diurnalfluxfactor,
+    diurnalfluxfactors,
+    annualfluxfactor,
+    annualfluxfactors,
+)
+from . import orbital, parallel
 
 __all__ = [
+    "C_LIGHT",
+    "H_PLANCK",
+    "K_BOLTZ",
     "SIGMA_SB",
-    "chebygrid",
-    "meshgrid",
-    "deriv",
-    "regula_falsi",
-    "secant",
+    "R_GAS",
+    "P_ATM",
+    "N_AVOGADRO",
+    "DALTON",
+    "G_GRAV",
+    "LOSCHMIDT_SQ",
+    "T_REF_HITRAN",
+    "T_ICE",
+    "P_MIN",
+    "nu2f",
+    "f2nu",
+    "nu2lam",
+    "lam2nu",
+    "lam2f",
+    "f2lam",
+    "planck",
+    "normplanck",
+    "dplanck",
+    "stefanboltzmann",
+    "equilibrium_temperature",
+    "dtau_dP",
+    "scale_intensity",
+    "alpha_doppler",
+    "gamma_lorentz",
+    "fdoppler",
+    "florentz",
     "fvoigt",
     "fvoigt_ref",
     "chi_phco2",
-    "SpectralLines",
-    "read_par",
-    "synthetic_co2_par",
-    "AtmosphericDomain",
     "Gas",
     "DirectGas",
     "GrayGas",
+    "SemiGrayGas",
     "MultiGas",
-    "ShardedLineGas",
-    "shard_line_gas",
     "WellMixedGas",
     "VariableGas",
-    "read_cia",
-    "CIATables",
-    "CIA",
-    "cia_xsec",
-    "AbsorberStack",
-    "AcceleratedAbsorber",
-    "FluxPack",
+    "opacity_error",
     "Discretized",
+    "Radau",
+    "RadauEq",
+    "optical_depth",
+    "transmittance",
     "outgoing",
     "monochromatic_fluxes",
     "radiate",
     "fluxes",
     "net_fluxes",
-    "scale_height",
-    "hydrostatic",
-    "altitude",
-    "Hydrostatic",
+    "top_fluxes",
+    "top_imbalance",
+    "bottom_fluxes",
     "lapse_rate_dry",
     "lapse_rate_moist",
     "lapse",
@@ -142,7 +240,55 @@ __all__ = [
     "jacobian",
     "update_absorber",
     "convective_adjustment",
+    "periapsis",
+    "apoapsis",
+    "semimajoraxis",
+    "eccentricity",
+    "meananomaly",
+    "trueanomaly",
+    "eccentricanomaly",
+    "orbitalperiod",
+    "orbitaldistance",
+    "orbit",
+    "substellarlatitude",
+    "hourangle",
+    "diurnalfluxfactor",
+    "diurnalfluxfactors",
+    "annualfluxfactor",
+    "annualfluxfactors",
+    "chebygrid",
+    "meshgrid",
+    "deriv",
+    "regula_falsi",
+    "secant",
+    "wofz_re",
+    "build_line_window_plan",
+    "sigma_from_lines",
+    "SpectralLines",
+    "read_par",
+    "molparam",
+    "synthetic_co2_par",
+    "AtmosphericDomain",
+    "read_cia",
+    "CIATables",
+    "CIA",
+    "cia_xsec",
+    "AbsorberStack",
+    "AcceleratedAbsorber",
+    "unify_absorbers",
+    "AtmosphericProfile",
+    "FluxPack",
+    "march_kernel_mode",
+    "table_olr_fused",
+    "table_monoflux_fused",
+    "fused_table_applicable",
+    "scale_height",
+    "hydrostatic",
+    "altitude",
+    "Hydrostatic",
     "trapz",
     "pressuregrid",
     "logrange",
+    "ShardedLineGas",
+    "shard_line_gas",
 ]

@@ -106,6 +106,11 @@ class AbsorberStack:
             total = total + f(self.nu, T[..., None], P[..., None])
         return total
 
+    def update(self, T) -> "AbsorberStack":
+        """The stack itself: it caches nothing (the interface of
+        :meth:`AcceleratedAbsorber.update`)."""
+        return self
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class AcceleratedAbsorber:

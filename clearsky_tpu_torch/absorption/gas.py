@@ -9,8 +9,9 @@ lead and a bfloat16 tail, the operand of the fused table kernels
 (``rt/fused_table.py``); :func:`WellMixedGas` and :func:`VariableGas` bake
 from a .par file. :class:`DirectGas` recomputes cross-sections from its
 lines at every call, :class:`MultiGas` does so for the merged catalog of a
-gas mixture in one line sum, and :class:`GrayGas` is the
-constant-cross-section absorber of the analytic tests. A gas lives on one
+gas mixture in one line sum, :class:`GrayGas` is the constant-cross-section
+absorber of the analytic tests and :class:`SemiGrayGas` the same below a
+cut-off wavenumber. A gas lives on one
 device in one dtype, those of its wavenumber tensor ``nu``.
 """
 
@@ -40,6 +41,7 @@ __all__ = [
     "Gas",
     "DirectGas",
     "GrayGas",
+    "SemiGrayGas",
     "GasComponent",
     "MultiGas",
     "WellMixedGas",
@@ -415,6 +417,11 @@ class DirectGas(AbstractGas):
         return sigma_from_lines_auto(self.plan, self.lines, T, P, C * P, self.shape,
                                      strategy=self.strategy)
 
+    def reconcentrate(self, fC) -> "DirectGas":
+        """The gas with another concentration; evaluation is direct, so the
+        self-broadening follows it (unlike a baked table's)."""
+        return dataclasses.replace(self, fC=as_concentration(fC))
+
     def spectral_slab(self, lo: int, hi: int):
         _refuse_slab(self)
 
@@ -451,6 +458,45 @@ class GrayGas(AbstractGas):
                           device=self.nu.device)
 
     def spectral_slab(self, lo: int, hi: int) -> "GrayGas":
+        """The gas on grid points [lo, hi)."""
+        return dataclasses.replace(self, nu=self.nu[lo:hi])
+
+    def concentration(self, T, P):
+        return torch.ones(torch.broadcast_shapes(T.shape, P.shape), dtype=self.nu.dtype,
+                          device=self.nu.device)
+
+    @property
+    def fC(self):
+        return lambda T, P: torch.ones(torch.broadcast_shapes(T.shape, P.shape),
+                                       dtype=T.dtype, device=T.device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SemiGrayGas(AbstractGas):
+    """Gray absorber at wavenumbers nu <= ``nucut``, transparent above."""
+
+    nu: torch.Tensor
+    sigma: float = 0.0
+    nucut: float = 0.0
+    name: str = "SemiGray"
+    formula: str = "SemiGray"
+    mu: float = float("nan")
+
+    @classmethod
+    def create(cls, sigma: float, nu, nucut: float, dtype=None,
+               device=None) -> "SemiGrayGas":
+        """A semi-gray gas over ``nu``, by default in float32 on the card."""
+        dtype, device = placement(dtype, device)
+        return cls(nu=torch.tensor(_check_nu(nu), dtype=dtype, device=device),
+                   sigma=float(sigma), nucut=float(nucut))
+
+    def raw_sigma(self, T, P):
+        shp = torch.broadcast_shapes(T.shape, P.shape)
+        row = torch.where(self.nu <= self.nucut, torch.full_like(self.nu, self.sigma),
+                          torch.zeros_like(self.nu))
+        return torch.broadcast_to(row, shp + (self.nu.shape[0],))
+
+    def spectral_slab(self, lo: int, hi: int) -> "SemiGrayGas":
         """The gas on grid points [lo, hi)."""
         return dataclasses.replace(self, nu=self.nu[lo:hi])
 

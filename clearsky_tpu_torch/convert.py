@@ -193,14 +193,15 @@ def rcm(jax_rcm, *absorbers, fmu=None, fcp=None) -> RCM:
     arr = rcm_arrays(jax_rcm)
     A = AcceleratedAbsorber.create(arr["Te"], arr["Pe"], unify_absorbers(absorbers))
     t = lambda x: torch.as_tensor(x, dtype=A.nu.dtype, device=A.nu.device)
-    core = jax_rcm.core
-    if type(core).__name__ != "Discretized":
-        raise NotImplementedError(f"core {core!r} is not ported yet")
-    from .rt.fluxes import Discretized
+    from .rt import fluxes
 
+    core = jax_rcm.core
+    if type(core).__name__ not in ("Discretized", "RadauEq"):
+        raise NotImplementedError(f"core {core!r} is not ported yet")
+    port_core = getattr(fluxes, type(core).__name__)(**dataclasses.asdict(core))
     return RCM(Pe=t(arr["Pe"]), P=t(arr["P"]), T=t(arr["T"]), Pr=t(arr["Pr"]), A=A,
                S_nu=t(arr["S_nu"]), a_nu=t(arr["a_nu"]), g=float(jax_rcm.g),
                cs=float(jax_rcm.cs), theta_s=float(jax_rcm.theta_s),
                fmu=jax_rcm.fmu if fmu is None else fmu,
                fcp=jax_rcm.fcp if fcp is None else fcp,
-               core=Discretized(**dataclasses.asdict(core)))
+               core=port_core)

@@ -1,6 +1,8 @@
 """Radiative-convective model: the time-stepping column model.
 
-Counterpart of ``clearsky_tpu.models.rcm`` for the discretized core. The
+Counterpart of ``clearsky_tpu.models.rcm`` for the discretized core and its
+grid-refined form ``RadauEq`` (the radiative grid refined once more in
+sqrt P at creation; the heating then runs on it unchanged). The
 model is a frozen dataclass of tensors and every operation returns a new one:
 :func:`heating` radiates on the refined grid, :func:`step` takes one Euler
 step, :func:`update_absorber` refreshes the cached cross-sections and
@@ -28,7 +30,8 @@ from ..utils.grids import trapz
 from ..absorption.absorbers import AcceleratedAbsorber, unify_absorbers
 from ..atmosphere.adiabats import lapse
 from ..rt.discretized import FluxPack, integrate_flux, layer_tau_flat, lobatto_pressures, monoflux
-from ..rt.fluxes import Discretized, DEFAULT_THETA_S, _spectral_fn, _reject_unported
+from ..rt.fluxes import (Discretized, RadauEq, DEFAULT_THETA_S, _spectral_fn,
+                         _reject_unported, _refined)
 
 __all__ = ["RCM", "heating", "radiate_state", "step", "step_n", "run", "jacobian",
            "update_absorber", "convective_adjustment", "radiative_grid"]
@@ -91,6 +94,8 @@ class RCM:
         P = np.concatenate([0.5 * (Pe[:-1] + Pe[1:]), Pe[-1:]])
         T = np.concatenate([0.5 * (Te[:-1] + Te[1:]), Te[-1:]])
         Pr = radiative_grid(Pe, radmul)
+        if isinstance(core, RadauEq):
+            Pr, _ = _refined(Pr, core.refine)
         stack = unify_absorbers(absorbers)
         A = AcceleratedAbsorber.create(Te, Pe, stack)
         t = lambda x: torch.as_tensor(x, dtype=A.nu.dtype, device=A.nu.device)
@@ -98,6 +103,10 @@ class RCM:
                    S_nu=_spectral_fn(fS)(A.nu), a_nu=_spectral_fn(fa)(A.nu),
                    g=float(g), cs=float(cs), theta_s=float(theta_s),
                    fmu=fmu, fcp=fcp, core=core)
+
+    @property
+    def n_cells(self) -> int:
+        return self.P.shape[0]
 
     @property
     def nu(self) -> torch.Tensor:

@@ -23,6 +23,9 @@ __all__ = [
     "florentz",
     "fvoigt",
     "fvoigt_ref",
+    "doppler_xsec",
+    "lorentz_xsec",
+    "voigt_xsec",
     "chi_phco2",
     "phco2_xsec",
 ]
@@ -104,6 +107,21 @@ def fvoigt_ref(dnu, alpha, gamma):
     return (_SQRT_LN2 / (alpha * _SQRT_PI)) * wofz_re(x, y)
 
 
+def doppler_xsec(dnu, S, alpha):
+    """Doppler cross-section contribution S fdoppler(dnu, alpha)."""
+    return S * fdoppler(dnu, alpha)
+
+
+def lorentz_xsec(dnu, S, gamma):
+    """Lorentz cross-section contribution S florentz(dnu, gamma)."""
+    return S * florentz(dnu, gamma)
+
+
+def voigt_xsec(dnu, S, alpha, gamma):
+    """Voigt cross-section contribution S fvoigt(dnu, alpha, gamma)."""
+    return S * fvoigt(dnu, alpha, gamma)
+
+
 def chi_phco2(dnu, T):
     """Perrin and Hartmann's sub-Lorentzian chi factor of the CO2 far wing:
     1 below |dnu| = 3 cm^-1, then exponential decays with breakpoints at 30
@@ -123,4 +141,4 @@ def chi_phco2(dnu, T):
 def phco2_xsec(dnu, T, S, alpha, gamma):
     """Sub-Lorentzian CO2 cross-section: the Voigt profile with gamma scaled
     by chi(dnu, T)."""
-    return S * fvoigt(dnu, alpha, chi_phco2(dnu, T) * gamma)
+    return voigt_xsec(dnu, S, alpha, chi_phco2(dnu, T) * gamma)

@@ -12,6 +12,8 @@ versions here (:func:`_olr_march`, :func:`_monoflux_march`) for CPU tensors.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import NamedTuple
 
@@ -26,12 +28,23 @@ from .march_cuda import trans_emit, olr_march, monoflux_march
 
 __all__ = [
     "FluxPack",
+    "TAU_MIN",
+    "layer_planck",
     "lobatto_pressures",
+    "layer_tau",
     "layer_tau_flat",
+    "path_tau",
+    "march_kernel_mode",
     "monoflux",
     "outgoing_flux",
     "integrate_flux",
 ]
+
+
+# The floor of the reference's per-layer optical depth, an opt-in here
+# (``floor=True``) for comparisons with it: the marches take tau -> 0 by
+# series, so the default is floorless.
+TAU_MIN = 1e-6
 
 
 class FluxPack(NamedTuple):
@@ -49,6 +62,22 @@ class FluxPack(NamedTuple):
     F_net: torch.Tensor
 
 
+def layer_planck(B1, B2, tau, t, omt=None):
+    """Linear-in-tau layer emission Be = B2 (1 - t) - (B1 - B2) t + (1 - t)(B1 - B2) / tau.
+
+    ``omt`` is 1 - t formed accurately (by default -expm1(-tau)); the ratio
+    (1 - t) / tau is its series 1 - tau/2 + tau^2/6 below tau = 1e-3, so a
+    transparent layer needs no floor.
+    """
+    dB = B1 - B2
+    if omt is None:
+        omt = -torch.expm1(-tau)
+    small = tau < 1e-3
+    safe_tau = torch.where(small, torch.ones_like(tau), tau)
+    ratio = torch.where(small, 1.0 - tau * 0.5 + tau * tau * (1.0 / 6.0), omt / safe_tau)
+    return B2 * omt - dB * t + ratio * dB
+
+
 def lobatto_pressures(P, nlobatto: int):
     """Intra-layer Gauss-Lobatto node pressures [np-1, nlobatto]."""
     x, _ = lobatto_unit_nodes(nlobatto)
@@ -57,28 +86,83 @@ def lobatto_pressures(P, nlobatto: int):
     return P[:-1, None] + dP[:, None] * x[None, :]
 
 
-def layer_tau_flat(P, muf, sig_flat, g, nlobatto: int):
+def layer_tau(P, Tn, mun, sigman, g, nlobatto: int, floor: bool = False):
+    """Per-layer vertical optical depth tau[np-1, n_nu] by Lobatto quadrature.
+
+    ``P`` [np] ascending; ``Tn``, ``mun`` [np-1, nlobatto] at the layers'
+    nodes; ``sigman`` [np-1, nlobatto, n_nu] the cross-sections there;
+    beta = 1e-4 Na sigma / (g mu). ``floor=True`` floors each layer at
+    :data:`TAU_MIN`.
+    """
+    _, w = lobatto_unit_nodes(nlobatto)
+    w = torch.as_tensor(w, dtype=sigman.dtype, device=sigman.device)
+    P = torch.as_tensor(P, dtype=sigman.dtype, device=sigman.device)
+    dP = (P[1:] - P[:-1])[:, None, None]
+    beta = (1e-4 * N_AVOGADRO / g) * sigman / mun[:, :, None]
+    tau = torch.sum(dP * w[None, :, None] * beta, dim=1)
+    return torch.clamp(tau, min=TAU_MIN) if floor else tau
+
+
+def path_tau(P, Tn, mun, sigman, g, m, nlobatto: int):
+    """Slant-path optical depth [n_nu] between P[0] and P[-1] for the angle
+    factor ``m``: the floorless :func:`layer_tau` summed over the layers."""
+    return m * torch.sum(layer_tau(P, Tn, mun, sigman, g, nlobatto), dim=0)
+
+
+def layer_tau_flat(P, muf, sig_flat, g, nlobatto: int, floor: bool = False):
     """Per-layer tau[np-1, n_nu] from flat node cross-sections [np-1 * nlobatto, n_nu].
 
-    The Lobatto reduction (dP, node weight, 1e-4 Na/g, 1/mu) is one
-    block-diagonal matrix product; ``muf`` is the flat per-node molar mass.
-    Floorless: the march's series branch handles tau -> 0 exactly. The
-    product runs in full float32 (:func:`..utils.interp.full_float32`), as
-    the JAX package pins it at ``Precision.HIGHEST``: TF32 would round sigma
-    to a 10-bit mantissa.
+    The Lobatto reduction (dP, node weight, 1e-4 Na/g, 1/mu) as one batched
+    product over the layers, [L, 1, k] x [L, k, n_nu], linear in the layer
+    count (the JAX package's block-diagonal product grows with its square:
+    ``tools/tau_probe.py`` times both); ``muf`` is the flat per-node molar
+    mass. The product runs in full float32 (:func:`..utils.interp.full_float32`),
+    as the JAX package pins it at ``Precision.HIGHEST``: TF32 would round
+    sigma to a 10-bit mantissa. Floorless unless ``floor`` (then at
+    :data:`TAU_MIN`): the march's series branch handles tau -> 0 exactly.
     """
     L = P.shape[0] - 1
     k = nlobatto
     _, w = lobatto_unit_nodes(k)
-    mask = np.zeros((L, L * k))
-    for j in range(k):
-        mask[np.arange(L), np.arange(L) * k + j] = w[j]
     dt, dev = sig_flat.dtype, sig_flat.device
     dP = (P[1:] - P[:-1]).to(dt)
-    Wm = torch.as_tensor(mask, dtype=dt, device=dev) * dP[:, None]
-    Wm = Wm * ((1e-4 * N_AVOGADRO / g) / muf)[None, :].to(dt)
+    c = dP[:, None] * torch.as_tensor(w, dtype=dt, device=dev)[None, :]
+    c = c * ((1e-4 * N_AVOGADRO / g) / muf).to(dt).reshape(L, k)
     with full_float32():
-        return torch.matmul(Wm, sig_flat)
+        tau = torch.bmm(c[:, None, :], sig_flat.reshape(L, k, -1))[:, 0]
+    return torch.clamp(tau, min=TAU_MIN) if floor else tau
+
+
+_MARCH_MODE = contextvars.ContextVar("march_kernel_mode", default="auto")
+
+
+@contextlib.contextmanager
+def march_kernel_mode(mode: str):
+    """Scoped choice of the flux route.
+
+    "auto" (the default): the fused table kernels K6/K7 where their route
+    applies. "off": no fused table route, as the JAX package's "off" turns
+    off its ``_fused_table_ok``; the line sum and the marches then run
+    separately. Either way the marches are K2/K3 for CUDA tensors and the
+    plain versions for CPU tensors: the port has no plain march on the card.
+    The JAX package's "interpret" runs its Pallas kernels in interpret mode
+    and has no counterpart here.
+    """
+    if mode == "interpret":
+        raise ValueError("march_kernel_mode('interpret') runs the JAX package's Pallas "
+                         "kernels in interpret mode; the port has no interpret mode")
+    if mode not in ("auto", "off"):
+        raise ValueError(f"march_kernel_mode must be auto/off, not {mode!r}")
+    tok = _MARCH_MODE.set(mode)
+    try:
+        yield
+    finally:
+        _MARCH_MODE.reset(tok)
+
+
+def fused_route_on() -> bool:
+    """False inside ``march_kernel_mode("off")``."""
+    return _MARCH_MODE.get() != "off"
 
 
 def _march(tau, m, B_lo, B_hi, I0, W=None, reverse=False):

@@ -1,11 +1,14 @@
-"""One-shot flux API: OLR spectra and whole-column flux packs.
+"""One-shot flux API: optical depth, transmittance, OLR spectra and
+whole-column flux packs.
 
-Counterpart of ``clearsky_tpu.rt.fluxes`` for the :class:`Discretized` core:
-cross-sections for the whole spectrum at the Lobatto nodes of every layer,
-the quadrature to layer optical depth, and the marches of
-:mod:`.discretized`. Pressures arrive as numpy arrays or scalars (set-up
-input, float64); the computation runs in the absorbers' dtype on their
-device.
+Counterpart of ``clearsky_tpu.rt.fluxes`` for the :class:`Discretized` core
+and its grid-refined form :class:`RadauEq` (the same march on a grid with
+``refine`` sub-layers a caller layer, spaced in sqrt P, the fluxes returned
+on the caller's levels): cross-sections for the whole spectrum at the
+Lobatto nodes of every layer, the quadrature to layer optical depth, and
+the marches of :mod:`.discretized`. Pressures arrive as numpy arrays or
+scalars (set-up input, float64); the computation runs in the absorbers'
+dtype on their device. The adaptive :class:`Radau` core is not ported.
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ from .discretized import (
     FluxPack,
     lobatto_pressures,
     layer_tau_flat,
+    path_tau,
     monoflux,
     outgoing_flux,
     integrate_flux,
+    fused_route_on,
 )
 from .fused_table import (
     MAX_LAYERS,
@@ -40,11 +45,16 @@ __all__ = [
     "Discretized",
     "Radau",
     "RadauEq",
+    "optical_depth",
+    "transmittance",
     "outgoing",
     "monochromatic_fluxes",
     "fluxes",
     "net_fluxes",
     "radiate",
+    "top_fluxes",
+    "top_imbalance",
+    "bottom_fluxes",
 ]
 
 DEFAULT_THETA_S = 0.841  # stellar zenith angle, cos(theta) ~ 2/3
@@ -70,7 +80,8 @@ class Radau:
 
 @dataclasses.dataclass(frozen=True)
 class RadauEq:
-    """Grid-refined core selector of ``clearsky_tpu``; not ported yet."""
+    """Grid-refined core selector: the discretized march with ``refine``
+    sub-layers a caller layer, spaced in sqrt P, in place of adaptive steps."""
 
     nstream: int = 5
     nlobatto: int = 3
@@ -78,12 +89,12 @@ class RadauEq:
 
 
 def _reject_unported(core):
-    if isinstance(core, (Radau, RadauEq)):
+    if isinstance(core, Radau):
         raise NotImplementedError(
-            f"{type(core).__name__} is not ported yet (ROADMAP.md, queue A, "
-            "still to port: A6, Radau); use Discretized"
+            "Radau is not ported yet (ROADMAP.md, queue A, still to port: A6, Radau); "
+            "use Discretized or RadauEq"
         )
-    if core is not None and not isinstance(core, Discretized):
+    if core is not None and not isinstance(core, (Discretized, RadauEq)):
         raise ValueError(f"unknown core selector {core!r}")
 
 
@@ -136,16 +147,69 @@ def _planck_levels(P, nu, fT):
     return planck(nu[None, :], T[:, None])
 
 
+def _refined(P, refine: int):
+    """``refine - 1`` sqrt-P-spaced interior levels inserted in each layer of
+    the ascending levels P: (refined levels, indices of P's levels in them)."""
+    P = np.asarray(P, dtype=np.float64)
+    L = len(P) - 1
+    out = []
+    for i in range(L):
+        w = np.linspace(np.sqrt(P[i]), np.sqrt(P[i + 1]), refine + 1)[:-1]
+        out.append(w * w)
+    Pr = np.concatenate(out + [P[-1:]])
+    idx = np.arange(0, L * refine + 1, refine)
+    return Pr, idx
+
+
 def _fused_table_ok(A, L: int, nstream: int, nlobatto: int) -> bool:
     """Route to the fused table kernels (K6/K7): one split-precision Gas,
     1 <= L <= MAX_LAYERS layers, at most MAX_STREAMS streams and
-    MAX_NODES_PER_LAYER Lobatto nodes per layer."""
-    return (1 <= L <= MAX_LAYERS and nstream <= MAX_STREAMS
+    MAX_NODES_PER_LAYER Lobatto nodes per layer, outside
+    ``march_kernel_mode("off")``."""
+    return (fused_route_on() and 1 <= L <= MAX_LAYERS and nstream <= MAX_STREAMS
             and nlobatto <= MAX_NODES_PER_LAYER and fused_table_applicable(A))
 
 
 def _only_gas(A):
     return A.gases[0] if isinstance(A, AbsorberStack) else A
+
+
+def optical_depth(P, g, T, mu, theta, *absorbers, nlobatto: int = 4, nlevels: int = 128,
+                  core=None, Ptop: float = 1.0):
+    """Monochromatic slant-path optical depth [n_nu] between two pressures.
+
+    ``P`` a pressure vector: Lobatto quadrature on its levels (sorted). ``P``
+    a 2-tuple (P1, P2), or a scalar (from it to ``Ptop``): a dense grid of
+    ``nlevels`` levels spaced in sqrt P between the two. ``theta`` is the
+    zenith angle of the path; ``T`` and ``mu`` are vectors on the levels,
+    scalars or callables. ``core=Radau(...)`` (the JAX package's adaptive
+    integration of the depth) is not ported.
+    """
+    A = unify_absorbers(absorbers)
+    _check_azimuth(theta)
+    if isinstance(core, Radau):
+        _reject_unported(core)
+    elif core is not None:
+        raise ValueError("optical_depth supports core=None (Lobatto quadrature) or "
+                         f"core=Radau(...); got {core!r}")
+    P = np.asarray(P, dtype=np.float64)
+    if P.ndim == 0 or len(P) == 2:
+        P1, P2 = (float(P), float(Ptop)) if P.ndim == 0 else (float(P[0]), float(P[1]))
+        Pgrid = _omega_grid(P1, P2, nlevels)
+    else:
+        Pgrid = np.sort(P)
+    check_pressures(A, Pgrid[-1], Pgrid[0])
+    Pg = _tensor(Pgrid, A.nu)
+    fT, fmu = formprofiles(Pg, T, mu)
+    Pn = lobatto_pressures(Pg, nlobatto)
+    Tn, mun = _eval_profiles(Pn, fT, fmu)
+    sig = A.sigma(Tn, Pn)
+    return path_tau(Pg, Tn, mun, sig, g, 1.0 / np.cos(theta), nlobatto)
+
+
+def transmittance(*args, **kwargs):
+    """exp(-optical_depth(...)) [n_nu]."""
+    return torch.exp(-optical_depth(*args, **kwargs))
 
 
 def outgoing(P, g, T, mu, *absorbers, Ptop: float = 1.0, nstream: int = 5,
@@ -157,20 +221,29 @@ def outgoing(P, g, T, mu, *absorbers, Ptop: float = 1.0, nstream: int = 5,
     hemispheric streams (one vertical beam with ``vertical``). ``P`` is a
     scalar surface pressure (omega-spaced grid of ``nlevels`` up to ``Ptop``)
     or a pressure vector; ``T`` and ``mu`` are vectors on ``P``, scalars or
-    callables fT(P), fmu(T, P). A ``Discretized`` core overrides
-    ``nstream``/``nlobatto``. A single split-precision table gas takes the
-    fused table kernel (K6) unless ``vertical``.
+    callables fT(P), fmu(T, P). A ``Discretized`` or ``RadauEq`` core
+    overrides ``nstream``/``nlobatto``; ``RadauEq`` marches on ``refine``
+    times the levels (``nlevels * refine`` for a scalar P; each layer of a
+    vector P refined in sqrt P, its T and mu interpolated against the
+    caller's levels). A single split-precision table gas takes the fused
+    table kernel (K6) unless ``vertical``, where the marched layers are
+    within its bound.
     """
     A = unify_absorbers(absorbers)
     _reject_unported(core)
-    if isinstance(core, Discretized):
+    if isinstance(core, (Discretized, RadauEq)):
         nstream, nlobatto = core.nstream, core.nlobatto
+    refine = core.refine if isinstance(core, RadauEq) else 1
     _check_streams(nstream)
     P = np.asarray(P, dtype=np.float64)
-    Pgrid = _omega_grid(float(P), Ptop, nlevels) if P.ndim == 0 else np.sort(P)
+    if P.ndim == 0:
+        Pgrid = P_base = _omega_grid(float(P), Ptop, nlevels * refine)
+    else:
+        P_base = np.sort(P)
+        Pgrid = _refined(P_base, refine)[0] if refine > 1 else P_base
     check_pressures(A, Pgrid[-1], Pgrid[0])
     Pg = _tensor(Pgrid, A.nu)
-    fT, fmu = formprofiles(Pg, T, mu)
+    fT, fmu = formprofiles(_tensor(P_base, A.nu), T, mu)
     if not vertical and _fused_table_ok(A, Pg.shape[0] - 1, nstream, nlobatto):
         return table_olr_fused(_only_gas(A), Pg, g, fT, fmu, nlobatto, nstream)
     tau = _column_tau(Pg, g, fT, fmu, A, nlobatto)
@@ -185,6 +258,8 @@ def monochromatic_fluxes(P, g, T, mu, fS, fa, *absorbers, core=Discretized(),
     P must be ascending [Pa]; T/mu may be vectors on P, scalars or callables;
     fS(nu) is the stellar spectral flux at the top, fa(nu) the surface albedo.
     A single split-precision table gas takes the fused table kernel (K7).
+    ``RadauEq`` marches on P refined ``refine`` times in sqrt P and returns
+    the fluxes at P's levels, and tau summed over each layer's sub-layers.
     """
     A = unify_absorbers(absorbers)
     _reject_unported(core)
@@ -198,6 +273,14 @@ def monochromatic_fluxes(P, g, T, mu, fS, fa, *absorbers, core=Discretized(),
     fT, fmu = formprofiles(Pg, T, mu)
     S_nu = _spectral_fn(fS)(A.nu)
     a_nu = _spectral_fn(fa)(A.nu)
+    if isinstance(core, RadauEq):
+        # the caller's levels are every refine-th refined level (_refined's idx)
+        Prg = _tensor(_refined(P, core.refine)[0], A.nu)
+        tau_r = _column_tau(Prg, g, fT, fmu, A, core.nlobatto)
+        B_r = _planck_levels(Prg, A.nu, fT)
+        M_up_r, M_down_r = monoflux(tau_r, B_r, A.nu, S_nu, a_nu, theta_s, core.nstream)
+        tau = tau_r.reshape(len(P) - 1, core.refine, -1).sum(dim=1)
+        return M_up_r[::core.refine], M_down_r[::core.refine], tau
     if _fused_table_ok(A, Pg.shape[0] - 1, core.nstream, core.nlobatto):
         return table_monoflux_fused(_only_gas(A), Pg, g, fT, fmu, S_nu, a_nu, theta_s,
                                     core.nlobatto, core.nstream)
@@ -226,3 +309,22 @@ def fluxes(P, g, T, mu, fS, fa, *absorbers, **kwargs):
 def net_fluxes(P, g, T, mu, fS, fa, *absorbers, **kwargs):
     """F_up - F_down."""
     return radiate(P, g, T, mu, fS, fa, *absorbers, **kwargs).F_net
+
+
+def top_fluxes(P, g, T, mu, fS, fa, *absorbers, **kwargs):
+    """(outgoing, incoming) spectrally integrated fluxes at the top: radiate's
+    F_up[0] and F_down[0] (the reflected stellar flux included)."""
+    F = radiate(P, g, T, mu, fS, fa, *absorbers, **kwargs)
+    return F.F_up[0], F.F_down[0]
+
+
+def top_imbalance(P, g, T, mu, fS, fa, *absorbers, **kwargs):
+    """Outgoing minus incoming flux at the top (positive: net cooling)."""
+    up, dn = top_fluxes(P, g, T, mu, fS, fa, *absorbers, **kwargs)
+    return up - dn
+
+
+def bottom_fluxes(P, g, T, mu, fS, fa, *absorbers, **kwargs):
+    """(upward, downward) spectrally integrated fluxes at the surface."""
+    F = radiate(P, g, T, mu, fS, fa, *absorbers, **kwargs)
+    return F.F_up[-1], F.F_down[-1]

@@ -1,7 +1,7 @@
 """Linear and Chebyshev interpolation.
 
-Counterpart of ``clearsky_tpu.utils.interp``: ``interp_linear`` and the
-Chebyshev basis, coefficient transform and evaluation behind the baked
+Counterpart of ``clearsky_tpu.utils.interp``: ``interp_linear``,
+``bilinear`` and the Chebyshev basis, coefficient transform and evaluation behind the baked
 opacity tables. The float32 contractions here run with TF32 switched off
 (:func:`full_float32`): ln sigma values of magnitude 50-90 lose ~1e-3 of
 their value to TF32's 10-bit mantissa, which is a 5-10% error in sigma.
@@ -16,6 +16,7 @@ import torch
 
 __all__ = [
     "interp_linear",
+    "bilinear",
     "full_float32",
     "cheb_basis",
     "cheb_coeff_matrix",
@@ -41,6 +42,25 @@ def interp_linear(x, xp, fp, extrapolate: bool = True):
     if not extrapolate:
         t = torch.clamp(t, 0.0, 1.0)
     return f0 + t * (f1 - f0)
+
+
+def bilinear(x, y, xp, yp, fp, extrapolate: bool = True):
+    """Bilinear interpolation of fp on the grid (xp, yp) at paired points (x, y).
+
+    ``fp`` [..., len(xp), len(yp)]; ``x`` and ``y`` broadcast together. Outside
+    the grid the edge cells extrapolate linearly (``extrapolate=False``:
+    clamped to the edge values).
+    """
+    nx, ny = xp.shape[0], yp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x, right=True) - 1, 0, nx - 2)
+    j = torch.clamp(torch.searchsorted(yp, y, right=True) - 1, 0, ny - 2)
+    tx = (x - xp[i]) / (xp[i + 1] - xp[i])
+    ty = (y - yp[j]) / (yp[j + 1] - yp[j])
+    if not extrapolate:
+        tx = torch.clamp(tx, 0.0, 1.0)
+        ty = torch.clamp(ty, 0.0, 1.0)
+    return (fp[..., i, j] * (1 - tx) * (1 - ty) + fp[..., i + 1, j] * tx * (1 - ty)
+            + fp[..., i, j + 1] * (1 - tx) * ty + fp[..., i + 1, j + 1] * tx * ty)
 
 
 @contextlib.contextmanager

@@ -1,16 +1,18 @@
 """Root finding on the host, for set-up work.
 
-Counterpart of the host solvers of ``clearsky_tpu.utils.rootfind``:
-bracketing false position (Illinois) and the secant method on Python
-floats. The traced bisection of the JAX package (``bisect_jax``) serves its
-compiled orbital code and is not ported.
+Counterpart of ``clearsky_tpu.utils.rootfind``: bracketing false position
+(Illinois) and the secant method on Python floats, and ``bisect_jax``, a
+fixed count of bisection steps on tensors (the JAX package's name; no
+data-dependent loop, so it runs elementwise over a batch of brackets on
+any device).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["regula_falsi", "secant"]
+__all__ = ["regula_falsi", "secant", "bisect_jax"]
 
 
 def _terminate(a, b, tol):
@@ -73,3 +75,23 @@ def secant(F, x1, x2, p=None, tol: float = 1e-6):
         if n > 10000:
             break
     return x3
+
+
+def bisect_jax(F, x1, x2, n_iter: int = 64):
+    """Roots of F by ``n_iter`` bisection steps, elementwise over brackets.
+
+    ``F`` maps a tensor of points to residuals of the same shape; ``x1`` and
+    ``x2`` (tensors or numbers; numbers become float64) bracket each root.
+    64 steps reach float64 roundoff on any reasonable bracket.
+    """
+    x1 = torch.as_tensor(x1, dtype=x1.dtype if isinstance(x1, torch.Tensor)
+                         and x1.is_floating_point() else torch.float64)
+    x2 = torch.as_tensor(x2, dtype=x1.dtype, device=x1.device)
+    a, b = torch.broadcast_tensors(x1, x2)
+    ya = F(a)
+    for _ in range(n_iter):
+        m = 0.5 * (a + b)
+        ym = F(m)
+        left = ya * ym > 0
+        a, ya, b = torch.where(left, m, a), torch.where(left, ym, ya), torch.where(left, b, m)
+    return 0.5 * (a + b)

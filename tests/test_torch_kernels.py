@@ -1300,14 +1300,14 @@ def test_march_kernels_match_plain(cuda, nstream):
 @pytest.mark.gpu
 @pytest.mark.parametrize("nstream", [1, 5, 8])
 @pytest.mark.parametrize("L,N", [(19, 2**19), (38, 16384), (160, 16384), (38, 16385),
-                                 (40, 140001)])
+                                 (40, 140001), (152, 2**19)])
 def test_march_kernels_at_the_main_shapes(cuda, L, N, nstream):
     """K2/K3 in both layouts of their plan (a warp a stream below 135,168
     points, a thread a point above), at the main path's shapes (19 x 2^19,
-    the RCM's 38 x 16,384), at L beyond one shared-memory tile (160 layers:
-    K2 stages 2 chunks, K3 4; 40 layers above K3's 28 kept ones) and at
-    ragged N, against the plain float64 march: 3.5e-6 of peak. Two launches
-    give the same bits."""
+    the RCM's 38 x 16,384, RadauEq(refine=8)'s 152 x 2^19), at L beyond one
+    shared-memory tile (160 layers: K2 stages 2 chunks, K3 4; 40 and 152
+    layers above K3's 28 kept ones) and at ragged N, against the plain
+    float64 march: 3.5e-6 of peak. Two launches give the same bits."""
     m, W = stream_nodes(nstream)
     x32 = _t(_column(L, N, seed=L + nstream), torch.float32, cuda)
     x64 = [x.double() for x in x32]
@@ -1350,6 +1350,69 @@ def test_march_wrappers_reject_bad_inputs(cuda):
         monoflux_march(tau, B, S, a.cpu(), CTHETA, m, W)
     with pytest.raises(ValueError):
         olr_march(tau, B, *stream_nodes(9))
+
+
+@pytest.mark.gpu
+def test_march_kernel_mode_off_keeps_the_march_kernels(cuda):
+    """march_kernel_mode("off") turns off only the fused table route: on the
+    card the march wrappers still launch K2 and K3, with the same bits."""
+    m, W = stream_nodes(5)
+    x32 = _t(_column(L=19, N=4096), torch.float32, cuda)
+    olr, (up, dn) = olr_march(x32[0], x32[1], m, W), monoflux_march(*x32, CTHETA, m, W)
+    counts = (olr_march.launches, monoflux_march.launches)
+    with td.march_kernel_mode("off"):
+        olr_o = olr_march(x32[0], x32[1], m, W)
+        up_o, dn_o = monoflux_march(*x32, CTHETA, m, W)
+    assert (olr_march.launches, monoflux_march.launches) == (counts[0] + 1, counts[1] + 1)
+    for k, o in ((olr, olr_o), (up, up_o), (dn, dn_o)):
+        assert torch.equal(k, o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refine", [2, 8])
+def test_radaueq_is_the_refined_call_on_the_card(cuda, refine):
+    """RadauEq's outgoing and radiate on the card: the line sum's kernels and
+    K2 (outgoing) or K3 (radiate), one march launch a call, and the values of
+    the same computation spelled out with Discretized on the refined levels
+    (T interpolated against the caller's levels; the fluxes its rows at the
+    caller's levels, integrated) within 1e-6 of peak; tau the refined
+    layers' summed back."""
+    from clearsky_tpu_torch.rt.fluxes import _refined
+
+    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(600, seed=21),
+                                           dtype=torch.float32, device=cuda)
+    p64 = lines.positions64()
+    gas = ct.DirectGas.from_lines(lines, 0.95, np.linspace(p64.min() - 25.0, p64.max() + 25.0,
+                                                            2**14))
+    Pe = ct.pressuregrid(10.0, 1e5, 9)
+    Te = np.maximum(288.0 * (Pe / 1e5) ** 0.22, 160.0)
+    fS = lambda v: torch.full_like(v, 1e-3)
+    Pr, idx = _refined(Pe, refine)
+    prof = ct.AtmosphericProfile.create(torch.tensor(Pe, dtype=torch.float32, device=cuda),
+                                        torch.tensor(Te, dtype=torch.float32, device=cuda))
+    core, disc = ct.RadauEq(refine=refine), ct.Discretized(nlobatto=3)
+    before = (olr_march.launches, monoflux_march.launches, sigma_lines.launches,
+              stencil_correction.launches)
+    olr = ct.outgoing(Pe, 9.8, Te, 0.044, gas, core=core)
+    F = ct.radiate(Pe, 9.8, Te, 0.044, fS, 0.1, gas, core=core)
+    torch.cuda.synchronize()
+    after = (olr_march.launches, monoflux_march.launches, sigma_lines.launches,
+             stencil_correction.launches)
+    assert after[:2] == (before[0] + 1, before[1] + 1)
+    assert after[2] + after[3] > before[2] + before[3]
+    olr_r = ct.outgoing(Pr, 9.8, prof, 0.044, gas, core=disc)
+    F_r = ct.radiate(Pr, 9.8, prof, 0.044, fS, 0.1, gas, core=disc)
+    rows = torch.as_tensor(idx, device=cuda)
+    of_peak = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    assert of_peak(olr, olr_r) < 1e-6
+    # the refined call's rows at the caller's levels, integrated as
+    # RadauEq's radiate integrates them
+    M_up, M_down = F_r.M_up[rows], F_r.M_down[rows]
+    F_up, F_down = td.integrate_flux(M_up, M_down, gas.nu)
+    for k, ref in (("M_up", M_up), ("M_down", M_down), ("F_up", F_up), ("F_down", F_down),
+                   ("F_net", F_up - F_down)):
+        assert of_peak(getattr(F, k), ref) < 1e-6, k
+    assert of_peak(F.tau, F_r.tau.reshape(8, refine, -1).sum(1)) < 1e-6
 
 
 def _table_column(L, k, N, seed=0, K=16, T=272):

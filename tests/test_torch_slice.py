@@ -25,7 +25,7 @@ from clearsky_tpu.utils.grids import pressuregrid, logrange, trapz as jtrapz
 import clearsky_tpu_torch as ct
 from clearsky_tpu_torch import convert
 from clearsky_tpu_torch.constants import R_GAS, SIGMA_SB
-from clearsky_tpu_torch.rt.fluxes import Radau, RadauEq
+from clearsky_tpu_torch.rt.fluxes import Radau
 from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines
 from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
 
@@ -134,7 +134,7 @@ def test_transparent_olr_is_sigma_t4():
     assert olr == pytest.approx(SIGMA_SB * 290.0**4, rel=1e-4)
 
 
-@pytest.mark.parametrize("core", [Radau(), RadauEq()])
+@pytest.mark.parametrize("core", [Radau()])
 def test_unported_cores_raise(col, core):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ct.outgoing(col["Pe"], G, col["Te"], MU, col["tg"], core=core)
