@@ -50,7 +50,7 @@ prints one line that starts with its name:
   counts  the kernels' launch counts over each part of the main path:
           ``main`` (the calls above), ``rcm`` (RCM.create and
           3 x (update_absorber, step) at 16,384 points), ``api``, ``mix``,
-          ``sharded``
+          ``rce``, ``sweep``, ``sharded``
   rcm     milliseconds of each of those steps (the first one cold), and
           the heating of the last state against the plain float64 version
   jacobian  jacobian(mode="fwd") on that RCM with the cross-sections frozen
@@ -141,6 +141,25 @@ prints one line that starts with its name:
           10): ms per step cold and warm, the refresh route and launch
           counts, each record's heating and temperatures against the same
           run in float64, and step_n against three steps
+  sweep   the batched RCE sweeps (ROADMAP A8) at full width: BASELINE config
+          5's shape (a synthetic CO2 + H2O MultiGas of 5,599 + 3,058 lines at
+          0.9 and 0.005, 4,096 points, 16 levels, 64 latitude columns with
+          4 x annualfluxfactors(0.0167, 0.41, 0): run_sweep for 64 steps of
+          900 s, refresh every 4, adjustment every step) and the main RCM's
+          (5,599 lines, 16,384 points, 20 edges: batched_heating and 8 steps
+          at 64 columns), counted on their own (the refresh's route, one
+          column's: the kernels of that route and K3 only, K3 once a
+          heating); 8 sampled columns of each against the single-column
+          heating and run on the card (of peak; K) and against float64 (5e-3
+          of peak); a refresh of 64 columns launching one column's K1 modes;
+          for 1, 8, 64 and 256 columns (and 1,024 at config 5's shape) ms a
+          sweep step, column-steps/s, the profiler's device ms and idle
+          share, launches a step (the same at every batch) and peak memory,
+          beside the single-column loop over 8 columns; ``kernel`` lines for
+          FARALL and the correction at the main RCM's 64 x 20 states and K3
+          folded at 38 x 64 x 16,384, 30 x 64 x 4,096 and 30 x 8 x 4,096
+          points (``call`` "rcm_sweep_64", "sweep"), and, in the ``api``
+          phase, FARALL at RadauEq(8)'s 456 states x 2^19 ("radaueq_outgoing")
   sharded the spectrally sharded path, 4 shards: ``kernel`` lines for K1-dev
           (every shard of a rank in one launch a mode) in each mode the path
           takes, the split mode and the coarse route's FINE and COARSE at 57
@@ -171,7 +190,8 @@ tiles), the pieces, and the lines per grid block, max and mean.
 ``clearsky_tpu_torch/tools/k1_probe.py`` times every K1 instance alone at
 these shapes, against another version of the port in the same run.
 
-Then the card's name and power limit, one JSON line ``{"kernels": [...]}``
+Every line carries ``t_s``, the seconds since the start; the line ``run``
+gives the whole run's. Then the card's name and power limit, one JSON line ``{"kernels": [...]}``
 and, last, the line ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the script exits non-zero; it exits non-zero without printing a
 result when no CUDA device is present.
@@ -301,6 +321,23 @@ RCE_STEPS, RCE_UPDATE, RCE_RECORD = 60, 6, 10
 # two ranks), steps of the sharded RCE loop with a refresh every 2
 N_SHARDS = 4
 SHARD_STEPS, SHARD_UPDATE = 4, 2
+# the sweeps: BASELINE config 5 (5,599 CO2 + 3,058 H2O lines at 0.9 and
+# 0.005, 4,096 points, 16 levels, 64 latitudes of annualfluxfactors(0.0167,
+# 0.41, 0), run_sweep for 64 steps, refresh every 4, adjustment every step)
+# and the main RCM at 64 columns for 8 steps; steps of 900 s (explicit
+# Euler runs away in the 10 Pa cell at the demo's 2e4 s and swings in a
+# period-2 cycle at 3600 s on both columns); the timing table's batches
+# (and 1,024 at config 5's shape), the sample of columns checked one by one
+# and the bars of that check, float32 summation order only (measured on an
+# NVIDIA H100 80GB HBM3 at 700 W: heating 1.5e-6 of the column's peak at
+# most, T 3.1e-5 K, two ulps at 256 K, after 64 steps; 1e-5 of the peak
+# over 64 steps of 900 s bounds T by ~1e-4 K)
+SWEEP_CO2, SWEEP_H2O, SWEEP_CONC = 5599, 3058, (0.9, 0.005)
+SWEEP_NU, SWEEP_LEVELS, SWEEP_COLS = 4096, 16, 64
+SWEEP_STEPS, SWEEP_UPDATE, SWEEP_DT, SWEEP_RCM_STEPS = 64, 4, 900.0, 8
+SWEEP_ORBIT = (0.0167, 0.41, 0.0)
+SWEEP_BATCHES, SWEEP_MAX_COLS, SWEEP_SAMPLE = (1, 8, 64, 256), 1024, 8
+SWEEP_H_BAR, SWEEP_T_BAR = 1e-5, 1e-3
 RANKS_TIMEOUT_S = 300.0
 # synthetic_co2_par's band centres: the sampled blocks include them
 BAND_CENTRES = (667.4, 961.0, 1063.7, 2349.1)
@@ -316,7 +353,12 @@ def check(ok: bool, what: str):
         raise CheckFailed(what)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields):
+    """One line of ``phase``'s fields, with ``t_s``, the seconds since the start."""
+    fields["t_s"] = round(time.perf_counter() - _T0, 1)
     print(f"{phase} " + json.dumps(fields, sort_keys=False), flush=True)
 
 
@@ -873,11 +915,12 @@ def _correction_measure(geom, co, cut, n_nu, weight, T, ops, pairs, dev):
 
 
 def _correction_line(name, geom, lines, l64, states, n_nu, peak, weight, report,
-                     record=True):
+                     record=True, call=None):
     """The near-core correction against its float64 plain version, measured
     against each state's peak cross-section (bar 1e-4: float32 rounding
     next to the region-1 pole at x^2 = 1/2 + y^2), timed and bounded by
-    :func:`_correction_measure`."""
+    :func:`_correction_measure`; with ``call`` recorded under that name in
+    the correction's report beside its main line."""
     from clearsky_tpu_torch.ops import linesum_strategies as ls
 
     dev = states[0].device
@@ -909,10 +952,15 @@ def _correction_line(name, geom, lines, l64, states, n_nu, peak, weight, report,
     emit("kernel", kernel="stencil_correction", weighted=weight is not None, points=n_nu,
          states=n, lines=lines.n_lines, K=geom.K, err_of_peak_sigma=err, max_abs_err=max_abs,
          bar="1e-4 of each state's peak sigma", plain_ms=plain_ms, plain_shape="same",
-         **timing, **b)
+         **({} if call is None else {"call": call}), **timing, **b)
     check(bool(torch.isfinite(out).all()) and err < 1e-4,
           f"stencil correction off its float64 plain version by {err:.3e} of peak sigma")
-    if record:
+    if call is not None:
+        report.setdefault(name, {}).setdefault("more", {})[call] = dict(
+            max_abs_err=max_abs, ms=timing["ms"], device_ms=timing["device_ms"],
+            plain_ms=plain_ms, shape=f"{n} states x {n_nu} points, K = {geom.K}",
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+    elif record:
         report[name] = dict(max_abs_err=max_abs, ms=timing["ms"], plain_ms=plain_ms,
                             library_ms=None,
                             shape=f"{n} states x {n_nu} points, K = {geom.K}", **b)
@@ -1134,12 +1182,14 @@ MARCH_COLUMNS = ((N_LEVELS - 1, N_NU_MAIN), (2 * (N_LEVELS - 1), N_NU_RCM), (160
 MARCH_STREAMS = (1, 5, 8)
 
 
-def kernel_march(seed, dev, report):
-    """K2 and K3 on the adversarial column at each of MARCH_COLUMNS, for 1,
-    5 and 8 streams, against the plain float64 march (3.5e-6 of peak), two
-    launches bit for bit; at 5 streams timed (CUDA events around a wrapper
-    call, the profiler's device time), with the launch plan, the build and
-    the bound."""
+def kernel_march(seed, dev, report, columns=MARCH_COLUMNS, kinds=("olr_march", "monoflux_march"),
+                 call=None):
+    """K2 and K3 (``kinds``) on the adversarial column at each of ``columns``,
+    for 1, 5 and 8 streams, against the plain float64 march (3.5e-6 of
+    peak), two launches bit for bit; at 5 streams timed (CUDA events around
+    a wrapper call, the profiler's device time), with the launch plan, the
+    build and the bound. With ``call`` (a later phase's shapes) the rows are
+    added to the kernels' reports under that name."""
     from clearsky_tpu_torch.rt import march_cuda
     from clearsky_tpu_torch.rt.discretized import _olr_march, _monoflux_march
     from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
@@ -1147,8 +1197,8 @@ def kernel_march(seed, dev, report):
 
     bar = 3.5e-6
     ct = math.cos(0.841)
-    rows = {"olr_march": [], "monoflux_march": []}
-    for L, N in MARCH_COLUMNS:
+    rows = {name: [] for name in kinds}
+    for L, N in columns:
         x32 = [torch.tensor(x, dtype=torch.float32, device=dev)
                for x in march_column(L, N, seed)]
         x64 = [x.double() for x in x32]
@@ -1177,7 +1227,8 @@ def kernel_march(seed, dev, report):
                                lambda: _olr_march(x32[0], x32[1], m, W)),
                  "monoflux_march": (lambda: monoflux_march(*x32, ct, m, W),
                                     lambda: _monoflux_march(*x32, ct, m, W))}
-        for name, (fn, plain) in calls.items():
+        for name in kinds:
+            fn, plain = calls[name]
             mono = name == "monoflux_march"
             out = fn()
             torch.cuda.synchronize()
@@ -1191,13 +1242,16 @@ def kernel_march(seed, dev, report):
                  device_ms=device_ms, plain_ms=plain_ms, max_abs_err=ab5,
                  err_of_peak={str(k): v[0] for k, v in errs[name].items()},
                  bar=f"{bar} of peak, 1, 5 and 8 streams", repeatable=True,
-                 plain_shape="same", **info, **b)
+                 plain_shape="same", **({} if call is None else {"call": call}), **info, **b)
             rows[name].append(dict(shape=f"{L} layers x {N} points, 5 streams", ms=ms,
                                    device_ms=device_ms, plain_ms=plain_ms, max_abs_err=ab5,
                                    registers=info["registers"], shared=info["shared"],
                                    spread=info["spread"], **b))
         del x32, x64
     for name, r in rows.items():
+        if call is not None:
+            report[name]["more"][call] = r
+            continue
         main, *more = r
         report[name] = dict(main, library_ms=None, more=dict(device_ms=main["device_ms"],
                                                              columns=more))
@@ -1862,17 +1916,24 @@ def sample_error(got, ref, valid):
 
 def kernel_farall_mix(mix, dev, report):
     """FARALL where the mix's ``radiate`` runs it (the stencil route at 38
-    states x 2^19 points, 55,000 lines): its operands taken from that call,
-    the kernel alone timed (CUDA events and the profiler's device ms), two
-    launches held to the same bits, the result against its float64 plain
-    version on the same inputs on sampled blocks (every 16th and the band
-    centres; bar 1e-5 of each state's peak there), the plain float32
-    version timed on the same sample, the bound of :func:`farall_bound` and
-    the reciprocals at the special-function units (:func:`sfu_of`)."""
+    states x 2^19 points, 55,000 lines), by :func:`farall_line`."""
+    farall_line("mix_radiate", farall_mix_case(mix), dev, report)
+
+
+def farall_line(call, case, dev, report, stride: int = SAMPLE_STRIDE):
+    """FARALL on the operands ``case`` (plan, lines, T, P, Pp, conc, shape)
+    that an entry point's stencil route handed it: the kernel alone timed
+    (CUDA events and the profiler's device ms), two launches held to the
+    same bits, the result against its float64 plain version on the same
+    inputs on sampled blocks (every 16th and the band centres; bar 1e-5 of
+    each state's peak there; every ``stride``-th), the plain float32 version timed on the same
+    sample, the bound of :func:`farall_bound` and the reciprocals at the
+    special-function units (:func:`sfu_of`); recorded under ``call`` in
+    FARALL's report."""
     from clearsky_tpu_torch.ops import linesum_cuda as lc
     from clearsky_tpu_torch.ops import linesum_strategies as ls
 
-    plan, lines, T, P, Pp, conc, shape = farall_mix_case(mix)
+    plan, lines, T, P, Pp, conc, shape = case
     n = int(T.shape[0])
     _, _, _, co, coef, _, fast = lc._route_operands(lines, T, P, Pp, plan.windows(), conc,
                                                      shape, plan.cut)
@@ -1882,10 +1943,10 @@ def kernel_farall_mix(mix, dev, report):
                                     fast=fast)
     out = launch()
     torch.cuda.synchronize()
-    check(torch.equal(out, launch()), "two launches of FARALL on the mix gave different bits")
+    check(torch.equal(out, launch()), f"two launches of FARALL ({call}) gave different bits")
     ms = cuda_ms(launch, n=5)
     device_ms = kernel_device_ms(launch, "linesum_farall")
-    idx = sample_blocks(plan.nu_blocks)
+    idx = sample_blocks(plan.nu_blocks, stride)
     got, valid = sampled(out, idx, plan.block, plan.n_nu)
     del out
     ref = farall_sample_ref(plan, lines, T, P, Pp, conc, idx)
@@ -1896,15 +1957,15 @@ def kernel_farall_mix(mix, dev, report):
     b = farall_bound(plan, lines, n)
     sfu = sfu_of(b["in_cut_pairs"] * n)
     more = dict(device_ms=device_ms, **sfu)
-    emit("kernel", kernel="linesum_farall", call="mix_radiate", mode="farall", points=plan.n_nu,
+    emit("kernel", kernel="linesum_farall", call=call, mode="farall", points=plan.n_nu,
          states=n, lines=lines.n_lines, err_of_peak=err, max_abs_err=max_abs,
          bar="1e-5 of each state's peak on the sample", ms=ms, plain_ms=plain_ms,
-         plain_shape=f"sampled blocks: {len(idx)} of {plan.n_blocks} (every {SAMPLE_STRIDE}th "
+         plain_shape=f"sampled blocks: {len(idx)} of {plan.n_blocks} (every {stride}th "
                      "and the band centres)", far_reciprocal=bool(fast.item()),
          bitwise_repeat=True, **more, **k1_layout(3, grid, n), **b)
     check(bool(torch.isfinite(got).all()) and err < 1e-5,
-          f"FARALL on the mix off its float64 plain version by {err:.3e} of peak")
-    report["linesum_farall"].setdefault("more", {})["mix_radiate"] = dict(
+          f"FARALL ({call}) off its float64 plain version by {err:.3e} of peak")
+    report["linesum_farall"].setdefault("more", {})[call] = dict(
         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, plain_sample=f"{len(idx)} of "
         f"{plan.n_blocks} blocks", shape=f"{n} states x {plan.n_nu} points, "
         f"{lines.n_lines} lines", bound_ms=b["bound_ms"], bound_by=b["bound_by"], **more)
@@ -2725,10 +2786,11 @@ def phase_phco2_bake(par, dev):
     check(rel < 1e-2, f"the phco2 table at a node is off the direct sigma by {rel:.3e}")
 
 
-def _host_reference_gas(lines64, plan, shape, nu):
+def _host_reference_gas(lines64, plan, shape, nu, conc=None):
     """A float64 absorber on the host whose cross-sections are the plain
     exact line sum on the card (the kernel wrappers take float32 only):
-    a zero gray gas beside the callable."""
+    a zero gray gas beside the callable. The gas is at CONC, or a mixture
+    with per-line concentrations ``conc(T, P)``."""
     import clearsky_tpu_torch as ct
     from clearsky_tpu_torch.ops.linesum import sigma_from_lines
 
@@ -2736,6 +2798,8 @@ def _host_reference_gas(lines64, plan, shape, nu):
 
     def sigma64(nu_, T, P):
         Tc, Pc = T[..., 0].to(dev), P[..., 0].to(dev)
+        if conc is not None:
+            return sigma_from_lines(plan, lines64, Tc, Pc, Pc, shape, conc=conc(Tc, Pc)).cpu()
         return (CONC * sigma_from_lines(plan, lines64, Tc, Pc, CONC * Pc, shape)).cpu()
 
     return ct.GrayGas.create(0.0, nu, dtype=torch.float64, device="cpu"), sigma64
@@ -2875,6 +2939,306 @@ def phase_rce(par, dev):
           f"RCE temperatures off float64 by {dT.tolist()} K, bound {T_bound.tolist()}")
     return {"rce_run_6_steps": lambda: ct.run(rcm, RCM_DT, RCE_UPDATE, **kw),
             "rce_step": lambda: ct.step(rcm, RCM_DT)}, counts
+
+
+# --- the sweeps (ROADMAP A8): a batch of columns through one launch set a step ---
+
+def sweep_factors(n: int) -> np.ndarray:
+    """4 x annualfluxfactors(0.0167, 0.41, 0) at ``n`` latitudes, the demo's
+    normalization (a global mean factor near 1)."""
+    import clearsky_tpu_torch as ct
+
+    _, F = ct.annualfluxfactors(*SWEEP_ORBIT, ntheta=n, dtype=torch.float64, device="cpu")
+    return 4.0 * F.numpy()
+
+
+def sweep_config5(seed, dev):
+    """BASELINE config 5's column (scripts/exoplanet_sweep_demo.py): a
+    synthetic CO2 + H2O MultiGas of the fused catalogs' 5,599 + 3,058 lines
+    at concentrations 0.9 and 0.005 on 4,096 points over the CO2 lines +-
+    25 cm^-1, 16 levels from a 255 K dry adiabat (150 K floor), float32 on
+    the card. Returns the model and its float64 twin on the host (cross-
+    sections by the plain exact line sum of the float64 catalog on the
+    card, :func:`_host_reference_gas`)."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.constants import R_GAS
+    from clearsky_tpu_torch.spectra.synthetic import synthetic_co2_par, synthetic_h2o_par
+
+    pars = (synthetic_co2_par(SWEEP_CO2, seed=seed), synthetic_h2o_par(SWEEP_H2O, seed=seed + 7))
+    co2, h2o = (ct.SpectralLines.from_par_dict(p) for p in pars)
+    pos = co2.positions64()
+    nu = np.linspace(max(pos.min() - 25.0, 1.0), pos.max() + 25.0, SWEEP_NU)
+    mg = ct.MultiGas.from_lines([(co2, SWEEP_CONC[0]), (h2o, SWEEP_CONC[1])], nu)
+    Pe = ct.pressuregrid(PT, PS, SWEEP_LEVELS)
+    Te = np.maximum(255.0 * (Pe / PS) ** (R_GAS / (MU * CP)), 150.0)
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / float(nu[-1] - nu[0]))
+    fmu, fcp = (lambda T, P: MU), (lambda T, P: CP)
+    r = ct.RCM.create(Pe, Te, G, fmu, fS, 0.1, fcp, 1e6, mg)
+    m64 = ct.MultiGas.from_lines(
+        [(ct.SpectralLines.from_par_dict(p, dtype=torch.float64, device=dev), c)
+         for p, c in zip(pars, SWEEP_CONC)], nu)
+    zero, sigma64 = _host_reference_gas(m64.lines, m64.plan, "voigt", nu,
+                                        conc=lambda T, P: m64._conc(T, P))
+    return r, ct.RCM.create(Pe, Te, G, fmu, fS, 0.1, fcp, 1e6, zero, sigma64), mg
+
+
+def sweep_main_rcm(par, dev):
+    """The main RCM of :func:`phase_rcm` (5,599 lines, 16,384 points, 20
+    edges, radmul 2, the stencil route) and its float64 twin on the host."""
+    import clearsky_tpu_torch as ct
+
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = grid_for(lines, N_NU_RCM)
+    gas = ct.DirectGas.from_lines(lines, CONC, nu)
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    fS = lambda v: torch.full_like(v, 340.0 / math.cos(0.841) / float(nu[-1] - nu[0]))
+    fmu, fcp = (lambda T, P: MU), (lambda T, P: CP)
+    r = ct.RCM.create(Pe, column(Pe), G, fmu, fS, 0.1, fcp, 1e7, gas, radmul=2)
+    l64 = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device=dev)
+    zero, sigma64 = _host_reference_gas(l64, gas.plan, "voigt", nu)
+    r64 = ct.RCM.create(Pe, column(Pe), G, fmu, fS, 0.1, fcp, 1e7, zero, sigma64, radmul=2)
+    return r, r64, gas
+
+
+def _sweep_T0(r, n: int):
+    """Start temperatures [n, np]: the model's, scaled by 0.99 .. 1.01
+    across the columns."""
+    s = torch.linspace(0.99, 1.01, n, dtype=r.T.dtype, device=r.T.device)
+    return r.T[None, :] * s[:, None]
+
+
+def _sweep_run(r, f, nsteps, T0=None, dt=SWEEP_DT):
+    import clearsky_tpu_torch as ct
+
+    return ct.run_sweep(r, f, dt, nsteps, T0_b=T0, update_every=SWEEP_UPDATE, adjust_every=1,
+                        cp=CP, mu=MU)
+
+
+def _column_run(r, f, T0, nsteps, dt=SWEEP_DT):
+    """The single-column composed loop at the sweep's cadences."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.models.sweep import _with_insolation
+
+    out, _ = ct.run(dataclasses.replace(_with_insolation(r, f), T=T0), dt, nsteps,
+                    update_every=SWEEP_UPDATE, adjust_every=1, cp=CP, mu=MU)
+    return out.T
+
+
+def check_sweep(name, r, r64, T_b, f, nsteps, T0_b, dt, H_bar, T_bar):
+    """A sweep's result against its columns: on SWEEP_SAMPLE sampled columns
+    the batched heating at the final temperatures against the single-column
+    heating on the card (of each column's peak) and against the float64
+    version of the same state on the host (5e-3 of peak, the RCM's bar),
+    and the final temperatures against the single-column run of the same
+    steps on the card (K); all emitted as one ``sweep`` line (step "check")
+    before they are checked."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.models.sweep import _with_insolation
+
+    nb = T_b.shape[0]
+    cols = np.unique(np.linspace(0, nb - 1, SWEEP_SAMPLE).round().astype(int))
+    H = ct.batched_heating(r, T_b, f)
+    H64 = ct.batched_heating(r64, T_b[cols].double().cpu(), f[cols]).numpy()
+    H_col, H_f64, dT = [], [], []
+    for k, c in enumerate(cols):
+        one = ct.heating(_with_insolation(r, float(f[c])), T_b[c]).double().cpu().numpy()
+        h = H[c].double().cpu().numpy()
+        H_col.append(float(np.abs(h - one).max() / np.abs(one).max()))
+        H_f64.append(float(np.abs(h - H64[k]).max() / np.abs(H64[k]).max()))
+        T1 = _column_run(r, float(f[c]), T0_b[c], nsteps, dt)
+        dT.append(float((T_b[c] - T1).abs().max()))
+    torch.cuda.synchronize()
+    out = dict(columns=cols.tolist(), heating_vs_column_of_peak=H_col, heating_bar=H_bar,
+               heating_vs_float64_of_peak=H_f64, float64_bar=5e-3,
+               T_vs_column_run_K=dT, T_bar_K=T_bar,
+               heating_peak_K_per_day=float(H.abs().max()) * 86400,
+               T_range_K=[float(T_b.min()), float(T_b.max())])
+    emit("sweep", model=name, step="check", steps=nsteps, dt_s=dt, **out)
+    check(bool(torch.isfinite(T_b).all() and torch.isfinite(H).all()),
+          f"the {name} sweep is not finite")
+    check(max(H_col) <= H_bar, f"the {name} sweep's heating off its columns' by {max(H_col):.3e}")
+    check(max(H_f64) < 5e-3, f"the {name} sweep's heating off float64 by {max(H_f64):.3e}")
+    check(max(dT) <= T_bar, f"the {name} sweep's temperatures off its columns' by {max(dT)} K")
+
+
+def sweep_table(name, r, batches, dt=SWEEP_DT):
+    """For each batch size: ms per sweep step (run_sweep over one refresh
+    period, SWEEP_UPDATE steps with adjustment every step, a final
+    synchronize; median of 2), column-steps/s, the profiler's device ms a
+    step and the idle share, the kernels' launches a step, and the peak
+    device memory of the call; then the single-column loop over
+    SWEEP_SAMPLE columns. Returns {batch: launches per period}."""
+    from clearsky_tpu_torch.rt import march_cuda
+
+    launches = {}
+    for nb in batches:
+        f = sweep_factors(nb)
+        T0 = _sweep_T0(r, nb)
+        fn = lambda: _sweep_run(r, f, SWEEP_UPDATE, T0, dt)
+        fn()
+        torch.cuda.synchronize()
+        counts_reset()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches[nb] = {k: v for k, v in counts_read().items() if v}
+        ms = wall_ms(fn, n=2) / SWEEP_UPDATE
+        prof = profile_call(fn, n=2, what=f"the {name} sweep at {nb} columns")
+        emit("sweep", model=name, step="table", columns=nb, ms_per_step=ms,
+             column_steps_per_s=1e3 * nb / ms,
+             device_ms_per_step=prof["device_ms_per_call"] / SWEEP_UPDATE,
+             idle_share=prof["idle_share"],
+             device_ops_per_step=prof["device_ops_per_call"] / SWEEP_UPDATE,
+             launches_per_period=launches[nb], period_steps=SWEEP_UPDATE,
+             kernel_ms_per_step={k: v / SWEEP_UPDATE
+                                 for k, v in prof["kernel_ms_per_call"].items()},
+             peak_memory_GB=peak / 1e9, march_layout="spread" if march_cuda.march_plan(
+                 "monoflux", r.Pr.shape[0] - 1, nb * r.nu.shape[0], 5)["spread"] else "point")
+    f = sweep_factors(SWEEP_SAMPLE)
+    T0 = _sweep_T0(r, SWEEP_SAMPLE)
+    loop = lambda: [_column_run(r, float(f[c]), T0[c], SWEEP_UPDATE, dt)
+                    for c in range(SWEEP_SAMPLE)]
+    ms = wall_ms(loop, n=2) / SWEEP_UPDATE
+    prof = profile_call(loop, n=2, what=f"the {name} single-column loop")
+    emit("sweep", model=name, step="column_loop", columns=SWEEP_SAMPLE, ms_per_step=ms,
+         column_steps_per_s=1e3 * SWEEP_SAMPLE / ms,
+         device_ms_per_step=prof["device_ms_per_call"] / SWEEP_UPDATE,
+         idle_share=prof["idle_share"],
+         device_ops_per_step=prof["device_ops_per_call"] / SWEEP_UPDATE)
+    return launches
+
+
+def refresh_modes(r, nb: int) -> tuple:
+    """The K1 launches of a refresh of ``nb`` columns and of one column's."""
+    from clearsky_tpu_torch.utils.interp import interp_linear
+
+    Te = interp_linear(torch.log(r.Pe), torch.log(r.P), _sweep_T0(r, nb))
+    got = []
+    for refresh in (lambda: r.A.stacked(nb).update(Te), lambda: r.A.update(Te[0])):
+        counts_reset()
+        refresh()
+        torch.cuda.synchronize()
+        got.append({k: v for k, v in counts_read().items() if v})
+    return tuple(got)
+
+
+def phase_sweep(par, seed, dev):
+    """The batched RCE sweeps at full width: BASELINE config 5's shape
+    (:func:`sweep_config5`; 64 latitude columns, run_sweep for 64 steps of
+    900 s, refresh every 4, adjustment every step) and the main RCM's
+    (:func:`sweep_main_rcm`; batched_heating and run_sweep for 8 steps of
+    900 s at 64 columns), driven with the launch counts set to 0 just
+    before and read just after; then their checks (:func:`check_sweep`),
+    the refresh's K1 modes at 64 columns against one column's, and the
+    timing table (:func:`sweep_table`) with its launches a step, which must
+    not depend on the batch. Returns the counts of the drive."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+
+    t0 = time.perf_counter()
+    r5, r5_64, mg = sweep_config5(seed, dev)
+    rm, rm_64, gas = sweep_main_rcm(par, dev)
+    route5 = ls.route(mg.plan, mg.lines, n_states=SWEEP_LEVELS)
+    route_m = ls.route(gas.plan, gas.lines, n_states=N_LEVELS)
+    check(route_m == "stencil", f"the main RCM's refresh takes {route_m}, not the stencil route")
+    f = sweep_factors(SWEEP_COLS)
+    Tm0 = _sweep_T0(rm, SWEEP_COLS)
+    torch.cuda.synchronize()
+    counts_reset()
+    T5, A5 = _sweep_run(r5, f, SWEEP_STEPS)
+    Hm = ct.batched_heating(rm, Tm0, f)
+    Tm, Am = _sweep_run(rm, f, SWEEP_RCM_STEPS, Tm0)
+    torch.cuda.synchronize()
+    counts = counts_read()
+    drive_s = time.perf_counter() - t0
+    launched = {k: v for k, v in counts.items() if v}
+    emit("counts", path="sweep", refresh_route_config5=route5, refresh_route_rcm=route_m,
+         **launched)
+    want = ROUTE_KERNELS[route5] | ROUTE_KERNELS[route_m] | {"monoflux_march"}
+    check(set(launched) == want, f"the sweeps launched {sorted(launched)}, not {sorted(want)}")
+    check(counts["monoflux_march"] == SWEEP_STEPS + 1 + SWEEP_RCM_STEPS,
+          f"{counts['monoflux_march']} march launches for {SWEEP_STEPS + 1 + SWEEP_RCM_STEPS} "
+          "heatings")
+    check(Hm.shape == (SWEEP_COLS, N_LEVELS) and bool(torch.isfinite(Hm).all()),
+          "the main RCM's batched heating is not finite or has the wrong shape")
+    check(A5.ln_sigma.shape == (SWEEP_COLS, SWEEP_LEVELS, SWEEP_NU)
+          and Am.ln_sigma.shape == (SWEEP_COLS, N_LEVELS, N_NU_RCM),
+          "the sweeps' caches have the wrong shape")
+
+    check_sweep("config 5", r5, r5_64, T5, f, SWEEP_STEPS, r5.T.expand(SWEEP_COLS, -1),
+                SWEEP_DT, SWEEP_H_BAR, SWEEP_T_BAR)
+    check_sweep("main RCM", rm, rm_64, Tm, f, SWEEP_RCM_STEPS, Tm0, SWEEP_DT, SWEEP_H_BAR,
+                SWEEP_T_BAR)
+    # the refresh of a batch launches one column's K1 modes, once each
+    modes = {name: refresh_modes(r, SWEEP_COLS) for name, r in (("config5", r5), ("rcm", rm))}
+    emit("sweep", step="drive", seconds=drive_s, steps_config5=SWEEP_STEPS,
+         steps_rcm=SWEEP_RCM_STEPS, columns=SWEEP_COLS, lines_config5=mg.lines.n_lines,
+         points_config5=SWEEP_NU, levels_config5=SWEEP_LEVELS, refresh_route_config5=route5,
+         refresh_route_rcm=route_m, refresh_launches_batch_vs_column=modes, dt_s=SWEEP_DT,
+         surface_T_K_config5=[float(T5[:, -1].min()), float(T5[:, -1].max())])
+    for name, (batch, one) in modes.items():
+        check(batch == one and batch, f"the {name} refresh of {SWEEP_COLS} columns launched "
+                                      f"{batch}, one column's {one}")
+    # the launch set a step does not depend on the batch
+    per = {"config5": sweep_table("config 5", r5, SWEEP_BATCHES + (SWEEP_MAX_COLS,)),
+           "rcm": sweep_table("main RCM", rm, SWEEP_BATCHES)}
+    for name, launches in per.items():
+        check(launches[8] == launches[64], f"the {name} sweep launched {launches[8]} a period "
+                                           f"at 8 columns, {launches[64]} at 64")
+        check(all(v == launches[64] for v in launches.values()),
+              f"the {name} sweep's launches a period depend on the batch: {launches}")
+    emit("sweep", step="phase", seconds=time.perf_counter() - t0)
+    return counts
+
+
+SWEEP_MARCH_COLUMNS = ((2 * (N_LEVELS - 1), SWEEP_COLS * N_NU_RCM),
+                       (2 * (SWEEP_LEVELS - 1), SWEEP_COLS * SWEEP_NU),
+                       (2 * (SWEEP_LEVELS - 1), 8 * SWEEP_NU))
+
+
+def kernel_sweep(par, seed, dev, report):
+    """``kernel`` lines at the sweeps' shapes: FARALL and the correction on
+    the operands of the main RCM's refresh of 64 columns (1,280 states x
+    16,384 points, the stencil route; the correction against float64 over
+    each state's exact peak on FARALL's sampled blocks), and K3 on the
+    adversarial column folded as the sweeps fold it: 38 layers x 64 x
+    16,384 and 30 x 64 x 4,096 points (a thread a point) and 30 x 8 x 4,096
+    (spread)."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_cuda as lc
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.ops.linesum import sigma_from_lines
+    from clearsky_tpu_torch.utils.interp import interp_linear
+
+    rm, _, gas = sweep_main_rcm(par, dev)
+    Te = interp_linear(torch.log(rm.Pe), torch.log(rm.P), _sweep_T0(rm, SWEEP_COLS))
+    seen, real = [], lc.sigma_stencil
+
+    def record(*call):
+        seen.append(call)
+        return real(*call)
+
+    lc.sigma_stencil = record
+    try:
+        rm.A.stacked(SWEEP_COLS).update(Te)
+        torch.cuda.synchronize()
+    finally:
+        lc.sigma_stencil = real
+    check(len(seen) == 1, f"the batched refresh ran the stencil route {len(seen)} times")
+    case = seen.pop()
+    plan, lines, T, P, Pp = case[:5]
+    check(int(T.shape[0]) == SWEEP_COLS * N_LEVELS, f"the batched refresh summed {T.shape[0]} "
+                                                    "states")
+    farall_line("rcm_sweep_64", case, dev, report)
+    l64 = lines.to(torch.float64)
+    x64 = [x.double() for x in (T, P, Pp)]
+    idx = sample_blocks(plan.nu_blocks)
+    peak = sigma_from_lines(subplan(plan, idx), l64, *x64).abs().amax(dim=1, keepdim=True)
+    _correction_line("stencil_correction", ls.stencil_geometry(plan, lines), lines, l64,
+                     (T, P, Pp), plan.n_nu, peak, None, report, call="rcm_sweep_64")
+    del case, seen, peak
+    kernel_march(seed, dev, report, SWEEP_MARCH_COLUMNS, ("monoflux_march",), "sweep")
 
 
 # --- K1's no-split sweep and the RCM's Jacobian ---------------------------------
@@ -3229,8 +3593,8 @@ def stencil_call_check(par, call, out, stride: int, what: str) -> dict:
     l64 = ct.SpectralLines.from_par_dict(par, dtype=torch.float64, device=T.device)
     x64 = [x.double() for x in (T, P, Pp)]
     c64 = None if conc is None else conc.double()
-    ref = at_edges(sigma_from_lines(sub, l64, *x64, shape, c64),
-                   sigma_from_lines(sub, lines, T, P, Pp, shape, conc),
+    ref = at_edges(sigma_from_lines(sub, l64, *x64, shape, conc=c64),
+                   sigma_from_lines(sub, lines, T, P, Pp, shape, conc=conc),
                    cut_edges(sub, lines.positions64()))[:, valid]
     got = got[:, valid]
     pk = ref.abs().amax(dim=1, keepdim=True)
@@ -3266,7 +3630,7 @@ def stencil_call_check(par, call, out, stride: int, what: str) -> dict:
     return fig
 
 
-def phase_api_radau(par, dev):
+def phase_api_radau(par, dev, report=None):
     """RadauEq(refine=8) on the main column (5,599 lines, 2^19 points, 20
     levels, 5 streams, float32 on the card): ``outgoing`` and ``radiate``
     on the vector P (the refined march's launches counted, each call's
@@ -3278,8 +3642,10 @@ def phase_api_radau(par, dev):
     and mu (T interpolated against the caller's levels): band OLR and each
     of the caller's rows within 1e-6 of peak; the band OLR's difference
     from Discretized on the caller's levels (no bar: convergence); and the
-    scalar form at 16 levels against Discretized at 16 x 8 levels. Returns
-    the launch counts of the RadauEq calls."""
+    scalar form at 16 levels against Discretized at 16 x 8 levels. With
+    ``report``, a ``kernel`` line for FARALL on the outgoing call's 456
+    states (:func:`farall_line`, every 64th block sampled). Returns the
+    launch counts of the RadauEq calls."""
     import clearsky_tpu_torch as ct
     from clearsky_tpu_torch.constants import R_GAS
     from clearsky_tpu_torch.rt.discretized import integrate_flux
@@ -3336,7 +3702,10 @@ def phase_api_radau(par, dev):
     check(tuple(sig.shape) == (3 * RADAU_REFINE * (N_LEVELS - 1), N_NU_MAIN),
           f"RadauEq outgoing summed lines at {tuple(sig.shape)}")
     line_sum = stencil_call_check(par, call, sig, 4 * SAMPLE_STRIDE, "RadauEq outgoing")
-    del call, sig, seen
+    del sig, seen
+    if report is not None:
+        farall_line("radaueq_outgoing", call, dev, report, 4 * SAMPLE_STRIDE)
+    del call
 
     # the same computation spelled out on the refined levels
     Pr, idx = _refined(Pe, RADAU_REFINE)
@@ -4268,6 +4637,7 @@ def main(argv=None) -> int:
     import clearsky_tpu_torch as ct
     from clearsky_tpu_torch.spectra.synthetic import synthetic_co2_par
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = phase_env(dev)
@@ -4336,7 +4706,7 @@ def main(argv=None) -> int:
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     t0 = time.perf_counter()
-    api_counts = [phase_api_radau(par, dev), phase_api_depth(par, dev)]
+    api_counts = [phase_api_radau(par, dev, report), phase_api_depth(par, dev)]
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         api_counts.append(phase_api_rcm(par, dev, tmp)[0])
         api_counts.append(phase_api_rest(par, gs, dev, tmp))
@@ -4393,6 +4763,14 @@ def main(argv=None) -> int:
     calls.update(ph_calls)
     calls.update(rce_calls)
 
+    # the batched sweeps, the drive counted on its own; then the kernels at
+    # their shapes
+    sweep_counts = phase_sweep(par, args.seed, dev)
+    for k in ("linesum_farall", "stencil_correction", "monoflux_march"):
+        check(sweep_counts[k] > 0, f"kernel {k} was not launched by the sweeps")
+    counts = {k: counts[k] + sweep_counts[k] for k in counts}
+    kernel_sweep(par, args.seed, dev, report)
+
     # the sharded path over a world-1 NCCL group, counted on its own; then
     # two ranks on the card over gloo
     from clearsky_tpu_torch import parallel
@@ -4422,6 +4800,7 @@ def main(argv=None) -> int:
                 "launches": counts[k], **{f: report[k][f] for f in keys},
                 **report[k].get("more", {})}
                for k, (source, replaces) in KERNELS.items()]
+    emit("run", seconds=time.perf_counter() - t_run)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

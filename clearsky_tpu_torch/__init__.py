@@ -14,7 +14,9 @@ merged catalog in one line sum (``MultiGas``), through catalog segments
 route takes the Voigt family of shapes, voigt and the sub-Lorentzian CO2
 far wing phco2 (with their *_ref conventions); the column model runs to
 radiative-convective equilibrium (``run``: Euler steps, absorber refresh,
-dry convective adjustment) from the adiabats of ``atmosphere``. Every
+dry convective adjustment) from the adiabats of ``atmosphere``, and a
+batch of columns (an insolation sweep: ``batched_heating``, ``run_sweep``,
+``shard_sweep``) runs through one launch set a step. Every
 kernel carries the derivatives of its plain twin (``utils/twin.py``), so
 ``torch.func`` differentiates through the card's path: ``jacobian`` gives
 the RCM's dH/dT by forward mode or by finite differences. ``parallel``
@@ -130,6 +132,7 @@ from .atmosphere.saturation import (
     haircut,
     rayleigh_co2,
 )
+from .models.sweep import batched_heating, run_sweep, shard_sweep
 from .models.rcm import (
     RCM,
     heating,
@@ -238,6 +241,9 @@ __all__ = [
     "step_n",
     "run",
     "jacobian",
+    "batched_heating",
+    "run_sweep",
+    "shard_sweep",
     "update_absorber",
     "convective_adjustment",
     "periapsis",

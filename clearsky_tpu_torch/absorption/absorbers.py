@@ -3,18 +3,21 @@
 Counterpart of ``clearsky_tpu.absorption.absorbers``. An
 :class:`AbsorberStack` produces dense ``sigma[..., n_nu]`` for batches of
 (T, P) states; an :class:`AcceleratedAbsorber` caches ln sigma on a model's
-own pressure column and interpolates it in ln P. Collision-induced
-absorption tables in a stack are bound to its grid and paired with its
-gases by formula (through a ``MultiGas``'s per-molecule components too).
+own pressure column, for one column or a batch of columns (a sweep), and
+interpolates it in ln P. Collision-induced absorption tables in a stack are
+bound to its grid and paired with its gases by formula (through a
+``MultiGas``'s per-molecule components too).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
+from ..ops.linesum_strategies import _column_batch
 from ..utils.interp import interp_linear
 from .cia import CIA, BoundCIA, CIATables
 from .gas import AbstractGas, DirectGas, Gas, MultiGas
@@ -37,9 +40,9 @@ class AbsorberStack:
     """Unified absorber: gases, CIA pairs and user functions sigma(nu, T, P)."""
 
     gases: tuple
+    cias: tuple
     nu: torch.Tensor
     funs: tuple = ()
-    cias: tuple = ()
 
     @classmethod
     def create(cls, *absorbers) -> "AbsorberStack":
@@ -80,7 +83,7 @@ class AbsorberStack:
             CIA.pair(c.bind(nu64, dtype=nu0.dtype, device=nu0.device)
                      if isinstance(c, CIATables) else c, realgases)
             for c in raw_cias)
-        return cls(gases=gases, nu=nu0, funs=funs, cias=cias)
+        return cls(gases, cias, nu0, funs)
 
     @property
     def n_nu(self) -> int:
@@ -114,11 +117,17 @@ class AbsorberStack:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class AcceleratedAbsorber:
-    """Per-column cached cross-sections: ln sigma on the model's own ln P grid."""
+    """Per-column cached cross-sections: ln sigma on the model's own ln P grid.
 
-    ln_sigma: torch.Tensor   # [np_col, n_nu]
+    One column caches ``ln_sigma`` [np_col, n_nu] at temperatures ``T``
+    [np_col]; a batch of columns (a sweep, :meth:`stacked`) caches
+    [..., np_col, n_nu] at [..., np_col], every column on the same pressures
+    ``lnP`` [np_col] and grid ``nu``.
+    """
+
+    ln_sigma: torch.Tensor   # [..., np_col, n_nu]
     lnP: torch.Tensor        # [np_col]
-    T: torch.Tensor          # [np_col]
+    T: torch.Tensor          # [..., np_col]
     nu: torch.Tensor
     stack: AbsorberStack
 
@@ -138,12 +147,29 @@ class AcceleratedAbsorber:
     def n_nu(self) -> int:
         return self.nu.shape[0]
 
+    @property
+    def batch_shape(self) -> tuple:
+        """The columns' batch shape: () for one column."""
+        return tuple(self.T.shape[:-1])
+
+    def stacked(self, n: int) -> "AcceleratedAbsorber":
+        """``n`` copies of a one-column cache as a batch [n, ...] (views:
+        :meth:`update` makes each column its own)."""
+        if self.batch_shape:
+            raise ValueError(f"the cache is already a batch {self.batch_shape} of columns")
+        return dataclasses.replace(self, ln_sigma=self.ln_sigma.expand(n, -1, -1),
+                                   T=self.T.expand(n, -1))
+
     def update(self, T) -> "AcceleratedAbsorber":
-        """Re-evaluate the cached cross-sections for a new temperature profile.
+        """Re-evaluate the cached cross-sections for new temperatures ``T``
+        [..., np_col]: every column of a batch in one evaluation of the
+        stack, its line sums routed as one column's
+        (:func:`..ops.linesum_strategies._column_batch`).
 
         ln sigma is floored at log(float64 tiny) where sigma is not positive.
         """
-        sig = self.stack.sigma(T, torch.exp(self.lnP))
+        with _column_batch(math.prod(T.shape[:-1])):
+            sig = self.stack.sigma(T, torch.exp(self.lnP))
         tiny = torch.finfo(sig.dtype).tiny
         ln = torch.where(sig > 0, torch.log(torch.clamp(sig, min=tiny)),
                          torch.full_like(sig, _LOG_TINY))
@@ -151,13 +177,14 @@ class AcceleratedAbsorber:
 
     def spectral_slab(self, lo: int, hi: int) -> "AcceleratedAbsorber":
         """The cache on grid points [lo, hi), with its stack's slab."""
-        return dataclasses.replace(self, ln_sigma=self.ln_sigma[:, lo:hi].contiguous(),
+        return dataclasses.replace(self, ln_sigma=self.ln_sigma[..., lo:hi].contiguous(),
                                    nu=self.nu[lo:hi], stack=self.stack.spectral_slab(lo, hi))
 
     def sigma(self, T, P):
-        """Total cross-section [..., n_nu]; T is ignored (cached)."""
-        v = interp_linear(torch.log(P), self.lnP, self.ln_sigma.movedim(0, -1))
-        return torch.exp(v.movedim(0, -1))
+        """Total cross-section [..., n_nu] at pressures ``P`` [...] (each
+        column's of a batch: [*batch, ..., n_nu]); T is ignored (cached)."""
+        v = interp_linear(torch.log(P), self.lnP, self.ln_sigma.movedim(-2, -1))
+        return torch.exp(v.movedim(len(self.batch_shape), -1))
 
 
 def unify_absorbers(absorbers):

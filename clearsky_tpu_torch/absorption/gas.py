@@ -379,7 +379,7 @@ class DirectGas(AbstractGas):
 
     lines: SpectralLines
     nu: torch.Tensor
-    plan: LineWindowPlan
+    plan: LineWindowPlan = None
     shape: str = "voigt"
     fC: Callable = None
     name: str = ""

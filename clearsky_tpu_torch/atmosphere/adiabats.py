@@ -54,24 +54,30 @@ def lapse(T, P, cp, mu):
     warmed to the dry adiabat from the point below where the profile is
     superadiabatic (dT/dP above the dry lapse rate). ``P`` may be unsorted.
 
-    A sequential sweep over a short column (about twenty cells): it runs as
-    a plain loop on the host in T's dtype, and the result goes back to T's
-    device. It keeps T's (and P's) graph, as the JAX version's scan is
-    differentiable: each point is a selection between its own value and the
-    adiabat from the point below.
+    ``T`` and ``P`` are [..., np] and broadcast together: a batch of columns
+    (a sweep's [B, np] on shared pressures) adjusts in one sweep over the np
+    points, each step a selection over every column at once, as
+    ``vmap(lapse)`` does. A sequential sweep over a short column (about
+    twenty cells): it runs as a plain loop on the host in T's dtype, and the
+    result goes back to T's device. It keeps T's (and P's) graph, as the
+    JAX version's scan is differentiable: each point is a selection between
+    its own value and the adiabat from the point below.
     """
     T = as_tensor(T)
     Th = T.cpu()
     Ph = as_tensor(P).cpu().to(Th.dtype)
-    order = torch.argsort(-Ph.detach(), stable=True)     # descending pressure
-    Ts, Ps = Th[order], Ph[order]
-    out = [Ts[0]]
-    for k in range(1, Ts.shape[0]):
-        Ti, Pi, Pj = out[-1], Ps[k - 1], Ps[k]
+    shp = torch.broadcast_shapes(Th.shape, Ph.shape)
+    Th, Ph = Th.expand(shp), Ph.expand(shp)
+    order = torch.argsort(-Ph.detach(), dim=-1, stable=True)   # descending pressure
+    Ts, Ps = torch.take_along_dim(Th, order, -1), torch.take_along_dim(Ph, order, -1)
+    out = [Ts[..., 0]]
+    for k in range(1, Ts.shape[-1]):
+        Ti, Pi, Pj = out[-1], Ps[..., k - 1], Ps[..., k]
         gamma_e = lapse_rate_dry(Ti, Pi, cp, mu)
-        gamma_p = (Ts[k] - Ti) / (Pj - Pi)
-        out.append(torch.where(gamma_p > gamma_e, Ti + gamma_e * (Pj - Pi), Ts[k]))
-    return torch.stack(out)[torch.argsort(order)].to(T.device)
+        gamma_p = (Ts[..., k] - Ti) / (Pj - Pi)
+        out.append(torch.where(gamma_p > gamma_e, Ti + gamma_e * (Pj - Pi), Ts[..., k]))
+    adjusted = torch.stack(out, dim=-1)
+    return torch.take_along_dim(adjusted, torch.argsort(order, dim=-1), -1).to(T.device)
 
 
 def _smooth_patch(P, Ptropo, smooth, Tstrat, T2, h2, T_raw):

@@ -26,7 +26,7 @@ from .models.rcm import RCM
 from .utils.device import placement
 
 __all__ = ["spectral_lines", "direct_gas", "multi_gas", "sharded_line_gas", "cia", "domain",
-           "gas", "rcm_arrays", "rcm"]
+           "gas", "rcm_arrays", "rcm", "accelerated_absorber"]
 
 
 def spectral_lines(jax_lines, dtype=None, device=None) -> SpectralLines:
@@ -205,3 +205,28 @@ def rcm(jax_rcm, *absorbers, fmu=None, fcp=None) -> RCM:
                fmu=jax_rcm.fmu if fmu is None else fmu,
                fcp=jax_rcm.fcp if fcp is None else fcp,
                core=port_core)
+
+
+def accelerated_absorber(jax_A, *absorbers) -> AcceleratedAbsorber:
+    """A JAX ``AcceleratedAbsorber``'s cache on the port as it stands (not
+    evaluated anew): one column's, or a batch of columns' (a JAX sweep's
+    ``A_b``, stacked copies whose every field has the batch axis in front;
+    their pressures and grid are one column's), so that a JAX sweep's
+    ``(T_b, A_b)`` continues in ``models.sweep.run_sweep(..., A0_b=)``.
+
+    ``absorbers`` are the port's counterparts of the JAX cache's stack
+    (refreshes evaluate them); the cache takes their dtype and device.
+    """
+    stack = unify_absorbers(absorbers)
+    t = lambda x: torch.as_tensor(x, dtype=stack.nu.dtype, device=stack.nu.device)
+    ln_sigma, T = np.array(jax_A.ln_sigma, np.float64), np.array(jax_A.T, np.float64)
+    lnP = np.array(jax_A.lnP, np.float64).reshape(-1, T.shape[-1])
+    nu = np.array(jax_A.nu, np.float64).reshape(-1, ln_sigma.shape[-1])
+    if ln_sigma.shape != T.shape + (nu.shape[-1],):
+        raise ValueError(f"a cache of ln sigma {ln_sigma.shape} at temperatures {T.shape}")
+    if not ((lnP == lnP[0]).all() and (nu == nu[0]).all()):
+        raise ValueError("the columns of a batch cache must share their pressures and grid")
+    if not torch.equal(t(nu[0]), stack.nu):
+        raise ValueError("the absorbers' grid is not the cache's")
+    return AcceleratedAbsorber(ln_sigma=t(ln_sigma), lnP=t(lnP[0]), T=t(T), nu=stack.nu,
+                               stack=stack)

@@ -58,7 +58,10 @@ class RCM:
     boundary conditions ``S_nu``/``a_nu`` [n_nu], all in the absorber's
     dtype on its device. Scalars and closures: gravity ``g``, surface heat
     capacity ``cs``, stellar zenith angle ``theta_s``, ``fmu(T, P)``,
-    ``fcp(T, P)`` and the core selector.
+    ``fcp(T, P)`` and the core selector. ``spectral_sum`` is the spectral
+    integral of :func:`heating` ([..., n_nu] -> [...]): None for the
+    trapezoid rule over the model's grid; a rank's slab of a sharded model
+    (``models.sweep.shard_sweep``) carries its weighted sum and all-reduce.
     """
 
     Pe: torch.Tensor
@@ -74,6 +77,7 @@ class RCM:
     fmu: Callable = None
     fcp: Callable = None
     core: Discretized = Discretized()
+    spectral_sum: Callable = None
 
     @classmethod
     def create(cls, Pe, Te, g, fmu, fS, fa, fcp, cs, *absorbers, core=Discretized(),
@@ -121,7 +125,15 @@ class RCM:
 
 def _mono_on_radiative_grid(rcm: RCM, T, A: AcceleratedAbsorber):
     """(tau, M_up, M_down) on the refined grid for cell temperatures T and
-    the cached absorber A."""
+    the cached absorber A.
+
+    A batch of columns on the model's levels, T [B, np] with a cache of B
+    columns or the model's one (and ``rcm.S_nu`` [n_nu] or per column [B,
+    n_nu]), gives [B, ...] of each: the closures and the cache's
+    interpolation see the whole batch, the layer quadrature is one batched
+    product and the march one launch over the columns folded into the
+    wavenumber axis (:func:`..rt.discretized.monoflux`).
+    """
     lnP = torch.log(rcm.P)
 
     def fT(P):
@@ -131,10 +143,10 @@ def _mono_on_radiative_grid(rcm: RCM, T, A: AcceleratedAbsorber):
     Pf = lobatto_pressures(rcm.Pr, core.nlobatto).reshape(-1)
     Tf = fT(Pf)
     muf = torch.broadcast_to(torch.as_tensor(rcm.fmu(Tf, Pf), dtype=Pf.dtype,
-                                             device=Pf.device), Pf.shape)
+                                             device=Pf.device), Tf.shape)
     sig = A.sigma(Tf, Pf)
     tau = layer_tau_flat(rcm.Pr, muf, sig, rcm.g, core.nlobatto)
-    B = planck(rcm.nu[None, :], fT(rcm.Pr)[:, None])
+    B = planck(rcm.nu, fT(rcm.Pr)[..., None])
     M_up, M_down = monoflux(tau, B, rcm.nu, rcm.S_nu, rcm.a_nu, rcm.theta_s, core.nstream)
     return tau, M_up, M_down
 
@@ -147,7 +159,8 @@ def _heating_operator(rcm: RCM, T):
     (difference, then integrate) keeps float32 rounding at the level of the
     differences; integrating first amplifies it ~100x (F_net is O(100)
     W/m^2, its level differences O(0.1-1)). Rows 0..np-2 are the cell
-    weights g/cp dInterp/dP, the last row the surface term 1/cs.
+    weights g/cp dInterp/dP, the last row the surface term 1/cs; for a
+    batch of columns T [B, np] and a cp that depends on T, [B, np, nr].
     """
     lnPe, lnPr = torch.log(rcm.Pe), torch.log(rcm.Pr)
     nr = rcm.Pr.shape[0]
@@ -159,11 +172,11 @@ def _heating_operator(rcm: RCM, T):
     W.index_add_(0, rows * nr + i, -(1.0 - t))        # R = -interp
     W.index_add_(0, rows * nr + i + 1, -t)
     W = W.view(npe, nr)
-    cp = torch.as_tensor(rcm.fcp(T[:-1], rcm.P[:-1]), dtype=W.dtype, device=W.device)
+    cp = torch.as_tensor(rcm.fcp(T[..., :-1], rcm.P[:-1]), dtype=W.dtype, device=W.device)
     dP = rcm.Pe[1:] - rcm.Pe[:-1]
-    Gc = (W[:-1] - W[1:]) * ((rcm.g / cp) / dP)[:, None]
-    Gs = W[-1:] / rcm.cs
-    return torch.cat([Gc, Gs])
+    Gc = (W[:-1] - W[1:]) * ((rcm.g / cp) / dP)[..., None]
+    Gs = torch.broadcast_to(W[-1:] / rcm.cs, Gc.shape[:-2] + (1, nr))
+    return torch.cat([Gc, Gs], dim=-2)
 
 
 def heating(rcm: RCM, T=None, A: AcceleratedAbsorber | None = None, spectral_sum=None):
@@ -173,15 +186,18 @@ def heating(rcm: RCM, T=None, A: AcceleratedAbsorber | None = None, spectral_sum
     Radiates on the refined grid, applies the interpolate/difference/scale
     operator to the net flux per wavenumber, then integrates over the
     spectrum: the trapezoid rule, or ``spectral_sum`` (a map of
-    [..., n_nu] -> [...], the JAX package's hook for a sharded sum).
+    [..., n_nu] -> [...], the JAX package's hook for a sharded sum; by
+    default the model's own, ``rcm.spectral_sum``). ``T`` [B, np] heats a
+    batch of columns at once ([B, np]; :func:`_mono_on_radiative_grid`).
     """
     T = rcm.T if T is None else T
     A = rcm.A if A is None else A
+    spectral_sum = rcm.spectral_sum if spectral_sum is None else spectral_sum
     _, M_up, M_down = _mono_on_radiative_grid(rcm, T, A)
     # full float32, as the JAX package's Precision.HIGHEST: TF32 would round
     # the per-nu net flux that the level differences cancel (trap C5)
     with full_float32():
-        dH = torch.matmul(_heating_operator(rcm, T), M_up - M_down)   # [np, n_nu]
+        dH = torch.matmul(_heating_operator(rcm, T), M_up - M_down)   # [..., np, n_nu]
     if spectral_sum is None:
         return trapz(rcm.nu, dH, axis=-1)
     return spectral_sum(dH)

@@ -439,7 +439,7 @@ def grid_blocks(nu_blocks64, dtype, device):
 
 
 def sigma_from_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt",
-                     conc=None):
+                     batch_blocks: int = 4, conc=None):
     """Cross-sections sigma[..., n_nu] [cm^2/molecule]: the plain version.
 
     ``T``, ``P``, ``Pp`` (temperature [K], pressure and partial pressure
@@ -447,7 +447,13 @@ def sigma_from_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt"
     its device; ``conc`` optional per-line concentrations
     (:func:`_line_params`). The exact profile of ``shape`` over each block's
     window within ``plan.cut`` (:func:`block_sum`; two-float dnu in float32).
+    ``batch_blocks`` is the JAX package's ``lax.map`` batch size and changes
+    nothing here: :func:`block_sum` sizes its own batches of blocks. It must
+    be an int, so that concentrations passed in its place raise.
     """
+    if isinstance(batch_blocks, bool) or not isinstance(batch_blocks, int):
+        raise TypeError(f"batch_blocks must be an int, not {type(batch_blocks).__name__} "
+                        "(pass the concentrations as conc=)")
     # one batch shape for all three: T sets S and alpha, P and Pp set gamma
     S, alpha, gamma = torch.broadcast_tensors(*_line_params(lines, T, P, Pp, conc))
     nb, nb_lo = grid_blocks(plan.nu_blocks, S.dtype, S.device)
@@ -571,7 +577,7 @@ def sigma_from_lines_auto(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "v
 
     check_strategy(strategy)
     if not twin.kernel_path(T):
-        return sigma_from_lines(plan, lines, T, P, P if Pp is None else Pp, shape, conc)
+        return sigma_from_lines(plan, lines, T, P, P if Pp is None else Pp, shape, conc=conc)
     from .linesum_cuda import sigma_routed
 
     shp, Tf, Pf, Ppf, concf = _flatten_states(T, P, Pp, conc, lines.n_lines)

@@ -102,6 +102,7 @@ from .linesum_strategies import (
     far_from_coarse,
     masked_alpha_max,
     resident_budget,
+    routing_states,
     split_zones,
     strided_interp,
     segments,
@@ -836,7 +837,7 @@ def sigma_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", con
     :func:`sigma_from_lines`.
     """
     if T.device.type == "cpu":
-        return sigma_from_lines(plan, lines, T, P, Pp, shape, conc)
+        return sigma_from_lines(plan, lines, T, P, Pp, shape, conc=conc)
     return _prepare(plan, lines, T, P, Pp, shape, conc)()
 
 
@@ -1289,7 +1290,7 @@ def sigma_routed(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt",
         twin.refuse_derivatives(f"lines.{f}", getattr(lines, f))
     return twin.with_twin(
         lambda *x: _routed_launch(plan, lines, *x, shape, strategy, resident_limit),
-        lambda T, P, Pp, conc: sigma_from_lines(plan, lines, T, P, Pp, shape, conc),
+        lambda T, P, Pp, conc: sigma_from_lines(plan, lines, T, P, Pp, shape, conc=conc),
         T, P, Pp, conc)
 
 
@@ -1297,7 +1298,8 @@ def _routed_launch(plan: LineWindowPlan, lines, T, P, Pp, conc, shape, strategy,
                    resident_limit):
     """:func:`sigma_routed`'s primal: the route's kernels (its plain
     versions for CPU tensors)."""
-    name, param = _resolve(plan, lines, shape, strategy, T.shape[0], resident_limit)
+    name, param = _resolve(plan, lines, shape, strategy, routing_states(T.shape[0]),
+                           resident_limit)
     if name == "coarse":
         return sigma_coarse(plan, lines, T, P, Pp, param, conc, shape)
     if name == "stencil":
@@ -1382,7 +1384,7 @@ def _device_launch(dplan: DeviceWindowPlan, lines, T, P, Pp, conc, shape, strate
     n = T.shape[0]
     if n == 0:
         return torch.zeros((0, k * dplan.n_nu), dtype=torch.float32, device=T.device)
-    name = device_route(dplan, L, shape, strategy, n, resident_budget(T.device))
+    name = device_route(dplan, L, shape, strategy, routing_states(n), resident_budget(T.device))
     if name in ("lane", "gathered"):
         run = sigma_lane if name == "lane" else sigma_gathered
         return torch.cat([run(dplan.shard(s).host_plan(), shard_lines(lines, s), T, P, Pp, shape,

@@ -51,6 +51,8 @@ branches for traced catalogs (torch has no tracers).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import types
 import weakref
@@ -83,6 +85,7 @@ __all__ = [
     "STRATEGIES",
     "check_strategy",
     "resident_budget",
+    "routing_states",
     "route",
     "segments",
     "lane_layout",
@@ -136,6 +139,34 @@ def check_strategy(strategy: str) -> None:
     """Raise unless the port has the line-sum strategy ``strategy``."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown line-sum strategy {strategy!r} (have {STRATEGIES})")
+
+
+_COLUMNS = contextvars.ContextVar("line_sum_columns", default=None)
+
+
+@contextlib.contextmanager
+def _column_batch(n_columns: int):
+    """Route the line sums inside as one column's: their states are
+    ``n_columns`` columns flattened into one batch (a batched absorber
+    refresh, ``AcceleratedAbsorber.update``), and the route gates read one
+    column's share of them (:func:`routing_states`), as the JAX package's
+    gates see one column under ``vmap``. The route's kernels then run over
+    every state at once. Scopes do not nest."""
+    if n_columns < 1:
+        raise ValueError(f"a batch of {n_columns} columns")
+    if _COLUMNS.get() is not None:
+        raise RuntimeError("a batch of columns is already being routed")
+    tok = _COLUMNS.set(int(n_columns))
+    try:
+        yield
+    finally:
+        _COLUMNS.reset(tok)
+
+
+def routing_states(n_states: int) -> int:
+    """The state count the route gates read for a line sum of ``n_states``
+    states: one column's inside :func:`_column_batch`, else all of them."""
+    return -(-int(n_states) // (_COLUMNS.get() or 1))
 
 
 def _coarse_far_params(plan: LineWindowPlan, frac_limit: float = EXPLICIT_COARSE_FRAC):

@@ -65,16 +65,15 @@ def shard_lbl(tree, n_shards: int):
 
 
 def _local(mesh: SpectralMesh, rcm):
-    """This rank's slab of the model and of the global trapezoid weights."""
+    """This rank's slab of the model, carrying its spectral sum
+    ([..., n_slab] -> [...]: the weighted sum of the slab with its slice of
+    the global trapezoid weights, added over the ranks)."""
     n_nu = rcm.nu.shape[0]
     lo, hi = mesh.slab(n_nu)
     rcm_s = shard_spectral(shard_lbl(rcm, mesh.n_shards), mesh, n_nu)
-    return rcm_s, trapz_weights(rcm.nu)[lo:hi]
-
-
-def _spectral_sum(mesh: SpectralMesh, w):
-    """[..., n_slab] -> [...]: the weighted sum of the slab, added over the ranks."""
-    return lambda y: spectral_all_reduce((y * w).sum(dim=-1), mesh)
+    w = trapz_weights(rcm.nu)[lo:hi]
+    return dataclasses.replace(
+        rcm_s, spectral_sum=lambda y: spectral_all_reduce((y * w).sum(dim=-1), mesh))
 
 
 def sharded_radiate(mesh: SpectralMesh, rcm) -> FluxPack:
@@ -82,9 +81,9 @@ def sharded_radiate(mesh: SpectralMesh, rcm) -> FluxPack:
     mesh: ``tau``, ``M_up``, ``M_down`` of this rank's slab, and the
     spectral integrals ``F_up``, ``F_down``, ``F_net`` of the whole grid
     (one all-reduce for both). Needs n_nu divisible by the shard count."""
-    rcm_s, w = _local(mesh, rcm)
+    rcm_s = _local(mesh, rcm)
     tau, M_up, M_down = rcm_mod._mono_on_radiative_grid(rcm_s, rcm_s.T, rcm_s.A)
-    F_up, F_down = _spectral_sum(mesh, w)(torch.stack([M_up, M_down]))
+    F_up, F_down = rcm_s.spectral_sum(torch.stack([M_up, M_down]))
     return FluxPack(tau, M_up, M_down, F_up, F_down, F_up - F_down)
 
 
@@ -94,11 +93,10 @@ def make_sharded_heating(mesh: SpectralMesh, rcm):
     collective is one all-reduce of the weighted spectral sums. ``A`` is the
     rank's slab of the absorber cache (by default the model's);
     ``f.rcm_sharded`` is the rank's slab of the model."""
-    rcm_s, w = _local(mesh, rcm)
-    spectral_sum = _spectral_sum(mesh, w)
+    rcm_s = _local(mesh, rcm)
 
     def heating_fn(T, A=None):
-        return rcm_mod.heating(rcm_s, T, rcm_s.A if A is None else A, spectral_sum=spectral_sum)
+        return rcm_mod.heating(rcm_s, T, rcm_s.A if A is None else A)
 
     heating_fn.rcm_sharded = rcm_s
     return heating_fn
@@ -110,13 +108,12 @@ def make_sharded_step(mesh: SpectralMesh, rcm, dt, update_every: int = 0):
     multiple of ``update_every``, the rank's absorber cache refreshed at the
     new temperatures interpolated to the edges (per wavenumber: no
     communication)."""
-    rcm_s, w = _local(mesh, rcm)
-    spectral_sum = _spectral_sum(mesh, w)
+    rcm_s = _local(mesh, rcm)
     lnPe, lnP = torch.log(rcm.Pe), torch.log(rcm.P)
 
     def step_fn(T, A=None, i=0):
         A = rcm_s.A if A is None else A
-        T = T + dt * rcm_mod.heating(rcm_s, T, A, spectral_sum=spectral_sum)
+        T = T + dt * rcm_mod.heating(rcm_s, T, A)
         if update_every and (i + 1) % update_every == 0:
             A = A.update(interp_linear(lnPe, lnP, T))
         return T, A

@@ -110,26 +110,37 @@ def path_tau(P, Tn, mun, sigman, g, m, nlobatto: int):
 
 
 def layer_tau_flat(P, muf, sig_flat, g, nlobatto: int, floor: bool = False):
-    """Per-layer tau[np-1, n_nu] from flat node cross-sections [np-1 * nlobatto, n_nu].
+    """Per-layer tau[..., np-1, n_nu] from flat node cross-sections
+    [..., np-1 * nlobatto, n_nu].
 
     The Lobatto reduction (dP, node weight, 1e-4 Na/g, 1/mu) as one batched
     product over the layers, [L, 1, k] x [L, k, n_nu], linear in the layer
     count (the JAX package's block-diagonal product grows with its square:
     ``tools/tau_probe.py`` times both); ``muf`` is the flat per-node molar
-    mass. The product runs in full float32 (:func:`..utils.interp.full_float32`),
-    as the JAX package pins it at ``Precision.HIGHEST``: TF32 would round
-    sigma to a 10-bit mantissa. Floorless unless ``floor`` (then at
-    :data:`TAU_MIN`): the march's series branch handles tau -> 0 exactly.
+    mass [..., np-1 * nlobatto]. Leading dimensions of either (a batch of
+    columns on the same levels ``P``) fold into the product's batch: one
+    product for every column's layers. The product runs in full float32
+    (:func:`..utils.interp.full_float32`), as the JAX package pins it at
+    ``Precision.HIGHEST``: TF32 would round sigma to a 10-bit mantissa.
+    Floorless unless ``floor`` (then at :data:`TAU_MIN`): the march's series
+    branch handles tau -> 0 exactly.
     """
     L = P.shape[0] - 1
     k = nlobatto
     _, w = lobatto_unit_nodes(k)
     dt, dev = sig_flat.dtype, sig_flat.device
+    muf = torch.as_tensor(muf)
+    batch = torch.broadcast_shapes(sig_flat.shape[:-2], muf.shape[:-1])
+    n_nu = sig_flat.shape[-1]
     dP = (P[1:] - P[:-1]).to(dt)
     c = dP[:, None] * torch.as_tensor(w, dtype=dt, device=dev)[None, :]
-    c = c * ((1e-4 * N_AVOGADRO / g) / muf).to(dt).reshape(L, k)
+    c = torch.broadcast_to(
+        c * ((1e-4 * N_AVOGADRO / g) / muf).to(dt).reshape(muf.shape[:-1] + (L, k)),
+        batch + (L, k))
+    sig = torch.broadcast_to(sig_flat, batch + sig_flat.shape[-2:])
     with full_float32():
-        tau = torch.bmm(c[:, None, :], sig_flat.reshape(L, k, -1))[:, 0]
+        tau = torch.bmm(c.reshape(-1, 1, k), sig.reshape(-1, k, n_nu))[:, 0]
+    tau = tau.reshape(batch + (L, n_nu))
     return torch.clamp(tau, min=TAU_MIN) if floor else tau
 
 
@@ -236,9 +247,29 @@ def monoflux(tau, B, nu, S_nu, albedo_nu, theta_s: float, nstream: int):
     tau [L, n_nu] floorless layer optical depth; B [np, n_nu] level Planck
     (index 0 = top, -1 = surface); S_nu [n_nu] stellar flux at the top;
     albedo_nu [n_nu] surface albedo; theta_s stellar zenith angle [rad].
+
+    A batch of columns, tau [..., L, n_nu] and B [..., np, n_nu] with S_nu
+    and albedo_nu [n_nu] or per column [..., n_nu], is folded into the
+    wavenumber axis, as the JAX package's lane-fold rule does under ``vmap``
+    (the march is per point): one march over [L, columns x n_nu], unfolded
+    to [..., np, n_nu].
     """
     m, W = stream_nodes(nstream)
-    return monoflux_march(tau, B, S_nu, albedo_nu, math.cos(theta_s), m, W)
+    ctheta = math.cos(theta_s)
+    if tau.dim() == 2:
+        return monoflux_march(tau, B, S_nu, albedo_nu, ctheta, m, W)
+    batch, (L, N) = tau.shape[:-2], tau.shape[-2:]
+    nb = math.prod(batch)
+
+    def fold(x, rows):
+        x = torch.broadcast_to(x, batch + (rows, N)).reshape(nb, rows, N)
+        return x.transpose(0, 1).reshape(rows, nb * N)
+
+    spectral = lambda x: torch.broadcast_to(x, batch + (N,)).reshape(nb * N)
+    M_up, M_down = monoflux_march(fold(tau, L), fold(B, L + 1), spectral(S_nu),
+                                  spectral(albedo_nu), ctheta, m, W)
+    unfold = lambda x: x.view(L + 1, nb, N).transpose(0, 1).reshape(batch + (L + 1, N))
+    return unfold(M_up), unfold(M_down)
 
 
 def outgoing_flux(tau, B, nstream: int, vertical: bool = False):

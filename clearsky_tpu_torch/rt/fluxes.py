@@ -208,7 +208,18 @@ def optical_depth(P, g, T, mu, theta, *absorbers, nlobatto: int = 4, nlevels: in
 
 
 def transmittance(*args, **kwargs):
-    """exp(-optical_depth(...)) [n_nu]."""
+    """exp(-optical_depth(...)) [n_nu].
+
+    A line-by-line gas's optical depth takes the JAX package's route
+    (``ops.linesum_strategies.route``), and on a dense grid "auto" takes the
+    coarse-far split, which bounds its error against the peak cross-section
+    (about 1e-5 of it), not below it: where tau ~ 1 lies many decades under
+    tau's peak the transmittance there carries that error (1.87e-2 at worst
+    on a 2^19-point CO2 column whose tau peaks at 2.2e8, in float32 on an
+    NVIDIA H100 80GB HBM3 at 700 W, the same in the plain float32 route as
+    in the kernels). A caller who needs tau ~ 1
+    exactly builds the gas with ``strategy="grouped"`` (the exact line sum).
+    """
     return torch.exp(-optical_depth(*args, **kwargs))
 
 

@@ -39,6 +39,15 @@ __all__ = ["table_olr_fused", "table_monoflux_fused", "fused_table_applicable",
 # the layer bound of the fused route (clearsky_tpu/rt/march_pallas.py
 # MAX_LAYERS); K6/K7 keep each point's layer tau in shared memory
 MAX_LAYERS = 128
+# the JAX package's lane block of its fused kernels; K6/K7 tile their own
+# points (csrc/fused_table.cu), so the argument changes nothing here
+BLOCK_N = 1024
+
+
+def _no_interpret(interpret: bool):
+    if interpret:
+        raise ValueError("interpret=True runs the JAX package's Pallas kernels in interpret "
+                         "mode; the port has no interpret mode")
 
 
 def fused_table_applicable(A) -> bool:
@@ -132,21 +141,27 @@ def _column_operands(gas, P, g, fT, fmu, nlobatto):
     return bl, bt, wq, B
 
 
-def table_olr_fused(gas, P, g, fT, fmu, nlobatto: int = 3, nstream: int = 5):
+def table_olr_fused(gas, P, g, fT, fmu, nlobatto: int = 3, nstream: int = 5,
+                    interpret: bool = False, block_n: int = BLOCK_N):
     """Outgoing flux [n_nu] of a split-precision table gas through K6.
 
     Same contract as ``outgoing`` for a single-gas absorber: P [np] the
     ascending level pressures (a tensor on the gas's device), fT(P) and
-    fmu(T, P) the profiles.
+    fmu(T, P) the profiles. ``interpret=True`` raises (no interpret mode);
+    ``block_n`` is accepted and changes nothing (:data:`BLOCK_N`).
     """
+    _no_interpret(interpret)
     bl, bt, wq, B = _column_operands(gas, P, g, fT, fmu, nlobatto)
     return fused_olr(gas.coeffs, gas.coeffs_tail, bl, bt, wq, B, *stream_nodes(nstream))
 
 
 def table_monoflux_fused(gas, P, g, fT, fmu, S_nu, albedo_nu, theta_s,
-                         nlobatto: int = 3, nstream: int = 5):
+                         nlobatto: int = 3, nstream: int = 5, interpret: bool = False,
+                         block_n: int = BLOCK_N):
     """(M_up, M_down, tau) of a split-precision table gas through K7
-    (``monochromatic_fluxes`` semantics)."""
+    (``monochromatic_fluxes`` semantics); ``interpret`` and ``block_n`` as
+    :func:`table_olr_fused`'s."""
+    _no_interpret(interpret)
     bl, bt, wq, B = _column_operands(gas, P, g, fT, fmu, nlobatto)
     return fused_monoflux(gas.coeffs, gas.coeffs_tail, bl, bt, wq, B, S_nu, albedo_nu,
                           math.cos(theta_s), *stream_nodes(nstream))

@@ -13,6 +13,8 @@ a synthetic 200-line CO2 catalog at 2^10 points: rtol 1e-10. The RCM with
 ``march_kernel_mode`` and the root's public names.
 """
 
+import dataclasses
+import inspect
 import math
 import types
 
@@ -52,9 +54,6 @@ DOMAIN = ((150.0, 350.0), 12, (0.9 * PT, 1.01 * PS), 24)
 # names of the JAX root with no counterpart at the port's root; the list may
 # only shrink
 MISSING = {
-    "batched_heating": "models/sweep.py, ROADMAP A8 (the sweeps)",
-    "run_sweep": "models/sweep.py, ROADMAP A8 (the sweeps)",
-    "shard_sweep": "models/sweep.py, ROADMAP A8 (the sweeps)",
     "march_gspmd": "XLA partitioning of a pallas_call; no counterpart by design",
 }
 # exported, but raising until ROADMAP A6
@@ -460,3 +459,101 @@ def test_public_names():
     for name in RAISING:
         with pytest.raises(NotImplementedError, match="A6"):
             ct.outgoing(col, G, 250.0, MU, gas, core=getattr(ct, name)())
+
+
+def _same_default(a, b) -> bool:
+    """Equal defaults: dataclass instances by type name and fields (each
+    package has its own classes), NaN equal to NaN, else ``==``."""
+    if dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b):
+        return type(a).__name__ == type(b).__name__ and dataclasses.asdict(a) == dataclasses.asdict(b)
+    if isinstance(a, float) and isinstance(b, float) and math.isnan(a) and math.isnan(b):
+        return True
+    try:
+        return bool(a == b)
+    except (TypeError, ValueError, RuntimeError):
+        return False
+
+
+def _signature_gaps(jfn, tfn) -> list:
+    """Where a call written for ``jfn`` could fail on ``tfn``: a positional
+    parameter of another name or missing, a keyword or variadic parameter
+    missing, a default missing or different, or a parameter the port adds
+    without a default."""
+    E = inspect.Parameter.empty
+    positional = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    js, ts = inspect.signature(jfn), inspect.signature(tfn)
+    tp = list(ts.parameters.values())
+    kinds = {q.kind for q in tp}
+    gaps = []
+    for i, p in enumerate(js.parameters.values()):
+        if p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD):
+            if p.kind not in kinds:
+                gaps.append(f"no {p}")
+            continue
+        if p.kind in positional:
+            q = tp[i] if i < len(tp) and tp[i].kind in positional else None
+            if q is None or q.name != p.name:
+                gaps.append(f"positional {i} is {p.name!r}, not {q and q.name!r}")
+                continue
+        else:
+            q = ts.parameters.get(p.name)
+            if q is None:
+                if inspect.Parameter.VAR_KEYWORD not in kinds:
+                    gaps.append(f"no keyword {p.name!r}")
+                continue
+        if p.default is not E and (q.default is E or not _same_default(p.default, q.default)):
+            gaps.append(f"{p.name}={q.default!r}, JAX {p.default!r}")
+    names = set(js.parameters)
+    gaps += [f"{q.name!r} added without a default" for q in tp
+             if q.name not in names and q.default is E
+             and q.kind not in (q.VAR_POSITIONAL, q.VAR_KEYWORD)]
+    return gaps
+
+
+def test_public_signatures_take_jax_calls():
+    """Every function and class both roots export takes the JAX package's
+    calls: its parameter names (positional ones in JAX's order) and its
+    defaults, where the port's may only be more permissive (more optional
+    parameters, a default where JAX has none)."""
+    checked = 0
+    for name in sorted(set(dir(jpkg)) & set(dir(ct))):
+        a, b = getattr(jpkg, name), getattr(ct, name)
+        if name.startswith("_") or isinstance(a, types.ModuleType) or not callable(a):
+            continue
+        assert _signature_gaps(a, b) == [], name
+        checked += 1
+    assert checked > 100
+
+
+def test_fused_table_refuses_interpret():
+    """JAX's ``interpret=True`` has no counterpart: it raises before any work."""
+    for fn, args in ((ct.table_olr_fused, (None, None, G, None, None)),
+                     (ct.table_monoflux_fused, (None, None, G, None, None, None, None, 0.5))):
+        with pytest.raises(ValueError, match="interpret"):
+            fn(*args, interpret=True)
+
+
+def test_sigma_from_lines_refuses_conc_in_batch_blocks_place(col):
+    """``batch_blocks`` stands where ``conc`` stood: concentrations passed
+    positionally raise instead of being dropped; an int changes nothing."""
+    from clearsky_tpu_torch.ops.linesum import sigma_from_lines
+
+    gas = col["gases"]["direct"][1]
+    T, P = _t(np.array([200.0, 280.0])), _t(np.array([1e3, 1e5]))
+    conc = torch.full((T.shape[0], gas.lines.n_lines), CONC, **CPU64)
+    with pytest.raises(TypeError, match="batch_blocks"):
+        sigma_from_lines(gas.plan, gas.lines, T, P, P, "voigt", conc)
+    want = sigma_from_lines(gas.plan, gas.lines, T, P, P, "voigt", conc=conc)
+    assert torch.equal(sigma_from_lines(gas.plan, gas.lines, T, P, P, "voigt", 16, conc), want)
+
+
+def test_absorber_stack_positional_matches_jax():
+    """JAX's field order: (gases, cias, nu, funs=())."""
+    nu = np.linspace(10.0, 2000.0, 64)
+    jstack = jpkg.AbsorberStack((JGrayGas.create(2e-27, nu),), (), jnp.asarray(nu))
+    tstack = ct.AbsorberStack((ct.GrayGas.create(2e-27, nu, **CPU64),), (), _t(nu))
+    assert tstack.funs == () and tstack.n_nu == 64 and tstack.cias == ()
+    T, P = np.array([200.0, 250.0, 300.0]), np.array([1e2, 1e4, 1e5])
+    _close(tstack.sigma(_t(T), _t(P)), jstack.sigma(jnp.asarray(T), jnp.asarray(P)), 1e-14)
+    assert [f.name for f in dataclasses.fields(ct.AbsorberStack)] == \
+        [f.name for f in dataclasses.fields(jpkg.AbsorberStack)]

@@ -1920,3 +1920,81 @@ def test_k1_dev_rejects_bad_inputs(sharded_cats, cuda):
     with pytest.raises(RuntimeError, match="derivative"):
         linesum_cuda._device_launch(s32.plans, s32.lines, T.requires_grad_(), P, Pp, None,
                                     "voigt", "grouped")
+
+
+# --- the batched sweeps: a batch's refresh and march against its columns' -----
+
+# route: (strategy, points, byte budget); at the budget one column's 20 edge
+# states take the route, the batch's 160, routed by their own count, another
+SWEEP_ROUTES = {"stencil": ("auto", 16384, 2_000_000), "coarse": ("coarse", 65536, 2_000_000),
+                "grouped": ("grouped", 16384, 2_000_000),
+                "segmented": ("grouped", 16384, 1_000_000)}
+SWEEP_COLUMNS, SWEEP_EDGES = 8, 20
+
+
+def _k1_counts():
+    return dict(sigma_lines.launches_by_mode, correction=stencil_correction.launches)
+
+
+def _counted(fn):
+    before = _k1_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in _k1_counts().items() if v != before[k]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(SWEEP_ROUTES))
+def test_batched_refresh_matches_its_columns(cuda, route, monkeypatch):
+    """A refresh of 8 columns (AcceleratedAbsorber.update on [8, 20]) takes
+    one column's route and K1 modes, each launched once for all 160 states,
+    and gives each column's refresh within 2e-5 of each state's peak (both
+    float32, summed in other orders: the batch's launch plan is not one
+    column's)."""
+    strategy, n_nu, budget = SWEEP_ROUTES[route]
+    monkeypatch.setattr(ls, "resident_budget", lambda device, limit=None: budget)
+    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(2000, seed=23),
+                                           dtype=torch.float32, device=cuda)
+    pos = lines.positions64()
+    gas = ct.DirectGas.from_lines(lines, 0.9, np.linspace(pos.min() - 25.0, pos.max() + 25.0,
+                                                          n_nu), strategy=strategy)
+    one = ls._resolve(gas.plan, lines, "voigt", strategy, SWEEP_EDGES)
+    assert one[0] == route
+    assert ls._resolve(gas.plan, lines, "voigt", strategy, SWEEP_COLUMNS * SWEEP_EDGES) != one
+    Pe = ct.pressuregrid(10.0, 1e5, SWEEP_EDGES)
+    Te = np.maximum(288.0 * (Pe / 1e5) ** 0.2, 160.0)
+    A = ct.AcceleratedAbsorber.create(Te, Pe, gas)
+    Te_b = torch.tensor(np.stack([Te * (1.0 + 0.01 * b) for b in range(SWEEP_COLUMNS)]),
+                        dtype=torch.float32, device=cuda)
+    batch, n_batch = _counted(lambda: A.stacked(SWEEP_COLUMNS).update(Te_b))
+    for b in range(SWEEP_COLUMNS):
+        col, n_col = _counted(lambda: A.update(Te_b[b]))
+        assert n_batch == n_col and n_col
+        assert _of_peak(torch.exp(batch.ln_sigma[b]), torch.exp(col.ln_sigma).double().cpu()) < 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cols", [8, 64])
+def test_folded_march_matches_its_columns(cuda, n_cols):
+    """K3 over columns folded into the lanes (``discretized.monoflux`` on
+    [B, L, N]) in one launch, against K3 column by column: bit for bit in
+    the columns' own layout (8 x 4,096 points, spread), within 3.5e-6 of
+    peak in the other (64 x 4,096, a thread a point)."""
+    L, N = 38, 4096
+    cols = [_column(L, N, seed=b) for b in range(n_cols)]
+    tau, B, S, alb = (torch.tensor(np.stack(x), dtype=torch.float32, device=cuda)
+                      for x in zip(*cols))
+    nu = torch.linspace(100.0, 2000.0, N, dtype=torch.float32, device=cuda)
+    spread = march_cuda.march_plan("monoflux", L, n_cols * N, 5)["spread"]
+    assert spread == (n_cols * N < march_cuda.SMS * march_cuda.SPREAD_BELOW) == (n_cols == 8)
+    before = monoflux_march.launches
+    up, dn = td.monoflux(tau, B, nu, S, alb, 0.841, 5)
+    torch.cuda.synchronize()
+    assert monoflux_march.launches == before + 1 and up.shape == (n_cols, L + 1, N)
+    m, W = stream_nodes(5)
+    for b in range(n_cols):
+        up1, dn1 = monoflux_march(tau[b], B[b], S[b], alb[b], CTHETA, m, W)
+        if spread:
+            assert torch.equal(up[b], up1) and torch.equal(dn[b], dn1)
+        for got, want in ((up[b], up1), (dn[b], dn1)):
+            assert float((got - want).abs().max() / want.abs().max()) < 3.5e-6

@@ -360,12 +360,14 @@ def _rank_main(rank, world, url, out_dir, n_shards, n_batch):
         torch.distributed.destroy_process_group()
 
 
-def _spawn(world, n_shards, n_batch, out_dir):
-    """Run ``world`` ranks; each one and the whole run within the timeout,
-    a hung rank killed and the test failed."""
+def _spawn(world, n_shards, n_batch, out_dir, target=None):
+    """Run ``world`` ranks of ``target`` (by default :func:`_rank_main`,
+    called with the same arguments); each one and the whole run within the
+    timeout, a hung rank killed and the test failed."""
     ctx = mp.get_context("spawn")
     url = f"tcp://127.0.0.1:{_free_port()}"
-    procs = [ctx.Process(target=_rank_main, args=(r, world, url, str(out_dir), n_shards, n_batch))
+    procs = [ctx.Process(target=target or _rank_main,
+                         args=(r, world, url, str(out_dir), n_shards, n_batch))
              for r in range(world)]
     for p in procs:
         p.start()
