@@ -49,8 +49,8 @@ prints one line that starts with its name:
           the coarse route's fine pass runs in the kernel)
   counts  the kernels' launch counts over each part of the main path:
           ``main`` (the calls above), ``rcm`` (RCM.create and
-          3 x (update_absorber, step) at 16,384 points), ``api``, ``mix``,
-          ``rce``, ``sweep``, ``sharded``
+          3 x (update_absorber, step) at 16,384 points), ``api``, ``radau``,
+          ``radau_rcm``, ``mix``, ``rce``, ``sweep``, ``sharded``
   rcm     milliseconds of each of those steps (the first one cold), and
           the heating of the last state against the plain float64 version
   jacobian  jacobian(mode="fwd") on that RCM with the cross-sections frozen
@@ -103,6 +103,25 @@ prints one line that starts with its name:
           table's split Gas through save_gas/load_gas (K6 outgoing bit for
           bit); annualfluxfactors in float32 on the card against float64
           (1e-6)
+  radau   the adaptive Radau core (core=Radau(), tol 1e-5) on the main
+          column: outgoing, radiate and optical_depth through the entry
+          points, each building its column cache (one line sum of 256 states
+          spaced in sqrt P) and launching csrc/radau.cu once a leg (emission
+          3, depth 2; only line-sum kernels beside it); every launch
+          (``radau_launch`` lines) against the plain float32 engine on the
+          same lanes on the card and the plain float64 engine on every 64th
+          wavenumber (within 100 x each lane's error scale atol + rtol |y|,
+          the sampled band OLR within 1e-4 of float64's;
+          the share of lanes whose accepted steps match, attempts mean and
+          max, warp efficiency);
+          ``kernel`` lines of both right-hand sides at the main shape
+          (outgoing's 5 x 2^19 lanes, optical_depth's 2^19: kernel ms, plain
+          float32 ms, the bound from this run's attempts, registers); band
+          OLR against RadauEq(8) and Discretized (no bar); each call's wall,
+          device and kernel ms and peak memory; then an RCM on Radau() at
+          16,384 points (create, update_absorber, two steps): launches,
+          finite temperatures and heating, ms and profile (its heating
+          against float64 is a card test's: ~104 s of plain engine here)
   mix     HITRAN files at full-catalog size: co2.par (40,000 synthetic CO2
           lines), h2o.par (20,000 H2O lines) and CO2-CO2.cia, written from
           the seed and read back by the port's readers; the MultiGas (CO2 at
@@ -269,6 +288,10 @@ KERNELS = {
     "linesum_dev_phco2": (_LINESUM, f"{_PALLAS}:1705"),
     "linesum_dev_phco2_fine": (_LINESUM, f"{_PALLAS}:1705"),
     "linesum_dev_phco2_coarse": (_LINESUM, f"{_PALLAS}:1705"),
+    # the adaptive Radau core: no pallas_call; the XLA while_loop of
+    # radau_scalar on rt/radau.py's _rhs_emission (:111) and _rhs_depth (:126)
+    "radau_emission": ("clearsky_tpu_torch/csrc/radau.cu", "clearsky_tpu/utils/radau.py:301"),
+    "radau_depth": ("clearsky_tpu_torch/csrc/radau.cu", "clearsky_tpu/utils/radau.py:301"),
 }
 # K1's template modes (csrc/linesum.cu ``Mode``) by the kernel names above
 MODE_KERNEL = {"voigt_split": "linesum", "farall": "linesum_farall", "fine": "linesum_fine",
@@ -287,14 +310,13 @@ MODE_KERNEL = {"voigt_split": "linesum", "farall": "linesum_farall", "fine": "li
 # the phco2 instances of the unsharded paths (K1-dev's run on the sharded one)
 PHCO2_KERNELS = {k for k in KERNELS if "phco2" in k and "_dev" not in k}
 DEV_KERNELS = {k for k in KERNELS if "_dev" in k}
-LIBRARIES = ("linesum", "march", "fused_table")
+LIBRARIES = ("linesum", "march", "fused_table", "radau")
 TABLE_DOMAIN = ((150.0, 350.0), 12, (0.9 * PT, 1.01 * PS), 24)
 TABLE_SPLIT = 16
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W), and
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): FP32
+# and memory from utils.profiling.CHIP_PEAKS["h100"] (:func:`bound`), and
 # its special-function units: 16 results (an exp2, a reciprocal) per SM and
 # clock, 132 SMs at the 1,980 MHz boost clock
-HBM_BYTES_S = 3.35e12
-FP32_OPS_S = 67e12
 BF16_TC_OPS_S = 989e12   # dense bfloat16 on the tensor cores, float32 accumulation
 MUFU_S = 16 * 132 * 1.98e9
 # FP32 operations counted in csrc/linesum.cu, a division as one: per
@@ -409,8 +431,11 @@ def bound(ops: float, nbytes: float, exps: float = 0.0, tensor_ops: float = 0.0)
     rate, its bfloat16 tensor-core operations at the dense tensor rate and
     its bytes (each input read once, each output written once) at its
     memory rate; ``bound_unit`` says which (fp32, sfu, tensor, hbm)."""
-    t = {"fp32": 1e3 * ops / FP32_OPS_S, "sfu": 1e3 * exps / MUFU_S,
-         "tensor": 1e3 * tensor_ops / BF16_TC_OPS_S, "hbm": 1e3 * nbytes / HBM_BYTES_S}
+    from clearsky_tpu_torch.utils.profiling import CHIP_PEAKS
+
+    fp32_ops_s, hbm_bytes_s = CHIP_PEAKS["h100"]
+    t = {"fp32": 1e3 * ops / fp32_ops_s, "sfu": 1e3 * exps / MUFU_S,
+         "tensor": 1e3 * tensor_ops / BF16_TC_OPS_S, "hbm": 1e3 * nbytes / hbm_bytes_s}
     unit = max(t, key=t.get)
     return dict(bound_ms=t[unit], bound_by="bytes" if unit == "hbm" else "operations",
                 bound_unit=unit, bound_ops=float(ops), bound_exps=float(exps),
@@ -544,11 +569,14 @@ def counts_reset():
     from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines, stencil_correction
     from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
     from clearsky_tpu_torch.rt.fused_table_cuda import fused_olr, fused_monoflux
+    from clearsky_tpu_torch.rt.radau_cuda import radau_leg
 
     for w in (sigma_lines, stencil_correction, olr_march, monoflux_march, fused_olr,
               fused_monoflux):
         w.launches = 0
     stencil_correction.launches_phco2 = 0
+    for k in radau_leg.launches:
+        radau_leg.launches[k] = 0
     for k in sigma_lines.launches_by_mode:
         sigma_lines.launches_by_mode[k] = 0
 
@@ -558,13 +586,16 @@ def counts_read() -> dict:
     from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines, stencil_correction
     from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
     from clearsky_tpu_torch.rt.fused_table_cuda import fused_olr, fused_monoflux
+    from clearsky_tpu_torch.rt.radau_cuda import radau_leg
 
     out = {k: sigma_lines.launches_by_mode[m] for m, k in MODE_KERNEL.items()}
     out.update(stencil_correction=stencil_correction.launches,
                stencil_correction_phco2=stencil_correction.launches_phco2,
                olr_march=olr_march.launches,
                monoflux_march=monoflux_march.launches, fused_olr=fused_olr.launches,
-               fused_monoflux=fused_monoflux.launches)
+               fused_monoflux=fused_monoflux.launches,
+               radau_emission=radau_leg.launches["emission"],
+               radau_depth=radau_leg.launches["depth"])
     return out
 
 
@@ -4516,12 +4547,16 @@ _K1_NAME = re.compile(r"(?:linesum|window)_kernel(?:<|ILi)(\d+)(?:, ?(true|false
 # instance: a profile names them linesum_full, linesum_phco2_full)
 _FULL_NAME = re.compile(r"window_kernel(?:<|ILi)(1[4-7])(?:,|E)")
 _CORRECTION_NAME = re.compile(r"correction_gather_kernel(?:<(true|false)|ILb([01])E)")
+_RADAU_NAME = re.compile(r"radau_kernel(?:<|ILi)([01])")
 _OTHER_KERNELS = {k: re.compile(rf"\b{v}\b") for k, v in (
     ("olr_march", "olr_kernel"), ("monoflux_march", "monoflux_kernel"),
     ("fused_olr", "fused_olr_kernel"), ("fused_monoflux", "fused_monoflux_kernel"))}
 
 
 def _kernel_of(name: str):
+    m = _RADAU_NAME.search(name)
+    if m:
+        return "radau_depth" if m.group(1) == "1" else "radau_emission"
     m = _FULL_NAME.search(name)
     if m:
         return "linesum_phco2_full" if m.group(1) == "15" else "linesum_full"
@@ -4625,6 +4660,425 @@ def _seg_launch(plan, lines, states, L_seg, mode, bcoef, dev, conc=None, count_a
     return launch, prepared
 
 
+# the adaptive Radau core (csrc/radau.cu): its default tolerance, the float64
+# sample (every RADAU_STRIDE-th wavenumber of the main column's cache), and
+# the bars of the kernel against the plain engines on the same lanes. In
+# units of each lane's own error scale atol + rtol |y| (|y| the lane's peak
+# over its nodes): the method holds each accepted step's local error within
+# that scale, so two runs that take other steps (float32 rounded in another
+# order: the kernel contracts multiply-adds; the float64 engine) differ by
+# the sum of their steps' errors, up to the steps a lane takes (mean ~190
+# attempts, at most ~1,200 on the main column). A lane near atol, the cold
+# top's emission at 2,400 cm^-1, is held in absolute terms there, so the
+# bars of each lane's peak come apart from these. Each bar is about 2-3x
+# the largest reading it was set from (NVIDIA H100 80GB HBM3 at 700 W, the
+# main column's five launches): RADAU_BAR against the plain float32 engine
+# (34.8 lane scales, optical_depth's launch), RADAU_F64_BAR against float64
+# (9.7), RADAU_PEAK_BAR of the output's peak against both (4.7e-5 and
+# 1.6e-5), RADAU_BAND_BAR the largest band integral over the nodes of the
+# sampled wavenumbers (the stream-weighted intensities: OLR, M_down, M_up;
+# the depth) relative to float64's largest (the OLR 2.2e-7). The RCM's
+# heating on every RADAU_RCM_STRIDE-th wavenumber holds float64's within
+# RADAU_RCM_BAR of its peak (8.6e-6 read). Then the operations of one
+# attempt by form, counted on csrc/radau.cu (a division or reciprocal one
+# special-function-unit result and 4 FP32 operations for its refinement; an
+# exp or log one result and ~8 FP32; powf two and ~20; a float64 operation
+# two FP32 ones, the H100's float64 rate being half its float32): three
+# right-hand sides at the stage abscissae (emission 82 FP32 and 8 MUFU: the
+# bracket's 8-step search, ln P, the three interpolations, exp, the rate's
+# division, the Planck function's exp, expm1 and two divisions; depth 55
+# and 4), two simplified Newton iterations (88 and 6 each) and the step's
+# control (140 and 13: the eigen-divisors, the error estimate, two powf,
+# the positions in float64)
+RADAU_STRIDE = 64
+RADAU_TOL = 1e-5
+RADAU_BAR = 100.0
+RADAU_F64_BAR = 25.0
+RADAU_PEAK_BAR = 1e-4
+RADAU_BAND_BAR = 1e-4
+RADAU_RCM_STRIDE = 16
+RADAU_RCM_BAR = 5e-3
+# the host's float64 heating of the sampled RCM runs beside the later
+# phases; the run waits at most this long for it at the end
+RADAU_RCM_F64_TIMEOUT_S = 420.0
+RADAU_ATTEMPT_OPS = {"emission": (3 * 82 + 2 * 88 + 140, 3 * 8 + 2 * 6 + 13),
+                     "depth": (3 * 55 + 2 * 88 + 140, 3 * 4 + 2 * 6 + 13)}
+
+
+def warp_efficiency(attempts) -> float:
+    """Sum of attempts over 32 x the sum over warps of the warp's largest
+    attempt count: the share of a warp's issue slots its lanes use."""
+    a = attempts.to(torch.int64)
+    pad = (-a.shape[0]) % 32
+    w = torch.cat([a, a.new_zeros(pad)]).view(-1, 32)
+    return float(a.sum()) / float(32 * w.amax(dim=1).sum())
+
+
+def radau_bound(rhs: str, args, attempts) -> dict:
+    """The least time of a Radau launch: this run's attempts (summed over
+    lanes) at the FP32 and special-function rates of RADAU_ATTEMPT_OPS, and
+    its bytes (the cache's ln sigma, T and mu, y0 and the nodes read once;
+    y at every node, steps and attempts written once)."""
+    _, lnP, Tg, mug, lnsig, nu, m, g, atol, y0, xs, rtol, max_steps, dense = args
+    n = float(attempts.to(torch.int64).sum())
+    fp32, mufu = RADAU_ATTEMPT_OPS[rhs]
+    ins = nbytes(lnP, Tg, mug, lnsig, nu, atol, y0, xs)
+    outs = 4 * y0.shape[0] * (xs.shape[0] if dense else 1) + 8 * y0.shape[0]
+    return bound(n * fp32, ins + outs, exps=n * mufu)
+
+
+def _radau_sample(args, stride: int):
+    """A launch's operands on every ``stride``-th wavenumber, in float64."""
+    rhs, lnP, Tg, mug, lnsig, nu, m, g, atol, y0, xs, rtol, max_steps, dense = args
+    d = lambda x: x.double()
+    y0s = y0.view(Tg.shape[0], len(m), nu.shape[0])[..., ::stride].reshape(-1)
+    return (rhs, d(lnP), d(Tg), d(mug), d(lnsig[..., ::stride].contiguous()),
+            d(nu[::stride].contiguous()), m, g, d(atol), d(y0s), d(xs), rtol, max_steps, dense)
+
+
+def _lane_err(got, ref, atol=None, rtol: float = 0.0) -> float:
+    """Largest |got - ref| over lanes and nodes, each lane's in units of its
+    scale atol + rtol x its peak |ref| over the nodes (with no atol: of its
+    peak alone)."""
+    got, ref = got.double(), ref.double()
+    peak = ref.abs().amax(dim=0) if ref.dim() > 1 else ref.abs()
+    scale = peak if atol is None else atol.double() + rtol * peak
+    return float(((got - ref).abs() / scale.clamp(min=1e-300)).max())
+
+
+def _lane_atol(args, stride: int = 1):
+    """A launch's atol lane by lane (one a column), on every stride-th
+    wavenumber."""
+    nu, m, atol = args[5], args[6], args[8]
+    n = len(range(0, nu.shape[0], stride))
+    return atol.repeat_interleave(len(m) * n)
+
+
+def _band(y, args, stride: int):
+    """Band integrals of a launch's output on every ``stride``-th wavenumber
+    (y on those lanes, [nodes, lanes] or [lanes]): trapz over them of the
+    stream-weighted intensities (emission: the flux, OLR or M) or of the
+    depth, per node and column; [nodes, C]."""
+    from clearsky_tpu_torch.utils.quadrature import stream_nodes
+
+    rhs, C, ns = args[0], args[2].shape[0], len(args[6])
+    nu_s = args[5][::stride].double()
+    W = (torch.as_tensor(stream_nodes(ns)[1] if ns > 1 else [math.pi], dtype=torch.float64,
+                         device=y.device) if rhs == "emission"
+         else torch.ones(ns, dtype=torch.float64, device=y.device))
+    v = y.double().reshape(-1, C, ns, nu_s.shape[0])
+    return torch.trapz((W[:, None] * v).sum(dim=2), nu_s.to(y.device), dim=-1)
+
+
+def radau_launch_check(name, args, y, last, stride: int = RADAU_STRIDE) -> dict:
+    """One recorded launch against the plain float32 engine on the same
+    lanes (on the card) and the plain float64 engine on every ``stride``-th
+    wavenumber (its lanes exactly: lanes are independent; the launch's
+    atol is the full grid's), in lane scales, of the output's peak and in
+    band integrals (:func:`_band`). Returns the figures; raises past the
+    bars (RADAU_BAR, RADAU_F64_BAR, RADAU_PEAK_BAR, RADAU_BAND_BAR)."""
+    from clearsky_tpu_torch.rt import radau as trad
+
+    rhs = args[0]
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ref, p_steps = trad._plain_leg(*args, with_steps=True)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    finite = torch.isfinite(ref)
+    rtol = args[11]
+    e32 = _lane_err(y, ref, _lane_atol(args), rtol)
+    lanes = args[9].shape[0]
+    C, ns, n_nu = args[2].shape[0], len(args[6]), args[5].shape[0]
+    ys = y.view(-1, C, ns, n_nu)[..., ::stride].reshape(y.shape[0] if y.dim() > 1 else 1, -1)
+    ref64 = trad._plain_leg(*_radau_sample(args, stride))
+    ys = ys.reshape(ref64.shape)
+    e64 = _lane_err(ys, ref64, _lane_atol(args, stride), rtol)
+    b, b64 = _band(ys, args, stride), _band(ref64, args, stride)
+    band_rel = float((b - b64).abs().max() / b64.abs().max())
+    peak32 = float((y.double() - ref.double()).abs().max() / ref.double().abs().max())
+    peak64 = float((ys.double() - ref64).abs().max() / ref64.abs().max())
+    att = last["attempts"]
+    fig = dict(call=name, rhs=rhs, dense=bool(args[13]), lanes=lanes, nodes=int(args[10].shape[0]),
+               plain_ms=plain_ms, err_vs_plain_f32_of_lane_scale=e32,
+               err_vs_plain_f32_of_lane_peak=_lane_err(y, ref), err_vs_plain_f32_of_peak=peak32,
+               max_abs_err=float((y.double() - ref.double()).abs().max()),
+               steps_match_share=float((last["steps"] == p_steps).float().mean()),
+               f64_sample_lanes=int(ref64.shape[-1]), err_vs_f64_of_lane_scale=e64,
+               err_vs_f64_of_lane_peak=_lane_err(ys, ref64), err_vs_f64_of_peak=peak64,
+               bar=RADAU_BAR, f64_bar=RADAU_F64_BAR, peak_bar=RADAU_PEAK_BAR,
+               band_rel_vs_f64_sample=band_rel, band_bar=RADAU_BAND_BAR,
+               attempts_mean=float(att.float().mean()),
+               attempts_max=int(att.max()), accepted_steps_mean=float(last["steps"].float().mean()),
+               warp_efficiency=warp_efficiency(att), nan_lanes=int((~torch.isfinite(y)).sum()),
+               plain_nan_lanes=int((~finite).sum()))
+    check(bool(torch.equal(torch.isfinite(y), finite)) and fig["nan_lanes"] == 0,
+          f"{name}: the Radau kernel's {fig['nan_lanes']} NaN lanes (the plain engine's "
+          f"{fig['plain_nan_lanes']})")
+    check(e32 <= RADAU_BAR, f"{name}: the Radau kernel off the plain float32 engine by {e32:.3e} "
+                            f"of a lane's atol + rtol |y| (bar {RADAU_BAR})")
+    check(e64 <= RADAU_F64_BAR, f"{name}: the Radau kernel off the float64 engine by {e64:.3e} "
+                                f"of a lane's atol + rtol |y| on the sample (bar {RADAU_F64_BAR})")
+    check(max(peak32, peak64) <= RADAU_PEAK_BAR,
+          f"{name}: the Radau kernel off the plain float32 engine by {peak32:.3e} and off "
+          f"float64 by {peak64:.3e} of the output's peak (bar {RADAU_PEAK_BAR})")
+    check(band_rel <= RADAU_BAND_BAR,
+          f"{name}: the sampled band integrals off float64 by {band_rel:.3e} (bar {RADAU_BAND_BAR})")
+    return fig
+
+
+def phase_radau(par, dev, report):
+    """The adaptive Radau core (core=Radau()) on the main column at full
+    width (5,599 lines, 2^19 points, 20 levels, 5 streams, float32): each
+    call's column cache is one line sum of 256 states spaced in sqrt P (the
+    route ``route()`` takes for them is printed), then one kernel launch a
+    leg. ``outgoing``, ``radiate`` (albedo 0.1, the main path's stellar
+    flux) and ``optical_depth`` on the levels (zenith angle API_THETA), their
+    launches counted on their own (only line-sum kernels and the Radau
+    kernel; emission 1 + 2, depth 1 + 1), each launch held against the plain
+    float32 engine and the float64 one (:func:`radau_launch_check`); the
+    ``kernel`` lines of both right-hand sides at the main shape (outgoing's
+    and optical_depth's launches); band OLR against RadauEq(refine=8) and
+    Discretized (no bar); each call's wall and device ms, kernel ms and peak
+    memory (:func:`_call_profile`). Then an RCM on Radau() at 16,384 points
+    (create, update_absorber, two steps), counted on its own
+    (:func:`check_radau_rcm`), and its heating's float64 check started
+    (:func:`start_radau_rcm_f64`). Returns the launch counts of both and the
+    check's handle for :func:`finish_radau_rcm_f64`."""
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.ops import linesum_strategies as ls
+    from clearsky_tpu_torch.rt import radau_cuda
+
+    lines = ct.SpectralLines.from_par_dict(par)
+    nu = grid_for(lines, N_NU_MAIN)
+    gas = ct.DirectGas.from_lines(lines, CONC, nu)
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe)
+    span = float(nu[-1] - nu[0])
+    S0 = 340.0 / math.cos(0.841)
+    fS = lambda v: torch.full_like(v, S0 / span)
+    core = ct.Radau(tol=RADAU_TOL)
+    calls = {"radau_outgoing": lambda: ct.outgoing(Pe, G, Te, MU, gas, core=core),
+             "radau_radiate": lambda: ct.radiate(Pe, G, Te, MU, fS, 0.1, gas, core=core),
+             "radau_optical_depth": lambda: ct.optical_depth(Pe, G, Te, MU, API_THETA, gas,
+                                                              core=core)}
+    launches = {}
+    orig = radau_cuda._launch
+
+    def recorder(name):
+        def record(*a):
+            y = orig(*a)
+            launches.setdefault(name, []).append((a, dict(radau_cuda.radau_leg.last), y))
+            return y
+        return record
+
+    out, ms, counts = {}, {}, {}
+    try:
+        counts_reset()
+        for name, fn in calls.items():
+            radau_cuda._launch = recorder(name)
+            out[name], ms[name] = one_call(fn)
+        radau_cuda._launch = orig
+        torch.cuda.synchronize()
+        counts = counts_read()
+    finally:
+        radau_cuda._launch = orig
+    launched = {k: v for k, v in counts.items() if v}
+    emit("counts", path="radau", **launched)
+    check(set(launched) - LINE_SUM_KERNELS == {"radau_emission", "radau_depth"}
+          and launched["radau_emission"] == 3 and launched["radau_depth"] == 2
+          and bool(set(launched) & LINE_SUM_KERNELS),
+          f"the Radau calls launched {launched}, not line-sum kernels, 3 emission and 2 "
+          "depth launches of the Radau kernel")
+    olr, F, tau = out["radau_outgoing"], out["radau_radiate"], out["radau_optical_depth"]
+    check(olr.shape == (N_NU_MAIN,) and bool(torch.isfinite(olr).all()),
+          "the Radau OLR spectrum is not finite")
+    for k in ("M_up", "M_down", "tau", "F_up", "F_down", "F_net"):
+        check(bool(torch.isfinite(getattr(F, k)).all()), f"Radau radiate {k} is not finite")
+    check(bool(torch.isfinite(tau).all()) and bool((tau >= 0).all()),
+          "the Radau optical depth is not finite and non-negative")
+
+    # every launch against the plain engines; the kernel lines at the main shape
+    checks = [radau_launch_check(name, a, y, last)
+              for name, recs in launches.items() for a, last, y in recs]
+    for c in checks:
+        emit("radau_launch", **c)
+    info = {rhs: radau_cuda.kernel_info(rhs) for rhs in ("emission", "depth")}
+    for key, name in (("radau_emission", "radau_outgoing"), ("radau_depth", "radau_optical_depth")):
+        a, last, y = launches[name][0]
+        fig = next(c for c in checks if c["call"] == name)
+        kms = cuda_ms(lambda: orig(*a), n=5, warmup=1)
+        b = radau_bound(a[0], a, last["attempts"])
+        report[key] = dict(max_abs_err=fig["max_abs_err"], ms=kms, plain_ms=fig["plain_ms"],
+                           library_ms=None, shape=f"{fig['lanes']} lanes x {fig['nodes']} nodes",
+                           **b, more=dict(attempts_mean=fig["attempts_mean"],
+                                          attempts_max=fig["attempts_max"],
+                                          warp_efficiency=fig["warp_efficiency"],
+                                          registers=info[a[0]]["registers"]))
+        emit("kernel", name=key, call=name, ms=kms, plain_f32_ms=fig["plain_ms"],
+             err_vs_plain_f32_of_lane_scale=fig["err_vs_plain_f32_of_lane_scale"],
+             err_vs_f64_of_lane_scale=fig["err_vs_f64_of_lane_scale"],
+             err_vs_f64_of_peak=fig["err_vs_f64_of_peak"], bar=RADAU_BAR,
+             f64_bar=RADAU_F64_BAR, band_rel_vs_f64_sample=fig["band_rel_vs_f64_sample"],
+             steps_match_share=fig["steps_match_share"], attempts_mean=fig["attempts_mean"],
+             attempts_max=fig["attempts_max"], warp_efficiency=fig["warp_efficiency"],
+             **info[a[0]], **b)
+
+    nu64 = gas.nu.double()
+    band = float(ct.trapz(nu64, olr.double()))
+    band_eq = float(ct.trapz(nu64, ct.outgoing(Pe, G, Te, MU, gas,
+                                                core=ct.RadauEq(refine=8)).double()))
+    band_d = float(ct.trapz(nu64, ct.outgoing(Pe, G, Te, MU, gas).double()))
+    profiles = {k: _call_profile(fn, dev) for k, fn in calls.items()}
+    n_cache = int(launches["radau_outgoing"][0][0][1].shape[0])
+    emit("radau", points=N_NU_MAIN, levels=N_LEVELS, streams=5, tol=RADAU_TOL,
+         cache_states=n_cache, cache_route=ls.route(gas.plan, lines, n_states=n_cache), band_olr_W_m2=band, radaueq8_band_olr_W_m2=band_eq,
+         band_rel_vs_radaueq8=abs(band - band_eq) / band_eq, discretized_band_olr_W_m2=band_d,
+         band_rel_vs_discretized=abs(band - band_d) / band_d, F_net_toa_W_m2=float(F.F_net[0]),
+         first_call_ms=ms, **{k: v for k, v in profiles.items()})
+
+    # an RCM on the Radau core at 16,384 points, counted on its own
+    counts_reset()
+    rcm_run = phase_radau_rcm(par, dev)
+    rcm_counts = {k: v for k, v in counts_read().items() if v}
+    emit("counts", path="radau_rcm", **rcm_counts)
+    check(set(rcm_counts) - LINE_SUM_KERNELS == {"radau_emission", "radau_depth"}
+          and bool(set(rcm_counts) & LINE_SUM_KERNELS),
+          f"the Radau RCM launched {rcm_counts}")
+    check_radau_rcm(*rcm_run, dev)
+    pending = start_radau_rcm_f64(par, rcm_run[0], dev)
+    return {k: counts[k] + rcm_counts.get(k, 0) for k in counts}, pending
+
+
+def _radau_rcm_model(par, Te, dtype, device, stride: int = 1):
+    """The Radau RCM of the ``radau`` phase (16,384 points, 20 edges,
+    radmul 2, the RCM phase's stellar flux and albedo) created at edge
+    temperatures ``Te``, in ``dtype`` on ``device``, on every
+    ``stride``-th wavenumber of its grid (the stellar flux that of the
+    whole grid)."""
+    import clearsky_tpu_torch as ct
+
+    lines = ct.SpectralLines.from_par_dict(par, dtype=dtype, device=device)
+    nu = grid_for(lines, N_NU_RCM)
+    span = float(nu[-1] - nu[0])
+    S0 = 340.0 / math.cos(0.841)
+    fS = lambda v: torch.full_like(v, S0 / span)
+    gas = ct.DirectGas.from_lines(lines, CONC, np.ascontiguousarray(nu[::stride]))
+    Pe = ct.pressuregrid(PT, PS, N_LEVELS)
+    Te = column(Pe) if Te is None else Te
+    return ct.RCM.create(Pe, Te, G, lambda T, P: MU, fS, 0.1, lambda T, P: CP, 1e7, gas,
+                         radmul=2, core=ct.Radau(tol=RADAU_TOL))
+
+
+def phase_radau_rcm(par, dev):
+    """RCM.create(core=Radau()), update_absorber and two steps at 16,384
+    points (:func:`_radau_rcm_model` on the card in float32)."""
+    import clearsky_tpu_torch as ct
+
+    rcm = _radau_rcm_model(par, None, torch.float32, dev)
+    torch.cuda.synchronize()
+    ms_steps = []
+    rcm = ct.update_absorber(rcm)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        rcm = ct.step(rcm, RCM_DT)
+        torch.cuda.synchronize()
+        ms_steps.append(1e3 * (time.perf_counter() - t0))
+    check(bool(torch.isfinite(rcm.T).all()), "Radau RCM temperatures are not finite")
+    return rcm, ms_steps
+
+
+def check_radau_rcm(rcm, ms_steps, dev):
+    """The Radau RCM's heating: finite, its time and profile. Its float64
+    check is :func:`start_radau_rcm_f64`'s."""
+    import clearsky_tpu_torch as ct
+
+    H, h_ms = one_call(lambda: ct.heating(rcm))
+    prof = _call_profile(lambda: ct.heating(rcm), dev)
+    emit("radau_rcm", points=N_NU_RCM, edge_levels=N_LEVELS, radmul=2, steps=2, dt_s=RCM_DT,
+         ms_per_step=ms_steps, heating_ms=h_ms, heating_profile=prof,
+         T_min_K=float(rcm.T.min()), T_max_K=float(rcm.T.max()),
+         heating_peak_K_per_day=float(H.abs().max() * 86400))
+    check(bool(torch.isfinite(H).all()), "Radau RCM heating is not finite")
+
+
+def _radau_rcm_f64_main(par, Te, path):
+    """A spawned host process: the float64 heating of the sampled Radau RCM
+    (:func:`_radau_rcm_model` on every RADAU_RCM_STRIDE-th wavenumber, on
+    the CPU, one thread: the plain engine), saved to ``path`` with the
+    seconds it took last."""
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import clearsky_tpu_torch as ct
+
+    t0 = time.perf_counter()
+    rcm = _radau_rcm_model(par, Te, torch.float64, "cpu", RADAU_RCM_STRIDE)
+    H = ct.heating(rcm)
+    np.save(path, np.append(H.numpy(), time.perf_counter() - t0))
+
+
+def start_radau_rcm_f64(par, rcm, dev) -> dict:
+    """The Radau RCM's heating against float64 on every RADAU_RCM_STRIDE-th
+    wavenumber (lanes are independent), started: the sampled model at the
+    RCM's edge temperatures after its steps (as ``update_absorber`` takes
+    them), its float32 heating on the card now (the line sum's kernels and
+    the Radau kernel through ``_mono_on_radiative_grid``'s Radau branch),
+    and its float64 heating in the plain engine on the host in a spawned
+    process, which runs beside the later phases: the plain engine's loop is
+    bound by its launches on the card and by its operations' overhead on
+    the host alike (~2 minutes either way), not by its lanes.
+    :func:`finish_radau_rcm_f64` waits for it and compares."""
+    import multiprocessing as mp
+
+    import clearsky_tpu_torch as ct
+    from clearsky_tpu_torch.utils.interp import interp_linear
+
+    Te = interp_linear(torch.log(rcm.Pe), torch.log(rcm.P), rcm.T).double().cpu().numpy()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build)
+    path = os.path.join(tmp, "heating64.npy")
+    proc = mp.get_context("spawn").Process(target=_radau_rcm_f64_main, args=(par, Te, path),
+                                           daemon=True)
+    proc.start()
+    sample = _radau_rcm_model(par, Te, torch.float32, dev, RADAU_RCM_STRIDE)
+    H32, ms = one_call(lambda: ct.heating(sample))
+    return dict(proc=proc, path=path, tmp=tmp, H32=H32.double().cpu().numpy(), heating_ms=ms,
+                points=int(sample.nu.shape[0]), t0=time.perf_counter())
+
+
+def finish_radau_rcm_f64(pending):
+    """Wait (at most RADAU_RCM_F64_TIMEOUT_S) for the host's float64 heating
+    of :func:`start_radau_rcm_f64`, stop its process, and hold the card's
+    heating of the same sampled model within RADAU_RCM_BAR of its peak."""
+    import shutil
+
+    proc = pending["proc"]
+    t0 = time.perf_counter()
+    proc.join(RADAU_RCM_F64_TIMEOUT_S)
+    hung = proc.is_alive()
+    if hung:
+        proc.kill()
+        proc.join(10.0)
+    try:
+        check(not hung and proc.exitcode == 0,
+              f"the host's float64 Radau RCM heating: exit code {proc.exitcode}"
+              + (f", stopped after {RADAU_RCM_F64_TIMEOUT_S} s" if hung else ""))
+        out = np.load(pending["path"])
+    finally:
+        shutil.rmtree(pending["tmp"], ignore_errors=True)
+    H64, seconds = out[:-1], float(out[-1])
+    err = float(np.abs(pending["H32"] - H64).max() / np.abs(H64).max())
+    emit("radau_rcm", part="float64_sample", sample_points=pending["points"],
+         stride=RADAU_RCM_STRIDE, card_sample_heating_ms=pending["heating_ms"],
+         host_f64_sample_heating_s=seconds, waited_s=time.perf_counter() - t0,
+         started_s_before=t0 - pending["t0"], sample_heating_err_of_peak=err, bar=RADAU_RCM_BAR)
+    check(err <= RADAU_RCM_BAR, f"the Radau RCM's sampled heating off float64 by {err:.3e} of "
+                                f"its peak (bar {RADAU_RCM_BAR})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4716,6 +5170,16 @@ def main(argv=None) -> int:
     emit("counts", path="api", seconds=time.perf_counter() - t0,
          **{k: sum(p.get(k, 0) for p in api_counts) for k in sorted(set().union(*api_counts))})
 
+    # the adaptive Radau core: the main column's calls and an RCM, each
+    # counted on its own
+    t0 = time.perf_counter()
+    radau_counts, radau_rcm64 = phase_radau(par, dev, report)
+    for k in ("radau_emission", "radau_depth"):
+        check(radau_counts[k] > 0, f"kernel {k} was not launched on the Radau path")
+    counts = {k: counts[k] + radau_counts[k] for k in counts}
+    emit("counts", path="radau_total", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in radau_counts.items() if v})
+
     # the mix: HITRAN files at full-catalog size; each part of its main path
     # counted on its own
     with tempfile.TemporaryDirectory(dir=build) as tmp:
@@ -4794,6 +5258,7 @@ def main(argv=None) -> int:
     calls.update(sh_calls)
     phase_profile(calls)
     torch.distributed.destroy_process_group()
+    finish_radau_rcm_f64(radau_rcm64)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": k, "route": "cuda", "source": source, "replaces": replaces,

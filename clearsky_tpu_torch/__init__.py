@@ -25,10 +25,14 @@ line-by-line gas becomes per-shard line slabs (``ShardedLineGas``, summed
 by K1-dev, every shard of a rank in one launch), each rank radiates its
 slab, and one all-reduce adds the spectral integrals. Around the column
 path: slant optical depth and transmittance, the grid-refined core
-``RadauEq`` (the same kernels on a grid refined in sqrt P), the Planck
+``RadauEq`` (the same kernels on a grid refined in sqrt P), the adaptive
+core ``Radau`` (an error-controlled Radau IIA(5) integration a stream and
+wavenumber, one thread a lane in the kernel ``csrc/radau.cu``), the Planck
 family, checkpoints of baked gases and model state (``utils.checkpoint``,
 the JAX package's file format), the scipy validation oracle
-(``rt.ode_ref``) and orbital forcing (``orbital``).
+(``rt.ode_ref``), orbital forcing (``orbital``), the line-sum cost model
+and tracing (``utils.profiling``) and the native ``.par`` parser
+(``native``).
 
 The module paths mirror ``clearsky_tpu``'s. Everything computes in the dtype
 and on the device of its inputs; CUDA tensors go through the kernels of

@@ -196,8 +196,8 @@ def rcm(jax_rcm, *absorbers, fmu=None, fcp=None) -> RCM:
     from .rt import fluxes
 
     core = jax_rcm.core
-    if type(core).__name__ not in ("Discretized", "RadauEq"):
-        raise NotImplementedError(f"core {core!r} is not ported yet")
+    if type(core).__name__ not in ("Discretized", "RadauEq", "Radau"):
+        raise ValueError(f"core {core!r} has no counterpart in the port")
     port_core = getattr(fluxes, type(core).__name__)(**dataclasses.asdict(core))
     return RCM(Pe=t(arr["Pe"]), P=t(arr["P"]), T=t(arr["T"]), Pr=t(arr["Pr"]), A=A,
                S_nu=t(arr["S_nu"]), a_nu=t(arr["a_nu"]), g=float(jax_rcm.g),

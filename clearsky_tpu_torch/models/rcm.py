@@ -1,8 +1,10 @@
 """Radiative-convective model: the time-stepping column model.
 
-Counterpart of ``clearsky_tpu.models.rcm`` for the discretized core and its
+Counterpart of ``clearsky_tpu.models.rcm`` for the discretized core, its
 grid-refined form ``RadauEq`` (the radiative grid refined once more in
-sqrt P at creation; the heating then runs on it unchanged). The
+sqrt P at creation; the heating then runs on it unchanged) and the adaptive
+``Radau`` core (the column cache taken from the model's cached absorber,
+with T and mu resampled onto its ln P grid). The
 model is a frozen dataclass of tensors and every operation returns a new one:
 :func:`heating` radiates on the refined grid, :func:`step` takes one Euler
 step, :func:`update_absorber` refreshes the cached cross-sections and
@@ -30,8 +32,8 @@ from ..utils.grids import trapz
 from ..absorption.absorbers import AcceleratedAbsorber, unify_absorbers
 from ..atmosphere.adiabats import lapse
 from ..rt.discretized import FluxPack, integrate_flux, layer_tau_flat, lobatto_pressures, monoflux
-from ..rt.fluxes import (Discretized, RadauEq, DEFAULT_THETA_S, _spectral_fn,
-                         _reject_unported, _refined)
+from ..rt.fluxes import (Discretized, Radau, RadauEq, DEFAULT_THETA_S, _spectral_fn,
+                         _check_core, _refined)
 
 __all__ = ["RCM", "heating", "radiate_state", "step", "step_n", "run", "jacobian",
            "update_absorber", "convective_adjustment", "radiative_grid"]
@@ -83,7 +85,7 @@ class RCM:
     def create(cls, Pe, Te, g, fmu, fS, fa, fcp, cs, *absorbers, core=Discretized(),
                radmul: int = 2, theta_s: float = DEFAULT_THETA_S) -> "RCM":
         """Construct from edge pressures and temperatures and physics closures."""
-        _reject_unported(core)
+        _check_core(core)
         Pe = np.asarray(Pe, dtype=np.float64)
         Te = np.asarray(Te, dtype=np.float64)
         if len(Pe) != len(Te):
@@ -140,6 +142,16 @@ def _mono_on_radiative_grid(rcm: RCM, T, A: AcceleratedAbsorber):
         return interp_linear(torch.log(P), lnP, T)
 
     core = rcm.core
+    if isinstance(core, Radau):
+        # the adaptive core on the refined grid: ln sigma from the cached
+        # absorber, T and mu resampled onto its ln P grid
+        from ..rt.radau import build_column_cache, radau_monoflux
+
+        cache = build_column_cache(rcm.Pr, fT, rcm.fmu, A)
+        M_up, M_down, tau = radau_monoflux(cache, rcm.Pr, rcm.g, rcm.S_nu, rcm.a_nu,
+                                           rcm.theta_s, nstream=core.nstream, tol=core.tol,
+                                           max_steps=core.max_steps)
+        return tau, M_up, M_down
     Pf = lobatto_pressures(rcm.Pr, core.nlobatto).reshape(-1)
     Tf = fT(Pf)
     muf = torch.broadcast_to(torch.as_tensor(rcm.fmu(Tf, Pf), dtype=Pf.dtype,

@@ -1,14 +1,17 @@
 """One-shot flux API: optical depth, transmittance, OLR spectra and
 whole-column flux packs.
 
-Counterpart of ``clearsky_tpu.rt.fluxes`` for the :class:`Discretized` core
-and its grid-refined form :class:`RadauEq` (the same march on a grid with
-``refine`` sub-layers a caller layer, spaced in sqrt P, the fluxes returned
-on the caller's levels): cross-sections for the whole spectrum at the
+Counterpart of ``clearsky_tpu.rt.fluxes`` for its three cores: the
+:class:`Discretized` core (cross-sections for the whole spectrum at the
 Lobatto nodes of every layer, the quadrature to layer optical depth, and
-the marches of :mod:`.discretized`. Pressures arrive as numpy arrays or
-scalars (set-up input, float64); the computation runs in the absorbers'
-dtype on their device. The adaptive :class:`Radau` core is not ported.
+the marches of :mod:`.discretized`), its grid-refined form
+:class:`RadauEq` (the same march on a grid with ``refine`` sub-layers a
+caller layer, spaced in sqrt P, the fluxes returned on the caller's
+levels), and the adaptive :class:`Radau` core (:mod:`.radau`: a column
+cache of ln sigma, then one error-controlled integration a stream and
+wavenumber, one kernel launch a leg on the card). Pressures arrive as numpy
+arrays or scalars (set-up input, float64); the computation runs in the
+absorbers' dtype on their device.
 """
 
 from __future__ import annotations
@@ -70,7 +73,13 @@ class Discretized:
 
 @dataclasses.dataclass(frozen=True)
 class Radau:
-    """Adaptive-core selector of ``clearsky_tpu``; not ported yet."""
+    """Adaptive-core selector: error-controlled Radau IIA(5) marches, one
+    adaptive integration a (stream x wavenumber) lane (:mod:`.radau`), a
+    thread a lane on the card (``csrc/radau.cu``). ``nlevels`` sets the
+    column cache's levels for a stack that is not an AcceleratedAbsorber (0:
+    an AcceleratedAbsorber's own grid, else 256 levels spaced in sqrt P).
+    An independent integrator with an explicit tolerance, for cross-checks;
+    the discretized core converges under refinement (``RadauEq``)."""
 
     nstream: int = 5
     tol: float = 1e-5
@@ -88,13 +97,8 @@ class RadauEq:
     refine: int = 8
 
 
-def _reject_unported(core):
-    if isinstance(core, Radau):
-        raise NotImplementedError(
-            "Radau is not ported yet (ROADMAP.md, queue A, still to port: A6, Radau); "
-            "use Discretized or RadauEq"
-        )
-    if core is not None and not isinstance(core, (Discretized, RadauEq)):
+def _check_core(core):
+    if core is not None and not isinstance(core, (Discretized, RadauEq, Radau)):
         raise ValueError(f"unknown core selector {core!r}")
 
 
@@ -182,14 +186,12 @@ def optical_depth(P, g, T, mu, theta, *absorbers, nlobatto: int = 4, nlevels: in
     a 2-tuple (P1, P2), or a scalar (from it to ``Ptop``): a dense grid of
     ``nlevels`` levels spaced in sqrt P between the two. ``theta`` is the
     zenith angle of the path; ``T`` and ``mu`` are vectors on the levels,
-    scalars or callables. ``core=Radau(...)`` (the JAX package's adaptive
-    integration of the depth) is not ported.
+    scalars or callables. ``core=Radau(...)`` integrates the depth ODE
+    adaptively instead, on a column cache (:mod:`.radau`).
     """
     A = unify_absorbers(absorbers)
     _check_azimuth(theta)
-    if isinstance(core, Radau):
-        _reject_unported(core)
-    elif core is not None:
+    if core is not None and not isinstance(core, Radau):
         raise ValueError("optical_depth supports core=None (Lobatto quadrature) or "
                          f"core=Radau(...); got {core!r}")
     P = np.asarray(P, dtype=np.float64)
@@ -201,6 +203,12 @@ def optical_depth(P, g, T, mu, theta, *absorbers, nlobatto: int = 4, nlevels: in
     check_pressures(A, Pgrid[-1], Pgrid[0])
     Pg = _tensor(Pgrid, A.nu)
     fT, fmu = formprofiles(Pg, T, mu)
+    if isinstance(core, Radau):
+        from .radau import build_column_cache, radau_path_tau
+
+        cache = build_column_cache(Pgrid, fT, fmu, A, nlevels=core.nlevels)
+        return radau_path_tau(cache, Pgrid[0], Pgrid[-1], g, m=1.0 / np.cos(theta),
+                              tol=core.tol, max_steps=core.max_steps)
     Pn = lobatto_pressures(Pg, nlobatto)
     Tn, mun = _eval_profiles(Pn, fT, fmu)
     sig = A.sigma(Tn, Pn)
@@ -238,10 +246,11 @@ def outgoing(P, g, T, mu, *absorbers, Ptop: float = 1.0, nstream: int = 5,
     vector P refined in sqrt P, its T and mu interpolated against the
     caller's levels). A single split-precision table gas takes the fused
     table kernel (K6) unless ``vertical``, where the marched layers are
-    within its bound.
+    within its bound. ``Radau`` marches every (stream x wavenumber) lane up
+    adaptively on a column cache (:mod:`.radau`), with its own ``nstream``.
     """
     A = unify_absorbers(absorbers)
-    _reject_unported(core)
+    _check_core(core)
     if isinstance(core, (Discretized, RadauEq)):
         nstream, nlobatto = core.nstream, core.nlobatto
     refine = core.refine if isinstance(core, RadauEq) else 1
@@ -255,6 +264,13 @@ def outgoing(P, g, T, mu, *absorbers, Ptop: float = 1.0, nstream: int = 5,
     check_pressures(A, Pgrid[-1], Pgrid[0])
     Pg = _tensor(Pgrid, A.nu)
     fT, fmu = formprofiles(_tensor(P_base, A.nu), T, mu)
+    if isinstance(core, Radau):
+        from .radau import build_column_cache, radau_outgoing
+
+        _check_streams(core.nstream)
+        cache = build_column_cache(Pgrid, fT, fmu, A, nlevels=core.nlevels)
+        return radau_outgoing(cache, Pgrid[-1], Pgrid[0], g, nstream=core.nstream,
+                              tol=core.tol, vertical=vertical, max_steps=core.max_steps)
     if not vertical and _fused_table_ok(A, Pg.shape[0] - 1, nstream, nlobatto):
         return table_olr_fused(_only_gas(A), Pg, g, fT, fmu, nlobatto, nstream)
     tau = _column_tau(Pg, g, fT, fmu, A, nlobatto)
@@ -271,9 +287,11 @@ def monochromatic_fluxes(P, g, T, mu, fS, fa, *absorbers, core=Discretized(),
     A single split-precision table gas takes the fused table kernel (K7).
     ``RadauEq`` marches on P refined ``refine`` times in sqrt P and returns
     the fluxes at P's levels, and tau summed over each layer's sub-layers.
+    ``Radau`` integrates the three legs adaptively on a column cache
+    (:mod:`.radau`; tau from the beam's leg).
     """
     A = unify_absorbers(absorbers)
-    _reject_unported(core)
+    _check_core(core)
     _check_streams(core.nstream)
     _check_azimuth(theta_s)
     P = np.asarray(P, dtype=np.float64)
@@ -284,6 +302,12 @@ def monochromatic_fluxes(P, g, T, mu, fS, fa, *absorbers, core=Discretized(),
     fT, fmu = formprofiles(Pg, T, mu)
     S_nu = _spectral_fn(fS)(A.nu)
     a_nu = _spectral_fn(fa)(A.nu)
+    if isinstance(core, Radau):
+        from .radau import build_column_cache, radau_monoflux
+
+        cache = build_column_cache(P, fT, fmu, A, nlevels=core.nlevels)
+        return radau_monoflux(cache, P, g, S_nu, a_nu, theta_s, nstream=core.nstream,
+                              tol=core.tol, max_steps=core.max_steps)
     if isinstance(core, RadauEq):
         # the caller's levels are every refine-th refined level (_refined's idx)
         Prg = _tensor(_refined(P, core.refine)[0], A.nu)

@@ -3,10 +3,11 @@
 Counterpart of ``clearsky_tpu.spectra.par``: 160-character records in the
 HITRAN 2004 column layout, parsed as one byte matrix with column slices,
 then filtered by wavenumber range, intensity cutoff, isotopologue
-selection and the strongest ``maxlines``, and sorted by wavenumber. The
-JAX package's optional C++ parser (``clearsky_tpu/native``) is not part of
-the port: ``strings=False`` takes this numpy path and only leaves the
-string columns out.
+selection and the strongest ``maxlines``, and sorted by wavenumber.
+``strings=False`` leaves the string columns out and parses through the
+port's multithreaded C++ parser (``clearsky_tpu_torch/native``, built with
+g++ at first use) where it builds, with the same numbers as the numpy path,
+which it falls back to otherwise.
 """
 
 from __future__ import annotations
@@ -65,6 +66,20 @@ def _parse_float_col(mat: np.ndarray, a: int, b: int) -> np.ndarray:
     return np.where(col == b"", b"0", col).astype(np.float64)
 
 
+def parse_par_numpy(filename: str, strings: bool = True) -> dict:
+    """Every record's columns (the string ones with ``strings``), unfiltered,
+    through numpy byte-matrix slices."""
+    mat = _records_to_bytes(filename)
+    par = {"M": _parse_float_col(mat, 0, 2).astype(np.int16),
+           "I": _column(mat, 2, 3).astype("U1")}
+    for key, a, b in PAR_COLUMNS:
+        if key in _FLOAT_KEYS:
+            par[key] = _parse_float_col(mat, a, b)
+        elif strings and key in _STRING_KEYS:
+            par[key] = _column(mat, a, b).astype(f"U{b - a}")
+    return par
+
+
 def read_par(filename: str, numin: float = 0.0, numax: float = np.inf, Scut: float = 0.0,
              I=(), maxlines: int = -1, strings: bool = True) -> dict:
     """Parse a HITRAN .par file into a dict of numpy columns.
@@ -73,21 +88,21 @@ def read_par(filename: str, numin: float = 0.0, numax: float = np.inf, Scut: flo
     isotopologues ``I`` (characters, or local integer indices), then the
     ``maxlines`` strongest lines; the result is sorted by wavenumber
     (stable). ``strings=False`` leaves out the quantum-state and reference
-    string columns, which the physics never reads.
+    string columns, which the physics never reads, and takes the native
+    parser where it is built.
     """
     if not str(filename).endswith(".par"):
         raise ValueError(
             "expected file with .par extension, downloaded from https://hitran.org/lbl/"
         )
-    mat = _records_to_bytes(str(filename))
-    n = mat.shape[0]
-    par = {"M": _parse_float_col(mat, 0, 2).astype(np.int16),
-           "I": _column(mat, 2, 3).astype("U1")}
-    for key, a, b in PAR_COLUMNS:
-        if key in _FLOAT_KEYS:
-            par[key] = _parse_float_col(mat, a, b)
-        elif strings and key in _STRING_KEYS:
-            par[key] = _column(mat, a, b).astype(f"U{b - a}")
+    par = None
+    if not strings:
+        from ..native import parse_par_native
+
+        par = parse_par_native(str(filename))
+    if par is None:
+        par = parse_par_numpy(str(filename), strings)
+    n = len(par["nu"])
 
     mask = (par["nu"] >= numin) & (par["nu"] <= numax) & (par["S"] >= Scut)
     if len(I) > 0:

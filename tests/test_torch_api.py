@@ -56,8 +56,6 @@ DOMAIN = ((150.0, 350.0), 12, (0.9 * PT, 1.01 * PS), 24)
 MISSING = {
     "march_gspmd": "XLA partitioning of a pallas_call; no counterpart by design",
 }
-# exported, but raising until ROADMAP A6
-RAISING = {"Radau"}
 
 
 def _t(x):
@@ -267,9 +265,12 @@ def test_optical_depth_matches(col, form, fn):
 
 
 def test_optical_depth_core_selectors(col):
-    tg = col["gases"]["direct"][1]
-    with pytest.raises(NotImplementedError, match="A6"):
-        ct.optical_depth(col["Pe"], G, col["Te"], MU, 0.3, tg, core=ct.Radau())
+    jg, tg = col["gases"]["direct"]
+    # Radau integrates the depth adaptively, as JAX's does (within its tol)
+    got = ct.optical_depth((PS, 50.0), G, col["Te"][-1], MU, 0.3, tg, core=ct.Radau(tol=1e-6))
+    ref = np.asarray(jf.optical_depth((PS, 50.0), G, col["Te"][-1], MU, 0.3, jg,
+                                      core=jf.Radau(tol=1e-6)))
+    assert np.abs(got.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
     with pytest.raises(ValueError, match="core"):
         ct.optical_depth(col["Pe"], G, col["Te"], MU, 0.3, tg, core=ct.Discretized())
     with pytest.raises(ValueError, match="zenith"):
@@ -451,14 +452,16 @@ def test_public_names():
     public = lambda mod: {n for n in dir(mod) if not n.startswith("_")
                           and not isinstance(getattr(mod, n), types.ModuleType)}
     assert public(jpkg) - public(ct) == set(MISSING)
-    assert RAISING <= public(ct) and set(ct.__all__) <= public(ct)
+    assert set(ct.__all__) <= public(ct)
     for sub in ("constants", "orbital", "parallel"):
         assert isinstance(getattr(ct, sub), types.ModuleType)
     col = ct.pressuregrid(PT, PS, 5)
     gas = ct.GrayGas.create(1e-27, np.linspace(10.0, 2000.0, 16), **CPU64)
-    for name in RAISING:
-        with pytest.raises(NotImplementedError, match="A6"):
-            ct.outgoing(col, G, 250.0, MU, gas, core=getattr(ct, name)())
+    # every core selector runs: Radau, the last to be ported, against JAX's
+    got = ct.outgoing(col, G, 250.0, MU, gas, core=ct.Radau())
+    ref = jpkg.outgoing(col, G, 250.0, MU, JGrayGas.create(1e-27, np.linspace(10.0, 2000.0, 16)),
+                        core=jpkg.Radau())
+    assert np.abs(got.numpy() - np.asarray(ref)).max() <= 1e-5 * np.abs(np.asarray(ref)).max()
 
 
 def _same_default(a, b) -> bool:

@@ -1998,3 +1998,247 @@ def test_folded_march_matches_its_columns(cuda, n_cols):
             assert torch.equal(up[b], up1) and torch.equal(dn[b], dn1)
         for got, want in ((up[b], up1), (dn[b], dn1)):
             assert float((got - want).abs().max() / want.abs().max()) < 3.5e-6
+
+
+# --- the adaptive Radau kernel (csrc/radau.cu) ---------------------------------------
+def _radau_cache(n_nu, dev, dtype=torch.float32, npc=48, seed=0, n_cols=0):
+    """A column cache with thick and thin lanes: ln sigma rising with ln P
+    (pressure broadening) over a wavy band; ``n_cols`` > 0 gives a batch of
+    columns (T and mu [B, npc], one ln sigma each)."""
+    from clearsky_tpu_torch.rt.radau import ColumnCache
+
+    rng = np.random.default_rng(seed)
+    P = np.geomspace(10.0, 1e5, npc)
+    lnP = np.log(P)
+    nu = np.linspace(500.0, 800.0, n_nu)
+    band = -52.0 + 6.0 * np.sin(nu / 7.3) + rng.normal(0.0, 0.5, n_nu)
+    ln_sigma = band[None] + 0.9 * (lnP[:, None] - lnP[-1])
+    T = 190.0 + 12.0 * np.log(P / 10.0)
+    mu = np.full(npc, 0.044)
+    if n_cols:
+        T = T[None] + rng.uniform(-8.0, 8.0, (n_cols, 1))
+        mu = np.broadcast_to(mu, T.shape).copy()
+        ln_sigma = ln_sigma[None] + rng.normal(0.0, 0.3, (n_cols, 1, n_nu))
+    t = lambda x: torch.tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+    return ColumnCache(lnP=t(lnP), T=t(T), mu=t(mu), ln_sigma=t(ln_sigma), nu=t(nu))
+
+
+def _to(cache, dev, dtype):
+    return type(cache)(*(x.to(device=dev, dtype=dtype) for x in cache))
+
+
+def _radau_counts():
+    from clearsky_tpu_torch.rt.radau_cuda import radau_leg
+
+    return dict(radau_leg.launches)
+
+
+def _lane_peak_err(got, ref):
+    """Max over lanes of |got - ref| / the lane's peak |ref| over its nodes."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    peak = ref.abs().amax(dim=0).clamp(min=1e-300) if ref.dim() > 1 else ref.abs()
+    return float(((got - ref).abs() / peak).max())
+
+
+def test_radau_wrapper_on_cpu_takes_the_plain_engine():
+    """CPU tensors never reach the kernel; the wrapper refuses a CPU tensor
+    at the launch itself."""
+    from clearsky_tpu_torch.rt import radau as trad, radau_cuda
+
+    cache = _radau_cache(64, "cpu")
+    before = _radau_counts()
+    olr = trad.radau_outgoing(cache, 1e5, 10.0, 9.8, tol=1e-4)
+    assert _radau_counts() == before and bool(torch.isfinite(olr).all())
+    with pytest.raises(ValueError, match="device"):
+        radau_cuda._launch("emission", cache.lnP, cache.T[None], cache.mu[None],
+                           cache.ln_sigma[None], cache.nu, [1.0], 9.8,
+                           torch.ones(1), torch.ones(64), torch.ones(2), 1e-4, 10, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", ["outgoing", "depth", "monoflux"])
+def test_radau_kernel_matches_plain(cuda, leg, monkeypatch):
+    """Both right-hand sides, single (outgoing: emission; depth) and dense
+    (monoflux: emission down and up, depth): the float32 kernel against the
+    plain float32 engine on the same lanes on the card within 10 x tol of
+    each lane's peak; one launch a leg. The share of the last leg's lanes
+    whose accepted steps equal the plain engine's is printed (the kernel
+    contracts multiply-adds and the plain engine does not, which moves a
+    step decision now and then)."""
+    from clearsky_tpu_torch.rt import radau as trad, radau_cuda
+    from clearsky_tpu_torch.utils import twin
+
+    tol = 1e-5
+    c32 = _radau_cache(4096, cuda)
+    P = np.geomspace(10.0, 1e5, 12)
+    calls = {"outgoing": lambda: trad.radau_outgoing(c32, 1e5, 10.0, 9.8, tol=tol),
+             "depth": lambda: trad.radau_path_tau(c32, 1e5, 10.0, 9.8, m=1.3, tol=tol),
+             "monoflux": lambda: trad.radau_monoflux(c32, P, 9.8, torch.full_like(c32.nu, 3.0),
+                                                     0.2, 0.841, tol=tol)}
+    before = _radau_counts()
+    got = calls[leg]()
+    torch.cuda.synchronize()
+    after = _radau_counts()
+    n = {"outgoing": (1, 0), "depth": (0, 1), "monoflux": (2, 1)}[leg]
+    assert (after["emission"] - before["emission"], after["depth"] - before["depth"]) == n
+    last = dict(radau_cuda.radau_leg.last)
+    monkeypatch.setattr(twin, "kernel_path", lambda x: False)
+    ref = calls[leg]()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all()) and bool(torch.isfinite(r).all())
+        assert _lane_peak_err(g, r) <= 10 * tol, leg
+    print(f"radau {leg}: last leg {last['rhs']}, {last['lanes']} lanes, attempts mean "
+          f"{float(last['attempts'].float().mean()):.1f}, max {int(last['attempts'].max())}")
+
+
+@pytest.mark.gpu
+def test_radau_kernel_steps_and_float64(cuda, monkeypatch):
+    """Accepted steps lane by lane against the plain float32 engine on the
+    card (the share that match is printed; float32 rounding in another
+    order moves some), and the kernel's band OLR within 1e-4 of the float64
+    plain engine's."""
+    from clearsky_tpu_torch.rt import radau as trad, radau_cuda
+    from clearsky_tpu_torch.utils import twin
+
+    tol = 1e-5
+    c32 = _radau_cache(2048, cuda, seed=1)
+    olr = trad.radau_outgoing(c32, 1e5, 10.0, 9.8, tol=tol)
+    launch = radau_cuda.radau_leg.last
+    k_steps, k_att = launch["steps"], launch["attempts"]
+    monkeypatch.setattr(twin, "kernel_path", lambda x: False)
+    recorded = []
+    plain_leg = trad._plain_leg
+    monkeypatch.setattr(trad, "_plain_leg",
+                        lambda *a, **k: recorded.append(plain_leg(*a, **k, with_steps=True))
+                        or recorded[-1][0])
+    trad.radau_outgoing(c32, 1e5, 10.0, 9.8, tol=tol)
+    share = float((k_steps == recorded[0][1]).float().mean())
+    print(f"radau steps: {share:.4f} of lanes match the plain float32 engine; kernel attempts "
+          f"mean {float(k_att.float().mean()):.1f}, max {int(k_att.max())}")
+    assert share > 0.2
+    # the float64 plain engine, on the card
+    ref = trad.radau_outgoing(_to(c32, cuda, torch.float64), 1e5, 10.0, 9.8, tol=tol)
+    band = lambda x: float(ct.trapz(c32.nu.double(), x.double()))
+    assert abs(band(olr) - band(ref)) <= 1e-4 * abs(band(ref))
+
+
+@pytest.mark.gpu
+def test_radau_kernel_max_steps_nan_and_backward(cuda):
+    """A lane out of attempts comes back NaN, a NaN lane does not hold the
+    others back (their values and steps are those of a run without it), and
+    a backward span (x decreasing) matches the plain engine."""
+    from clearsky_tpu_torch.rt import radau as trad, radau_cuda
+
+    c32 = _radau_cache(512, cuda, seed=2)
+    tau = trad.radau_path_tau(c32, 1e5, 10.0, 9.8, tol=1e-6, max_steps=3)
+    assert bool(torch.isnan(tau).any())
+    nu_ok = trad.radau_path_tau(c32, 1e5, 10.0, 9.8, tol=1e-6)
+    steps_ok = radau_cuda.radau_leg.last["steps"].clone()
+    assert bool(torch.isfinite(nu_ok).all())
+    # poison one lane's ln sigma: the others keep their values and steps
+    bad = c32.ln_sigma.clone()
+    bad[:, 7] = float("nan")
+    tau_bad = trad.radau_path_tau(c32._replace(ln_sigma=bad), 1e5, 10.0, 9.8, tol=1e-6)
+    steps_bad = radau_cuda.radau_leg.last["steps"]
+    keep = torch.arange(512, device=cuda) != 7
+    assert bool(torch.isnan(tau_bad[7])) and torch.equal(tau_bad[keep], nu_ok[keep])
+    assert torch.equal(steps_bad[keep], steps_ok[keep])
+    # backward: the depth leg from the surface up (x decreasing)
+    cpu = _to(c32, "cpu", torch.float32)
+    atol = torch.tensor([1e-11], device=cuda)
+    xs = torch.tensor([np.sqrt(1e5), np.sqrt(10.0)], dtype=torch.float32, device=cuda)
+    y0 = torch.zeros(512, device=cuda)
+    got = radau_cuda.radau_leg("depth", c32.lnP, c32.T[None], c32.mu[None], c32.ln_sigma[None],
+                               c32.nu, [1.0], 9.8, atol, y0, xs, rtol=1e-5, max_steps=10_000,
+                               dense=False)
+    ref = trad._plain_leg("depth", cpu.lnP, cpu.T[None], cpu.mu[None], cpu.ln_sigma[None],
+                          cpu.nu, [1.0], 9.8, atol.cpu(), y0.cpu(), xs.cpu(), 1e-5, 10_000, False)
+    assert bool((got.cpu() < 0).all())
+    assert _lane_peak_err(got, ref) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_radau_batched_columns_and_entry_points(cuda):
+    """A batch of columns (its own T, mu and ln sigma each) in one launch a
+    leg equals each column alone; the entry points launch the kernel (1 for
+    outgoing, 3 for radiate) and an RCM's heating holds 5e-3 of peak against
+    the float64 plain engine on the card (a float64 cache from the CPU)."""
+    import dataclasses
+
+    from clearsky_tpu_torch.rt import radau as trad
+    from clearsky_tpu_torch.utils import twin
+
+    cb = _radau_cache(1024, cuda, seed=3, n_cols=3)
+    P = np.geomspace(10.0, 1e5, 8)
+    up, dn, tau = trad.radau_monoflux(cb, P, 9.8, torch.full((3, 1024), 2.0, device=cuda), 0.1,
+                                      0.841, tol=1e-5)
+    for b in range(3):
+        one = cb._replace(T=cb.T[b], mu=cb.mu[b], ln_sigma=cb.ln_sigma[b])
+        u1, d1, t1 = trad.radau_monoflux(one, P, 9.8, torch.full((1024,), 2.0, device=cuda), 0.1,
+                                         0.841, tol=1e-5)
+        assert torch.equal(up[b], u1) and torch.equal(dn[b], d1) and torch.equal(tau[b], t1)
+    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(600, seed=21),
+                                           dtype=torch.float32, device=cuda)
+    p64 = lines.positions64()
+    nu = np.linspace(p64.min() - 25.0, p64.max() + 25.0, 2**12)
+    gas = ct.DirectGas.from_lines(lines, 4e-4, nu)
+    Pe = ct.pressuregrid(10.0, 1e5, 9)
+    Te = np.maximum(288.0 * (Pe / 1e5) ** 0.22, 160.0)
+    before = _radau_counts()
+    ct.outgoing(Pe, 9.8, Te, 0.044, gas, core=ct.Radau())
+    mid = _radau_counts()
+    ct.radiate(Pe, 9.8, Te, 0.044, 1e-3, 0.1, gas, core=ct.Radau())
+    torch.cuda.synchronize()
+    after = _radau_counts()
+    assert sum(mid.values()) - sum(before.values()) == 1
+    assert sum(after.values()) - sum(mid.values()) == 3
+    fcp = lambda T, P: 850.0
+    r32 = ct.RCM.create(Pe, Te, 9.8, lambda T, P: 0.044, 1e-3, 0.1, fcp, 1e7, gas,
+                        core=ct.Radau())
+    H32 = ct.heating(r32)
+    l64 = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(600, seed=21),
+                                         dtype=torch.float64, device="cpu")
+    A64 = ct.AcceleratedAbsorber.create(r32.A.T.double().cpu(), r32.Pe.double().cpu(),
+                                        ct.DirectGas.from_lines(l64, 4e-4, nu))
+    d = lambda x: x.double().to(cuda)
+    A64 = dataclasses.replace(A64, ln_sigma=d(A64.ln_sigma), lnP=d(A64.lnP), T=d(A64.T),
+                              nu=d(A64.nu))
+    r64 = dataclasses.replace(r32, Pe=d(r32.Pe), P=d(r32.P), T=d(r32.T), Pr=d(r32.Pr),
+                              S_nu=d(r32.S_nu), a_nu=d(r32.a_nu), A=A64)
+    kernel_path = twin.kernel_path
+    twin.kernel_path = lambda x: False
+    try:
+        H64 = ct.heating(r64)
+    finally:
+        twin.kernel_path = kernel_path
+    assert float((H32.double() - H64).abs().max() / H64.abs().max()) <= 5e-3
+    with pytest.raises(TypeError, match="float32"):
+        trad.radau_outgoing(_to(cb, cuda, torch.float64)._replace(
+            T=cb.T[0].double(), mu=cb.mu[0].double(), ln_sigma=cb.ln_sigma[0].double()),
+            1e5, 10.0, 9.8)
+
+
+@pytest.mark.gpu
+def test_radau_carries_derivatives_on_the_card(cuda, monkeypatch):
+    """The Radau wrapper's Function on CUDA float32: the primal launches the
+    kernel once, and the JVP (in the column's temperatures) is the plain
+    engine's, its twin's, on the same card tensors: forward mode, as JAX
+    differentiates its while_loop (which has no reverse mode)."""
+    from clearsky_tpu_torch.rt import radau as trad
+    from clearsky_tpu_torch.utils import twin
+
+    c32 = _radau_cache(512, cuda, seed=4)
+    f = lambda x: trad.radau_outgoing(c32._replace(T=c32.T * x), 1e5, 10.0, 9.8, tol=1e-4)
+    x = torch.ones_like(c32.T)
+    t = torch.linspace(-1e-3, 1e-3, x.shape[0], device=cuda)
+    before = sum(_radau_counts().values())
+    y, dy = torch.func.jvp(f, (x,), (t,))
+    torch.cuda.synchronize()
+    assert sum(_radau_counts().values()) == before + 1
+    monkeypatch.setattr(twin, "kernel_path", lambda x: False)
+    y0, dy0 = torch.func.jvp(f, (x,), (t,))
+    assert sum(_radau_counts().values()) == before + 1
+    assert float((y - y0).abs().max()) <= 1e-4 * float(y0.abs().max())
+    assert float((dy - dy0).abs().max()) <= 1e-5 * float(dy0.abs().max())

@@ -10,6 +10,7 @@ the bar is 1e-9. The gray analytic OLR (conftest.gray_analytic_olr) holds
 within 1%.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -134,12 +135,22 @@ def test_transparent_olr_is_sigma_t4():
     assert olr == pytest.approx(SIGMA_SB * 290.0**4, rel=1e-4)
 
 
-@pytest.mark.parametrize("core", [Radau()])
-def test_unported_cores_raise(col, core):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ct.outgoing(col["Pe"], G, col["Te"], MU, col["tg"], core=core)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ct.radiate(col["Pe"], G, col["Te"], MU, 0.0, 0.1, col["tg"], core=core)
+@pytest.mark.parametrize("core", [Radau(tol=1e-4)])
+def test_unported_cores_raise(core):
+    """Every core of the JAX package runs in the port: the adaptive Radau
+    core's outgoing and radiate on this column (at 32 points: the plain
+    engine's loop runs until the stiffest lane ends) match JAX's within
+    its tolerance of peak."""
+    c = _column(32)
+    jcore = getattr(jf, type(core).__name__)(**dataclasses.asdict(core))
+    out = ct.outgoing(c["Pe"], G, c["Te"], MU, c["tg"], core=core)
+    ref = np.asarray(jf.outgoing(c["Pe"], G, c["Te"], MU, c["jg"], core=jcore))
+    assert np.abs(out.numpy() - ref).max() <= core.tol * np.abs(ref).max()
+    F = ct.radiate(c["Pe"], G, c["Te"], MU, 0.0, 0.1, c["tg"], core=core)
+    R = jf.radiate(c["Pe"], G, c["Te"], MU, 0.0, 0.1, c["jg"], core=jcore)
+    for k in ("M_up", "M_down", "tau", "F_net"):
+        a, b = getattr(F, k).numpy(), np.asarray(getattr(R, k))
+        assert np.abs(a - b).max() <= core.tol * np.abs(b).max(), k
 
 
 def test_input_guards(col):
