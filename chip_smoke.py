@@ -4679,17 +4679,39 @@ def _seg_launch(plan, lines, states, L_seg, mode, bcoef, dev, conc=None, count_a
 # sampled wavenumbers (the stream-weighted intensities: OLR, M_down, M_up;
 # the depth) relative to float64's largest (the OLR 2.2e-7). The RCM's
 # heating on every RADAU_RCM_STRIDE-th wavenumber holds float64's within
-# RADAU_RCM_BAR of its peak (8.6e-6 read). Then the operations of one
-# attempt by form, counted on csrc/radau.cu (a division or reciprocal one
-# special-function-unit result and 4 FP32 operations for its refinement; an
-# exp or log one result and ~8 FP32; powf two and ~20; a float64 operation
-# two FP32 ones, the H100's float64 rate being half its float32): three
-# right-hand sides at the stage abscissae (emission 82 FP32 and 8 MUFU: the
-# bracket's 8-step search, ln P, the three interpolations, exp, the rate's
-# division, the Planck function's exp, expm1 and two divisions; depth 55
-# and 4), two simplified Newton iterations (88 and 6 each) and the step's
-# control (140 and 13: the eigen-divisors, the error estimate, two powf,
-# the positions in float64)
+# RADAU_RCM_BAR of its peak (8.6e-6 read).
+#
+# The operations of the kernel's work by the least form that computes each
+# term, counted on csrc/radau.cu's design (FP32 operations with a fused
+# multiply-add two and a compare one, a float64 operation two FP32 ones,
+# the H100's float64 rate being half its float32; one special-function
+# result for each exp, log, reciprocal, square root and reciprocal square
+# root, with 4 FP32 operations where an IEEE form refines it and 8 for an
+# accurate exp or log; a float32 <-> float64 conversion one result too,
+# the rate the card converts at; a hunt's integer steps and loads, and
+# selects, no operation): per attempt and per accepted step, for each
+# right-hand side. An emission attempt: the step's control (the float64
+# step and its floor, one conversion, the four reciprocals of the step,
+# the two eigen-divisors and the scale: 32 FP32, 5 results); the three
+# stage abscissae from the position's two-float split (8); three
+# right-hand sides with the row held (50 and 6 each: log, the row test, the
+# interpolations, exp of ln sigma, 1/mu, c2 nu / T, e^-x, the Planck
+# division); the Newton iteration from W = 0 (40, 1: its norm's square
+# root) and the second (76, 2: the square root and the rate's reciprocal);
+# the convergence test (8); the error estimate and the controller (52, 4:
+# the error scale's reciprocal, err^(-1/4) as rsqrt(sqrt), the new step's
+# conversion). An accepted step adds 21 and 3 (the history's reciprocal,
+# the position's split, its floor and the end test, f at the new
+# position). Depth: the real eigen-divisor a product (27 and 4), 29 and 3
+# a right-hand side (no Planck function), the Newton iterations 34 and 37
+# (f does not depend on y: the second's T W is dead and its TI F the
+# first's), 253 and 20 an attempt, 19 and 3 a step.
+# RADAU_ATTEMPT_OPS_FIRST is the count of the kernel's first design (a
+# binary search at every evaluation) on its own form per attempt (a
+# division or reciprocal one result and 4 FP32, powf two and ~20, the
+# 8-step search in each of three right-hand sides (emission 82 FP32 and 8
+# results each, depth 55 and 4), two Newton iterations (88 and 6 each) and
+# the control (140 and 13)): the kernel's time against both yardsticks
 RADAU_STRIDE = 64
 RADAU_TOL = 1e-5
 RADAU_BAR = 100.0
@@ -4701,8 +4723,10 @@ RADAU_RCM_BAR = 5e-3
 # the host's float64 heating of the sampled RCM runs beside the later
 # phases; the run waits at most this long for it at the end
 RADAU_RCM_F64_TIMEOUT_S = 420.0
-RADAU_ATTEMPT_OPS = {"emission": (3 * 82 + 2 * 88 + 140, 3 * 8 + 2 * 6 + 13),
-                     "depth": (3 * 55 + 2 * 88 + 140, 3 * 4 + 2 * 6 + 13)}
+RADAU_ATTEMPT_OPS = {"emission": (32 + 8 + 3 * 50 + 40 + 76 + 8 + 52, 5 + 3 * 6 + 1 + 2 + 4, 21, 3),
+                     "depth": (27 + 8 + 3 * 29 + 34 + 37 + 8 + 52, 4 + 3 * 3 + 1 + 2 + 4, 19, 3)}
+RADAU_ATTEMPT_OPS_FIRST = {"emission": (3 * 82 + 2 * 88 + 140, 3 * 8 + 2 * 6 + 13, 0, 0),
+                          "depth": (3 * 55 + 2 * 88 + 140, 3 * 4 + 2 * 6 + 13, 0, 0)}
 
 
 def warp_efficiency(attempts) -> float:
@@ -4714,17 +4738,19 @@ def warp_efficiency(attempts) -> float:
     return float(a.sum()) / float(32 * w.amax(dim=1).sum())
 
 
-def radau_bound(rhs: str, args, attempts) -> dict:
-    """The least time of a Radau launch: this run's attempts (summed over
-    lanes) at the FP32 and special-function rates of RADAU_ATTEMPT_OPS, and
-    its bytes (the cache's ln sigma, T and mu, y0 and the nodes read once;
-    y at every node, steps and attempts written once)."""
+def radau_bound(rhs: str, args, attempts, steps, ops=RADAU_ATTEMPT_OPS) -> dict:
+    """The least time of a Radau launch: this run's attempts and accepted
+    steps (each summed over lanes) at the FP32 and special-function rates
+    of ``ops`` (RADAU_ATTEMPT_OPS, or the first design's count), and its bytes (the
+    cache's ln sigma, T and mu, y0 and the nodes read once; y at every
+    node, steps and attempts written once)."""
     _, lnP, Tg, mug, lnsig, nu, m, g, atol, y0, xs, rtol, max_steps, dense = args
     n = float(attempts.to(torch.int64).sum())
-    fp32, mufu = RADAU_ATTEMPT_OPS[rhs]
+    n_acc = float(steps.to(torch.int64).sum())
+    fp32, mufu, fp32_step, mufu_step = ops[rhs]
     ins = nbytes(lnP, Tg, mug, lnsig, nu, atol, y0, xs)
     outs = 4 * y0.shape[0] * (xs.shape[0] if dense else 1) + 8 * y0.shape[0]
-    return bound(n * fp32, ins + outs, exps=n * mufu)
+    return bound(n * fp32 + n_acc * fp32_step, ins + outs, exps=n * mufu + n_acc * mufu_step)
 
 
 def _radau_sample(args, stride: int):
@@ -4910,13 +4936,18 @@ def phase_radau(par, dev, report):
         a, last, y = launches[name][0]
         fig = next(c for c in checks if c["call"] == name)
         kms = cuda_ms(lambda: orig(*a), n=5, warmup=1)
-        b = radau_bound(a[0], a, last["attempts"])
+        b = radau_bound(a[0], a, last["attempts"], last["steps"])
+        b17 = radau_bound(a[0], a, last["attempts"], last["steps"], RADAU_ATTEMPT_OPS_FIRST)
+        hw = info[a[0]]
         report[key] = dict(max_abs_err=fig["max_abs_err"], ms=kms, plain_ms=fig["plain_ms"],
                            library_ms=None, shape=f"{fig['lanes']} lanes x {fig['nodes']} nodes",
                            **b, more=dict(attempts_mean=fig["attempts_mean"],
                                           attempts_max=fig["attempts_max"],
                                           warp_efficiency=fig["warp_efficiency"],
-                                          registers=info[a[0]]["registers"]))
+                                          steps_match_share=fig["steps_match_share"],
+                                          bound_ms_first_design_count=b17["bound_ms"],
+                                          registers=hw["registers"], spill_bytes=hw["local_bytes"],
+                                          resident_warps=hw["resident_warps"]))
         emit("kernel", name=key, call=name, ms=kms, plain_f32_ms=fig["plain_ms"],
              err_vs_plain_f32_of_lane_scale=fig["err_vs_plain_f32_of_lane_scale"],
              err_vs_f64_of_lane_scale=fig["err_vs_f64_of_lane_scale"],
@@ -4924,7 +4955,9 @@ def phase_radau(par, dev, report):
              f64_bar=RADAU_F64_BAR, band_rel_vs_f64_sample=fig["band_rel_vs_f64_sample"],
              steps_match_share=fig["steps_match_share"], attempts_mean=fig["attempts_mean"],
              attempts_max=fig["attempts_max"], warp_efficiency=fig["warp_efficiency"],
-             **info[a[0]], **b)
+             attempts_sum=int(last["attempts"].to(torch.int64).sum()),
+             steps_sum=int(last["steps"].to(torch.int64).sum()), spill_bytes=hw["local_bytes"],
+             **hw, **b, **{f"{k}_first_design_count": v for k, v in b17.items()})
 
     nu64 = gas.nu.double()
     band = float(ct.trapz(nu64, olr.double()))

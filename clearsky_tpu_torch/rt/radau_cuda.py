@@ -40,22 +40,32 @@ _LL = ctypes.c_longlong
 
 
 def method_constants(rtol: float, g: float) -> tuple[np.ndarray, np.ndarray]:
-    """What the kernel takes: 29 float32 numbers (E, T, TI, the eigenvalues,
-    rtol and the Newton tolerance, 1e-4 N_A / g and the Planck constants,
-    each rounded to float32 as the plain engine rounds them) and the three
-    collocation nodes in float64 (the positions')."""
+    """What the kernel takes: 36 float32 numbers and the three collocation
+    nodes in float64 (the positions'). The numbers: E, T, TI, the
+    eigenvalues, rtol and the Newton tolerance, 1e-4 N_A / g and the Planck
+    constants (the 29 the first design read), then the nodes C, 1 / mu_r, the
+    safety factor 0.9 (2 ni + 1) / (2 ni + nit) at nit = 1 and 2 (ni =
+    ``NEWTON_ITERS``) and the controller's factor of an error at its floor,
+    (1e-12)^(-1/4); each the plain engine's float32 value
+    (``utils.radau``)."""
     from ..constants import C2_RADIATION, C_LIGHT, H_PLANCK
-    from .radau import _konst
+    from .radau import NEWTON_ITERS, _konst
 
-    r = torch.tensor(rtol, dtype=torch.float32)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    r = f32(rtol)
     eps = torch.finfo(torch.float32).eps
     newton_tol = torch.maximum(_engine._rdiv(10.0 * eps, r), torch.clamp(torch.sqrt(r), max=0.03))
     vals = np.concatenate([_engine._E, _engine._T.ravel(), _engine._TI.ravel(),
                            [_engine._MU_REAL, _engine._MU_C_RE, _engine._MU_C_IM]])
+    ni = NEWTON_ITERS
+    safety = [_engine._rdiv(0.9 * (2.0 * ni + 1.0), f32(2.0 * ni + nit)) for nit in (1, 2)]
+    derived = [*_engine._C, float(1.0 / f32(_engine._MU_REAL)), *map(float, safety),
+               float(torch.clamp(f32(0.0), min=1e-12) ** -0.25)]
     out = np.concatenate([vals.astype(np.float32),
                           np.array([float(r), float(newton_tol)], np.float32),
                           np.array([_konst(g), 2.0 * H_PLANCK * C_LIGHT**2, C2_RADIATION],
-                                   np.float32)])
+                                   np.float32),
+                          np.array(derived, np.float32)])
     return np.ascontiguousarray(out), np.ascontiguousarray(_engine._C, dtype=np.float64)
 
 
@@ -63,7 +73,7 @@ def _library():
     lib = load_library("radau")
     fn = lib.radau_launch
     if fn.argtypes is None:
-        if lib.radau_max_streams() != MAX_STREAMS or lib.radau_block() != BLOCK:
+        if lib.radau_max_streams() != MAX_STREAMS:
             raise RuntimeError("csrc/radau.cu and this wrapper disagree on its constants")
         fn.argtypes = [_I, _I, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                        _LL, _P, _P, _P, _P, _P, _P, _P, _P]
@@ -74,7 +84,7 @@ def _library():
 def kernel_info(rhs: str, lib=None) -> dict:
     """Registers and local (spill) bytes a thread of the ``rhs`` instance,
     and its resident blocks and warps an SM, from ``lib`` (default: the
-    port's library)."""
+    port's library; another build's threads a block are its own)."""
     lib = lib or load_library("radau")
     fn = lib.radau_kernel_info
     fn.argtypes = [_I, _P]
@@ -83,8 +93,9 @@ def kernel_info(rhs: str, lib=None) -> dict:
     err = fn(_RHS[rhs], ctypes.cast(out, _P))
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+    block = lib.radau_block()
     return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
-                resident_warps=out[2] * BLOCK // 32, block=BLOCK)
+                resident_warps=out[2] * block // 32, block=block)
 
 
 def radau_leg(rhs: str, lnP, Tg, mug, lnsig, nu, m, g: float, atol, y0, xs, *, rtol: float,

@@ -2242,3 +2242,159 @@ def test_radau_carries_derivatives_on_the_card(cuda, monkeypatch):
     assert sum(_radau_counts().values()) == before + 1
     assert float((y - y0).abs().max()) <= 1e-4 * float(y0.abs().max())
     assert float((dy - dy0).abs().max()) <= 1e-5 * float(dy0.abs().max())
+
+
+# chip_smoke.py's bars of a Radau launch against the plain float32 engine:
+# RADAU_BAR lane scales atol + rtol |y| (|y| the lane's peak over its
+# nodes) and RADAU_PEAK_BAR of the output's peak
+RADAU_BAR, RADAU_PEAK_BAR = 100.0, 1e-4
+
+
+def _leg_vs_plain(monkeypatch, rhs, lnP, Tg, mug, lnsig, nu, m, atol, y0, xs, dense,
+                  rtol=1e-5):
+    """One leg through the kernel (one launch) and through the plain
+    float32 engine on the same card tensors, the kernel held at chip_smoke's
+    bars with NaN lanes alike; returns (kernel y, plain y, the launch's
+    steps and attempts)."""
+    from clearsky_tpu_torch.rt import radau_cuda
+    from clearsky_tpu_torch.utils import twin
+
+    call = lambda: radau_cuda.radau_leg(rhs, lnP, Tg, mug, lnsig, nu, m, 9.8, atol, y0, xs,
+                                        rtol=rtol, max_steps=10_000, dense=dense)
+    before = _radau_counts()[rhs]
+    got = call()
+    torch.cuda.synchronize()
+    assert _radau_counts()[rhs] == before + 1
+    last = dict(radau_cuda.radau_leg.last)
+    with monkeypatch.context() as mp:
+        mp.setattr(twin, "kernel_path", lambda x: False)
+        ref = call()
+    assert torch.equal(torch.isnan(got), torch.isnan(ref)) and bool(torch.isfinite(ref).all())
+    g, r = got.double(), ref.double()
+    peak = r.abs().amax(dim=0) if r.dim() > 1 else r.abs()
+    lane_atol = atol.double().repeat_interleave(len(m) * nu.shape[0])
+    assert float(((g - r).abs() / (lane_atol + rtol * peak)).max()) <= RADAU_BAR, rhs
+    assert float((g - r).abs().max() / r.abs().max()) <= RADAU_PEAK_BAR, rhs
+    return got, ref, last
+
+
+def _legs(monkeypatch, c, xs_down, dense):
+    """Emission down (from 0), emission up (from the surface's Planck
+    function) and the vertical depth on cache ``c`` (one column or a batch)
+    over the nodes ``xs_down`` (+sqrt P, ascending) against the plain
+    engine; [(rhs, kernel y, plain y, launch)]."""
+    from clearsky_tpu_torch.ops.planck import planck
+
+    npc = c.lnP.shape[0]
+    Tg = c.T.reshape(-1, npc).contiguous()
+    C, n = Tg.shape[0], c.nu.shape[0]
+    mug = torch.broadcast_to(c.mu, c.T.shape).reshape(C, npc).contiguous()
+    lnsig = c.ln_sigma.reshape(-1, npc, n).contiguous()
+    m = stream_nodes(5)[0]
+    B_s = planck(c.nu, Tg[:, -1:])                                      # [C, n]
+    atol = (1e-8 * B_s.amax(dim=1)).contiguous()
+    zeros = torch.zeros(C * len(m) * n, device=c.T.device)
+    up0 = B_s[:, None].expand(C, len(m), n).reshape(-1).contiguous()
+    xs_up = (-torch.flip(xs_down, (0,))).contiguous()
+    out = []
+    for rhs, mm, at, y0, xs in (("emission", m, atol, zeros, xs_down),
+                                ("emission", m, atol, up0, xs_up),
+                                ("depth", [1.0], torch.full_like(atol, 1e-11), zeros[:C * n],
+                                 xs_down)):
+        out.append((rhs, *_leg_vs_plain(monkeypatch, rhs, c.lnP, Tg, mug, lnsig, c.nu, mm, at,
+                                        y0, xs.contiguous(), dense)))
+    return out
+
+
+@pytest.mark.gpu
+def test_radau_stage_abscissae_on_the_nodes(cuda, monkeypatch):
+    """Dense legs whose nodes are the cache's own levels, ln P formed on the
+    card as the kernel forms an abscissa's (2 logf |x|): every segment starts
+    on a level and its last stage abscissa lands on the next, where the
+    bracket ties (searchsorted(side="right") takes the upper row). Emission
+    down and up and the depth hold the plain float32 engine at chip_smoke's
+    bars."""
+    c = _radau_cache(1000, cuda, seed=5, npc=40)
+    sp = torch.sqrt(torch.exp(c.lnP.double())).float()
+    c = c._replace(lnP=2.0 * torch.log(sp))
+    assert bool((c.lnP[1:] > c.lnP[:-1]).all())
+    for rhs, got, ref, last in _legs(monkeypatch, c, sp, dense=True):
+        assert got.shape[0] == sp.shape[0] and int(last["steps"].min()) >= sp.shape[0] - 1
+
+
+@pytest.mark.gpu
+def test_radau_steps_across_many_rows(cuda, monkeypatch):
+    """A cache of 1,024 levels whose every other wavenumber is e^30 times
+    thinner: those lanes cross the column's 1,023 rows in a few dozen
+    attempts (steps growing tenfold, across hundreds of rows at the end:
+    the hunt's doubling steps and bisection) beside thick lanes that step
+    within a row; one segment each way and the depth hold the plain engine
+    at chip_smoke's bars."""
+    c = _radau_cache(2048, cuda, seed=6, npc=1024)
+    ls = c.ln_sigma.clone()
+    ls[:, ::2] -= 30.0
+    c = c._replace(ln_sigma=ls)
+    xs = torch.tensor([np.sqrt(10.0), np.sqrt(1e5)], dtype=torch.float32, device=cuda)
+    for rhs, got, ref, last in _legs(monkeypatch, c, xs, dense=False):
+        att = last["attempts"].view(-1, 2048)
+        assert float(att[:, ::2].float().mean()) < 60.0 < float(att[:, 1::2].float().mean()), rhs
+
+
+@pytest.mark.gpu
+def test_radau_accelerated_absorber_rows(cuda, monkeypatch):
+    """An AcceleratedAbsorber's own grid (24 levels even in ln P, their
+    spacing in sqrt P 50-fold apart from top to bottom, the rows of an RCM's
+    cache) through outgoing's legs and the depth, dense over the levels,
+    against the plain engine at chip_smoke's bars."""
+    from clearsky_tpu_torch.rt import radau as trad
+
+    lines = ct.SpectralLines.from_par_dict(ct.synthetic_co2_par(600, seed=21),
+                                           dtype=torch.float32, device=cuda)
+    p64 = lines.positions64()
+    gas = ct.DirectGas.from_lines(lines, 4e-4, np.linspace(p64.min() - 25.0,
+                                                            p64.max() + 25.0, 2**12))
+    fT = lambda P: torch.clamp(288.0 * (P / 1e5) ** 0.22, min=160.0)
+    P = torch.tensor(np.geomspace(10.0, 1e5, 24), dtype=torch.float32, device=cuda)
+    A = ct.AcceleratedAbsorber.create(fT(P), P, gas)
+    c = trad.build_column_cache(None, fT, lambda T, P: torch.full_like(T, 0.044), A)
+    w = torch.sqrt(torch.exp(c.lnP.double()))
+    assert float((w[1:] - w[:-1]).max() / (w[1:] - w[:-1]).min()) > 10.0
+    _legs(monkeypatch, c, w.float(), dense=True)
+
+
+@pytest.mark.gpu
+def test_radau_warp_across_columns(cuda, monkeypatch):
+    """Four columns of 50 wavenumbers in one launch a leg: warps hold lanes of
+    two columns (the depth's lanes 32-63, columns 0 and 1) and a block's
+    columns share its staged T and mu. Each column's lanes equal the column
+    launched alone, bit for bit and step for step (lanes are independent),
+    and the batch holds the plain engine at chip_smoke's bars."""
+    cb = _radau_cache(50, cuda, seed=7, n_cols=4)
+    xs = torch.tensor(np.sqrt(np.geomspace(10.0, 1e5, 6)), dtype=torch.float32, device=cuda)
+    batch = _legs(monkeypatch, cb, xs, dense=True)
+    for b in range(4):
+        one = cb._replace(T=cb.T[b], mu=cb.mu[b], ln_sigma=cb.ln_sigma[b])
+        for (rhs, got, _, last), (_, got1, _, last1) in zip(batch, _legs(monkeypatch, one, xs,
+                                                                         dense=True)):
+            lanes = got.shape[1] // 4
+            assert torch.equal(got[:, b * lanes:(b + 1) * lanes], got1), (rhs, b)
+            assert torch.equal(last["steps"][b * lanes:(b + 1) * lanes], last1["steps"])
+
+
+@pytest.mark.gpu
+def test_radau_rows_read_from_device_memory(cuda, monkeypatch):
+    """Eight columns of 20 wavenumbers on 1,024 levels: a block's columns'
+    rows (16 bytes a row and column) exceed its 48 KB of shared memory, so
+    its lanes read them from device memory. Each column equals the column
+    launched alone (whose rows a block stages), bit for bit and step for
+    step, and the batch holds the plain engine at chip_smoke's bars."""
+    cb = _radau_cache(20, cuda, seed=8, npc=1024, n_cols=8)
+    xs = torch.tensor([np.sqrt(10.0), np.sqrt(1e5)], dtype=torch.float32, device=cuda)
+    batch = _legs(monkeypatch, cb, xs, dense=False)
+    for b in (0, 5):
+        one = cb._replace(T=cb.T[b], mu=cb.mu[b], ln_sigma=cb.ln_sigma[b])
+        for (rhs, got, _, last), (_, got1, _, last1) in zip(batch, _legs(monkeypatch, one, xs,
+                                                                         dense=False)):
+            lanes = got.shape[0] // 8
+            assert torch.equal(got[b * lanes:(b + 1) * lanes], got1), (rhs, b)
+            assert torch.equal(last["steps"][b * lanes:(b + 1) * lanes], last1["steps"])

@@ -281,8 +281,28 @@ def test_radau_leg_takes_the_plain_engine_on_the_cpu(co2):
     assert radau_cuda.radau_leg.launches == before
     assert olr.shape == (96,) and bool(torch.isfinite(olr).all())
     c, nodes = radau_cuda.method_constants(1e-5, G)
-    assert c.dtype == np.float32 and c.shape == (29,) and nodes.dtype == np.float64
+    assert c.dtype == np.float32 and c.shape == (36,) and nodes.dtype == np.float64
     assert nodes[2] == 1.0   # the last node: an accepted step reuses its stage
+
+
+def test_radau_kernel_constants_are_the_plain_engines():
+    """What the wrapper hands the kernel beyond the method's 29 numbers are
+    the plain engine's float32 values: the nodes C (the stage abscissae's
+    offsets), 1 / mu_r, the controller's safety 0.9 (2 ni + 1) / (2 ni +
+    nit) at nit = 1 and 2 as radau_scalar divides it (0.9 and 0.75 at the
+    flux core's two Newton iterations), and max(err, 1e-12)^(-1/4) at an
+    error under the floor (1000)."""
+    from clearsky_tpu_torch.utils import radau as eng
+
+    c, _ = radau_cuda.method_constants(1e-5, G)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    assert np.array_equal(c[29:32], eng._C.astype(np.float32))
+    assert c[32] == float(1.0 / f32(eng._MU_REAL))
+    ni = trad.NEWTON_ITERS
+    for k, nit in enumerate((1, 2)):
+        assert c[33 + k] == float(eng._rdiv(0.9 * (2.0 * ni + 1.0), 2.0 * ni + f32(nit)))
+    assert (c[33], c[34]) == (np.float32(0.9), np.float32(0.75))
+    assert c[35] == float(torch.clamp(f32(1e-20), min=1e-12) ** -0.25) == 1000.0
 
 
 def test_chip_smoke_band_integrals_are_the_fluxes(co2, monkeypatch):
