@@ -566,36 +566,25 @@ def grid_for(lines, n):
 
 def counts_reset():
     """Set every kernel wrapper's launch count to 0."""
-    from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines, stencil_correction
-    from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
-    from clearsky_tpu_torch.rt.fused_table_cuda import fused_olr, fused_monoflux
-    from clearsky_tpu_torch.rt.radau_cuda import radau_leg
+    from clearsky_tpu_torch.utils import profiling
 
-    for w in (sigma_lines, stencil_correction, olr_march, monoflux_march, fused_olr,
-              fused_monoflux):
-        w.launches = 0
-    stencil_correction.launches_phco2 = 0
-    for k in radau_leg.launches:
-        radau_leg.launches[k] = 0
-    for k in sigma_lines.launches_by_mode:
-        sigma_lines.launches_by_mode[k] = 0
+    for k in [k for k in profiling.counters if k.startswith("launch.")]:
+        del profiling.counters[k]
 
 
 def counts_read() -> dict:
     """Launches per kernel of ``KERNELS`` (K1 by mode) since the last reset."""
-    from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines, stencil_correction
-    from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
-    from clearsky_tpu_torch.rt.fused_table_cuda import fused_olr, fused_monoflux
-    from clearsky_tpu_torch.rt.radau_cuda import radau_leg
+    from clearsky_tpu_torch.utils import profiling
 
-    out = {k: sigma_lines.launches_by_mode[m] for m, k in MODE_KERNEL.items()}
-    out.update(stencil_correction=stencil_correction.launches,
-               stencil_correction_phco2=stencil_correction.launches_phco2,
-               olr_march=olr_march.launches,
-               monoflux_march=monoflux_march.launches, fused_olr=fused_olr.launches,
-               fused_monoflux=fused_monoflux.launches,
-               radau_emission=radau_leg.launches["emission"],
-               radau_depth=radau_leg.launches["depth"])
+    c = profiling.counters
+    out = {k: c["launch.linesum." + m] for m, k in MODE_KERNEL.items()}
+    out.update(stencil_correction=c["launch.correction"],
+               stencil_correction_phco2=c["launch.correction.phco2"],
+               olr_march=c["launch.march.olr"],
+               monoflux_march=c["launch.march.monoflux"], fused_olr=c["launch.fused.olr"],
+               fused_monoflux=c["launch.fused.monoflux"],
+               radau_emission=c["launch.radau.emission"],
+               radau_depth=c["launch.radau.depth"])
     return out
 
 

@@ -142,8 +142,19 @@ struct Params {
   float* y;             // [nx, L] (dense) or [L]
   int* steps;           // [L] accepted steps, summed over segments
   int* attempts;        // [L] attempts, summed over segments
+  unsigned long long* work;  // [2] the launch's steps and attempts added (null: not counted)
   int dense;
 };
+
+// A warp's sum of a non-negative int over the lanes of ``mask`` (the warp's
+// first lanes, all that did not leave), exact in 64 bits: its low 16 and
+// high 15 bits are summed apart (32 lanes x 2^16 fits 32 bits).
+__device__ __forceinline__ unsigned long long warp_sum(unsigned mask, int v) {
+  const unsigned u = static_cast<unsigned>(v);
+  const unsigned lo = __reduce_add_sync(mask, u & 0xffffu);
+  const unsigned hi = __reduce_add_sync(mask, u >> 16);
+  return (static_cast<unsigned long long>(hi) << 16) + lo;
+}
 
 // The lane's row: the cache's values at rows i and i + 1 that an abscissa
 // in [p0, p1) interpolates between (ln sigma's, read from device memory,
@@ -580,6 +591,18 @@ radau_kernel(const Params p) {
   if (!p.dense) p.y[lane] = y;
   p.steps[lane] = steps;
   p.attempts[lane] = attempts;
+  if (p.work != nullptr) {
+    // the lanes of this warp that did not leave are its first ``live``
+    const long long warp0 = lane - (threadIdx.x & 31);
+    const long long live = p.L - warp0 < 32 ? p.L - warp0 : 32;
+    const unsigned mask = live == 32 ? 0xffffffffu : (1u << live) - 1u;
+    const unsigned long long ws = warp_sum(mask, steps);
+    const unsigned long long wa = warp_sum(mask, attempts);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(p.work, ws);
+      atomicAdd(p.work + 1, wa);
+    }
+  }
 }
 
 // dynamic shared bytes of a launch, staged or not
@@ -602,6 +625,8 @@ void launch(const Params& p, bool staged, long long smem, cudaStream_t st) {
 extern "C" {
 
 int radau_max_streams() { return MAX_STREAMS; }
+// present where radau_launch takes ``work`` (an earlier tree's library takes none)
+int radau_counts_work() { return 1; }
 int radau_block() { return BLOCK; }
 
 // consts: E[3], T[9], TI[9], mu_r, mu_cr, mu_ci, rtol, newton_tol, konst,
@@ -610,7 +635,9 @@ int radau_block() { return BLOCK; }
 // the first design read the first 29); nodes: the three collocation nodes in
 // double (the first design's stage abscissae; not read here: the
 // abscissae are formed from C); m: ns host floats; newton_iters must be 2
-// (the kernel's). Every pointer but consts and m is device memory. A block
+// (the kernel's); work: null, or 2 device uint64 the launch adds its lanes'
+// accepted steps and attempts to (a warp's sum, one atomic each). Every
+// pointer but consts and m is device memory. A block
 // stages its columns' rows in shared memory where they fit within 48 KB,
 // else its lanes read them from device memory. Returns cudaGetLastError().
 int radau_launch(int rhs, int dense, long long L, int n_cols, int ns, int n_nu, int npc,
@@ -619,7 +646,7 @@ int radau_launch(int rhs, int dense, long long L, int n_cols, int ns, int n_nu, 
                  int max_steps, const float* lnP, const float* Tg, const float* mug,
                  const float* lnsig, long long sig_stride, const float* nu,
                  const float* atol, const float* y0, const float* xs, float* y, int* steps,
-                 int* attempts, void* stream) {
+                 int* attempts, unsigned long long* work, void* stream) {
   if (ns < 1 || ns > MAX_STREAMS || npc < 2 || nx < 2 || L < 1 || n_nu < 1 || n_cols < 1 ||
       L != static_cast<long long>(n_cols) * ns * n_nu || newton_iters != NEWTON_ITERS ||
       max_steps < 0 || (rhs != RHS_EMISSION && rhs != RHS_DEPTH))
@@ -647,7 +674,8 @@ int radau_launch(int rhs, int dense, long long L, int n_cols, int ns, int n_nu, 
   const long long smem = shared_bytes(p, staged);
   if (smem > SHARED_BUDGET) return static_cast<int>(cudaErrorInvalidValue);
   p.lnP = lnP; p.Tg = Tg; p.mug = mug; p.lnsig = lnsig; p.nu = nu; p.atol = atol;
-  p.y0 = y0; p.xs = xs; p.y = y; p.steps = steps; p.attempts = attempts; p.dense = dense;
+  p.y0 = y0; p.xs = xs; p.y = y; p.steps = steps; p.attempts = attempts; p.work = work;
+  p.dense = dense;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rhs == RHS_EMISSION)
     launch<RHS_EMISSION>(p, staged, smem, st);

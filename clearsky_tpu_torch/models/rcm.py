@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.planck import planck
+from ..utils import profiling
 from ..utils.interp import interp_linear, full_float32
 from ..utils.grids import trapz
 from ..absorption.absorbers import AcceleratedAbsorber, unify_absorbers
@@ -152,12 +153,13 @@ def _mono_on_radiative_grid(rcm: RCM, T, A: AcceleratedAbsorber):
                                            rcm.theta_s, nstream=core.nstream, tol=core.tol,
                                            max_steps=core.max_steps)
         return tau, M_up, M_down
-    Pf = lobatto_pressures(rcm.Pr, core.nlobatto).reshape(-1)
-    Tf = fT(Pf)
-    muf = torch.broadcast_to(torch.as_tensor(rcm.fmu(Tf, Pf), dtype=Pf.dtype,
-                                             device=Pf.device), Tf.shape)
-    sig = A.sigma(Tf, Pf)
-    tau = layer_tau_flat(rcm.Pr, muf, sig, rcm.g, core.nlobatto)
+    with profiling.span("cs.heating.opacity", T):
+        Pf = lobatto_pressures(rcm.Pr, core.nlobatto).reshape(-1)
+        Tf = fT(Pf)
+        muf = torch.broadcast_to(torch.as_tensor(rcm.fmu(Tf, Pf), dtype=Pf.dtype,
+                                                 device=Pf.device), Tf.shape)
+        sig = A.sigma(Tf, Pf)
+        tau = layer_tau_flat(rcm.Pr, muf, sig, rcm.g, core.nlobatto)
     B = planck(rcm.nu, fT(rcm.Pr)[..., None])
     M_up, M_down = monoflux(tau, B, rcm.nu, rcm.S_nu, rcm.a_nu, rcm.theta_s, core.nstream)
     return tau, M_up, M_down
@@ -205,14 +207,16 @@ def heating(rcm: RCM, T=None, A: AcceleratedAbsorber | None = None, spectral_sum
     T = rcm.T if T is None else T
     A = rcm.A if A is None else A
     spectral_sum = rcm.spectral_sum if spectral_sum is None else spectral_sum
-    _, M_up, M_down = _mono_on_radiative_grid(rcm, T, A)
-    # full float32, as the JAX package's Precision.HIGHEST: TF32 would round
-    # the per-nu net flux that the level differences cancel (trap C5)
-    with full_float32():
-        dH = torch.matmul(_heating_operator(rcm, T), M_up - M_down)   # [..., np, n_nu]
-    if spectral_sum is None:
-        return trapz(rcm.nu, dH, axis=-1)
-    return spectral_sum(dH)
+    with profiling.span("cs.heating", T):
+        _, M_up, M_down = _mono_on_radiative_grid(rcm, T, A)
+        with profiling.span("cs.heating.spectral", T):
+            # full float32, as the JAX package's Precision.HIGHEST: TF32 would
+            # round the per-nu net flux that the level differences cancel (trap C5)
+            with full_float32():
+                dH = torch.matmul(_heating_operator(rcm, T), M_up - M_down)   # [..., np, n_nu]
+            if spectral_sum is None:
+                return trapz(rcm.nu, dH, axis=-1)
+            return spectral_sum(dH)
 
 
 def radiate_state(rcm: RCM) -> FluxPack:
@@ -269,11 +273,14 @@ def run(rcm: RCM, dt, nsteps: int, update_every: int = 0, adjust_every: int = 0,
     T, A = rcm.T, rcm.A
     recs = []
     for i in range(nsteps):
-        T = T + dt * heating(rcm, T, A, spectral_sum=spectral_sum)
-        if adjust_every and (i + 1) % adjust_every == 0:
-            T = lapse(T, rcm.P, cp, mu)
-        if update_every and (i + 1) % update_every == 0:
-            A = A.update(interp_linear(lnPe, lnP, T))
+        with profiling.span("cs.step", T):
+            T = T + dt * heating(rcm, T, A, spectral_sum=spectral_sum)
+            if adjust_every and (i + 1) % adjust_every == 0:
+                with profiling.span("cs.adjust", T):
+                    T = lapse(T, rcm.P, cp, mu)
+            if update_every and (i + 1) % update_every == 0:
+                with profiling.span("cs.refresh", T):
+                    A = A.update(interp_linear(lnPe, lnP, T))
         if record_every and (i + 1) % record_every == 0:
             recs.append(T)
     history = (torch.stack(recs) if recs

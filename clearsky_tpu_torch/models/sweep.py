@@ -25,6 +25,7 @@ import dataclasses
 import torch
 
 from ..atmosphere.adiabats import lapse
+from ..utils import profiling
 from ..utils.interp import interp_linear
 from . import rcm as rcm_mod
 
@@ -99,11 +100,14 @@ def run_sweep(rcm, factors, dt, nsteps: int, T0_b=None, update_every: int = 0,
     r_b = _with_insolation(rcm, factors)
     lnPe, lnP = torch.log(rcm.Pe), torch.log(rcm.P)
     for i in range(nsteps):
-        T = T + dt * rcm_mod.heating(r_b, T, A)
-        if adjust_every and (i + 1) % adjust_every == 0:
-            T = lapse(T, rcm.P, cp, mu)
-        if update_every and (i + 1) % update_every == 0:
-            A = A.update(interp_linear(lnPe, lnP, T))
+        with profiling.span("cs.step", T):
+            T = T + dt * rcm_mod.heating(r_b, T, A)
+            if adjust_every and (i + 1) % adjust_every == 0:
+                with profiling.span("cs.adjust", T):
+                    T = lapse(T, rcm.P, cp, mu)
+            if update_every and (i + 1) % update_every == 0:
+                with profiling.span("cs.refresh", T):
+                    A = A.update(interp_linear(lnPe, lnP, T))
     return T, A
 
 

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..spectra.lines import PER_LINE_FIELDS
-from ..utils import twin
+from ..utils import profiling, twin
 from .faddeeva import wofz_re
 from .lineshape import (
     scale_intensity,
@@ -530,17 +530,19 @@ def sigma_from_lines_auto_device(dplan: DeviceWindowPlan, lines, T, P, Pp,
         c1 = None if conc is None else conc[..., None, :]
         return sigma_from_lines_auto_device(dplan.stacked(), lines1, T, P, Pp, shape, c1,
                                             strategy)
-    if not twin.kernel_path(T):
-        return sigma_from_lines_shards(dplan, lines, T, P, P if Pp is None else Pp, shape, conc)
-    from .linesum_cuda import sigma_device
+    with profiling.span("cs.linesum", T):
+        if not twin.kernel_path(T):
+            return sigma_from_lines_shards(dplan, lines, T, P, P if Pp is None else Pp, shape,
+                                           conc)
+        from .linesum_cuda import sigma_device
 
-    k, L = lines.nu.shape
-    shp, Tf, Pf, Ppf, _ = _flatten_states(T, P, Pp, None, k * L)
-    if conc is not None and conc.dim() > 2:      # per-state concentrations
-        shp = torch.broadcast_shapes(shp, conc.shape[:-2])
-        conc = torch.broadcast_to(conc, shp + (k, L)).reshape(-1, k, L).contiguous()
-    sig = sigma_device(dplan, lines, Tf, Pf, Ppf, shape=shape, strategy=strategy, conc=conc)
-    return sig.reshape(shp + (k * dplan.n_nu,))
+        k, L = lines.nu.shape
+        shp, Tf, Pf, Ppf, _ = _flatten_states(T, P, Pp, None, k * L)
+        if conc is not None and conc.dim() > 2:      # per-state concentrations
+            shp = torch.broadcast_shapes(shp, conc.shape[:-2])
+            conc = torch.broadcast_to(conc, shp + (k, L)).reshape(-1, k, L).contiguous()
+        sig = sigma_device(dplan, lines, Tf, Pf, Ppf, shape=shape, strategy=strategy, conc=conc)
+        return sig.reshape(shp + (k * dplan.n_nu,))
 
 
 def _flatten_states(T, P, Pp, conc, n_lines):
@@ -576,10 +578,11 @@ def sigma_from_lines_auto(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "v
     from .linesum_strategies import check_strategy
 
     check_strategy(strategy)
-    if not twin.kernel_path(T):
-        return sigma_from_lines(plan, lines, T, P, P if Pp is None else Pp, shape, conc=conc)
-    from .linesum_cuda import sigma_routed
+    with profiling.span("cs.linesum", T):
+        if not twin.kernel_path(T):
+            return sigma_from_lines(plan, lines, T, P, P if Pp is None else Pp, shape, conc=conc)
+        from .linesum_cuda import sigma_routed
 
-    shp, Tf, Pf, Ppf, concf = _flatten_states(T, P, Pp, conc, lines.n_lines)
-    sig = sigma_routed(plan, lines, Tf, Pf, Ppf, shape=shape, strategy=strategy, conc=concf)
-    return sig.reshape(shp + (plan.n_nu,))
+        shp, Tf, Pf, Ppf, concf = _flatten_states(T, P, Pp, conc, lines.n_lines)
+        sig = sigma_routed(plan, lines, Tf, Pf, Ppf, shape=shape, strategy=strategy, conc=concf)
+        return sig.reshape(shp + (plan.n_nu,))

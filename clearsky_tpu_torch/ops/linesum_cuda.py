@@ -57,14 +57,14 @@ Every wrapper takes per-line concentrations ``conc`` ([n_lines] or
 [n_states, n_lines]), folded into S and gamma before the pack, so no kernel
 sees them.
 
-Launch counts: ``sigma_lines.launches`` counts every launch of K1, K4 and
-K5 and ``sigma_lines.launches_by_mode`` each mode's (the phco2 instances
-under "phco2_...", the no-split sweep under "nosplit" and "phco2_nosplit"),
-K1-seg's launches (one per segment) under "segmented", K4's under "lane"
-and K5's under "gathered" ("phco2_segmented", "phco2_lane",
-"phco2_gathered" for the phco2 family);
-``stencil_correction.launches`` the correction's voigt instance and
-``stencil_correction.launches_phco2`` its phco2 one.
+Launch counts (``utils.profiling.counters``): ``launch.linesum`` counts
+every launch of K1, K4 and K5 and ``launch.linesum.<mode>`` each mode's
+(the phco2 instances under "phco2_...", the no-split sweep under "nosplit"
+and "phco2_nosplit"), K1-seg's launches (one per segment) under
+"segmented", K4's under "lane" and K5's under "gathered"
+("phco2_segmented", "phco2_lane", "phco2_gathered" for the phco2 family),
+K1-dev's under "dev_" and the mode's name; ``launch.correction`` the
+correction's voigt instance and ``launch.correction.phco2`` its phco2 one.
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ import numpy as np
 import torch
 
 from ..spectra.lines import PER_LINE_FIELDS
-from ..utils import twin
+from ..utils import profiling, twin
 from ..utils.cuda_build import check_operand, load_library
 from .linesum import (
     PHCO2_FAMILY,
@@ -163,12 +163,6 @@ _N_WIN = {m: (3 if m in (4, 5, 9, 10) else 1) for m in (*_MODE_NAMES, *_FULL_NAM
 _D_NEAR_MODES = (0, 4, 7, 9)
 # the modes that may add into sigma (K1-seg): split, no-split and single sweep
 _ACC_MODES = (0, 1, 2, 7, 12, 13)
-# launch-count keys of the routes that run K1 per segment and K4/K5
-_ROUTE_COUNTS = ("segmented", "lane", "gathered", "phco2_segmented", "phco2_lane",
-                 "phco2_gathered")
-# K1-dev's launches (the sharded path) count under "dev_" and the mode's name
-_DEV_MODES = (0, 1, 2, 4, 6, 7, 9, 11, 12, 13)
-_DEV_COUNTS = tuple("dev_" + _MODE_NAMES[m] for m in _DEV_MODES)
 ST = 8  # states per tile at most, and chi's rates' tile; csrc/linesum.cu ``ST``
 # lines per K1 work item at most: a block's windows are cut into pieces of
 # this many lines (csrc/linesum.cu sums a block's pieces in piece order)
@@ -644,8 +638,8 @@ def _check_windows(windows, n_lines: int):
 
 
 def _count(name: str) -> None:
-    sigma_lines.launches += 1
-    sigma_lines.launches_by_mode[name] += 1
+    profiling.counters["launch.linesum"] += 1
+    profiling.counters["launch.linesum." + name] += 1
 
 
 def launch_mode(mode: int, grid: dict, lines, coef, n_states: int, n_out: int, zones,
@@ -841,11 +835,6 @@ def sigma_lines(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", con
     return _prepare(plan, lines, T, P, Pp, shape, conc)()
 
 
-sigma_lines.launches = 0
-sigma_lines.launches_by_mode = dict.fromkeys(
-    tuple(_MODE_NAMES.values()) + _ROUTE_COUNTS + _DEV_COUNTS, 0)
-
-
 def sigma_nosplit(plan: LineWindowPlan, lines, T, P, Pp, shape: str = "voigt", conc=None):
     """sigma[n_states, n_nu] over the plan's windows by K1's no-split sweep,
     flat states [n_states]: the full w4 at every in-cut pair of a
@@ -949,15 +938,8 @@ def stencil_correction(out, geom, co, cut: float, weight=None, T=None, bcoef=Non
     )
     if err != 0:
         raise RuntimeError(f"stencil correction launch failed: CUDA error {err}")
-    if T is None:
-        stencil_correction.launches += 1
-    else:
-        stencil_correction.launches_phco2 += 1
+    profiling.counters["launch.correction" if T is None else "launch.correction.phco2"] += 1
     return out
-
-
-stencil_correction.launches = 0
-stencil_correction.launches_phco2 = 0
 
 
 def _route_operands(lines, T, P, Pp, n_windows_table, conc, shape, cut: float):

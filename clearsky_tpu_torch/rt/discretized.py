@@ -24,6 +24,7 @@ from ..constants import N_AVOGADRO
 from ..utils.quadrature import stream_nodes, lobatto_unit_nodes
 from ..utils.grids import trapz
 from ..utils.interp import full_float32
+from ..utils import profiling
 from .march_cuda import trans_emit, olr_march, monoflux_march
 
 __all__ = [
@@ -254,22 +255,23 @@ def monoflux(tau, B, nu, S_nu, albedo_nu, theta_s: float, nstream: int):
     (the march is per point): one march over [L, columns x n_nu], unfolded
     to [..., np, n_nu].
     """
-    m, W = stream_nodes(nstream)
-    ctheta = math.cos(theta_s)
-    if tau.dim() == 2:
-        return monoflux_march(tau, B, S_nu, albedo_nu, ctheta, m, W)
-    batch, (L, N) = tau.shape[:-2], tau.shape[-2:]
-    nb = math.prod(batch)
+    with profiling.span("cs.march", tau):
+        m, W = stream_nodes(nstream)
+        ctheta = math.cos(theta_s)
+        if tau.dim() == 2:
+            return monoflux_march(tau, B, S_nu, albedo_nu, ctheta, m, W)
+        batch, (L, N) = tau.shape[:-2], tau.shape[-2:]
+        nb = math.prod(batch)
 
-    def fold(x, rows):
-        x = torch.broadcast_to(x, batch + (rows, N)).reshape(nb, rows, N)
-        return x.transpose(0, 1).reshape(rows, nb * N)
+        def fold(x, rows):
+            x = torch.broadcast_to(x, batch + (rows, N)).reshape(nb, rows, N)
+            return x.transpose(0, 1).reshape(rows, nb * N)
 
-    spectral = lambda x: torch.broadcast_to(x, batch + (N,)).reshape(nb * N)
-    M_up, M_down = monoflux_march(fold(tau, L), fold(B, L + 1), spectral(S_nu),
-                                  spectral(albedo_nu), ctheta, m, W)
-    unfold = lambda x: x.view(L + 1, nb, N).transpose(0, 1).reshape(batch + (L + 1, N))
-    return unfold(M_up), unfold(M_down)
+        spectral = lambda x: torch.broadcast_to(x, batch + (N,)).reshape(nb * N)
+        M_up, M_down = monoflux_march(fold(tau, L), fold(B, L + 1), spectral(S_nu),
+                                      spectral(albedo_nu), ctheta, m, W)
+        unfold = lambda x: x.view(L + 1, nb, N).transpose(0, 1).reshape(batch + (L + 1, N))
+        return unfold(M_up), unfold(M_down)
 
 
 def outgoing_flux(tau, B, nstream: int, vertical: bool = False):
@@ -279,7 +281,8 @@ def outgoing_flux(tau, B, nstream: int, vertical: bool = False):
     the convention of the analytic gray-atmosphere solution.
     """
     m, W = (np.array([1.0]), np.array([np.pi])) if vertical else stream_nodes(nstream)
-    return olr_march(tau, B, m, W)
+    with profiling.span("cs.march", tau):
+        return olr_march(tau, B, m, W)
 
 
 def integrate_flux(M_up, M_down, nu):

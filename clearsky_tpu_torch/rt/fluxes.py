@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.planck import planck
+from ..utils import profiling
 from ..atmosphere.profile import formprofiles
 from ..absorption.absorbers import AbsorberStack, unify_absorbers, check_pressures
 from .discretized import (
@@ -131,10 +132,11 @@ def _eval_profiles(Pn, fT, fmu):
 
 def _column_tau(P, g, fT, fmu, A, nlobatto):
     """tau[np-1, n_nu] on an ascending pressure column (flat node sigma)."""
-    Pf = lobatto_pressures(P, nlobatto).reshape(-1)
-    Tf, muf = _eval_profiles(Pf, fT, fmu)
-    sig = A.sigma(Tf, Pf)                          # [L*k, n_nu]
-    return layer_tau_flat(P, muf, sig, g, nlobatto)
+    with profiling.span("cs.column_tau", A.nu):
+        Pf = lobatto_pressures(P, nlobatto).reshape(-1)
+        Tf, muf = _eval_profiles(Pf, fT, fmu)
+        sig = A.sigma(Tf, Pf)                          # [L*k, n_nu]
+        return layer_tau_flat(P, muf, sig, g, nlobatto)
 
 
 def _omega_grid(P1, P2, n):
@@ -329,10 +331,11 @@ def radiate(P, g, T, mu, fS, fa, *absorbers, core=Discretized(),
             theta_s: float = DEFAULT_THETA_S) -> FluxPack:
     """Full radiation pack: monochromatic and spectrally integrated fluxes."""
     A = unify_absorbers(absorbers)
-    M_up, M_down, tau = monochromatic_fluxes(P, g, T, mu, fS, fa, A, core=core,
-                                             theta_s=theta_s)
-    F_up, F_down = integrate_flux(M_up, M_down, A.nu)
-    return FluxPack(tau, M_up, M_down, F_up, F_down, F_up - F_down)
+    with profiling.span("cs.radiate", A.nu):
+        M_up, M_down, tau = monochromatic_fluxes(P, g, T, mu, fS, fa, A, core=core,
+                                                 theta_s=theta_s)
+        F_up, F_down = integrate_flux(M_up, M_down, A.nu)
+        return FluxPack(tau, M_up, M_down, F_up, F_down, F_up - F_down)
 
 
 def fluxes(P, g, T, mu, fS, fa, *absorbers, **kwargs):

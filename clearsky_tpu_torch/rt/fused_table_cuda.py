@@ -14,7 +14,9 @@ rows; bfloat16 tail and tail basis), shape and contiguity and raise on
 anything the kernels do not take; there is no fallback. Their derivatives
 are those of the unfused plain pipeline (``_unfused_tau`` and the plain
 marches, :func:`..utils.twin.with_twin`), as the JAX package's custom JVPs
-route tangents through its unfused XLA pipeline.
+route tangents through its unfused XLA pipeline. Their launches count in
+``utils.profiling.counters`` as ``launch.fused.olr`` and
+``launch.fused.monoflux``.
 
 Operands (K lead rows, T tail rows, N points, L layers of k Lobatto nodes):
 ``lead`` [K, N], ``tail`` [T, N], ``bl`` [L*k, K] and ``bt`` [L*k, T] the
@@ -32,7 +34,7 @@ import ctypes
 import torch
 
 from ..utils.cuda_build import check_operand, load_library
-from ..utils import twin
+from ..utils import profiling, twin
 from .march_cuda import MAX_STREAMS, _streams
 
 __all__ = ["fused_olr", "fused_monoflux", "kernel_info", "MAX_SMEM_BYTES",
@@ -142,11 +144,8 @@ def _fused_olr_launch(lead, tail, bl, bt, wq, B, m, W):
              out.data_ptr(), torch.cuda.current_stream(lead.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused table OLR kernel launch failed: CUDA error {err}")
-    fused_olr.launches += 1
+    profiling.counters["launch.fused.olr"] += 1
     return out
-
-
-fused_olr.launches = 0
 
 
 def fused_monoflux(lead, tail, bl, bt, wq, B, S_nu, albedo_nu, ctheta: float, m, W):
@@ -187,8 +186,5 @@ def _fused_monoflux_launch(lead, tail, bl, bt, wq, B, S_nu, albedo_nu, ctheta, m
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused table flux kernel launch failed: CUDA error {err}")
-    fused_monoflux.launches += 1
+    profiling.counters["launch.fused.monoflux"] += 1
     return M_up, M_down, tau
-
-
-fused_monoflux.launches = 0

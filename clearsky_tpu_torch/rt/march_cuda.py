@@ -14,7 +14,9 @@ tensors and take the plain versions in :mod:`.discretized` for CPU tensors.
 On CUDA they check device, dtype (float32), shape and contiguity and raise on
 anything the kernels do not take; there is no fallback. Their derivatives
 are the plain versions' (:func:`..utils.twin.with_twin`), as the JAX
-package's custom JVPs route tangents through its scan marches.
+package's custom JVPs route tangents through its scan marches. Their
+launches count in ``utils.profiling.counters`` as ``launch.march.olr`` and
+``launch.march.monoflux``.
 
 :func:`trans_emit` is the shared transmittance/emission helper of the plain
 march; the kernels' float32 step rearranges it (``csrc/march.cu``
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ..utils.cuda_build import check_operand, load_library
-from ..utils import twin
+from ..utils import profiling, twin
 
 __all__ = ["trans_emit", "olr_march", "monoflux_march", "march_plan", "kernel_info",
            "MAX_STREAMS"]
@@ -193,11 +195,8 @@ def _olr_launch(tau, B, m, W):
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"OLR march kernel launch failed: CUDA error {err}")
-    olr_march.launches += 1
+    profiling.counters["launch.march.olr"] += 1
     return out
-
-
-olr_march.launches = 0
 
 
 def monoflux_march(tau, B, S_nu, albedo_nu, ctheta: float, m, W):
@@ -241,8 +240,5 @@ def _monoflux_launch(tau, B, S_nu, albedo_nu, ctheta, m, W):
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flux march kernel launch failed: CUDA error {err}")
-    monoflux_march.launches += 1
+    profiling.counters["launch.march.monoflux"] += 1
     return M_up, M_down
-
-
-monoflux_march.launches = 0

@@ -28,6 +28,7 @@ import torch
 
 from ..constants import N_AVOGADRO
 from ..ops.planck import planck
+from ..utils import profiling
 from ..utils.quadrature import stream_nodes
 from ..utils.radau import radau_scalar, radau_dense
 from ..absorption.absorbers import AcceleratedAbsorber, _LOG_TINY
@@ -72,22 +73,23 @@ def build_column_cache(P, fT, fmu, A, nlevels: int = 0) -> ColumnCache:
     256) levels spaced in sqrt P over [P.min, P.max], ln sigma floored at
     log(float64 tiny) where sigma is not positive.
     """
-    if isinstance(A, AcceleratedAbsorber) and nlevels == 0:
-        Pg = torch.exp(A.lnP)
+    with profiling.span("cs.radau.cache", A.nu):
+        if isinstance(A, AcceleratedAbsorber) and nlevels == 0:
+            Pg = torch.exp(A.lnP)
+            T, mu = _profiles(Pg, fT, fmu)
+            return ColumnCache(lnP=A.lnP, T=T, mu=mu, ln_sigma=A.ln_sigma, nu=A.nu)
+        P = np.asarray(P.detach().cpu() if isinstance(P, torch.Tensor) else P, dtype=np.float64)
+        n = nlevels or DENSE_LEVELS
+        w = np.linspace(np.sqrt(P.min()), np.sqrt(P.max()), n)
+        Pg = w * w
+        Pg[0], Pg[-1] = P.min(), P.max()
+        Pg = torch.as_tensor(Pg, dtype=A.nu.dtype, device=A.nu.device)
         T, mu = _profiles(Pg, fT, fmu)
-        return ColumnCache(lnP=A.lnP, T=T, mu=mu, ln_sigma=A.ln_sigma, nu=A.nu)
-    P = np.asarray(P.detach().cpu() if isinstance(P, torch.Tensor) else P, dtype=np.float64)
-    n = nlevels or DENSE_LEVELS
-    w = np.linspace(np.sqrt(P.min()), np.sqrt(P.max()), n)
-    Pg = w * w
-    Pg[0], Pg[-1] = P.min(), P.max()
-    Pg = torch.as_tensor(Pg, dtype=A.nu.dtype, device=A.nu.device)
-    T, mu = _profiles(Pg, fT, fmu)
-    sig = A.sigma(T, Pg)  # [n, n_nu]: one evaluation of every state
-    tiny = torch.finfo(sig.dtype).tiny
-    ln = torch.where(sig > 0, torch.log(torch.clamp(sig, min=tiny)),
-                     torch.full_like(sig, _LOG_TINY))
-    return ColumnCache(lnP=torch.log(Pg), T=T, mu=mu, ln_sigma=ln, nu=A.nu)
+        sig = A.sigma(T, Pg)  # [n, n_nu]: one evaluation of every state
+        tiny = torch.finfo(sig.dtype).tiny
+        ln = torch.where(sig > 0, torch.log(torch.clamp(sig, min=tiny)),
+                         torch.full_like(sig, _LOG_TINY))
+        return ColumnCache(lnP=torch.log(Pg), T=T, mu=mu, ln_sigma=ln, nu=A.nu)
 
 
 def _bracket(lnp, lnPg):
@@ -203,10 +205,11 @@ def _leg(rhs: str, cache: ColumnCache, g: float, m, atol, y0, xs, tol: float,
     lnsig = cache.ln_sigma.reshape(-1, npc, cache.nu.shape[0]).contiguous()
     atol = torch.broadcast_to(torch.as_tensor(atol, dtype=Tg.dtype, device=Tg.device),
                               (Tg.shape[0],))
-    out = radau_leg(rhs, cache.lnP.contiguous(), Tg, mug, lnsig, cache.nu,
-                    np.asarray(m, np.float64), g, atol.contiguous(),
-                    y0.reshape(-1).contiguous(), xs.contiguous(), rtol=tol,
-                    max_steps=max_steps, dense=dense)
+    with profiling.span("cs.radau." + rhs, Tg):
+        out = radau_leg(rhs, cache.lnP.contiguous(), Tg, mug, lnsig, cache.nu,
+                        np.asarray(m, np.float64), g, atol.contiguous(),
+                        y0.reshape(-1).contiguous(), xs.contiguous(), rtol=tol,
+                        max_steps=max_steps, dense=dense)
     return out.reshape(((xs.shape[0],) if dense else ()) + tuple(y0.shape))
 
 
@@ -283,45 +286,46 @@ def radau_monoflux(cache: ColumnCache, P, g: float, S_nu, albedo_nu, theta_s: fl
     surface's upward flux is pinned to pi I_surf, as the discretized march
     does.
     """
-    dtype, dev = cache.T.dtype, cache.T.device
-    C, batched = _columns(cache)
-    P = torch.as_tensor(P, dtype=dtype, device=dev)
-    n_lev = P.shape[0]
-    m, W = stream_nodes(nstream)
-    ns = len(m)
-    Wt = torch.as_tensor(W, dtype=dtype, device=dev)[:, None]
-    tol = _eff_tol(tol, dtype)
+    with profiling.span("cs.radau.monoflux", cache.T):
+        dtype, dev = cache.T.dtype, cache.T.device
+        C, batched = _columns(cache)
+        P = torch.as_tensor(P, dtype=dtype, device=dev)
+        n_lev = P.shape[0]
+        m, W = stream_nodes(nstream)
+        ns = len(m)
+        Wt = torch.as_tensor(W, dtype=dtype, device=dev)[:, None]
+        tol = _eff_tol(tol, dtype)
 
-    i_lev, t_lev = _bracket(torch.log(P), cache.lnP)
-    Tc = cache.T.reshape(C, -1)
-    Tlev = Tc[:, i_lev] + t_lev * (Tc[:, i_lev + 1] - Tc[:, i_lev])          # [C, np]
-    B_lev = planck(cache.nu[None, None, :].to(dtype), Tlev[..., None])      # [C, np, n_nu]
-    atol = _default_atol(tol, B_lev.amax(dim=(1, 2)))
+        i_lev, t_lev = _bracket(torch.log(P), cache.lnP)
+        Tc = cache.T.reshape(C, -1)
+        Tlev = Tc[:, i_lev] + t_lev * (Tc[:, i_lev + 1] - Tc[:, i_lev])          # [C, np]
+        B_lev = planck(cache.nu[None, None, :].to(dtype), Tlev[..., None])      # [C, np, n_nu]
+        atol = _default_atol(tol, B_lev.amax(dim=(1, 2)))
 
-    # downward emission: iota = +sqrt(P), top to surface
-    xs_down = torch.sqrt(P)
-    zeros = torch.zeros((C, ns, cache.nu.shape[0]), dtype=dtype, device=dev)
-    I_dn = _leg("emission", cache, g, m, atol, zeros, xs_down, tol, max_steps, dense=True)
-    M_down = (Wt * I_dn).sum(dim=2).transpose(0, 1)                          # [C, np, n_nu]
+        # downward emission: iota = +sqrt(P), top to surface
+        xs_down = torch.sqrt(P)
+        zeros = torch.zeros((C, ns, cache.nu.shape[0]), dtype=dtype, device=dev)
+        I_dn = _leg("emission", cache, g, m, atol, zeros, xs_down, tol, max_steps, dense=True)
+        M_down = (Wt * I_dn).sum(dim=2).transpose(0, 1)                          # [C, np, n_nu]
 
-    # the direct stellar beam: adaptive vertical depth, attenuated at cos(theta_s)
-    c = float(torch.cos(torch.tensor(theta_s, dtype=dtype)))   # cos in the column's dtype
-    tau_v = _leg("depth", cache, g, [1.0], tol * 1e-6, zeros[:, :1], xs_down, tol, max_steps,
-                 dense=True)[:, :, 0].transpose(0, 1)                        # [C, np, n_nu]
-    S_nu = torch.as_tensor(S_nu, dtype=dtype, device=dev).reshape(-1, 1, cache.nu.shape[0])
-    M_down = M_down + (c * S_nu) * torch.exp(-tau_v / c)
+        # the direct stellar beam: adaptive vertical depth, attenuated at cos(theta_s)
+        c = float(torch.cos(torch.tensor(theta_s, dtype=dtype)))   # cos in the column's dtype
+        tau_v = _leg("depth", cache, g, [1.0], tol * 1e-6, zeros[:, :1], xs_down, tol, max_steps,
+                     dense=True)[:, :, 0].transpose(0, 1)                        # [C, np, n_nu]
+        S_nu = torch.as_tensor(S_nu, dtype=dtype, device=dev).reshape(-1, 1, cache.nu.shape[0])
+        M_down = M_down + (c * S_nu) * torch.exp(-tau_v / c)
 
-    # Lambertian reflection plus surface Planck, upward
-    albedo_nu = torch.as_tensor(albedo_nu, dtype=dtype, device=dev)
-    I_surf = M_down[:, -1] * albedo_nu / np.pi + B_lev[:, -1]                # [C, n_nu]
-    xs_up = -torch.flip(xs_down, (0,))                                       # -sqrt(Ps) -> -sqrt(Ptop)
-    I_up = _leg("emission", cache, g, m, atol, I_surf[:, None].expand(C, ns, -1), xs_up, tol,
-                max_steps, dense=True)
-    M_up = torch.flip((Wt * I_up).sum(dim=2), (0,)).transpose(0, 1)
-    # the surface's upward flux of an isotropic boundary is pi I_surf exactly
-    # (the streams' sum of W only approximates pi), as in the discretized march
-    M_up = torch.cat([M_up[:, :-1], (np.pi * I_surf)[:, None]], dim=1)
-    tau = tau_v[:, 1:] - tau_v[:, :-1]
-    if batched:
-        return M_up, M_down, tau
-    return M_up[0], M_down[0], tau[0]
+        # Lambertian reflection plus surface Planck, upward
+        albedo_nu = torch.as_tensor(albedo_nu, dtype=dtype, device=dev)
+        I_surf = M_down[:, -1] * albedo_nu / np.pi + B_lev[:, -1]                # [C, n_nu]
+        xs_up = -torch.flip(xs_down, (0,))                                   # -sqrt(Ps) -> -sqrt(Ptop)
+        I_up = _leg("emission", cache, g, m, atol, I_surf[:, None].expand(C, ns, -1), xs_up, tol,
+                    max_steps, dense=True)
+        M_up = torch.flip((Wt * I_up).sum(dim=2), (0,)).transpose(0, 1)
+        # the surface's upward flux of an isotropic boundary is pi I_surf exactly
+        # (the streams' sum of W only approximates pi), as in the discretized march
+        M_up = torch.cat([M_up[:, :-1], (np.pi * I_surf)[:, None]], dim=1)
+        tau = tau_v[:, 1:] - tau_v[:, :-1]
+        if batched:
+            return M_up, M_down, tau
+        return M_up[0], M_down[0], tau[0]

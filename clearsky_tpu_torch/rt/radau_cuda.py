@@ -12,9 +12,14 @@ one launch (the source note of ``csrc/radau.cu``).
 tensors. On CUDA it checks device, dtype (float32), shape and contiguity and
 raises on anything the kernel does not take; there is no fallback. Its
 derivatives are the plain engine's (:func:`..utils.twin.with_twin`), as JAX
-differentiates its ``while_loop``. The launch counts by right-hand side are
-``radau_leg.launches`` ("emission", "depth"); the last launch's accepted
-steps and attempts per lane are ``radau_leg.last``.
+differentiates its ``while_loop``. The launches count in
+``utils.profiling.counters`` by right-hand side (``launch.radau.emission``,
+``launch.radau.depth``); the last launch's accepted steps and attempts per
+lane are ``radau_leg.last``. While a ``torch.profiler`` records, the kernel
+also adds its lanes' steps and attempts, a warp's at a time, to the
+registry's device counters ``radau.steps`` and ``radau.attempts``
+(:func:`..utils.profiling.device_counters`): no device operation of its
+own.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.cuda_build import check_operand, load_library
-from ..utils import twin
+from ..utils import profiling, twin
 from ..utils import radau as _engine
 
 __all__ = ["radau_leg", "kernel_info", "method_constants", "MAX_STREAMS", "BLOCK"]
@@ -33,6 +38,7 @@ __all__ = ["radau_leg", "kernel_info", "method_constants", "MAX_STREAMS", "BLOCK
 MAX_STREAMS = 8   # csrc/radau.cu ``MAX_STREAMS``
 BLOCK = 128       # threads a block, one lane each
 _RHS = {"emission": 0, "depth": 1}
+WORK_COUNTERS = ("radau.steps", "radau.attempts")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,15 +76,19 @@ def method_constants(rtol: float, g: float) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _library():
+    """(``radau_launch``, whether it takes the work counters' pointer): a
+    library built from an earlier tree's source (``tools/radau_probe.py
+    --against``) exports no ``radau_counts_work`` and takes none."""
     lib = load_library("radau")
     fn = lib.radau_launch
+    counts = hasattr(lib, "radau_counts_work")
     if fn.argtypes is None:
         if lib.radau_max_streams() != MAX_STREAMS:
             raise RuntimeError("csrc/radau.cu and this wrapper disagree on its constants")
         fn.argtypes = [_I, _I, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P,
-                       _LL, _P, _P, _P, _P, _P, _P, _P, _P]
+                       _LL, _P, _P, _P, _P, _P, _P, _P] + [_P] * counts + [_P]
         fn.restype = _I
-    return fn
+    return fn, counts
 
 
 def kernel_info(rhs: str, lib=None) -> dict:
@@ -125,7 +135,6 @@ def radau_leg(rhs: str, lnP, Tg, mug, lnsig, nu, m, g: float, atol, y0, xs, *, r
         plain, lnP, Tg, mug, lnsig, atol, y0, xs)
 
 
-radau_leg.launches = {"emission": 0, "depth": 0}
 radau_leg.last = {}
 
 
@@ -164,16 +173,23 @@ def _launch(rhs, lnP, Tg, mug, lnsig, nu, m, g, atol, y0, xs, rtol, max_steps, d
     steps = torch.empty(L, dtype=torch.int32, device=dev)
     attempts = torch.empty(L, dtype=torch.int32, device=dev)
     sig_stride = 0 if lnsig.shape[0] == 1 else npc * n_nu
-    err = _library()(_RHS[rhs], int(dense), L, C, ns, n_nu, npc, nx, consts.ctypes.data,
-                     nodes.ctypes.data, m.ctypes.data, NEWTON_ITERS, int(max_steps),
-                     lnP.data_ptr(), Tg.data_ptr(), mug.data_ptr(), lnsig.data_ptr(),
-                     sig_stride, nu.data_ptr(),
-                     atol.data_ptr(), y0.data_ptr(), xs.data_ptr(), y.data_ptr(),
-                     steps.data_ptr(), attempts.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+    fn, counts = _library()
+    work = ()
+    if counts:
+        # made (zeroed) at the first launch, outside a profile as a rule, so a
+        # traced launch adds no device operation; passed only while traced
+        buf = profiling.device_counters(WORK_COUNTERS, dev)
+        work = (buf.data_ptr() if profiling.recording() else None,)
+    err = fn(_RHS[rhs], int(dense), L, C, ns, n_nu, npc, nx, consts.ctypes.data,
+             nodes.ctypes.data, m.ctypes.data, NEWTON_ITERS, int(max_steps),
+             lnP.data_ptr(), Tg.data_ptr(), mug.data_ptr(), lnsig.data_ptr(),
+             sig_stride, nu.data_ptr(),
+             atol.data_ptr(), y0.data_ptr(), xs.data_ptr(), y.data_ptr(),
+             steps.data_ptr(), attempts.data_ptr(), *work,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"Radau kernel launch failed: CUDA error {err}")
-    radau_leg.launches[rhs] += 1
+    profiling.counters["launch.radau." + rhs] += 1
     radau_leg.last = {"rhs": rhs, "steps": steps, "attempts": attempts, "lanes": L,
                       "columns": C, "streams": ns, "nodes": nx}
     return y

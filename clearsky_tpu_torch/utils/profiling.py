@@ -1,11 +1,22 @@
-"""Tracing and line-sum cost accounting.
+"""Tracing, the program's spans and counters, and line-sum cost accounting.
 
 Counterpart of ``clearsky_tpu.utils.profiling`` over the port's banding
 plans (``ops.linesum.LineWindowPlan``) and ``torch.profiler``:
 
 * :func:`trace` -- a context manager around ``torch.profiler`` that writes a
   TensorBoard-compatible trace directory (CPU and, where present, CUDA
-  activity).
+  activity) and, beside it, ``counters.json`` (:func:`snapshot`).
+* :func:`span`, :data:`counters`, :func:`snapshot`, :func:`reset` -- the
+  program's one registry of spans and counters. A span (``cs.*``, at a
+  layer boundary of the program) records only while a ``torch.profiler``
+  records: a host range on the profiler's clock (an ordinary op, not a user
+  annotation, so the device list holds no copy of it) and, on a CUDA
+  tensor's device, a pair of timing events on the current stream at its
+  bounds. Otherwise it is one shared null context. :data:`counters` maps a
+  name to a count: the kernel wrappers' launches (``launch.*``), kept at
+  all times; a kernel's own counts (:func:`device_counters`: the Radau
+  kernel's ``radau.steps`` and ``radau.attempts``) are taken on the device
+  only while a profiler records, and read by :func:`snapshot`.
 * :func:`linesum_cost`, :func:`linesum_cost_split`,
   :func:`linesum_cost_coarse` -- the JAX package's analytic FLOP and byte
   model of the line sum from a plan (FLOP-equivalents a line evaluation:
@@ -22,13 +33,26 @@ plans (``ops.linesum.LineWindowPlan``) and ``torch.profiler``:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import json
+import os
 
 import numpy as np
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 __all__ = [
     "trace",
+    "span",
+    "recording",
+    "counters",
+    "counts",
+    "device_counters",
+    "records",
+    "snapshot",
+    "reset",
     "KernelCost",
     "SplitKernelCost",
     "linesum_cost",
@@ -56,17 +80,180 @@ FAR_FLOPS_PER_EVAL = 12.0
 NEAR_FLOPS_PER_EVAL = 155.0
 
 
+# --------------------------------------------------------------- the registry
+
+# name -> count; the wrappers' launches count here at all times
+counters: collections.Counter = collections.Counter()
+
+
+def counts(prefix: str) -> collections.Counter:
+    """The counters under ``prefix``, by the rest of their names:
+    ``counts("launch.linesum.")`` gives each K1 mode's launches."""
+    k = len(prefix)
+    return collections.Counter({n[k:]: v for n, v in counters.items() if n.startswith(prefix)})
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records in this process: spans and the
+    kernels' own counts are taken only then."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One recorded span: its name, its parent's index in :func:`records`
+    (None at the top), the sequence number of its top-level span (the call
+    or step it belongs to), and its timing events and their device (None
+    off the card)."""
+
+    name: str
+    parent: int | None
+    seq: int
+    start: object = None
+    end: object = None
+    device: object = None
+
+
+_RECORDS: list = []
+_STACK: list = []        # indices of the open spans
+_SEQ = [0]
+_DEVICE_COUNTERS: dict = {}   # (names, device) -> int64 tensor [len(names)]
+
+
+class _Span:
+    __slots__ = ("name", "device", "fast", "index")
+
+    def __init__(self, name: str, device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        parent = _STACK[-1] if _STACK else None
+        if parent is None:
+            _SEQ[0] += 1
+        rec = SpanRecord(self.name, parent, _SEQ[0])
+        self.index = len(_RECORDS)
+        _RECORDS.append(rec)
+        _STACK.append(self.index)
+        self.fast = torch._C._profiler._RecordFunctionFast(self.name)
+        self.fast.__enter__()
+        if self.device is not None:
+            rec.device = self.device
+            rec.start = torch.cuda.Event(enable_timing=True)
+            rec.end = torch.cuda.Event(enable_timing=True)
+            rec.start.record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc):
+        rec = _RECORDS[self.index]
+        if rec.end is not None:
+            rec.end.record(torch.cuda.current_stream(self.device))
+        _STACK.pop()
+        self.fast.__exit__(*exc)
+        return False
+
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str, like=None):
+    """A span of the program named ``name`` around a block: ``with
+    span("cs.radiate", T): ...``. ``like`` (a tensor or a device) names the
+    device whose current stream the span's timing events go on: a CUDA
+    one's. While no ``torch.profiler`` records it is one shared null
+    context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    dev = like.device if isinstance(like, torch.Tensor) else like
+    dev = None if dev is None else torch.device(dev)
+    return _Span(name, dev if dev is not None and dev.type == "cuda" else None)
+
+
+def device_counters(names: tuple, device) -> torch.Tensor:
+    """The persistent int64 buffer [len(names)] a kernel adds its own counts
+    to on ``device`` (made, zeroed, at its first request); :func:`snapshot`
+    reads it under ``names``. A wrapper passes it to its kernel only while
+    :func:`recording`."""
+    key = (tuple(names), torch.device(device))
+    buf = _DEVICE_COUNTERS.get(key)
+    if buf is None:
+        buf = _DEVICE_COUNTERS[key] = torch.zeros(len(names), dtype=torch.int64, device=device)
+    return buf
+
+
+def records() -> list:
+    """The spans recorded since :func:`reset`, in the order they opened."""
+    return list(_RECORDS)
+
+
+def _union_ms(intervals) -> float:
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def snapshot() -> dict:
+    """Synchronise and read the registry: ``{"counters": {name: count},
+    "spans": {name: {"n", "device_ms", "self_device_ms"}}}``. A span's
+    device ms is the interval between its events on the stream (idle time
+    inside it counts); its self ms that interval less the parts its child
+    spans cover. Both are None for a span that ran on no CUDA device."""
+    if any(r.start is not None for r in _RECORDS) or _DEVICE_COUNTERS:
+        torch.cuda.synchronize()
+    out = dict(counters)
+    for (names, _), buf in _DEVICE_COUNTERS.items():
+        for n, v in zip(names, buf.tolist()):
+            out[n] = out.get(n, 0) + int(v)
+    ref = {}
+    iv = []
+    for r in _RECORDS:
+        if r.start is None:
+            iv.append(None)
+            continue
+        r0 = ref.setdefault(r.device, r.start)
+        iv.append((r0.elapsed_time(r.start), r0.elapsed_time(r.end)))
+    children = collections.defaultdict(list)
+    for i, r in enumerate(_RECORDS):
+        if r.parent is not None and iv[i] is not None:
+            children[r.parent].append(iv[i])
+    spans = {}
+    for i, r in enumerate(_RECORDS):
+        s = spans.setdefault(r.name, {"n": 0, "device_ms": None, "self_device_ms": None})
+        s["n"] += 1
+        if iv[i] is None:
+            continue
+        a, b = iv[i]
+        inner = _union_ms((max(x, a), min(y, b)) for x, y in children[i] if min(y, b) > max(x, a))
+        s["device_ms"] = (s["device_ms"] or 0.0) + (b - a)
+        s["self_device_ms"] = (s["self_device_ms"] or 0.0) + (b - a - inner)
+    return {"counters": out, "spans": spans}
+
+
+def reset() -> None:
+    """Clear the registry: the spans, every counter and the kernels' own
+    counts (zeroed on their devices)."""
+    _RECORDS.clear()
+    _STACK.clear()
+    _SEQ[0] = 0
+    counters.clear()
+    for buf in _DEVICE_COUNTERS.values():
+        buf.zero_()
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile a block: ``with trace("runs/trace"): run()`` writes a
-    TensorBoard-compatible trace of the block's CPU and CUDA activity."""
-    import torch
-
+    TensorBoard-compatible trace of the block's CPU and CUDA activity, the
+    program's spans in it, and :func:`snapshot` of the block as
+    ``counters.json`` beside it (the registry is reset on entry)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(
         activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(str(logdir)))
+    reset()
     prof.start()
     try:
         yield prof
@@ -74,6 +261,9 @@ def trace(logdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof.stop()
+        os.makedirs(logdir, exist_ok=True)
+        with open(os.path.join(logdir, "counters.json"), "w") as f:
+            json.dump(snapshot(), f, indent=1, sort_keys=True)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -36,11 +36,8 @@ import clearsky_tpu_torch as ct
 from clearsky_tpu_torch import convert
 from clearsky_tpu_torch.constants import R_GAS
 from clearsky_tpu_torch.ops import planck as tplanck, lineshape as tls
-from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines
 from clearsky_tpu_torch.rt import discretized as td, fluxes as tf
-from clearsky_tpu_torch.rt.fused_table_cuda import fused_olr, fused_monoflux
-from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
-from clearsky_tpu_torch.utils import interp as tinterp, rootfind as troot
+from clearsky_tpu_torch.utils import interp as tinterp, profiling, rootfind as troot
 
 # the suite runs in several worker processes: a torch thread pool of every
 # core in each of them oversubscribes the machine
@@ -71,8 +68,9 @@ def _close(b, a, rtol, err_msg=""):
 
 
 def _counts():
-    return (sigma_lines.launches, olr_march.launches, monoflux_march.launches,
-            fused_olr.launches, fused_monoflux.launches)
+    return (profiling.counters["launch.linesum"], profiling.counters["launch.march.olr"],
+            profiling.counters["launch.march.monoflux"],
+            profiling.counters["launch.fused.olr"], profiling.counters["launch.fused.monoflux"])
 
 
 # --- pure math ---------------------------------------------------------------------

@@ -48,7 +48,7 @@ from clearsky_tpu_torch.rt import march_cuda
 from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
 from clearsky_tpu_torch.rt import fused_table as tft
 from clearsky_tpu_torch.rt.fused_table_cuda import fused_olr, fused_monoflux
-from clearsky_tpu_torch.utils import cuda_build
+from clearsky_tpu_torch.utils import cuda_build, profiling
 from clearsky_tpu_torch.utils.quadrature import stream_nodes
 
 # the suite runs in several worker processes: a torch thread pool of every
@@ -142,7 +142,8 @@ def test_full_float32_pins_and_restores_tf32(api):
 
 def test_cpu_tensors_take_the_plain_versions(cat):
     lines, plan, states = cat
-    counts = (sigma_lines.launches, olr_march.launches, monoflux_march.launches)
+    counts = (profiling.counters["launch.linesum"], profiling.counters["launch.march.olr"],
+              profiling.counters["launch.march.monoflux"])
     T, P, Pp = _t(states)
     np.testing.assert_array_equal(sigma_lines(plan, lines, T, P, Pp).numpy(),
                                   sigma_from_lines(plan, lines, T, P, Pp).numpy())
@@ -153,7 +154,8 @@ def test_cpu_tensors_take_the_plain_versions(cat):
     for k, p in zip(monoflux_march(tau, B, S, a, CTHETA, m, W),
                     td._monoflux_march(tau, B, S, a, CTHETA, m, W)):
         np.testing.assert_array_equal(k.numpy(), p.numpy())
-    assert (sigma_lines.launches, olr_march.launches, monoflux_march.launches) == counts
+    assert (profiling.counters["launch.linesum"], profiling.counters["launch.march.olr"],
+            profiling.counters["launch.march.monoflux"]) == counts
 
 
 @pytest.mark.parametrize("shape", ["gauss", "phco2x", ""])
@@ -172,11 +174,11 @@ def test_march_kernels_take_one_to_eight_streams(n):
 @pytest.mark.parametrize("shape", ["voigt", "lorentz", "doppler"])
 def test_line_sum_kernel_matches_plain(cat, cuda, shape):
     lines, plan, states = cat
-    before = sigma_lines.launches
+    before = profiling.counters["launch.linesum"]
     out = sigma_lines(plan, lines.to(torch.float32, cuda), *_t(states, torch.float32, cuda),
                       shape=shape)
     torch.cuda.synchronize()
-    assert sigma_lines.launches == before + 1
+    assert profiling.counters["launch.linesum"] == before + 1
     ref = sigma_from_lines(plan, lines, *_t(states), shape=shape).numpy()
     out = out.double().cpu().numpy()
     m = np.abs(ref) > 1e-35
@@ -258,13 +260,13 @@ def test_windowed_modes_match_plain(dense, cuda, mode, grid, n):
     grid_dev = {"nu_hi": hi, "nu_lo": lo,
                 "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
     d_near = linesum_cuda.near_distance(a, z["cut_f"]) if mode == "fine" else None
-    before = dict(sigma_lines.launches_by_mode)
+    before = profiling.counts("launch.linesum.")
     fast = linesum_cuda.far_reciprocal_ok(linesum_cuda.WINDOW_MODES[mode],
                                           voigt_coefficients(S, a, g), 1, zz["cut"])
     out = linesum_cuda.launch_mode(linesum_cuda.WINDOW_MODES[mode], grid_dev, l32, coef, n,
                                    n_out, linesum_cuda._zones(**zz), d_near, fast=fast)
     torch.cuda.synchronize()
-    assert sigma_lines.launches_by_mode[mode] == before[mode] + 1
+    assert profiling.counts("launch.linesum.")[mode] == before[mode] + 1
     d64 = None if d_near is None else d_near.double().cpu()
     ref = ls.sigma_mode_plain(mode, blocks, windows, lines, co64, zz, d64)[:, :n_out]
     assert bool(torch.isfinite(out).all())
@@ -285,10 +287,10 @@ def test_stencil_correction_matches_plain(dense, cuda, grid, n, weighted):
     if weighted:
         d_far = ls.coarse_params(plan, 0.6)[0]
         weight = (d_far * d_far, 4.0 * d_far * d_far)
-    before = stencil_correction.launches
+    before = profiling.counters["launch.correction"]
     out = stencil_correction(torch.zeros((n, plan.n_nu), device=cuda), geom, co32, 25.0, weight)
     torch.cuda.synchronize()
-    assert stencil_correction.launches == before + 1
+    assert profiling.counters["launch.correction"] == before + 1
     ref = ls.stencil_correction_plain(geom, co64, 25.0, plan.n_nu, weight)
     # measured against each state's peak cross-section: at high pressure
     # w4 and region 1 nearly agree and the correction itself nearly vanishes
@@ -310,12 +312,12 @@ def test_routes_match_plain_and_count_modes(dense, cuda, grid):
             ("stencil", ls.sigma_stencil_plain(plan, lines, *x64), {"farall": 1}),
             ("coarse", ls.sigma_coarse_plain(plan, lines, *x64),
              {"fine_stencil": 1, "coarse": 1})):
-        by_mode, corr = dict(sigma_lines.launches_by_mode), stencil_correction.launches
+        by_mode, corr = profiling.counts("launch.linesum."), profiling.counters["launch.correction"]
         out = sigma_from_lines_auto(plan, l32, *x32, strategy=strategy)
         torch.cuda.synchronize()
-        got = {k: v - by_mode[k] for k, v in sigma_lines.launches_by_mode.items()
+        got = {k: v - by_mode[k] for k, v in profiling.counts("launch.linesum.").items()
                if v != by_mode[k]}
-        assert got == modes and stencil_correction.launches == corr + 1
+        assert got == modes and profiling.counters["launch.correction"] == corr + 1
         assert _of_peak(out, plain) < 1e-5, strategy
 
 
@@ -392,11 +394,11 @@ def test_split_mode_takes_the_voigt_family(dense_phco2, cuda, shape):
         plan = build_line_window_plan(plan.nu, lines.positions64(), 25.0)
     x = _mode_states(11)
     key = "voigt_split" if shape == "voigt_ref" else "phco2_split"
-    before = sigma_lines.launches_by_mode[key]
+    before = profiling.counts("launch.linesum.")[key]
     out = sigma_lines(plan, lines.to(torch.float32, cuda), *_t(x, torch.float32, cuda),
                       shape=shape)
     torch.cuda.synchronize()
-    assert sigma_lines.launches_by_mode[key] == before + 1
+    assert profiling.counts("launch.linesum.")[key] == before + 1
     _check_sigma(out, sigma_from_lines(plan, lines, *_t(x), shape=shape))
 
 
@@ -430,13 +432,13 @@ def test_phco2_windowed_modes_match_plain(dense_phco2, cuda, mode, n):
     grid_dev = {"nu_hi": hi, "nu_lo": lo,
                 "win": torch.as_tensor(windows, dtype=torch.int32, device=cuda)}
     d_near = linesum_cuda.near_distance(a, z["cut_f"]) if mode == "fine" else None
-    before = sigma_lines.launches_by_mode[f"phco2_{mode}"]
+    before = profiling.counts("launch.linesum.")[f"phco2_{mode}"]
     bcoef = linesum_cuda.chi_rates(T)
     fast = linesum_cuda.far_reciprocal_ok(m, voigt_coefficients(S, a, g), 1, zz["cut"], bcoef)
     out = linesum_cuda.launch_mode(m, grid_dev, l32, coef, n, n_out, linesum_cuda._zones(**zz),
                                    d_near, bcoef=bcoef, fast=fast)
     torch.cuda.synchronize()
-    assert sigma_lines.launches_by_mode[f"phco2_{mode}"] == before + 1
+    assert profiling.counts("launch.linesum.")[f"phco2_{mode}"] == before + 1
     d64 = None if d_near is None else d_near.double().cpu()
     ref = ls.sigma_mode_plain(mode, blocks, windows, lines, co64, zz, d64, T=T64[0])[:, :n_out]
     assert bool(torch.isfinite(out).all())
@@ -458,11 +460,11 @@ def test_phco2_correction_matches_plain(dense_phco2, cuda, weighted):
     if weighted:
         d_far = ls.coarse_params(plan, 0.6)[0]
         weight = (d_far * d_far, 4.0 * d_far * d_far)
-    before = stencil_correction.launches_phco2
+    before = profiling.counters["launch.correction.phco2"]
     out = stencil_correction(torch.zeros((n, plan.n_nu), device=cuda), geom, co32, plan.cut,
                              weight, T=T32[0])
     torch.cuda.synchronize()
-    assert stencil_correction.launches_phco2 == before + 1
+    assert profiling.counters["launch.correction.phco2"] == before + 1
     ref = ls.stencil_correction_plain(geom, co64, plan.cut, plan.n_nu, weight, T=x64[0])
     peak = sigma_from_lines(plan, lines, *x64, shape="phco2").abs().amax(dim=1, keepdim=True)
     assert float(((out.double().cpu() - ref).abs() / peak).max()) < 1e-4
@@ -651,15 +653,17 @@ def test_family_routes_match_plain_and_count_modes(dense_phco2, cuda, shape):
              {fam + "farall": 1}),
             ("coarse", ls.sigma_coarse_plain(plan, lines, *x64, shape=shape),
              {fam + "fine_stencil": 1, fam + "coarse": 1})):
-        by_mode = dict(sigma_lines.launches_by_mode)
-        corr = (stencil_correction.launches, stencil_correction.launches_phco2)
+        by_mode = profiling.counts("launch.linesum.")
+        corr = (profiling.counters["launch.correction"],
+                profiling.counters["launch.correction.phco2"])
         out = sigma_from_lines_auto(plan, l32, *x32, shape=shape, strategy=strategy)
         torch.cuda.synchronize()
-        got = {k: v - by_mode[k] for k, v in sigma_lines.launches_by_mode.items()
+        got = {k: v - by_mode[k] for k, v in profiling.counts("launch.linesum.").items()
                if v != by_mode[k]}
         assert got == modes
         k = 1 if shape == "phco2" else 0
-        assert (stencil_correction.launches, stencil_correction.launches_phco2)[k] == corr[k] + 1
+        assert (profiling.counters["launch.correction"],
+                profiling.counters["launch.correction.phco2"])[k] == corr[k] + 1
         assert _of_peak(out, plain) < 1e-5, strategy
 
 
@@ -681,10 +685,11 @@ def test_coarse_route_without_stencil_matches_plain(dense_phco2, cuda, shape, mo
     nostencil = lambda g: dataclasses.replace(g, stencil=None, _on_device={})
     geom = nostencil(ls.coarse_geometry(plan, l32, params))
     monkeypatch.setattr(linesum_cuda, "coarse_geometry", lambda *a: geom)
-    by_mode = dict(sigma_lines.launches_by_mode)
+    by_mode = profiling.counts("launch.linesum.")
     out = linesum_cuda.sigma_coarse(plan, l32, *x32, params, shape=shape)
     torch.cuda.synchronize()
-    got = {k: v - by_mode[k] for k, v in sigma_lines.launches_by_mode.items() if v != by_mode[k]}
+    got = {k: v - by_mode[k] for k, v in profiling.counts("launch.linesum.").items()
+           if v != by_mode[k]}
     fam = "phco2_" if shape == "phco2" else ""
     assert got == {fam + "fine": 1, fam + "coarse": 1}
     ref = ls.coarse_route_plain(nostencil(ls.coarse_geometry(plan, lines, params)), lines, *x64,
@@ -704,7 +709,7 @@ def test_family_large_catalog_kernels_match_plain(dense_phco2, cuda, kind, shape
     l32 = lines.to(torch.float32, cuda)
     L = _segment_length(plan, lines.n_lines, 3) if kind == "segmented" else None
     x32, x64 = _t(_mode_states(11), torch.float32, cuda), _t(_mode_states(11))
-    before = dict(sigma_lines.launches_by_mode)
+    before = profiling.counts("launch.linesum.")
     if kind == "segmented":
         out = linesum_cuda.sigma_segmented(plan, l32, *x32, L, shape=shape)
         ref = ls.sigma_segmented_plain(plan, lines, *x64, L, shape=shape)
@@ -713,7 +718,8 @@ def test_family_large_catalog_kernels_match_plain(dense_phco2, cuda, kind, shape
         ref = {"lane": ls.sigma_lane_plain, "gathered": ls.sigma_gathered_plain}[kind](
             plan, lines, *x64, shape=shape)
     torch.cuda.synchronize()
-    got = {k: v - before[k] for k, v in sigma_lines.launches_by_mode.items() if v != before[k]}
+    got = {k: v - before[k] for k, v in profiling.counts("launch.linesum.").items()
+           if v != before[k]}
     key = ("phco2_" if shape == "phco2" else "") + kind
     assert got == {key: 3 if kind == "segmented" else 1}
     _check_sigma(out, ref)
@@ -790,12 +796,12 @@ def _check_sigma(out, ref):
 def test_large_catalog_wrappers_on_cpu_take_the_plain_versions(cat):
     lines, plan, states = cat
     x = _t(states)
-    counts = dict(sigma_lines.launches_by_mode)
+    counts = profiling.counts("launch.linesum.")
     for kind in _LARGE:
         L = 200 if kind == "segmented" else None
         np.testing.assert_array_equal(_large_call(kind, plan, lines, x, L).numpy(),
                                       _large_plain(kind, plan, lines, x, L).numpy())
-    assert sigma_lines.launches_by_mode == counts
+    assert profiling.counts("launch.linesum.") == counts
 
 
 @pytest.mark.gpu
@@ -808,10 +814,11 @@ def test_large_catalog_kernels_match_plain(dense, cuda, kind, grid, n):
     plan = plans[grid]
     l32 = lines.to(torch.float32, cuda)
     L = _segment_length(plan, lines.n_lines, 3) if kind == "segmented" else None
-    before = dict(sigma_lines.launches_by_mode)
+    before = profiling.counts("launch.linesum.")
     out = _large_call(kind, plan, l32, _t(_mode_states(n), torch.float32, cuda), L)
     torch.cuda.synchronize()
-    got = {k: v - before[k] for k, v in sigma_lines.launches_by_mode.items() if v != before[k]}
+    got = {k: v - before[k] for k, v in profiling.counts("launch.linesum.").items()
+           if v != before[k]}
     assert got == {kind: 3 if kind == "segmented" else 1}
     _check_sigma(out, _large_plain(kind, plan, lines, _t(_mode_states(n)), L))
 
@@ -830,12 +837,12 @@ def test_segmented_kernel_at_1_2_5_segments(dense, cuda, k):
         assert segs[0].a > 0           # the segments before it met no block
     n = 11
     conc = torch.linspace(0.1, 1.0, n * lines.n_lines, dtype=torch.float64).reshape(n, -1)
-    before = sigma_lines.launches_by_mode["segmented"]
+    before = profiling.counts("launch.linesum.")["segmented"]
     out = linesum_cuda.sigma_segmented(plan, lines.to(torch.float32, cuda),
                                        *_t(_mode_states(n), torch.float32, cuda), L,
                                        conc=conc.float().to(cuda))
     torch.cuda.synchronize()
-    assert sigma_lines.launches_by_mode["segmented"] == before + len(segs) == before + k
+    assert profiling.counts("launch.linesum.")["segmented"] == before + len(segs) == before + k
     _check_sigma(out, ls.sigma_segmented_plain(plan, lines, *_t(_mode_states(n)), L, conc=conc))
 
 
@@ -1127,10 +1134,10 @@ def test_gathered_kernel_runs_every_state_in_one_launch(dense, cuda):
     plan = plans["uniform"]
     l32 = lines.to(torch.float32, cuda)
     x = _t(_mode_states(11), torch.float32, cuda)
-    before = sigma_lines.launches_by_mode["gathered"]
+    before = profiling.counts("launch.linesum.")["gathered"]
     whole = linesum_cuda.sigma_gathered(plan, l32, *x)
     torch.cuda.synchronize()
-    assert sigma_lines.launches_by_mode["gathered"] == before + 1
+    assert profiling.counts("launch.linesum.")["gathered"] == before + 1
     parts = torch.cat([linesum_cuda.sigma_gathered(plan, l32, *(v[a:a + 3] for v in x))
                        for a in range(0, 11, 3)])
     np.testing.assert_allclose(parts.cpu().numpy(), whole.cpu().numpy(), rtol=1e-5, atol=1e-32)
@@ -1227,10 +1234,10 @@ def test_full_kernels_at_57_states_in_a_crowded_window(crowded, dense_phco2, cud
         plan, lines, *_t(x), shape=shape)
     key = ("phco2_" if shape == "phco2" else "") + kind
     for window in (None, {"piece_lines": 64}):
-        before = sigma_lines.launches_by_mode[key]
+        before = profiling.counts("launch.linesum.")[key]
         out = _full_call(kind, shape, plan, lines, x, cuda, window)
         torch.cuda.synchronize()
-        assert sigma_lines.launches_by_mode[key] == before + 1
+        assert profiling.counts("launch.linesum.")[key] == before + 1
         _check_sigma(out, ref)
     grid = plan.device_arrays(cuda)
     got = linesum_cuda.full_plan(shape, grid, 57, {"piece_lines": 64})
@@ -1258,12 +1265,12 @@ def test_k4_against_k5(crowded, dense_phco2, cuda, shape):
     same launch: the same bits, each route's counter counted once."""
     plan, lines, x = _full_case(shape, crowded, dense_phco2, 57)
     fam = "phco2_" if shape == "phco2" else ""
-    before = {k: sigma_lines.launches_by_mode[fam + k] for k in ("lane", "gathered")}
+    before = {k: profiling.counts("launch.linesum.")[fam + k] for k in ("lane", "gathered")}
     k4 = _full_call("lane", shape, plan, lines, x, cuda)
     k5 = _full_call("gathered", shape, plan, lines, x, cuda)
     torch.cuda.synchronize()
     assert torch.equal(k4, k5)
-    assert all(sigma_lines.launches_by_mode[fam + k] == v + 1 for k, v in before.items())
+    assert all(profiling.counts("launch.linesum.")[fam + k] == v + 1 for k, v in before.items())
 
 
 @pytest.mark.gpu
@@ -1286,11 +1293,12 @@ def test_march_kernels_match_plain(cuda, nstream):
     m, W = stream_nodes(nstream)
     x32 = _t(_column(), torch.float32, cuda)
     x64 = [x.double().cpu() for x in x32]
-    counts = (olr_march.launches, monoflux_march.launches)
+    counts = (profiling.counters["launch.march.olr"], profiling.counters["launch.march.monoflux"])
     olr = olr_march(x32[0], x32[1], m, W)
     up, dn = monoflux_march(*x32, CTHETA, m, W)
     torch.cuda.synchronize()
-    assert (olr_march.launches, monoflux_march.launches) == (counts[0] + 1, counts[1] + 1)
+    assert (profiling.counters["launch.march.olr"],
+            profiling.counters["launch.march.monoflux"]) == (counts[0] + 1, counts[1] + 1)
     olr_r = td._olr_march(x64[0], x64[1], m, W)
     up_r, dn_r = td._monoflux_march(*x64, CTHETA, m, W)
     for k, r in ((olr, olr_r), (up, up_r), (dn, dn_r)):
@@ -1359,11 +1367,12 @@ def test_march_kernel_mode_off_keeps_the_march_kernels(cuda):
     m, W = stream_nodes(5)
     x32 = _t(_column(L=19, N=4096), torch.float32, cuda)
     olr, (up, dn) = olr_march(x32[0], x32[1], m, W), monoflux_march(*x32, CTHETA, m, W)
-    counts = (olr_march.launches, monoflux_march.launches)
+    counts = (profiling.counters["launch.march.olr"], profiling.counters["launch.march.monoflux"])
     with td.march_kernel_mode("off"):
         olr_o = olr_march(x32[0], x32[1], m, W)
         up_o, dn_o = monoflux_march(*x32, CTHETA, m, W)
-    assert (olr_march.launches, monoflux_march.launches) == (counts[0] + 1, counts[1] + 1)
+    assert (profiling.counters["launch.march.olr"],
+            profiling.counters["launch.march.monoflux"]) == (counts[0] + 1, counts[1] + 1)
     for k, o in ((olr, olr_o), (up, up_o), (dn, dn_o)):
         assert torch.equal(k, o)
 
@@ -1391,13 +1400,15 @@ def test_radaueq_is_the_refined_call_on_the_card(cuda, refine):
     prof = ct.AtmosphericProfile.create(torch.tensor(Pe, dtype=torch.float32, device=cuda),
                                         torch.tensor(Te, dtype=torch.float32, device=cuda))
     core, disc = ct.RadauEq(refine=refine), ct.Discretized(nlobatto=3)
-    before = (olr_march.launches, monoflux_march.launches, sigma_lines.launches,
-              stencil_correction.launches)
+    before = (profiling.counters["launch.march.olr"], profiling.counters["launch.march.monoflux"],
+              profiling.counters["launch.linesum"],
+              profiling.counters["launch.correction"])
     olr = ct.outgoing(Pe, 9.8, Te, 0.044, gas, core=core)
     F = ct.radiate(Pe, 9.8, Te, 0.044, fS, 0.1, gas, core=core)
     torch.cuda.synchronize()
-    after = (olr_march.launches, monoflux_march.launches, sigma_lines.launches,
-             stencil_correction.launches)
+    after = (profiling.counters["launch.march.olr"], profiling.counters["launch.march.monoflux"],
+             profiling.counters["launch.linesum"],
+             profiling.counters["launch.correction"])
     assert after[:2] == (before[0] + 1, before[1] + 1)
     assert after[2] + after[3] > before[2] + before[3]
     olr_r = ct.outgoing(Pr, 9.8, prof, 0.044, gas, core=disc)
@@ -1444,14 +1455,15 @@ def _table_tensors(c, dtype=torch.float64, device="cpu"):
 def test_fused_wrappers_on_cpu_take_the_plain_versions():
     lead, tail, bl, bt, wq, B, S, a = _table_tensors(_table_column(L=4, k=3, N=200))
     m, W = stream_nodes(5)
-    counts = (fused_olr.launches, fused_monoflux.launches)
+    counts = (profiling.counters["launch.fused.olr"], profiling.counters["launch.fused.monoflux"])
     np.testing.assert_array_equal(fused_olr(lead, tail, bl, bt, wq, B, m, W).numpy(),
                                   tft._fused_olr_plain(lead, tail, bl, bt, wq, B, m, W).numpy())
     got = fused_monoflux(lead, tail, bl, bt, wq, B, S, a, CTHETA, m, W)
     for x, y in zip(got, tft._fused_monoflux_plain(lead, tail, bl, bt, wq, B, S, a, CTHETA,
                                                      m, W)):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
-    assert (fused_olr.launches, fused_monoflux.launches) == counts
+    assert (profiling.counters["launch.fused.olr"],
+            profiling.counters["launch.fused.monoflux"]) == counts
     # the plain tau is the JAX package's dense block-diagonal quadrature
     L, k = wq.shape
     dense = torch.zeros((L, L * k), dtype=wq.dtype)
@@ -1515,11 +1527,12 @@ def test_fused_kernels_match_plain(cuda, L, k, nstream, N, T):
     lead, tail, bl, bt, wq, B, S, a = x32
     x64 = [x.cpu() if x.dtype == torch.bfloat16 else x.double().cpu() for x in x32]
     m, W = stream_nodes(nstream)
-    counts = (fused_olr.launches, fused_monoflux.launches)
+    counts = (profiling.counters["launch.fused.olr"], profiling.counters["launch.fused.monoflux"])
     olr = fused_olr(lead, tail, bl, bt, wq, B, m, W)
     up, dn, tau = fused_monoflux(*x32, CTHETA, m, W)
     torch.cuda.synchronize()
-    assert (fused_olr.launches, fused_monoflux.launches) == (counts[0] + 1, counts[1] + 1)
+    assert (profiling.counters["launch.fused.olr"],
+            profiling.counters["launch.fused.monoflux"]) == (counts[0] + 1, counts[1] + 1)
     olr_r = tft._fused_olr_plain(*x64[:6], m, W)
     up_r, dn_r, tau_r = tft._fused_monoflux_plain(*x64, CTHETA, m, W)
     for kern, ref in ((olr, olr_r), (up, up_r), (dn, dn_r)):
@@ -1703,7 +1716,7 @@ def test_nosplit_kernel_matches_plain(dense, dense_phco2, cuda, shape, kind):
     x32, x64 = _t(_mode_states(11), torch.float32, cuda), _t(_mode_states(11))
     key = ("phco2_" if shape == "phco2" else "") + ("nosplit" if kind == "resident"
                                                      else "segmented")
-    before = dict(sigma_lines.launches_by_mode)
+    before = profiling.counts("launch.linesum.")
     if kind == "resident":
         out = linesum_cuda.sigma_nosplit(plan, l32, *x32, shape=shape)
         ref = ls.sigma_nosplit_plain(plan, lines, *x64, shape=shape)
@@ -1712,7 +1725,8 @@ def test_nosplit_kernel_matches_plain(dense, dense_phco2, cuda, shape, kind):
         out = linesum_cuda.sigma_segmented(plan, l32, *x32, L, shape=shape, nosplit=True)
         ref = ls.sigma_segmented_plain(plan, lines, *x64, L, shape=shape)
     torch.cuda.synchronize()
-    got = {k: v - before[k] for k, v in sigma_lines.launches_by_mode.items() if v != before[k]}
+    got = {k: v - before[k] for k, v in profiling.counts("launch.linesum.").items()
+           if v != before[k]}
     assert got == {key: 1 if kind == "resident" else 3}
     _check_sigma(out, ref)
     split = sigma_lines(plan, l32, *x32, shape=shape).double().cpu()
@@ -1727,10 +1741,11 @@ def test_nosplit_strategy_routes_through_its_kernel(dense, cuda):
     l32 = lines.to(torch.float32, cuda)
     x32 = _t(_mode_states(11), torch.float32, cuda)
     assert ls.route(plan, l32, "voigt", "nosplit", 11) == "nosplit"
-    before = dict(sigma_lines.launches_by_mode)
+    before = profiling.counts("launch.linesum.")
     sigma_from_lines_auto(plan, l32, *x32, strategy="nosplit")
     torch.cuda.synchronize()
-    got = {k: v - before[k] for k, v in sigma_lines.launches_by_mode.items() if v != before[k]}
+    got = {k: v - before[k] for k, v in profiling.counts("launch.linesum.").items()
+           if v != before[k]}
     assert got == {"nosplit": 1}
 
 
@@ -1751,10 +1766,11 @@ def test_functions_carry_derivatives_on_the_card(dense, cuda, kernel):
     """Each kernel's Function on CUDA float32: the primal launches the
     kernel once per call, and the JVP and gradient are those of the plain
     twin on the same card tensors (JAX's custom JVPs)."""
-    counts = {"linesum": lambda: sigma_lines.launches, "olr_march": lambda: olr_march.launches,
-              "monoflux_march": lambda: monoflux_march.launches,
-              "fused_olr": lambda: fused_olr.launches,
-              "fused_monoflux": lambda: fused_monoflux.launches}[kernel]
+    counts = {"linesum": lambda: profiling.counters["launch.linesum"],
+              "olr_march": lambda: profiling.counters["launch.march.olr"],
+              "monoflux_march": lambda: profiling.counters["launch.march.monoflux"],
+              "fused_olr": lambda: profiling.counters["launch.fused.olr"],
+              "fused_monoflux": lambda: profiling.counters["launch.fused.monoflux"]}[kernel]
     m, W = stream_nodes(5)
     if kernel == "linesum":
         lines, plans = dense
@@ -1829,10 +1845,10 @@ def test_k1_dev_on_cpu_takes_the_plain_version(sharded_cats):
     lines, nu = sharded_cats["voigt"]
     sg = _sharded(lines, nu, "voigt", 4, "cpu", torch.float64)
     x = _t(_mode_states(3))
-    counts = dict(sigma_lines.launches_by_mode)
+    counts = profiling.counts("launch.linesum.")
     np.testing.assert_array_equal(_dev_call(sg, x, "coarse").numpy(),
                                   sigma_from_lines_shards(sg.plans, sg.lines, *x).numpy())
-    assert sigma_lines.launches_by_mode == counts
+    assert profiling.counts("launch.linesum.") == counts
 
 
 @pytest.mark.gpu
@@ -1857,10 +1873,11 @@ def test_k1_dev_matches_plain(sharded_cats, cuda, family, shape, strategy, modes
     s64 = _sharded(lines, nu, shape, 4, "cpu", torch.float64)
     s32 = _sharded(lines, nu, shape, 4, cuda, torch.float32)
     x = _mode_states(n)
-    before = dict(sigma_lines.launches_by_mode)
+    before = profiling.counts("launch.linesum.")
     out = _dev_call(s32, _t(x, torch.float32, cuda), strategy)
     torch.cuda.synchronize()
-    got = {k: v - before[k] for k, v in sigma_lines.launches_by_mode.items() if v != before[k]}
+    got = {k: v - before[k] for k, v in profiling.counts("launch.linesum.").items()
+           if v != before[k]}
     assert got == modes
     x64 = _t(x)
     if strategy == "coarse":
@@ -1933,7 +1950,8 @@ SWEEP_COLUMNS, SWEEP_EDGES = 8, 20
 
 
 def _k1_counts():
-    return dict(sigma_lines.launches_by_mode, correction=stencil_correction.launches)
+    return dict(profiling.counts("launch.linesum."),
+                correction=profiling.counters["launch.correction"])
 
 
 def _counted(fn):
@@ -1987,10 +2005,11 @@ def test_folded_march_matches_its_columns(cuda, n_cols):
     nu = torch.linspace(100.0, 2000.0, N, dtype=torch.float32, device=cuda)
     spread = march_cuda.march_plan("monoflux", L, n_cols * N, 5)["spread"]
     assert spread == (n_cols * N < march_cuda.SMS * march_cuda.SPREAD_BELOW) == (n_cols == 8)
-    before = monoflux_march.launches
+    before = profiling.counters["launch.march.monoflux"]
     up, dn = td.monoflux(tau, B, nu, S, alb, 0.841, 5)
     torch.cuda.synchronize()
-    assert monoflux_march.launches == before + 1 and up.shape == (n_cols, L + 1, N)
+    assert profiling.counters["launch.march.monoflux"] == before + 1 and up.shape == (n_cols, L + 1,
+                                                                                      N)
     m, W = stream_nodes(5)
     for b in range(n_cols):
         up1, dn1 = monoflux_march(tau[b], B[b], S[b], alb[b], CTHETA, m, W)
@@ -2028,9 +2047,7 @@ def _to(cache, dev, dtype):
 
 
 def _radau_counts():
-    from clearsky_tpu_torch.rt.radau_cuda import radau_leg
-
-    return dict(radau_leg.launches)
+    return profiling.counts("launch.radau.")
 
 
 def _lane_peak_err(got, ref):

@@ -28,7 +28,8 @@ from clearsky_tpu_torch.ops.linesum import (
 )
 from clearsky_tpu_torch.ops import linesum_cuda
 from clearsky_tpu_torch.ops import linesum_strategies as ls
-from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines, pack_coefficients, near_distance
+from clearsky_tpu_torch.ops.linesum_cuda import pack_coefficients, near_distance
+from clearsky_tpu_torch.utils import profiling
 
 # the suite runs in several worker processes: a torch thread pool of every
 # core in each of them oversubscribes the machine
@@ -121,7 +122,7 @@ def test_f32_plain_carries_two_float_positions(cat):
 
 
 def test_auto_dispatch_on_cpu_is_plain_and_launches_nothing(cat):
-    before = sigma_lines.launches
+    before = profiling.counters["launch.linesum"]
     Tb = torch.tensor(T).reshape(3, 1).expand(3, 2)
     Pb = torch.tensor(P).reshape(3, 1).expand(3, 2)
     out = sigma_from_lines_auto(cat["tp"], cat["tl"], Tb, Pb, 0.4 * Pb, "voigt")
@@ -129,7 +130,7 @@ def test_auto_dispatch_on_cpu_is_plain_and_launches_nothing(cat):
     ref = sigma_from_lines(cat["tp"], cat["tl"], *_states(), shape="voigt")
     np.testing.assert_array_equal(out[:, 0].numpy(), ref.numpy())
     np.testing.assert_array_equal(out[:, 1].numpy(), ref.numpy())
-    assert sigma_lines.launches == before
+    assert profiling.counters["launch.linesum"] == before
 
 
 def _emulate_kernel(plan, lines, mode, coef, d_near, n_states):

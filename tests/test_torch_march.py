@@ -23,6 +23,7 @@ from clearsky_tpu.rt.march_pallas import monoflux_pallas, olr_pallas
 from clearsky_tpu.utils.quadrature import stream_nodes
 from clearsky_tpu_torch.rt import discretized as td
 from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march, _ratio_series
+from clearsky_tpu_torch.utils import profiling
 
 # the suite runs in several worker processes: a torch thread pool of every
 # core in each of them oversubscribes the machine
@@ -120,14 +121,16 @@ def test_layer_quadrature_matches():
 def test_wrappers_on_cpu_take_the_plain_version():
     tau, B, S, a = _t(_column(L=6, N=300, seed=5))
     m, W = stream_nodes(5)
-    n_olr, n_mono = olr_march.launches, monoflux_march.launches
+    n_olr = profiling.counters["launch.march.olr"]
+    n_mono = profiling.counters["launch.march.monoflux"]
     np.testing.assert_array_equal(olr_march(tau, B, m, W).numpy(),
                                   td._olr_march(tau, B, m, W).numpy())
     up, dn = monoflux_march(tau, B, S, a, CTHETA, m, W)
     up_p, dn_p = td._monoflux_march(tau, B, S, a, CTHETA, m, W)
     np.testing.assert_array_equal(up.numpy(), up_p.numpy())
     np.testing.assert_array_equal(dn.numpy(), dn_p.numpy())
-    assert (olr_march.launches, monoflux_march.launches) == (n_olr, n_mono)
+    assert (profiling.counters["launch.march.olr"],
+            profiling.counters["launch.march.monoflux"]) == (n_olr, n_mono)
 
 
 # -- the kernels' launch plan and float32 arithmetic (csrc/march.cu) --------

@@ -55,7 +55,7 @@ from clearsky_tpu_torch.ops.linesum import (
 )
 from clearsky_tpu_torch.spectra.lines import PER_LINE_FIELDS
 from clearsky_tpu_torch.spectra.synthetic import synthetic_co2_par, synthetic_h2o_par
-from clearsky_tpu_torch.utils import twin
+from clearsky_tpu_torch.utils import profiling, twin
 
 torch.set_num_threads(2)
 
@@ -440,9 +440,9 @@ def test_k1_dev_operands_through_a_stand_in(cats, stand_in, case, strategy, mode
     _, tgas, k = _gases(cats, case)
     sg = shard_line_gas(tgas, k)
     T, P = _t(T3, P3)
-    before = dict(linesum_cuda.sigma_lines.launches_by_mode)
+    before = profiling.counts("launch.linesum.")
     got = _sharded_call(sg, T, P, strategy)
-    counted = {m: v - before[m] for m, v in linesum_cuda.sigma_lines.launches_by_mode.items()
+    counted = {m: v - before[m] for m, v in profiling.counts("launch.linesum.").items()
                if v != before[m]}
     assert counted == modes
     ref = tgas.raw_sigma(T, P)

@@ -27,8 +27,7 @@ import clearsky_tpu_torch as ct
 from clearsky_tpu_torch import convert
 from clearsky_tpu_torch.constants import R_GAS, SIGMA_SB
 from clearsky_tpu_torch.rt.fluxes import Radau
-from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines
-from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
+from clearsky_tpu_torch.utils import profiling
 
 # the suite runs in several worker processes: a torch thread pool of every
 # core in each of them oversubscribes the machine
@@ -58,10 +57,12 @@ def col():
 
 
 def test_outgoing_matches(col):
-    before = (sigma_lines.launches, olr_march.launches, monoflux_march.launches)
+    before = (profiling.counters["launch.linesum"], profiling.counters["launch.march.olr"],
+              profiling.counters["launch.march.monoflux"])
     out = ct.outgoing(col["Pe"], G, col["Te"], MU, col["tg"])
     # on CPU tensors the kernel wrappers take their plain versions
-    assert (sigma_lines.launches, olr_march.launches, monoflux_march.launches) == before
+    assert (profiling.counters["launch.linesum"], profiling.counters["launch.march.olr"],
+            profiling.counters["launch.march.monoflux"]) == before
     ref = np.asarray(jf.outgoing(col["Pe"], G, col["Te"], MU, col["jg"]))
     assert out.shape == ref.shape == (4096,)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-9)

@@ -42,11 +42,8 @@ from clearsky_tpu_torch.absorption.absorbers import (unify_absorbers, pressure_l
                                                       temperature_limits)
 from clearsky_tpu_torch.atmosphere.profile import formprofile
 from clearsky_tpu_torch.constants import R_GAS
-from clearsky_tpu_torch.ops.linesum_cuda import sigma_lines
 from clearsky_tpu_torch.rt import fused_table as tft
-from clearsky_tpu_torch.rt.fused_table_cuda import fused_olr, fused_monoflux
-from clearsky_tpu_torch.rt.march_cuda import olr_march, monoflux_march
-from clearsky_tpu_torch.utils import interp as tinterp
+from clearsky_tpu_torch.utils import interp as tinterp, profiling
 
 # the suite runs in several worker processes: a torch thread pool of every
 # core in each of them oversubscribes the machine
@@ -63,8 +60,9 @@ SUBNORMAL = 1e-300
 
 
 def _counts():
-    return (sigma_lines.launches, olr_march.launches, monoflux_march.launches,
-            fused_olr.launches, fused_monoflux.launches)
+    return (profiling.counters["launch.linesum"], profiling.counters["launch.march.olr"],
+            profiling.counters["launch.march.monoflux"],
+            profiling.counters["launch.fused.olr"], profiling.counters["launch.fused.monoflux"])
 
 
 @pytest.fixture(scope="module")
